@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""Smoke run of ffpic_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, first use),
+holds each kernel against its plain PyTorch version on the card
+(bit-exact), drives the main path -- ``decode_batch`` over 8 baseline
+4:2:0 1920x1080 JPEGs made from a seed -- checks its output and that it
+went through every kernel, and times each kernel beside its plain
+version and the path end to end.  One line per phase; then the kernel
+table as one JSON line, and last ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero; without CUDA it exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+H, W, N = 1080, 1920, 8
+CU = "ffpic_tpu_torch/csrc/jpeg_decode.cu"
+REPLACES = {
+    "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
+    "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
+    "dequant_idct": "ffpic_tpu/ops/pallas_jpeg.py:32",
+    "assemble_color": "ffpic_tpu/ops/jpeg_kernels.py:144",
+}
+
+
+def log(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def gpu_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(a, b) -> int:
+    import torch
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) \
+        if a.numel() else 0
+
+
+def exact(name: str, got, want, errs: dict) -> None:
+    err = max_abs_err(got, want)
+    errs[name] = max(errs.get(name, 0), err)
+    if err:
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"by up to {err}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    from ffpic_tpu_torch import decode_batch, testing
+    from ffpic_tpu_torch.formats.jpg import packed_block_map
+    from ffpic_tpu_torch.ops import _build, cuda_jpeg
+    from ffpic_tpu_torch.ops import jpeg_kernels as jk
+    from ffpic_tpu_torch.ops.resize import resize_rgba
+    from ffpic_tpu_torch.pipeline import _prep
+    from ffpic_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    log("env", python=sys.version.split()[0], torch=torch.__version__,
+        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count())
+
+    t0 = time.perf_counter()
+    so = _build.library_path()
+    _build.load()
+    log("build", seconds=f"{time.perf_counter() - t0:.3f}",
+        lib=os.path.basename(so))
+    with open(so[:-3] + ".log") as f:
+        for line in f:
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+
+    t0 = time.perf_counter()
+    jpegs = [testing.synth_jpeg_420(H, W, 85, 1),
+             testing.synth_jpeg_420(H, W, 95, 2)]
+    srcs = [jpegs[k % 2] for k in range(N)]
+    log("inputs", jpegs=f"2x{W}x{H} q85/q95", batch=N,
+        bytes=[len(b) for b in jpegs],
+        seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # --- kernels against their plain versions, on the card ---------------
+    plans = [_prep(d) for d in srcs]
+    j0 = plans[0]
+    shapes = tuple((c.nby, c.nbx) for c in j0.comps)
+    (nby, nbx), _, _ = shapes
+    nblocks = sum(a * b for a, b in shapes)
+    buf_np, g, e = jk.stack_packed_fused([j.packed for j in plans])
+    buf = torch.from_numpy(buf_np).to(dev)
+    bmap = packed_block_map(j0, dev)
+    yq = torch.from_numpy(np.stack([j.dqt[j.comps[0].tq] for j in plans])
+                          .astype(np.int32)).to(dev)
+    cq = torch.from_numpy(np.stack([j.dqt[j.comps[1].tq] for j in plans])
+                          .astype(np.int32)).to(dev)
+    if torch.equal(yq[0], yq[1]):
+        raise AssertionError("the two qualities must give different tables")
+    errs: dict = {}
+
+    counts, ks, vals = jk.split_packed(buf, N, g, e)
+    starts = cuda_jpeg.count_scan(buf, N, g)
+    exact("count_scan", starts, jk.count_starts(counts), errs)
+    coeffs = cuda_jpeg.unpack(buf, starts, bmap, N, g, e, nblocks)
+    coeffs_p = jk.unpack_coeffs(counts, ks, vals, bmap, nblocks)
+    exact("unpack", coeffs, coeffs_p, errs)
+    # hostile packed buffer: counts up to 255 running past E, zigzag
+    # positions past 63, nonzero padding, an odd vals offset, a shuffled
+    # block map
+    rng = np.random.default_rng(0)
+    gn, nn, en = 1001, 3, 2048
+    junk = rng.integers(0, 256, nn * (gn + 3 * en), dtype=np.uint8)
+    junk[:nn * gn] = rng.integers(0, 5, nn * gn)
+    junk[[7, 500, 1500]] = 255
+    junk = torch.from_numpy(junk).to(dev)
+    jmap = torch.from_numpy(rng.permutation(gn).astype(np.int32)).to(dev)
+    jc, jks, jv = jk.split_packed(junk, nn, gn, en)
+    exact("count_scan", cuda_jpeg.count_scan(junk, nn, gn),
+          jk.count_starts(jc), errs)
+    exact("unpack", cuda_jpeg.unpack(junk, cuda_jpeg.count_scan(junk, nn, gn),
+                                     jmap, nn, gn, en, gn),
+          jk.unpack_coeffs(jc, jks, jv, jmap, gn), errs)
+    log("check K1", count_scan="exact", unpack="exact",
+        nonzeros=[j.packed[3] for j in plans[:2]], e=e)
+
+    samples = cuda_jpeg.dequant_idct(coeffs_p, yq, cq, nby * nbx)
+    samples_p = jk.dequant_idct_blocks(coeffs_p, yq, cq, nby * nbx)
+    exact("dequant_idct", samples, samples_p, errs)
+    ext = np.full((4, 8, 8), 32767, np.int16)       # tests/test_idct.py:50
+    ext[1] = -32768
+    ext[2, :, ::2] = -32768
+    ext[3, ::2, :] = 12345
+    ext = torch.from_numpy(ext[None]).to(dev)
+    q255 = torch.full((1, 64), 255, dtype=torch.int32, device=dev)
+    exact("dequant_idct", cuda_jpeg.dequant_idct(ext, q255, q255, 4),
+          jk.dequant_idct_blocks(ext, q255, q255, 4), errs)
+    rblk = torch.from_numpy(rng.integers(-32768, 32768, (4, 4096, 8, 8),
+                                         dtype=np.int16)).to(dev)
+    rq = torch.from_numpy(rng.integers(1, 65536, (2, 4, 64),
+                                       dtype=np.int32)).to(dev)
+    exact("dequant_idct", cuda_jpeg.dequant_idct(rblk, rq[0], rq[1], 3000),
+          jk.dequant_idct_blocks(rblk, rq[0], rq[1], 3000), errs)
+    log("check K2", dequant_idct="exact", cases="8x1080p,extreme,random")
+
+    # every (y, u, v) in [0, 255]^3: a 4096x4096 4:2:0 image whose 2048^2
+    # chroma samples take each (u, v) 64 times, with the 4 luma pixels
+    # under each chroma sample covering 4 of y's 256 values
+    s = torch.arange(2048 * 2048, device=dev).view(2048, 2048)
+    u = ((s % 65536) // 256).to(torch.int16)
+    v = (s % 256).to(torch.int16)
+    quad = torch.arange(4, device=dev).view(2, 2)
+    y = ((s // 65536)[:, None, :, None] * 4 + quad[None, :, None, :]) \
+        .reshape(4096, 4096).to(torch.int16)
+
+    def blocks(p):
+        hb, wb = p.shape[0] // 8, p.shape[1] // 8
+        return p.view(hb, 8, wb, 8).permute(0, 2, 1, 3).reshape(-1, 8, 8)
+
+    full = torch.cat([blocks(y), blocks(u), blocks(v)])[None].contiguous()
+    rnd = torch.from_numpy(rng.integers(-32768, 32768, (2, 96, 8, 8),
+                                        dtype=np.int16)).to(dev)
+    for mode in ("reference", "bt601", "rgb"):
+        for order in ("rgba", "bgra"):
+            for smp, gy, gx in ((full, 512, 512), (rnd, 8, 8)):
+                exact("assemble_color",
+                      cuda_jpeg.assemble_color(smp, gy, gx, order, mode),
+                      jk.assemble_color(
+                          smp, ((gy, gx), (gy // 2, gx // 2)) + (
+                              (gy // 2, gx // 2),), order, mode), errs)
+    del full, s, u, v, y
+    log("check K3", assemble_color="exact", cases="256^3 x 3 modes x 2 "
+        "orders + random int16")
+
+    # --- the main path ----------------------------------------------------
+    torch.cuda.synchronize()
+    cuda_jpeg.reset_launches()
+    out = decode_batch(srcs, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(cuda_jpeg.launches)
+    if (tuple(out.shape) != (N, H, W, 4) or out.dtype != torch.uint8
+            or out.device.type != "cuda"):
+        raise AssertionError(f"decode_batch gave {tuple(out.shape)} "
+                             f"{out.dtype} on {out.device}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    plain = jk.decode_batch_420(coeffs_p, yq, cq, shapes, "rgba",
+                                "bt601")[:, :H, :W]
+    if not torch.equal(out, plain):
+        raise AssertionError("decode_batch differs from the plain route, by "
+                             f"up to {max_abs_err(out, plain)}")
+    psnr = []
+    for k in range(2):
+        src = torch.from_numpy(testing.synth_rgb(H, W, k + 1)).to(dev)
+        mse = (out[k, ..., :3].double() - src.double()).pow(2).mean().item()
+        psnr.append(round(float(10 * np.log10(255 ** 2 / mse)), 2))
+    if min(psnr) < 30 or not torch.all(out[..., 3] == 255):
+        raise AssertionError(f"decoded pixels do not match their source: "
+                             f"PSNR {psnr} dB")
+    small = [testing.synth_jpeg_420(160, 224, q, 7 + q) for q in (50, 75, 95)]
+    if not torch.equal(decode_batch(small, device="cuda").cpu(),
+                       decode_batch(small, device="cpu")):
+        raise AssertionError("small batch: CUDA differs from the CPU route")
+    log("main path", shape=tuple(out.shape), launches=launches,
+        plain_route="exact", psnr_db=psnr, small_cpu_vs_cuda="exact")
+    sized = decode_batch(srcs, size=(224, 224), device="cuda")
+    want = torch.stack([resize_rgba(p, (224, 224)) for p in plain])
+    if tuple(sized.shape) != (N, 224, 224, 4) or not torch.equal(sized, want):
+        raise AssertionError("size=(224, 224) differs from the plain route")
+    log("main path size=(224,224)", shape=tuple(sized.shape),
+        plain_route="exact")
+
+    # --- timing -----------------------------------------------------------
+    ms = {
+        "count_scan": (gpu_ms(lambda: cuda_jpeg.count_scan(buf, N, g), 50),
+                       gpu_ms(lambda: jk.count_starts(counts), 20)),
+        "unpack": (gpu_ms(lambda: cuda_jpeg.unpack(buf, starts, bmap, N, g,
+                                                    e, nblocks), 50),
+                   gpu_ms(lambda: jk.unpack_coeffs(counts, ks, vals, bmap,
+                                                   nblocks), 5)),
+        "dequant_idct": (gpu_ms(lambda: cuda_jpeg.dequant_idct(
+            coeffs, yq, cq, nby * nbx), 50), gpu_ms(
+            lambda: jk.dequant_idct_blocks(coeffs, yq, cq, nby * nbx), 5)),
+        "assemble_color": (gpu_ms(lambda: cuda_jpeg.assemble_color(
+            samples, nby, nbx, "rgba", "bt601"), 50), gpu_ms(
+            lambda: jk.assemble_color(samples, shapes, "rgba", "bt601"), 5)),
+    }
+    for name, (k_ms, p_ms) in ms.items():
+        log("time kernel", name=name, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    dev_ms = gpu_ms(lambda: jk.decode_batch_420_packed_fused(
+        buf, bmap, yq, cq, N, g, e, shapes, "rgba", "bt601"), 20)
+    plain_dev_ms = gpu_ms(lambda: jk.decode_batch_420(
+        jk.unpack_coeffs(counts, ks, vals, bmap, nblocks), yq, cq, shapes,
+        "rgba", "bt601"), 3)
+    resize_ms = gpu_ms(lambda: torch.stack(
+        [resize_rgba(p, (224, 224)) for p in out]), 10)
+    mp = N * H * W / 1e6
+    trace.reset()
+    trace.enable()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode_batch(srcs, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    trace.enable(False)
+    stages = {k: round(v["mean"] * 1e3, 3) for k, v in trace.report().items()}
+    wall = sorted(walls)[len(walls) // 2]
+    log("time path", megapixels=mp, device_ms=f"{dev_ms:.4f}",
+        device_busy_share=f"{dev_ms / (wall * 1e3):.4f}",
+        device_pipeline_mps=f"{mp / dev_ms * 1e3:.1f}",
+        plain_device_ms=f"{plain_dev_ms:.4f}",
+        resize_224_ms=f"{resize_ms:.4f}",
+        end_to_end_ms=f"{wall * 1e3:.3f}",
+        end_to_end_ms_runs=json.dumps([round(w * 1e3, 3) for w in walls]).replace(" ", ""),
+        jpeg_1080p_420_decode_end_to_end_mps=f"{mp / wall:.2f}",
+        host_entropy_packed_mps=f"{mp / (stages['torch.host_parse'] / 1e3):.2f}",
+        stage_ms=json.dumps(stages).replace(" ", ""))
+
+    kernels = [{"name": name, "route": "cuda", "source": CU,
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": ms[name][0],
+                "plain_ms": ms[name][1]} for name in REPLACES]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

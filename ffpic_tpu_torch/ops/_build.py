@@ -1,0 +1,81 @@
+"""Build the CUDA kernels in ``ffpic_tpu_torch/csrc`` at first use.
+
+``nvcc`` compiles every ``.cu`` file for Hopper (``sm_90a``) into one
+shared library with a plain C interface, which ``ops.cuda_jpeg`` loads
+with ctypes.  The library lands in ``ffpic_tpu_torch/build/``, named by
+a hash of the sources and flags (the scheme of
+``ffpic_tpu/native/__init__.py``), so an edited kernel rebuilds and an
+unchanged one loads at once.  A failed build raises; nothing falls back.
+The compiler's output (``-Xptxas -v``: registers, spills) is kept beside
+the library as ``.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME): the "
+                       "CUDA kernels cannot be built")
+
+
+def sources() -> list[str]:
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def library_path() -> str:
+    """Path of the built library, compiling it first if needed."""
+    srcs = sources()
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD, f"libffpic_cuda_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *FLAGS, "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out: {' '.join(cmd)}") from e
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    with open(so[:-3] + ".log", "w") as f:
+        f.write(r.stdout + r.stderr)
+    os.replace(tmp, so)        # atomic: a concurrent loader sees all or none
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built and loaded once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(library_path())
+        return _lib

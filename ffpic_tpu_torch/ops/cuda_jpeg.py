@@ -1,0 +1,145 @@
+"""ctypes wrappers of the CUDA kernels in ``csrc/jpeg_decode.cu``.
+
+Each wrapper takes CUDA tensors only: it checks device, dtype, shape
+and contiguity, raises on anything else, allocates its output with
+``torch.empty``, launches on the current stream and raises if the
+launch reports an error.  It does not synchronise.  ``launches`` counts
+the launches of each kernel, so a run can show which kernels its path
+went through.  The plain PyTorch version of each kernel lives in
+``ops.jpeg_kernels``; the kernels never run on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ffpic_tpu_torch.ops import _build
+
+launches = {"count_scan": 0, "unpack": 0, "dequant_idct": 0,
+            "assemble_color": 0}
+
+MODES = {"reference": 0, "bt601": 1, "rgb": 2}
+ORDERS = {"rgba": 0, "bgra": 1}
+
+_vp = ctypes.c_void_p
+_int = ctypes.c_int
+_SIGNATURES = {
+    "ffpic_count_scan": [_vp, _vp, _int, _int, _vp],
+    "ffpic_unpack": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    "ffpic_dequant_idct": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    "ffpic_assemble_color": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
+}
+_INT_MAX = 2 ** 31 - 1
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _fn(name: str):
+    fn = getattr(_build.load(), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
+           shape: tuple | None = None) -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def _launch(name: str, counter: str, *args) -> None:
+    rc = _fn(name)(*args, _vp(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    launches[counter] += 1
+
+
+def count_scan(buf: torch.Tensor, n: int, g: int) -> torch.Tensor:
+    """K1a: exclusive scan of the (n, g) uint8 counts at the head of the
+    fused packed buffer -> (n, g) int32 block starts."""
+    _check(buf, "buf", torch.uint8)
+    if buf.numel() < n * g or n * g == 0 or n * g > _INT_MAX:
+        raise ValueError(f"buf of {buf.numel()} bytes cannot hold {n}x{g} "
+                         "counts")
+    starts = torch.empty((n, g), dtype=torch.int32, device=buf.device)
+    _launch("ffpic_count_scan", "count_scan", _vp(buf.data_ptr()),
+            _vp(starts.data_ptr()), n, g)
+    return starts
+
+
+def unpack(buf: torch.Tensor, starts: torch.Tensor, block_map: torch.Tensor,
+           n: int, g: int, e: int, nblocks: int) -> torch.Tensor:
+    """K1b: fused packed buffer (n*(g + 3e) bytes) -> dense de-zigzagged
+    coefficients (n, nblocks, 8, 8) int16.  ``block_map`` (g,) int32 must
+    be a permutation of range(nblocks), as ``formats.jpg.packed_block_map``
+    gives for an interleaved scan."""
+    _check(buf, "buf", torch.uint8, (n * (g + 3 * e),))
+    _check(starts, "starts", torch.int32, (n, g))
+    _check(block_map, "block_map", torch.int32, (g,))
+    if g != nblocks or buf.numel() > _INT_MAX:
+        raise ValueError(f"block_map covers {g} blocks, the image {nblocks}")
+    out = torch.empty((n, nblocks, 8, 8), dtype=torch.int16,
+                      device=buf.device)
+    _launch("ffpic_unpack", "unpack", _vp(buf.data_ptr()),
+            _vp(starts.data_ptr()), _vp(block_map.data_ptr()),
+            _vp(out.data_ptr()), n, g, e, nblocks)
+    return out
+
+
+def dequant_idct(coeffs: torch.Tensor, yquant: torch.Tensor,
+                 cquant: torch.Tensor, n_luma: int) -> torch.Tensor:
+    """K2: (n, nblocks, 8, 8) int16 coefficients -> int16 samples.
+    Blocks below ``n_luma`` in each image take that image's row of
+    ``yquant`` (n, 64) int32, the rest its row of ``cquant``."""
+    if coeffs.dim() != 4 or tuple(coeffs.shape[2:]) != (8, 8):
+        raise ValueError(f"coeffs: expected (n, nblocks, 8, 8), got "
+                         f"{tuple(coeffs.shape)}")
+    n, nblocks = coeffs.shape[:2]
+    _check(coeffs, "coeffs", torch.int16)
+    _check(yquant, "yquant", torch.int32, (n, 64))
+    _check(cquant, "cquant", torch.int32, (n, 64))
+    if not 0 <= n_luma <= nblocks or n * nblocks > _INT_MAX // 64:
+        raise ValueError(f"n_luma {n_luma} outside [0, {nblocks}]")
+    out = torch.empty_like(coeffs)
+    if out.numel():
+        _launch("ffpic_dequant_idct", "dequant_idct", _vp(coeffs.data_ptr()),
+                _vp(yquant.data_ptr()), _vp(cquant.data_ptr()),
+                _vp(out.data_ptr()), n, nblocks, n_luma)
+    return out
+
+
+def assemble_color(samples: torch.Tensor, nby: int, nbx: int,
+                   order: str = "rgba", mode: str = "reference"
+                   ) -> torch.Tensor:
+    """K3: (n, nblocks, 8, 8) int16 samples of a 4:2:0 block grid with
+    nby x nbx luma blocks -> (n, 8*nby, 8*nbx, 4) uint8."""
+    if order not in ORDERS or mode not in MODES:
+        raise ValueError(f"order {order!r} / mode {mode!r}")
+    if nby % 2 or nbx % 2 or nby <= 0 or nbx <= 0:
+        raise ValueError(f"4:2:0 needs an even luma block grid, got "
+                         f"{nby}x{nbx}")
+    n = samples.shape[0] if samples.dim() == 4 else -1
+    nblocks = nby * nbx + 2 * (nby // 2) * (nbx // 2)
+    _check(samples, "samples", torch.int16, (n, nblocks, 8, 8))
+    h, w = nby * 8, nbx * 8
+    if n * h * w > _INT_MAX:
+        raise ValueError("batch too large for one launch")
+    out = torch.empty((n, h, w, 4), dtype=torch.uint8, device=samples.device)
+    if n:
+        _launch("ffpic_assemble_color", "assemble_color",
+                _vp(samples.data_ptr()), _vp(out.data_ptr()), n, nby, nbx,
+                MODES[mode], ORDERS[order])
+    return out

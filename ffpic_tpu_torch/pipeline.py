@@ -1,0 +1,153 @@
+"""Batched JPEG decode into one ``(N, H, W, 4)`` uint8 device tensor.
+
+The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
+batches of 3-component 4:2:0 JPEGs:
+
+1. Host pass, in a thread pool (the native parsers release the GIL):
+   baseline files are Huffman-decoded into the packed emission,
+   progressive ones into dense coefficient planes.
+2. Per block-geometry bucket, ONE staged transfer through pinned memory
+   and one device decode: the packed members through
+   ``decode_batch_420_packed_fused`` (a single member is the same route
+   with N=1), the dense ones through ``decode_batch_420_dense``.
+3. Crop, optional resize to ``size``, and stacking in input order.
+
+Host parsing is ``ffpic_tpu``'s own code, used read-only.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ffpic_tpu import native
+from ffpic_tpu.pipeline import _jpeg_420_plan, _read
+from ffpic_tpu_torch.formats.jpg import packed_block_map
+from ffpic_tpu_torch.ops import jpeg_kernels as jk
+from ffpic_tpu_torch.ops.resize import resize_rgba
+from ffpic_tpu_torch.utils.trace import device_trace, stage
+
+_REGISTRY_ITEM = "ROADMAP.md Queue 1 items 1 and 3 (registry and JPEG codec)"
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("decode_batch: CUDA is not available; pass "
+                               "device='cpu' to run the plain versions")
+        return torch.device("cuda")
+    d = torch.device(device)
+    if d.type not in ("cuda", "cpu"):
+        raise ValueError(f"decode_batch: unsupported device {d}")
+    return d
+
+
+def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor; a CUDA copy goes through pinned
+    memory without blocking the host."""
+    host = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return host
+    pinned = torch.empty_like(host, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(device, non_blocking=True)
+
+
+def _quant(members, comp: int, device) -> torch.Tensor:
+    return _stage(np.stack([j.dqt[j.comps[comp].tq] for _i, j in members])
+                  .astype(np.int32), device)
+
+
+def _prep(data: bytes):
+    j = _jpeg_420_plan(data)
+    if j is None:
+        raise NotImplementedError(
+            "decode_batch: only 3-component 4:2:0 JPEGs are ported; other "
+            f"members wait for {_REGISTRY_ITEM}")
+    if j.packed is not None:
+        # the packed emission is a view of per-thread native scratch that
+        # the next parse on this thread overwrites
+        c, k, v, nnz = j.packed
+        j.packed = (np.array(c), np.array(k), np.array(v), nnz)
+    return j
+
+
+def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
+                 mode: str = "bt601", device=None, mesh=None) -> torch.Tensor:
+    """Decode a batch of 4:2:0 JPEGs (paths or bytes) to one
+    ``(N, H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it
+    raises when CUDA is absent).  ``size=(h, w)`` resizes each image;
+    without it all images must share one size.  ``mode`` is the colour
+    conversion: "bt601", "reference" or "rgb"."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "decode_batch(mesh=) waits for ROADMAP.md Queue 1 item 11")
+    if os.environ.get("FFPIC_DEVICE_ENTROPY") == "1":
+        raise NotImplementedError(
+            "device entropy decode waits for ROADMAP.md Queue 1 item 10")
+    dev = _device(device)
+    n = len(srcs)
+    slots: list = [None] * n
+
+    env_t = os.environ.get("FFPIC_THREADS")
+    nw = max(1, min(int(env_t) if env_t else (os.cpu_count() or 1), n or 1))
+    with stage("torch.host_parse"):
+        # build/load the native decoder before the workers: its loader
+        # is not thread-safe, and a worker that loses the race parses
+        # without it
+        native.available()
+        datas = [_read(s) for s in srcs]
+        if nw > 1:
+            with ThreadPoolExecutor(max_workers=nw) as ex:
+                plans = list(ex.map(_prep, datas))
+        else:
+            plans = [_prep(d) for d in datas]
+
+    buckets: dict[tuple, list] = {}
+    for i, j in enumerate(plans):
+        buckets.setdefault((j.comps[0].nby, j.comps[0].nbx), []).append((i, j))
+
+    for allmembers in buckets.values():
+        j0 = allmembers[0][1]
+        shapes = tuple((c.nby, c.nbx) for c in j0.comps)
+        for packed in (True, False):
+            members = [(i, j) for i, j in allmembers
+                       if (j.packed is not None) == packed]
+            if not members:
+                continue
+            with stage("torch.pack"):
+                if packed:
+                    host, g, e = jk.stack_packed_fused(
+                        [j.packed for _i, j in members])
+                else:
+                    host = np.stack([np.concatenate(
+                        [c.reshape(-1, 64) for c in j.coeffs])
+                        for _i, j in members]).reshape(len(members), -1, 8, 8)
+            with stage("torch.h2d"):
+                yq = _quant(members, 0, dev)
+                cq = _quant(members, 1, dev)
+                staged = _stage(host, dev)
+                if packed:
+                    bmap = packed_block_map(j0, dev)
+            with stage("torch.device_decode"), device_trace("decode_420", dev):
+                if packed:
+                    out = jk.decode_batch_420_packed_fused(
+                        staged, bmap, yq, cq, len(members), g, e, shapes,
+                        order="rgba", mode=mode)
+                else:
+                    out = jk.decode_batch_420_dense(
+                        staged, yq, cq, shapes, order="rgba", mode=mode)
+            for k, (i, j) in enumerate(members):
+                slots[i] = out[k, :j.height, :j.width]
+
+    with stage("torch.finish"), device_trace("resize_stack", dev):
+        if size is None:
+            if len({tuple(s.shape) for s in slots}) != 1:
+                raise ValueError(
+                    "mixed sizes: pass size=(H, W) to resize on device")
+            return torch.stack(slots)
+        return torch.stack([resize_rgba(s, tuple(size)) for s in slots])

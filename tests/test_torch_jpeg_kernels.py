@@ -1,0 +1,349 @@
+"""ffpic_tpu_torch.ops.jpeg_kernels (plain PyTorch versions, CPU) held
+against ffpic_tpu.ops.jpeg_kernels on the same numpy inputs.
+
+Every stage is held exact: the unpack scatter, dequant + integer IDCT
+(also against the Pallas kernel in interpret mode), colour conversion
+over all 256^3 in-range (y, u, v) inputs (as XLA compiles it, with
+FMAs), the block map, and the fused
+batch route with per-image quant tables of different qualities.  The
+CUDA kernels themselves run only on a GPU (``chip_smoke.py``); here the
+wrappers are checked to refuse CPU tensors.
+"""
+
+import functools
+import io
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ffpic_tpu.formats import jpg as jax_jpg
+from ffpic_tpu.ops import jpeg_kernels as jax_jk
+from ffpic_tpu_torch import testing
+from ffpic_tpu_torch.formats import jpg as tjpg
+from ffpic_tpu_torch.ops import _build, cuda_jpeg
+from ffpic_tpu_torch.ops import jpeg_kernels as jk
+
+MODES = ("reference", "bt601", "rgb")
+ORDERS = ("rgba", "bgra")
+
+
+@functools.lru_cache(maxsize=None)
+def _jpeg(kind: str) -> bytes:
+    """Small 4:2:0 inputs: synthetic baseline at three qualities, a
+    restart-interval stream, and one whose last blocks are all zero."""
+    if kind.startswith("q"):
+        return testing.synth_jpeg_420(160, 224, int(kind[1:]), 11)
+    if kind == "dri":
+        from PIL import Image
+        rgb = testing.synth_rgb(120, 200, 3)
+        buf = io.BytesIO()
+        Image.fromarray(rgb).save(buf, "JPEG", quality=90,
+                                  subsampling="4:2:0",
+                                  restart_marker_blocks=3)
+        assert b"\xff\xdd" in buf.getvalue()
+        return buf.getvalue()
+    if kind == "trailing_zero":
+        rgb = testing.synth_rgb(96, 128, 4)
+        rgb[48:] = 128                      # flat mid-grey: all-zero blocks
+        return testing.encode_420(rgb, 80)
+    raise KeyError(kind)
+
+
+def _packed(kind: str):
+    j, _ = jax_jpg.parse_and_decode(_jpeg(kind), packed=True)
+    c, k, v, nnz = j.packed
+    j.packed = (c.copy(), k.copy(), v.copy(), nnz)
+    return j
+
+
+def _quant(j, comp: int) -> np.ndarray:
+    return j.dqt[j.comps[comp].tq].astype(np.int32)
+
+
+def _rand_coeff_blocks(rng, n, lo=-1024, hi=1024):
+    blocks = rng.integers(lo, hi, size=(n, 8, 8)).astype(np.int16)
+    mask = rng.random((n, 8, 8)) < 0.7
+    mask[:, 0, 0] = False
+    return np.where(mask, 0, blocks).astype(np.int16)
+
+
+def _idct_case(case: str):
+    rng = np.random.default_rng(5)
+    if case == "random":
+        return (_rand_coeff_blocks(rng, 512),
+                rng.integers(1, 255, (8, 8)).astype(np.int32))
+    if case == "extreme":                   # tests/test_idct.py:50
+        blocks = np.full((4, 8, 8), 32767, np.int16)
+        blocks[1] = -32768
+        blocks[2, :, ::2] = -32768
+        blocks[3, ::2, :] = 12345
+        return blocks, np.full((8, 8), 255, np.int32)
+    if case == "full_int16":
+        return (rng.integers(-32768, 32768, (2048, 8, 8)).astype(np.int16),
+                rng.integers(1, 65536, (8, 8)).astype(np.int32))
+    raise KeyError(case)
+
+
+def _port_idct(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    q = torch.from_numpy(quant.reshape(1, 64))
+    out = jk.dequant_idct_blocks(torch.from_numpy(blocks)[None], q, q,
+                                 blocks.shape[0])
+    return out[0].numpy()
+
+
+@pytest.mark.parametrize("case", ["random", "extreme", "full_int16"])
+def test_dequant_idct_matches_jax(case):
+    blocks, quant = _idct_case(case)
+    want = np.asarray(jax_jk.dequant_idct_blocks(jnp.asarray(blocks),
+                                                 jnp.asarray(quant)))
+    np.testing.assert_array_equal(_port_idct(blocks, quant), want)
+
+
+def test_dequant_idct_matches_pallas_interpret():
+    from ffpic_tpu.ops.pallas_jpeg import (blocks_to_nlast,
+                                           dequant_idct_pallas,
+                                           nlast_to_blocks)
+    rng = np.random.default_rng(1234)
+    blocks = rng.integers(-512, 512, (600, 8, 8)).astype(np.int16)
+    q = rng.integers(1, 64, (8, 8)).astype(np.int32)
+    want = nlast_to_blocks(dequant_idct_pallas(
+        blocks_to_nlast(blocks), jnp.asarray(q), interpret=True), 600)
+    np.testing.assert_array_equal(_port_idct(blocks, q), want)
+
+
+def test_dequant_idct_per_image_tables():
+    """Each image's luma blocks take its own luma table and the rest its
+    chroma table (a kernel that used image 0's table would fail)."""
+    rng = np.random.default_rng(2)
+    n, nb, n_luma = 3, 40, 24
+    blocks = _rand_coeff_blocks(rng, n * nb).reshape(n, nb, 8, 8)
+    yq = rng.integers(1, 255, (n, 64)).astype(np.int32)
+    cq = rng.integers(1, 255, (n, 64)).astype(np.int32)
+    got = jk.dequant_idct_blocks(torch.from_numpy(blocks),
+                                 torch.from_numpy(yq), torch.from_numpy(cq),
+                                 n_luma).numpy()
+    for i in range(n):
+        for sl, q in ((slice(0, n_luma), yq[i]), (slice(n_luma, nb), cq[i])):
+            want = jax_jk.dequant_idct_blocks(jnp.asarray(blocks[i, sl]),
+                                              jnp.asarray(q.reshape(8, 8)))
+            np.testing.assert_array_equal(got[i, sl], np.asarray(want))
+
+
+@pytest.mark.parametrize("kind", ["q85", "dri", "trailing_zero"])
+def test_unpack_matches_jax(kind):
+    j = _packed(kind)
+    counts, ks, vals, nnz = j.packed
+    if kind == "trailing_zero":
+        assert counts[-64:].max() == 0 and counts[:64].max() > 0
+    shapes = tuple((c.nby, c.nbx) for c in j.comps)
+    want = jax_jk._unpack_coeffs(jnp.asarray(counts), jnp.asarray(ks),
+                                 jnp.asarray(vals), jax_jpg.packed_block_map(j),
+                                 shapes)
+    got = jk.unpack_coeffs(torch.from_numpy(counts)[None],
+                           torch.from_numpy(ks)[None],
+                           torch.from_numpy(vals)[None],
+                           tjpg.packed_block_map(j, "cpu"),
+                           sum(a * b for a, b in shapes))[0]
+    base = 0
+    for (nby, nbx), w in zip(shapes, want):
+        np.testing.assert_array_equal(
+            got[base:base + nby * nbx].numpy(), np.asarray(w).reshape(-1, 8, 8))
+        base += nby * nbx
+    assert nnz == int(counts.sum())
+
+
+def _hostile(rng, n, g, e):
+    """Counts that run past E, zigzag positions past 63, random values,
+    zero padding after the counts' total, a shuffled block map."""
+    counts = rng.integers(0, 5, (n, g)).astype(np.uint8)
+    counts[0, 7] = counts[1, g // 2] = 255
+    ks = rng.integers(0, 256, (n, e)).astype(np.uint8)
+    vals = rng.integers(-32768, 32768, (n, e)).astype(np.int16)
+    total = counts.astype(np.int64).sum(1)
+    for i in range(n):
+        ks[i, total[i]:] = 0
+        vals[i, total[i]:] = 0
+    return counts, ks, vals, rng.permutation(g).astype(np.int32)
+
+
+def test_unpack_hostile_matches_jax():
+    rng = np.random.default_rng(3)
+    n, g, e = 3, 1001, 2048
+    counts, ks, vals, bmap = _hostile(rng, n, g, e)
+    assert (counts.astype(np.int64).sum(1) < e).any()
+    assert (counts.astype(np.int64).sum(1) > e).any()
+    got = jk.unpack_coeffs(torch.from_numpy(counts), torch.from_numpy(ks),
+                           torch.from_numpy(vals), torch.from_numpy(bmap), g)
+    for i in range(n):
+        (want,) = jax_jk._unpack_coeffs(
+            jnp.asarray(counts[i]), jnp.asarray(ks[i]), jnp.asarray(vals[i]),
+            jnp.asarray(bmap), ((g, 1),))
+        np.testing.assert_array_equal(got[i].numpy(),
+                                      np.asarray(want).reshape(g, 8, 8))
+
+
+def test_unpack_ignores_padding_past_total():
+    """Entries past the counts' total are padding; nonzero ones change
+    nothing (the host always zeroes them)."""
+    rng = np.random.default_rng(4)
+    counts, ks, vals, bmap = _hostile(rng, 2, 300, 2048)
+    args = [torch.from_numpy(a) for a in (counts, ks, vals, bmap)]
+    clean = jk.unpack_coeffs(*args, 300)
+    total = counts.astype(np.int64).sum(1)
+    i = int(np.argmin(total))
+    ks[i, total[i]:] = 9
+    vals[i, total[i]:] = 77
+    dirty = jk.unpack_coeffs(*[torch.from_numpy(a) for a in
+                               (counts, ks, vals, bmap)], 300)
+    assert torch.equal(clean, dirty)
+
+
+def test_split_packed_odd_offset():
+    """The vals region of a fused buffer may start at an odd byte."""
+    rng = np.random.default_rng(6)
+    n, g, e = 3, 1001, 2048
+    assert n * (g + e) % 2 == 1
+    buf = rng.integers(0, 256, n * (g + 3 * e)).astype(np.uint8)
+    counts, ks, vals = jk.split_packed(torch.from_numpy(buf), n, g, e)
+    want = np.frombuffer(buf[n * (g + e):].tobytes(), "<i2").reshape(n, e)
+    np.testing.assert_array_equal(vals.numpy(), want)
+    np.testing.assert_array_equal(counts.numpy(), buf[:n * g].reshape(n, g))
+    np.testing.assert_array_equal(ks.numpy(),
+                                  buf[n * g:n * (g + e)].reshape(n, e))
+    np.testing.assert_array_equal(
+        jk.count_starts(counts).numpy(),
+        np.cumsum(counts.numpy(), 1) - counts.numpy())
+
+
+@functools.lru_cache(maxsize=1)
+def _colour_inputs():
+    """All 256^3 in-range (y, u, v) triples, then 2^20 random int16."""
+    g = np.arange(256, dtype=np.int16)
+    y, u, v = (a.reshape(-1) for a in np.meshgrid(g, g, g, indexing="ij"))
+    rng = np.random.default_rng(7)
+    r = rng.integers(-32768, 32768, (3, 1 << 20)).astype(np.int16)
+    return tuple(np.concatenate([a, b]) for a, b in zip((y, u, v), r))
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("mode", MODES)
+def test_color_convert_exhaustive(mode, order):
+    """Against color_convert as every JAX caller runs it, inside a jit,
+    where XLA fuses each product and sum into an FMA."""
+    y, u, v = _colour_inputs()
+    want = np.asarray(jax.jit(functools.partial(
+        jax_jk.color_convert, order=order, mode=mode))(y, u, v))
+    got = jk.color_convert(torch.from_numpy(y), torch.from_numpy(u),
+                           torch.from_numpy(v), order=order, mode=mode)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("samplings,mx,my,actual", [
+    (((2, 2), (1, 1), (1, 1)), 14, 10, None),
+    (((1, 1), (1, 1), (1, 1)), 9, 7, None),
+    (((2, 1), (1, 1), (1, 1)), 5, 6, None),
+    (((1, 1),), 12, 9, (9, 11)),
+])
+def test_mcu_block_map_matches_jax(samplings, mx, my, actual):
+    want = np.asarray(jax_jk.mcu_block_map(samplings, mx, my, actual))
+    got = tjpg.mcu_block_map(samplings, mx, my, actual)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_packed_block_map_is_a_cached_permutation():
+    j = _packed("q85")
+    bmap = tjpg.packed_block_map(j, "cpu")
+    nblocks = sum(c.nby * c.nbx for c in j.comps)
+    assert bmap.dtype == torch.int32
+    assert torch.equal(torch.sort(bmap).values,
+                       torch.arange(nblocks, dtype=torch.int32))
+    assert tjpg.packed_block_map(j, "cpu") is bmap
+
+
+def test_stack_packed_fused_matches_jax():
+    packed = [_packed(k).packed for k in ("q50", "q85", "q95")]
+    buf, g, e = jk.stack_packed_fused(packed)
+    wbuf, wg, we = jax_jk.stack_packed_fused(packed)
+    assert (g, e) == (wg, we)
+    np.testing.assert_array_equal(buf, wbuf)
+
+
+@pytest.mark.parametrize("mode", ["bt601", "reference"])
+def test_decode_batch_420_packed_fused_matches_jax(mode):
+    """N=3 of mixed quality through the fused route, exact."""
+    js = [_packed(k) for k in ("q50", "q85", "q95")]
+    shapes = tuple((c.nby, c.nbx) for c in js[0].comps)
+    buf, g, e = jax_jk.stack_packed_fused([j.packed for j in js])
+    bmap = jax_jpg.packed_block_map(js[0])
+    yq = np.stack([_quant(j, 0).reshape(8, 8) for j in js])[:, None, None]
+    cq = np.stack([_quant(j, 1).reshape(8, 8) for j in js])[:, None, None]
+    assert not np.array_equal(yq[0], yq[2])
+    want = jax_jk.decode_batch_420_packed_fused(
+        jnp.asarray(buf), bmap, jnp.asarray(yq), jnp.asarray(cq), 3, g, e,
+        shapes, order="rgba", mode=mode)
+    tbuf, tmap, tyq, tcq = jk.from_jax_inputs(buf, bmap, yq, cq, "cpu")
+    assert tyq.shape == (3, 64) and tyq.dtype == torch.int32
+    got = jk.decode_batch_420_packed_fused(tbuf, tmap, tyq, tcq, 3, g, e,
+                                           shapes, order="rgba", mode=mode)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_decode_batch_420_dense_matches_jax():
+    """Dense coefficient planes (the progressive route's input), exact."""
+    js = []
+    for k in ("q50", "q95"):
+        j, _ = jax_jpg.parse_and_decode(_jpeg(k))
+        js.append(j)
+    (nby, nbx), (cy, cx), _ = shapes = tuple((c.nby, c.nbx)
+                                             for c in js[0].comps)
+    ycoef = np.stack([j.coeffs[0].reshape(nby, nbx, 8, 8) for j in js])
+    ucoef = np.stack([j.coeffs[1].reshape(cy, cx, 8, 8) for j in js])
+    vcoef = np.stack([j.coeffs[2].reshape(cy, cx, 8, 8) for j in js])
+    yq = np.stack([_quant(j, 0).reshape(8, 8) for j in js])[:, None, None]
+    cq = np.stack([_quant(j, 1).reshape(8, 8) for j in js])[:, None, None]
+    want = jax_jk.decode_batch_420(*map(jnp.asarray, (ycoef, ucoef, vcoef,
+                                                       yq, cq)),
+                                   order="bgra", mode="reference")
+    coeffs = np.concatenate([a.reshape(2, -1, 8, 8)
+                             for a in (ycoef, ucoef, vcoef)], axis=1)
+    got = jk.decode_batch_420_dense(
+        torch.from_numpy(coeffs), torch.from_numpy(yq.reshape(2, 64)),
+        torch.from_numpy(cq.reshape(2, 64)), shapes, order="bgra",
+        mode="reference")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: cuda_jpeg.count_scan(t.flatten().to(torch.uint8), 1, 64),
+    lambda t: cuda_jpeg.unpack(t.flatten().to(torch.uint8),
+                               torch.zeros(1, 64, dtype=torch.int32),
+                               torch.arange(64, dtype=torch.int32), 1, 64, 0,
+                               64),
+    lambda t: cuda_jpeg.dequant_idct(t, torch.ones(1, 64, dtype=torch.int32),
+                                     torch.ones(1, 64, dtype=torch.int32), 1),
+    lambda t: cuda_jpeg.assemble_color(t, 4, 8),
+], ids=["count_scan", "unpack", "dequant_idct", "assemble_color"])
+def test_cuda_wrappers_refuse_cpu_tensors(call):
+    t = torch.zeros(1, 48, 8, 8, dtype=torch.int16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(t)
+
+
+def test_dispatch_refuses_other_devices():
+    t = torch.zeros(1, 6, 8, 8, dtype=torch.int16, device="meta")
+    q = torch.ones(1, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        jk.decode_batch_420_dense(t, q, q, ((2, 2), (1, 1), (1, 1)))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No nvcc: the build raises, nothing falls back."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library_path()

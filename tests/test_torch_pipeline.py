@@ -1,0 +1,154 @@
+"""ffpic_tpu_torch.decode_batch (CPU, plain versions) against
+ffpic_tpu.decode_batch on the same JPEG bytes.
+
+Exact for size=None on each route: the fused packed route (a bucket of
+baseline members), the single packed member, and the dense route of
+progressive members.  With size=(224, 224), within 1 LSB (see
+test_torch_resize.py).  Also: the port imports no jax, ``device=None``
+raises without CUDA, and what is outside the slice raises
+NotImplementedError.
+"""
+
+import functools
+import io
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ffpic_tpu
+import ffpic_tpu_torch
+from ffpic_tpu import native
+from ffpic_tpu_torch import testing
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@functools.lru_cache(maxsize=None)
+def _jpeg(h: int, w: int, q: int, seed: int, progressive: bool = False,
+          subsampling: str = "4:2:0") -> bytes:
+    if not progressive and subsampling == "4:2:0":
+        return testing.synth_jpeg_420(h, w, q, seed)
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(testing.synth_rgb(h, w, seed)).save(
+        buf, "JPEG", quality=q, subsampling=subsampling,
+        progressive=progressive)
+    return buf.getvalue()
+
+
+def _both(srcs, **kw):
+    # load the native decoder before ffpic_tpu.decode_batch's thread
+    # pool does: a worker that loses its loader's race parses without it
+    native.available()
+    want = np.asarray(ffpic_tpu.decode_batch(srcs, **kw))
+    got = ffpic_tpu_torch.decode_batch(srcs, device="cpu", **kw)
+    assert got.device.type == "cpu" and got.dtype == torch.uint8
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("srcs", [
+    pytest.param([(160, 224, 50, 1), (160, 224, 85, 2), (160, 224, 95, 3)],
+                 id="packed_fused"),
+    pytest.param([(120, 200, 80, 4)], id="single_member"),
+    pytest.param([(160, 224, 60, 5, True), (160, 224, 90, 6, True),
+                  (160, 224, 75, 7)], id="progressive_dense_and_packed"),
+])
+@pytest.mark.parametrize("mode", ["bt601", "reference"])
+def test_decode_batch_matches_jax(srcs, mode):
+    got, want = _both([_jpeg(*s) for s in srcs], mode=mode)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_decode_batch_sized_matches_jax():
+    """Mixed geometries and routes, resized on device: within 1 LSB."""
+    srcs = [_jpeg(160, 224, 50, 1), _jpeg(120, 200, 80, 4),
+            _jpeg(160, 224, 60, 5, True), _jpeg(160, 224, 85, 2)]
+    got, want = _both(srcs, size=(224, 224))
+    assert got.shape == (4, 224, 224, 4)
+    assert np.abs(got.astype(int) - want).max() <= 1
+
+
+def test_decode_batch_reads_paths(tmp_path):
+    path = tmp_path / "a.jpg"
+    path.write_bytes(_jpeg(160, 224, 85, 2))
+    got = ffpic_tpu_torch.decode_batch([str(path)], device="cpu")
+    want = ffpic_tpu_torch.decode_batch([_jpeg(160, 224, 85, 2)],
+                                        device="cpu")
+    assert torch.equal(got, want)
+
+
+def test_port_imports_no_jax():
+    """Decoding through the port in a fresh interpreter loads no jax."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "from ffpic_tpu_torch import decode_batch, testing\n"
+        "d = testing.synth_jpeg_420(64, 96, 80, 0)\n"
+        "out = decode_batch([d, d], size=(32, 32), device='cpu')\n"
+        "assert tuple(out.shape) == (2, 32, 32, 4), out.shape\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=str(REPO))
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+def test_port_sources_import_no_jax():
+    """No module of the port (nor chip_smoke.py) imports jax or a
+    ffpic_tpu.ops module other than golden (the others import jax)."""
+    bad = re.compile(r"^\s*(import jax|from jax|"
+                     r"from ffpic_tpu\.ops(\.(?!golden\b)\w+)? import"
+                     r"(?! golden\b)|import ffpic_tpu\.ops\.(?!golden\b))",
+                     re.M)
+    files = list((REPO / "ffpic_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 8
+    hits = [f"{f}: {m.group(0).strip()}" for f in files
+            for m in bad.finditer(f.read_text())]
+    assert not hits, hits
+
+
+def test_device_none_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ffpic_tpu_torch.decode_batch([_jpeg(120, 200, 80, 4)])
+
+
+@pytest.mark.parametrize("case", ["png", "jpeg_444", "mesh",
+                                  "device_entropy"])
+def test_outside_the_slice_raises(case, monkeypatch):
+    kw = {}
+    srcs = [_jpeg(120, 200, 80, 4)]
+    if case == "png":
+        srcs.append(b"\x89PNG\r\n\x1a\n" + bytes(64))
+    elif case == "jpeg_444":
+        srcs.append(_jpeg(120, 200, 80, 4, subsampling="4:4:4"))
+    elif case == "mesh":
+        kw["mesh"] = object()
+    else:
+        monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ffpic_tpu_torch.decode_batch(srcs, device="cpu", **kw)
+
+
+def test_mixed_sizes_need_size():
+    with pytest.raises(ValueError, match="mixed sizes"):
+        ffpic_tpu_torch.decode_batch(
+            [_jpeg(160, 224, 50, 1), _jpeg(120, 200, 80, 4)], device="cpu")
+
+
+def test_synth_jpeg_matches_jax_encoder():
+    """testing.encode_420 writes the bytes encode_baseline writes."""
+    from ffpic_tpu.formats.jpg_encode import encode_baseline
+    from ffpic_tpu.formats.pic import Pic
+    rgb = testing.synth_rgb(72, 104, 8)
+    rgba = np.concatenate([rgb, np.full((72, 104, 1), 255, np.uint8)], -1)
+    for q in (30, 90):
+        assert testing.synth_jpeg_420(72, 104, q, 8) == encode_baseline(
+            Pic(pixels=rgba, width=104, height=72), q)
+
