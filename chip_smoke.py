@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, first use),
-holds each kernel against its plain PyTorch version on the card
-(bit-exact), drives the main path -- ``decode_batch`` over 8 baseline
-4:2:0 1920x1080 JPEGs made from a seed -- checks its output and that it
-went through every kernel, and times each kernel beside its plain
-version and the path end to end.  One line per phase; then the kernel
-table as one JSON line, and last ``{"ok": true, "device": {...}}``.
-Any failure raises and exits non-zero; without CUDA it exits 1 at once.
+Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc) and the
+host decoder ``ffpic_tpu_torch/native/host_jpeg.c`` (cc), holds each
+kernel against its plain PyTorch version on the card (bit-exact) at the
+main path's shapes and at the edges of its tiling
+(``testing.unpack_cases``, ``testing.assemble_cases``), drives the main
+path -- ``decode_batch`` over 8 baseline 4:2:0 1920x1080 JPEGs made
+from a seed -- checks its output and that it went through every kernel,
+and times each kernel, warm and with L2 flushed, beside its bound, its
+plain version and (``count_scan``) one ``torch.cumsum``, and the path
+end to end.  One line per phase; then the kernel table as one JSON line,
+and last ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero; without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 H, W, N = 1080, 1920, 8
 CU = "ffpic_tpu_torch/csrc/jpeg_decode.cu"
@@ -34,21 +39,6 @@ REPLACES = {
 def log(phase: str, **kw) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
           flush=True)
-
-
-def gpu_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` in ms, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def max_abs_err(a, b) -> int:
@@ -74,13 +64,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
-    from ffpic_tpu_torch import decode_batch, testing
+    from ffpic_tpu_torch import decode_batch, native, testing
     from ffpic_tpu_torch.formats.jpg import packed_block_map
     from ffpic_tpu_torch.ops import _build, cuda_jpeg
     from ffpic_tpu_torch.ops import jpeg_kernels as jk
     from ffpic_tpu_torch.ops.resize import resize_rgba
     from ffpic_tpu_torch.pipeline import _prep
     from ffpic_tpu_torch.utils import trace
+    from ffpic_tpu_torch.utils.timing import bound, gpu_ms, gpu_ms_cold
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -92,11 +83,15 @@ def main() -> int:
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
 
+    # nvcc (the CUDA kernels) and cc (the host decoder) side by side
     t0 = time.perf_counter()
-    so = _build.library_path()
-    _build.load()
+    with ThreadPoolExecutor(2) as ex:
+        host = ex.submit(native.available)
+        so = _build.library_path()
+        _build.load()
+        host.result()
     log("build", seconds=f"{time.perf_counter() - t0:.3f}",
-        lib=os.path.basename(so))
+        lib=os.path.basename(so), host_lib=os.path.basename(native._build()))
     with open(so[:-3] + ".log") as f:
         for line in f:
             if "registers" in line or "spill" in line:
@@ -133,24 +128,24 @@ def main() -> int:
     coeffs = cuda_jpeg.unpack(buf, starts, bmap, N, g, e, nblocks)
     coeffs_p = jk.unpack_coeffs(counts, ks, vals, bmap, nblocks)
     exact("unpack", coeffs, coeffs_p, errs)
-    # hostile packed buffer: counts up to 255 running past E, zigzag
-    # positions past 63, nonzero padding, an odd vals offset, a shuffled
-    # block map
     rng = np.random.default_rng(0)
-    gn, nn, en = 1001, 3, 2048
-    junk = rng.integers(0, 256, nn * (gn + 3 * en), dtype=np.uint8)
-    junk[:nn * gn] = rng.integers(0, 5, nn * gn)
-    junk[[7, 500, 1500]] = 255
-    junk = torch.from_numpy(junk).to(dev)
-    jmap = torch.from_numpy(rng.permutation(gn).astype(np.int32)).to(dev)
-    jc, jks, jv = jk.split_packed(junk, nn, gn, en)
-    exact("count_scan", cuda_jpeg.count_scan(junk, nn, gn),
-          jk.count_starts(jc), errs)
-    exact("unpack", cuda_jpeg.unpack(junk, cuda_jpeg.count_scan(junk, nn, gn),
-                                     jmap, nn, gn, en, gn),
-          jk.unpack_coeffs(jc, jks, jv, jmap, gn), errs)
+    # the edges of K1b's tiling: tiles cut inside MCUs, a part-full last
+    # tile, a block with 64 nonzeros, all nonzeros in one block, N=1 and
+    # N=3, tiles staged in several passes, and the hostile buffer (counts
+    # up to 255 running past E, zigzag positions past 63, nonzero
+    # padding, an odd vals offset, a shuffled block map)
+    for case in testing.unpack_cases().values():
+        cbuf, cn, cg, ce, cmap = case
+        cbuf = torch.from_numpy(cbuf).to(dev)
+        cmap = torch.from_numpy(cmap).to(dev)
+        cc, cks, cv = jk.split_packed(cbuf, cn, cg, ce)
+        cstarts = cuda_jpeg.count_scan(cbuf, cn, cg)
+        exact("count_scan", cstarts, jk.count_starts(cc), errs)
+        exact("unpack", cuda_jpeg.unpack(cbuf, cstarts, cmap, cn, cg, ce, cg),
+              jk.unpack_coeffs(cc, cks, cv, cmap, cg), errs)
     log("check K1", count_scan="exact", unpack="exact",
-        nonzeros=[j.packed[3] for j in plans[:2]], e=e)
+        nonzeros=[j.packed[3] for j in plans[:2]], e=e,
+        edge_cases=",".join(testing.unpack_cases()))
 
     samples = cuda_jpeg.dequant_idct(coeffs_p, yq, cq, nby * nbx)
     samples_p = jk.dequant_idct_blocks(coeffs_p, yq, cq, nby * nbx)
@@ -171,6 +166,9 @@ def main() -> int:
           jk.dequant_idct_blocks(rblk, rq[0], rq[1], 3000), errs)
     log("check K2", dequant_idct="exact", cases="8x1080p,extreme,random")
 
+    exact("assemble_color", cuda_jpeg.assemble_color(
+        samples_p, nby, nbx, "rgba", "bt601", (H, W)),
+        jk.assemble_color(samples_p, shapes, "rgba", "bt601", (H, W)), errs)
     # every (y, u, v) in [0, 255]^3: a 4096x4096 4:2:0 image whose 2048^2
     # chroma samples take each (u, v) 64 times, with the 4 luma pixels
     # under each chroma sample covering 4 of y's 256 values
@@ -197,8 +195,16 @@ def main() -> int:
                           smp, ((gy, gx), (gy // 2, gx // 2)) + (
                               (gy // 2, gx // 2),), order, mode), errs)
     del full, s, u, v, y
+    for smp, gy, gx, hw in testing.assemble_cases().values():
+        smp = torch.from_numpy(smp).to(dev)
+        shp = ((gy, gx), (gy // 2, gx // 2), (gy // 2, gx // 2))
+        for mode in ("reference", "bt601", "rgb"):
+            for order in ("rgba", "bgra"):
+                exact("assemble_color",
+                      cuda_jpeg.assemble_color(smp, gy, gx, order, mode, hw),
+                      jk.assemble_color(smp, shp, order, mode, hw), errs)
     log("check K3", assemble_color="exact", cases="256^3 x 3 modes x 2 "
-        "orders + random int16")
+        "orders + random int16 + " + ",".join(testing.assemble_cases()))
 
     # --- the main path ----------------------------------------------------
     torch.cuda.synchronize()
@@ -213,7 +219,7 @@ def main() -> int:
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     plain = jk.decode_batch_420(coeffs_p, yq, cq, shapes, "rgba",
-                                "bt601")[:, :H, :W]
+                                "bt601", hw=(H, W))
     if not torch.equal(out, plain):
         raise AssertionError("decode_batch differs from the plain route, by "
                              f"up to {max_abs_err(out, plain)}")
@@ -239,27 +245,59 @@ def main() -> int:
         plain_route="exact")
 
     # --- timing -----------------------------------------------------------
-    ms = {
-        "count_scan": (gpu_ms(lambda: cuda_jpeg.count_scan(buf, N, g), 50),
-                       gpu_ms(lambda: jk.count_starts(counts), 20)),
-        "unpack": (gpu_ms(lambda: cuda_jpeg.unpack(buf, starts, bmap, N, g,
-                                                    e, nblocks), 50),
-                   gpu_ms(lambda: jk.unpack_coeffs(counts, ks, vals, bmap,
-                                                   nblocks), 5)),
-        "dequant_idct": (gpu_ms(lambda: cuda_jpeg.dequant_idct(
-            coeffs, yq, cq, nby * nbx), 50), gpu_ms(
-            lambda: jk.dequant_idct_blocks(coeffs, yq, cq, nby * nbx), 5)),
-        "assemble_color": (gpu_ms(lambda: cuda_jpeg.assemble_color(
-            samples, nby, nbx, "rgba", "bt601"), 50), gpu_ms(
-            lambda: jk.assemble_color(samples, shapes, "rgba", "bt601"), 5)),
+    # each kernel at the main path's shapes: warm, and with L2 flushed;
+    # its bound from the bytes it must move and the ops it must do
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    entries = int((cuda_jpeg.unpack_entry_ranges(starts, counts, e)
+                   .diff(dim=-1)).sum())
+    ng, nb_all = N * g, N * nblocks
+    npx, nch = N * H * W, N * ((H + 1) // 2) * ((W + 1) // 2)
+    work = {    # name: (kernel, plain, bytes, ops)
+        "count_scan": (lambda: cuda_jpeg.count_scan(buf, N, g),
+                       lambda: jk.count_starts(counts), 5 * ng, ng),
+        "unpack": (lambda: cuda_jpeg.unpack(buf, starts, bmap, N, g, e,
+                                            nblocks),
+                   lambda: jk.unpack_coeffs(counts, ks, vals, bmap, nblocks),
+                   5 * ng + 4 * g + 3 * entries + 128 * nb_all, entries),
+        "dequant_idct": (lambda: cuda_jpeg.dequant_idct(coeffs, yq, cq,
+                                                        nby * nbx),
+                         lambda: jk.dequant_idct_blocks(coeffs, yq, cq,
+                                                        nby * nbx),
+                         256 * nb_all + 512 * N, (64 + 2 * 1024) * nb_all),
+        "assemble_color": (lambda: cuda_jpeg.assemble_color(
+            samples, nby, nbx, "rgba", "bt601", (H, W)),
+            lambda: jk.assemble_color(samples, shapes, "rgba", "bt601",
+                                      (H, W)),
+            2 * npx + 4 * nch + 4 * npx, 13 * npx),
     }
-    for name, (k_ms, p_ms) in ms.items():
-        log("time kernel", name=name, ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}")
+    library = {"count_scan": lambda: torch.cumsum(counts, dim=1,
+                                                  dtype=torch.int32)}
+    timed = {}
+    for name, (kern, pl, nbytes, ops) in work.items():
+        b_ms, b_by = bound(nbytes, ops)
+        timed[name] = {
+            "ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
+            "plain_ms": gpu_ms(pl, 5 if name != "count_scan" else 20),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": (gpu_ms(library[name], 50) if name in library
+                           else None),
+            "bytes": nbytes, "ops": ops}
+        t = timed[name]
+        t["share"] = b_ms / t["ms"]
+        t["share_cold"] = b_ms / t["ms_cold"]
+        log("time kernel", name=name, ms=f"{t['ms']:.4f}",
+            ms_cold=f"{t['ms_cold']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+            bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            share_warm=f"{t['share']:.3f}",
+            share_cold=f"{t['share_cold']:.3f}", bytes=nbytes,
+            library_ms=("null" if t["library_ms"] is None
+                        else f"{t['library_ms']:.4f}"))
+    del flush
     dev_ms = gpu_ms(lambda: jk.decode_batch_420_packed_fused(
-        buf, bmap, yq, cq, N, g, e, shapes, "rgba", "bt601"), 20)
+        buf, bmap, yq, cq, N, g, e, shapes, "rgba", "bt601", (H, W)), 20)
     plain_dev_ms = gpu_ms(lambda: jk.decode_batch_420(
         jk.unpack_coeffs(counts, ks, vals, bmap, nblocks), yq, cq, shapes,
-        "rgba", "bt601"), 3)
+        "rgba", "bt601", (H, W)), 3)
     resize_ms = gpu_ms(lambda: torch.stack(
         [resize_rgba(p, (224, 224)) for p in out]), 10)
     mp = N * H * W / 1e6
@@ -287,8 +325,8 @@ def main() -> int:
 
     kernels = [{"name": name, "route": "cuda", "source": CU,
                 "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": errs[name], "ms": ms[name][0],
-                "plain_ms": ms[name][1]} for name in REPLACES]
+                "max_abs_err": errs[name], **timed[name]}
+               for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,8 @@
 //   K1a count_scan      exclusive scan of counts       -> starts (N, G) i32
 //   K1b unpack          dense de-zigzagged coefficients -> (N, B, 8, 8) i16
 //   K2  dequant_idct    dequant + 13-bit integer IDCT   -> (N, B, 8, 8) i16
-//   K3  assemble_color  block grid -> planes, 2x chroma, YCbCr -> RGBA
+//   K3  assemble_color  block grid -> planes, 2x chroma, YCbCr -> RGBA,
+//                       cropped to the images' (H, W)
 //
 // B is the block count of one image over all three components, laid out
 // [Y (nby*nbx) | Cb (nby/2*nbx/2) | Cr (nby/2*nbx/2)], each raster order.
@@ -93,53 +94,139 @@ __global__ void count_scan_kernel(const uint8_t* __restrict__ buf,
 
 // K1b. Replaces the scatter-add of ffpic_tpu/ops/jpeg_kernels.py:
 // _unpack_coeffs and the device byte split of
-// decode_batch_420_packed_fused (:440-443). One thread per (image,
-// packed block g): it owns dense block block_map[g] (the map is a
-// permutation of the B blocks), builds it in local memory and writes it
-// whole, so no atomics and no separate zero-fill are needed and the
-// result is deterministic. Block g owns entries [start_g, start_g +
-// count_g) clipped to [0, E). Entries past the counts' total are the
-// host's zero padding and are not read (the reference adds them, zeros,
-// to the last block; reading them here would put up to E serial reads
-// on one thread). Bound: it writes the dense coefficients (N*B*128
-// bytes, 50 MB for 8 x 1080p) and reads the packed entries once; the
-// 128-byte block write is eight 16-byte stores.
-__global__ void unpack_kernel(const uint8_t* __restrict__ buf,
-                              const int32_t* __restrict__ starts,
-                              const int32_t* __restrict__ block_map,
-                              int16_t* __restrict__ out, int n, int g, int e,
-                              int nblocks) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)n * g) return;
-  int img = (int)(t / g);
-  int gi = (int)(t - (int64_t)img * g);
-  int32_t bm = block_map[gi];
-  if (bm < 0 || bm >= nblocks) return;               // mode="drop"
-  int64_t lo = starts[t];
-  int64_t hi = lo + buf[t];
-  if (hi > e) hi = e;
-  const uint8_t* ks = buf + (int64_t)n * g + (int64_t)img * e;
-  // the vals region starts at byte n*(g+e), which need not be even
-  const uint8_t* vals = buf + (int64_t)n * (g + e) + 2 * (int64_t)img * e;
-  uint16_t blk[64];
+// decode_batch_420_packed_fused (:440-443). Bound: it writes the dense
+// coefficients (N*B*128 bytes, 50 MB for 8 x 1080p) and reads the
+// counts, starts, block map and each packed entry (3 bytes) once, so
+// it is memory-bound; the design keeps every global access 16 bytes
+// wide and coalesced and nothing in local memory.
+//
+// One CTA takes a tile of kUnpackTile consecutive packed blocks of one
+// image (blockIdx.x the tile, blockIdx.y the image). Block g owns the
+// entries [start_g, start_g + count_g), so the tile's entries are one
+// contiguous range of ks and vals: [start of its first block, end of
+// its last), clipped to [0, E). Entries past the counts' total are the
+// host's zero padding and belong to no tile (the reference adds them,
+// zeros, to the last block). The tile
+//   1. loads its starts and block map and zeroes an int32 coefficient
+//      tile in shared memory;
+//   2. stages its entries, kUnpackChunk at a time, into shared memory
+//      as the 16-byte words that cover them (the ks and vals regions
+//      start at any byte; the vals region of the fused buffer need not
+//      even be 2-byte aligned);
+//   3. gives each staged entry to one thread, which finds its block by
+//      a binary search of the tile's starts (the last block whose
+//      start is <= the entry: zero-count blocks share a start) and adds
+//      its value at the de-zigzagged position with a 32-bit shared
+//      atomic. Integer adds commute and the final wrap to int16 is the
+//      reference's wrapping int16 sum, so the result does not depend on
+//      their order. Zigzag positions past 63 clamp to 63, like a JAX
+//      gather;
+//   4. writes each block as 8 lanes x 16 bytes to dense block
+//      block_map[g]: a warp stores 4 whole 128-byte blocks. A block
+//      whose map entry is outside [0, B) is dropped (mode="drop"); the
+//      map is a permutation, so every dense block has one writer.
+constexpr int kUnpackTile = 64;
+constexpr int kUnpackThreads = 256;
+constexpr int kUnpackChunk = 2048;
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// Copy bytes [from, to) of buf into dst as the 16-byte words that cover
+// them and return the offset of byte `from` in dst. A word that runs
+// past buf's nbytes is read byte by byte up to nbytes.
+__device__ __forceinline__ int stage_words(uint8_t* __restrict__ dst,
+                                           const uint8_t* __restrict__ buf,
+                                           int64_t from, int64_t to,
+                                           int64_t nbytes) {
+  const int64_t w0 = from & ~int64_t(15);
+  const int nw = (int)((to - w0 + 15) >> 4);
+  for (int i = threadIdx.x; i < nw; i += blockDim.x) {
+    const int64_t off = w0 + 16 * (int64_t)i;
+    uint4 v;
+    if (off + 16 <= nbytes) {
+      v = __ldg(reinterpret_cast<const uint4*>(buf + off));
+    } else {
+      uint32_t wd[4] = {0, 0, 0, 0};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) blk[i] = 0;
-  for (int64_t j = lo; j < hi; ++j) {
-    int k = ks[j];
-    k = k > 63 ? 63 : k;                             // gather index clamp
-    uint16_t v = (uint16_t)(vals[2 * j] | (vals[2 * j + 1] << 8));
-    blk[kZigzag[k]] += v;                            // wrapping int16 add
+      for (int k = 0; k < 16; ++k)
+        if (off + k < nbytes)
+          wd[k >> 2] |= (uint32_t)buf[off + k] << (8 * (k & 3));
+      v = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    }
+    reinterpret_cast<uint4*>(dst)[i] = v;
   }
-  uint4* dst = reinterpret_cast<uint4*>(
-      out + ((int64_t)img * nblocks + bm) * 64);
+  return (int)(from - w0);
+}
+
+__global__ void __launch_bounds__(kUnpackThreads)
+unpack_kernel(const uint8_t* __restrict__ buf,
+              const int32_t* __restrict__ starts,
+              const int32_t* __restrict__ block_map,
+              int16_t* __restrict__ out, int n, int g, int e, int nblocks) {
+  __shared__ __align__(16) int32_t s_coef[kUnpackTile * 64];
+  __shared__ int32_t s_start[kUnpackTile];
+  __shared__ int32_t s_map[kUnpackTile];
+  __shared__ uint8_t s_zz[64];
+  __shared__ __align__(16) uint8_t s_ks[kUnpackChunk + 32];
+  __shared__ __align__(16) uint8_t s_vals[2 * kUnpackChunk + 32];
+
+  const int tid = threadIdx.x;
+  const int img = blockIdx.y;
+  const int g0 = blockIdx.x * kUnpackTile;
+  const int nb = min(kUnpackTile, g - g0);
+  const int64_t row = (int64_t)img * g + g0;
+  if (tid < nb) {
+    s_start[tid] = starts[row + tid];
+    s_map[tid] = block_map[g0 + tid];
+  }
+  if (tid < 64) s_zz[tid] = kZigzag[tid];
+  for (int i = tid; i < kUnpackTile * 16; i += kUnpackThreads)
+    reinterpret_cast<uint4*>(s_coef)[i] = make_uint4(0, 0, 0, 0);
+
+  // the tile's entries, from its first and last start read straight from
+  // global memory, so that staging does not wait for the loads above
+  const int64_t lo = min64(starts[row], e);
+  const int64_t hi = min64((int64_t)starts[row + nb - 1] + buf[row + nb - 1],
+                           e);
+  const int64_t nbytes = (int64_t)n * (g + 3 * (int64_t)e);
+  const int64_t ks_base = (int64_t)n * g + (int64_t)img * e;
+  const int64_t v_base = (int64_t)n * (g + (int64_t)e) + 2 * (int64_t)img * e;
+  for (int64_t c0 = lo; c0 < hi; c0 += kUnpackChunk) {
+    if (c0 != lo) __syncthreads();      // the last chunk's readers are done
+    const int cn = (int)min64(kUnpackChunk, hi - c0);
+    const int ko = stage_words(s_ks, buf, ks_base + c0, ks_base + c0 + cn,
+                               nbytes);
+    const int vo = stage_words(s_vals, buf, v_base + 2 * c0,
+                               v_base + 2 * (c0 + cn), nbytes);
+    __syncthreads();
+    for (int i = tid; i < cn; i += kUnpackThreads) {
+      const int32_t j = (int32_t)(c0 + i);
+      int b = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint4 w;
-    w.x = blk[8 * i + 0] | ((uint32_t)blk[8 * i + 1] << 16);
-    w.y = blk[8 * i + 2] | ((uint32_t)blk[8 * i + 3] << 16);
-    w.z = blk[8 * i + 4] | ((uint32_t)blk[8 * i + 5] << 16);
-    w.w = blk[8 * i + 6] | ((uint32_t)blk[8 * i + 7] << 16);
-    dst[i] = w;
+      for (int step = kUnpackTile / 2; step > 0; step >>= 1)
+        if (b + step < nb && s_start[b + step] <= j) b += step;
+      const int k = min((int)s_ks[ko + i], 63);
+      const int16_t v = (int16_t)(s_vals[vo + 2 * i] |
+                                  (s_vals[vo + 2 * i + 1] << 8));
+      atomicAdd(&s_coef[b * 64 + s_zz[k]], (int32_t)v);
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < nb * 8; i += kUnpackThreads) {
+    const int b = i >> 3, r = i & 7;
+    const int32_t bm = s_map[b];
+    if (bm < 0 || bm >= nblocks) continue;          // mode="drop"
+    const int4* src = reinterpret_cast<const int4*>(s_coef + b * 64 + r * 8);
+    const int4 a = src[0], c = src[1];
+    uint4 w;                                        // wrap to int16
+    w.x = ((uint32_t)a.x & 0xFFFFu) | ((uint32_t)a.y << 16);
+    w.y = ((uint32_t)a.z & 0xFFFFu) | ((uint32_t)a.w << 16);
+    w.z = ((uint32_t)c.x & 0xFFFFu) | ((uint32_t)c.y << 16);
+    w.w = ((uint32_t)c.z & 0xFFFFu) | ((uint32_t)c.w << 16);
+    reinterpret_cast<uint4*>(out + ((int64_t)img * nblocks + bm) * 64)[r] = w;
   }
 }
 
@@ -229,40 +316,20 @@ __device__ __forceinline__ uint8_t clip_u8i(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-// K3. Replaces the post-IDCT part of ffpic_tpu/ops/jpeg_kernels.py:
-// decode_batch_420 (block->plane assembly, 2x nearest chroma repeat)
-// and color_convert. One thread per output pixel (n, y, x): luma from
-// its block, chroma at (y/2, x/2), one 4-byte store, consecutive threads
-// on consecutive pixels. Bound: 4 bytes written and ~3 int16 read per
-// pixel (67 MB out for 8 x 1080p, chroma reads hit L1/L2).
+// The colour of one pixel, packed as 4 bytes in memory order. The FMA
+// sequence is the jitted reference's (see the top of this file).
 // mode: 0 reference (trunc), 1 bt601 (floor(+0.5)), 2 rgb (clip only);
 // order: 0 rgba, 1 bgra.
-__global__ void assemble_color_kernel(const int16_t* __restrict__ s,
-                                      uchar4* __restrict__ out, int n,
-                                      int nby, int nbx, int mode,
-                                      int order) {
-  const int h = nby * 8, w = nbx * 8;
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)n * h * w) return;
-  int img = (int)(t / ((int64_t)h * w));
-  int rem = (int)(t - (int64_t)img * h * w);
-  int y = rem / w, x = rem - (rem / w) * w;
-  const int nbxc = nbx / 2;
-  const int64_t nlum = (int64_t)nby * nbx, nchr = (int64_t)(nby / 2) * nbxc;
-  const int16_t* base = s + (int64_t)img * (nlum + 2 * nchr) * 64;
-  int ys = base[((int64_t)(y >> 3) * nbx + (x >> 3)) * 64 + (y & 7) * 8 + (x & 7)];
-  int cy = y >> 1, cx = x >> 1;
-  int64_t coff = ((int64_t)(cy >> 3) * nbxc + (cx >> 3)) * 64 + (cy & 7) * 8 + (cx & 7);
-  int us = base[nlum * 64 + coff];
-  int vs = base[(nlum + nchr) * 64 + coff];
+template <int kMode, int kOrder>
+__device__ __forceinline__ uint32_t pixel(int ys, int us, int vs) {
   uint8_t r, g, b;
-  if (mode == 2) {
+  if (kMode == 2) {
     r = clip_u8i(ys);
     g = clip_u8i(us);
     b = clip_u8i(vs);
   } else {
     float yy = (float)ys, uu = (float)us - 128.0f, vv = (float)vs - 128.0f;
-    if (mode == 0) {
+    if (kMode == 0) {
       r = clip_u8(truncf(__fmaf_rn(1.280f, vv, yy)));
       g = clip_u8(truncf(__fmaf_rn(-0.381f, vv, __fmaf_rn(-0.215f, uu, yy))));
       b = clip_u8(truncf(__fmaf_rn(2.128f, uu, yy)));
@@ -273,7 +340,87 @@ __global__ void assemble_color_kernel(const int16_t* __restrict__ s,
       b = clip_u8(floorf(__fadd_rn(__fmaf_rn(1.772f, uu, yy), 0.5f)));
     }
   }
-  out[t] = order == 0 ? make_uchar4(r, g, b, 255) : make_uchar4(b, g, r, 255);
+  if (kOrder == 1) {
+    uint8_t t = r;
+    r = b;
+    b = t;
+  }
+  return (uint32_t)r | ((uint32_t)g << 8) | ((uint32_t)b << 16) | 0xFF000000u;
+}
+
+__device__ __forceinline__ int lo16(uint32_t w) { return (int16_t)(w & 0xFFFFu); }
+__device__ __forceinline__ int hi16(uint32_t w) { return (int16_t)(w >> 16); }
+
+// K3. Replaces the post-IDCT part of ffpic_tpu/ops/jpeg_kernels.py:
+// decode_batch_420 (block->plane assembly, 2x nearest chroma repeat,
+// the crop to the image) and color_convert. Bound: it reads the int16
+// samples under the image once and writes 4 bytes per output pixel
+// (50 MB in, 66 MB out for 8 x 1080p), so it is memory-bound.
+//
+// One thread takes one 8-pixel row of one luma block; lanes 8b..8b+7
+// of a warp take rows 0..7 of luma block bx0 + b, so a warp reads 4
+// consecutive blocks, 512 contiguous bytes, as one 16-byte load a
+// thread, and the 8 bytes of u and of v under its row (4 samples each,
+// each used by 2 pixels) as one 8-byte load each. It writes its 8 RGBA
+// pixels as two 16-byte stores, so the warp fills whole 128-byte lines
+// of 8 output rows. A CTA is kColorWarps warps along a block row:
+// blockIdx.x the group of 4*kColorWarps blocks, blockIdx.y the block
+// row, blockIdx.z the image, so no thread divides. Rows and columns
+// past the crop (h, w) are not written; a row whose 32 bytes are not
+// all inside the image, or not 16-byte aligned (w % 4 != 0), is
+// written pixel by pixel. mode and order are template parameters.
+constexpr int kColorWarps = 4;
+
+template <int kMode, int kOrder>
+__global__ void __launch_bounds__(32 * kColorWarps)
+assemble_color_kernel(const int16_t* __restrict__ s, uint8_t* __restrict__ out,
+                      int nby, int nbx, int h, int w) {
+  const int lane = threadIdx.x & 31;
+  const int bx = (blockIdx.x * kColorWarps + (threadIdx.x >> 5)) * 4 +
+                 (lane >> 3);
+  const int by = blockIdx.y, r = lane & 7;
+  const int y = by * 8 + r, x0 = bx * 8;
+  if (bx >= nbx || y >= h) return;
+  const int nbxc = nbx >> 1;
+  const int64_t nlum = (int64_t)nby * nbx;
+  const int64_t nchr = (int64_t)(nby >> 1) * nbxc;
+  const int16_t* base = s + (int64_t)blockIdx.z * (nlum + 2 * nchr) * 64;
+  const uint4 lq = __ldg(reinterpret_cast<const uint4*>(
+      base + ((int64_t)by * nbx + bx) * 64 + r * 8));
+  const int64_t coff = ((int64_t)(by >> 1) * nbxc + (bx >> 1)) * 64 +
+                       ((by & 1) * 4 + (r >> 1)) * 8 + (bx & 1) * 4;
+  const uint2 uq = __ldg(reinterpret_cast<const uint2*>(base + nlum * 64 + coff));
+  const uint2 vq = __ldg(reinterpret_cast<const uint2*>(
+      base + (nlum + nchr) * 64 + coff));
+  uint32_t px[8];
+  px[0] = pixel<kMode, kOrder>(lo16(lq.x), lo16(uq.x), lo16(vq.x));
+  px[1] = pixel<kMode, kOrder>(hi16(lq.x), lo16(uq.x), lo16(vq.x));
+  px[2] = pixel<kMode, kOrder>(lo16(lq.y), hi16(uq.x), hi16(vq.x));
+  px[3] = pixel<kMode, kOrder>(hi16(lq.y), hi16(uq.x), hi16(vq.x));
+  px[4] = pixel<kMode, kOrder>(lo16(lq.z), lo16(uq.y), lo16(vq.y));
+  px[5] = pixel<kMode, kOrder>(hi16(lq.z), lo16(uq.y), lo16(vq.y));
+  px[6] = pixel<kMode, kOrder>(lo16(lq.w), hi16(uq.y), hi16(vq.y));
+  px[7] = pixel<kMode, kOrder>(hi16(lq.w), hi16(uq.y), hi16(vq.y));
+  uint8_t* dst = out + (((int64_t)blockIdx.z * h + y) * w + x0) * 4;
+  if (x0 + 8 <= w && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(px[0], px[1], px[2], px[3]);
+    d[1] = make_uint4(px[4], px[5], px[6], px[7]);
+  } else {
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (x0 + p < w) d[p] = px[p];
+  }
+}
+
+template <int kMode, int kOrder>
+void launch_assemble_color(const int16_t* s, uint8_t* out, int n, int nby,
+                           int nbx, int h, int w, cudaStream_t stream) {
+  dim3 grid((unsigned)((nbx + 4 * kColorWarps - 1) / (4 * kColorWarps)),
+            (unsigned)nby, (unsigned)n);
+  assemble_color_kernel<kMode, kOrder><<<grid, 32 * kColorWarps, 0, stream>>>(
+      s, out, nby, nbx, h, w);
 }
 
 constexpr int kThreads = 256;
@@ -292,9 +439,14 @@ int ffpic_count_scan(const void* buf, void* starts, int n, int g,
 }
 
 int ffpic_unpack(const void* buf, const void* starts, const void* block_map,
-                 void* out, int n, int g, int e, int nblocks, void* stream) {
-  unpack_kernel<<<(unsigned)blocks_for((int64_t)n * g), kThreads, 0,
-                  (cudaStream_t)stream>>>(
+                 void* out, int n, int g, int e, int nblocks, int tile,
+                 void* stream) {
+  // tile is the caller's kUnpackTile (cuda_jpeg.UNPACK_TILE): refuse a
+  // caller that tiles otherwise
+  if (tile != kUnpackTile || n <= 0 || g <= 0 || n > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((g + kUnpackTile - 1) / kUnpackTile), (unsigned)n);
+  unpack_kernel<<<grid, kUnpackThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)buf, (const int32_t*)starts, (const int32_t*)block_map,
       (int16_t*)out, n, g, e, nblocks);
   return (int)cudaGetLastError();
@@ -312,11 +464,23 @@ int ffpic_dequant_idct(const void* coef, const void* yquant,
 }
 
 int ffpic_assemble_color(const void* samples, void* out, int n, int nby,
-                         int nbx, int mode, int order, void* stream) {
-  int64_t total = (int64_t)n * nby * 8 * nbx * 8;
-  assemble_color_kernel<<<(unsigned)blocks_for(total), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const int16_t*)samples, (uchar4*)out, n, nby, nbx, mode, order);
+                         int nbx, int h, int w, int mode, int order,
+                         void* stream) {
+  if (n <= 0 || n > 65535 || nby <= 0 || nby > 65535 || h <= 0 || w <= 0 ||
+      h > 8 * nby || w > 8 * nbx || mode < 0 || mode > 2 || order < 0 ||
+      order > 1)
+    return (int)cudaErrorInvalidValue;
+  const int16_t* s = (const int16_t*)samples;
+  uint8_t* o = (uint8_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (mode * 2 + order) {
+    case 0: launch_assemble_color<0, 0>(s, o, n, nby, nbx, h, w, st); break;
+    case 1: launch_assemble_color<0, 1>(s, o, n, nby, nbx, h, w, st); break;
+    case 2: launch_assemble_color<1, 0>(s, o, n, nby, nbx, h, w, st); break;
+    case 3: launch_assemble_color<1, 1>(s, o, n, nby, nbx, h, w, st); break;
+    case 4: launch_assemble_color<2, 0>(s, o, n, nby, nbx, h, w, st); break;
+    default: launch_assemble_color<2, 1>(s, o, n, nby, nbx, h, w, st); break;
+  }
   return (int)cudaGetLastError();
 }
 

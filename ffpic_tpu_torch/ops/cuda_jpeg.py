@@ -27,11 +27,34 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _SIGNATURES = {
     "ffpic_count_scan": [_vp, _vp, _int, _int, _vp],
-    "ffpic_unpack": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    "ffpic_unpack": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+                     _vp],
     "ffpic_dequant_idct": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
-    "ffpic_assemble_color": [_vp, _vp, _int, _int, _int, _int, _int, _vp],
+    "ffpic_assemble_color": [_vp, _vp, _int, _int, _int, _int, _int, _int,
+                             _int, _vp],
 }
 _INT_MAX = 2 ** 31 - 1
+_GRID_MAX = 65535           # an image index is a grid y or z coordinate
+
+# K1b's tiling (kUnpackTile in csrc/jpeg_decode.cu, which refuses any
+# other): one CTA per UNPACK_TILE consecutive packed blocks of an image
+UNPACK_TILE = 64
+
+
+def unpack_entry_ranges(starts: torch.Tensor, counts: torch.Tensor,
+                        e: int) -> torch.Tensor:
+    """(n, ceil(g / UNPACK_TILE), 2) int64: the [lo, hi) range of
+    packed entries that each CTA of K1b stages and scatters, as the
+    kernel computes it -- from the start of the tile's first block to
+    the end of its last (a part-full last tile when UNPACK_TILE does not
+    divide g), clipped to [0, e).  On any device."""
+    g = starts.shape[1]
+    first = torch.arange(0, g, UNPACK_TILE, device=starts.device)
+    last = torch.clamp(first + UNPACK_TILE, max=g) - 1
+    s = starts.to(torch.int64)
+    lo = s[:, first].clamp(max=e)
+    hi = (s[:, last] + counts[:, last].to(torch.int64)).clamp(max=e)
+    return torch.stack([lo, hi], dim=-1)
 
 
 def reset_launches() -> None:
@@ -83,19 +106,22 @@ def count_scan(buf: torch.Tensor, n: int, g: int) -> torch.Tensor:
 def unpack(buf: torch.Tensor, starts: torch.Tensor, block_map: torch.Tensor,
            n: int, g: int, e: int, nblocks: int) -> torch.Tensor:
     """K1b: fused packed buffer (n*(g + 3e) bytes) -> dense de-zigzagged
-    coefficients (n, nblocks, 8, 8) int16.  ``block_map`` (g,) int32 must
-    be a permutation of range(nblocks), as ``formats.jpg.packed_block_map``
-    gives for an interleaved scan."""
+    coefficients (n, nblocks, 8, 8) int16, one CTA per tile of
+    UNPACK_TILE packed blocks (``unpack_entry_ranges``).  ``block_map``
+    (g,) int32 must be a permutation of range(nblocks), as
+    ``formats.jpg.packed_block_map`` gives for an interleaved scan."""
     _check(buf, "buf", torch.uint8, (n * (g + 3 * e),))
     _check(starts, "starts", torch.int32, (n, g))
     _check(block_map, "block_map", torch.int32, (g,))
     if g != nblocks or buf.numel() > _INT_MAX:
         raise ValueError(f"block_map covers {g} blocks, the image {nblocks}")
+    if not 0 < n <= _GRID_MAX:
+        raise ValueError(f"n={n} images: one launch takes 1..{_GRID_MAX}")
     out = torch.empty((n, nblocks, 8, 8), dtype=torch.int16,
                       device=buf.device)
     _launch("ffpic_unpack", "unpack", _vp(buf.data_ptr()),
             _vp(starts.data_ptr()), _vp(block_map.data_ptr()),
-            _vp(out.data_ptr()), n, g, e, nblocks)
+            _vp(out.data_ptr()), n, g, e, nblocks, UNPACK_TILE)
     return out
 
 
@@ -122,24 +148,27 @@ def dequant_idct(coeffs: torch.Tensor, yquant: torch.Tensor,
 
 
 def assemble_color(samples: torch.Tensor, nby: int, nbx: int,
-                   order: str = "rgba", mode: str = "reference"
-                   ) -> torch.Tensor:
+                   order: str = "rgba", mode: str = "reference",
+                   hw: tuple[int, int] | None = None) -> torch.Tensor:
     """K3: (n, nblocks, 8, 8) int16 samples of a 4:2:0 block grid with
-    nby x nbx luma blocks -> (n, 8*nby, 8*nbx, 4) uint8."""
+    nby x nbx luma blocks -> (n, h, w, 4) uint8, cropped to ``hw`` =
+    (h, w), at most and by default (8 nby, 8 nbx)."""
     if order not in ORDERS or mode not in MODES:
         raise ValueError(f"order {order!r} / mode {mode!r}")
     if nby % 2 or nbx % 2 or nby <= 0 or nbx <= 0:
         raise ValueError(f"4:2:0 needs an even luma block grid, got "
                          f"{nby}x{nbx}")
+    h, w = hw or (8 * nby, 8 * nbx)
+    if not (0 < h <= 8 * nby and 0 < w <= 8 * nbx):
+        raise ValueError(f"crop {h}x{w} outside the {8 * nby}x{8 * nbx} grid")
     n = samples.shape[0] if samples.dim() == 4 else -1
     nblocks = nby * nbx + 2 * (nby // 2) * (nbx // 2)
     _check(samples, "samples", torch.int16, (n, nblocks, 8, 8))
-    h, w = nby * 8, nbx * 8
-    if n * h * w > _INT_MAX:
+    if n > _GRID_MAX or nby > _GRID_MAX:
         raise ValueError("batch too large for one launch")
     out = torch.empty((n, h, w, 4), dtype=torch.uint8, device=samples.device)
     if n:
         _launch("ffpic_assemble_color", "assemble_color",
                 _vp(samples.data_ptr()), _vp(out.data_ptr()), n, nby, nbx,
-                MODES[mode], ORDERS[order])
+                h, w, MODES[mode], ORDERS[order])
     return out

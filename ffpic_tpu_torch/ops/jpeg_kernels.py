@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ffpic_tpu.ops.golden import IDCT_P13, ZIGZAG
+from ffpic_tpu_torch.ops.golden import IDCT_P13, ZIGZAG
 
 
 def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -193,16 +193,18 @@ def _planes(blocks: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
 
 
 def assemble_color(samples: torch.Tensor, shapes, order: str = "rgba",
-                   mode: str = "reference") -> torch.Tensor:
-    """(n, nblocks, 8, 8) int16 samples -> (n, 8 nby, 8 nbx, 4) uint8:
-    block grid to planes, nearest 2x chroma repeat, colour (K3)."""
+                   mode: str = "reference", hw=None) -> torch.Tensor:
+    """(n, nblocks, 8, 8) int16 samples -> (n, h, w, 4) uint8: block
+    grid to planes, nearest 2x chroma repeat, colour (K3).  ``hw`` is
+    the output (h, w), at most the grid's (8 nby, 8 nbx), which is the
+    default: the image is cropped to it."""
     (nby, nbx), (cy, cx), _ = shapes
+    h, w = hw or (8 * nby, 8 * nbx)
     ny, nc = nby * nbx, cy * cx
-    yp = _planes(samples[:, :ny], nby, nbx)
-    h, w = yp.shape[1:]
+    yp = _planes(samples[:, :ny], nby, nbx)[:, :h, :w]
 
     def chroma(s):
-        p = _planes(s, cy, cx)
+        p = _planes(s, cy, cx)[:, :(h + 1) // 2, :(w + 1) // 2]
         return p.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :h, :w]
 
     return color_convert(yp, chroma(samples[:, ny:ny + nc]),
@@ -211,12 +213,12 @@ def assemble_color(samples: torch.Tensor, shapes, order: str = "rgba",
 
 
 def decode_batch_420(coeffs, yquant, cquant, shapes, order: str = "rgba",
-                     mode: str = "reference"):
-    """Dense 4:2:0 batch -> (n, H, W, 4) uint8 through the plain
+                     mode: str = "reference", hw=None):
+    """Dense 4:2:0 batch -> (n, h, w, 4) uint8 through the plain
     versions: dequant + IDCT, then assembly and colour."""
     samples = dequant_idct_blocks(coeffs, yquant, cquant,
                                   shapes[0][0] * shapes[0][1])
-    return assemble_color(samples, shapes, order=order, mode=mode)
+    return assemble_color(samples, shapes, order=order, mode=mode, hw=hw)
 
 
 # --- entries the pipeline calls --------------------------------------------
@@ -230,21 +232,24 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def decode_batch_420_dense(coeffs, yquant, cquant, shapes,
-                           order: str = "rgba", mode: str = "reference"):
-    """Dense coefficients (n, nblocks, 8, 8) int16 -> (n, H, W, 4) uint8:
-    K2 + K3 on a CUDA tensor, the plain versions on a CPU tensor."""
+                           order: str = "rgba", mode: str = "reference",
+                           hw=None):
+    """Dense coefficients (n, nblocks, 8, 8) int16 -> (n, h, w, 4) uint8
+    (``hw`` as in ``assemble_color``): K2 + K3 on a CUDA tensor, the
+    plain versions on a CPU tensor."""
     if not _on_cuda(coeffs):
-        return decode_batch_420(coeffs, yquant, cquant, shapes, order, mode)
+        return decode_batch_420(coeffs, yquant, cquant, shapes, order, mode,
+                                hw)
     from ffpic_tpu_torch.ops import cuda_jpeg
     (nby, nbx), _, _ = shapes
     samples = cuda_jpeg.dequant_idct(coeffs, yquant, cquant, nby * nbx)
-    return cuda_jpeg.assemble_color(samples, nby, nbx, order, mode)
+    return cuda_jpeg.assemble_color(samples, nby, nbx, order, mode, hw)
 
 
 def decode_batch_420_packed_fused(buf, block_map, yquant, cquant, n: int,
                                   g: int, e: int, shapes, order: str = "rgba",
-                                  mode: str = "reference"):
-    """A ``stack_packed_fused`` buffer of n frames -> (n, H, W, 4) uint8:
+                                  mode: str = "reference", hw=None):
+    """A ``stack_packed_fused`` buffer of n frames -> (n, h, w, 4) uint8:
     K1a, K1b, K2, K3 on a CUDA buffer, the plain versions on a CPU one."""
     nblocks = sum(a * b for a, b in shapes)
     if _on_cuda(buf):
@@ -254,4 +259,5 @@ def decode_batch_420_packed_fused(buf, block_map, yquant, cquant, n: int,
     else:
         counts, ks, vals = split_packed(buf, n, g, e)
         coeffs = unpack_coeffs(counts, ks, vals, block_map, nblocks)
-    return decode_batch_420_dense(coeffs, yquant, cquant, shapes, order, mode)
+    return decode_batch_420_dense(coeffs, yquant, cquant, shapes, order, mode,
+                                  hw)

@@ -6,13 +6,17 @@ batches of 3-component 4:2:0 JPEGs:
 1. Host pass, in a thread pool (the native parsers release the GIL):
    baseline files are Huffman-decoded into the packed emission,
    progressive ones into dense coefficient planes.
-2. Per block-geometry bucket, ONE staged transfer through pinned memory
-   and one device decode: the packed members through
-   ``decode_batch_420_packed_fused`` (a single member is the same route
-   with N=1), the dense ones through ``decode_batch_420_dense``.
-3. Crop, optional resize to ``size``, and stacking in input order.
+2. Per image size (one block geometry and one crop), ONE staged
+   transfer through pinned memory and one device decode: the packed
+   members through ``decode_batch_420_packed_fused`` (a single member is
+   the same route with N=1), the dense ones through
+   ``decode_batch_420_dense``.  Both write the cropped images.
+3. Optional resize to ``size``, and stacking in input order; a batch
+   that one decode covers in input order is returned as it is.
 
-Host parsing is ``ffpic_tpu``'s own code, used read-only.
+The host layer (``formats.jpg``, ``native``) is the port's own copy of
+``ffpic_tpu``'s; ``_read`` and ``_jpeg_420_plan`` are copied from
+``ffpic_tpu/pipeline.py:29-70``.
 """
 
 from __future__ import annotations
@@ -24,14 +28,40 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ffpic_tpu import native
-from ffpic_tpu.pipeline import _jpeg_420_plan, _read
+from ffpic_tpu_torch.formats import jpg
 from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 from ffpic_tpu_torch.ops.resize import resize_rgba
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
 _REGISTRY_ITEM = "ROADMAP.md Queue 1 items 1 and 3 (registry and JPEG codec)"
+
+
+def _read(src) -> bytes:
+    if isinstance(src, (bytes, bytearray, memoryview)):
+        return bytes(src)
+    with open(src, "rb") as f:
+        return f.read()
+
+
+def _jpeg_420_plan(data: bytes):
+    """The coefficient plan of a baseline or progressive 3-component
+    4:2:0 JPEG, else None: the packed emission (``j.packed``) for a
+    single-scan baseline file, dense raster-order planes otherwise."""
+    try:
+        j, _ = jpg.parse_and_decode(data, packed=True)
+    except jpg.PackedIneligible:
+        try:
+            j, _ = jpg.parse_and_decode(data)
+        except ValueError:
+            return None
+    except ValueError:
+        return None
+    if len(j.comps) != 3:
+        return None
+    if [(c.v, c.h) for c in j.comps] != [(2, 2), (1, 1), (1, 1)]:
+        return None
+    return j
 
 
 def _device(device) -> torch.device:
@@ -96,10 +126,6 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
     env_t = os.environ.get("FFPIC_THREADS")
     nw = max(1, min(int(env_t) if env_t else (os.cpu_count() or 1), n or 1))
     with stage("torch.host_parse"):
-        # build/load the native decoder before the workers: its loader
-        # is not thread-safe, and a worker that loses the race parses
-        # without it
-        native.available()
         datas = [_read(s) for s in srcs]
         if nw > 1:
             with ThreadPoolExecutor(max_workers=nw) as ex:
@@ -107,13 +133,16 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
         else:
             plans = [_prep(d) for d in datas]
 
+    # one bucket per image size: one block geometry and one crop
     buckets: dict[tuple, list] = {}
     for i, j in enumerate(plans):
-        buckets.setdefault((j.comps[0].nby, j.comps[0].nbx), []).append((i, j))
+        buckets.setdefault((j.height, j.width), []).append((i, j))
 
+    outs = []
     for allmembers in buckets.values():
         j0 = allmembers[0][1]
         shapes = tuple((c.nby, c.nbx) for c in j0.comps)
+        hw = (j0.height, j0.width)
         for packed in (True, False):
             members = [(i, j) for i, j in allmembers
                        if (j.packed is not None) == packed]
@@ -137,15 +166,19 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                 if packed:
                     out = jk.decode_batch_420_packed_fused(
                         staged, bmap, yq, cq, len(members), g, e, shapes,
-                        order="rgba", mode=mode)
+                        order="rgba", mode=mode, hw=hw)
                 else:
                     out = jk.decode_batch_420_dense(
-                        staged, yq, cq, shapes, order="rgba", mode=mode)
-            for k, (i, j) in enumerate(members):
-                slots[i] = out[k, :j.height, :j.width]
+                        staged, yq, cq, shapes, order="rgba", mode=mode,
+                        hw=hw)
+            outs.append(out)
+            for k, (i, _j) in enumerate(members):
+                slots[i] = out[k]
 
     with stage("torch.finish"), device_trace("resize_stack", dev):
         if size is None:
+            if len(outs) == 1:
+                return outs[0]      # one decode, in input order
             if len({tuple(s.shape) for s in slots}) != 1:
                 raise ValueError(
                     "mixed sizes: pass size=(H, W) to resize on device")

@@ -2,10 +2,16 @@
 
 ``encode_420`` writes what ``ffpic_tpu.formats.jpg_encode.encode_baseline``
 writes (same colour transform, 13-bit forward DCT, quantisation, ITU-T81
-K.3-K.6 Huffman tables and container), with ``golden.fdct8x8`` in place
-of the jax ``fdct_blocks``; the two agree bit for bit.  ``chip_smoke.py``
-and the tests use it to make inputs on machines that have neither jax
-nor PIL.  The entropy coder is Python: about 4 s for one 1080p image.
+K.3-K.6 Huffman tables and container), with the port's own copies of
+the encoder's tables and helpers (``formats.jpg_encode``) and
+``golden.fdct8x8`` in place of the jax ``fdct_blocks``; the two agree
+bit for bit.  ``chip_smoke.py`` and the tests use it to make inputs on
+machines that have neither jax nor PIL.  The entropy coder is Python:
+about 4 s for one 1080p image.
+
+``unpack_cases`` and ``assemble_cases`` make the inputs at the edges of
+the ``unpack`` and ``assemble_color`` kernels' tiling that the tests
+(plain versions) and ``chip_smoke.py`` (kernels) both run.
 """
 
 from __future__ import annotations
@@ -14,13 +20,12 @@ import struct
 
 import numpy as np
 
-from ffpic_tpu.coding.huffman import HuffmanTable
-from ffpic_tpu.formats.jpg_encode import (
+from ffpic_tpu_torch.formats.jpg_encode import (
     UV_AC_COUNT, UV_AC_SYM, UV_DC_COUNT, UV_DC_SYM, UV_QUANT, Y_AC_COUNT,
-    Y_AC_SYM, Y_DC_COUNT, Y_DC_SYM, Y_QUANT, _encode_blocks_entropy,
-    _rgb_to_yuv420, _scale_quant, _to_blocks)
-from ffpic_tpu.ops.golden import ZIGZAG, fdct8x8
-from ffpic_tpu.utils.bitstream import MSB, BitWriter
+    Y_AC_SYM, Y_DC_COUNT, Y_DC_SYM, Y_QUANT, BitWriter,
+    _encode_blocks_entropy, _rgb_to_yuv420, _scale_quant, _to_blocks,
+    encode_map)
+from ffpic_tpu_torch.ops.golden import ZIGZAG, fdct8x8
 
 
 def synth_rgb(h: int, w: int, seed: int) -> np.ndarray:
@@ -63,11 +68,11 @@ def encode_420(rgb: np.ndarray, quality: int | None = None) -> bytes:
                     order.append((0, (my * 2 + vi) * nbx + mx * 2 + hi))
             order.append((1, my * (nbx // 2) + mx))
             order.append((2, my * (nbx // 2) + mx))
-    ymaps = (HuffmanTable(Y_DC_COUNT, Y_DC_SYM).encode_map(),
-             HuffmanTable(Y_AC_COUNT, Y_AC_SYM).encode_map())
-    cmaps = (HuffmanTable(UV_DC_COUNT, UV_DC_SYM).encode_map(),
-             HuffmanTable(UV_AC_COUNT, UV_AC_SYM).encode_map())
-    w = BitWriter(MSB, stuff_jpeg=True)
+    ymaps = (encode_map(Y_DC_COUNT, Y_DC_SYM),
+             encode_map(Y_AC_COUNT, Y_AC_SYM))
+    cmaps = (encode_map(UV_DC_COUNT, UV_DC_SYM),
+             encode_map(UV_AC_COUNT, UV_AC_SYM))
+    w = BitWriter()
     _encode_blocks_entropy(w, planes_zz, order, [ymaps, cmaps, cmaps])
     w.align_byte(fill=1)
 
@@ -95,3 +100,76 @@ def encode_420(rgb: np.ndarray, quality: int | None = None) -> bytes:
 def synth_jpeg_420(h: int, w: int, quality: int, seed: int) -> bytes:
     """Baseline 4:2:0 JPEG of ``synth_rgb(h, w, seed)`` at ``quality``."""
     return encode_420(synth_rgb(h, w, seed), quality)
+
+
+def unpack_cases(seed: int = 0) -> dict[str, tuple]:
+    """Packed buffers at the edges of K1b's tiling (tiles of 64 packed
+    blocks), as name -> (buf u8, n, g, e, block_map i32):
+
+    * ``mcu_n1``/``mcu_n3``: a 4:2:0 MCU walk of 70 MCUs (g=420), so
+      tile boundaries fall inside MCUs and the last tile holds 36 blocks;
+    * ``full_block``: one block with all 64 positions, the last tile 2
+      blocks;
+    * ``one_block``: each image's nonzeros all in one block (the first
+      of a tile, the last of a tile, the last block);
+    * ``hostile``: an odd vals offset (n*(g+e) odd), counts up to 255
+      that run past E, zigzag positions past 63, nonzero padding past
+      the counts' total, a shuffled block map;
+    * ``dense``: 200 nonzeros a block, so each tile stages 12800
+      entries in several passes."""
+    from ffpic_tpu_torch.formats.jpg import mcu_block_map
+    from ffpic_tpu_torch.ops.jpeg_kernels import stack_packed_fused
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    def case(name, counts, bmap, ks=None):
+        totals = counts.astype(np.int64).sum(1)
+        packed = []
+        for c, nnz in zip(counts, totals):
+            k = ks if ks is not None else rng.integers(0, 64, nnz)
+            v = rng.integers(-32768, 32768, nnz)
+            packed.append((c, k.astype(np.uint8), v.astype(np.int16), nnz))
+        buf, g, e = stack_packed_fused(packed)
+        out[name] = (buf, len(counts), g, e, bmap)
+
+    mcu_map = mcu_block_map(((2, 2), (1, 1), (1, 1)), 14, 5)
+    for n in (1, 3):
+        case(f"mcu_n{n}", rng.integers(0, 20, (n, 420)).astype(np.uint8),
+             mcu_map)
+    counts = rng.integers(0, 6, (1, 130)).astype(np.uint8)
+    counts[0, 70] = 64
+    ks = rng.integers(0, 64, int(counts.astype(np.int64).sum()))
+    s70 = int(counts[0, :70].astype(np.int64).sum())
+    ks[s70:s70 + 64] = rng.permutation(64)
+    case("full_block", counts, rng.permutation(130).astype(np.int32), ks)
+    counts = np.zeros((3, 200), np.uint8)
+    counts[[0, 1, 2], [64, 127, 199]] = 255
+    case("one_block", counts, np.arange(200, dtype=np.int32))
+    n, g, e = 3, 1001, 2048
+    junk = rng.integers(0, 256, n * (g + 3 * e)).astype(np.uint8)
+    junk[:n * g] = rng.integers(0, 5, n * g)
+    junk[[7, 500, 1500]] = 255
+    out["hostile"] = (junk, n, g, e, rng.permutation(g).astype(np.int32))
+    case("dense", np.full((1, 300), 200, np.uint8),
+         rng.permutation(300).astype(np.int32))
+    return out
+
+
+def assemble_cases(seed: int = 0) -> dict[str, tuple]:
+    """int16 sample grids at the edges of K3's tiling (4 luma blocks a
+    warp, 16 a CTA along a block row), as name -> (samples (n, nblocks,
+    8, 8) i16, nby, nbx, (h, w)): N=1 and N=3, a grid whose width is
+    not a whole number of CTAs, crops that end inside a block, rows of
+    a width that is not a multiple of 4 pixels (not 16-byte aligned),
+    and a 1x1 image."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, n, nby, nbx, hw in (("n1_full", 1, 4, 6, (32, 48)),
+                                  ("n3_crop_unaligned", 3, 6, 36, (41, 283)),
+                                  ("n1_crop_aligned", 1, 2, 34, (9, 268)),
+                                  ("n3_one_pixel", 3, 2, 2, (1, 1))):
+        nblocks = nby * nbx + 2 * (nby // 2) * (nbx // 2)
+        samples = rng.integers(-32768, 32768, (n, nblocks, 8, 8))
+        samples[:, :, ::2] %= 300            # half the rows near [0, 255]
+        out[name] = (samples.astype(np.int16), nby, nbx, hw)
+    return out

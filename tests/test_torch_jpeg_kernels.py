@@ -23,7 +23,7 @@ from ffpic_tpu.formats import jpg as jax_jpg
 from ffpic_tpu.ops import jpeg_kernels as jax_jk
 from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.formats import jpg as tjpg
-from ffpic_tpu_torch.ops import _build, cuda_jpeg
+from ffpic_tpu_torch.ops import _build, cuda_jpeg, golden
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 
 MODES = ("reference", "bt601", "rgb")
@@ -218,6 +218,71 @@ def test_split_packed_odd_offset():
         np.cumsum(counts.numpy(), 1) - counts.numpy())
 
 
+def _split(case):
+    buf, n, g, e, bmap = case
+    counts, ks, vals = jk.split_packed(torch.from_numpy(buf), n, g, e)
+    return counts, ks, vals, torch.from_numpy(bmap), n, g, e
+
+
+@pytest.mark.parametrize("name", sorted(testing.unpack_cases()))
+def test_unpack_tiles_match_plain(name):
+    """K1b's decomposition, run tile by tile on the CPU: each CTA's entry
+    range from ``cuda_jpeg.unpack_entry_ranges``, each entry given to
+    the last block of its tile whose start is <= it, gives what the
+    plain unpack_coeffs gives.  The ranges tile [0, min(total, E))."""
+    counts, ks, vals, bmap, n, g, e = _split(testing.unpack_cases()[name])
+    starts = jk.count_starts(counts).to(torch.int64)
+    ranges = cuda_jpeg.unpack_entry_ranges(starts.to(torch.int32), counts, e)
+    tiles = -(-g // cuda_jpeg.UNPACK_TILE)
+    assert ranges.shape == (n, tiles, 2)
+    end = (starts[:, -1] + counts[:, -1]).clamp(max=e)
+    assert torch.equal(ranges[:, 0, 0], starts[:, 0].clamp(max=e))
+    assert torch.equal(ranges[:, -1, 1], end)
+    assert torch.equal(ranges[:, 1:, 0], ranges[:, :-1, 1])
+    zz = torch.as_tensor(golden.ZIGZAG, dtype=torch.int64)
+    acc = torch.zeros(n, g * 64, dtype=torch.int64)
+    for i in range(n):
+        for t in range(tiles):
+            g0, g1 = t * cuda_jpeg.UNPACK_TILE, min(
+                (t + 1) * cuda_jpeg.UNPACK_TILE, g)
+            j = torch.arange(int(ranges[i, t, 0]), int(ranges[i, t, 1]))
+            b = torch.searchsorted(starts[i, g0:g1], j, right=True) - 1
+            assert (b >= 0).all()
+            bm = bmap.to(torch.int64)[g0 + b]
+            keep = (bm >= 0) & (bm < g)
+            flat = bm * 64 + zz[ks[i, j].to(torch.int64).clamp(max=63)]
+            acc[i].index_add_(0, flat[keep], vals[i, j].to(torch.int64)[keep])
+    got = jk._wrap(acc, 16).to(torch.int16).view(n, g, 8, 8)
+    assert torch.equal(got, jk.unpack_coeffs(counts, ks, vals, bmap, g))
+
+
+@pytest.mark.parametrize("name", sorted(testing.assemble_cases()))
+def test_assemble_color_crop_matches_jax(name):
+    """The plain K3 with an output size: block grid to planes, nearest
+    chroma repeat and colour on the cropped image, against JAX's
+    color_convert (jitted) on the same planes, cropped."""
+    samples, nby, nbx, (h, w) = testing.assemble_cases()[name]
+    n = samples.shape[0]
+    shapes = ((nby, nbx), (nby // 2, nbx // 2), (nby // 2, nbx // 2))
+    ny, nc = nby * nbx, nby * nbx // 4
+
+    def plane(blocks, by, bx):
+        return blocks.reshape(n, by, bx, 8, 8).transpose(0, 1, 3, 2, 4) \
+            .reshape(n, by * 8, bx * 8)
+
+    yp = plane(samples[:, :ny], nby, nbx)
+    up, vp = (plane(samples[:, ny + k * nc:ny + (k + 1) * nc], nby // 2,
+                    nbx // 2).repeat(2, 1).repeat(2, 2) for k in (0, 1))
+    for mode in MODES:
+        want = np.asarray(jax.jit(functools.partial(
+            jax_jk.color_convert, order="rgba", mode=mode))(
+                yp[:, :h, :w], up[:, :h, :w], vp[:, :h, :w]))
+        got = jk.assemble_color(torch.from_numpy(samples), shapes, "rgba",
+                                mode, hw=(h, w))
+        assert got.shape == (n, h, w, 4)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @functools.lru_cache(maxsize=1)
 def _colour_inputs():
     """All 256^3 in-range (y, u, v) triples, then 2^20 random int16."""
@@ -290,6 +355,26 @@ def test_decode_batch_420_packed_fused_matches_jax(mode):
     got = jk.decode_batch_420_packed_fused(tbuf, tmap, tyq, tcq, 3, g, e,
                                            shapes, order="rgba", mode=mode)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_decode_batch_420_packed_fused_crop_matches_jax():
+    """N=3 through the fused route, written straight at the images'
+    own size (151x219 inside the 160x224 grid), exact."""
+    js = [_packed(k) for k in ("q50", "q85", "q95")]
+    shapes = tuple((c.nby, c.nbx) for c in js[0].comps)
+    buf, g, e = jax_jk.stack_packed_fused([j.packed for j in js])
+    bmap = jax_jpg.packed_block_map(js[0])
+    yq = np.stack([_quant(j, 0).reshape(8, 8) for j in js])[:, None, None]
+    cq = np.stack([_quant(j, 1).reshape(8, 8) for j in js])[:, None, None]
+    want = jax_jk.decode_batch_420_packed_fused(
+        jnp.asarray(buf), bmap, jnp.asarray(yq), jnp.asarray(cq), 3, g, e,
+        shapes, order="bgra", mode="bt601")
+    tbuf, tmap, tyq, tcq = jk.from_jax_inputs(buf, bmap, yq, cq, "cpu")
+    got = jk.decode_batch_420_packed_fused(tbuf, tmap, tyq, tcq, 3, g, e,
+                                           shapes, order="bgra",
+                                           mode="bt601", hw=(151, 219))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want)[:, :151, :219])
 
 
 def test_decode_batch_420_dense_matches_jax():

@@ -99,18 +99,46 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_import_no_jax():
-    """No module of the port (nor chip_smoke.py) imports jax or a
-    ffpic_tpu.ops module other than golden (the others import jax)."""
-    bad = re.compile(r"^\s*(import jax|from jax|"
-                     r"from ffpic_tpu\.ops(\.(?!golden\b)\w+)? import"
-                     r"(?! golden\b)|import ffpic_tpu\.ops\.(?!golden\b))",
-                     re.M)
+    """No module of the port (nor chip_smoke.py) imports jax or anything
+    of the JAX package ffpic_tpu (ffpic_tpu_torch is the port itself)."""
+    bad = re.compile(r"^\s*(import jax\b|from jax\b|"
+                     r"(from|import) ffpic_tpu(\.|\s|,|$))", re.M)
     files = list((REPO / "ffpic_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 8
+    assert len(files) > 12
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in bad.finditer(f.read_text())]
     assert not hits, hits
+    assert bad.search("from ffpic_tpu.native import x\n")
+    assert bad.search("import ffpic_tpu\n")
+    assert not bad.search("from ffpic_tpu_torch import native\n")
+
+
+def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
+    """With the JAX package blocked, the port decodes a packed batch, a
+    single member and a progressive member on the CPU, and loads no
+    module of ffpic_tpu and no jax."""
+    files = {"a": _jpeg(64, 96, 80, 0), "b": _jpeg(64, 96, 60, 1),
+             "c": _jpeg(40, 72, 90, 2), "p": _jpeg(64, 96, 70, 3, True)}
+    for k, v in files.items():
+        (tmp_path / f"{k}.jpg").write_bytes(v)
+    code = (
+        "import sys\n"
+        "sys.modules['ffpic_tpu'] = None\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"d = {str(tmp_path)!r}\n"
+        "from ffpic_tpu_torch import decode_batch\n"
+        "for names, shape in (('aba', (3, 64, 96, 4)), ('c', (1, 40, 72, 4)),"
+        " ('pa', (2, 64, 96, 4))):\n"
+        "    out = decode_batch([f'{d}/{k}.jpg' for k in names], device='cpu')\n"
+        "    assert tuple(out.shape) == shape, (names, out.shape)\n"
+        "bad = [m for m in sys.modules if m.startswith('ffpic_tpu.')"
+        " or m == 'jax' or m.startswith('jax.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, cwd=str(tmp_path))
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
 
 
 def test_device_none_raises_without_cuda(monkeypatch):
