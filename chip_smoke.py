@@ -7,11 +7,13 @@ Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc) and the
 host decoder ``ffpic_tpu_torch/native/host_jpeg.c`` (cc), holds each
 kernel against its plain PyTorch version on the card (bit-exact) at the
 main path's shapes and at the edges of its tiling
-(``testing.unpack_cases``, ``testing.assemble_cases``), drives the main
-path -- ``decode_batch`` over 8 baseline 4:2:0 1920x1080 JPEGs made
-from a seed -- checks its output and that it went through every kernel,
-and times each kernel, warm and with L2 flushed, beside its bound, its
-plain version and (``count_scan``) one ``torch.cumsum``, and the path
+(``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
+``assemble_cases``), and the dense route against the plain route, drives
+the main path -- ``decode_batch`` over 8 baseline 4:2:0 1920x1080 JPEGs
+made from a seed -- checks its output and that it went through every
+kernel, and times each kernel, warm and with L2 flushed, beside its
+bound, its plain version, (``count_scan``) one ``torch.cumsum`` and the
+launch floor (the fastest empty launch in the same loop), and the path
 end to end.  One line per phase; then the kernel table as one JSON line,
 and last ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero; without CUDA it exits 1 at once.
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +60,30 @@ def exact(name: str, got, want, errs: dict) -> None:
                              f"by up to {err}")
 
 
+def ptxas_report(text: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
+    stack_bytes, spill_bytes}}, a template instance named with its
+    arguments, e.g. ``assemble_color<1,0>`` (mode, order)."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color)"
+                          r"_kernel(?:ILi(\d)ELi(\d)E)?", m.group(1))
+            name = k.group(1) + (f"<{k.group(2)},{k.group(3)}>"
+                                 if k.group(2) else "")
+            out[name] = {}
+        elif name and "stack frame" in line:
+            stack, st, ld = map(int, re.findall(r"(\d+) bytes", line))
+            out[name].update(stack_bytes=stack, spill_bytes=st + ld)
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"(\d+) registers",
+                                                   line).group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -71,7 +98,8 @@ def main() -> int:
     from ffpic_tpu_torch.ops.resize import resize_rgba
     from ffpic_tpu_torch.pipeline import _prep
     from ffpic_tpu_torch.utils import trace
-    from ffpic_tpu_torch.utils.timing import bound, gpu_ms, gpu_ms_cold
+    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
+                                              bound, gpu_ms, gpu_ms_cold)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -93,9 +121,9 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - t0:.3f}",
         lib=os.path.basename(so), host_lib=os.path.basename(native._build()))
     with open(so[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+        ptxas = ptxas_report(f.read())
+    for name, info in ptxas.items():
+        log("ptxas", kernel=name, **info)
 
     t0 = time.perf_counter()
     jpegs = [testing.synth_jpeg_420(H, W, 85, 1),
@@ -143,9 +171,16 @@ def main() -> int:
         exact("count_scan", cstarts, jk.count_starts(cc), errs)
         exact("unpack", cuda_jpeg.unpack(cbuf, cstarts, cmap, cn, cg, ce, cg),
               jk.unpack_coeffs(cc, cks, cv, cmap, cg), errs)
+    # the edges of K1a's cluster cut: fewer words than CTAs, rows that
+    # share a word, unaligned rows, all 255 and all 0, CTAs that loop;
+    # each buffer exactly n*g bytes
+    for cnt, cn, cg in testing.scan_cases().values():
+        cnt = torch.from_numpy(cnt).to(dev)
+        exact("count_scan", cuda_jpeg.count_scan(cnt, cn, cg),
+              jk.count_starts(cnt.view(cn, cg)), errs)
     log("check K1", count_scan="exact", unpack="exact",
         nonzeros=[j.packed[3] for j in plans[:2]], e=e,
-        edge_cases=",".join(testing.unpack_cases()))
+        edge_cases=",".join([*testing.unpack_cases(), *testing.scan_cases()]))
 
     samples = cuda_jpeg.dequant_idct(coeffs_p, yq, cq, nby * nbx)
     samples_p = jk.dequant_idct_blocks(coeffs_p, yq, cq, nby * nbx)
@@ -164,7 +199,23 @@ def main() -> int:
                                        dtype=np.int32)).to(dev)
     exact("dequant_idct", cuda_jpeg.dequant_idct(rblk, rq[0], rq[1], 3000),
           jk.dequant_idct_blocks(rblk, rq[0], rq[1], 3000), errs)
-    log("check K2", dequant_idct="exact", cases="8x1080p,extreme,random")
+    # the edges of K2's tiles: part-full last tiles, the luma/chroma
+    # boundary at 0, at nblocks and at 32k +- 1, N=1 and N=3
+    for cco, cyq, ccq, cnl in testing.idct_cases().values():
+        cco, cyq, ccq = (torch.from_numpy(a).to(dev) for a in (cco, cyq, ccq))
+        exact("dequant_idct", cuda_jpeg.dequant_idct(cco, cyq, ccq, cnl),
+              jk.dequant_idct_blocks(cco, cyq, ccq, cnl), errs)
+    log("check K2", dequant_idct="exact", cases="8x1080p,extreme,random," +
+        ",".join(testing.idct_cases()))
+    # the dense route (progressive members): K2 + K3 on the main path's
+    # coefficients against the plain route
+    dense = jk.decode_batch_420_dense(coeffs_p, yq, cq, shapes, "rgba",
+                                      "bt601", (H, W))
+    if not torch.equal(dense, jk.decode_batch_420(coeffs_p, yq, cq, shapes,
+                                                  "rgba", "bt601", (H, W))):
+        raise AssertionError("the dense route differs from the plain route")
+    log("check dense route", shape=tuple(dense.shape), plain_route="exact")
+    del dense
 
     exact("assemble_color", cuda_jpeg.assemble_color(
         samples_p, nby, nbx, "rgba", "bt601", (H, W)),
@@ -252,35 +303,64 @@ def main() -> int:
                    .diff(dim=-1)).sum())
     ng, nb_all = N * g, N * nblocks
     npx, nch = N * H * W, N * ((H + 1) // 2) * ((W + 1) // 2)
-    work = {    # name: (kernel, plain, bytes, ops)
+    # ops are the work of each kernel's function, whatever implements
+    # it: K2 is charged the direct 8x8 product, (64 + 2*1024) per block,
+    # though its even/odd passes do less; a multiply-add is 2 ops
+    work = {    # name: (kernel, plain, bytes, ops, type of the ops)
         "count_scan": (lambda: cuda_jpeg.count_scan(buf, N, g),
-                       lambda: jk.count_starts(counts), 5 * ng, ng),
+                       lambda: jk.count_starts(counts), 5 * ng, ng,
+                       "int32"),
         "unpack": (lambda: cuda_jpeg.unpack(buf, starts, bmap, N, g, e,
                                             nblocks),
                    lambda: jk.unpack_coeffs(counts, ks, vals, bmap, nblocks),
-                   5 * ng + 4 * g + 3 * entries + 128 * nb_all, entries),
+                   5 * ng + 4 * g + 3 * entries + 128 * nb_all, entries,
+                   "int32"),
         "dequant_idct": (lambda: cuda_jpeg.dequant_idct(coeffs, yq, cq,
                                                         nby * nbx),
                          lambda: jk.dequant_idct_blocks(coeffs, yq, cq,
                                                         nby * nbx),
-                         256 * nb_all + 512 * N, (64 + 2 * 1024) * nb_all),
+                         256 * nb_all + 512 * N, (64 + 2 * 1024) * nb_all,
+                         "int32"),
         "assemble_color": (lambda: cuda_jpeg.assemble_color(
             samples, nby, nbx, "rgba", "bt601", (H, W)),
             lambda: jk.assemble_color(samples, shapes, "rgba", "bt601",
                                       (H, W)),
-            2 * npx + 4 * nch + 4 * npx, 13 * npx),
+            2 * npx + 4 * nch + 4 * npx, 13 * npx, "f32"),
     }
+    rates = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S}
     library = {"count_scan": lambda: torch.cumsum(counts, dim=1,
                                                   dtype=torch.int32)}
+    # the launch floor: the fastest launch the card takes in the same
+    # loop, the least any kernel here can read
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    floors = {"sleep1": gpu_ms(lambda: torch.cuda._sleep(1), 50),
+              "add1": gpu_ms(lambda: one.add_(1), 50)}
+    floor_ms = min(floors.values())
+    log("time launch floor", ms=f"{floor_ms:.4f}",
+        **{k: f"{v:.4f}" for k, v in floors.items()})
+    # what the card's memory gives a plain stream: a device copy of the
+    # main path's coefficients, the bytes K2 moves
+    copy_dst = torch.empty_like(coeffs)
+
+    def copy():
+        copy_dst.copy_(coeffs)
+
+    log("time copy yardstick", bytes=4 * coeffs.numel(),
+        ms=f"{gpu_ms(copy, 50):.4f}",
+        ms_cold=f"{gpu_ms_cold(copy, 20, flush):.4f}")
+    del copy_dst
     timed = {}
-    for name, (kern, pl, nbytes, ops) in work.items():
-        b_ms, b_by = bound(nbytes, ops)
+    for name, (kern, pl, nbytes, ops, ops_type) in work.items():
+        rate = rates[ops_type]
+        b_ms, b_by = bound(nbytes, ops, rate)
         timed[name] = {
             "ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
             "plain_ms": gpu_ms(pl, 5 if name != "count_scan" else 20),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": (gpu_ms(library[name], 50) if name in library
                            else None),
+            "launch_floor_ms": floor_ms,
+            "ops_type": ops_type,
             "bytes": nbytes, "ops": ops}
         t = timed[name]
         t["share"] = b_ms / t["ms"]
@@ -288,8 +368,10 @@ def main() -> int:
         log("time kernel", name=name, ms=f"{t['ms']:.4f}",
             ms_cold=f"{t['ms_cold']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
             bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+            ops_ms=f"{ops / rate * 1e3:.4f}", ops_type=ops_type,
             share_warm=f"{t['share']:.3f}",
             share_cold=f"{t['share_cold']:.3f}", bytes=nbytes,
+            launch_floor_ms=f"{floor_ms:.4f}",
             library_ms=("null" if t["library_ms"] is None
                         else f"{t['library_ms']:.4f}"))
     del flush
@@ -300,6 +382,12 @@ def main() -> int:
         "rgba", "bt601", (H, W)), 3)
     resize_ms = gpu_ms(lambda: torch.stack(
         [resize_rgba(p, (224, 224)) for p in out]), 10)
+    # resize as ops/resize.py runs it: uint8 in and out once, and the
+    # f32 products of the two dense weight matrices (1080->224 over
+    # rows, then 1920->224 over columns), 2 ops a multiply-add
+    resize_bound = bound(
+        4 * N * (H * W + 224 * 224),
+        2 * 4 * N * (W * H * 224 + 224 * W * 224), F32_OPS_PER_S)
     mp = N * H * W / 1e6
     trace.reset()
     trace.enable()
@@ -317,15 +405,20 @@ def main() -> int:
         device_pipeline_mps=f"{mp / dev_ms * 1e3:.1f}",
         plain_device_ms=f"{plain_dev_ms:.4f}",
         resize_224_ms=f"{resize_ms:.4f}",
+        resize_224_bound_ms=f"{resize_bound[0]:.4f}",
+        resize_224_bound_by=resize_bound[1],
         end_to_end_ms=f"{wall * 1e3:.3f}",
         end_to_end_ms_runs=json.dumps([round(w * 1e3, 3) for w in walls]).replace(" ", ""),
         jpeg_1080p_420_decode_end_to_end_mps=f"{mp / wall:.2f}",
         host_entropy_packed_mps=f"{mp / (stages['torch.host_parse'] / 1e3):.2f}",
         stage_ms=json.dumps(stages).replace(" ", ""))
 
+    # the instance of assemble_color the main path runs: bt601, rgba
+    built = {"assemble_color": "assemble_color<1,0>"}
     kernels = [{"name": name, "route": "cuda", "source": CU,
                 "replaces": REPLACES[name], "launches": launches[name],
-                "max_abs_err": errs[name], **timed[name]}
+                "max_abs_err": errs[name], **timed[name],
+                "ptxas": ptxas[built.get(name, name)]}
                for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

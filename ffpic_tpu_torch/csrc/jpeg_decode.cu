@@ -32,8 +32,11 @@
 // reference's y - 0.215*u - 0.381*v; every other step is an explicit
 // _rn intrinsic, so nvcc's own contraction cannot change the rounding.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -44,52 +47,170 @@ __constant__ uint8_t kZigzag[64] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
-// 13-bit IDCT basis with libjpeg's off-by-one quirks (golden.IDCT_P13).
-// A local constexpr table: with the loops unrolled every entry folds
-// into an immediate operand.
-__device__ __forceinline__ int32_t idct_coef(int i, int u) {
-  constexpr int32_t t[8][8] = {
-      {8192, 11363, 10703, 9633, 8192, 6437, 4433, 2260},
-      {8192, 9633, 4433, -2259, -8192, -11362, -10704, -6436},
-      {8192, 6437, -4433, -11362, -8192, 2261, 10704, 9633},
-      {8192, 2260, -10703, -6436, 8192, 9633, -4433, -11363},
-      {8192, -2260, -10703, 6436, 8192, -9633, -4433, 11363},
-      {8192, -6437, -4433, 11362, -8192, -2261, 10704, -9633},
-      {8192, -9633, 4433, 2259, -8192, 11362, -10704, 6436},
-      {8192, -11363, 10703, -9633, 8192, -6437, 4433, -2260},
-  };
-  return t[i][u];
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
 }
 
-constexpr int kScanThreads = 1024;
-
 // K1a. Replaces `jnp.cumsum(counts) - counts` in
-// ffpic_tpu/ops/jpeg_kernels.py:_unpack_coeffs. One block per image walks
-// its G counts in chunks of kScanThreads, a shared-memory Hillis-Steele
-// scan per chunk plus a running carry. Bound: N*G bytes in, 4*N*G out
-// (under 2 MB for 8 x 1080p); it is launch- and latency-bound, with N
-// blocks on 132 SMs, and small beside K1b-K3.
-__global__ void count_scan_kernel(const uint8_t* __restrict__ buf,
-                                  int32_t* __restrict__ starts, int g) {
-  __shared__ int32_t tmp[kScanThreads];
-  const uint8_t* counts = buf + (int64_t)blockIdx.x * g;
-  int32_t* out = starts + (int64_t)blockIdx.x * g;
-  int32_t carry = 0;
-  for (int base = 0; base < g; base += kScanThreads) {
-    int i = base + threadIdx.x;
-    int32_t c = i < g ? (int32_t)counts[i] : 0;
-    tmp[threadIdx.x] = c;
-    __syncthreads();
-    for (int off = 1; off < kScanThreads; off <<= 1) {
-      int32_t add = threadIdx.x >= off ? tmp[threadIdx.x - off] : 0;
-      __syncthreads();
-      tmp[threadIdx.x] += add;
-      __syncthreads();
-    }
-    if (i < g) out[i] = carry + tmp[threadIdx.x] - c;   // exclusive
-    carry += tmp[kScanThreads - 1];
-    __syncthreads();
+// ffpic_tpu/ops/jpeg_kernels.py:_unpack_coeffs. Bound: N*G bytes in,
+// 4*N*G out (1.96 MB for 8 x 1080p, 0.6 us at 3.35 TB/s), far below
+// the time of one launch, so the design aims at the launch floor: one
+// launch, each image spread over a cluster of kScanCluster CTAs, and as
+// few dependent round trips and barriers as the scan allows.
+//
+// Image blockIdx.y is the row [s, t) = [img*G, img*G + G) of the counts
+// (and of the starts, which share their flat index). The 16-byte words
+// that cover the row are cut into kScanCluster runs of equal length
+// (cuda_jpeg.count_scan_ranges mirrors the cut); CTA rank r of the
+// cluster takes run r, clipped to the row. A CTA
+//   1. sums its counts (one 16-byte load a word, __dp4a) and publishes
+//      the total in shared memory;
+//   2. after a cluster barrier, reads the totals of the lower ranks over
+//      distributed shared memory: their sum is its offset;
+//   3. scans its run kScanThreads words a pass (the first pass reuses
+//      the words of step 1 from registers): each thread scans its 16
+//      counts serially, a warp scans the thread totals with shuffles,
+//      the CTA its warp totals after one barrier; the 64 bytes of starts
+//      a thread makes go through shared memory so that a warp stores
+//      512 contiguous bytes per 16-byte store instruction. A longer run
+//      loops with a running carry;
+//   4. waits at a second cluster barrier before it exits, so that its
+//      shared total outlives every rank that reads it.
+// Sums are taken in uint32: the wrap is the int32 wrap of the reference.
+// No global scratch, no second launch.
+constexpr int kScanCluster = 8;
+constexpr int kScanThreads = 512;
+constexpr int kScanWarps = kScanThreads / 32;
+
+// The 16-byte word w of buf, with every byte outside [s, t) zero. A word
+// that is not wholly inside is read byte by byte, so nothing outside
+// [s, t) is read.
+__device__ __forceinline__ uint4 load_counts(const uint8_t* __restrict__ buf,
+                                             int64_t w, int64_t s, int64_t t) {
+  const int64_t off = 16 * w;
+  if (off >= s && off + 16 <= t)
+    return __ldg(reinterpret_cast<const uint4*>(buf + off));
+  uint32_t wd[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (off + k >= s && off + k < t)
+      wd[k >> 2] |= (uint32_t)buf[off + k] << (8 * (k & 3));
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+
+__device__ __forceinline__ uint32_t word_sum(uint4 v) {
+  constexpr uint32_t ones = 0x01010101u;
+  return __dp4a(v.x, ones, __dp4a(v.y, ones, __dp4a(v.z, ones,
+                                                    __dp4a(v.w, ones, 0u))));
+}
+
+// Slot of chunk c (4 starts) of thread q's 16 in the staging buffer,
+// rotated by q/2 so that the 8 threads of a quarter warp hit distinct
+// banks when each writes its 4 chunks.
+__device__ __forceinline__ int scan_slot(int q, int c) {
+  return 4 * q + ((c + (q >> 1)) & 3);
+}
+
+__global__ void __cluster_dims__(kScanCluster, 1, 1)
+    __launch_bounds__(kScanThreads)
+count_scan_kernel(const uint8_t* __restrict__ buf,
+                  int32_t* __restrict__ starts, int g) {
+  __shared__ uint32_t s_total;
+  __shared__ uint32_t s_offset;
+  __shared__ uint32_t s_warp[kScanWarps];
+  __shared__ __align__(16) uint32_t s_out[16 * kScanThreads];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t s = (int64_t)blockIdx.y * g, t = s + g;
+  const int64_t w0 = s >> 4, w1 = (t + 15) >> 4;
+  const int64_t run = (w1 - w0 + kScanCluster - 1) / kScanCluster;
+  const int64_t wa = min64(w0 + rank * run, w1), wb = min64(wa + run, w1);
+  const int64_t lo = 16 * wa > s ? 16 * wa : s, hi = min64(16 * wb, t);
+
+  // 1. this CTA's total
+  uint4 first = make_uint4(0, 0, 0, 0);
+  uint32_t sum = 0;
+  for (int64_t w = wa + tid; w < wb; w += kScanThreads) {
+    const uint4 v = load_counts(buf, w, s, t);
+    if (w == wa + tid) first = v;
+    sum += word_sum(v);
   }
+  sum = __reduce_add_sync(0xffffffffu, sum);
+  if (lane == 0) s_warp[warp] = sum;
+  __syncthreads();
+  if (tid == 0) {
+    uint32_t total = 0;
+#pragma unroll
+    for (int i = 0; i < kScanWarps; ++i) total += s_warp[i];
+    s_total = total;
+  }
+  // 2. the lower ranks' totals
+  cluster.sync();
+  if (warp == 0) {
+    uint32_t v = lane < rank ? *cluster.map_shared_rank(&s_total, lane) : 0u;
+    v = __reduce_add_sync(0xffffffffu, v);
+    if (lane == 0) s_offset = v;
+  }
+  __syncthreads();
+
+  // 3. the scan, kScanThreads words a pass
+  uint32_t carry = s_offset;
+  for (int64_t base = wa; base < wb; base += kScanThreads) {
+    const int64_t w = base + tid;
+    const uint4 v = w >= wb ? make_uint4(0, 0, 0, 0)
+                    : base == wa ? first : load_counts(buf, w, s, t);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    uint32_t ex[16];
+    uint32_t mine = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      ex[k] = mine;
+      mine += (words[k >> 2] >> (8 * (k & 3))) & 0xFFu;
+    }
+    uint32_t inc = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t up = __shfl_up_sync(0xffffffffu, inc, d);
+      if (lane >= d) inc += up;
+    }
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    uint32_t before = 0, pass = 0;
+#pragma unroll
+    for (int i = 0; i < kScanWarps; ++i) {
+      const uint32_t x = s_warp[i];
+      before += i < warp ? x : 0u;
+      pass += x;
+    }
+    const uint32_t head = carry + before + inc - mine;
+    uint4* stage = reinterpret_cast<uint4*>(s_out);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      stage[scan_slot(tid, c)] =
+          make_uint4(head + ex[4 * c], head + ex[4 * c + 1],
+                     head + ex[4 * c + 2], head + ex[4 * c + 3]);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int j = tid + kScanThreads * m;        // chunk of this pass
+      const int64_t f = 16 * base + 4 * (int64_t)j;
+      if (f >= hi) continue;
+      const uint4 o = stage[scan_slot(j >> 2, j & 3)];
+      if (f >= lo && f + 4 <= hi) {
+        *reinterpret_cast<uint4*>(starts + f) = o;
+      } else {
+        const uint32_t os[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (f + k >= lo && f + k < hi) starts[f + k] = (int32_t)os[k];
+      }
+    }
+    carry += pass;
+  }
+  // 4. no rank leaves while another may still read its s_total
+  cluster.sync();
 }
 
 // K1b. Replaces the scatter-add of ffpic_tpu/ops/jpeg_kernels.py:
@@ -128,10 +249,6 @@ __global__ void count_scan_kernel(const uint8_t* __restrict__ buf,
 constexpr int kUnpackTile = 64;
 constexpr int kUnpackThreads = 256;
 constexpr int kUnpackChunk = 2048;
-
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
 
 // Copy bytes [from, to) of buf into dst as the 16-byte words that cover
 // them and return the offset of byte `from` in dst. A word that runs
@@ -230,82 +347,141 @@ unpack_kernel(const uint8_t* __restrict__ buf,
   }
 }
 
+__device__ __forceinline__ int lo16(uint32_t w) { return (int16_t)(w & 0xFFFFu); }
+__device__ __forceinline__ int hi16(uint32_t w) { return (int16_t)(w >> 16); }
+
 // K2. Replaces the Pallas kernel ffpic_tpu/ops/pallas_jpeg.py:_kernel
 // (dequant_idct_pallas) and the XLA path of
-// ffpic_tpu/ops/jpeg_kernels.py:dequant_idct_blocks. One thread per
-// block, block-major: the 64 coefficients come in as eight 16-byte
-// loads, both passes run on registers with the basis as immediates, and
-// 128 bytes go out. The TPU kernel's lane-major (8, 8, N) layout and the
-// transposes around it are not needed on this card. Bound: 256 bytes of
-// traffic and ~1k integer multiply-adds per block, so memory-bound
-// (100 MB moved for 8 x 1080p). Blocks below n_luma (within an image)
-// use that image's luma table, the rest its chroma table.
-__global__ void dequant_idct_kernel(const int16_t* __restrict__ coef,
-                                    const int32_t* __restrict__ yquant,
-                                    const int32_t* __restrict__ cquant,
-                                    int16_t* __restrict__ out,
-                                    int64_t total, int nblocks, int n_luma) {
-  int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= total) return;
-  int img = (int)(b / nblocks);
-  int within = (int)(b - (int64_t)img * nblocks);
-  const int32_t* q = (within < n_luma ? yquant : cquant) + (int64_t)img * 64;
+// ffpic_tpu/ops/jpeg_kernels.py:dequant_idct_blocks. Bound: each block
+// is 128 bytes in and 128 out (100.3 MB for 8 x 1080p, 0.0299 ms at
+// 3.35 TB/s); the even/odd passes below take 384 integer multiplies a
+// block where the direct 8x8 product takes 1088, which puts the integer
+// pipe under a third of the byte bound, so the kernel is bounded by
+// bytes and the design is about moving them in whole lines.
+//
+// One CTA takes a tile of kIdctTile consecutive blocks of one image
+// (blockIdx.x the tile, blockIdx.y the image, so no thread divides),
+// eight threads a block, all in one warp:
+//   1. thread r of a block loads row r as one 16-byte load (a warp reads
+//      4 blocks, 512 contiguous bytes); the image's luma and chroma
+//      tables are staged into shared memory once per CTA, and a block
+//      takes the luma table when it lies below n_luma (a tile can
+//      straddle the boundary);
+//   2. the thread dequantises its row (the product wrapped to int16) and
+//      writes it to the block's slot in shared memory; __syncwarp;
+//   3. thread c runs the column pass on column c, in place; __syncwarp;
+//   4. thread r runs the row pass on row r, clamps, and stores its 16
+//      bytes: a warp writes 4 whole blocks.
+// A slot is kIdctStride int16 (64 + 8 padding), so that the column
+// reads and writes of a warp's 4 blocks fall on distinct banks.
+//
+// Each 8-point pass is the even/odd split of IDCT_P13: row 7-i of the
+// basis is row i with the odd-u entries negated, so out[i] = E_i + O_i
+// and out[7-i] = E_i - O_i for i < 4, E from x0, x2, x4, x6 and O from
+// x1, x3, x5, x7. All sums are mod 2^32 (uint32), so regrouping the
+// same products changes no bit; the rounding shifts, the int16 wrap
+// after the column pass and the [0, 65535] clamp stay where the
+// reference has them. libjpeg's off-by-one entries (-2259, -11362,
+// 2261, 10704) break the remaining symmetries, so a further
+// factorisation would not compute the same products.
+//
+// Tensor cores are not used: Hopper's integer MMA takes int8 operands
+// only, and an int16 coefficient times a 14-bit basis entry would take
+// four byte-split products per term, for a kernel whose integer work
+// is already under a third of its byte bound.
+constexpr int kIdctTile = 32;
+constexpr int kIdctThreads = 8 * kIdctTile;
+constexpr int kIdctStride = 72;
 
-  int32_t x[64];
-  const uint4* src = reinterpret_cast<const uint4*>(coef + b * 64);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    uint4 w = src[i];
-    uint32_t words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      int p = 8 * i + 2 * h;
-      // (c * q) wrapped to int16: only the product's low 16 bits matter
-      x[p] = (int16_t)(uint16_t)((uint32_t)(int16_t)(words[h] & 0xFFFF) *
-                                 (uint32_t)__ldg(q + p));
-      x[p + 1] = (int16_t)(uint16_t)((uint32_t)(int16_t)(words[h] >> 16) *
-                                     (uint32_t)__ldg(q + p + 1));
-    }
+// y[i] = sum_u IDCT_P13[i][u] * x[u], mod 2^32
+__device__ __forceinline__ void idct8(const uint32_t x[8], uint32_t y[8]) {
+  const uint32_t a = (x[0] + x[4]) << 13, b = (x[0] - x[4]) << 13;
+  const uint32_t p = 10703u * x[2] + 4433u * x[6];
+  const uint32_t q = 4433u * x[2] - 10704u * x[6];
+  const uint32_t e0 = a + p, e1 = b + q, e2 = b - q, e3 = a - p;
+  const uint32_t o0 = 11363u * x[1] + 9633u * x[3] + 6437u * x[5] +
+                      2260u * x[7];
+  const uint32_t o1 = 9633u * x[1] - 2259u * x[3] - 11362u * x[5] -
+                      6436u * x[7];
+  const uint32_t o2 = 6437u * x[1] - 11362u * x[3] + 2261u * x[5] +
+                      9633u * x[7];
+  const uint32_t o3 = 2260u * x[1] - 6436u * x[3] + 9633u * x[5] -
+                      11363u * x[7];
+  y[0] = e0 + o0; y[7] = e0 - o0;
+  y[1] = e1 + o1; y[6] = e1 - o1;
+  y[2] = e2 + o2; y[5] = e2 - o2;
+  y[3] = e3 + o3; y[4] = e3 - o3;
+}
+
+// row pass result: (s + (257 << 17)) >> 18 clamped to [0, 65535]
+__device__ __forceinline__ uint32_t idct_sample(uint32_t s) {
+  const int32_t r = (int32_t)(s + (257u << 17)) >> 18;
+  return (uint32_t)(r < 0 ? 0 : (r > 65535 ? 65535 : r));
+}
+
+__global__ void __launch_bounds__(kIdctThreads, 8)
+dequant_idct_kernel(const int16_t* __restrict__ coef,
+                    const int32_t* __restrict__ yquant,
+                    const int32_t* __restrict__ cquant,
+                    int16_t* __restrict__ out, int nblocks, int n_luma) {
+  __shared__ __align__(16) int32_t s_q[2 * 64];
+  __shared__ __align__(16) int16_t s_x[kIdctTile * kIdctStride];
+
+  const int tid = threadIdx.x, r = tid & 7;
+  const int blk = blockIdx.x * kIdctTile + (tid >> 3);
+  const bool live = blk < nblocks;
+  const int64_t off = ((int64_t)blockIdx.y * nblocks + blk) * 64 + 8 * r;
+  uint4 w = make_uint4(0, 0, 0, 0);
+  if (live) w = __ldg(reinterpret_cast<const uint4*>(coef + off));
+  if (tid < 32) {
+    const int32_t* q = (tid < 16 ? yquant : cquant) + (int64_t)blockIdx.y * 64;
+    reinterpret_cast<uint4*>(s_q)[tid] =
+        __ldg(reinterpret_cast<const uint4*>(q) + (tid & 15));
   }
-  // column pass: col[i][c] = sum_u T[i][u] * x[u][c], (+1<<10)>>11, int16
-  int32_t col[64];
+  __syncthreads();
+
+  // 2. dequantise row r: only the product's low 16 bits are kept
+  const uint4* qrow = reinterpret_cast<const uint4*>(
+      s_q + (blk < n_luma ? 0 : 64) + 8 * r);
+  const uint4 qa = qrow[0], qb = qrow[1];
+  const uint32_t cw[4] = {w.x, w.y, w.z, w.w};
+  const uint32_t qs[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+  uint32_t dw[4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int h = 0; h < 4; ++h)
+    dw[h] = (((uint32_t)lo16(cw[h]) * qs[2 * h]) & 0xFFFFu) |
+            ((uint32_t)hi16(cw[h]) * qs[2 * h + 1] << 16);
+  int16_t* slot = s_x + (tid >> 3) * kIdctStride;
+  reinterpret_cast<uint4*>(slot)[r] = make_uint4(dw[0], dw[1], dw[2], dw[3]);
+  __syncwarp();
+
+  // 3. column pass on column r: (+1<<10)>>11, wrapped to int16
+  {
+    uint32_t x[8], y[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      uint32_t s = 0;
+    for (int u = 0; u < 8; ++u) x[u] = (uint32_t)(int32_t)slot[8 * u + r];
+    idct8(x, y);
 #pragma unroll
-      for (int u = 0; u < 8; ++u)
-        s += (uint32_t)idct_coef(i, u) * (uint32_t)x[8 * u + c];
-      col[8 * i + c] = (int16_t)(uint16_t)(uint32_t)((int32_t)(s + (1u << 10)) >> 11);
-    }
+    for (int i = 0; i < 8; ++i)
+      slot[8 * i + r] =
+          (int16_t)(uint16_t)(uint32_t)((int32_t)(y[i] + (1u << 10)) >> 11);
   }
-  // row pass: out[y][i] = sum_u T[i][u] * col[y][u], (+257<<17)>>18,
-  // clamp [0, 65535], stored int16
-  uint32_t res[32];
-#pragma unroll
-  for (int y = 0; y < 8; ++y) {
-#pragma unroll
-    for (int i = 0; i < 8; i += 2) {
-      uint32_t pair = 0;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t s = 0;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          s += (uint32_t)idct_coef(i + h, u) * (uint32_t)col[8 * y + u];
-        int32_t r = (int32_t)(s + (257u << 17)) >> 18;
-        r = r < 0 ? 0 : (r > 65535 ? 65535 : r);
-        pair |= (uint32_t)r << (16 * h);
-      }
-      res[4 * y + i / 2] = pair;
-    }
-  }
-  uint4* dst = reinterpret_cast<uint4*>(out + b * 64);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    dst[i] = make_uint4(res[4 * i], res[4 * i + 1], res[4 * i + 2],
-                        res[4 * i + 3]);
+  __syncwarp();
+
+  // 4. row pass on row r, clamped, stored as int16
+  const uint4 c = reinterpret_cast<const uint4*>(slot)[r];
+  const uint32_t x[8] = {(uint32_t)lo16(c.x), (uint32_t)hi16(c.x),
+                         (uint32_t)lo16(c.y), (uint32_t)hi16(c.y),
+                         (uint32_t)lo16(c.z), (uint32_t)hi16(c.z),
+                         (uint32_t)lo16(c.w), (uint32_t)hi16(c.w)};
+  uint32_t y[8];
+  idct8(x, y);
+  if (live)
+    *reinterpret_cast<uint4*>(out + off) = make_uint4(
+        idct_sample(y[0]) | idct_sample(y[1]) << 16,
+        idct_sample(y[2]) | idct_sample(y[3]) << 16,
+        idct_sample(y[4]) | idct_sample(y[5]) << 16,
+        idct_sample(y[6]) | idct_sample(y[7]) << 16);
 }
 
 __device__ __forceinline__ uint8_t clip_u8(float f) {
@@ -347,9 +523,6 @@ __device__ __forceinline__ uint32_t pixel(int ys, int us, int vs) {
   }
   return (uint32_t)r | ((uint32_t)g << 8) | ((uint32_t)b << 16) | 0xFF000000u;
 }
-
-__device__ __forceinline__ int lo16(uint32_t w) { return (int16_t)(w & 0xFFFFu); }
-__device__ __forceinline__ int hi16(uint32_t w) { return (int16_t)(w >> 16); }
 
 // K3. Replaces the post-IDCT part of ffpic_tpu/ops/jpeg_kernels.py:
 // decode_batch_420 (block->plane assembly, 2x nearest chroma repeat,
@@ -423,18 +596,20 @@ void launch_assemble_color(const int16_t* s, uint8_t* out, int n, int nby,
       s, out, nby, nbx, h, w);
 }
 
-constexpr int kThreads = 256;
-
-int64_t blocks_for(int64_t work) { return (work + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 extern "C" {
 
-int ffpic_count_scan(const void* buf, void* starts, int n, int g,
+int ffpic_count_scan(const void* buf, void* starts, int n, int g, int cluster,
                      void* stream) {
-  count_scan_kernel<<<n, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)buf, (int32_t*)starts, g);
+  // cluster is the caller's kScanCluster (cuda_jpeg.SCAN_CLUSTER, whose
+  // count_scan_ranges mirrors the cut): refuse a caller that cuts
+  // otherwise, and an image count the grid's y cannot hold
+  if (cluster != kScanCluster || n <= 0 || g <= 0 || n > 65535)
+    return (int)cudaErrorInvalidValue;
+  count_scan_kernel<<<dim3(kScanCluster, (unsigned)n), kScanThreads, 0,
+                      (cudaStream_t)stream>>>((const uint8_t*)buf,
+                                              (int32_t*)starts, g);
   return (int)cudaGetLastError();
 }
 
@@ -454,12 +629,15 @@ int ffpic_unpack(const void* buf, const void* starts, const void* block_map,
 
 int ffpic_dequant_idct(const void* coef, const void* yquant,
                        const void* cquant, void* out, int n, int nblocks,
-                       int n_luma, void* stream) {
-  int64_t total = (int64_t)n * nblocks;
-  dequant_idct_kernel<<<(unsigned)blocks_for(total), kThreads, 0,
-                        (cudaStream_t)stream>>>(
+                       int n_luma, int tile, void* stream) {
+  // tile is the caller's kIdctTile (cuda_jpeg.IDCT_TILE)
+  if (tile != kIdctTile || n <= 0 || n > 65535 || nblocks <= 0 ||
+      n_luma < 0 || n_luma > nblocks)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)((nblocks + kIdctTile - 1) / kIdctTile), (unsigned)n);
+  dequant_idct_kernel<<<grid, kIdctThreads, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coef, (const int32_t*)yquant, (const int32_t*)cquant,
-      (int16_t*)out, total, nblocks, n_luma);
+      (int16_t*)out, nblocks, n_luma);
   return (int)cudaGetLastError();
 }
 

@@ -26,19 +26,43 @@ ORDERS = {"rgba": 0, "bgra": 1}
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _SIGNATURES = {
-    "ffpic_count_scan": [_vp, _vp, _int, _int, _vp],
+    "ffpic_count_scan": [_vp, _vp, _int, _int, _int, _vp],
     "ffpic_unpack": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                      _vp],
-    "ffpic_dequant_idct": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    "ffpic_dequant_idct": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "ffpic_assemble_color": [_vp, _vp, _int, _int, _int, _int, _int, _int,
                              _int, _vp],
 }
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535           # an image index is a grid y or z coordinate
 
-# K1b's tiling (kUnpackTile in csrc/jpeg_decode.cu, which refuses any
-# other): one CTA per UNPACK_TILE consecutive packed blocks of an image
+# The kernels' tilings, which the C entries of csrc/jpeg_decode.cu
+# check against their own constants and refuse when they differ:
+# K1a spreads each image over a cluster of SCAN_CLUSTER CTAs
+# (kScanCluster), K1b gives a CTA UNPACK_TILE consecutive packed blocks
+# of an image (kUnpackTile), K2 IDCT_TILE blocks (kIdctTile)
+SCAN_CLUSTER = 8
 UNPACK_TILE = 64
+IDCT_TILE = 32
+
+
+def count_scan_ranges(n: int, g: int) -> torch.Tensor:
+    """(n, SCAN_CLUSTER, 2) int64: the [lo, hi) range of an image's
+    counts (indices within its row) that each CTA of K1a's cluster
+    scans, as the kernel cuts it -- the 16-byte words that cover the
+    row ``[i*g, i*g + g)`` of the flat counts, in SCAN_CLUSTER runs of
+    ``ceil(words / SCAN_CLUSTER)``, each clipped to the row.  A rank
+    past the last word gets an empty range at g."""
+    s = torch.arange(n, dtype=torch.int64) * g
+    t = s + g
+    w0, w1 = s // 16, (t + 15) // 16
+    run = (w1 - w0 + SCAN_CLUSTER - 1) // SCAN_CLUSTER
+    rank = torch.arange(SCAN_CLUSTER, dtype=torch.int64)
+    wa = torch.minimum(w0[:, None] + rank * run[:, None], w1[:, None])
+    wb = torch.minimum(wa + run[:, None], w1[:, None])
+    lo = torch.clamp(torch.maximum(16 * wa, s[:, None]), max=t[:, None])
+    hi = torch.minimum(16 * wb, t[:, None])
+    return torch.stack([lo, torch.maximum(hi, lo)], dim=-1) - s[:, None, None]
 
 
 def unpack_entry_ranges(starts: torch.Tensor, counts: torch.Tensor,
@@ -92,14 +116,18 @@ def _launch(name: str, counter: str, *args) -> None:
 
 def count_scan(buf: torch.Tensor, n: int, g: int) -> torch.Tensor:
     """K1a: exclusive scan of the (n, g) uint8 counts at the head of the
-    fused packed buffer -> (n, g) int32 block starts."""
+    fused packed buffer -> (n, g) int32 block starts, one cluster of
+    SCAN_CLUSTER CTAs per image (``count_scan_ranges``)."""
+    if not (0 < n <= _GRID_MAX and 0 < g and n * g <= _INT_MAX):
+        raise ValueError(f"{n}x{g} counts: one launch takes 1..{_GRID_MAX} "
+                         "images of g > 0 counts")
     _check(buf, "buf", torch.uint8)
-    if buf.numel() < n * g or n * g == 0 or n * g > _INT_MAX:
+    if buf.numel() < n * g:
         raise ValueError(f"buf of {buf.numel()} bytes cannot hold {n}x{g} "
                          "counts")
     starts = torch.empty((n, g), dtype=torch.int32, device=buf.device)
     _launch("ffpic_count_scan", "count_scan", _vp(buf.data_ptr()),
-            _vp(starts.data_ptr()), n, g)
+            _vp(starts.data_ptr()), n, g, SCAN_CLUSTER)
     return starts
 
 
@@ -127,13 +155,16 @@ def unpack(buf: torch.Tensor, starts: torch.Tensor, block_map: torch.Tensor,
 
 def dequant_idct(coeffs: torch.Tensor, yquant: torch.Tensor,
                  cquant: torch.Tensor, n_luma: int) -> torch.Tensor:
-    """K2: (n, nblocks, 8, 8) int16 coefficients -> int16 samples.
-    Blocks below ``n_luma`` in each image take that image's row of
-    ``yquant`` (n, 64) int32, the rest its row of ``cquant``."""
+    """K2: (n, nblocks, 8, 8) int16 coefficients -> int16 samples, one
+    CTA per IDCT_TILE blocks of an image.  Blocks below ``n_luma`` in
+    each image take that image's row of ``yquant`` (n, 64) int32, the
+    rest its row of ``cquant``."""
     if coeffs.dim() != 4 or tuple(coeffs.shape[2:]) != (8, 8):
         raise ValueError(f"coeffs: expected (n, nblocks, 8, 8), got "
                          f"{tuple(coeffs.shape)}")
     n, nblocks = coeffs.shape[:2]
+    if n > _GRID_MAX:
+        raise ValueError(f"n={n} images: one launch takes 1..{_GRID_MAX}")
     _check(coeffs, "coeffs", torch.int16)
     _check(yquant, "yquant", torch.int32, (n, 64))
     _check(cquant, "cquant", torch.int32, (n, 64))
@@ -143,7 +174,7 @@ def dequant_idct(coeffs: torch.Tensor, yquant: torch.Tensor,
     if out.numel():
         _launch("ffpic_dequant_idct", "dequant_idct", _vp(coeffs.data_ptr()),
                 _vp(yquant.data_ptr()), _vp(cquant.data_ptr()),
-                _vp(out.data_ptr()), n, nblocks, n_luma)
+                _vp(out.data_ptr()), n, nblocks, n_luma, IDCT_TILE)
     return out
 
 

@@ -9,9 +9,11 @@ bit for bit.  ``chip_smoke.py`` and the tests use it to make inputs on
 machines that have neither jax nor PIL.  The entropy coder is Python:
 about 4 s for one 1080p image.
 
-``unpack_cases`` and ``assemble_cases`` make the inputs at the edges of
-the ``unpack`` and ``assemble_color`` kernels' tiling that the tests
+``scan_cases``, ``unpack_cases``, ``idct_cases`` and ``assemble_cases``
+make the inputs at the edges of the ``count_scan``, ``unpack``,
+``dequant_idct`` and ``assemble_color`` kernels' tiling that the tests
 (plain versions) and ``chip_smoke.py`` (kernels) both run.
+``idct_evenodd`` is a model of the ``dequant_idct`` kernel's arithmetic.
 """
 
 from __future__ import annotations
@@ -102,6 +104,37 @@ def synth_jpeg_420(h: int, w: int, quality: int, seed: int) -> bytes:
     return encode_420(synth_rgb(h, w, seed), quality)
 
 
+def scan_cases(seed: int = 0) -> dict[str, tuple]:
+    """Counts at the edges of K1a's cut (each image's 16-byte words in 8
+    runs, one per CTA of a cluster, 512 words a CTA pass), as name ->
+    (counts u8 of n*g bytes, n, g):
+
+    * ``g6_n1``/``g6_n3``: a 16x16 image (g=6), fewer words than CTAs;
+      with N=3 three rows share one 16-byte word;
+    * ``unaligned_n3``: g=4998, not a multiple of 16, so rows start
+      inside words;
+    * ``all255_n3`` and ``all0_n1``: every count 255, every count 0;
+    * ``loop_n1``: a 4000x3000 image (g=282000), 35,250 counts a CTA,
+      so each CTA loops 5 passes with a running carry;
+    * ``loop255_n3``: g=70002 of 255s, two passes a CTA."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, n, g, hi in (("g6_n1", 1, 6, 65), ("g6_n3", 3, 6, 65),
+                           ("unaligned_n3", 3, 4998, 65),
+                           ("all255_n3", 3, 1002, None),
+                           ("all0_n1", 1, 1200, 0),
+                           ("loop_n1", 1, 282000, 41),
+                           ("loop255_n3", 3, 70002, None)):
+        if hi is None:
+            counts = np.full(n * g, 255, np.uint8)
+        elif hi == 0:
+            counts = np.zeros(n * g, np.uint8)
+        else:
+            counts = rng.integers(0, hi, n * g).astype(np.uint8)
+        out[name] = (counts, n, g)
+    return out
+
+
 def unpack_cases(seed: int = 0) -> dict[str, tuple]:
     """Packed buffers at the edges of K1b's tiling (tiles of 64 packed
     blocks), as name -> (buf u8, n, g, e, block_map i32):
@@ -173,3 +206,62 @@ def assemble_cases(seed: int = 0) -> dict[str, tuple]:
         samples[:, :, ::2] %= 300            # half the rows near [0, 255]
         out[name] = (samples.astype(np.int16), nby, nbx, hw)
     return out
+
+
+def idct_cases(seed: int = 0) -> dict[str, tuple]:
+    """Coefficients at the edges of K2's tiles (32 blocks of one image a
+    CTA), as name -> (coeffs (n, nblocks, 8, 8) i16, yquant (n, 64) i32,
+    cquant (n, 64) i32, n_luma): nblocks not a multiple of 32 (6, 33,
+    4099), the luma/chroma boundary at 0, at nblocks and at 32k +- 1,
+    N=1 and N=3 with a distinct pair of tables per image.  Coefficients
+    span all of int16 and tables 1..65535, so products and sums wrap."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, n, nb, n_luma in (("b6_n1", 1, 6, 4), ("b33_l0_n3", 3, 33, 0),
+                                ("b33_lall_n3", 3, 33, 33),
+                                ("b33_l31_n1", 1, 33, 31),
+                                ("b4099_l4095_n3", 3, 4099, 4095),
+                                ("b4099_l4097_n1", 1, 4099, 4097)):
+        coeffs = rng.integers(-32768, 32768, (n, nb, 8, 8)).astype(np.int16)
+        yq, cq = rng.integers(1, 65536, (2, n, 64)).astype(np.int32)
+        out[name] = (coeffs, yq, cq, n_luma)
+    return out
+
+
+def idct_evenodd(coeffs, yquant, cquant, n_luma: int):
+    """Dequant + IDCT in the grouping of the ``dequant_idct`` kernel:
+    the even/odd split of each 8-point pass, every sum wrapped to 32
+    bits as the kernel's uint32 arithmetic wraps it.  Same arguments and
+    result as ``ops.jpeg_kernels.dequant_idct_blocks``; torch, int64."""
+    import torch
+    from ffpic_tpu_torch.ops.jpeg_kernels import _wrap
+
+    def m(v):                                   # uint32 wrap
+        return v & 0xFFFFFFFF
+
+    def idct8(x):
+        a, b = m((x[0] + x[4]) * 8192), m((x[0] - x[4]) * 8192)
+        p = m(10703 * x[2] + 4433 * x[6])
+        q = m(4433 * x[2] - 10704 * x[6])
+        e = (m(a + p), m(b + q), m(b - q), m(a - p))
+        o = (m(11363 * x[1] + 9633 * x[3] + 6437 * x[5] + 2260 * x[7]),
+             m(9633 * x[1] - 2259 * x[3] - 11362 * x[5] - 6436 * x[7]),
+             m(6437 * x[1] - 11362 * x[3] + 2261 * x[5] + 9633 * x[7]),
+             m(2260 * x[1] - 6436 * x[3] + 9633 * x[5] - 11363 * x[7]))
+        y = [None] * 8
+        for i in range(4):
+            y[i], y[7 - i] = m(e[i] + o[i]), m(e[i] - o[i])
+        return y
+
+    n, nb = coeffs.shape[:2]
+    luma = (torch.arange(nb, device=coeffs.device) < n_luma)[None, :, None,
+                                                             None]
+    q = torch.where(luma, yquant.view(n, 1, 8, 8), cquant.view(n, 1, 8, 8))
+    x = _wrap(coeffs.to(torch.int64) * q.to(torch.int64), 16)
+    col = idct8([x[..., u, :] for u in range(8)])            # over rows
+    col = torch.stack([_wrap(_wrap(c + (1 << 10), 32) >> 11, 16)
+                       for c in col], dim=-2)
+    row = idct8([col[..., u] for u in range(8)])             # over columns
+    out = torch.stack([(_wrap(r + (257 << 17), 32) >> 18).clamp(0, 65535)
+                       for r in row], dim=-1)
+    return _wrap(out, 16).to(torch.int16)

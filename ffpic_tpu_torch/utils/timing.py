@@ -2,17 +2,22 @@
 the card could take for a piece of work (its roofline bound).
 
 Used by ``chip_smoke.py`` and ``ffpic_tpu_torch.tune_unpack_tile``.
-The peaks are the NVIDIA H100 SXM data sheet's, valid at its full 700 W
-power limit.
+The peaks are the NVIDIA H100 SXM's, valid at its full 700 W power
+limit: memory and f32 from the data sheet; int32 from the CUDA C++
+programming guide's throughput table for compute capability 9.0 (64
+int32 multiply-adds per clock per SM, half the 128 f32 lanes) over the
+132 SMs at the SM's maximum clock of 1,980 MHz (``nvidia-smi
+--query-gpu=clocks.max.sm``).  A multiply-add counts as 2 operations
+in both rates.
 """
 
 from __future__ import annotations
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-SCALAR_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores,
-#                               also taken for int32 operations
+HBM_BYTES_PER_S = 3.35e12                   # device memory
+F32_OPS_PER_S = 67e12                       # f32 outside the tensor cores
+INT32_OPS_PER_S = 64 * 132 * 1.98e9 * 2     # 33.45e12
 
 
 def gpu_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -54,9 +59,11 @@ def gpu_ms_cold(fn, iters: int, flush) -> float:
     return total / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     """Least time in ms for the card to move ``nbytes`` and do ``ops``
-    scalar operations, and which of the two bounds it."""
+    operations at ``ops_per_s`` (``F32_OPS_PER_S`` or
+    ``INT32_OPS_PER_S``, whichever type the work is in), and which of
+    the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -87,6 +87,11 @@ def _idct_case(case: str):
     raise KeyError(case)
 
 
+def _jax_idct(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    return np.asarray(jax_jk.dequant_idct_blocks(jnp.asarray(blocks),
+                                                 jnp.asarray(quant)))
+
+
 def _port_idct(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
     q = torch.from_numpy(quant.reshape(1, 64))
     out = jk.dequant_idct_blocks(torch.from_numpy(blocks)[None], q, q,
@@ -97,9 +102,42 @@ def _port_idct(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("case", ["random", "extreme", "full_int16"])
 def test_dequant_idct_matches_jax(case):
     blocks, quant = _idct_case(case)
-    want = np.asarray(jax_jk.dequant_idct_blocks(jnp.asarray(blocks),
-                                                 jnp.asarray(quant)))
-    np.testing.assert_array_equal(_port_idct(blocks, quant), want)
+    np.testing.assert_array_equal(_port_idct(blocks, quant),
+                                  _jax_idct(blocks, quant))
+
+
+@pytest.mark.parametrize("case", ["random", "extreme", "full_int16",
+                                  "q65535"])
+def test_idct_evenodd_matches_jax(case):
+    """The even/odd grouping of the K2 kernel, with its 32-bit wraps,
+    gives JAX's bits, also at the largest table entry."""
+    if case == "q65535":
+        blocks, _ = _idct_case("full_int16")
+        quant = np.full((8, 8), 65535, np.int32)
+    else:
+        blocks, quant = _idct_case(case)
+    q = torch.from_numpy(quant.reshape(1, 64))
+    got = testing.idct_evenodd(torch.from_numpy(blocks)[None], q, q,
+                               blocks.shape[0])[0]
+    np.testing.assert_array_equal(got.numpy(), _jax_idct(blocks, quant))
+
+
+@pytest.mark.parametrize("name", sorted(testing.idct_cases()))
+def test_idct_tiles_match_jax(name):
+    """K2's tile edges (nblocks not a multiple of 32, the luma/chroma
+    boundary inside, at and next to tile edges, N=1 and N=3 with their
+    own tables): the plain version and the kernel's even/odd model
+    against JAX, image by image, each part with its own table."""
+    coeffs, yq, cq, n_luma = testing.idct_cases()[name]
+    args = [torch.from_numpy(a) for a in (coeffs, yq, cq)]
+    got = jk.dequant_idct_blocks(*args, n_luma).numpy()
+    for i in range(coeffs.shape[0]):
+        for sl, q in ((slice(0, n_luma), yq[i]), (slice(n_luma, None), cq[i])):
+            if coeffs[i, sl].size:
+                np.testing.assert_array_equal(
+                    got[i, sl], _jax_idct(coeffs[i, sl], q.reshape(8, 8)))
+    np.testing.assert_array_equal(
+        testing.idct_evenodd(*args, n_luma).numpy(), got)
 
 
 def test_dequant_idct_matches_pallas_interpret():
@@ -216,6 +254,49 @@ def test_split_packed_odd_offset():
     np.testing.assert_array_equal(
         jk.count_starts(counts).numpy(),
         np.cumsum(counts.numpy(), 1) - counts.numpy())
+
+
+@pytest.mark.parametrize("name", sorted(testing.scan_cases()))
+def test_count_starts_matches_jax(name):
+    """K1a's plain version against the reference's int32
+    ``cumsum(counts) - counts``, per image."""
+    counts, n, g = testing.scan_cases()[name]
+    got = jk.count_starts(torch.from_numpy(counts).view(n, g)).numpy()
+    for i, row in enumerate(counts.reshape(n, g)):
+        c = jnp.asarray(row).astype(jnp.int32)
+        np.testing.assert_array_equal(got[i], np.asarray(jnp.cumsum(c) - c))
+
+
+@pytest.mark.parametrize("name", sorted(testing.scan_cases()))
+def test_count_scan_ranges_partition_rows(name):
+    """K1a's cut, run rank by rank on the CPU: the ranges of
+    ``cuda_jpeg.count_scan_ranges`` cover [0, g) once, in rank order,
+    and each rank's scan of its range, offset by the totals of the lower
+    ranks, gives the plain count_starts."""
+    counts, n, g = testing.scan_cases()[name]
+    counts = torch.from_numpy(counts).view(n, g).to(torch.int64)
+    ranges = cuda_jpeg.count_scan_ranges(n, g)
+    assert ranges.shape == (n, cuda_jpeg.SCAN_CLUSTER, 2)
+    assert (ranges[:, 0, 0] == 0).all() and (ranges[:, -1, 1] == g).all()
+    assert torch.equal(ranges[:, 1:, 0], ranges[:, :-1, 1])
+    assert (ranges[..., 0] <= ranges[..., 1]).all()
+    got = torch.empty(n, g, dtype=torch.int64)
+    for i in range(n):
+        totals = [int(counts[i, lo:hi].sum()) for lo, hi in ranges[i].tolist()]
+        for rank, (lo, hi) in enumerate(ranges[i].tolist()):
+            seg = counts[i, lo:hi]
+            got[i, lo:hi] = sum(totals[:rank]) + torch.cumsum(seg, 0) - seg
+    assert torch.equal(got.to(torch.int32), jk.count_starts(counts))
+
+
+def test_count_scan_ranges_word_aligned():
+    """Inside a row every cut falls on a 16-byte word of the flat
+    counts, so only the row's own edges are ragged."""
+    n, g = 5, 4998
+    ranges = cuda_jpeg.count_scan_ranges(n, g)
+    flat = ranges + (torch.arange(n) * g)[:, None, None]
+    inner = flat[:, 1:, 0][ranges[:, 1:, 0] < g]
+    assert inner.numel() and (inner % 16 == 0).all()
 
 
 def _split(case):
@@ -416,6 +497,20 @@ def test_cuda_wrappers_refuse_cpu_tensors(call):
     t = torch.zeros(1, 48, 8, 8, dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(t)
+
+
+@pytest.mark.parametrize("n,g", [(0, 6), (65536, 6), (1, 0)])
+def test_count_scan_refuses_what_its_grid_cannot_take(n, g):
+    buf = torch.zeros(16, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="one launch takes"):
+        cuda_jpeg.count_scan(buf, n, g)
+
+
+def test_dequant_idct_refuses_more_images_than_its_grid():
+    q = torch.ones(65536, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one launch takes"):
+        cuda_jpeg.dequant_idct(torch.zeros(65536, 0, 8, 8, dtype=torch.int16),
+                               q, q, 0)
 
 
 def test_dispatch_refuses_other_devices():
