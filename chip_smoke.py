@@ -3,20 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc) and the
-host decoder ``ffpic_tpu_torch/native/host_jpeg.c`` (cc), holds each
-kernel against its plain PyTorch version on the card (bit-exact) at the
-main path's shapes and at the edges of its tiling
-(``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
-``assemble_cases``), and the dense route against the plain route, drives
-the main path -- ``decode_batch`` over 8 baseline 4:2:0 1920x1080 JPEGs
-made from a seed -- checks its output and that it went through every
-kernel, and times each kernel, warm and with L2 flushed, beside its
-bound, its plain version, (``count_scan``) one ``torch.cumsum`` and the
-launch floor (the fastest empty launch in the same loop), and the path
-end to end.  One line per phase; then the kernel table as one JSON line,
-and last ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero; without CUDA it exits 1 at once.
+Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
+process per source) and the host decoder
+``ffpic_tpu_torch/native/host_jpeg.c`` (cc), holds each kernel against
+its plain PyTorch version on the card (bit-exact) at its paths' shapes
+and at the edges of its tiling (``testing.scan_cases``,
+``unpack_cases``, ``idct_cases``, ``assemble_cases``, ``mcu_cases``),
+and drives three paths, each with the launch counts set to 0 just before
+it and read just after:
+
+* ``decode_batch`` over 8 baseline 4:2:0 1920x1080 JPEGs made from a
+  seed (K1a count_scan, K1b unpack, K2 dequant_idct, K3 assemble_color),
+  with the dense route checked against the plain route;
+* ``load`` of one 4000x3000 baseline 4:2:2 JPEG with restart markers
+  (``mode="bt601", upsample="fancy"``: K2, K4 assemble_mcu), checked
+  against the CPU route and its source; other samplings (4:4:4, 4:2:0
+  fancy, 4:4:0, 4:1:1, gray, a Cr table of its own) and a
+  ``decode_batch`` mixing 4:2:0 and 4:4:4 members (also under a side
+  stream while the default stream is busy) are checked too;
+* ``encode`` of a 1920x1080 image at q90 (K5 fdct), whose bytes must
+  be the CPU route's and decode back within 30 dB.
+
+It times each kernel, warm and with L2 flushed, beside its bound, its
+plain version, (``count_scan``) one ``torch.cumsum`` and the launch
+floor (the fastest empty launch in the same loop), and each path end to
+end with its host spans.  One line per phase; then the kernel table as
+one JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure
+raises and exits non-zero; without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -30,13 +43,19 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 H, W, N = 1080, 1920, 8
+BIG_H, BIG_W = 3000, 4000           # the load path: a 12 MP phone photo
 CU = "ffpic_tpu_torch/csrc/jpeg_decode.cu"
+CODEC_CU = "ffpic_tpu_torch/csrc/jpeg_codec.cu"
 REPLACES = {
     "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
     "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
     "dequant_idct": "ffpic_tpu/ops/pallas_jpeg.py:32",
     "assemble_color": "ffpic_tpu/ops/jpeg_kernels.py:144",
+    "assemble_mcu": "ffpic_tpu/ops/jpeg_kernels.py:196",
+    "fdct": "ffpic_tpu/ops/jpeg_kernels.py:83",
 }
+SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU}
+PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
 def log(phase: str, **kw) -> None:
@@ -63,15 +82,17 @@ def exact(name: str, got, want, errs: dict) -> None:
 def ptxas_report(text: str) -> dict:
     """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
     stack_bytes, spill_bytes}}, a template instance named with its
-    arguments, e.g. ``assemble_color<1,0>`` (mode, order)."""
+    arguments, e.g. ``assemble_color<1,0>`` (mode, order) or
+    ``assemble_mcu<1,0,1>`` (mode, order, fancy)."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color)"
-                          r"_kernel(?:ILi(\d)ELi(\d)E)?", m.group(1))
-            name = k.group(1) + (f"<{k.group(2)},{k.group(3)}>"
-                                 if k.group(2) else "")
+            k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color|"
+                          r"assemble_mcu|fdct)_kernel((?:L[ib]\d+E)*)",
+                          m.group(1).replace("_kernelI", "_kernel"))
+            args = re.findall(r"L[ib](\d+)E", k.group(2))
+            name = k.group(1) + (f"<{','.join(args)}>" if args else "")
             out[name] = {}
         elif name and "stack frame" in line:
             stack, st, ld = map(int, re.findall(r"(\d+) bytes", line))
@@ -82,6 +103,303 @@ def ptxas_report(text: str) -> dict:
             sm = re.search(r"(\d+) bytes smem", line)
             out[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
     return out
+
+
+def codec_paths(dev, jpegs, floor_ms: float, errs: dict) -> dict:
+    """The JPEG codec on the card: K4 and K5 (and K2 on per-component
+    views) against their plain versions, the ``load`` and ``encode``
+    paths each driven with fresh launch counts and checked, a
+    ``decode_batch`` with a 4:4:4 member, and the timings.  Returns
+    {kernel: timing entry} and the launches of each path."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import Pic, testing
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.formats.jpg_encode import _rgb_to_yuv420, _to_blocks
+    from ffpic_tpu_torch.ops import cuda_jpeg
+    from ffpic_tpu_torch.ops import jpeg_kernels as jk
+    from ffpic_tpu_torch.ops.resize import resize_rgba
+    from ffpic_tpu_torch.utils import trace
+    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
+                                              bound, gpu_ms, gpu_ms_cold)
+
+    modes, orders = ("reference", "bt601", "rgb"), ("rgba", "bgra")
+
+    def ups(samplings):
+        return ("nearest", "fancy") if testing.fancy_ok(samplings) \
+            else ("nearest",)
+
+    # --- inputs ------------------------------------------------------------
+    t0 = time.perf_counter()
+    big_rgb = testing.synth_rgb(BIG_H, BIG_W, 21)
+    t1 = time.perf_counter()
+    big = testing.encode_jpeg(big_rgb, 90, testing.SAMPLINGS["422"],
+                              restart_interval=64)
+    t2 = time.perf_counter()
+    log("inputs codec", load_jpeg=f"{BIG_W}x{BIG_H} 4:2:2 q90 DRI 64",
+        bytes=len(big), synth_rgb_seconds=f"{t1 - t0:.3f}",
+        encode_seconds=f"{t2 - t1:.3f}",
+        synthesis_seconds=f"{t2 - t0:.3f}")
+    j, _ = jpg.parse_and_decode(big)
+    shapes = tuple((c.nby, c.nbx) for c in j.comps)
+    hmax, vmax = max(c.h for c in j.comps), max(c.v for c in j.comps)
+    samplings = tuple((vmax // c.v, hmax // c.h) for c in j.comps)
+    nblocks = sum(a * b for a, b in shapes)
+    ow = (BIG_W + 7) & ~7
+    coeffs = torch.from_numpy(np.concatenate(
+        [c.reshape(-1, 64) for c in j.coeffs]).reshape(-1, 8, 8)).to(dev)
+    quants = np.stack([j.dqt[c.tq] for c in j.comps])
+    qd = torch.from_numpy(quants).to(dev)
+    if not np.array_equal(quants[1], quants[2]):
+        raise AssertionError("the load file's chroma must share a table")
+
+    # --- K2 on the load path's layouts ---------------------------------------
+    c4 = coeffs.view(1, -1, 8, 8)
+    ny = shapes[0][0] * shapes[0][1]
+    samples4 = cuda_jpeg.dequant_idct(c4, qd[0:1], qd[1:2], ny)
+    exact("dequant_idct", samples4,
+          jk.dequant_idct_blocks(c4, qd[0:1], qd[1:2], ny), errs)
+    rng = np.random.default_rng(5)
+    rq = torch.from_numpy(rng.integers(1, 65536, (3, 64),
+                                       dtype=np.int32)).to(dev)
+    views = torch.empty_like(c4)
+    bounds = [0, ny, ny + shapes[1][0] * shapes[1][1], nblocks]
+    for c in range(3):
+        a, b = bounds[c], bounds[c + 1]
+        cuda_jpeg.dequant_idct(c4[:, a:b], rq[c:c + 1], rq[c:c + 1], b - a,
+                               out=views[:, a:b])
+        exact("dequant_idct", views[:, a:b], jk.dequant_idct_blocks(
+            c4[:, a:b], rq[c:c + 1], rq[c:c + 1], b - a), errs)
+    log("check K2 views", shapes=shapes, tables="distinct Cb/Cr, full "
+        "range", per_component="exact", shared_tables_12mp="exact")
+    samples = samples4[0]
+
+    # --- K4 against its plain version ---------------------------------------
+    n = 0
+    for name, (smp, sh, sa, oh, cw) in testing.mcu_cases().items():
+        smp = torch.from_numpy(smp).to(dev)
+        for up in ups(sa):
+            for mode in modes:
+                for order in orders:
+                    for gray in ((128, 0) if len(sh) == 1 else (128,)):
+                        exact("assemble_mcu", cuda_jpeg.assemble_mcu(
+                            smp, sh, sa, oh, cw, order, mode, gray, up),
+                            jk.assemble_mcu(smp, sh, sa, oh, cw, order,
+                                            mode, gray, up), errs)
+                        n += 1
+    for up in ("nearest", "fancy"):
+        for mode in modes:
+            for order in orders:
+                exact("assemble_mcu", cuda_jpeg.assemble_mcu(
+                    samples, shapes, samplings, BIG_H, ow, order, mode, 128,
+                    up), jk.assemble_mcu(samples, shapes, samplings, BIG_H,
+                                         ow, order, mode, 128, up), errs)
+                n += 1
+    log("check K4", assemble_mcu="exact", launches=n,
+        cases=",".join(testing.mcu_cases()) + f",{BIG_W}x{BIG_H}_422",
+        modes="x".join(modes), orders="x".join(orders),
+        upsample="nearest,fancy(factors<=2)", gray_chroma="128,0")
+
+    # --- K5 against its plain version ---------------------------------------
+    enc_rgb = testing.synth_rgb(H, W, 22)
+    enc_blocks = torch.from_numpy(np.concatenate(
+        [_to_blocks(p).reshape(-1, 8, 8)
+         for p in _rgb_to_yuv420(enc_rgb)[:3]])).to(dev)
+    for blk in (torch.from_numpy(rng.integers(-128, 128, (5000, 8, 8),
+                                              dtype=np.int16)).to(dev),
+                torch.from_numpy(rng.integers(-32768, 32768, (5000, 8, 8),
+                                              dtype=np.int16)).to(dev),
+                enc_blocks, enc_blocks[:33]):
+        exact("fdct", cuda_jpeg.fdct(blk), jk.forward_dct(blk), errs)
+    log("check K5", fdct="exact", cases="level-shifted,full-int16,"
+        f"encode-{enc_blocks.shape[0]}-blocks,33-blocks")
+
+    # --- the load path -------------------------------------------------------
+    torch.cuda.synchronize()
+    cuda_jpeg.reset_launches()
+    pic = ffpic_tpu_torch.load(big, mode="bt601", upsample="fancy")
+    torch.cuda.synchronize()
+    launches_load = dict(cuda_jpeg.launches)
+    px = pic.pixels
+    if (tuple(px.shape) != (BIG_H, ow, 4) or px.dtype != torch.uint8
+            or px.device.type != dev.type):
+        raise AssertionError(f"load gave {tuple(px.shape)} {px.dtype} on "
+                             f"{px.device}")
+    if launches_load["dequant_idct"] < 1 or launches_load["assemble_mcu"] < 1:
+        raise AssertionError(f"load did not run K2 and K4: {launches_load}")
+    cpu_pic = ffpic_tpu_torch.load(big, device="cpu", mode="bt601",
+                                   upsample="fancy")
+    if not torch.equal(px.cpu(), cpu_pic.pixels):
+        raise AssertionError("load on the card differs from the CPU route")
+    psnr_load = testing.psnr(px[:, :BIG_W, :3], big_rgb)
+    if psnr_load < 30 or not torch.all(px[..., 3] == 255):
+        raise AssertionError(f"load: PSNR {psnr_load:.2f} dB")
+    log("load path", shape=tuple(px.shape), launches=launches_load,
+        cpu_route="exact", psnr_db=f"{psnr_load:.2f}")
+
+    # the other samplings, each file through load on the card and the CPU
+    gray = testing.encode_jpeg(testing.synth_rgb(H, W, 26)[..., 0], 85,
+                               ((1, 1),))
+    checks = {
+        "1080p_444": (testing.encode_jpeg(testing.synth_rgb(H, W, 23), 85,
+                                          testing.SAMPLINGS["444"]),
+                      {"mode": "bt601"}),
+        "420_fancy": (jpegs[0], {"upsample": "fancy"}),
+        "440": (testing.encode_jpeg(testing.synth_rgb(H, W, 24), 85,
+                                    testing.SAMPLINGS["440"]),
+                {"upsample": "fancy", "order": "bgra"}),
+        "411_nearest": (testing.encode_jpeg(testing.synth_rgb(H, W, 25), 85,
+                                            testing.SAMPLINGS["411"],
+                                            restart_interval=16), {}),
+        "gray": (gray, {}),
+        "gray_quirks": (gray, {"quirks": True}),
+        "cr_table": (testing.encode_jpeg(testing.synth_rgb(H, W, 27), 85,
+                                         cr_quality=40), {"mode": "rgb"}),
+    }
+    for name, (data, kw) in checks.items():
+        cuda_jpeg.reset_launches()
+        got = ffpic_tpu_torch.load(data, **kw).pixels
+        torch.cuda.synchronize()
+        k2 = cuda_jpeg.launches["dequant_idct"]
+        want = ffpic_tpu_torch.load(data, device="cpu", **kw).pixels
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"load {name}: the card differs from the "
+                                 "CPU route")
+        if name == "cr_table" and k2 != 3:
+            raise AssertionError(f"a distinct Cr table takes 3 K2 launches, "
+                                 f"got {k2}")
+    log("check load", cases=",".join(checks), cpu_route="exact",
+        cr_table_k2_launches=3)
+
+    # decode_batch with 4:4:4 members beside 4:2:0 ones
+    mixed = [jpegs[0], checks["1080p_444"][0], jpegs[1], gray]
+    got = ffpic_tpu_torch.decode_batch(mixed, device=dev)
+    decode_plain = ffpic_tpu_torch.decode_batch(mixed, device="cpu")
+    if not torch.equal(got.cpu(), decode_plain):
+        raise AssertionError("mixed decode_batch: the card differs from the "
+                             "CPU route")
+    sized = ffpic_tpu_torch.decode_batch(mixed, size=(224, 224),
+                                         device=dev)
+    want = torch.stack([resize_rgba(p.to(dev), (224, 224))
+                        for p in decode_plain])
+    sized_cpu = ffpic_tpu_torch.decode_batch(mixed, size=(224, 224),
+                                             device="cpu")
+    diff_cpu = max_abs_err(sized.cpu(), sized_cpu)
+    if not torch.equal(sized, want) or diff_cpu > 1:
+        raise AssertionError("mixed decode_batch size=(224, 224) differs")
+    # the same batch under a side stream, read there at once, while the
+    # default stream spins: a copy or launch of decode_batch that is not
+    # on the caller's stream would be read before it ran
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)             # ~0.2 s on the default stream
+    with torch.cuda.stream(side):
+        on_side = ffpic_tpu_torch.decode_batch(mixed, device=dev).clone()
+    torch.cuda.synchronize()
+    if not torch.equal(on_side.cpu(), decode_plain):
+        raise AssertionError("mixed decode_batch under a side stream differs "
+                             "from the CPU route")
+    log("check decode_batch mixed", members="420,444,420,gray",
+        shape=tuple(sized.shape), cpu_route_unsized="exact",
+        sized_vs_card_resize_of_cpu_route="exact",
+        sized_vs_cpu_route_max_abs=diff_cpu, side_stream="exact")
+
+    # --- the encode path -----------------------------------------------------
+    enc_pic = Pic(pixels=torch.from_numpy(enc_rgb).to(dev), width=W, height=H)
+    torch.cuda.synchronize()
+    cuda_jpeg.reset_launches()
+    data = ffpic_tpu_torch.encode(enc_pic, "JPG", quality=90)
+    launches_enc = dict(cuda_jpeg.launches)
+    if launches_enc["fdct"] != 1:
+        raise AssertionError(f"encode: K5 launches {launches_enc}")
+    if data != ffpic_tpu_torch.encode(enc_pic, "JPG", quality=90,
+                                      device="cpu"):
+        raise AssertionError("encode on the card differs from the CPU route")
+    back = ffpic_tpu_torch.load(data, mode="bt601").pixels
+    psnr_enc = testing.psnr(back[:, :W, :3], enc_rgb)
+    if psnr_enc < 30:
+        raise AssertionError(f"encode round trip: PSNR {psnr_enc:.2f} dB")
+    log("encode path", bytes=len(data), launches=launches_enc,
+        cpu_route="same bytes", round_trip_psnr_db=f"{psnr_enc:.2f}")
+
+    # --- timing --------------------------------------------------------------
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    npx = BIG_H * ow
+    work = {   # name: (kernel, plain, bytes, ops, type of the ops)
+        "assemble_mcu": (
+            lambda: cuda_jpeg.assemble_mcu(samples, shapes, samplings, BIG_H,
+                                           ow, "rgba", "bt601", 128, "fancy"),
+            lambda: jk.assemble_mcu(samples, shapes, samplings, BIG_H, ow,
+                                    "rgba", "bt601", 128, "fancy"),
+            128 * nblocks + 4 * npx, 30 * npx, "f32"),
+        "dequant_idct": (
+            lambda: cuda_jpeg.dequant_idct(c4, qd[0:1], qd[1:2], ny),
+            lambda: jk.dequant_idct_blocks(c4, qd[0:1], qd[1:2], ny),
+            256 * nblocks + 512, (64 + 2 * 1024) * nblocks, "int32"),
+        "fdct": (lambda: cuda_jpeg.fdct(enc_blocks),
+                 lambda: jk.forward_dct(enc_blocks),
+                 256 * enc_blocks.shape[0], 2048 * enc_blocks.shape[0],
+                 "int32"),
+    }
+    rates = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S}
+    timed = {}
+    for name, (kern, pl, nbytes, ops, ops_type) in work.items():
+        b_ms, b_by = bound(nbytes, ops, rates[ops_type])
+        t = timed[name] = {
+            "ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
+            "plain_ms": gpu_ms(pl, 3), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "launch_floor_ms": floor_ms,
+            "ops_type": ops_type, "bytes": nbytes, "ops": ops}
+        t["share"] = b_ms / t["ms"]
+        t["share_cold"] = b_ms / t["ms_cold"]
+        log("time kernel", name=name, at=("encode" if name == "fdct"
+                                          else "load"),
+            ms=f"{t['ms']:.4f}", ms_cold=f"{t['ms_cold']:.4f}",
+            plain_ms=f"{t['plain_ms']:.4f}", bound_ms=f"{b_ms:.4f}",
+            bound_by=b_by, ops_ms=f"{ops / rates[ops_type] * 1e3:.4f}",
+            ops_type=ops_type, share_warm=f"{t['share']:.3f}",
+            share_cold=f"{t['share_cold']:.3f}", bytes=nbytes,
+            launch_floor_ms=f"{floor_ms:.4f}", library_ms="null")
+    del flush
+    dev_ms = gpu_ms(lambda: jk.decode_mcu_planes(
+        coeffs, shapes, quants, samplings, BIG_H, ow, "rgba", "bt601", 128,
+        "fancy"), 20)
+
+    def spans(fn, runs):
+        trace.reset()
+        trace.enable()
+        walls = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        trace.enable(False)
+        stages = {k: round(v["mean"] * 1e3, 3)
+                  for k, v in trace.report().items()}
+        return sorted(walls)[len(walls) // 2], walls, stages
+
+    wall, walls, stages = spans(lambda: ffpic_tpu_torch.load(
+        big, mode="bt601", upsample="fancy"), 5)
+    mp = BIG_H * BIG_W / 1e6
+    log("time load", megapixels=mp, device_ms=f"{dev_ms:.4f}",
+        device_busy_share=f"{dev_ms / (wall * 1e3):.4f}",
+        end_to_end_ms=f"{wall * 1e3:.3f}",
+        end_to_end_ms_runs=json.dumps([round(w * 1e3, 3)
+                                       for w in walls]).replace(" ", ""),
+        jpeg_12mp_422_load_mps=f"{mp / wall:.2f}",
+        stage_ms=json.dumps(stages).replace(" ", ""))
+    wall, walls, stages = spans(lambda: ffpic_tpu_torch.encode(
+        enc_pic, "JPG", quality=90), 3)
+    log("time encode", megapixels=H * W / 1e6,
+        device_ms=f"{timed['fdct']['ms']:.4f}",
+        end_to_end_ms=f"{wall * 1e3:.3f}",
+        end_to_end_ms_runs=json.dumps([round(w * 1e3, 3)
+                                       for w in walls]).replace(" ", ""),
+        jpeg_1080p_encode_mps=f"{H * W / 1e6 / wall:.3f}",
+        stage_ms=json.dumps(stages).replace(" ", ""))
+    return timed, {"load": launches_load, "encode": launches_enc}
 
 
 def main() -> int:
@@ -134,7 +452,7 @@ def main() -> int:
         seconds=f"{time.perf_counter() - t0:.3f}")
 
     # --- kernels against their plain versions, on the card ---------------
-    plans = [_prep(d) for d in srcs]
+    plans = [_prep(d)[0] for d in srcs]
     j0 = plans[0]
     shapes = tuple((c.nby, c.nbx) for c in j0.comps)
     (nby, nbx), _, _ = shapes
@@ -267,7 +585,7 @@ def main() -> int:
             or out.device.type != "cuda"):
         raise AssertionError(f"decode_batch gave {tuple(out.shape)} "
                              f"{out.dtype} on {out.device}")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in PATH_420) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     plain = jk.decode_batch_420(coeffs_p, yq, cq, shapes, "rgba",
                                 "bt601", hw=(H, W))
@@ -413,9 +731,21 @@ def main() -> int:
         host_entropy_packed_mps=f"{mp / (stages['torch.host_parse'] / 1e3):.2f}",
         stage_ms=json.dumps(stages).replace(" ", ""))
 
-    # the instance of assemble_color the main path runs: bt601, rgba
-    built = {"assemble_color": "assemble_color<1,0>"}
-    kernels = [{"name": name, "route": "cuda", "source": CU,
+    codec_timed, path_launches = codec_paths(dev, jpegs, floor_ms, errs)
+
+    # the instances the paths run: bt601, rgba (and fancy for K4)
+    built = {"assemble_color": "assemble_color<1,0>",
+             "assemble_mcu": "assemble_mcu<1,0,1>"}
+    # each kernel's launches on the path it serves: decode_batch for
+    # K1a-K3, load for K4, encode for K5; K2's on load beside them
+    launches["assemble_mcu"] = path_launches["load"]["assemble_mcu"]
+    launches["fdct"] = path_launches["encode"]["fdct"]
+    timed["dequant_idct"]["at_load_12mp"] = codec_timed.pop("dequant_idct")
+    timed["dequant_idct"]["at_load_12mp"]["launches"] = \
+        path_launches["load"]["dequant_idct"]
+    timed.update(codec_timed)
+    kernels = [{"name": name, "route": "cuda",
+                "source": SOURCES.get(name, CU),
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": errs[name], **timed[name],
                 "ptxas": ptxas[built.get(name, name)]}

@@ -26,15 +26,14 @@
 // (accumulated in uint32, converted to int32 before each arithmetic
 // shift, because signed overflow is undefined in C++), int16 stores wrap
 // (the [0, 65535] IDCT clamp stores 32768..65535 as negative int16,
-// which colour conversion clips to 0), and the colour stage fuses each
-// product with its sum into one explicit f32 FMA (__fmaf_rn), g as
-// fma(-0.381, v, fma(-0.215, u, y)), which is how XLA compiles the
-// reference's y - 0.215*u - 0.381*v; every other step is an explicit
-// _rn intrinsic, so nvcc's own contraction cannot change the rounding.
+// which colour conversion clips to 0), and the colour stage is the FMA
+// sequence of color.cuh, which K4 assemble_mcu (jpeg_codec.cu) shares.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "color.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -347,9 +346,6 @@ unpack_kernel(const uint8_t* __restrict__ buf,
   }
 }
 
-__device__ __forceinline__ int lo16(uint32_t w) { return (int16_t)(w & 0xFFFFu); }
-__device__ __forceinline__ int hi16(uint32_t w) { return (int16_t)(w >> 16); }
-
 // K2. Replaces the Pallas kernel ffpic_tpu/ops/pallas_jpeg.py:_kernel
 // (dequant_idct_pallas) and the XLA path of
 // ffpic_tpu/ops/jpeg_kernels.py:dequant_idct_blocks. Bound: each block
@@ -482,46 +478,6 @@ dequant_idct_kernel(const int16_t* __restrict__ coef,
         idct_sample(y[2]) | idct_sample(y[3]) << 16,
         idct_sample(y[4]) | idct_sample(y[5]) << 16,
         idct_sample(y[6]) | idct_sample(y[7]) << 16);
-}
-
-__device__ __forceinline__ uint8_t clip_u8(float f) {
-  return (uint8_t)fminf(fmaxf(f, 0.0f), 255.0f);
-}
-
-__device__ __forceinline__ uint8_t clip_u8i(int v) {
-  return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
-}
-
-// The colour of one pixel, packed as 4 bytes in memory order. The FMA
-// sequence is the jitted reference's (see the top of this file).
-// mode: 0 reference (trunc), 1 bt601 (floor(+0.5)), 2 rgb (clip only);
-// order: 0 rgba, 1 bgra.
-template <int kMode, int kOrder>
-__device__ __forceinline__ uint32_t pixel(int ys, int us, int vs) {
-  uint8_t r, g, b;
-  if (kMode == 2) {
-    r = clip_u8i(ys);
-    g = clip_u8i(us);
-    b = clip_u8i(vs);
-  } else {
-    float yy = (float)ys, uu = (float)us - 128.0f, vv = (float)vs - 128.0f;
-    if (kMode == 0) {
-      r = clip_u8(truncf(__fmaf_rn(1.280f, vv, yy)));
-      g = clip_u8(truncf(__fmaf_rn(-0.381f, vv, __fmaf_rn(-0.215f, uu, yy))));
-      b = clip_u8(truncf(__fmaf_rn(2.128f, uu, yy)));
-    } else {
-      r = clip_u8(floorf(__fadd_rn(__fmaf_rn(1.402f, vv, yy), 0.5f)));
-      g = clip_u8(floorf(__fadd_rn(
-          __fmaf_rn(-0.714136f, vv, __fmaf_rn(-0.344136f, uu, yy)), 0.5f)));
-      b = clip_u8(floorf(__fadd_rn(__fmaf_rn(1.772f, uu, yy), 0.5f)));
-    }
-  }
-  if (kOrder == 1) {
-    uint8_t t = r;
-    r = b;
-    b = t;
-  }
-  return (uint32_t)r | ((uint32_t)g << 8) | ((uint32_t)b << 16) | 0xFF000000u;
 }
 
 // K3. Replaces the post-IDCT part of ffpic_tpu/ops/jpeg_kernels.py:

@@ -1,13 +1,16 @@
 """Build the CUDA kernels in ``ffpic_tpu_torch/csrc`` at first use.
 
-``nvcc`` compiles every ``.cu`` file for Hopper (``sm_90a``) into one
+``nvcc`` compiles every ``.cu`` file for Hopper (``sm_90a``), one
+process per file, all started together, and links the objects into one
 shared library with a plain C interface, which ``ops.cuda_jpeg`` loads
 with ctypes.  The library lands in ``ffpic_tpu_torch/build/``, named by
-a hash of the sources and flags (the scheme of
-``ffpic_tpu/native/__init__.py``), so an edited kernel rebuilds and an
-unchanged one loads at once.  A failed build raises; nothing falls back.
-The compiler's output (``-Xptxas -v``: registers, spills) is kept beside
-the library as ``.log``.
+a hash of the sources (``.cuh`` headers included) and flags (the scheme
+of ``ffpic_tpu/native/__init__.py``), so an edited kernel rebuilds and
+an unchanged one loads at once.  A failed build raises; nothing falls
+back.  The compiler's output (``-Xptxas -v``: registers, spills) is
+kept beside the library as ``.log``.  ``python3 -m
+ffpic_tpu_torch.time_build`` times this build against one nvcc over
+all the files.
 """
 
 from __future__ import annotations
@@ -18,12 +21,13 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -46,6 +50,33 @@ def sources() -> list[str]:
                   if f.endswith((".cu", ".cuh")))
 
 
+def _run(cmd: list[str]) -> str:
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out: {' '.join(cmd)}") from e
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    return r.stdout + r.stderr
+
+
+def compile_library(cus: list[str], out: str) -> str:
+    """Build the ``.cu`` files ``cus`` into the shared library ``out``:
+    one nvcc per file, all started together, then one link.  Returns
+    the compiler's output."""
+    objs = [f"{out}.{os.path.basename(s)}.o" for s in cus]
+    try:
+        with ThreadPoolExecutor(len(cus)) as ex:
+            logs = list(ex.map(_run, [[_nvcc(), *FLAGS, "-c", "-o", o, s]
+                                      for s, o in zip(cus, objs)]))
+        logs.append(_run([_nvcc(), *ARCH, "-shared", "-o", out, *objs]))
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(logs)
+
+
 def library_path() -> str:
     """Path of the built library, compiling it first if needed."""
     srcs = sources()
@@ -58,16 +89,9 @@ def library_path() -> str:
         return so
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    try:
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out: {' '.join(cmd)}") from e
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    log = compile_library([s for s in srcs if s.endswith(".cu")], tmp)
     with open(so[:-3] + ".log", "w") as f:
-        f.write(r.stdout + r.stderr)
+        f.write(log)
     os.replace(tmp, so)        # atomic: a concurrent loader sees all or none
     return so
 

@@ -1,4 +1,6 @@
-"""ctypes wrappers of the CUDA kernels in ``csrc/jpeg_decode.cu``.
+"""ctypes wrappers of the CUDA kernels in ``csrc/jpeg_decode.cu`` (K1a
+``count_scan``, K1b ``unpack``, K2 ``dequant_idct``, K3 ``assemble_color``)
+and ``csrc/jpeg_codec.cu`` (K4 ``assemble_mcu``, K5 ``fdct``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape
 and contiguity, raises on anything else, allocates its output with
@@ -12,19 +14,22 @@ went through.  The plain PyTorch version of each kernel lives in
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from ffpic_tpu_torch.ops import _build
 
 launches = {"count_scan": 0, "unpack": 0, "dequant_idct": 0,
-            "assemble_color": 0}
+            "assemble_color": 0, "assemble_mcu": 0, "fdct": 0}
+_launches_lock = threading.Lock()    # decode_batch launches from a pool
 
 MODES = {"reference": 0, "bt601": 1, "rgb": 2}
 ORDERS = {"rgba": 0, "bgra": 1}
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
+_i64 = ctypes.c_longlong
 _SIGNATURES = {
     "ffpic_count_scan": [_vp, _vp, _int, _int, _int, _vp],
     "ffpic_unpack": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
@@ -32,18 +37,22 @@ _SIGNATURES = {
     "ffpic_dequant_idct": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     "ffpic_assemble_color": [_vp, _vp, _int, _int, _int, _int, _int, _int,
                              _int, _vp],
+    "ffpic_assemble_mcu": [ctypes.POINTER(_i64), _int, _int, _vp, _int, _int,
+                           _int, _int, _int, _vp],
+    "ffpic_fdct": [_vp, _vp, _i64, _int, _vp],
 }
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535           # an image index is a grid y or z coordinate
 
-# The kernels' tilings, which the C entries of csrc/jpeg_decode.cu
-# check against their own constants and refuse when they differ:
-# K1a spreads each image over a cluster of SCAN_CLUSTER CTAs
-# (kScanCluster), K1b gives a CTA UNPACK_TILE consecutive packed blocks
-# of an image (kUnpackTile), K2 IDCT_TILE blocks (kIdctTile)
+# The kernels' tilings, which the C entries of csrc/ check against their
+# own constants and refuse when they differ: K1a spreads each image over
+# a cluster of SCAN_CLUSTER CTAs (kScanCluster), K1b gives a CTA
+# UNPACK_TILE consecutive packed blocks of an image (kUnpackTile), K2
+# IDCT_TILE blocks (kIdctTile), K5 FDCT_TILE blocks (kFdctTile)
 SCAN_CLUSTER = 8
 UNPACK_TILE = 64
 IDCT_TILE = 32
+FDCT_TILE = 32
 
 
 def count_scan_ranges(n: int, g: int) -> torch.Tensor:
@@ -111,7 +120,8 @@ def _launch(name: str, counter: str, *args) -> None:
     rc = _fn(name)(*args, _vp(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    launches[counter] += 1
+    with _launches_lock:
+        launches[counter] += 1
 
 
 def count_scan(buf: torch.Tensor, n: int, g: int) -> torch.Tensor:
@@ -154,11 +164,15 @@ def unpack(buf: torch.Tensor, starts: torch.Tensor, block_map: torch.Tensor,
 
 
 def dequant_idct(coeffs: torch.Tensor, yquant: torch.Tensor,
-                 cquant: torch.Tensor, n_luma: int) -> torch.Tensor:
+                 cquant: torch.Tensor, n_luma: int,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """K2: (n, nblocks, 8, 8) int16 coefficients -> int16 samples, one
     CTA per IDCT_TILE blocks of an image.  Blocks below ``n_luma`` in
     each image take that image's row of ``yquant`` (n, 64) int32, the
-    rest its row of ``cquant``."""
+    rest its row of ``cquant``.  ``out``, when given, is a contiguous
+    int16 tensor of the coefficients' shape that receives the samples
+    (a view of a larger buffer, so that per-component launches fill one
+    image)."""
     if coeffs.dim() != 4 or tuple(coeffs.shape[2:]) != (8, 8):
         raise ValueError(f"coeffs: expected (n, nblocks, 8, 8), got "
                          f"{tuple(coeffs.shape)}")
@@ -170,7 +184,10 @@ def dequant_idct(coeffs: torch.Tensor, yquant: torch.Tensor,
     _check(cquant, "cquant", torch.int32, (n, 64))
     if not 0 <= n_luma <= nblocks or n * nblocks > _INT_MAX // 64:
         raise ValueError(f"n_luma {n_luma} outside [0, {nblocks}]")
-    out = torch.empty_like(coeffs)
+    if out is None:
+        out = torch.empty_like(coeffs)
+    else:
+        _check(out, "out", torch.int16, tuple(coeffs.shape))
     if out.numel():
         _launch("ffpic_dequant_idct", "dequant_idct", _vp(coeffs.data_ptr()),
                 _vp(yquant.data_ptr()), _vp(cquant.data_ptr()),
@@ -202,4 +219,66 @@ def assemble_color(samples: torch.Tensor, nby: int, nbx: int,
         _launch("ffpic_assemble_color", "assemble_color",
                 _vp(samples.data_ptr()), _vp(out.data_ptr()), n, nby, nbx,
                 h, w, MODES[mode], ORDERS[order])
+    return out
+
+
+def assemble_mcu(samples: torch.Tensor, shapes, samplings, out_h: int,
+                 out_w: int, order: str = "bgra", mode: str = "reference",
+                 gray_chroma: int = 128,
+                 upsample: str = "nearest") -> torch.Tensor:
+    """K4: one image's int16 samples (nblocks, 8, 8), 1 or 3 components
+    in frame order with block grids ``shapes`` ((nby, nbx) each) and
+    luma-relative factors ``samplings`` ((v, h) each) -> (out_h, out_w,
+    4) uint8, as ``jpeg_kernels.assemble_mcu``.  ``out_w`` must be a
+    multiple of 8 (a JPEG's 8-aligned width); fancy upsampling takes
+    factors 1 and 2 only."""
+    ncomp = len(shapes)
+    if ncomp not in (1, 3) or len(samplings) != ncomp:
+        raise ValueError(f"unsupported component count {ncomp} (want 1 or "
+                         "3, with a sampling each)")
+    if order not in ORDERS or mode not in MODES:
+        raise ValueError(f"order {order!r} / mode {mode!r}")
+    if upsample not in ("nearest", "fancy"):
+        raise ValueError(f"upsample {upsample!r}")
+    fancy = upsample == "fancy"
+    if not (0 < out_h <= 8 * _GRID_MAX and 0 < out_w and out_w % 8 == 0):
+        raise ValueError(f"output {out_h}x{out_w}: the width must be a "
+                         "positive multiple of 8")
+    if not -32768 <= gray_chroma <= 32767:
+        raise ValueError(f"gray_chroma {gray_chroma} outside int16")
+    geometry = []
+    for (nby, nbx), (v, h) in zip(shapes, samplings):
+        if v < 1 or h < 1 or (fancy and (v > 2 or h > 2)):
+            raise ValueError(f"factor {v}x{h}: fancy upsampling takes 1 "
+                             "and 2, nearest any positive integer")
+        ph, pw = -(-out_h // v), -(-out_w // h)
+        if ph > 8 * nby or pw > 8 * nbx:
+            raise ValueError(f"a {nby}x{nbx}-block plane does not cover "
+                             f"{out_h}x{out_w} at factor {v}x{h}")
+        geometry.append((nby * nbx, nbx, v, h, ph, pw))
+    _check(samples, "samples", torch.int16,
+           (sum(g[0] for g in geometry), 8, 8))
+    rows, off = [], 0
+    for nblocks, *rest in geometry:
+        rows += [samples.data_ptr() + 128 * off, *rest]
+        off += nblocks
+    out = torch.empty((out_h, out_w, 4), dtype=torch.uint8,
+                      device=samples.device)
+    _launch("ffpic_assemble_mcu", "assemble_mcu", (_i64 * len(rows))(*rows),
+            ncomp, gray_chroma, _vp(out.data_ptr()), out_h, out_w,
+            MODES[mode], ORDERS[order], int(fancy))
+    return out
+
+
+def fdct(samples: torch.Tensor) -> torch.Tensor:
+    """K5: (..., 8, 8) int16 level-shifted samples -> int16 forward-DCT
+    coefficients, one CTA per FDCT_TILE blocks."""
+    if samples.dim() < 2 or tuple(samples.shape[-2:]) != (8, 8):
+        raise ValueError(f"samples: expected (..., 8, 8), got "
+                         f"{tuple(samples.shape)}")
+    _check(samples, "samples", torch.int16)
+    out = torch.empty_like(samples)
+    if out.numel():
+        _launch("ffpic_fdct", "fdct", _vp(samples.data_ptr()),
+                _vp(out.data_ptr()), out.numel() // 64, FDCT_TILE)
     return out

@@ -1,18 +1,25 @@
-"""Batched 4:2:0 JPEG device pipeline: packed coefficients -> dense
-blocks -> dequant + 8x8 integer IDCT -> planes, 2x chroma, YCbCr->RGBA.
+"""JPEG device pipelines: the batched 4:2:0 decode (packed coefficients
+-> dense blocks -> dequant + 8x8 integer IDCT -> planes, 2x chroma,
+YCbCr->RGBA), the general single-image decode of any sampling, and the
+encoder's forward DCT.
 
 The PyTorch counterpart of ``ffpic_tpu/ops/jpeg_kernels.py``.  It holds
 
 * the host helpers ``stack_packed_fused`` and ``_bucket`` (numpy);
 * the plain PyTorch version of every device stage: ``count_starts`` and
   ``unpack_coeffs`` (K1a/K1b), ``dequant_idct_blocks`` (K2),
-  ``color_convert`` and ``assemble_color`` (K3), and ``decode_batch_420``
-  (K2 then K3).  They run on any device and are the reference the CUDA
-  kernels are held against;
-* the two entries the pipeline calls, ``decode_batch_420_packed_fused``
-  and ``decode_batch_420_dense``.  They dispatch on the tensor's device:
-  a CPU tensor takes the plain versions, a CUDA tensor the kernels of
-  ``ops.cuda_jpeg`` (which raise rather than fall back).
+  ``color_convert`` and ``assemble_color`` (K3), ``decode_batch_420``
+  (K2 then K3), ``assemble_mcu`` (K4: ``mcu_planes`` with
+  ``blocks_to_plane`` and ``upsample_nearest`` or ``upsample_fancy``,
+  then colour) and
+  ``forward_dct`` (K5).  They run on any device and are the reference
+  the CUDA kernels are held against;
+* the entries the pipeline and the codec call:
+  ``decode_batch_420_packed_fused``, ``decode_batch_420_dense``,
+  ``decode_mcu_planes`` (K2 then K4) and ``fdct_blocks`` (K5).  They
+  dispatch on the tensor's device: a CPU tensor takes the plain
+  versions, a CUDA tensor the kernels of ``ops.cuda_jpeg`` (which raise
+  rather than fall back).
 
 Every stage is bit-exact with the JAX package.  Integer stages compute
 in int64 and wrap explicitly to int32/int16 where the reference wraps,
@@ -29,10 +36,13 @@ Quant tables are ``(N, 64)`` int32 per image, raster order.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
-from ffpic_tpu_torch.ops.golden import IDCT_P13, ZIGZAG
+from ffpic_tpu_torch.ops.golden import FDCT_P13, IDCT_P13, ZIGZAG
+from ffpic_tpu_torch.utils.device import to_device
 
 
 def _wrap(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -221,6 +231,124 @@ def decode_batch_420(coeffs, yquant, cquant, shapes, order: str = "rgba",
     return assemble_color(samples, shapes, order=order, mode=mode, hw=hw)
 
 
+def forward_dct(samples: torch.Tensor) -> torch.Tensor:
+    """(..., 8, 8) int16 level-shifted samples (y - 128) -> int16
+    coefficients (K5): the 13-bit forward DCT of the reference's
+    ``fdct_blocks``, the row pass first, then the column pass, each
+    ((sum >> 1) + (1 << 12)) >> 13 wrapped to int16, int32 sums
+    wrapping."""
+    x = samples.to(torch.int64)
+    d = torch.from_numpy(FDCT_P13).to(x.device)
+    # row pass: row[..., y, i] = sum_u D[i, u] * x[..., y, u]
+    row = sum(d[:, u] * x[..., u:u + 1] for u in range(8))
+    row = _wrap(((_wrap(row, 32) >> 1) + (1 << 12)) >> 13, 16)
+    # column pass: col[..., i, x] = sum_u D[i, u] * row[..., u, x]
+    col = sum(d[:, u, None] * row[..., u:u + 1, :] for u in range(8))
+    return _wrap(((_wrap(col, 32) >> 1) + (1 << 12)) >> 13,
+                 16).to(torch.int16)
+
+
+def blocks_to_plane(blocks: torch.Tensor) -> torch.Tensor:
+    """(nby, nbx, 8, 8) -> (nby*8, nbx*8)"""
+    nby, nbx = blocks.shape[0], blocks.shape[1]
+    return blocks.permute(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
+
+
+def plane_to_blocks(plane: torch.Tensor) -> torch.Tensor:
+    """(h, w) with h and w multiples of 8 -> (h/8, w/8, 8, 8)"""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3)
+
+
+def upsample_nearest(plane, v: int, h: int, out_h: int, out_w: int):
+    """Nearest-neighbour upsample by integer factors (v, h): sample
+    (y // v, x // h), then the crop to (out_h, out_w)."""
+    if v != 1:
+        plane = plane.repeat_interleave(v, dim=0)
+    if h != 1:
+        plane = plane.repeat_interleave(h, dim=1)
+    return plane[:out_h, :out_w]
+
+
+def upsample_fancy(plane, v: int, h: int, out_h: int, out_w: int):
+    """libjpeg's "fancy" (triangle-filter) upsampling (jdsample.c
+    h2v2/h2v1): a 3:1 blend toward the nearer sample with the 8/7 (v=2)
+    or 4/8 (v=1) alternating bias, borders replicated at the plane's
+    last row and column.  Factors 1 and 2 only: the reference's shapes
+    do not fit any other."""
+    if v not in (1, 2) or h not in (1, 2):
+        raise ValueError(f"fancy upsampling takes factors 1 and 2, got "
+                         f"{v}x{h}")
+    x = plane.to(torch.int32)
+    if v == 2:
+        up = torch.cat([x[:1], x[:-1]], dim=0)
+        dn = torch.cat([x[1:], x[-1:]], dim=0)
+        rows = torch.stack([3 * x + up, 3 * x + dn], dim=1) \
+            .reshape(-1, x.shape[1])
+        ebias, obias = 8, 7
+    else:
+        rows = x * 4
+        ebias, obias = 4, 8
+    if h == 2:
+        lf = torch.cat([rows[:, :1], rows[:, :-1]], dim=1)
+        rt = torch.cat([rows[:, 1:], rows[:, -1:]], dim=1)
+        even = (3 * rows + lf + ebias) >> 4
+        odd = (3 * rows + rt + obias) >> 4
+        out = torch.stack([even, odd], dim=2).reshape(rows.shape[0], -1)
+    else:
+        out = (rows + 2) >> 2
+    return out[:out_h, :out_w].to(torch.int16)
+
+
+def mcu_planes(samples: torch.Tensor, shapes, samplings, out_h: int,
+               out_w: int, gray_chroma: int = 128,
+               upsample: str = "nearest") -> list[torch.Tensor]:
+    """The three (out_h, out_w) int16 planes K4 colours: each
+    component's plane from one image's samples (nblocks, 8, 8), 1 or 3
+    components in frame order with block grids ``shapes`` and
+    luma-relative factors ``samplings`` ((v, h) each), cropped to its
+    valid samples (ceil(out_h / v), ceil(out_w / h)) and upsampled; a
+    gray image's chroma is ``gray_chroma``."""
+    if len(shapes) not in (1, 3):
+        raise ValueError(f"unsupported component count {len(shapes)} "
+                         "(want 1 or 3)")
+    if upsample not in ("nearest", "fancy"):
+        raise ValueError(f"upsample {upsample!r}")
+    up_fn = upsample_fancy if upsample == "fancy" else upsample_nearest
+    planes = []
+    off = 0
+    for (nby, nbx), (v, h) in zip(shapes, samplings):
+        plane = blocks_to_plane(samples[off:off + nby * nbx]
+                                .view(nby, nbx, 8, 8))
+        off += nby * nbx
+        if v == 1 and h == 1:
+            plane = plane[:out_h, :out_w]
+        else:
+            plane = up_fn(plane[:-(-out_h // v), :-(-out_w // h)], v, h,
+                          out_h, out_w)
+        if tuple(plane.shape) != (out_h, out_w):
+            raise ValueError(f"a {nby}x{nbx}-block plane does not cover "
+                             f"{out_h}x{out_w} at factor {v}x{h}")
+        planes.append(plane)
+    if len(planes) == 1:
+        fill = torch.full((out_h, out_w), gray_chroma, dtype=torch.int16,
+                          device=samples.device)
+        planes += [fill, fill]
+    return planes
+
+
+def assemble_mcu(samples: torch.Tensor, shapes, samplings, out_h: int,
+                 out_w: int, order: str = "bgra", mode: str = "reference",
+                 gray_chroma: int = 128,
+                 upsample: str = "nearest") -> torch.Tensor:
+    """One image's int16 samples -> (out_h, out_w, 4) uint8 (K4):
+    ``mcu_planes``, then colour.  The part of the reference's
+    ``decode_mcu_planes`` after the IDCT."""
+    return color_convert(*mcu_planes(samples, shapes, samplings, out_h,
+                                     out_w, gray_chroma, upsample),
+                         order=order, mode=mode)
+
+
 # --- entries the pipeline calls --------------------------------------------
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -261,3 +389,60 @@ def decode_batch_420_packed_fused(buf, block_map, yquant, cquant, n: int,
         coeffs = unpack_coeffs(counts, ks, vals, block_map, nblocks)
     return decode_batch_420_dense(coeffs, yquant, cquant, shapes, order, mode,
                                   hw)
+
+
+def decode_mcu_planes(coeffs: torch.Tensor, shapes, quants, samplings,
+                      out_h: int, out_w: int, order: str = "bgra",
+                      mode: str = "reference", gray_chroma: int = 128,
+                      upsample: str = "nearest") -> torch.Tensor:
+    """One image's dense coefficients -> (out_h, out_w, 4) uint8: the
+    reference's ``decode_mcu_planes`` over a single staged buffer.
+
+    ``coeffs`` is (nblocks, 8, 8) int16, the components' blocks in frame
+    order, each (nby, nbx) of ``shapes`` in raster order; ``quants`` the
+    (ncomp, 64) int32 tables, raster order, on the host; ``samplings``
+    each component's luma-relative factor (v, h).  Each component is
+    dequantised against its own table.  On a CUDA tensor K2 runs once
+    when components 1 and 2 have the same table (luma's below the luma
+    block count, theirs above), else once per component on its
+    contiguous view, then K4; on a CPU tensor the plain versions."""
+    if len(shapes) not in (1, 3):
+        raise ValueError(f"unsupported component count {len(shapes)} "
+                         "(want 1 or 3)")
+    sizes = [a * b for a, b in shapes]
+    if tuple(coeffs.shape) != (sum(sizes), 8, 8):
+        raise ValueError(f"coeffs: expected ({sum(sizes)}, 8, 8), got "
+                         f"{tuple(coeffs.shape)}")
+    q = np.ascontiguousarray(np.asarray(quants, np.int32)
+                             .reshape(len(shapes), 64))
+    bounds = [0, *itertools.accumulate(sizes)]
+    coeffs4 = coeffs.view(1, -1, 8, 8)
+    if not _on_cuda(coeffs):
+        qt = torch.from_numpy(q)
+        samples = torch.cat([
+            dequant_idct_blocks(coeffs4[:, a:b], qt[c:c + 1], qt[c:c + 1],
+                                b - a)
+            for c, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))], dim=1)
+        return assemble_mcu(samples[0], shapes, samplings, out_h, out_w,
+                            order, mode, gray_chroma, upsample)
+    from ffpic_tpu_torch.ops import cuda_jpeg
+    qd = to_device(q, coeffs.device)
+    samples = torch.empty_like(coeffs4)
+    if len(shapes) == 3 and np.array_equal(q[1], q[2]):
+        cuda_jpeg.dequant_idct(coeffs4, qd[0:1], qd[1:2], sizes[0],
+                               out=samples)
+    else:
+        for c, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
+            cuda_jpeg.dequant_idct(coeffs4[:, a:b], qd[c:c + 1], qd[c:c + 1],
+                                   b - a, out=samples[:, a:b])
+    return cuda_jpeg.assemble_mcu(samples[0], shapes, samplings, out_h,
+                                  out_w, order, mode, gray_chroma, upsample)
+
+
+def fdct_blocks(samples: torch.Tensor) -> torch.Tensor:
+    """(..., 8, 8) int16 level-shifted samples -> int16 forward-DCT
+    coefficients: K5 on a CUDA tensor, ``forward_dct`` on a CPU one."""
+    if not _on_cuda(samples):
+        return forward_dct(samples)
+    from ffpic_tpu_torch.ops import cuda_jpeg
+    return cuda_jpeg.fdct(samples)

@@ -1,17 +1,27 @@
 """Batched JPEG decode into one ``(N, H, W, 4)`` uint8 device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of 3-component 4:2:0 JPEGs:
+batches of JPEGs:
 
 1. Host pass, in a thread pool (the native parsers release the GIL):
-   baseline files are Huffman-decoded into the packed emission,
-   progressive ones into dense coefficient planes.
-2. Per image size (one block geometry and one crop), ONE staged
+   3-component 4:2:0 baseline files are Huffman-decoded into the packed
+   emission, progressive ones into dense coefficient planes.  Any other
+   JPEG (another sampling, gray) is Huffman-decoded there into dense
+   planes of its first picture.  The pool does no device work: every
+   copy and launch below runs on the caller's thread, so on the
+   caller's current stream.
+2. Each other JPEG is decoded as the port's registry decodes it, as
+   ``ffpic_tpu/pipeline.py:182-212`` does through ``registry.load``:
+   ``jpg.to_pic`` with the registry's defaults (``mode="reference"``,
+   nearest upsampling, not ``decode_batch``'s ``mode``), 8-aligned wide,
+   malformed files raising ``ValueError``.  Its pixels stay on the
+   device.
+3. Per 4:2:0 image size (one block geometry and one crop), ONE staged
    transfer through pinned memory and one device decode: the packed
    members through ``decode_batch_420_packed_fused`` (a single member is
    the same route with N=1), the dense ones through
    ``decode_batch_420_dense``.  Both write the cropped images.
-3. Optional resize to ``size``, and stacking in input order; a batch
+4. Optional resize to ``size``, and stacking in input order; a batch
    that one decode covers in input order is returned as it is.
 
 The host layer (``formats.jpg``, ``native``) is the port's own copy of
@@ -28,13 +38,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ffpic_tpu_torch.formats import jpg
+from ffpic_tpu_torch.formats import jpg, registry
 from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 from ffpic_tpu_torch.ops.resize import resize_rgba
+from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_REGISTRY_ITEM = "ROADMAP.md Queue 1 items 1 and 3 (registry and JPEG codec)"
+_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1 and 7-9 (the other codecs of the "
+                "registry)")
 
 
 def _read(src) -> bytes:
@@ -64,62 +76,44 @@ def _jpeg_420_plan(data: bytes):
     return j
 
 
-def _device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("decode_batch: CUDA is not available; pass "
-                               "device='cpu' to run the plain versions")
-        return torch.device("cuda")
-    d = torch.device(device)
-    if d.type not in ("cuda", "cpu"):
-        raise ValueError(f"decode_batch: unsupported device {d}")
-    return d
-
-
-def _stage(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> device tensor; a CUDA copy goes through pinned
-    memory without blocking the host."""
-    host = torch.from_numpy(arr)
-    if device.type != "cuda":
-        return host
-    pinned = torch.empty_like(host, pin_memory=True)
-    pinned.copy_(host)
-    return pinned.to(device, non_blocking=True)
-
-
 def _quant(members, comp: int, device) -> torch.Tensor:
-    return _stage(np.stack([j.dqt[j.comps[comp].tq] for _i, j in members])
-                  .astype(np.int32), device)
+    return to_device(np.stack([j.dqt[j.comps[comp].tq]
+                               for _i, j in members]).astype(np.int32), device)
 
 
-def _prep(data: bytes):
+def _prep(data: bytes) -> tuple[jpg.JpegFile, bool]:
+    """A member's host work: (its 4:2:0 plan, True), or, for any other
+    JPEG, (the dense planes of its first picture, False)."""
     j = _jpeg_420_plan(data)
     if j is None:
-        raise NotImplementedError(
-            "decode_batch: only 3-component 4:2:0 JPEGs are ported; other "
-            f"members wait for {_REGISTRY_ITEM}")
+        if not jpg.probe(data):
+            raise NotImplementedError(
+                "decode_batch: only JPEG members are ported; other formats "
+                f"wait for {_CODECS_ITEM}")
+        with registry.corrupt_as_value_error("JPG"):
+            return jpg.parse_and_decode(data)[0], False
     if j.packed is not None:
         # the packed emission is a view of per-thread native scratch that
         # the next parse on this thread overwrites
         c, k, v, nnz = j.packed
         j.packed = (np.array(c), np.array(k), np.array(v), nnz)
-    return j
+    return j, True
 
 
 def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                  mode: str = "bt601", device=None, mesh=None) -> torch.Tensor:
-    """Decode a batch of 4:2:0 JPEGs (paths or bytes) to one
-    ``(N, H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it
-    raises when CUDA is absent).  ``size=(h, w)`` resizes each image;
-    without it all images must share one size.  ``mode`` is the colour
-    conversion: "bt601", "reference" or "rgb"."""
+    """Decode a batch of JPEGs (paths or bytes) to one ``(N, H, W, 4)``
+    uint8 RGBA tensor on ``device`` (default CUDA; it raises when CUDA
+    is absent).  ``size=(h, w)`` resizes each image; without it all
+    images must share one size.  ``mode`` is the colour conversion of
+    the 4:2:0 members: "bt601", "reference" or "rgb"."""
     if mesh is not None:
         raise NotImplementedError(
             "decode_batch(mesh=) waits for ROADMAP.md Queue 1 item 11")
     if os.environ.get("FFPIC_DEVICE_ENTROPY") == "1":
         raise NotImplementedError(
             "device entropy decode waits for ROADMAP.md Queue 1 item 10")
-    dev = _device(device)
+    dev = resolve_device(device, "decode_batch")
     n = len(srcs)
     slots: list = [None] * n
 
@@ -133,10 +127,15 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
         else:
             plans = [_prep(d) for d in datas]
 
-    # one bucket per image size: one block geometry and one crop
+    # one bucket per 4:2:0 image size: one block geometry and one crop
     buckets: dict[tuple, list] = {}
-    for i, j in enumerate(plans):
-        buckets.setdefault((j.height, j.width), []).append((i, j))
+    for i, (j, is_420) in enumerate(plans):
+        if is_420:
+            buckets.setdefault((j.height, j.width), []).append((i, j))
+            continue
+        with stage("torch.device_decode"), \
+                registry.corrupt_as_value_error("JPG"):
+            slots[i] = jpg.to_pic(j, dev).pixels
 
     outs = []
     for allmembers in buckets.values():
@@ -159,7 +158,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
             with stage("torch.h2d"):
                 yq = _quant(members, 0, dev)
                 cq = _quant(members, 1, dev)
-                staged = _stage(host, dev)
+                staged = to_device(host, dev)
                 if packed:
                     bmap = packed_block_map(j0, dev)
             with stage("torch.device_decode"), device_trace("decode_420", dev):
@@ -177,7 +176,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
 
     with stage("torch.finish"), device_trace("resize_stack", dev):
         if size is None:
-            if len(outs) == 1:
+            if len(outs) == 1 and outs[0].shape[0] == n:
                 return outs[0]      # one decode, in input order
             if len({tuple(s.shape) for s in slots}) != 1:
                 raise ValueError(

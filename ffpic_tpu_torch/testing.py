@@ -1,33 +1,33 @@
-"""Synthetic baseline 4:2:0 JPEGs made from a seed, without jax or PIL.
+"""Synthetic JPEGs made from a seed, without jax or PIL, and the kernel
+edge cases that the tests and ``chip_smoke.py`` share.
 
-``encode_420`` writes what ``ffpic_tpu.formats.jpg_encode.encode_baseline``
-writes (same colour transform, 13-bit forward DCT, quantisation, ITU-T81
-K.3-K.6 Huffman tables and container), with the port's own copies of
-the encoder's tables and helpers (``formats.jpg_encode``) and
-``golden.fdct8x8`` in place of the jax ``fdct_blocks``; the two agree
-bit for bit.  ``chip_smoke.py`` and the tests use it to make inputs on
-machines that have neither jax nor PIL.  The entropy coder is Python:
-about 4 s for one 1080p image.
-
-``scan_cases``, ``unpack_cases``, ``idct_cases`` and ``assemble_cases``
-make the inputs at the edges of the ``count_scan``, ``unpack``,
-``dequant_idct`` and ``assemble_color`` kernels' tiling that the tests
-(plain versions) and ``chip_smoke.py`` (kernels) both run.
-``idct_evenodd`` is a model of the ``dequant_idct`` kernel's arithmetic.
+* ``synth_rgb`` makes photo-like content; ``synth_jpeg_420`` encodes it
+  with the port's ``encode_baseline`` (the bytes of
+  ``ffpic_tpu.encode``), the forward DCT on the CPU;
+* ``encode_jpeg`` is a general baseline writer: per-component (h, v)
+  sampling factors, 1 or 3 components, a separate Cr quant table and
+  an optional restart interval, so that machines without PIL can make
+  4:4:4, 4:2:2, 4:4:0, 4:1:1, gray and DRI files.  It builds the
+  planes and hands them to ``formats.jpg_encode.encode_blocks``, the
+  step ``encode_baseline`` ends with, on the CPU;
+* ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``
+  and ``mcu_cases`` make the inputs at the edges of the ``count_scan``,
+  ``unpack``, ``dequant_idct``, ``assemble_color`` and ``assemble_mcu``
+  kernels;
+* ``idct_evenodd`` and ``assemble_mcu_gather`` model the arithmetic and
+  indexing of the ``dequant_idct`` and ``assemble_mcu`` kernels.
 """
 
 from __future__ import annotations
 
-import struct
-
 import numpy as np
+import torch
 
 from ffpic_tpu_torch.formats.jpg_encode import (
-    UV_AC_COUNT, UV_AC_SYM, UV_DC_COUNT, UV_DC_SYM, UV_QUANT, Y_AC_COUNT,
-    Y_AC_SYM, Y_DC_COUNT, Y_DC_SYM, Y_QUANT, BitWriter,
-    _encode_blocks_entropy, _rgb_to_yuv420, _scale_quant, _to_blocks,
-    encode_map)
-from ffpic_tpu_torch.ops.golden import ZIGZAG, fdct8x8
+    UV_QUANT, Y_QUANT, _scale_quant, _to_blocks, encode_baseline,
+    encode_blocks)
+from ffpic_tpu_torch.formats.pic import Pic
+from ffpic_tpu_torch.ops.jpeg_kernels import _wrap
 
 
 def synth_rgb(h: int, w: int, seed: int) -> np.ndarray:
@@ -46,62 +46,76 @@ def synth_rgb(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
 
 
-def encode_420(rgb: np.ndarray, quality: int | None = None) -> bytes:
-    """(h, w, 3 or 4) uint8 -> baseline 4:2:0 JPEG bytes."""
-    h, wd = rgb.shape[:2]
-    y, u, v, _H, _W = _rgb_to_yuv420(rgb)
-    yq = _scale_quant(Y_QUANT, quality).reshape(8, 8)
-    cq = _scale_quant(UV_QUANT, quality).reshape(8, 8)
-    planes_zz = []
-    nbx = 0
-    for plane, q in ((y, yq), (u, cq), (v, cq)):
-        blocks = _to_blocks(plane)
-        nbx = nbx or blocks.shape[1]
-        f = fdct8x8(blocks.reshape(-1, 8, 8)).astype(np.int32)
-        qz = np.clip(np.round(f / q).astype(np.int32), -32768, 32767)
-        planes_zz.append(qz.reshape(-1, 64)[:, ZIGZAG])
-    mcus_y, mcus_x = y.shape[0] // 16, y.shape[1] // 16
-    # MCU interleave order: 4 Y blocks, then Cb, then Cr
-    order = []
-    for my in range(mcus_y):
-        for mx in range(mcus_x):
-            for vi in range(2):
-                for hi in range(2):
-                    order.append((0, (my * 2 + vi) * nbx + mx * 2 + hi))
-            order.append((1, my * (nbx // 2) + mx))
-            order.append((2, my * (nbx // 2) + mx))
-    ymaps = (encode_map(Y_DC_COUNT, Y_DC_SYM),
-             encode_map(Y_AC_COUNT, Y_AC_SYM))
-    cmaps = (encode_map(UV_DC_COUNT, UV_DC_SYM),
-             encode_map(UV_AC_COUNT, UV_AC_SYM))
-    w = BitWriter()
-    _encode_blocks_entropy(w, planes_zz, order, [ymaps, cmaps, cmaps])
-    w.align_byte(fill=1)
-
-    out = bytearray(b"\xff\xd8")                                  # SOI
-    out += b"\xff\xe0" + struct.pack(">H", 16) + b"JFIF\x00" + \
-        bytes([1, 1, 0]) + struct.pack(">HH", 1, 1) + bytes([0, 0])
-    for tid, q in ((0, yq), (1, cq)):
-        out += b"\xff\xdb" + struct.pack(">HB", 67, tid) + \
-            bytes(int(x) for x in q.reshape(-1)[ZIGZAG])
-    out += b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, h, wd, 3)
-    out += bytes([1, 0x22, 0]) + bytes([2, 0x11, 1]) + bytes([3, 0x11, 1])
-    for tc, tid, cnt, sym in ((0, 0, Y_DC_COUNT, Y_DC_SYM),
-                              (1, 0, Y_AC_COUNT, Y_AC_SYM),
-                              (0, 1, UV_DC_COUNT, UV_DC_SYM),
-                              (1, 1, UV_AC_COUNT, UV_AC_SYM)):
-        out += b"\xff\xc4" + struct.pack(">HB", 19 + len(sym), (tc << 4) | tid)
-        out += bytes(cnt) + bytes(sym)
-    out += b"\xff\xda" + struct.pack(">HB", 12, 3)
-    out += bytes([1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])
-    out += bytes(w.buf)
-    out += b"\xff\xd9"                                            # EOI
-    return bytes(out)
+def psnr(got, want) -> float:
+    """PSNR in dB of two uint8 arrays (numpy or tensors) of one shape."""
+    got = np.asarray(got.cpu() if hasattr(got, "cpu") else got, np.float64)
+    want = np.asarray(want.cpu() if hasattr(want, "cpu") else want,
+                      np.float64)
+    if got.shape != want.shape:
+        raise ValueError(f"shape {got.shape} != {want.shape}")
+    mse = float(np.mean((got - want) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
 
 
 def synth_jpeg_420(h: int, w: int, quality: int, seed: int) -> bytes:
-    """Baseline 4:2:0 JPEG of ``synth_rgb(h, w, seed)`` at ``quality``."""
-    return encode_420(synth_rgb(h, w, seed), quality)
+    """Baseline 4:2:0 JPEG of ``synth_rgb(h, w, seed)`` at ``quality``,
+    as ``ffpic_tpu.encode`` writes it."""
+    return encode_baseline(Pic(pixels=synth_rgb(h, w, seed), width=w,
+                               height=h), quality, device="cpu")
+
+
+def encode_jpeg(pixels: np.ndarray, quality: int | None = None,
+                sampling=((2, 2), (1, 1), (1, 1)),
+                cr_quality: int | None = None,
+                restart_interval: int = 0) -> bytes:
+    """Baseline JPEG of ``pixels``: (h, w, 3 or 4) uint8 RGB(A), or (h,
+    w) uint8 gray.  ``sampling`` is each component's (h, v) factor pair
+    (one pair for gray, which must be (1, 1)); the factors must divide
+    the largest.  Chroma is the mean over each component's sampling
+    cell of the full-resolution YCbCr (the colour transform of
+    ``_rgb_to_yuv420``), the image padded by edge replication to whole
+    MCUs.  ``cr_quality`` gives Cr a quant table of its own (id 2);
+    ``restart_interval`` > 0 writes DRI and an RSTn marker every that
+    many MCUs.  For 4:2:0 without them, the bytes are
+    ``encode_baseline``'s."""
+    gray = pixels.ndim == 2
+    sampling = tuple(tuple(s) for s in sampling)
+    if len(sampling) != (1 if gray else 3) or (gray and sampling != ((1, 1),)):
+        raise ValueError(f"sampling {sampling} for "
+                         f"{'gray' if gray else 'colour'} pixels")
+    h, w = pixels.shape[:2]
+    hmax = max(a for a, _ in sampling)
+    vmax = max(b for _, b in sampling)
+    if any(hmax % a or vmax % b for a, b in sampling):
+        raise ValueError(f"sampling {sampling}: factors must divide the "
+                         "largest")
+    mcus_x, mcus_y = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    ph, pw = mcus_y * 8 * vmax, mcus_x * 8 * hmax
+    img = np.pad(pixels.astype(np.float32),
+                 ((0, ph - h), (0, pw - w)) + ((0, 0),) * (pixels.ndim - 2),
+                 mode="edge")
+    if gray:
+        full = [img - 128.0]
+    else:
+        r, g, b = img[..., 0], img[..., 1], img[..., 2]
+        full = [0.299 * r + 0.587 * g + 0.114 * b - 128.0,
+                -0.16874 * r - 0.33126 * g + 0.5 * b,
+                0.5 * r - 0.41869 * g - 0.08131 * b]
+    blocks = []
+    for plane, (a, b) in zip(full, sampling):
+        fy, fx = vmax // b, hmax // a
+        plane = plane.reshape(ph // fy, fy, pw // fx, fx).mean(axis=(1, 3))
+        blocks.append(_to_blocks(np.round(plane).astype(np.int16)))
+    tables = {0: _scale_quant(Y_QUANT, quality).reshape(8, 8)}
+    tq = [0]
+    if not gray:
+        tables[1] = _scale_quant(UV_QUANT, quality).reshape(8, 8)
+        tq += [1, 1]
+        if cr_quality is not None:
+            tables[2] = _scale_quant(UV_QUANT, cr_quality).reshape(8, 8)
+            tq[2] = 2
+    return encode_blocks(blocks, h, w, sampling, tables, tq,
+                         torch.device("cpu"), restart_interval)
 
 
 def scan_cases(seed: int = 0) -> dict[str, tuple]:
@@ -233,9 +247,6 @@ def idct_evenodd(coeffs, yquant, cquant, n_luma: int):
     the even/odd split of each 8-point pass, every sum wrapped to 32
     bits as the kernel's uint32 arithmetic wraps it.  Same arguments and
     result as ``ops.jpeg_kernels.dequant_idct_blocks``; torch, int64."""
-    import torch
-    from ffpic_tpu_torch.ops.jpeg_kernels import _wrap
-
     def m(v):                                   # uint32 wrap
         return v & 0xFFFFFFFF
 
@@ -265,3 +276,135 @@ def idct_evenodd(coeffs, yquant, cquant, n_luma: int):
     out = torch.stack([(_wrap(r + (257 << 17), 32) >> 18).clamp(0, 65535)
                        for r in row], dim=-1)
     return _wrap(out, 16).to(torch.int16)
+
+
+# JPEG sampling factors (h, v) per component of the geometries K4 takes
+SAMPLINGS = {
+    "444": ((1, 1), (1, 1), (1, 1)),
+    "422": ((2, 1), (1, 1), (1, 1)),
+    "440": ((1, 2), (1, 1), (1, 1)),
+    "420": ((2, 2), (1, 1), (1, 1)),
+    "411": ((4, 1), (1, 1), (1, 1)),
+    "luma_up": ((1, 1), (2, 1), (2, 1)),     # chroma carries the largest h
+    "mixed": ((2, 1), (1, 2), (1, 1)),       # every component upsampled
+    "gray": ((1, 1),),
+}
+
+
+def mcu_geometry(height: int, width: int, sampling):
+    """The block grids, luma-relative factors and output size that
+    ``formats.jpg.to_pic`` gives a frame of this size and sampling:
+    (shapes, samplings, out_h, out_w), the width 8-aligned."""
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mcus_x, mcus_y = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    shapes = tuple((mcus_y * v, mcus_x * h) for h, v in sampling)
+    samplings = tuple((vmax // v, hmax // h) for h, v in sampling)
+    return shapes, samplings, height, (width + 7) & ~7
+
+
+def fancy_ok(samplings) -> bool:
+    """Fancy upsampling takes luma-relative factors 1 and 2 only."""
+    return all(v in (1, 2) and h in (1, 2) for v, h in samplings)
+
+
+def mcu_cases(seed: int = 0) -> dict[str, tuple]:
+    """int16 sample buffers for K4, as name -> (samples (nblocks, 8, 8)
+    i16, shapes, samplings, out_h, out_w): every geometry of
+    ``SAMPLINGS`` at 67x101 (so the cropped planes end inside blocks and
+    fancy upsampling replicates their last row and column, not the MCU
+    padding's), plus 4:2:0 and 4:2:2 at 1x3 and 4:4:0 at 9x17.  Half the
+    rows are near [0, 255], the rest any int16, so colour clips both
+    ways."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    sizes = [(name, 67, 101) for name in SAMPLINGS]
+    sizes += [("420", 1, 3), ("422", 1, 3), ("440", 9, 17)]
+    for name, h, w in sizes:
+        shapes, samplings, oh, ow = mcu_geometry(h, w, SAMPLINGS[name])
+        nblocks = sum(a * b for a, b in shapes)
+        samples = rng.integers(-32768, 32768, (nblocks, 8, 8))
+        samples[:, ::2] %= 300
+        out[f"{name}_{h}x{w}"] = (samples.astype(np.int16), shapes,
+                                  samplings, oh, ow)
+    return out
+
+
+def assemble_mcu_gather(samples, shapes, samplings, out_h: int, out_w: int,
+                        gray_chroma: int = 128, upsample: str = "nearest"):
+    """The component planes the ``assemble_mcu`` kernel computes, by its
+    own per-pixel index arithmetic: (3, out_h, out_w) int64, read
+    straight from block layout.  Nearest reads sample (y // v, x // h);
+    fancy (factors 1 and 2) blends rows r = y // 2 and r -+ 1, clamped
+    to the cropped plane's [0, ph - 1], then columns c = x // 2 and c -+
+    1, clamped to [0, pw - 1].  Same arguments as
+    ``ops.jpeg_kernels.assemble_mcu``, before colour; torch, int64."""
+    ys = torch.arange(out_h)[:, None]
+    xs = torch.arange(out_w)[None, :]
+    planes, off = [], 0
+    for (nby, nbx), (v, h) in zip(shapes, samplings):
+        flat = samples[off:off + nby * nbx].reshape(-1).to(torch.int64)
+        off += nby * nbx
+        ph, pw = -(-out_h // v), -(-out_w // h)
+
+        def s(py, px):
+            return flat[((py >> 3) * nbx + (px >> 3)) * 64 + (py & 7) * 8
+                        + (px & 7)]
+
+        if upsample == "nearest" or (v == 1 and h == 1):
+            planes.append(s(ys // v, xs // h))
+            continue
+        if v == 2:
+            r0 = ys >> 1
+            r1 = torch.where(ys % 2 == 1, (r0 + 1).clamp(max=ph - 1),
+                             (r0 - 1).clamp(min=0))
+            eb, ob = 8, 7
+        else:
+            r0 = r1 = ys
+            eb, ob = 4, 8
+
+        def vert(col):
+            return 3 * s(r0, col) + s(r1, col)
+
+        if h == 1:
+            planes.append((vert(xs) + 2) >> 2)
+            continue
+        c = xs >> 1
+        odd = xs % 2 == 1
+        n = torch.where(odd, (c + 1).clamp(max=pw - 1), (c - 1).clamp(min=0))
+        planes.append((3 * vert(c) + vert(n) + torch.where(odd, ob, eb)) >> 4)
+    if len(planes) == 1:
+        planes += [torch.full((out_h, out_w), gray_chroma,
+                              dtype=torch.int64)] * 2
+    return torch.stack(planes)
+
+
+def fdct_evenodd(samples):
+    """The forward DCT in the grouping of the ``fdct`` kernel: the
+    even/odd split of each 8-point pass, every sum wrapped to 32 bits
+    as the kernel's uint32 arithmetic wraps it.  Same argument and
+    result as ``ops.jpeg_kernels.forward_dct``; torch, int64."""
+    def m(v):                                   # uint32 wrap
+        return v & 0xFFFFFFFF
+
+    def fdct8(x):
+        s = [m(x[u] + x[7 - u]) for u in range(4)]
+        d = [m(x[u] - x[7 - u]) for u in range(4)]
+        e0, e1 = m(s[0] - s[3]), m(s[1] - s[2])
+        return [m(5792 * (s[0] + s[1] + s[2] + s[3])),
+                m(8034 * d[0] + 6811 * d[1] + 4551 * d[2] + 1598 * d[3]),
+                m(7568 * e0 + 3134 * e1),
+                m(6811 * d[0] - 1598 * d[1] - 8034 * d[2] - 4551 * d[3]),
+                m(5792 * (s[0] - s[1] - s[2] + s[3])),
+                m(4551 * d[0] - 8034 * d[1] + 1598 * d[2] + 6811 * d[3]),
+                m(3134 * e0 - 7568 * e1),
+                m(1598 * d[0] - 4551 * d[1] + 6811 * d[2] - 8034 * d[3])]
+
+    def rnd(v):
+        return _wrap(((_wrap(v, 32) >> 1) + (1 << 12)) >> 13, 16)
+
+    x = samples.to(torch.int64)
+    row = torch.stack([rnd(r) for r in fdct8([x[..., u] for u in range(8)])],
+                      dim=-1)                                 # rows first
+    col = fdct8([row[..., u, :] for u in range(8)])           # then columns
+    return torch.stack([rnd(c) for c in col], dim=-2).to(torch.int16)

@@ -44,7 +44,8 @@ def _build_tilings(out: str) -> dict:
         with open(cu, "w") as f:
             f.write(s)
         procs[(tile, threads)] = subprocess.Popen(
-            [_build._nvcc(), *_build.FLAGS, "-o", cu[:-3] + ".so", cu],
+            [_build._nvcc(), *_build.FLAGS, "-shared", "-I", _build.CSRC,
+             "-o", cu[:-3] + ".so", cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for key, p in procs.items():
@@ -67,7 +68,7 @@ def main() -> int:
     dev = torch.device("cuda")
     jpegs = [testing.synth_jpeg_420(H, W, 85, 1),
              testing.synth_jpeg_420(H, W, 95, 2)]
-    plans = [_prep(jpegs[k % 2]) for k in range(N)]
+    plans = [_prep(jpegs[k % 2])[0] for k in range(N)]
     nblocks = sum(c.nby * c.nbx for c in plans[0].comps)
     buf_np, g, e = jk.stack_packed_fused([j.packed for j in plans])
     buf = torch.from_numpy(buf_np).to(dev)

@@ -1,8 +1,9 @@
 """The port's copy of the host layer held against its originals in
 ffpic_tpu: the JPEG marker parse and native Huffman decode
 (``formats.jpg.parse_and_decode``), the native library loader, the
-integer tables and forward DCT (``ops.golden``), the encoder's tables
-and helpers (``formats.jpg_encode``) and the stage tracer.
+integer tables (``ops.golden``) and the plain forward DCT, the
+encoder's tables and helpers (``formats.jpg_encode``) and the stage
+tracer.
 """
 
 import io
@@ -179,10 +180,14 @@ def test_golden_tables_match_jax():
 
 
 def test_fdct8x8_matches_jax():
+    """The port's plain forward DCT against the reference's numpy golden
+    model ``fdct8x8``, which the port's encoder used to copy."""
+    import torch
+    from ffpic_tpu_torch.ops.jpeg_kernels import forward_dct
     rng = np.random.default_rng(9)
     blocks = rng.integers(-128, 128, (300, 8, 8)).astype(np.int16)
     blocks[:4] = np.array([-128, 127, 0, 1])[:, None, None]
-    np.testing.assert_array_equal(golden.fdct8x8(blocks),
+    np.testing.assert_array_equal(forward_dct(torch.from_numpy(blocks)),
                                   jax_golden.fdct8x8(blocks))
 
 

@@ -23,6 +23,8 @@ from ffpic_tpu.formats import jpg as jax_jpg
 from ffpic_tpu.ops import jpeg_kernels as jax_jk
 from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.formats import jpg as tjpg
+from ffpic_tpu_torch.formats.jpg_encode import encode_baseline
+from ffpic_tpu_torch.formats.pic import Pic
 from ffpic_tpu_torch.ops import _build, cuda_jpeg, golden
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 
@@ -48,7 +50,8 @@ def _jpeg(kind: str) -> bytes:
     if kind == "trailing_zero":
         rgb = testing.synth_rgb(96, 128, 4)
         rgb[48:] = 128                      # flat mid-grey: all-zero blocks
-        return testing.encode_420(rgb, 80)
+        return encode_baseline(Pic(pixels=rgb, width=128, height=96), 80,
+                               device="cpu")
     raise KeyError(kind)
 
 
@@ -492,7 +495,11 @@ def test_decode_batch_420_dense_matches_jax():
     lambda t: cuda_jpeg.dequant_idct(t, torch.ones(1, 64, dtype=torch.int32),
                                      torch.ones(1, 64, dtype=torch.int32), 1),
     lambda t: cuda_jpeg.assemble_color(t, 4, 8),
-], ids=["count_scan", "unpack", "dequant_idct", "assemble_color"])
+    lambda t: cuda_jpeg.assemble_mcu(t[0], ((4, 4), (2, 4), (2, 4)),
+                                     ((1, 1), (2, 1), (2, 1)), 32, 32),
+    lambda t: cuda_jpeg.fdct(t),
+], ids=["count_scan", "unpack", "dequant_idct", "assemble_color",
+        "assemble_mcu", "fdct"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     t = torch.zeros(1, 48, 8, 8, dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA tensor"):

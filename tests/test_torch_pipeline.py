@@ -2,11 +2,12 @@
 ffpic_tpu.decode_batch on the same JPEG bytes.
 
 Exact for size=None on each route: the fused packed route (a bucket of
-baseline members), the single packed member, and the dense route of
-progressive members.  With size=(224, 224), within 1 LSB (see
-test_torch_resize.py).  Also: the port imports no jax, ``device=None``
-raises without CUDA, and what is outside the slice raises
-NotImplementedError.
+baseline members), the single packed member, the dense route of
+progressive members, and members of another sampling, which both
+packages decode through their registry.  With size=(224, 224), within
+1 LSB (see test_torch_resize.py).  Also: the port imports no jax,
+``device=None`` raises without CUDA, and what is outside the slice
+raises NotImplementedError.
 """
 
 import functools
@@ -15,6 +16,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -116,10 +118,12 @@ def test_port_sources_import_no_jax():
 
 def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
     """With the JAX package blocked, the port decodes a packed batch, a
-    single member and a progressive member on the CPU, and loads no
-    module of ffpic_tpu and no jax."""
+    single member, a progressive member and a 4:4:4 member on the CPU,
+    loads a 4:4:4 file and encodes it, and loads no module of ffpic_tpu
+    and no jax."""
     files = {"a": _jpeg(64, 96, 80, 0), "b": _jpeg(64, 96, 60, 1),
-             "c": _jpeg(40, 72, 90, 2), "p": _jpeg(64, 96, 70, 3, True)}
+             "c": _jpeg(40, 72, 90, 2), "p": _jpeg(64, 96, 70, 3, True),
+             "s": _jpeg(64, 96, 75, 4, subsampling="4:4:4")}
     for k, v in files.items():
         (tmp_path / f"{k}.jpg").write_bytes(v)
     code = (
@@ -127,11 +131,15 @@ def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
         "sys.modules['ffpic_tpu'] = None\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
         f"d = {str(tmp_path)!r}\n"
-        "from ffpic_tpu_torch import decode_batch\n"
+        "from ffpic_tpu_torch import Pic, decode_batch, encode, load\n"
         "for names, shape in (('aba', (3, 64, 96, 4)), ('c', (1, 40, 72, 4)),"
-        " ('pa', (2, 64, 96, 4))):\n"
+        " ('pa', (2, 64, 96, 4)), ('sa', (2, 64, 96, 4))):\n"
         "    out = decode_batch([f'{d}/{k}.jpg' for k in names], device='cpu')\n"
         "    assert tuple(out.shape) == shape, (names, out.shape)\n"
+        "pic = load(f'{d}/s.jpg', device='cpu', upsample='fancy')\n"
+        "assert tuple(pic.pixels.shape) == (64, 96, 4), pic.pixels.shape\n"
+        "data = encode(pic, 'JPG', quality=80, device='cpu')\n"
+        "assert load(data, device='cpu').width == 96\n"
         "bad = [m for m in sys.modules if m.startswith('ffpic_tpu.')"
         " or m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
@@ -147,15 +155,14 @@ def test_device_none_raises_without_cuda(monkeypatch):
         ffpic_tpu_torch.decode_batch([_jpeg(120, 200, 80, 4)])
 
 
-@pytest.mark.parametrize("case", ["png", "jpeg_444", "mesh",
-                                  "device_entropy"])
+@pytest.mark.parametrize("case", ["png", "gif", "mesh", "device_entropy"])
 def test_outside_the_slice_raises(case, monkeypatch):
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
     if case == "png":
         srcs.append(b"\x89PNG\r\n\x1a\n" + bytes(64))
-    elif case == "jpeg_444":
-        srcs.append(_jpeg(120, 200, 80, 4, subsampling="4:4:4"))
+    elif case == "gif":
+        srcs.append(b"GIF89a" + bytes(64))
     elif case == "mesh":
         kw["mesh"] = object()
     else:
@@ -171,7 +178,7 @@ def test_mixed_sizes_need_size():
 
 
 def test_synth_jpeg_matches_jax_encoder():
-    """testing.encode_420 writes the bytes encode_baseline writes."""
+    """testing.synth_jpeg_420 writes the bytes encode_baseline writes."""
     from ffpic_tpu.formats.jpg_encode import encode_baseline
     from ffpic_tpu.formats.pic import Pic
     rgb = testing.synth_rgb(72, 104, 8)
@@ -180,3 +187,86 @@ def test_synth_jpeg_matches_jax_encoder():
         assert testing.synth_jpeg_420(72, 104, q, 8) == encode_baseline(
             Pic(pixels=rgba, width=104, height=72), q)
 
+
+
+@pytest.mark.parametrize("size", [None, (224, 224)])
+def test_decode_batch_other_samplings_match_jax(size):
+    """4:4:4, 4:2:2 and gray members beside 4:2:0 ones: both packages
+    decode them through their registry, with its defaults (reference
+    colour, nearest upsampling) whatever ``mode`` the batch asks for,
+    8-aligned wide."""
+    srcs = [_jpeg(160, 224, 85, 2),
+            _jpeg(160, 224, 75, 3, subsampling="4:4:4"),
+            _jpeg(160, 224, 80, 4, subsampling="4:2:2"),
+            testing.encode_jpeg(testing.synth_rgb(160, 224, 5)[..., 1], 80,
+                                ((1, 1),)),
+            _jpeg(160, 224, 60, 5, True, subsampling="4:4:4")]
+    got, want = _both(srcs, size=size, mode="bt601")
+    assert got.shape == ((5, 160, 224, 4) if size is None
+                         else (5, 224, 224, 4))
+    if size is None:
+        np.testing.assert_array_equal(got, want)
+        assert np.array_equal(got[1], ffpic_tpu_torch.load(
+            srcs[1], device="cpu").np_pixels())
+    else:
+        assert np.abs(got.astype(int) - want).max() <= 1
+
+
+def test_decode_batch_device_work_stays_on_the_callers_thread(monkeypatch):
+    """The worker pool only parses: every staging copy and every device
+    decode of a batch, registry members included, runs on the caller's
+    thread, so on the caller's current CUDA stream (torch keeps one per
+    thread; ``chip_smoke.py`` runs such a batch under a side stream)."""
+    from ffpic_tpu_torch import pipeline
+    from ffpic_tpu_torch.formats import jpg
+    threads = {"parse": set(), "device": set()}
+
+    def spy(kind, fn):
+        def wrapped(*a, **k):
+            threads[kind].add(threading.get_ident())
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setenv("FFPIC_THREADS", "4")
+    monkeypatch.setattr(pipeline, "_prep", spy("parse", pipeline._prep))
+    for mod, name in ((pipeline, "to_device"), (jpg, "to_device"),
+                      (jpg, "to_pic"),
+                      (pipeline.jk, "decode_batch_420_packed_fused")):
+        monkeypatch.setattr(mod, name, spy("device", getattr(mod, name)))
+    srcs = [_jpeg(64, 96, 85, 2),
+            _jpeg(64, 96, 75, 3, subsampling="4:4:4"),
+            _jpeg(64, 96, 80, 4, subsampling="4:2:2"),
+            testing.encode_jpeg(testing.synth_rgb(64, 96, 5)[..., 1], 80,
+                                ((1, 1),))]
+    got = ffpic_tpu_torch.decode_batch(srcs, size=(32, 32), device="cpu")
+    assert got.shape == (4, 32, 32, 4)
+    assert threading.get_ident() not in threads["parse"]
+    assert threads["device"] == {threading.get_ident()}
+
+
+def test_decode_batch_registry_member_width_is_8_aligned():
+    """A 4:4:4 member 1000 wide is 1000 wide through the registry only
+    when 1000 is a multiple of 8, so beside a 4:2:0 member of 1001 it
+    makes mixed sizes, as in the reference."""
+    a = _jpeg(24, 1001, 80, 1)
+    b = _jpeg(24, 1001, 80, 2, subsampling="4:4:4")
+    for decode in (ffpic_tpu.decode_batch,
+                   lambda s: ffpic_tpu_torch.decode_batch(s, device="cpu")):
+        with pytest.raises(ValueError, match="mixed sizes"):
+            decode([a, b])
+
+
+def test_decode_batch_420_uses_cb_table_for_cr():
+    """A 4:2:0 file whose Cr table differs from Cb's: decode_batch's
+    4:2:0 route dequantises both chroma components with component 1's
+    table in both packages (ROADMAP Queue 3), so it agrees with
+    ffpic_tpu.decode_batch and differs from load, which takes each
+    component's own table."""
+    rgb = testing.synth_rgb(64, 96, 6)
+    data = testing.encode_jpeg(rgb, 85, cr_quality=30)
+    got, want = _both([data, data], mode="reference")
+    np.testing.assert_array_equal(got, want)
+    native.available()
+    own = ffpic_tpu_torch.load(data, device="cpu").np_pixels()
+    assert np.array_equal(own, np.asarray(ffpic_tpu.load(data).np_pixels()))
+    assert not np.array_equal(got[0], own)
