@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
-process per source) and the host decoder
-``ffpic_tpu_torch/native/host_jpeg.c`` (cc), holds each kernel against
-its plain PyTorch version on the card (bit-exact) at its paths' shapes
-and at the edges of its tiling (``testing.scan_cases``,
-``unpack_cases``, ``idct_cases``, ``assemble_cases``, ``mcu_cases``),
-and drives three paths, each with the launch counts set to 0 just before
-it and read just after:
+process per source) and the host library
+``ffpic_tpu_torch/native/host_jpeg.c`` + ``host_png.c`` (cc), holds each
+kernel against its plain PyTorch version on the card (bit-exact) at its
+paths' shapes and at the edges of its tiling (``testing.scan_cases``,
+``unpack_cases``, ``idct_cases``, ``assemble_cases``, ``mcu_cases``,
+``scatter_cases``, ``unfilter_cases``, ``rgba_cases``), and drives
+these paths, each with the launch counts set to 0 just before it and
+read just after:
 
 * ``decode_batch`` over 8 baseline 4:2:0 1920x1080 JPEGs made from a
   seed (K1a count_scan, K1b unpack, K2 dequant_idct, K3 assemble_color),
@@ -22,12 +23,29 @@ it and read just after:
   ``decode_batch`` mixing 4:2:0 and 4:4:4 members (also under a side
   stream while the default stream is busy) are checked too;
 * ``encode`` of a 1920x1080 image at q90 (K5 fdct), whose bytes must
-  be the CPU route's and decode back within 30 dB.
+  be the CPU route's and decode back within 30 dB;
+* ``load`` of two 1920x1080 RGBA PNGs, one written by the port's
+  ``png.encode`` (adaptive filters, all five types: host C unfilter,
+  then K7 assemble_rgba) and one by ``testing.encode_png`` with Sub and
+  Up rows only (K6 unfilter_subup, then K7), each equal to its source
+  pixels; smaller palette, 16-bit, gray and Adam7 files against the CPU
+  route;
+* ``decode_batch`` over 4 baseline 4:2:0 1080p JPEGs and 4 1080p RGBA
+  PNGs (K1a-K3, K6, K7), against the CPU route;
+* the sparse route of dense 4:2:0 members, reached through the
+  pipeline's dense-member staging (``pipeline.member_pairs`` in a pool,
+  then ``pipeline.decode_dense_members``) with the 8 x 1080p batch's
+  dense planes (K8 scatter_plane per plane, then K2 and K3), against
+  the plain route; the dense route (``pipeline.decode_planes``) timed
+  beside it.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
-plain version, (``count_scan``) one ``torch.cumsum`` and the launch
-floor (the fastest empty launch in the same loop), and each path end to
-end with its host spans.  One line per phase; then the kernel table as
+plain version, one PyTorch call of the same function where there is
+one (``torch.cumsum`` for ``count_scan``, ``torch.zeros`` +
+``index_add_`` for ``scatter_plane``, a device copy of the rows for
+``assemble_rgba`` on 8-bit RGBA) and the launch floor (the fastest
+empty launch in the same loop), and each path end to end with its host
+spans.  One line per phase; then the kernel table as
 one JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero; without CUDA it exits 1 at once.
 """
@@ -46,6 +64,7 @@ H, W, N = 1080, 1920, 8
 BIG_H, BIG_W = 3000, 4000           # the load path: a 12 MP phone photo
 CU = "ffpic_tpu_torch/csrc/jpeg_decode.cu"
 CODEC_CU = "ffpic_tpu_torch/csrc/jpeg_codec.cu"
+PNG_CU = "ffpic_tpu_torch/csrc/png_decode.cu"
 REPLACES = {
     "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
     "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
@@ -53,8 +72,12 @@ REPLACES = {
     "assemble_color": "ffpic_tpu/ops/jpeg_kernels.py:144",
     "assemble_mcu": "ffpic_tpu/ops/jpeg_kernels.py:196",
     "fdct": "ffpic_tpu/ops/jpeg_kernels.py:83",
+    "unfilter_subup": "ffpic_tpu/ops/png_kernels.py:89",
+    "assemble_rgba": "ffpic_tpu/ops/png_kernels.py:40",
+    "scatter_plane": "ffpic_tpu/ops/jpeg_kernels.py:463",
 }
-SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU}
+SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
+           "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU}
 PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
@@ -82,14 +105,18 @@ def exact(name: str, got, want, errs: dict) -> None:
 def ptxas_report(text: str) -> dict:
     """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
     stack_bytes, spill_bytes}}, a template instance named with its
-    arguments, e.g. ``assemble_color<1,0>`` (mode, order) or
-    ``assemble_mcu<1,0,1>`` (mode, order, fancy)."""
+    arguments, e.g. ``assemble_color<1,0>`` (mode, order),
+    ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
+    (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
+    depth)."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color|"
-                          r"assemble_mcu|fdct)_kernel((?:L[ib]\d+E)*)",
+                          r"assemble_mcu|fdct|scatter_plane|unfilter_rows|"
+                          r"unfilter_cols|assemble_rgba)_kernel"
+                          r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
             name = k.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -120,7 +147,6 @@ def codec_paths(dev, jpegs, floor_ms: float, errs: dict) -> dict:
     from ffpic_tpu_torch.ops import cuda_jpeg
     from ffpic_tpu_torch.ops import jpeg_kernels as jk
     from ffpic_tpu_torch.ops.resize import resize_rgba
-    from ffpic_tpu_torch.utils import trace
     from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
                                               bound, gpu_ms, gpu_ms_cold)
 
@@ -366,20 +392,6 @@ def codec_paths(dev, jpegs, floor_ms: float, errs: dict) -> dict:
         coeffs, shapes, quants, samplings, BIG_H, ow, "rgba", "bt601", 128,
         "fancy"), 20)
 
-    def spans(fn, runs):
-        trace.reset()
-        trace.enable()
-        walls = []
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        trace.enable(False)
-        stages = {k: round(v["mean"] * 1e3, 3)
-                  for k, v in trace.report().items()}
-        return sorted(walls)[len(walls) // 2], walls, stages
-
     wall, walls, stages = spans(lambda: ffpic_tpu_torch.load(
         big, mode="bt601", upsample="fancy"), 5)
     mp = BIG_H * BIG_W / 1e6
@@ -400,6 +412,405 @@ def codec_paths(dev, jpegs, floor_ms: float, errs: dict) -> dict:
         jpeg_1080p_encode_mps=f"{H * W / 1e6 / wall:.3f}",
         stage_ms=json.dumps(stages).replace(" ", ""))
     return timed, {"load": launches_load, "encode": launches_enc}
+
+
+def spans(fn, runs: int):
+    """Run ``fn`` ``runs`` times, each to a synchronised card, with the
+    host spans on: (median wall seconds, the walls, mean ms per span)."""
+    import torch
+    from ffpic_tpu_torch.utils import trace
+    trace.reset()
+    trace.enable()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    trace.enable(False)
+    stages = {k: round(v["mean"] * 1e3, 3) for k, v in trace.report().items()}
+    return sorted(walls)[len(walls) // 2], walls, stages
+
+
+def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
+               floor_ms: float, flush, at: str, library=None,
+               plain_iters: int = 3) -> dict:
+    """One kernel's timing entry: warm and L2-flushed ms, its plain
+    version's and (where one exists) one PyTorch call's ms, its bound."""
+    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
+                                              bound, gpu_ms, gpu_ms_cold)
+    rate = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S}[ops_type]
+    b_ms, b_by = bound(nbytes, ops, rate)
+    t = {"ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
+         "plain_ms": gpu_ms(plain, plain_iters), "bound_ms": b_ms,
+         "bound_by": b_by,
+         "library_ms": gpu_ms(library, 50) if library else None,
+         "launch_floor_ms": floor_ms, "ops_type": ops_type, "bytes": nbytes,
+         "ops": ops}
+    t["share"] = b_ms / t["ms"]
+    t["share_cold"] = b_ms / t["ms_cold"]
+    log("time kernel", name=name, at=at, ms=f"{t['ms']:.4f}",
+        ms_cold=f"{t['ms_cold']:.4f}", plain_ms=f"{t['plain_ms']:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by,
+        ops_ms=f"{ops / rate * 1e3:.4f}", ops_type=ops_type,
+        share_warm=f"{t['share']:.3f}", share_cold=f"{t['share_cold']:.3f}",
+        bytes=nbytes, launch_floor_ms=f"{floor_ms:.4f}",
+        library_ms=("null" if t["library_ms"] is None
+                    else f"{t['library_ms']:.4f}"))
+    return t
+
+
+def png_paths(dev, jpegs, floor_ms: float, errs: dict):
+    """The PNG codec on the card: K6 and K7 against their plain versions
+    (edge cases and the 1080p shapes), ``load`` of the two 1080p RGBA
+    files and of smaller ones, the mixed JPEG + PNG ``decode_batch``,
+    each path with fresh launch counts; the timings.  Returns {kernel:
+    timing entry} and the launches of each path."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import Pic, testing
+    from ffpic_tpu_torch.formats import png
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png
+    from ffpic_tpu_torch.ops import png_kernels as pk
+    from ffpic_tpu_torch.utils.timing import gpu_ms
+
+    def reset():
+        torch.cuda.synchronize()
+        cuda_jpeg.reset_launches()
+        cuda_png.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**{k: v for k, v in cuda_jpeg.launches.items() if v},
+                **cuda_png.launches}
+
+    # --- inputs ------------------------------------------------------------
+    t0 = time.perf_counter()
+    px = np.concatenate([testing.synth_rgb(H, W, 31),
+                         testing.synth_rgb(H, W, 32)[..., :1]], -1)
+    t1 = time.perf_counter()
+    adaptive = png.encode(Pic(pixels=px, width=W, height=H),
+                          device=torch.device("cpu"))
+    t2 = time.perf_counter()
+    subup = testing.encode_png(px, 6, 8, filters=(1, 2))
+    t3 = time.perf_counter()
+    kinds = np.bincount(png._filter_rows(px.reshape(H, -1))[:, 0],
+                        minlength=5).tolist()
+    fa, fs = png.parse(adaptive), png.parse(subup)
+    if fa.passes[0].recon is None or fs.passes[0].rows is None:
+        raise AssertionError("the 1080p PNGs do not take their two routes")
+    log("inputs png", pixels=f"{W}x{H} RGBA 8-bit", adaptive_bytes=len(adaptive),
+        adaptive_rows_by_filter=json.dumps(kinds).replace(" ", ""),
+        subup_bytes=len(subup), subup_filters="Sub,Up in turn",
+        synth_seconds=f"{t1 - t0:.3f}", encode_seconds=f"{t2 - t1:.3f}",
+        encode_png_seconds=f"{t3 - t2:.3f}")
+
+    # --- K6 against its plain version ----------------------------------------
+    for rows, bpp in testing.unfilter_cases().values():
+        t = torch.from_numpy(rows).to(dev)
+        exact("unfilter_subup", cuda_png.unfilter_subup(t, bpp),
+              pk.unfilter_subup(t, bpp), errs)
+    rng = np.random.default_rng(33)
+    noise = rng.integers(0, 256, (H, 4 * W + 1)).astype(np.uint8)
+    noise[:, 0] = rng.integers(0, 3, H)
+    for tagged in (np.array(fs.passes[0].rows), noise):
+        t = torch.from_numpy(tagged).to(dev)
+        exact("unfilter_subup", cuda_png.unfilter_subup(t, 4),
+              pk.unfilter_subup(t, 4), errs)
+    rows_d = torch.from_numpy(np.array(fs.passes[0].rows)).to(dev)
+    recon = cuda_png.unfilter_subup(rows_d, 4)
+    log("check K6", unfilter_subup="exact",
+        cases=",".join(testing.unfilter_cases()) + ",1080p_subup,"
+        "1080p_random_filters")
+
+    # --- K7 against its plain version ----------------------------------------
+    for rec, pal, key, ct, bd, w, h in testing.rgba_cases().values():
+        r = torch.from_numpy(rec).to(dev)
+        exact("assemble_rgba", cuda_png.assemble_rgba(r, pal, key, ct, bd, w, h),
+              pk.expand_rgba(r, pal, key, ct, bd, w, h), errs)
+    pal, key = fs.palette, fs.trns.astype(np.int32)
+    host_recon = torch.from_numpy(fa.passes[0].recon).to(dev)
+    for r in (recon, host_recon, host_recon[:, 1:1 + 4 * W - 4]):
+        w = r.shape[1] // 4
+        exact("assemble_rgba", cuda_png.assemble_rgba(r, pal, key, 6, 8, w, H),
+              pk.expand_rgba(r, pal, key, 6, 8, w, H), errs)
+    log("check K7", assemble_rgba="exact",
+        cases=",".join(testing.rgba_cases()) + ",1080p_k6_recon,"
+        "1080p_host_recon,1080p_unaligned")
+
+    # --- the load paths ------------------------------------------------------
+    want = torch.from_numpy(px).to(dev)
+    loads = {}
+    for name, data in (("subup", subup), ("adaptive", adaptive)):
+        reset()
+        pic = ffpic_tpu_torch.load(data)
+        loads[name] = counts()
+        got = pic.pixels
+        if (tuple(got.shape) != (H, W, 4) or got.dtype != torch.uint8
+                or got.device.type != dev.type):
+            raise AssertionError(f"png load {name} gave {tuple(got.shape)} "
+                                 f"{got.dtype} on {got.device}")
+        k6 = 1 if name == "subup" else 0
+        if (loads[name]["assemble_rgba"] != 1
+                or loads[name]["unfilter_subup"] != k6
+                or len(loads[name]) != 2):
+            raise AssertionError(f"png load {name}: launches {loads[name]}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"png load {name}: pixels differ from the "
+                                 f"source by up to {max_abs_err(got, want)}")
+        log("png load path", file=name, shape=tuple(got.shape),
+            launches=loads[name], source_pixels="exact")
+    small = {
+        "palette4_trns_adam7": testing.encode_png(
+            rng.integers(0, 13, (67, 101)), 3, 4, filters=(1, 2, 0),
+            interlace=1, palette=rng.integers(0, 256, (13, 3)),
+            trns=rng.integers(0, 256, 9)),
+        "palette1_paeth": testing.encode_png(
+            rng.integers(0, 2, (33, 45)), 3, 1, filters=4,
+            palette=rng.integers(0, 256, (2, 3))),
+        "gray16_key": testing.encode_png(
+            np.repeat(rng.integers(0, 65536, (67, 1)), 101, 1), 0, 16,
+            filters=(2, 1), trns=int(rng.integers(0, 65536))),
+        "gray_alpha_adam7": testing.encode_png(
+            rng.integers(0, 256, (67, 101, 2)), 4, 8, filters=(0, 1, 2, 3, 4),
+            interlace=1),
+        "rgb16_subup": testing.encode_png(
+            rng.integers(0, 65536, (67, 101, 3)), 2, 16, filters=(1, 2)),
+        "gray2": testing.encode_png(rng.integers(0, 4, (9, 1001)), 0, 2,
+                                    filters=(1, 2)),
+    }
+    for name, data in small.items():
+        got = ffpic_tpu_torch.load(data).pixels
+        if not torch.equal(got.cpu(), ffpic_tpu_torch.load(
+                data, device="cpu").pixels):
+            raise AssertionError(f"png load {name}: the card differs from "
+                                 "the CPU route")
+    log("check png load", cases=",".join(small), cpu_route="exact")
+
+    # --- the mixed decode_batch ----------------------------------------------
+    pngs = [subup, adaptive, subup, adaptive]
+    mixed = [m for pair in zip([jpegs[k % 2] for k in range(4)], pngs)
+             for m in pair]
+    reset()
+    out = ffpic_tpu_torch.decode_batch(mixed, device=dev)
+    launches_mixed = counts()
+    if (tuple(out.shape) != (N, H, W, 4) or out.dtype != torch.uint8
+            or out.device.type != dev.type):
+        raise AssertionError(f"mixed decode_batch gave {tuple(out.shape)}")
+    if min(launches_mixed.get(k, 0) for k in (*PATH_420, "unfilter_subup",
+                                              "assemble_rgba")) < 1:
+        raise AssertionError(f"a kernel of the mixed batch never ran: "
+                             f"{launches_mixed}")
+    t0 = time.perf_counter()
+    cpu = ffpic_tpu_torch.decode_batch(mixed, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(out.cpu(), cpu):
+        raise AssertionError("mixed decode_batch: the card differs from the "
+                             f"CPU route by up to {max_abs_err(out.cpu(), cpu)}")
+    if not all(torch.equal(out[k], want) for k in (1, 3, 5, 7)):
+        raise AssertionError("mixed decode_batch: a PNG member differs from "
+                             "its source")
+    log("png mixed decode_batch", members="jpeg,png x 4", shape=tuple(out.shape),
+        launches=launches_mixed, cpu_route="exact", png_members="source",
+        cpu_route_seconds=f"{cpu_s:.3f}")
+    del out, cpu
+
+    # --- timing --------------------------------------------------------------
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    stride = 4 * W
+    # 8-bit RGBA pixels are the reconstructed bytes as they are: one
+    # device copy computes K7's function on this input
+    if not torch.equal(recon.clone().view(H, W, 4), cuda_png.assemble_rgba(
+            recon, pal, key, 6, 8, W, H)):
+        raise AssertionError("K7's library yardstick computes another "
+                             "function")
+    timed = {
+        "unfilter_subup": time_entry(
+            "unfilter_subup",
+            lambda: cuda_png.unfilter_subup(rows_d, 4),
+            lambda: pk.unfilter_subup(rows_d, 4),
+            H * (stride + 1) + H * stride, H * stride, "int32", floor_ms,
+            flush, "png load 1080p Sub/Up"),
+        "assemble_rgba": time_entry(
+            "assemble_rgba",
+            lambda: cuda_png.assemble_rgba(recon, pal, key, 6, 8, W, H),
+            lambda: pk.expand_rgba(recon, pal, key, 6, 8, W, H),
+            H * stride + 4 * H * W, 4 * H * W, "int32", floor_ms, flush,
+            "png load 1080p", library=lambda: recon.clone().view(H, W, 4)),
+    }
+    del flush
+    walls = {}
+    for name, data in (("subup", subup), ("adaptive", adaptive)):
+        wall, runs, stages = spans(lambda d=data: ffpic_tpu_torch.load(d), 5)
+        walls[name] = wall
+        log("time png load", file=name, megapixels=H * W / 1e6,
+            end_to_end_ms=f"{wall * 1e3:.3f}",
+            end_to_end_ms_runs=json.dumps([round(w * 1e3, 3)
+                                           for w in runs]).replace(" ", ""),
+            png_1080p_load_mps=f"{H * W / 1e6 / wall:.2f}",
+            stage_ms=json.dumps(stages).replace(" ", ""))
+    dev_ms = gpu_ms(lambda: cuda_png.assemble_rgba(cuda_png.unfilter_subup(
+        rows_d, 4), pal, key, 6, 8, W, H), 20)
+    log("time png device", file="subup", device_ms=f"{dev_ms:.4f}",
+        device_busy_share=f"{dev_ms / (walls['subup'] * 1e3):.4f}")
+    wall, runs, stages = spans(lambda: ffpic_tpu_torch.decode_batch(
+        mixed, device=dev), 5)
+    mp = N * H * W / 1e6
+    log("time png mixed decode_batch", megapixels=mp,
+        end_to_end_ms=f"{wall * 1e3:.3f}",
+        end_to_end_ms_runs=json.dumps([round(w * 1e3, 3)
+                                       for w in runs]).replace(" ", ""),
+        mixed_1080p_decode_mps=f"{mp / wall:.2f}",
+        stage_ms=json.dumps(stages).replace(" ", ""))
+    return timed, {"load": loads["subup"], "load_adaptive":
+                   loads["adaptive"], "mixed": launches_mixed}
+
+
+def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
+    """K8 against its plain version (edge cases and the route's planes),
+    the sparse route of dense 4:2:0 members through the pipeline's
+    dense-member staging with the 8 x 1080p batch's planes, with fresh
+    launch counts, against the plain route; the timings.  Returns K8's
+    timing entry and the route's launches."""
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import pipeline, testing
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.ops import cuda_jpeg
+    from ffpic_tpu_torch.ops import jpeg_kernels as jk
+    from ffpic_tpu_torch.utils.timing import gpu_ms
+
+    for idx, val, sh in testing.scatter_cases().values():
+        it, vt = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
+        want = jk.scatter_plane(it, vt, sh)
+        exact("scatter_plane", cuda_jpeg.scatter_plane(
+            it, vt, torch.empty_like(want)), want, errs)
+        slot = torch.full((sh[0], sh[1] + 5, 8, 8), 7, dtype=torch.int16,
+                          device=dev)
+        cuda_jpeg.scatter_plane(it, vt, slot[:, 2:2 + sh[1]])
+        exact("scatter_plane", slot[:, 2:2 + sh[1]], want, errs)
+        if not (bool((slot[:, :2] == 7).all())
+                and bool((slot[:, 2 + sh[1]:] == 7).all())):
+            raise AssertionError("scatter_plane wrote outside its slot")
+    t0 = time.perf_counter()
+    js = [jpg.parse_and_decode(d)[0] for d in srcs]
+    parse_s = time.perf_counter() - t0
+    shapes = tuple((c.nby, c.nbx) for c in js[0].comps)
+    sizes = [a * b for a, b in shapes]
+    planes = [np.stack([j.coeffs[c].reshape(-1) for j in js])
+              for c in range(3)]
+    # decode_batch's worker pool packs each dense member's planes
+    workers = max(1, min(os.cpu_count() or 1, N))
+
+    def pool():
+        with ThreadPoolExecutor(workers) as ex:
+            return list(ex.map(pipeline.member_pairs, js))
+
+    pairs = pool()
+    packed = pipeline.sparse_pairs(pairs, [c.size for c in js[0].coeffs])
+    if packed is None:
+        raise AssertionError("the 1080p planes do not take the sparse route")
+    idx_all, val_all, lens = packed
+    cut = np.cumsum([0, *lens]).tolist()
+    for (a, b), p in zip(zip(cut[:-1], cut[1:]), planes):
+        ri, rv = jk.pack_coeffs(p)
+        if not (np.array_equal(ri, idx_all[a:b])
+                and np.array_equal(rv, val_all[a:b])):
+            raise AssertionError("the pool's pairs, joined, differ from "
+                                 "pack_coeffs of the stacked plane")
+    pairs_d = [(torch.from_numpy(idx_all[a:b]).to(dev),
+                torch.from_numpy(val_all[a:b]).to(dev))
+               for a, b in zip(cut[:-1], cut[1:])]
+    coeffs = torch.empty((N, sum(sizes), 8, 8), dtype=torch.int16,
+                         device=dev)
+    for (it, vt), nb, off in zip(pairs_d, sizes, np.cumsum([0, *sizes])):
+        exact("scatter_plane", cuda_jpeg.scatter_plane(
+            it, vt, coeffs[:, off:off + nb]), jk.scatter_plane(it, vt, (N, nb)),
+            errs)
+    dense_bytes = sum(p.nbytes for p in planes)
+    pair_bytes = idx_all.nbytes + val_all.nbytes
+    log("check K8", scatter_plane="exact",
+        cases=",".join(testing.scatter_cases()) + ",views,8x1080p_planes",
+        pairs=lens, pair_bytes=pair_bytes, dense_bytes=dense_bytes,
+        share=f"{pair_bytes / dense_bytes:.4f}", pool_pairs="pack_coeffs",
+        dense_parse_seconds=f"{parse_s:.3f}")
+
+    torch.cuda.synchronize()
+    cuda_jpeg.reset_launches()
+    out = pipeline.decode_dense_members(js, pairs, "bt601", dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda_jpeg.launches.items() if v}
+    if launches != {"scatter_plane": 3, "dequant_idct": 1,
+                    "assemble_color": 1}:
+        raise AssertionError(f"the sparse route ran {launches}")
+    if not torch.equal(out, plain):
+        raise AssertionError("the sparse route differs from the plain route "
+                             f"by up to {max_abs_err(out, plain)}")
+    log("sparse route", shape=tuple(out.shape), launches=launches,
+        plain_route="exact")
+    del out
+
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    slots = [coeffs[:, off:off + nb]
+             for nb, off in zip(sizes, np.cumsum([0, *sizes]))]
+    longs = [(it.to(torch.int64), vt) for it, vt in pairs_d]
+
+    def k8():
+        for (it, vt), slot in zip(pairs_d, slots):
+            cuda_jpeg.scatter_plane(it, vt, slot)
+
+    def library():
+        for (il, vt), nb in zip(longs, sizes):
+            torch.zeros(N * nb * 64, dtype=torch.int16,
+                        device=dev).index_add_(0, il, vt)
+
+    entries = sum(lens)
+    timed = time_entry(
+        "scatter_plane", k8,
+        lambda: [jk.scatter_plane(it, vt, (N, nb))
+                 for (it, vt), nb in zip(pairs_d, sizes)],
+        6 * entries + 2 * N * sum(sizes) * 64, entries, "int32", floor_ms,
+        flush, "sparse route 8x1080p, 3 planes", library)
+    del flush
+    # the launches one timed call of k8 makes
+    torch.cuda.synchronize()
+    cuda_jpeg.reset_launches()
+    k8()
+    torch.cuda.synchronize()
+    timed["launches_per_run"] = cuda_jpeg.launches["scatter_plane"]
+    yq, cq = (torch.from_numpy(np.stack([j.dqt[j.comps[c].tq] for j in js])
+                               .astype(np.int32)).to(dev) for c in (0, 1))
+    dense = coeffs.clone()
+    route_ms = {
+        "sparse": gpu_ms(lambda: jk.decode_batch_420_sparse(
+            pairs_d, N, shapes, yq, cq, "rgba", "bt601", (H, W)), 20),
+        "dense": gpu_ms(lambda: jk.decode_batch_420_dense(
+            dense, yq, cq, shapes, "rgba", "bt601", (H, W)), 20)}
+    # from parsed planes to pixels: the pool's packing, which decode_batch
+    # does for every dense member, then the route the rule takes
+    # (sparse here), or the dense route alone, which is all that ran
+    # before the rule
+    pool_wall, pool_runs, _ = spans(pool, 5)
+    log("time dense members pool packing", workers=workers,
+        wall_ms=f"{pool_wall * 1e3:.3f}",
+        wall_ms_runs=json.dumps([round(w * 1e3, 3)
+                                 for w in pool_runs]).replace(" ", ""))
+    routes = {
+        "sparse": lambda: pipeline.decode_dense_members(js, pairs, "bt601",
+                                                        dev),
+        "dense": lambda: pipeline.decode_planes(js, "bt601", dev)}
+    for route, fn in routes.items():
+        wall, runs, stages = spans(fn, 5)
+        log("time dense members", route=route,
+            device_ms=f"{route_ms[route]:.4f}",
+            end_to_end_ms=f"{wall * 1e3:.3f}",
+            with_pool_packing_ms=f"{(wall + pool_wall) * 1e3:.3f}",
+            end_to_end_ms_runs=json.dumps([round(w * 1e3, 3)
+                                           for w in runs]).replace(" ", ""),
+            staged_bytes=(pair_bytes if route == "sparse" else dense_bytes),
+            stage_ms=json.dumps(stages).replace(" ", ""))
+    return timed, launches
 
 
 def main() -> int:
@@ -732,14 +1143,29 @@ def main() -> int:
         stage_ms=json.dumps(stages).replace(" ", ""))
 
     codec_timed, path_launches = codec_paths(dev, jpegs, floor_ms, errs)
+    png_timed, png_launches = png_paths(dev, jpegs, floor_ms, errs)
+    timed["scatter_plane"], sparse_launches = sparse_path(
+        dev, srcs, plain, floor_ms, errs)
+    timed.update(png_timed)
 
-    # the instances the paths run: bt601, rgba (and fancy for K4)
+    # the instances the paths run: bt601, rgba (and fancy for K4), K6's
+    # two passes at 4 bytes a pixel, K7 for 8-bit RGBA
+    ptxas["unfilter_subup"] = {"rows": ptxas["unfilter_rows<4>"],
+                               "cols": ptxas["unfilter_cols"]}
     built = {"assemble_color": "assemble_color<1,0>",
-             "assemble_mcu": "assemble_mcu<1,0,1>"}
+             "assemble_mcu": "assemble_mcu<1,0,1>",
+             "assemble_rgba": "assemble_rgba<6,8>"}
     # each kernel's launches on the path it serves: decode_batch for
-    # K1a-K3, load for K4, encode for K5; K2's on load beside them
+    # K1a-K3, load for K4, encode for K5, PNG load (Sub/Up file) for K6
+    # and K7, the sparse route for K8; K2's on load beside them
     launches["assemble_mcu"] = path_launches["load"]["assemble_mcu"]
     launches["fdct"] = path_launches["encode"]["fdct"]
+    launches["unfilter_subup"] = png_launches["load"]["unfilter_subup"]
+    launches["assemble_rgba"] = png_launches["load"]["assemble_rgba"]
+    launches["scatter_plane"] = sparse_launches["scatter_plane"]
+    for name in ("unfilter_subup", "assemble_rgba"):
+        timed[name]["launches_mixed_decode_batch"] = \
+            png_launches["mixed"][name]
     timed["dequant_idct"]["at_load_12mp"] = codec_timed.pop("dequant_idct")
     timed["dequant_idct"]["at_load_12mp"]["launches"] = \
         path_launches["load"]["dequant_idct"]

@@ -19,6 +19,14 @@
 // B is the block count of one image over all three components, laid out
 // [Y (nby*nbx) | Cb (nby/2*nbx/2) | Cr (nby/2*nbx/2)], each raster order.
 //
+// The sparse route of .decode_batch_420_sparse stages dense members'
+// planes as (flat index, value) pairs instead, and
+//
+//   K8  scatter_plane   zeros + int16 scatter-add of one plane's pairs
+//                       into its slot of the (N, B, 8, 8) buffer
+//
+// rebuilds the coefficients that K2 and K3 then take.
+//
 // Every launcher is extern "C", launches on the caller's stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 //
@@ -552,9 +560,72 @@ void launch_assemble_color(const int16_t* s, uint8_t* out, int n, int nby,
       s, out, nby, nbx, h, w);
 }
 
+// K8. Replaces ffpic_tpu/ops/jpeg_kernels.py:_scatter_plane (:463), the
+// scatter-add of decode_batch_420_sparse's packed pairs into zeroed
+// planes. Bound: it reads 6 bytes a pair and writes each int16 of the
+// plane once (the zeroing), so it is memory-bound; the adds are nothing.
+//
+// It must be right for any pairs, duplicates included, so a thread per
+// pair adds its value into the 32-bit word that holds its int16 with an
+// atomicCAS loop (CUDA has no 16-bit atomic add), keeping the other
+// half as it is; int16 sums wrap, so the order of the adds does not
+// matter. The launcher zeroes the plane's slot first with
+// cudaMemset2DAsync on the same stream (N rows of plane int16 at the
+// buffer's pitch). Indices follow the reference's scatter: one in
+// [-total, 0) is taken as idx + total, any other outside [0, total)
+// is dropped; a zero value (the padding) adds nothing and is skipped.
+// The host packs pairs in index order, so neighbouring threads hit
+// neighbouring words and the CAS loops rarely retry.
+constexpr int kScatterThreads = 256;
+
+__global__ void __launch_bounds__(kScatterThreads)
+    scatter_plane_kernel(const int32_t* __restrict__ idx,
+                         const int16_t* __restrict__ val, long long count,
+                         int16_t* out, long long plane, long long pitch,
+                         long long total) {
+  const long long e = (long long)blockIdx.x * kScatterThreads + threadIdx.x;
+  if (e >= count) return;
+  const unsigned v = (uint16_t)__ldg(val + e);
+  long long i = __ldg(idx + e);
+  if (i < 0) i += total;
+  if (v == 0 || i < 0 || i >= total) return;
+  const long long img = i / plane;
+  int16_t* p = out + img * pitch + (i - img * plane);
+  unsigned* word = (unsigned*)((uintptr_t)p & ~(uintptr_t)3);
+  const int shift = ((uintptr_t)p & 2) ? 16 : 0;
+  const unsigned keep = ~(0xFFFFu << shift);
+  unsigned old = *word, seen;
+  do {
+    seen = old;
+    const unsigned half = ((seen >> shift) + v) & 0xFFFFu;
+    old = atomicCAS(word, seen, (seen & keep) | (half << shift));
+  } while (old != seen);
+}
+
 }  // namespace
 
 extern "C" {
+
+// out: n rows of `plane` int16 at a pitch of `pitch` int16 (both even,
+// out 4-byte aligned), zeroed here, then the count pairs added
+int ffpic_scatter_plane(const void* idx, const void* val, long long count,
+                        void* out, int n, long long plane, long long pitch,
+                        void* stream) {
+  if (n <= 0 || plane <= 0 || pitch < plane || count < 0 || plane % 2 ||
+      pitch % 2 || ((uintptr_t)out & 3) ||
+      (count + kScatterThreads - 1) / kScatterThreads > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemset2DAsync(out, 2 * pitch, 0, 2 * plane, n, st);
+  if (err != cudaSuccess) return (int)err;
+  if (count > 0)
+    scatter_plane_kernel<<<(unsigned)((count + kScatterThreads - 1) /
+                                      kScatterThreads),
+                           kScatterThreads, 0, st>>>(
+        (const int32_t*)idx, (const int16_t*)val, count, (int16_t*)out,
+        plane, pitch, (long long)n * plane);
+  return (int)cudaGetLastError();
+}
 
 int ffpic_count_scan(const void* buf, void* starts, int n, int g, int cluster,
                      void* stream) {

@@ -4,14 +4,15 @@ Copied from ``ffpic_tpu/formats/registry.py:24-136`` (``Codec``,
 ``register``, ``registered_codecs``, ``find_codec``, ``probe``,
 ``load_all``, ``load``, ``info``, ``encode``) with its own codec list,
 so that importing ``ffpic_tpu`` (which registers the JAX package's
-codecs in its registry) never touches it.  Two additions:
+codecs in its registry) never touches it.  Three changes:
 
 * ``load``, ``load_all`` and ``encode`` take ``device``: None means
   CUDA and raises without it, "cpu" runs the plain PyTorch versions.
   The codec gets the resolved ``torch.device``;
 * they pass further keyword options to the codec (for JPEG: ``quirks``,
-  ``order``, ``mode``, ``upsample``), which the original's ``load``
-  has no way to reach.
+  ``order``, ``mode``, ``upsample``; for PNG: ``verify_crc``), which the
+  original's ``load`` has no way to reach;
+* the codec list is filled under a lock (``_ensure_init``).
 
 Malformed files that pass the probe keep the original's contract: they
 raise ``ValueError``, not the parser's own exception
@@ -23,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import os
 import struct
+import threading
 import zlib
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -47,6 +49,7 @@ class Codec:
 
 _codecs: list[Codec] = []
 _initialized = False
+_init_lock = threading.RLock()
 
 
 def register(codec: Codec) -> None:
@@ -54,12 +57,16 @@ def register(codec: Codec) -> None:
 
 
 def _ensure_init() -> None:
-    """Import the port's format modules once; each registers itself."""
+    """Import the port's format modules once; each registers itself.
+    Under a lock, and marked done only after the imports, so that a
+    thread that asks while another imports waits for a full list (the
+    original marks it first, and a second thread can find no codec)."""
     global _initialized
-    if _initialized:
-        return
-    _initialized = True
-    from ffpic_tpu_torch.formats import all_formats  # noqa: F401
+    with _init_lock:
+        if _initialized:
+            return
+        from ffpic_tpu_torch.formats import all_formats  # noqa: F401
+        _initialized = True
 
 
 def registered_codecs() -> list[str]:

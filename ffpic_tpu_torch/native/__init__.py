@@ -1,17 +1,23 @@
-"""The port's native JPEG entropy decoder: builds and loads host_jpeg.c.
+"""The port's native host kernels: builds and loads host_jpeg.c (the
+JPEG entropy decoder and the sparse coefficient packer) and host_png.c
+(the PNG scanline unfilter).
 
-Copied from the JPEG part of ``ffpic_tpu/native/__init__.py``
+Copied from the JPEG and PNG parts of ``ffpic_tpu/native/__init__.py``
 (``_build``, ``_load``, ``available``, ``jpeg_decode_scan``,
-``jpeg_decode_scan_packed``, ``jpeg_destuff``), with three changes:
+``jpeg_decode_scan_packed``, ``jpeg_destuff``, ``png_unfilter``,
+``pack_nonzero``), with these changes:
 
-* only ``host_jpeg.c`` (this directory) is compiled, with ``cc``, into
-  ``ffpic_tpu_torch/build/``, named by a hash of the source and flags;
-  the library is written under a temporary name and renamed, so another
-  process never loads a half-written file;
+* only ``host_jpeg.c`` and ``host_png.c`` (this directory) are compiled,
+  with ``cc``, into one library in ``ffpic_tpu_torch/build/``, named by
+  a hash of both sources and the flags; the library is written under a
+  temporary name and renamed, so another process never loads a
+  half-written file;
 * the loader holds a lock, so threads that ask for the library while
   the first one builds it wait for it instead of seeing none;
 * a failed build raises: there is no Python Huffman decoder to fall
-  back to.
+  back to;
+* ``png_unfilter`` refuses a buffer shorter than its rows instead of
+  reading past it.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_DIR, "host_jpeg.c")
+SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c")]
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 
@@ -45,6 +51,8 @@ _SIGNATURES = {
                                               _int, _vp, _vp, _vp, _int, _vp,
                                               _vp, _vp]),
     "ffpic_jpeg_destuff": (_int, [_vp, _long, _vp, _vp, _vp]),
+    "ffpic_png_unfilter": (_int, [_vp, _vp, _long, _long, _int]),
+    "ffpic_pack_nonzero": (_long, [_vp, _long, _vp, _vp]),
 }
 
 
@@ -52,14 +60,15 @@ def _build() -> str:
     """Path of the built library, compiling it first if needed."""
     cc = os.environ.get("CC", "cc")
     h = hashlib.sha256(" ".join([cc, *FLAGS]).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     so = os.path.join(BUILD, f"libffpic_torch_host_{h.hexdigest()[:16]}.so")
     if os.path.exists(so):
         return so
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cc, *FLAGS, "-o", tmp, SOURCE]
+    cmd = [cc, *FLAGS, "-o", tmp, *SOURCES]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.CalledProcessError, FileNotFoundError,
@@ -228,3 +237,31 @@ def jpeg_destuff(scan: bytes):
     if n_segs < 0:
         raise ValueError(f"destuff failed ({n_segs})")
     return out[:out_len.value], bounds[:n_segs + 1].copy()
+
+
+def png_unfilter(raw: np.ndarray, height: int, stride: int,
+                 bpp: int) -> np.ndarray:
+    """Reconstruct PNG scanlines. raw: height*(stride+1) bytes of
+    filter-tagged rows; returns (height, stride) uint8."""
+    lib = _load()
+    raw = np.ascontiguousarray(raw, np.uint8).reshape(-1)
+    if raw.size < height * (stride + 1):
+        raise ValueError(f"{raw.size} bytes cannot hold {height} rows of "
+                         f"{stride} + 1")
+    out = np.empty(height * stride, np.uint8)
+    rc = lib.ffpic_png_unfilter(_p(raw), _p(out), height, stride, bpp)
+    if rc != 0:
+        raise ValueError("invalid PNG filter type")
+    return out.reshape(height, stride)
+
+
+def pack_nonzero(plane: np.ndarray):
+    """Pack nonzero coefficients of an int16 array into
+    (flat_idx int32[], val int16[]), in index order.  Returns (idx, val)."""
+    lib = _load()
+    flat = np.ascontiguousarray(plane.reshape(-1), np.int16)
+    n = flat.size
+    idx = np.empty(n, np.int32)
+    val = np.empty(n, np.int16)
+    nnz = lib.ffpic_pack_nonzero(_p(flat), n, _p(idx), _p(val))
+    return idx[:nnz], val[:nnz]

@@ -103,3 +103,25 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(library_path())
         return _lib
+
+
+def launcher(signatures: dict, launches: dict):
+    """``launch(name, counter, *args)``: call the library's C entry
+    ``name`` (argument types from ``signatures``, the current CUDA
+    stream appended), raise if it returns an error, else add one to
+    ``launches[counter]`` (under a lock: ``decode_batch`` may launch from
+    several threads)."""
+    import torch
+    count_lock = threading.Lock()
+
+    def launch(name: str, counter: str, *args) -> None:
+        fn = getattr(load(), name)
+        fn.argtypes = signatures[name]
+        fn.restype = ctypes.c_int
+        rc = fn(*args,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+        with count_lock:
+            launches[counter] += 1
+    return launch

@@ -1,6 +1,7 @@
 """ctypes wrappers of the CUDA kernels in ``csrc/jpeg_decode.cu`` (K1a
-``count_scan``, K1b ``unpack``, K2 ``dequant_idct``, K3 ``assemble_color``)
-and ``csrc/jpeg_codec.cu`` (K4 ``assemble_mcu``, K5 ``fdct``).
+``count_scan``, K1b ``unpack``, K2 ``dequant_idct``, K3 ``assemble_color``,
+K8 ``scatter_plane``) and ``csrc/jpeg_codec.cu`` (K4 ``assemble_mcu``, K5
+``fdct``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape
 and contiguity, raises on anything else, allocates its output with
@@ -14,15 +15,14 @@ went through.  The plain PyTorch version of each kernel lives in
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from ffpic_tpu_torch.ops import _build
 
 launches = {"count_scan": 0, "unpack": 0, "dequant_idct": 0,
-            "assemble_color": 0, "assemble_mcu": 0, "fdct": 0}
-_launches_lock = threading.Lock()    # decode_batch launches from a pool
+            "assemble_color": 0, "assemble_mcu": 0, "fdct": 0,
+            "scatter_plane": 0}
 
 MODES = {"reference": 0, "bt601": 1, "rgb": 2}
 ORDERS = {"rgba": 0, "bgra": 1}
@@ -40,7 +40,9 @@ _SIGNATURES = {
     "ffpic_assemble_mcu": [ctypes.POINTER(_i64), _int, _int, _vp, _int, _int,
                            _int, _int, _int, _vp],
     "ffpic_fdct": [_vp, _vp, _i64, _int, _vp],
+    "ffpic_scatter_plane": [_vp, _vp, _i64, _vp, _int, _i64, _i64, _vp],
 }
+_launch = _build.launcher(_SIGNATURES, launches)
 _INT_MAX = 2 ** 31 - 1
 _GRID_MAX = 65535           # an image index is a grid y or z coordinate
 
@@ -95,13 +97,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _fn(name: str):
-    fn = getattr(_build.load(), name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
            shape: tuple | None = None) -> None:
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
@@ -114,14 +109,6 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
-
-
-def _launch(name: str, counter: str, *args) -> None:
-    rc = _fn(name)(*args, _vp(torch.cuda.current_stream().cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    with _launches_lock:
-        launches[counter] += 1
 
 
 def count_scan(buf: torch.Tensor, n: int, g: int) -> torch.Tensor:
@@ -281,4 +268,41 @@ def fdct(samples: torch.Tensor) -> torch.Tensor:
     if out.numel():
         _launch("ffpic_fdct", "fdct", _vp(samples.data_ptr()),
                 _vp(out.data_ptr()), out.numel() // 64, FDCT_TILE)
+    return out
+
+
+def scatter_plane(idx: torch.Tensor, val: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """K8: zero ``out``, an (n, nb, 8, 8) int16 CUDA tensor (contiguous,
+    or the slot of one plane in a larger (n, B, 8, 8) buffer), and add
+    each packed pair's int16 value at its flat index into the plane's
+    n * nb * 64 coefficients, as ``jpeg_kernels.scatter_plane``; returns
+    ``out``.  ``idx`` int32 and ``val`` int16 are 1-D, of one length."""
+    if out.dim() != 4 or tuple(out.shape[2:]) != (8, 8):
+        raise ValueError(f"out: expected (n, nb, 8, 8), got "
+                         f"{tuple(out.shape)}")
+    n, nb = out.shape[:2]
+    for t, name, dtype in ((idx, "idx", torch.int32), (val, "val", torch.int16),
+                           (out, "out", torch.int16)):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got "
+                             f"{getattr(t, 'device', type(t))}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if idx.dim() != 1 or tuple(val.shape) != tuple(idx.shape) or \
+            not (idx.is_contiguous() and val.is_contiguous()):
+        raise ValueError(f"idx {tuple(idx.shape)} / val {tuple(val.shape)}: "
+                         "expected contiguous 1-D pairs of one length")
+    if out.stride()[1:] != (64, 8, 1) or out.data_ptr() % 4 or \
+            (n > 1 and out.stride(0) < nb * 64):
+        raise ValueError("out: each image's plane must be contiguous and "
+                         "the tensor 4-byte aligned")
+    if not 0 < n <= _GRID_MAX or nb <= 0:
+        raise ValueError(f"{n}x{nb} blocks: one launch takes 1..{_GRID_MAX} "
+                         "images of nb > 0 blocks")
+    if idx.numel() == 0:
+        return out.zero_()
+    _launch("ffpic_scatter_plane", "scatter_plane", _vp(idx.data_ptr()),
+            _vp(val.data_ptr()), idx.numel(), _vp(out.data_ptr()), n,
+            nb * 64, out.stride(0) if n > 1 else nb * 64)
     return out

@@ -1,0 +1,102 @@
+"""ctypes wrappers of the CUDA kernels in ``csrc/png_decode.cu``: K6
+``unfilter_subup`` and K7 ``assemble_rgba``.
+
+As in ``ops.cuda_jpeg``: each wrapper takes CUDA tensors only, checks
+device, dtype, shape and layout and raises on anything else, allocates
+its output with ``torch.empty``, launches on the current stream and
+raises if the launch reports an error, without synchronising.
+``launches`` counts each kernel's launches.  The plain PyTorch versions
+live in ``ops.png_kernels``; the kernels never run on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ffpic_tpu_torch.ops import _build
+from ffpic_tpu_torch.ops.png_kernels import NCH, check_format
+
+launches = {"unfilter_subup": 0, "assemble_rgba": 0}
+
+_vp = ctypes.c_void_p
+_int = ctypes.c_int
+_i64 = ctypes.c_longlong
+_SIGNATURES = {
+    "ffpic_unfilter_subup": [_vp, _i64, _vp, _i64, _int, _int, _int, _vp],
+    "ffpic_assemble_rgba": [_vp, _i64, _vp, _vp, _vp, _int, _int, _int, _int,
+                            _vp],
+}
+_launch = _build.launcher(_SIGNATURES, launches)
+_PITCH = 16        # K6's output rows start 16-byte aligned
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _rows(t: torch.Tensor, name: str) -> None:
+    """A 2-D uint8 CUDA tensor whose rows are contiguous, at any pitch."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != torch.uint8 or t.dim() != 2:
+        raise ValueError(f"{name}: expected 2-D uint8, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: each row must be contiguous")
+
+
+def unfilter_subup(tagged: torch.Tensor, bpp: int) -> torch.Tensor:
+    """K6: (H, stride + 1) uint8 filtered rows (any row pitch), each its
+    filter type in {0, 1, 2} and then its bytes -> (H, stride) uint8
+    reconstructed rows, a view of an (H, pitch) buffer with pitch the
+    stride rounded up to 16 bytes; a row pass (Sub), then a column pass
+    (Up)."""
+    _rows(tagged, "tagged")
+    h, stride = tagged.shape[0], tagged.shape[1] - 1
+    if bpp not in (1, 2, 3, 4, 6, 8):
+        raise ValueError(f"bpp {bpp}: PNG pixels take 1, 2, 3, 4, 6 or 8 "
+                         "bytes")
+    if stride < 0:
+        raise ValueError("tagged: each row needs its filter type byte")
+    if h >= 2 ** 31 or stride >= 2 ** 31:
+        raise ValueError(f"{h}x{stride} rows: too large for one launch")
+    pitch = -(-stride // _PITCH) * _PITCH
+    out = torch.empty((h, pitch), dtype=torch.uint8, device=tagged.device)
+    if h and stride:
+        _launch("ffpic_unfilter_subup", "unfilter_subup",
+                _vp(tagged.data_ptr()), tagged.stride(0),
+                _vp(out.data_ptr()), pitch, h, stride, bpp)
+    return out[:, :stride]
+
+
+def assemble_rgba(recon: torch.Tensor, palette: np.ndarray, trns: np.ndarray,
+                  color_type: int, bitdepth: int, width: int,
+                  height: int) -> torch.Tensor:
+    """K7: (H, stride) uint8 reconstructed rows (any row pitch) -> (H, W, 4)
+    uint8 RGBA, a thread per pixel; ``palette`` (256, 4) uint8 and
+    ``trns`` (256,) int32 host arrays go with the launch by value."""
+    check_format(color_type, bitdepth)
+    _rows(recon, "recon")
+    need = (width * NCH[color_type] * bitdepth + 7) // 8
+    if recon.shape[0] != height or recon.shape[1] < need:
+        raise ValueError(f"recon {tuple(recon.shape)}: expected {height} rows "
+                         f"of at least {need} bytes")
+    pal = np.ascontiguousarray(palette, np.uint8)
+    key = np.ascontiguousarray(trns, np.int32)
+    if pal.shape != (256, 4) or key.shape != (256,):
+        raise ValueError(f"palette {pal.shape} / trns {key.shape}: expected "
+                         "(256, 4) and (256,)")
+    if height >= 2 ** 31 or width >= 2 ** 31:
+        raise ValueError(f"{width}x{height}: too large for one launch")
+    out = torch.empty((height, width, 4), dtype=torch.uint8,
+                      device=recon.device)
+    if out.numel():
+        _launch("ffpic_assemble_rgba", "assemble_rgba", _vp(recon.data_ptr()),
+                recon.stride(0), _vp(pal.ctypes.data), _vp(key.ctypes.data),
+                _vp(out.data_ptr()), width, height, color_type, bitdepth)
+    return out

@@ -5,9 +5,11 @@ encoder's forward DCT.
 
 The PyTorch counterpart of ``ffpic_tpu/ops/jpeg_kernels.py``.  It holds
 
-* the host helpers ``stack_packed_fused`` and ``_bucket`` (numpy);
+* the host helpers ``stack_packed_fused``, ``_bucket`` and
+  ``pack_coeffs`` (numpy, the last over ``native.pack_nonzero``);
 * the plain PyTorch version of every device stage: ``count_starts`` and
-  ``unpack_coeffs`` (K1a/K1b), ``dequant_idct_blocks`` (K2),
+  ``unpack_coeffs`` (K1a/K1b), ``scatter_plane`` (K8),
+  ``dequant_idct_blocks`` (K2),
   ``color_convert`` and ``assemble_color`` (K3), ``decode_batch_420``
   (K2 then K3), ``assemble_mcu`` (K4: ``mcu_planes`` with
   ``blocks_to_plane`` and ``upsample_nearest`` or ``upsample_fancy``,
@@ -16,6 +18,7 @@ The PyTorch counterpart of ``ffpic_tpu/ops/jpeg_kernels.py``.  It holds
   the CUDA kernels are held against;
 * the entries the pipeline and the codec call:
   ``decode_batch_420_packed_fused``, ``decode_batch_420_dense``,
+  ``decode_batch_420_sparse`` (K8 per plane, then K2 and K3),
   ``decode_mcu_planes`` (K2 then K4) and ``fdct_blocks`` (K5).  They
   dispatch on the tensor's device: a CPU tensor takes the plain
   versions, a CUDA tensor the kernels of ``ops.cuda_jpeg`` (which raise
@@ -79,6 +82,21 @@ def stack_packed_fused(packed_list, minimum: int = 2048):
     return buf, g, emax
 
 
+def pack_coeffs(plane: np.ndarray, minimum: int = 2048):
+    """Host side of the sparse staging route: the nonzeros of an int16
+    array as (flat index int32, value int16) pairs in index order
+    (``native.pack_nonzero``), zero-padded to a ``_bucket`` length.
+    Copied from ``ffpic_tpu/ops/jpeg_kernels.py:472``."""
+    from ffpic_tpu_torch import native
+    idx, val = native.pack_nonzero(plane)
+    n = _bucket(len(idx), minimum)
+    pidx = np.zeros(n, np.int32)
+    pval = np.zeros(n, np.int16)
+    pidx[:len(idx)] = idx
+    pval[:len(val)] = val
+    return pidx, pval
+
+
 def from_jax_inputs(buf, block_map, yquant, cquant, device):
     """The arrays the JAX ``decode_batch_420_packed_fused`` is fed
     (numpy buffer, int32 block map, ``(N, 1, 1, 8, 8)`` quant stacks) as
@@ -131,6 +149,25 @@ def unpack_coeffs(counts, ks, vals, block_map, nblocks: int):
     acc = torch.zeros(n * nblocks * 64, dtype=torch.int64, device=ks.device)
     acc.index_add_(0, flat[keep], vals.to(torch.int64)[keep])
     return _wrap(acc, 16).to(torch.int16).view(n, nblocks, 8, 8)
+
+
+def scatter_plane(idx: torch.Tensor, val: torch.Tensor,
+                  shape) -> torch.Tensor:
+    """Packed (idx, val) pairs -> dense ``(*shape, 8, 8)`` int16 (K8):
+    zeros, then each value added at its flat index, sums wrapping to
+    int16, as the reference's ``_scatter_plane`` (``.at[idx].add``).
+    That scatter, run on JAX, takes an index in [-n, 0) as idx + n (n
+    the plane's size) and drops any other index outside [0, n), so
+    duplicates add, the (0, 0) padding adds nothing, and e.g. -1 lands
+    on the last coefficient while -n-1 and n are dropped; this version
+    does the same, masking before ``index_add_``, which would raise."""
+    n = int(np.prod(shape)) * 64
+    i = idx.to(torch.int64)
+    i = torch.where(i < 0, i + n, i)
+    keep = (i >= 0) & (i < n)
+    acc = torch.zeros(n, dtype=torch.int64, device=idx.device)
+    acc.index_add_(0, i[keep], val.to(torch.int64)[keep])
+    return _wrap(acc, 16).to(torch.int16).view(*shape, 8, 8)
 
 
 def dequant_idct_blocks(coeffs: torch.Tensor, yquant: torch.Tensor,
@@ -387,6 +424,32 @@ def decode_batch_420_packed_fused(buf, block_map, yquant, cquant, n: int,
     else:
         counts, ks, vals = split_packed(buf, n, g, e)
         coeffs = unpack_coeffs(counts, ks, vals, block_map, nblocks)
+    return decode_batch_420_dense(coeffs, yquant, cquant, shapes, order, mode,
+                                  hw)
+
+
+def decode_batch_420_sparse(packed, n: int, shapes, yquant, cquant,
+                            order: str = "rgba", mode: str = "reference",
+                            hw=None):
+    """Sparse-staged 4:2:0 batch -> (n, h, w, 4) uint8, the reference's
+    ``decode_batch_420_sparse`` (``jpeg_kernels.py:485``).  ``packed`` is
+    ((yidx, yval), (uidx, uval), (vidx, vval)) from ``pack_coeffs`` on
+    the device, each covering the (n, nby, nbx, 8, 8) plane of ``shapes``
+    flattened.  On a CUDA tensor K8 rebuilds each plane into its slot of
+    one (n, nblocks, 8, 8) buffer, then K2 and K3 run as on the dense
+    route; on a CPU tensor the plain versions."""
+    sizes = [a * b for a, b in shapes]
+    if _on_cuda(packed[0][0]):
+        from ffpic_tpu_torch.ops import cuda_jpeg
+        coeffs = torch.empty((n, sum(sizes), 8, 8), dtype=torch.int16,
+                             device=packed[0][0].device)
+        off = 0
+        for (idx, val), nb in zip(packed, sizes):
+            cuda_jpeg.scatter_plane(idx, val, coeffs[:, off:off + nb])
+            off += nb
+    else:
+        coeffs = torch.cat([scatter_plane(idx, val, (n, nb))
+                            for (idx, val), nb in zip(packed, sizes)], dim=1)
     return decode_batch_420_dense(coeffs, yquant, cquant, shapes, order, mode,
                                   hw)
 

@@ -1,32 +1,40 @@
-"""Batched JPEG decode into one ``(N, H, W, 4)`` uint8 device tensor.
+"""Batched decode of JPEGs and PNGs into one ``(N, H, W, 4)`` uint8
+device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of JPEGs:
+batches of JPEGs and PNGs:
 
 1. Host pass, in a thread pool (the native parsers release the GIL):
    3-component 4:2:0 baseline files are Huffman-decoded into the packed
-   emission, progressive ones into dense coefficient planes.  Any other
+   emission, progressive ones into dense coefficient planes, whose
+   nonzeros are packed there too (``member_pairs``).  Any other
    JPEG (another sampling, gray) is Huffman-decoded there into dense
-   planes of its first picture.  The pool does no device work: every
-   copy and launch below runs on the caller's thread, so on the
-   caller's current stream.
-2. Each other JPEG is decoded as the port's registry decodes it, as
-   ``ffpic_tpu/pipeline.py:182-212`` does through ``registry.load``:
-   ``jpg.to_pic`` with the registry's defaults (``mode="reference"``,
-   nearest upsampling, not ``decode_batch``'s ``mode``), 8-aligned wide,
-   malformed files raising ``ValueError``.  Its pixels stay on the
-   device.
+   planes of its first picture; a PNG is parsed, inflated and, where
+   its rows use Average or Paeth, unfiltered (``formats.png.parse``).
+   The pool does no device work: every copy and launch below runs on
+   the caller's thread, so on the caller's current stream.
+2. Each other JPEG and each PNG is decoded as the port's registry
+   decodes it, as ``ffpic_tpu/pipeline.py:183-190, 211-212`` does
+   through ``registry.load``: ``jpg.to_pic`` with the registry's
+   defaults (``mode="reference"``, nearest upsampling, not
+   ``decode_batch``'s ``mode``), 8-aligned wide, or ``png.to_pic``
+   (K6 for None/Sub/Up rows, K7); malformed files raise ``ValueError``.
+   Its pixels stay on the device.
 3. Per 4:2:0 image size (one block geometry and one crop), ONE staged
    transfer through pinned memory and one device decode: the packed
    members through ``decode_batch_420_packed_fused`` (a single member is
-   the same route with N=1), the dense ones through
-   ``decode_batch_420_dense``.  Both write the cropped images.
+   the same route with N=1); the dense ones (progressive) by the
+   reference's rule (``ffpic_tpu/pipeline.py:283-299``): the pool's
+   (index, value) pairs through ``decode_batch_420_sparse`` when they
+   take under 0.7 of the dense bytes, else the planes through
+   ``decode_batch_420_dense``.  Both routes give the same pixels.  All
+   write the cropped images.
 4. Optional resize to ``size``, and stacking in input order; a batch
    that one decode covers in input order is returned as it is.
 
-The host layer (``formats.jpg``, ``native``) is the port's own copy of
-``ffpic_tpu``'s; ``_read`` and ``_jpeg_420_plan`` are copied from
-``ffpic_tpu/pipeline.py:29-70``.
+The host layer (``formats.jpg``, ``formats.png``, ``native``) is the
+port's own copy of ``ffpic_tpu``'s; ``_read`` and ``_jpeg_420_plan`` are
+copied from ``ffpic_tpu/pipeline.py:29-70``.
 """
 
 from __future__ import annotations
@@ -38,15 +46,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ffpic_tpu_torch.formats import jpg, registry
+from ffpic_tpu_torch import native
+from ffpic_tpu_torch.formats import jpg, png, registry
 from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 from ffpic_tpu_torch.ops.resize import resize_rgba
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1 and 7-9 (the other codecs of the "
-                "registry)")
+_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1, 8 and 9 (the other codecs of "
+                "the registry)")
+# dense members are staged as packed pairs when those take less than
+# this share of their dense bytes (the reference's threshold)
+SPARSE_SHARE = 0.7
 
 
 def _read(src) -> bytes:
@@ -76,37 +88,127 @@ def _jpeg_420_plan(data: bytes):
     return j
 
 
-def _quant(members, comp: int, device) -> torch.Tensor:
+def _quant(js, comp: int, device) -> torch.Tensor:
     return to_device(np.stack([j.dqt[j.comps[comp].tq]
-                               for _i, j in members]).astype(np.int32), device)
+                               for j in js]).astype(np.int32), device)
 
 
-def _prep(data: bytes) -> tuple[jpg.JpegFile, bool]:
-    """A member's host work: (its 4:2:0 plan, True), or, for any other
-    JPEG, (the dense planes of its first picture, False)."""
+def _prep(data: bytes):
+    """A member's host work, as (plan, kind, pairs): its 4:2:0 plan
+    ("420"), the dense planes of any other JPEG's first picture ("jpg"),
+    or a parsed PNG ("png"); ``pairs`` is a dense 4:2:0 plan's
+    ``member_pairs``, else None."""
     j = _jpeg_420_plan(data)
     if j is None:
-        if not jpg.probe(data):
-            raise NotImplementedError(
-                "decode_batch: only JPEG members are ported; other formats "
-                f"wait for {_CODECS_ITEM}")
-        with registry.corrupt_as_value_error("JPG"):
-            return jpg.parse_and_decode(data)[0], False
-    if j.packed is not None:
-        # the packed emission is a view of per-thread native scratch that
-        # the next parse on this thread overwrites
-        c, k, v, nnz = j.packed
-        j.packed = (np.array(c), np.array(k), np.array(v), nnz)
-    return j, True
+        if jpg.probe(data):
+            with registry.corrupt_as_value_error("JPG"):
+                return jpg.parse_and_decode(data)[0], "jpg", None
+        if png.probe(data):
+            with registry.corrupt_as_value_error("PNG"):
+                return png.parse(data), "png", None
+        raise NotImplementedError(
+            "decode_batch: only JPEG and PNG members are ported; other "
+            f"formats wait for {_CODECS_ITEM}")
+    if j.packed is None:
+        return j, "420", member_pairs(j)
+    # the packed emission is a view of per-thread native scratch that
+    # the next parse on this thread overwrites
+    c, k, v, nnz = j.packed
+    j.packed = (np.array(c), np.array(k), np.array(v), nnz)
+    return j, "420", None
+
+
+def member_pairs(j) -> list:
+    """A dense 4:2:0 member's nonzeros, plane by plane, as unpadded (flat
+    index int32, value int16) pairs in index order
+    (``native.pack_nonzero``): the host work of the reference's sparse
+    rule, done for each member in the worker pool."""
+    return [native.pack_nonzero(c) for c in j.coeffs]
+
+
+def sparse_pairs(pairs, sizes):
+    """The reference's staging rule for dense members
+    (``ffpic_tpu/pipeline.py:283-286``), from the members'
+    ``member_pairs`` and the coefficients of one member's planes
+    (``sizes``): None when the pairs take at least ``SPARSE_SHARE`` of
+    the planes' int16 bytes, else (idx int32, val int16, lens), each
+    plane's pairs as ``pack_coeffs`` gives them for its stack over the
+    members (indices offset by member, zero-padded to a ``_bucket``
+    length), one plane after the other; ``lens`` their lengths."""
+    n = len(pairs)
+    nnz = [sum(len(p[c][0]) for p in pairs) for c in range(len(sizes))]
+    lens = [jk._bucket(k) for k in nnz]
+    if 6 * sum(lens) >= 2 * n * sum(sizes) * SPARSE_SHARE:
+        return None
+    idx = np.empty(sum(lens), np.int32)
+    val = np.empty(sum(lens), np.int16)
+    at = 0
+    for c, (size, length) in enumerate(zip(sizes, lens)):
+        end = at + length
+        for m, p in enumerate(pairs):
+            i, v = p[c]
+            np.add(i, m * size, out=idx[at:at + len(i)])
+            val[at:at + len(v)] = v
+            at += len(i)
+        idx[at:end] = 0
+        val[at:end] = 0
+        at = end
+    return idx, val, lens
+
+
+def decode_dense_members(js, pairs, mode: str, device) -> torch.Tensor:
+    """Dense 4:2:0 members of one image size (progressive files; ``js``
+    their ``JpegFile``s, ``pairs`` their ``member_pairs``) -> (n, h, w,
+    4) uint8 on ``device``, by the reference's rule: the sparse route
+    (``decode_pairs``) when ``sparse_pairs`` takes them, else the dense
+    one (``decode_planes``)."""
+    with stage("torch.pack"):
+        packed = sparse_pairs(pairs, [c.size for c in js[0].coeffs])
+    if packed is None:
+        return decode_planes(js, mode, device)
+    return decode_pairs(js, packed, mode, device)
+
+
+def decode_planes(js, mode: str, device) -> torch.Tensor:
+    """The dense route: the members' planes stacked, staged in one copy,
+    then K2 and K3."""
+    n, j0 = len(js), js[0]
+    with stage("torch.stack"):
+        host = np.stack([np.concatenate([c.reshape(-1, 64) for c in j.coeffs])
+                         for j in js]).reshape(n, -1, 8, 8)
+    with stage("torch.h2d"):
+        yq, cq = _quant(js, 0, device), _quant(js, 1, device)
+        staged = to_device(host, device)
+    with stage("torch.device_decode"), device_trace("decode_420", device):
+        return jk.decode_batch_420_dense(
+            staged, yq, cq, tuple((c.nby, c.nbx) for c in j0.comps),
+            order="rgba", mode=mode, hw=(j0.height, j0.width))
+
+
+def decode_pairs(js, packed, mode: str, device) -> torch.Tensor:
+    """The sparse route: ``sparse_pairs``'s pairs staged in two copies,
+    each plane rebuilt by K8, then K2 and K3."""
+    j0 = js[0]
+    idx, val, lens = packed
+    with stage("torch.h2d"):
+        yq, cq = _quant(js, 0, device), _quant(js, 1, device)
+        idx, val = to_device(idx, device), to_device(val, device)
+    with stage("torch.device_decode"), device_trace("decode_420", device):
+        cut = np.cumsum([0, *lens]).tolist()
+        planes = [(idx[a:b], val[a:b]) for a, b in zip(cut[:-1], cut[1:])]
+        return jk.decode_batch_420_sparse(
+            planes, len(js), tuple((c.nby, c.nbx) for c in j0.comps), yq, cq,
+            order="rgba", mode=mode, hw=(j0.height, j0.width))
 
 
 def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                  mode: str = "bt601", device=None, mesh=None) -> torch.Tensor:
-    """Decode a batch of JPEGs (paths or bytes) to one ``(N, H, W, 4)``
-    uint8 RGBA tensor on ``device`` (default CUDA; it raises when CUDA
-    is absent).  ``size=(h, w)`` resizes each image; without it all
-    images must share one size.  ``mode`` is the colour conversion of
-    the 4:2:0 members: "bt601", "reference" or "rgb"."""
+    """Decode a batch of JPEGs and PNGs (paths or bytes) to one ``(N,
+    H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
+    when CUDA is absent).  ``size=(h, w)`` resizes each image; without
+    it all images must share one size.  ``mode`` is the colour
+    conversion of the 4:2:0 JPEG members: "bt601", "reference" or
+    "rgb"."""
     if mesh is not None:
         raise NotImplementedError(
             "decode_batch(mesh=) waits for ROADMAP.md Queue 1 item 11")
@@ -129,13 +231,15 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
 
     # one bucket per 4:2:0 image size: one block geometry and one crop
     buckets: dict[tuple, list] = {}
-    for i, (j, is_420) in enumerate(plans):
-        if is_420:
-            buckets.setdefault((j.height, j.width), []).append((i, j))
+    for i, (plan, kind, pairs) in enumerate(plans):
+        if kind == "420":
+            buckets.setdefault((plan.height, plan.width), []).append(
+                (i, plan, pairs))
             continue
+        codec = jpg if kind == "jpg" else png
         with stage("torch.device_decode"), \
-                registry.corrupt_as_value_error("JPG"):
-            slots[i] = jpg.to_pic(j, dev).pixels
+                registry.corrupt_as_value_error(kind.upper()):
+            slots[i] = codec.to_pic(plan, dev).pixels
 
     outs = []
     for allmembers in buckets.values():
@@ -143,35 +247,28 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
         shapes = tuple((c.nby, c.nbx) for c in j0.comps)
         hw = (j0.height, j0.width)
         for packed in (True, False):
-            members = [(i, j) for i, j in allmembers
+            members = [(i, j, p) for i, j, p in allmembers
                        if (j.packed is not None) == packed]
             if not members:
                 continue
-            with stage("torch.pack"):
-                if packed:
-                    host, g, e = jk.stack_packed_fused(
-                        [j.packed for _i, j in members])
-                else:
-                    host = np.stack([np.concatenate(
-                        [c.reshape(-1, 64) for c in j.coeffs])
-                        for _i, j in members]).reshape(len(members), -1, 8, 8)
-            with stage("torch.h2d"):
-                yq = _quant(members, 0, dev)
-                cq = _quant(members, 1, dev)
-                staged = to_device(host, dev)
-                if packed:
+            js = [j for _i, j, _p in members]
+            if not packed:
+                out = decode_dense_members(js, [p for _i, _j, p in members],
+                                           mode, dev)
+            else:
+                with stage("torch.pack"):
+                    host, g, e = jk.stack_packed_fused([j.packed for j in js])
+                with stage("torch.h2d"):
+                    yq, cq = _quant(js, 0, dev), _quant(js, 1, dev)
+                    staged = to_device(host, dev)
                     bmap = packed_block_map(j0, dev)
-            with stage("torch.device_decode"), device_trace("decode_420", dev):
-                if packed:
+                with stage("torch.device_decode"), \
+                        device_trace("decode_420", dev):
                     out = jk.decode_batch_420_packed_fused(
                         staged, bmap, yq, cq, len(members), g, e, shapes,
                         order="rgba", mode=mode, hw=hw)
-                else:
-                    out = jk.decode_batch_420_dense(
-                        staged, yq, cq, shapes, order="rgba", mode=mode,
-                        hw=hw)
             outs.append(out)
-            for k, (i, _j) in enumerate(members):
+            for k, (i, _j, _p) in enumerate(members):
                 slots[i] = out[k]
 
     with stage("torch.finish"), device_trace("resize_stack", dev):

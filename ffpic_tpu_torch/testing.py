@@ -1,5 +1,5 @@
-"""Synthetic JPEGs made from a seed, without jax or PIL, and the kernel
-edge cases that the tests and ``chip_smoke.py`` share.
+"""Synthetic JPEGs and PNGs made from a seed, without jax or PIL, and
+the kernel edge cases that the tests and ``chip_smoke.py`` share.
 
 * ``synth_rgb`` makes photo-like content; ``synth_jpeg_420`` encodes it
   with the port's ``encode_baseline`` (the bytes of
@@ -10,24 +10,84 @@ edge cases that the tests and ``chip_smoke.py`` share.
   4:4:4, 4:2:2, 4:4:0, 4:1:1, gray and DRI files.  It builds the
   planes and hands them to ``formats.jpg_encode.encode_blocks``, the
   step ``encode_baseline`` ends with, on the CPU;
-* ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``
-  and ``mcu_cases`` make the inputs at the edges of the ``count_scan``,
-  ``unpack``, ``dequant_idct``, ``assemble_color`` and ``assemble_mcu``
-  kernels;
+* ``encode_png`` is a general PNG writer: every colour type and bit
+  depth, chosen filters per row, Adam7, palette, tRNS and extra chunks;
+* ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``,
+  ``mcu_cases``, ``scatter_cases``, ``unfilter_cases`` and
+  ``rgba_cases`` make the inputs at the edges of the ``count_scan``,
+  ``unpack``, ``dequant_idct``, ``assemble_color``, ``assemble_mcu``,
+  ``scatter_plane``, ``unfilter_subup`` and ``assemble_rgba`` kernels;
 * ``idct_evenodd`` and ``assemble_mcu_gather`` model the arithmetic and
-  indexing of the ``dequant_idct`` and ``assemble_mcu`` kernels.
+  indexing of the ``dequant_idct`` and ``assemble_mcu`` kernels;
+* ``unfused_colour`` and ``assert_equal_up_to_contraction`` hold a
+  colour result to JAX's up to XLA's choice of contracting the colour
+  products into FMAs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import struct
+import zlib
+
 import numpy as np
 import torch
 
+from ffpic_tpu_torch.formats import png
 from ffpic_tpu_torch.formats.jpg_encode import (
     UV_QUANT, Y_QUANT, _scale_quant, _to_blocks, encode_baseline,
     encode_blocks)
 from ffpic_tpu_torch.formats.pic import Pic
+from ffpic_tpu_torch.ops import jpeg_kernels
 from ffpic_tpu_torch.ops.jpeg_kernels import _wrap
+
+
+def _unfused(a: float, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``c + a*x`` in f32 with two roundings: the product, then the sum."""
+    return c.to(torch.float32) + x.to(torch.float32) * float(np.float32(a))
+
+
+@contextlib.contextmanager
+def unfused_colour():
+    """Within the block, the plain ``color_convert`` rounds each product
+    to f32 before adding it, instead of one fused multiply-add: the
+    colour of eager JAX, and of the jits in which XLA does not contract
+    (``decode_batch_420`` and ``decode_mcu_planes`` on some machines).
+    It swaps the module's ``_fma`` for the whole process; the kernels
+    keep the fused form."""
+    fused = jpeg_kernels._fma
+    jpeg_kernels._fma = _unfused
+    try:
+        yield
+    finally:
+        jpeg_kernels._fma = fused
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def assert_equal_up_to_contraction(run, want) -> None:
+    """Call ``run()`` (which returns an array or tensor of colour
+    results) once as it is, with fused colour, and once under
+    ``unfused_colour()``; assert that each element of ``want`` equals
+    the same element of one of the two.  Where the two roundings agree
+    this is an exact comparison; where they differ, JAX's value under
+    either is accepted, and nothing else."""
+    want = _host(want)
+    fused = _host(run())
+    with unfused_colour():
+        unfused = _host(run())
+    if fused.shape != want.shape or unfused.shape != want.shape:
+        raise AssertionError(f"shape {fused.shape} / {unfused.shape} != "
+                             f"{want.shape}")
+    bad = (want != fused) & (want != unfused)
+    if bad.any():
+        at = tuple(int(i[0]) for i in np.nonzero(bad))
+        raise AssertionError(
+            f"{int(bad.sum())} of {bad.size} elements equal neither "
+            f"rounding; first at {at}: want {want[at]}, fused {fused[at]}, "
+            f"unfused {unfused[at]}")
 
 
 def synth_rgb(h: int, w: int, seed: int) -> np.ndarray:
@@ -116,6 +176,102 @@ def encode_jpeg(pixels: np.ndarray, quality: int | None = None,
             tq[2] = 2
     return encode_blocks(blocks, h, w, sampling, tables, tq,
                          torch.device("cpu"), restart_interval)
+
+
+def _png_filter(x: np.ndarray, prev: np.ndarray, ft: int,
+                bpp: int) -> np.ndarray:
+    """One row's bytes (int32) filtered with type ``ft`` against the row
+    above ``prev``: the inverse of each filter of the decoder."""
+    a = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])[:len(x)]
+    c = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])[:len(x)]
+    if ft == 0:
+        pred = 0
+    elif ft == 1:
+        pred = a
+    elif ft == 2:
+        pred = prev
+    elif ft == 3:
+        pred = (a + prev) >> 1
+    elif ft == 4:
+        p = a + prev - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - prev), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a,
+                        np.where(pb <= pc, prev, c))
+    else:
+        raise ValueError(f"filter {ft}")
+    return (x - pred) & 255
+
+
+def _png_rows(samples: np.ndarray, bitdepth: int) -> np.ndarray:
+    """(h, n) samples -> (h, stride) packed bytes: 16-bit big-endian,
+    1/2/4-bit MSB first with each row padded to a byte."""
+    h, n = samples.shape
+    s = samples.astype(np.int64)
+    if bitdepth == 16:
+        return np.stack([s >> 8, s & 255], -1).reshape(h, 2 * n) \
+            .astype(np.uint8)
+    if bitdepth == 8:
+        return s.astype(np.uint8)
+    per = 8 // bitdepth
+    s = np.pad(s, ((0, 0), (0, -n % per))).reshape(h, -1, per)
+    shifts = 8 - bitdepth * np.arange(1, per + 1)
+    return (s << shifts).sum(-1).astype(np.uint8)
+
+
+def encode_png(pixels: np.ndarray, color_type: int = 6, bitdepth: int = 8,
+               filters=0, interlace: int = 0, palette=None, trns=None,
+               chunks=(), idat_size: int | None = None,
+               level: int = 6) -> bytes:
+    """A PNG of ``pixels``, the samples of each pixel: (h, w) for colour
+    types 0 (gray) and 3 (palette index), (h, w, c) with c = 3, 2, 4 for
+    types 2, 4 and 6; each below 2**bitdepth.  ``filters`` is a filter
+    type for every row, or a sequence of them cycled over the rows of
+    each pass; ``interlace=1`` writes Adam7.  ``palette`` (n, 3) uint8
+    writes PLTE; ``trns`` writes tRNS: per-index alpha bytes (type 3), a
+    gray value (0) or an (r, g, b) key (2).  ``chunks`` are extra (name,
+    payload) pairs written before the image data, which ``idat_size``
+    splits into IDAT chunks of that many bytes."""
+    nch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    h, w = pixels.shape[:2]
+    samples = np.asarray(pixels).reshape(h, w, nch)
+    bpp = max(1, bitdepth * nch // 8)
+    cycle = [filters] if isinstance(filters, int) else list(filters)
+    passes = [(0, 0, 1, 1)] if not interlace else \
+        [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)]
+    out = []
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.shape[0] == 0 or sub.shape[1] == 0:
+            continue
+        rows = _png_rows(sub.reshape(sub.shape[0], -1), bitdepth) \
+            .astype(np.int32)
+        prev = np.zeros(rows.shape[1], np.int32)
+        for y, x in enumerate(rows):
+            ft = cycle[y % len(cycle)]
+            out += [bytes([ft]), _png_filter(x, prev, ft, bpp)
+                    .astype(np.uint8).tobytes()]
+            prev = x
+    data = zlib.compress(b"".join(out), level)
+    parts = [png.chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bitdepth,
+                                            color_type, 0, 0, interlace))]
+    parts += [png.chunk(n.encode() if isinstance(n, str) else n, p)
+              for n, p in chunks]
+    if palette is not None:
+        parts.append(png.chunk(b"PLTE",
+                               np.asarray(palette, np.uint8).tobytes()))
+    if trns is not None:
+        if color_type == 3:
+            payload = np.asarray(trns, np.uint8).tobytes()
+        else:
+            payload = struct.pack(f">{np.size(trns)}H",
+                                  *np.atleast_1d(trns).tolist())
+        parts.append(png.chunk(b"tRNS", payload))
+    step = idat_size or max(len(data), 1)
+    parts += [png.chunk(b"IDAT", data[k:k + step])
+              for k in range(0, max(len(data), 1), step)]
+    parts.append(png.chunk(b"IEND", b""))
+    return png.SIGNATURE + b"".join(parts)
 
 
 def scan_cases(seed: int = 0) -> dict[str, tuple]:
@@ -408,3 +564,100 @@ def fdct_evenodd(samples):
                       dim=-1)                                 # rows first
     col = fdct8([row[..., u, :] for u in range(8)])           # then columns
     return torch.stack([rnd(c) for c in col], dim=-2).to(torch.int16)
+
+
+def scatter_cases(seed: int = 0) -> dict[str, tuple]:
+    """Packed pairs for K8, as name -> (idx i32, val i16, (n, nb)):
+
+    * ``packed``: a plane's nonzeros as ``pack_coeffs`` gives them, in
+      index order with (0, 0) padding, N=3;
+    * ``duplicates``: every index 5 times, values that overflow int16;
+    * ``hostile``: indices in [-2 total, 2 total), so negatives wrap once
+      and the rest of the out-of-range ones are dropped, and the int32
+      extremes; N=1;
+    * ``odd``: an odd count of pairs and a plane of one block."""
+    from ffpic_tpu_torch.ops.jpeg_kernels import pack_coeffs
+    rng = np.random.default_rng(seed)
+    out = {}
+    plane = rng.integers(-300, 300, (3, 40, 64)).astype(np.int16)
+    plane[rng.random(plane.shape) < 0.8] = 0
+    out["packed"] = (*pack_coeffs(plane), (3, 40))
+    total = 2 * 33 * 64
+    idx = np.repeat(rng.permutation(total), 5).astype(np.int32)
+    val = rng.integers(-32768, 32768, idx.size).astype(np.int16)
+    out["duplicates"] = (idx, val, (2, 33))
+    total = 17 * 64
+    idx = rng.integers(-2 * total, 2 * total, 5000).astype(np.int32)
+    idx[:4] = [-2 ** 31, 2 ** 31 - 1, -total, total]
+    val = rng.integers(-32768, 32768, idx.size).astype(np.int16)
+    out["hostile"] = (idx, val, (1, 17))
+    idx = rng.integers(0, 64, 101).astype(np.int32)
+    out["odd"] = (idx, rng.integers(-99, 99, 101).astype(np.int16), (1, 1))
+    return out
+
+
+def unfilter_cases(seed: int = 0) -> dict[str, tuple]:
+    """Filtered rows for K6, as name -> (rows (h, stride + 1) u8 with
+    the filter type in column 0, in {0, 1, 2}, bpp): every bpp PNG has
+    (1, 2, 3, 4, 6, 8) over strides that are not multiples of 4 or of
+    32 or bpp's; a first row of Up; one row; a stride of one pixel; a
+    run of Up rows longer than K6's prefetch, and one over 130 of its
+    prefetch groups; and one row of each kind in turn."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, bpp, h, stride, kinds in (
+            ("bpp1", 1, 9, 37, None), ("bpp2", 2, 11, 70, None),
+            ("bpp3", 3, 7, 3 * 67, None), ("bpp4_up_first", 4, 13, 4 * 45,
+                                          "up_first"),
+            ("bpp6", 6, 5, 6 * 31, None), ("bpp8", 8, 6, 8 * 29, None),
+            ("one_row", 4, 1, 4 * 33, None),
+            ("one_pixel", 3, 12, 3, None),
+            ("long_up", 1, 40, 1031, "long_up"),
+            ("past_tag_chunk", 1, 4133, 7, "long_up"),
+            ("in_turn", 2, 9, 2 * 300 + 1, "in_turn")):
+        rows = rng.integers(0, 256, (h, stride + 1)).astype(np.uint8)
+        rows[:, 0] = rng.integers(0, 3, h)
+        if kinds == "up_first":
+            rows[0, 0] = 2
+        elif kinds == "long_up":
+            rows[:, 0] = 2
+            rows[3, 0] = 1
+        elif kinds == "in_turn":
+            rows[:, 0] = np.arange(h) % 3
+        out[name] = (rows, bpp)
+    return out
+
+
+def rgba_cases(seed: int = 0) -> dict[str, tuple]:
+    """Reconstructed rows for K7, as name -> (recon (h, stride) u8,
+    palette (256, 4) u8, trns (256,) i32, colour type, bit depth, w, h):
+    every (colour type, bit depth) PNG allows, at an odd width, with and
+    without tRNS (the key set to a sample that occurs, so some pixels
+    turn transparent)."""
+    from ffpic_tpu_torch.ops.png_kernels import LEGAL, NCH
+    rng = np.random.default_rng(seed)
+    out = {}
+    h, w = 7, 37
+    for ct, depths in LEGAL.items():
+        for bd in depths:
+            for with_trns in (False, True):
+                stride = (w * NCH[ct] * bd + 7) // 8
+                recon = rng.integers(0, 256, (h, stride)).astype(np.uint8)
+                if bd == 16:
+                    recon[:, ::4] = recon[0, 0]     # keys that occur
+                palette = np.zeros((256, 4), np.uint8)
+                palette[:, 3] = 255
+                palette[:200, :3] = rng.integers(0, 256, (200, 3))
+                trns = np.full(256, -1, np.int32)
+                if with_trns:
+                    if ct == 3:
+                        trns[:150] = rng.integers(0, 256, 150)
+                    elif ct in (0, 2):
+                        from ffpic_tpu_torch.ops.png_kernels import \
+                            unpack_samples
+                        first = unpack_samples(torch.from_numpy(recon[:1]),
+                                               bd, NCH[ct])[0]
+                        trns[:NCH[ct]] = first.numpy()
+                name = f"ct{ct}_bd{bd}" + ("_trns" if with_trns else "")
+                out[name] = (recon, palette, trns, ct, bd, w, h)
+    return out

@@ -29,7 +29,15 @@ def resolve_device(device, caller: str) -> torch.device:
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on ``device``; a CUDA copy goes through
     pinned memory without blocking the host.  On the CPU the tensor
-    shares the array's memory."""
+    shares the array's memory, or a copy's when the array is read-only
+    (a view of ``bytes``, which torch will not share)."""
+    if not arr.flags.writeable:
+        if device.type != "cuda":
+            return torch.from_numpy(arr.copy())
+        dtype = torch.from_numpy(np.zeros(0, arr.dtype)).dtype
+        pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+        pinned.numpy()[...] = arr
+        return pinned.to(device, non_blocking=True)
     host = torch.from_numpy(arr)
     if device.type != "cuda":
         return host

@@ -39,7 +39,11 @@ def _corpus(name: str) -> bytes:
     return path.read_bytes()
 
 
-def _same_pic(got, want):
+def _same_pic(load, want):
+    """``load()``, the port's decode, gives ``want``'s picture: fields,
+    ``meta``, ``info()`` and pixels, the colour up to XLA's contraction
+    choice (``testing.assert_equal_up_to_contraction``)."""
+    got = load()
     assert isinstance(got, Pic)
     assert (got.width, got.height, got.depth, got.pitch, got.format,
             got.codec) == (want.width, want.height, want.depth, want.pitch,
@@ -51,7 +55,8 @@ def _same_pic(got, want):
     else:
         assert isinstance(got.pixels, torch.Tensor)
         assert got.pixels.dtype == torch.uint8
-        np.testing.assert_array_equal(got.np_pixels(), want.np_pixels())
+        testing.assert_equal_up_to_contraction(
+            lambda: load().np_pixels(), want.np_pixels())
 
 
 @pytest.fixture(autouse=True)
@@ -64,7 +69,8 @@ def _native_first():
 @pytest.mark.parametrize("name", CORPUS_JPEGS)
 def test_load_matches_jax_on_corpus(name):
     data = _corpus(name)
-    _same_pic(ffpic_tpu_torch.load(data, device="cpu"), ffpic_tpu.load(data))
+    _same_pic(lambda: ffpic_tpu_torch.load(data, device="cpu"),
+              ffpic_tpu.load(data))
 
 
 @pytest.mark.parametrize("option", [
@@ -77,7 +83,8 @@ def test_load_options_match_jax(name, option):
     data = _corpus(name)
     want = jax_jpg.load(data, **option)[0]
     want.codec = "JPG"
-    _same_pic(ffpic_tpu_torch.load(data, device="cpu", **option), want)
+    _same_pic(lambda: ffpic_tpu_torch.load(data, device="cpu", **option),
+              want)
 
 
 @pytest.mark.parametrize("sampling,kw", [
@@ -96,7 +103,8 @@ def test_load_written_files_match_jax(sampling, kw):
     if kw.get("restart_interval"):
         assert b"\xff\xdd" in data and b"\xff\xd0" in data
     pic = ffpic_tpu_torch.load(data, device="cpu")
-    _same_pic(pic, ffpic_tpu.load(data))
+    _same_pic(lambda: ffpic_tpu_torch.load(data, device="cpu"),
+              ffpic_tpu.load(data))
     assert pic.width == 104 and pic.height == 67
     exact = ffpic_tpu_torch.load(data, device="cpu", mode="bt601")
     psnr = testing.psnr(exact.np_pixels()[:, :101, :3], rgb)
@@ -122,12 +130,14 @@ def test_load_exif_matches_jax():
         buf, "JPEG", quality=80, exif=exif.tobytes())
     data = buf.getvalue()
     got, want = ffpic_tpu_torch.load(data, device="cpu"), ffpic_tpu.load(data)
-    _same_pic(got, want)
+    _same_pic(lambda: ffpic_tpu_torch.load(data, device="cpu"), want)
     assert got.meta["exif"]["orientation"] == 6
     assert got.meta["exif"]["make"] == "ffpic"
     rot, wrot = got.exif_transpose(), want.exif_transpose()
     assert (rot.width, rot.height) == (wrot.width, wrot.height) == (48, 80)
-    np.testing.assert_array_equal(rot.np_pixels(), wrot.np_pixels())
+    testing.assert_equal_up_to_contraction(
+        lambda: ffpic_tpu_torch.load(data, device="cpu").exif_transpose()
+        .np_pixels(), wrot.np_pixels())
 
 
 def test_load_all_multi_picture_matches_jax():
@@ -140,8 +150,9 @@ def test_load_all_multi_picture_matches_jax():
     got = ffpic_tpu_torch.load_all(data, device="cpu")
     want = ffpic_tpu.load_all(data)
     assert len(got) == len(want) == 2
-    for g, w in zip(got, want):
-        _same_pic(g, w)
+    for k, w in enumerate(want):
+        _same_pic(lambda k=k: ffpic_tpu_torch.load_all(data, device="cpu")[k],
+                  w)
     first = ffpic_tpu_torch.load(data, device="cpu")
     assert first.n_frames == 2 and first.frames[0].width == 32
 
@@ -149,7 +160,7 @@ def test_load_all_multi_picture_matches_jax():
 def test_load_skip_decode_matches_jax():
     data = _corpus("jpeg_512_422.jpg")
     got = ffpic_tpu_torch.load(data, skip_decode=True, device="cpu")
-    _same_pic(got, ffpic_tpu.load(data, skip_decode=True))
+    _same_pic(lambda: got, ffpic_tpu.load(data, skip_decode=True))
     assert got.pixels is None and got.meta["scans"]
 
 
@@ -195,16 +206,56 @@ def test_registry_is_the_ports_own():
     relative order, and importing ffpic_tpu registers nothing in it."""
     mine, theirs = (ffpic_tpu_torch.registered_codecs(),
                     ffpic_tpu.registered_codecs())
-    assert mine == ["JPG"]
+    assert mine == ["JPG", "PNG"]
     assert [c for c in theirs if c in mine] == mine
     codec = ffpic_tpu_torch.find_codec("jpeg")
     assert codec is ffpic_tpu_torch.find_codec("JPG")
     assert codec.load.__module__ == "ffpic_tpu_torch.formats.jpg"
     assert ffpic_tpu_torch.probe(_corpus("jpeg_160_420.jpg")) is codec
     with pytest.raises(KeyError):
-        ffpic_tpu_torch.find_codec("PNG")
+        ffpic_tpu_torch.find_codec("GIF")
     with pytest.raises(ValueError, match="unrecognized"):
-        ffpic_tpu_torch.probe(b"\x89PNG\r\n\x1a\n" + bytes(64))
+        ffpic_tpu_torch.probe(b"GIF89a" + bytes(64))
+
+
+def test_registry_fills_once_under_threads(monkeypatch):
+    """Eight threads ask for the codec list of an empty registry at once:
+    each waits for the one import that fills it and sees both codecs
+    (the reference's registry marks itself filled first, and a second
+    thread can find no codec)."""
+    import sys
+    import threading
+    registry.registered_codecs()      # the real list, restored afterwards
+    monkeypatch.setattr(registry, "_codecs", [])
+    monkeypatch.setattr(registry, "_initialized", False)
+    import ffpic_tpu_torch.formats as formats
+    for mod in ("all_formats", "jpg", "png"):    # imported afresh: they
+        monkeypatch.delitem(sys.modules,         # register as they load
+                            f"ffpic_tpu_torch.formats.{mod}")
+        monkeypatch.delattr(formats, mod)
+    barrier = threading.Barrier(8)
+    seen, errors = [], []
+
+    def worker():
+        try:
+            barrier.wait(timeout=60)
+            seen.append(registry.registered_codecs())
+        except Exception as e:          # noqa: BLE001 - reported below
+            errors.append(e)
+
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(prev)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert seen == [["JPG", "PNG"]] * 8
 
 
 def test_load_and_encode_read_paths(tmp_path):

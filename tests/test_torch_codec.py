@@ -2,7 +2,9 @@
 versions, CPU) held against ffpic_tpu.ops.jpeg_kernels on the same numpy
 inputs: ``decode_mcu_planes`` over every sampling (K2 per component,
 then K4 ``assemble_mcu``), the upsamplers, the block/plane reshapes and
-``fdct_blocks`` (K5), all bit for bit.  The models of the K4 and K5
+``fdct_blocks`` (K5), all bit for bit (the colour up to XLA's choice of
+contracting its products into FMAs, ``testing.
+assert_equal_up_to_contraction``).  The models of the K4 and K5
 kernels' own arithmetic (``testing.assemble_mcu_gather``,
 ``testing.fdct_evenodd``) are held against the plain versions; the
 kernels themselves run only on a GPU (``chip_smoke.py``).
@@ -39,17 +41,24 @@ def _coeff_case(name: str, seed: int = 3):
 
 
 def _both(name, upsample, mode, order, gray_chroma=128):
+    """The port's plain ``decode_mcu_planes`` against JAX's on
+    ``CASES[name]``, asserted equal with the colour up to XLA's
+    contraction choice; returns (port, JAX)."""
     coeffs, quants, shapes, samplings, oh, ow = _coeff_case(name)
     want = np.asarray(jax_jk.decode_mcu_planes(
         tuple(map(jnp.asarray, coeffs)), tuple(map(jnp.asarray, quants)),
         samplings, oh, ow, order=order, mode=mode, gray_chroma=gray_chroma,
         upsample=upsample))
-    got = jk.decode_mcu_planes(
-        torch.from_numpy(np.concatenate([c.reshape(-1, 8, 8)
-                                         for c in coeffs])),
-        shapes, np.stack(quants), samplings, oh, ow, order=order, mode=mode,
-        gray_chroma=gray_chroma, upsample=upsample)
+    def run():
+        return jk.decode_mcu_planes(
+            torch.from_numpy(np.concatenate([c.reshape(-1, 8, 8)
+                                             for c in coeffs])),
+            shapes, np.stack(quants), samplings, oh, ow, order=order,
+            mode=mode, gray_chroma=gray_chroma, upsample=upsample)
+
+    got = run()
     assert got.dtype == torch.uint8 and tuple(got.shape) == (oh, ow, 4)
+    testing.assert_equal_up_to_contraction(run, want)
     return got.numpy(), want
 
 
@@ -71,25 +80,22 @@ def test_decode_mcu_planes_matches_jax(name, upsample, mode, order):
     """Every sampling (luma at the largest factor or not, odd sizes so
     that fancy upsampling replicates the cropped plane's last row and
     column), each component against its own table."""
-    got, want = _both(name, upsample, mode, order)
-    np.testing.assert_array_equal(got, want)
+    _both(name, upsample, mode, order)
 
 
 @pytest.mark.parametrize("upsample", ["nearest", "fancy"])
 @pytest.mark.parametrize("order", ORDERS)
 @pytest.mark.parametrize("mode", MODES)
 def test_decode_mcu_planes_modes_match_jax(mode, order, upsample):
-    got, want = _both("422_67x101", upsample, mode, order)
-    np.testing.assert_array_equal(got, want)
+    _both("422_67x101", upsample, mode, order)
 
 
 @pytest.mark.parametrize("gray_chroma", [128, 0])
 def test_decode_mcu_planes_gray_matches_jax(gray_chroma):
     """Gray: chroma 128 is neutral; 0 (``quirks``) goes through the
     colour matrix and tints the image, as the reference does."""
-    got, want = _both("gray_67x101", "nearest", "reference", "rgba",
-                      gray_chroma)
-    np.testing.assert_array_equal(got, want)
+    got, _want = _both("gray_67x101", "nearest", "reference", "rgba",
+                       gray_chroma)
     tint = np.abs(got[..., 0].astype(int) - got[..., 2].astype(int)).max()
     assert (tint > 0) == (gray_chroma == 0)
 

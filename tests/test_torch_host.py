@@ -150,6 +150,27 @@ def test_native_loader_threads(monkeypatch, tmp_path):
     assert jpg.parse_and_decode(data, packed=True)[0].packed[3] > 0
 
 
+def test_to_device_copies_read_only_arrays():
+    """A read-only array (a view of ``bytes``, as inflated PNG rows are)
+    reaches a CPU tensor as a copy, without torch's warning about
+    sharing memory it cannot write; a writable one is shared."""
+    import warnings
+
+    import torch
+    from ffpic_tpu_torch.utils.device import to_device
+    ro = np.frombuffer(bytes(range(12)), np.uint8).reshape(3, 4)
+    assert not ro.flags.writeable
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        t = to_device(ro, torch.device("cpu"))
+    assert t.dtype == torch.uint8 and torch.equal(t, torch.arange(12).view(
+        3, 4).to(torch.uint8))
+    rw = np.arange(6, dtype=np.int32)
+    shared = to_device(rw, torch.device("cpu"))
+    rw[0] = 9
+    assert int(shared[0]) == 9
+
+
 def test_native_build_failure_raises(monkeypatch, tmp_path):
     """No compiler: the build raises, nothing falls back."""
     monkeypatch.setattr(native, "BUILD", str(tmp_path))

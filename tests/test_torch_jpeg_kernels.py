@@ -1,11 +1,15 @@
 """ffpic_tpu_torch.ops.jpeg_kernels (plain PyTorch versions, CPU) held
 against ffpic_tpu.ops.jpeg_kernels on the same numpy inputs.
 
-Every stage is held exact: the unpack scatter, dequant + integer IDCT
+Every stage is held exact: the unpack scatter, the sparse route's
+scatter-add and host packing, dequant + integer IDCT
 (also against the Pallas kernel in interpret mode), colour conversion
-over all 256^3 in-range (y, u, v) inputs (as XLA compiles it, with
-FMAs), the block map, and the fused
-batch route with per-image quant tables of different qualities.  The
+over all 256^3 in-range (y, u, v) inputs (against ``color_convert``
+jitted alone, where XLA contracts its products into FMAs), the block
+map, and the fused batch route with per-image quant tables of
+different qualities, whose colour is held up to XLA's contraction
+choice inside the larger jits (``testing.
+assert_equal_up_to_contraction``).  The
 CUDA kernels themselves run only on a GPU (``chip_smoke.py``); here the
 wrappers are checked to refuse CPU tensors.
 """
@@ -390,6 +394,45 @@ def test_color_convert_exhaustive(mode, order):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_contraction_helper_is_exact_where_the_roundings_agree():
+    """``testing.assert_equal_up_to_contraction`` takes JAX's value under
+    either rounding, element by element, and nothing else: a 1-LSB error
+    where fused and unfused colour agree fails, and so does a value next
+    to both where they differ."""
+    y, u, v = (torch.from_numpy(a) for a in _colour_inputs())
+    run_all = functools.partial(jk.color_convert, y, u, v, "rgba",
+                                "reference")
+    fused = run_all()
+    with testing.unfused_colour():
+        unfused = run_all()
+    differ = (fused != unfused).any(-1)
+    assert 0 < int(differ.sum()) < differ.numel()
+    pick = torch.cat([torch.nonzero(differ)[:, 0],
+                      torch.nonzero(~differ)[:2000, 0]])
+    y, u, v = y[pick], u[pick], v[pick]
+
+    def run():
+        return jk.color_convert(y, u, v, "rgba", "reference")
+
+    fused, unfused = fused[pick], unfused[pick]
+    testing.assert_equal_up_to_contraction(run, fused)
+    testing.assert_equal_up_to_contraction(run, unfused)
+    mixed = torch.where(torch.arange(len(pick))[:, None] % 2 == 0, fused,
+                        unfused)
+    testing.assert_equal_up_to_contraction(run, mixed)
+    agree = int(torch.nonzero(((fused == unfused)
+                               & (fused < 255))[:, 1])[-1])
+    bad = fused.clone()
+    bad[agree, 1] += 1
+    with pytest.raises(AssertionError, match="1 of .* neither rounding"):
+        testing.assert_equal_up_to_contraction(run, bad)
+    k = int(torch.nonzero(fused[:, 1] != unfused[:, 1])[0])
+    bad = fused.clone()
+    bad[k, 1] = torch.maximum(fused[k, 1], unfused[k, 1]) + 1
+    with pytest.raises(AssertionError, match="neither rounding"):
+        testing.assert_equal_up_to_contraction(run, bad)
+
+
 @pytest.mark.parametrize("samplings,mx,my,actual", [
     (((2, 2), (1, 1), (1, 1)), 14, 10, None),
     (((1, 1), (1, 1), (1, 1)), 9, 7, None),
@@ -436,9 +479,10 @@ def test_decode_batch_420_packed_fused_matches_jax(mode):
         shapes, order="rgba", mode=mode)
     tbuf, tmap, tyq, tcq = jk.from_jax_inputs(buf, bmap, yq, cq, "cpu")
     assert tyq.shape == (3, 64) and tyq.dtype == torch.int32
-    got = jk.decode_batch_420_packed_fused(tbuf, tmap, tyq, tcq, 3, g, e,
-                                           shapes, order="rgba", mode=mode)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    testing.assert_equal_up_to_contraction(
+        lambda: jk.decode_batch_420_packed_fused(
+            tbuf, tmap, tyq, tcq, 3, g, e, shapes, order="rgba", mode=mode),
+        want)
 
 
 def test_decode_batch_420_packed_fused_crop_matches_jax():
@@ -454,11 +498,11 @@ def test_decode_batch_420_packed_fused_crop_matches_jax():
         jnp.asarray(buf), bmap, jnp.asarray(yq), jnp.asarray(cq), 3, g, e,
         shapes, order="bgra", mode="bt601")
     tbuf, tmap, tyq, tcq = jk.from_jax_inputs(buf, bmap, yq, cq, "cpu")
-    got = jk.decode_batch_420_packed_fused(tbuf, tmap, tyq, tcq, 3, g, e,
-                                           shapes, order="bgra",
-                                           mode="bt601", hw=(151, 219))
-    np.testing.assert_array_equal(got.numpy(),
-                                  np.asarray(want)[:, :151, :219])
+    testing.assert_equal_up_to_contraction(
+        lambda: jk.decode_batch_420_packed_fused(
+            tbuf, tmap, tyq, tcq, 3, g, e, shapes, order="bgra",
+            mode="bt601", hw=(151, 219)),
+        np.asarray(want)[:, :151, :219])
 
 
 def test_decode_batch_420_dense_matches_jax():
@@ -479,11 +523,88 @@ def test_decode_batch_420_dense_matches_jax():
                                    order="bgra", mode="reference")
     coeffs = np.concatenate([a.reshape(2, -1, 8, 8)
                              for a in (ycoef, ucoef, vcoef)], axis=1)
-    got = jk.decode_batch_420_dense(
-        torch.from_numpy(coeffs), torch.from_numpy(yq.reshape(2, 64)),
-        torch.from_numpy(cq.reshape(2, 64)), shapes, order="bgra",
-        mode="reference")
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    testing.assert_equal_up_to_contraction(
+        lambda: jk.decode_batch_420_dense(
+            torch.from_numpy(coeffs), torch.from_numpy(yq.reshape(2, 64)),
+            torch.from_numpy(cq.reshape(2, 64)), shapes, order="bgra",
+            mode="reference"),
+        want)
+
+
+@pytest.mark.parametrize("name", sorted(testing.scatter_cases()))
+def test_scatter_plane_matches_jax(name):
+    """K8's plain version against the reference's ``_scatter_plane``:
+    packed pairs with their (0, 0) padding, duplicates whose sums wrap,
+    negative and out-of-range indices (one in [-n, 0) lands at idx + n,
+    the rest are dropped), the int32 extremes, an odd count."""
+    idx, val, (n, nb) = testing.scatter_cases()[name]
+    got = jk.scatter_plane(torch.from_numpy(idx), torch.from_numpy(val),
+                           (n, nb))
+    want = np.asarray(jax_jk._scatter_plane(jnp.asarray(idx),
+                                            jnp.asarray(val), (n, nb, 1)))
+    assert got.dtype == torch.int16 and got.shape == (n, nb, 8, 8)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(n, nb, 8, 8))
+
+
+def test_scatter_plane_index_semantics():
+    """What the reference's scatter does at the edges, found by running
+    it: -1 is the last coefficient, -n the first, -n-1 and n are
+    dropped, and two adds of 30000 wrap."""
+    idx = np.array([0, 0, -128, -1, 127, -129, 128], np.int32)
+    val = np.array([30000, 30000, 13, 11, 37, 5, 7], np.int16)
+    want = np.zeros(128, np.int64)
+    want[0], want[127] = 60013 - 65536, 48
+    for out in (np.asarray(jax_jk._scatter_plane(jnp.asarray(idx),
+                                                 jnp.asarray(val),
+                                                 (2, 1, 1))),
+                jk.scatter_plane(torch.from_numpy(idx), torch.from_numpy(val),
+                                 (2, 1)).numpy()):
+        np.testing.assert_array_equal(out.reshape(-1), want)
+
+
+@pytest.mark.parametrize("minimum", [2048, 16])
+def test_pack_coeffs_matches_jax(minimum):
+    rng = np.random.default_rng(8)
+    plane = rng.integers(-50, 50, (2, 30, 40, 8, 8)).astype(np.int16)
+    plane[rng.random(plane.shape) < 0.9] = 0
+    got = jk.pack_coeffs(plane, minimum)
+    want = jax_jk.pack_coeffs(plane, minimum)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[0].size == jk._bucket(int((plane != 0).sum()), minimum)
+
+
+@pytest.mark.parametrize("mode", ["bt601", "reference", "rgb"])
+def test_decode_batch_420_sparse_matches_jax(mode):
+    """Dense planes of two qualities packed by ``pack_coeffs``, through
+    the sparse route, against the reference's sparse route (the colour
+    up to XLA's contraction choice) and, exactly, the port's dense
+    route."""
+    js = [jax_jpg.parse_and_decode(_jpeg(k))[0] for k in ("q50", "q95")]
+    (nby, nbx), (cy, cx), _ = shapes = tuple((c.nby, c.nbx)
+                                             for c in js[0].comps)
+    planes = [np.stack([j.coeffs[c].reshape(a, b, 8, 8) for j in js])
+              for c, (a, b) in enumerate(shapes)]
+    yq = np.stack([_quant(j, 0) for j in js])
+    cq = np.stack([_quant(j, 1) for j in js])
+    packed = [jk.pack_coeffs(p) for p in planes]
+    want = jax_jk.decode_batch_420_sparse(
+        packed, tuple((2, a, b) for a, b in shapes),
+        jnp.asarray(yq.reshape(2, 1, 1, 8, 8)),
+        jnp.asarray(cq.reshape(2, 1, 1, 8, 8)), order="rgba", mode=mode)
+    args = ([(torch.from_numpy(i), torch.from_numpy(v)) for i, v in packed],
+            2, shapes, torch.from_numpy(yq), torch.from_numpy(cq))
+    testing.assert_equal_up_to_contraction(
+        lambda: jk.decode_batch_420_sparse(*args, order="rgba", mode=mode),
+        want)
+    dense = torch.from_numpy(np.concatenate([p.reshape(2, -1, 8, 8)
+                                             for p in planes], axis=1))
+    assert torch.equal(
+        jk.decode_batch_420_sparse(*args, order="rgba", mode=mode,
+                                   hw=(151, 219)),
+        jk.decode_batch_420_dense(dense, *args[3:], shapes, order="rgba",
+                                  mode=mode, hw=(151, 219)))
 
 
 @pytest.mark.parametrize("call", [
@@ -498,8 +619,10 @@ def test_decode_batch_420_dense_matches_jax():
     lambda t: cuda_jpeg.assemble_mcu(t[0], ((4, 4), (2, 4), (2, 4)),
                                      ((1, 1), (2, 1), (2, 1)), 32, 32),
     lambda t: cuda_jpeg.fdct(t),
+    lambda t: cuda_jpeg.scatter_plane(torch.zeros(4, dtype=torch.int32),
+                                      torch.zeros(4, dtype=torch.int16), t),
 ], ids=["count_scan", "unpack", "dequant_idct", "assemble_color",
-        "assemble_mcu", "fdct"])
+        "assemble_mcu", "fdct", "scatter_plane"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     t = torch.zeros(1, 48, 8, 8, dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -1,7 +1,9 @@
 """ffpic_tpu_torch.decode_batch (CPU, plain versions) against
 ffpic_tpu.decode_batch on the same JPEG bytes.
 
-Exact for size=None on each route: the fused packed route (a bucket of
+Exact for size=None on each route (the colour up to XLA's choice of
+contracting its products into FMAs, ``testing.
+assert_equal_up_to_contraction``): the fused packed route (a bucket of
 baseline members), the single packed member, the dense route of
 progressive members, and members of another sampling, which both
 packages decode through their registry.  With size=(224, 224), within
@@ -43,14 +45,29 @@ def _jpeg(h: int, w: int, q: int, seed: int, progressive: bool = False,
     return buf.getvalue()
 
 
-def _both(srcs, **kw):
-    # load the native decoder before ffpic_tpu.decode_batch's thread
-    # pool does: a worker that loses its loader's race parses without it
-    native.available()
-    want = np.asarray(ffpic_tpu.decode_batch(srcs, **kw))
+def _port(srcs, **kw) -> np.ndarray:
     got = ffpic_tpu_torch.decode_batch(srcs, device="cpu", **kw)
     assert got.device.type == "cpu" and got.dtype == torch.uint8
-    return got.numpy(), want
+    return got.numpy()
+
+
+def _both(srcs, **kw):
+    # load the native decoder and fill the codec registry before
+    # ffpic_tpu.decode_batch's thread pool does: a worker that loses the
+    # loader's race parses without it, one that loses the registry's
+    # finds no codec (ROADMAP Queue 3)
+    native.available()
+    ffpic_tpu.registered_codecs()
+    want = np.asarray(ffpic_tpu.decode_batch(srcs, **kw))
+    return _port(srcs, **kw), want
+
+
+def _same_as_jax(srcs, **kw) -> np.ndarray:
+    """The port's decode equals ffpic_tpu.decode_batch's, the colour up
+    to XLA's contraction choice; returns the port's."""
+    got, want = _both(srcs, **kw)
+    testing.assert_equal_up_to_contraction(lambda: _port(srcs, **kw), want)
+    return got
 
 
 @pytest.mark.parametrize("srcs", [
@@ -62,8 +79,7 @@ def _both(srcs, **kw):
 ])
 @pytest.mark.parametrize("mode", ["bt601", "reference"])
 def test_decode_batch_matches_jax(srcs, mode):
-    got, want = _both([_jpeg(*s) for s in srcs], mode=mode)
-    np.testing.assert_array_equal(got, want)
+    _same_as_jax([_jpeg(*s) for s in srcs], mode=mode)
 
 
 def test_decode_batch_sized_matches_jax():
@@ -119,13 +135,18 @@ def test_port_sources_import_no_jax():
 def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
     """With the JAX package blocked, the port decodes a packed batch, a
     single member, a progressive member and a 4:4:4 member on the CPU,
-    loads a 4:4:4 file and encodes it, and loads no module of ffpic_tpu
-    and no jax."""
+    loads a 4:4:4 file and encodes it as JPEG and PNG, loads the PNG and
+    decodes a batch of JPEG and PNG members (one of Sub/Up rows, one of
+    all five filters), and loads no module of ffpic_tpu and no jax."""
     files = {"a": _jpeg(64, 96, 80, 0), "b": _jpeg(64, 96, 60, 1),
              "c": _jpeg(40, 72, 90, 2), "p": _jpeg(64, 96, 70, 3, True),
              "s": _jpeg(64, 96, 75, 4, subsampling="4:4:4")}
     for k, v in files.items():
         (tmp_path / f"{k}.jpg").write_bytes(v)
+    rgba = np.concatenate([testing.synth_rgb(64, 96, 5),
+                           np.full((64, 96, 1), 200, np.uint8)], -1)
+    (tmp_path / "u.png").write_bytes(testing.encode_png(rgba,
+                                                        filters=(1, 2)))
     code = (
         "import sys\n"
         "sys.modules['ffpic_tpu'] = None\n"
@@ -140,6 +161,10 @@ def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
         "assert tuple(pic.pixels.shape) == (64, 96, 4), pic.pixels.shape\n"
         "data = encode(pic, 'JPG', quality=80, device='cpu')\n"
         "assert load(data, device='cpu').width == 96\n"
+        "png = encode(pic, 'PNG', device='cpu')\n"
+        "assert (load(png, device='cpu').pixels == pic.pixels).all()\n"
+        "out = decode_batch([f'{d}/a.jpg', png, f'{d}/u.png'], device='cpu')\n"
+        "assert tuple(out.shape) == (3, 64, 96, 4), out.shape\n"
         "bad = [m for m in sys.modules if m.startswith('ffpic_tpu.')"
         " or m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
@@ -155,12 +180,13 @@ def test_device_none_raises_without_cuda(monkeypatch):
         ffpic_tpu_torch.decode_batch([_jpeg(120, 200, 80, 4)])
 
 
-@pytest.mark.parametrize("case", ["png", "gif", "mesh", "device_entropy"])
+@pytest.mark.parametrize("case", ["webp", "gif", "mesh", "device_entropy"])
 def test_outside_the_slice_raises(case, monkeypatch):
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
-    if case == "png":
-        srcs.append(b"\x89PNG\r\n\x1a\n" + bytes(64))
+    if case == "webp":
+        srcs.append(b"RIFF" + (60).to_bytes(4, "little") + b"WEBPVP8 "
+                    + bytes(52))
     elif case == "gif":
         srcs.append(b"GIF89a" + bytes(64))
     elif case == "mesh":
@@ -201,14 +227,14 @@ def test_decode_batch_other_samplings_match_jax(size):
             testing.encode_jpeg(testing.synth_rgb(160, 224, 5)[..., 1], 80,
                                 ((1, 1),)),
             _jpeg(160, 224, 60, 5, True, subsampling="4:4:4")]
-    got, want = _both(srcs, size=size, mode="bt601")
-    assert got.shape == ((5, 160, 224, 4) if size is None
-                         else (5, 224, 224, 4))
     if size is None:
-        np.testing.assert_array_equal(got, want)
+        got = _same_as_jax(srcs, mode="bt601")
+        assert got.shape == (5, 160, 224, 4)
         assert np.array_equal(got[1], ffpic_tpu_torch.load(
             srcs[1], device="cpu").np_pixels())
     else:
+        got, want = _both(srcs, size=size, mode="bt601")
+        assert got.shape == (5, 224, 224, 4)
         assert np.abs(got.astype(int) - want).max() <= 1
 
 
@@ -264,9 +290,112 @@ def test_decode_batch_420_uses_cb_table_for_cr():
     component's own table."""
     rgb = testing.synth_rgb(64, 96, 6)
     data = testing.encode_jpeg(rgb, 85, cr_quality=30)
-    got, want = _both([data, data], mode="reference")
-    np.testing.assert_array_equal(got, want)
-    native.available()
+    got = _same_as_jax([data, data], mode="reference")
     own = ffpic_tpu_torch.load(data, device="cpu").np_pixels()
-    assert np.array_equal(own, np.asarray(ffpic_tpu.load(data).np_pixels()))
+    testing.assert_equal_up_to_contraction(
+        lambda: ffpic_tpu_torch.load(data, device="cpu").np_pixels(),
+        np.asarray(ffpic_tpu.load(data).np_pixels()))
     assert not np.array_equal(got[0], own)
+
+
+@functools.lru_cache(maxsize=None)
+def _png(h: int, w: int, seed: int, filters=(1, 2)) -> bytes:
+    rgba = np.concatenate([testing.synth_rgb(h, w, seed),
+                           testing.synth_rgb(h, w, seed + 50)[..., :1]], -1)
+    return testing.encode_png(rgba, 6, 8, filters=filters)
+
+
+@pytest.mark.parametrize("size", [None, (96, 128)])
+def test_decode_batch_jpeg_and_png_match_jax(size):
+    """JPEG and PNG members in one batch: the PNGs (one of Sub/Up rows,
+    which takes K6's route, one of all five filters, one gray 16-bit
+    Adam7 with a key) through the registry's PNG codec in both
+    packages, the JPEGs as before; exact (the JPEG colour up to XLA's
+    contraction choice), or within 1 LSB when resized."""
+    gray = testing.encode_png(
+        np.random.default_rng(3).integers(0, 65536, (160, 224)), 0, 16,
+        filters=(0, 1, 2, 3, 4), interlace=1, trns=1234)
+    srcs = [_jpeg(160, 224, 85, 2), _png(160, 224, 1),
+            _png(160, 224, 2, (0, 1, 2, 3, 4)), _jpeg(160, 224, 60, 5, True),
+            gray, _jpeg(160, 224, 95, 3)]
+    if size is None:
+        got = _same_as_jax(srcs, mode="bt601")
+        assert got.shape == (6, 160, 224, 4)
+        np.testing.assert_array_equal(
+            got[1], ffpic_tpu_torch.load(srcs[1], device="cpu").np_pixels())
+    else:
+        got, want = _both(srcs, size=size)
+        assert got.shape == (6, 96, 128, 4)
+        assert np.abs(got.astype(int) - want).max() <= 1
+
+
+def test_corrupt_png_member_raises_value_error():
+    bad = bytearray(_png(32, 48, 1))
+    bad[bad.index(b"IDAT") + 20] ^= 0xFF
+    with pytest.raises(ValueError, match="CRC"):
+        ffpic_tpu_torch.decode_batch([_jpeg(120, 200, 80, 4), bytes(bad)],
+                                     device="cpu")
+
+
+def _progressive_planes(srcs):
+    from ffpic_tpu_torch.formats import jpg
+    js = [jpg.parse_and_decode(d)[0] for d in srcs]
+    return js, [np.stack([j.coeffs[c].reshape(-1) for j in js])
+                for c in range(3)]
+
+
+def _noisy_progressive(seed: int) -> bytes:
+    from PIL import Image
+    rgb = np.random.default_rng(seed).integers(0, 256, (160, 224, 3))
+    buf = io.BytesIO()
+    Image.fromarray(rgb.astype(np.uint8)).save(
+        buf, "JPEG", quality=100, subsampling="4:2:0", progressive=True)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_sparse_route_follows_the_reference_rule(kind, monkeypatch):
+    """Progressive 4:2:0 members take the sparse route (K8, then K2 and
+    K3) exactly when the reference's rule does -- the three planes'
+    ``pack_coeffs`` pairs under 0.7 of their dense bytes, computed with
+    ffpic_tpu's own ``pack_coeffs`` -- from pairs packed per member and
+    joined as ``pack_coeffs`` packs the stack; and both routes give
+    ffpic_tpu's pixels exactly."""
+    from ffpic_tpu.ops import jpeg_kernels as jax_jk
+    from ffpic_tpu_torch import pipeline
+    srcs = ([_jpeg(160, 224, 60, 5, True), _jpeg(160, 224, 90, 6, True)]
+            if kind == "sparse" else
+            [_noisy_progressive(1), _noisy_progressive(2)])
+    js, planes = _progressive_planes(srcs)
+    dense_bytes = sum(p.nbytes for p in planes)
+    ref = [jax_jk.pack_coeffs(p) for p in planes]
+    want_sparse = sum(a.nbytes + b.nbytes for a, b in ref) < dense_bytes * 0.7
+    assert want_sparse == (kind == "sparse")
+    packed = pipeline.sparse_pairs([pipeline.member_pairs(j) for j in js],
+                                   [c.size for c in js[0].coeffs])
+    assert (packed is not None) == want_sparse
+    joined = (np.concatenate([a for a, _b in ref]),
+              np.concatenate([b for _a, b in ref]), [len(a) for a, _b in ref])
+    if packed is not None:
+        np.testing.assert_array_equal(packed[0], joined[0])
+        np.testing.assert_array_equal(packed[1], joined[1])
+        assert packed[2] == joined[2]
+    routes = []
+    for name in ("decode_batch_420_sparse", "decode_batch_420_dense"):
+        real = getattr(pipeline.jk, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            routes.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(pipeline.jk, name, spy)
+    got = _same_as_jax(srcs, mode="reference")
+    assert routes[0] == ("decode_batch_420_sparse" if want_sparse
+                         else "decode_batch_420_dense")
+    cpu = torch.device("cpu")
+    routes.clear()
+    dense = pipeline.decode_planes(js, "reference", cpu)
+    sparse = pipeline.decode_pairs(js, joined, "reference", cpu)
+    assert routes == ["decode_batch_420_dense", "decode_batch_420_sparse",
+                      "decode_batch_420_dense"]
+    np.testing.assert_array_equal(got, dense.numpy())
+    np.testing.assert_array_equal(got, sparse.numpy())
