@@ -37,7 +37,22 @@ read just after:
   then ``pipeline.decode_dense_members``) with the 8 x 1080p batch's
   dense planes (K8 scatter_plane per plane, then K2 and K3), against
   the plain route; the dense route (``pipeline.decode_planes``) timed
-  beside it.
+  beside it;
+* the device Huffman decode (K9 entropy_decode, K10 spec_scan, K11
+  spec_merge; ``testing.entropy_cases`` and the path shapes against
+  their plain versions and the host decoder): ``dri batch``, the batch's
+  pixels and qualities as baseline 4:2:0 JPEGs with a restart marker
+  every MCU row, through ``decode_batch`` with every member on the card
+  (``FFPIC_HYBRID=0``: K9 once), with the default hybrid split (K9 once
+  for 4 members, the host route for 4) and with
+  ``FFPIC_DEVICE_ENTROPY=0`` (the host route), all three equal; ``dri
+  mixed``, 1080p, 720p and 512x512 DRI members at three qualities in
+  one K9 launch, equal to the host route; ``spec batch``, the batch's
+  DRI-less files under ``FFPIC_SPEC_ENTROPY=1`` (K10, K11, K9 once each,
+  no fallback), equal to the host route.  The end-to-end medians are
+  printed under the JAX bench's names (``device_entropy_dri_mps``,
+  ``hybrid_pipeline_mps``, ``device_entropy_spec_mps``) beside the host
+  route and the host spans.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -52,6 +67,7 @@ raises and exits non-zero; without CUDA it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -65,6 +81,7 @@ BIG_H, BIG_W = 3000, 4000           # the load path: a 12 MP phone photo
 CU = "ffpic_tpu_torch/csrc/jpeg_decode.cu"
 CODEC_CU = "ffpic_tpu_torch/csrc/jpeg_codec.cu"
 PNG_CU = "ffpic_tpu_torch/csrc/png_decode.cu"
+ENTROPY_CU = "ffpic_tpu_torch/csrc/jpeg_entropy.cu"
 REPLACES = {
     "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
     "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
@@ -75,9 +92,14 @@ REPLACES = {
     "unfilter_subup": "ffpic_tpu/ops/png_kernels.py:89",
     "assemble_rgba": "ffpic_tpu/ops/png_kernels.py:40",
     "scatter_plane": "ffpic_tpu/ops/jpeg_kernels.py:463",
+    "entropy_decode": "ffpic_tpu/ops/jpeg_entropy_device.py:139",
+    "spec_scan": "ffpic_tpu/ops/jpeg_entropy_device.py:374",
+    "spec_merge": "ffpic_tpu/ops/jpeg_entropy_device.py:490",
 }
 SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
-           "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU}
+           "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU,
+           "entropy_decode": ENTROPY_CU, "spec_scan": ENTROPY_CU,
+           "spec_merge": ENTROPY_CU}
 PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
@@ -108,14 +130,15 @@ def ptxas_report(text: str) -> dict:
     arguments, e.g. ``assemble_color<1,0>`` (mode, order),
     ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
-    depth)."""
+    depth); K9-K11 have no template arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color|"
                           r"assemble_mcu|fdct|scatter_plane|unfilter_rows|"
-                          r"unfilter_cols|assemble_rgba)_kernel"
+                          r"unfilter_cols|assemble_rgba|entropy_decode|"
+                          r"spec_scan|spec_merge)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -434,7 +457,7 @@ def spans(fn, runs: int):
 
 def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
                floor_ms: float, flush, at: str, library=None,
-               plain_iters: int = 3) -> dict:
+               plain_iters: int = 3, plain_warmup: int = 2) -> dict:
     """One kernel's timing entry: warm and L2-flushed ms, its plain
     version's and (where one exists) one PyTorch call's ms, its bound."""
     from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
@@ -442,7 +465,8 @@ def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
     rate = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S}[ops_type]
     b_ms, b_by = bound(nbytes, ops, rate)
     t = {"ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
-         "plain_ms": gpu_ms(plain, plain_iters), "bound_ms": b_ms,
+         "plain_ms": gpu_ms(plain, plain_iters, plain_warmup),
+         "bound_ms": b_ms,
          "bound_by": b_by,
          "library_ms": gpu_ms(library, 50) if library else None,
          "launch_floor_ms": floor_ms, "ops_type": ops_type, "bytes": nbytes,
@@ -813,6 +837,361 @@ def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
     return timed, launches
 
 
+@contextlib.contextmanager
+def environ(**env):
+    """Set (a value) or unset (None) environment variables for the block."""
+    old = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+ENTROPY_ENV = ("FFPIC_DEVICE_ENTROPY", "FFPIC_SPEC_ENTROPY", "FFPIC_HYBRID",
+               "FFPIC_HYBRID_FRAC")
+
+
+def merge_work(st, r, lut_bytes: int) -> dict:
+    """What K11 did in the ``spec_stages`` run ``r``: each lane's walk
+    from its true entry to the snapshot it met, replayed with the plain
+    step (``jed._advance``) on the card.  Its bytes, each read once: the
+    scan bytes the walks cover (their bits, and a 4-byte window past
+    each), a table entry a symbol (at most the LUT stack), the bit column
+    of every used snapshot slot and one past, k and sub of the matched
+    slot, the entries and the merged rows."""
+    import torch
+    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+    ent, snap, merged = (r[k].to(torch.int64)
+                         for k in ("ent", "snap", "merged"))
+    if not bool(merged[:, 0].all()):
+        raise AssertionError("spec_merge: a lane did not meet a snapshot")
+    rows = torch.arange(ent.shape[0], device=ent.device)
+    target = snap[rows, merged[:, 1], 0]
+    tabs = jed._spec_tables(st.u32win, st.luts, st.comp_of_sub,
+                            st.tclass_of_sub)
+    bit, k, sub = ent[:, 0].clone(), ent[:, 1].clone(), ent[:, 2].clone()
+    blk = torch.zeros_like(bit)
+    dcs = torch.zeros((bit.shape[0], 3), dtype=torch.int64,
+                      device=bit.device)
+    steps = torch.zeros_like(bit)
+    while bool((bit < target).any()):
+        active = bit < target
+        bit, k, sub, blk, dcs = jed._advance(tabs, st.bpm, active, bit, k,
+                                             sub, blk, dcs)
+        steps += active
+    if not torch.equal(bit, target):
+        raise AssertionError("spec_merge: a replayed walk passed its match")
+    symbols = int(steps.sum())
+    scan_bytes = int(((target - ent[:, 0] + 7) // 8 + 4).sum())
+    used = (snap[..., 0] != -1).sum(dim=1)
+    snap_bytes = int((4 * torch.clamp(used + 1, max=jed.SNAP) + 8).sum())
+    nbytes = scan_bytes + min(4 * symbols, lut_bytes) + snap_bytes \
+        + 12 * ent.shape[0] + 24 * ent.shape[0]
+    return {"symbols": symbols, "longest": int(steps.max()),
+            "scan_bytes": scan_bytes, "snap_bytes": snap_bytes,
+            "bytes": nbytes}
+
+
+def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
+    """The device Huffman decode: K9, K10 and K11 against their plain
+    versions on the card (``testing.entropy_cases`` and the path shapes)
+    and against the native host decoder; the ``dri batch``, ``dri
+    mixed`` and ``spec batch`` phases through ``decode_batch``, each with
+    fresh launch counts; the timings.  Returns {kernel: timing entry} and
+    the launches of each path."""
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import decode_batch, testing
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.ops import cuda_entropy, cuda_jpeg
+    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+    from ffpic_tpu_torch.utils.timing import gpu_ms
+
+    def reset():
+        torch.cuda.synchronize()
+        cuda_jpeg.reset_launches()
+        cuda_entropy.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**{k: v for k, v in cuda_jpeg.launches.items() if v},
+                **cuda_entropy.launches}
+
+    def host_coeffs(data):
+        j, _ = jpg.parse_and_decode(data)
+        return torch.from_numpy(np.concatenate(
+            [c.reshape(-1) for c in j.coeffs])).to(dev)
+
+    clear = {k: None for k in ENTROPY_ENV}
+
+    # --- inputs ------------------------------------------------------------
+    t0 = time.perf_counter()
+    dri = [testing.encode_jpeg(testing.synth_rgb(H, W, k + 1), q,
+                               restart_interval=W // 16)
+           for k, q in ((0, 85), (1, 95))]
+    t1 = time.perf_counter()
+    mixed = [dri[0],
+             testing.encode_jpeg(testing.synth_rgb(720, 1280, 41), 75,
+                                 restart_interval=80),
+             testing.encode_jpeg(testing.synth_rgb(512, 512, 42), 95,
+                                 restart_interval=32),
+             testing.encode_jpeg(testing.synth_rgb(720, 1280, 43), 95,
+                                 restart_interval=80),
+             testing.encode_jpeg(testing.synth_rgb(512, 512, 44), 85,
+                                 restart_interval=32)]
+    t2 = time.perf_counter()
+    dri_srcs = [dri[k % 2] for k in range(N)]
+    spec_srcs = [jpegs[k % 2] for k in range(N)]
+    log("inputs entropy", dri=f"2x{W}x{H} q85/q95 DRI {W // 16} (one MCU "
+        "row a segment)", dri_bytes=[len(d) for d in dri],
+        mixed="1080p q85, 720p q75, 512 q95, 720p q95, 512 q85",
+        spec="the batch's DRI-less files",
+        encode_seconds=f"{t1 - t0:.3f}", mixed_seconds=f"{t2 - t1:.3f}")
+
+    # --- K9-K11 against their plain versions on the card: edge cases -------
+    def hold_dri(datas):
+        """K9 over a DRI batch against ``decode_lanes_plain`` on the same
+        staged tensors; its symbol counts."""
+        js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+        st, lanes, out_size, _off = jed.stage_dri(datas, js, dev)
+        flat, steps = jed.decode_lanes(st, lanes, out_size)
+        pflat, psteps = jed.decode_lanes_plain(st, lanes, out_size)
+        exact("entropy_decode", flat, pflat, errs)
+        exact("entropy_decode", steps, psteps, errs)
+        return steps
+
+    def hold_spec(r):
+        """K10, K11 and K9 of a ``spec_stages`` run, each against its
+        plain version on the same inputs on the card."""
+        st = r["staged"]
+        exits, snap = jed.spec_scan_plain(st, r["chunks"])
+        exact("spec_scan", r["exits"], exits, errs)
+        exact("spec_scan", r["snap"], snap, errs)
+        exact("spec_merge", r["merged"],
+              jed.spec_merge_plain(st, r["ent"], r["snap"]), errs)
+        flat, steps = jed.decode_lanes_plain(st, r["lanes"],
+                                             r["flat"].numel())
+        exact("entropy_decode", r["flat"], flat, errs)
+        exact("entropy_decode", r["steps"], steps, errs)
+
+    stage_kernel = {"flat": "entropy_decode", "steps": "entropy_decode",
+                    "exits": "spec_scan", "snap": "spec_scan",
+                    "merged": "spec_merge", "lanes": "spec_merge",
+                    "ok": "spec_merge"}
+    cases = testing.entropy_cases()
+    for case in cases.values():
+        if case["kind"] == "dri":
+            hold_dri(case["datas"])
+        else:
+            hold_spec(jed.spec_stages(case["datas"], case["chunk_bytes"],
+                                      device=dev))
+        # the whole decode, stitch and ok included, against the CPU's
+        got = testing.entropy_stages(case, dev)
+        want = testing.entropy_stages(case, "cpu")
+        for key, kernel in stage_kernel.items():
+            if key in want:
+                exact(kernel, got[key], want[key], errs)
+    log("check K9-K11 cases", entropy_decode="exact", spec_scan="exact",
+        spec_merge="exact", cpu="exact", cases=",".join(cases))
+
+    # --- the path shapes: all 8 against the host decoder, 2 against the
+    # plain versions -------------------------------------------------------
+    want = [host_coeffs(d) for d in dri]
+    reset()
+    flat, _js, consts, steps = jed.decode_coeffs_device(dri_srcs, device=dev)
+    if counts()["entropy_decode"] != 1:
+        raise AssertionError("decode_coeffs_device: K9 launches "
+                             f"{counts()}")
+    size = consts["comp_space"] * 64
+    for i in range(N):
+        exact("entropy_decode", flat[i * size:(i + 1) * size], want[i % 2],
+              errs)
+    hold_dri(dri)
+    spec_want = [host_coeffs(d) for d in jpegs]
+    r8 = jed.spec_stages(spec_srcs, 4096, device=dev)
+    if not bool(r8["ok"]):
+        raise AssertionError("the 8 DRI-less files do not self-synchronise")
+    for i in range(N):
+        exact("entropy_decode", r8["flat"][i * size:(i + 1) * size],
+              spec_want[i % 2], errs)
+    hold_spec(jed.spec_stages(jpegs, 4096, device=dev))
+    log("check K9-K11 path", lanes=int(steps.numel()),
+        longest_lane_symbols=int(steps.max()),
+        symbols=int(steps.sum()), host_decoder_8="exact",
+        plain_2="exact", spec_lanes=r8["L"], spec_host_decoder_8="exact",
+        spec_plain_2="exact")
+
+    # --- dri batch -----------------------------------------------------------
+    taken = []
+    real_route = jed.decode_batch_dri_mixed
+
+    def spy(datas, js, **kw):
+        taken.append(len(datas))
+        return real_route(datas, js, **kw)
+
+    outs, launches = {}, {}
+    jed.decode_batch_dri_mixed = spy
+    try:
+        for label, env in (("all_device", {"FFPIC_HYBRID": "0"}),
+                           ("hybrid", {}),
+                           ("host", {"FFPIC_DEVICE_ENTROPY": "0"})):
+            with environ(**{**clear, **env}):
+                taken.clear()
+                reset()
+                outs[label] = decode_batch(dri_srcs, device=dev)
+                launches[label] = {**counts(), "members": sum(taken)}
+    finally:
+        jed.decode_batch_dri_mixed = real_route
+    expect = {"all_device": (1, N, 0), "hybrid": (1, 4, 1),
+              "host": (0, 0, 1)}
+    for label, (k9, members, k1a) in expect.items():
+        got = launches[label]
+        if (got["entropy_decode"], got["members"],
+                got.get("count_scan", 0)) != (k9, members, k1a):
+            raise AssertionError(f"dri batch {label}: launches {got}")
+        if not torch.equal(outs[label], outs["host"]):
+            raise AssertionError(f"dri batch {label} differs from the host "
+                                 "route by up to "
+                                 f"{max_abs_err(outs[label], outs['host'])}")
+    psnr = testing.psnr(outs["all_device"][0, ..., :3],
+                        testing.synth_rgb(H, W, 1))
+    if psnr < 30 or tuple(outs["host"].shape) != (N, H, W, 4):
+        raise AssertionError(f"dri batch: PSNR {psnr:.2f} dB")
+    log("dri batch", shape=tuple(outs["host"].shape),
+        launches=json.dumps(launches).replace(" ", ""),
+        equal="all_device=hybrid=host", psnr_db=f"{psnr:.2f}")
+    del outs
+
+    # --- dri mixed -----------------------------------------------------------
+    with environ(**clear):
+        reset()
+        got = decode_batch(mixed, size=(224, 224), device=dev)
+        mixed_launches = counts()
+        js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in mixed]
+        per = jed.decode_batch_dri_mixed(mixed, js, device=dev)
+    with environ(**{**clear, "FFPIC_DEVICE_ENTROPY": "0"}):
+        host = decode_batch(mixed, size=(224, 224), device=dev)
+        for i, (d, j) in enumerate(zip(mixed, js)):
+            one = decode_batch([d], device=dev)[0]
+            if not torch.equal(per[i][:j.height, :j.width], one):
+                raise AssertionError(f"dri mixed member {i} differs from "
+                                     "the host route")
+    if mixed_launches["entropy_decode"] != 1 or \
+            mixed_launches.get("count_scan", 0):
+        raise AssertionError(f"dri mixed: launches {mixed_launches}")
+    if not torch.equal(got, host):
+        raise AssertionError("dri mixed differs from the host route")
+    log("dri mixed", members=len(mixed), geometries=3, qualities="75,85,95",
+        launches=json.dumps(mixed_launches).replace(" ", ""),
+        host_route="exact", members_unresized="exact",
+        custom_tables="CPU tests only (the card has no PIL)")
+
+    # --- spec batch ----------------------------------------------------------
+    with environ(**{**clear, "FFPIC_SPEC_ENTROPY": "1"}):
+        reset()
+        spec_out = decode_batch(spec_srcs, device=dev)
+        spec_launches = counts()
+    if (spec_launches["spec_scan"], spec_launches["spec_merge"],
+            spec_launches["entropy_decode"],
+            spec_launches.get("count_scan", 0)) != (1, 1, 1, 0):
+        raise AssertionError(f"spec batch fell back or ran other kernels: "
+                             f"{spec_launches}")
+    if not torch.equal(spec_out, plain_out):
+        raise AssertionError("spec batch differs from the host route")
+    log("spec batch", shape=tuple(spec_out.shape),
+        launches=json.dumps(spec_launches).replace(" ", ""), ok=True,
+        host_route="exact")
+    del spec_out
+
+    # --- timing --------------------------------------------------------------
+    mp = N * H * W / 1e6
+    walls = {}
+    for name, env, fn in (
+            ("device_entropy_dri", clear,
+             lambda: jed.decode_batch_device_entropy(dri_srcs, device=dev)),
+            ("hybrid_pipeline", clear,
+             lambda: decode_batch(dri_srcs, device=dev)),
+            ("host_route", {**clear, "FFPIC_DEVICE_ENTROPY": "0"},
+             lambda: decode_batch(dri_srcs, device=dev)),
+            ("device_entropy_spec", clear,
+             lambda: jed.decode_batch_device_entropy_spec(
+                 spec_srcs, chunk_bytes=4096, device=dev))):
+        with environ(**env):
+            wall, runs, stages = spans(fn, 5)
+        walls[name] = wall
+        log("time entropy path", path=name, megapixels=mp,
+            end_to_end_ms=f"{wall * 1e3:.3f}",
+            end_to_end_ms_runs=json.dumps([round(w * 1e3, 3)
+                                           for w in runs]).replace(" ", ""),
+            **{f"{name}_mps": f"{mp / wall:.2f}"},
+            stage_ms=json.dumps(stages).replace(" ", ""))
+
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    js8 = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in dri_srcs]
+    st, lanes, out_size, _off = jed.stage_dri(dri_srcs, js8, dev)
+    _f, steps8 = jed.decode_lanes(st, lanes, out_size)
+    lut_bytes = 4 * st.luts.numel()
+    rs = jed.spec_stages(spec_srcs, 4096, device=dev)
+    ss = rs["staged"]
+    nl = rs["L"]
+    spec_symbols = int(rs["steps"].sum())
+    merge = merge_work(ss, rs, lut_bytes)
+    timed = {
+        "entropy_decode": time_entry(
+            "entropy_decode", lambda: jed.decode_lanes(st, lanes, out_size),
+            lambda: jed.decode_lanes_plain(st, lanes, out_size),
+            st.n + lut_bytes + 2 * out_size + 4 * lanes.numel()
+            + 4 * st.bmap.numel(), int(steps8.sum()), "int32", floor_ms,
+            flush, f"dri batch 8x1080p, {lanes.shape[0]} lanes",
+            plain_iters=1, plain_warmup=0),
+        "spec_scan": time_entry(
+            "spec_scan", lambda: jed.spec_scan(ss, rs["chunks"]),
+            lambda: jed.spec_scan_plain(ss, rs["chunks"]),
+            ss.n + 4 * ss.luts.numel() + 8 * nl + 28 * nl
+            + 4 * rs["snap"].numel(), spec_symbols, "int32", floor_ms,
+            flush, f"spec batch 8x1080p, {nl} chunks", plain_iters=1,
+            plain_warmup=0),
+        "spec_merge": time_entry(
+            "spec_merge", lambda: jed.spec_merge(ss, rs["ent"], rs["snap"]),
+            lambda: jed.spec_merge_plain(ss, rs["ent"], rs["snap"]),
+            merge["bytes"], merge["symbols"], "int32", floor_ms, flush,
+            f"spec batch 8x1080p, {nl} chunks", plain_iters=1,
+            plain_warmup=0),
+    }
+    del flush
+    timed["entropy_decode"].update(
+        lanes=int(lanes.shape[0]), longest_lane_symbols=int(steps8.max()),
+        symbols=int(steps8.sum()),
+        spec_emit_ms=gpu_ms(lambda: jed.decode_lanes(ss, rs["lanes"],
+                                                     rs["flat"].numel()), 10))
+    for name in ("spec_scan", "spec_merge"):
+        timed[name]["lanes"] = nl
+    timed["spec_merge"].update(symbols=merge["symbols"],
+                               longest_lane_symbols=merge["longest"])
+    log("time entropy kernels", k9_lanes=int(lanes.shape[0]),
+        k9_longest_lane_symbols=int(steps8.max()),
+        k9_symbols=int(steps8.sum()),
+        k9_spec_emit_ms=f"{timed['entropy_decode']['spec_emit_ms']:.4f}",
+        spec_chunks=nl, spec_symbols=spec_symbols,
+        merge_symbols=merge["symbols"],
+        merge_longest_lane_symbols=merge["longest"],
+        merge_scan_bytes=merge["scan_bytes"],
+        merge_snapshot_bytes=merge["snap_bytes"],
+        merge_bytes=merge["bytes"])
+    return timed, {"dri_batch": launches["all_device"],
+                   "dri_hybrid": launches["hybrid"],
+                   "dri_mixed": mixed_launches, "spec_batch": spec_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1147,6 +1526,9 @@ def main() -> int:
     timed["scatter_plane"], sparse_launches = sparse_path(
         dev, srcs, plain, floor_ms, errs)
     timed.update(png_timed)
+    entropy_timed, entropy_launches = entropy_paths(dev, jpegs, plain,
+                                                    floor_ms, errs)
+    timed.update(entropy_timed)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6's
     # two passes at 4 bytes a pixel, K7 for 8-bit RGBA
@@ -1163,6 +1545,14 @@ def main() -> int:
     launches["unfilter_subup"] = png_launches["load"]["unfilter_subup"]
     launches["assemble_rgba"] = png_launches["load"]["assemble_rgba"]
     launches["scatter_plane"] = sparse_launches["scatter_plane"]
+    # K9 on the dri batch with every member on the card, K10 and K11 on
+    # the spec batch; K9's hybrid, mixed and spec launches beside them
+    launches["entropy_decode"] = \
+        entropy_launches["dri_batch"]["entropy_decode"]
+    launches["spec_scan"] = entropy_launches["spec_batch"]["spec_scan"]
+    launches["spec_merge"] = entropy_launches["spec_batch"]["spec_merge"]
+    timed["entropy_decode"]["launches_per_path"] = {
+        k: v["entropy_decode"] for k, v in entropy_launches.items()}
     for name in ("unfilter_subup", "assemble_rgba"):
         timed[name]["launches_mixed_decode_batch"] = \
             png_launches["mixed"][name]

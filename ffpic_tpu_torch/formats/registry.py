@@ -7,8 +7,9 @@ so that importing ``ffpic_tpu`` (which registers the JAX package's
 codecs in its registry) never touches it.  Three changes:
 
 * ``load``, ``load_all`` and ``encode`` take ``device``: None means
-  CUDA and raises without it, "cpu" runs the plain PyTorch versions.
-  The codec gets the resolved ``torch.device``;
+  CUDA and raises without it (except for a header-only ``load``, which
+  needs no device), "cpu" runs the plain PyTorch versions.  The codec
+  gets the resolved ``torch.device``;
 * they pass further keyword options to the codec (for JPEG: ``quirks``,
   ``order``, ``mode``, ``upsample``; for PNG: ``verify_crc``), which the
   original's ``load`` has no way to reach;
@@ -122,8 +123,11 @@ def corrupt_as_value_error(codec_name: str):
 def load_all(src, skip_decode: bool = False, device=None,
              **options) -> list[Pic]:
     """Decode every picture in the input; the first carries the others
-    on ``frames``."""
-    dev = resolve_device(device, "load")
+    on ``frames``.  A header-only parse (``skip_decode``) with
+    ``device=None`` needs no CUDA: the device is resolved only to decode
+    pixels."""
+    dev = (None if skip_decode and device is None
+           else resolve_device(device, "load"))
     data = _read_input(src)
     codec = probe(data)
     with corrupt_as_value_error(codec.name):

@@ -3,15 +3,17 @@
 ``resize_rgba`` gives what ``jax.image.resize(img.astype(f32), (h, w, 4),
 "bilinear")`` gives, rounded half to even and clipped to uint8: per axis
 a triangle-kernel weight matrix, widened by 1/scale when shrinking
-(JAX antialiases by default; ``F.interpolate`` does not), applied as
-float32 matrix products with TF32 off.  The products run in another
-order than XLA's, so a sum can land on the other side of .5: outputs
-agree with the JAX package to 1 LSB.
+(JAX antialiases by default; ``F.interpolate`` does not), applied as a
+float64 matrix product and rounded to float32 after each axis, as JAX
+rounds its f32 products.  The weights are f32 values, which float64
+holds exactly, and float64 ignores the TF32 setting, so no global
+precision setting is read or changed.  The sums run in another order
+and width than XLA's, so a sum can land on the other side of .5:
+outputs agree with the JAX package to 1 LSB.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
@@ -38,27 +40,17 @@ def _weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], weights, 0.0).to(device)
 
 
-@contextlib.contextmanager
-def _full_f32_matmul():
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
     """(..., H, W, C) uint8 -> (..., h, w, C) uint8, bilinear with
     antialiasing, on the tensor's device.  An axis whose size does not
     change is left as it is, as JAX skips it."""
     h, w = size
-    x = img.to(torch.float32)
-    with _full_f32_matmul():
-        if x.shape[-3] != h:
-            wh = _weight_mat(x.shape[-3], h, x.device)
-            x = torch.einsum("...hwc,hH->...Hwc", x, wh)
-        if x.shape[-2] != w:
-            ww = _weight_mat(x.shape[-2], w, x.device)
-            x = torch.einsum("...hwc,wW->...hWc", x, ww)
+    x = img.to(torch.float64)
+    if x.shape[-3] != h:
+        wh = _weight_mat(x.shape[-3], h, x.device).to(torch.float64)
+        x = torch.einsum("...hwc,hH->...Hwc", x, wh).to(torch.float32) \
+            .to(torch.float64)
+    if x.shape[-2] != w:
+        ww = _weight_mat(x.shape[-2], w, x.device).to(torch.float64)
+        x = torch.einsum("...hwc,wW->...hWc", x, ww).to(torch.float32)
     return torch.round(x).clamp(0, 255).to(torch.uint8)

@@ -4,7 +4,19 @@ device tensor.
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
 batches of JPEGs and PNGs:
 
-1. Host pass, in a thread pool (the native parsers release the GIL):
+0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
+   by default on CUDA; ``FFPIC_DEVICE_ENTROPY``, ``FFPIC_SPEC_ENTROPY``,
+   ``FFPIC_HYBRID``, ``FFPIC_HYBRID_FRAC`` as in the reference): DRI
+   baseline 4:2:0 members, 4 or more, ship their destuffed entropy
+   bytes and are Huffman-decoded on the device in one launch
+   (``ops.jpeg_entropy_device``: K9, then K2 and K3 per geometry), and,
+   when asked, groups of 4 or more DRI-less ones through the
+   speculative decoder (K10, K11, K9, K2, K3).  Once a pass over the
+   headers has fixed its members, the pool of step 1 starts on the
+   others, and the route stages its bytes and enqueues its launches on
+   the caller's thread meanwhile.
+1. Host pass over the other members, in a thread pool (the native
+   parsers release the GIL):
    3-component 4:2:0 baseline files are Huffman-decoded into the packed
    emission, progressive ones into dense coefficient planes, whose
    nonzeros are packed there too (``member_pairs``).  Any other
@@ -49,6 +61,7 @@ import torch
 from ffpic_tpu_torch import native
 from ffpic_tpu_torch.formats import jpg, png, registry
 from ffpic_tpu_torch.formats.jpg import packed_block_map
+from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 from ffpic_tpu_torch.ops.resize import resize_rgba
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
@@ -86,11 +99,6 @@ def _jpeg_420_plan(data: bytes):
     if [(c.v, c.h) for c in j.comps] != [(2, 2), (1, 1), (1, 1)]:
         return None
     return j
-
-
-def _quant(js, comp: int, device) -> torch.Tensor:
-    return to_device(np.stack([j.dqt[j.comps[comp].tq]
-                               for j in js]).astype(np.int32), device)
 
 
 def _prep(data: bytes):
@@ -177,7 +185,7 @@ def decode_planes(js, mode: str, device) -> torch.Tensor:
         host = np.stack([np.concatenate([c.reshape(-1, 64) for c in j.coeffs])
                          for j in js]).reshape(n, -1, 8, 8)
     with stage("torch.h2d"):
-        yq, cq = _quant(js, 0, device), _quant(js, 1, device)
+        yq, cq = (jed.quant_stack(js, c, device) for c in (0, 1))
         staged = to_device(host, device)
     with stage("torch.device_decode"), device_trace("decode_420", device):
         return jk.decode_batch_420_dense(
@@ -191,7 +199,7 @@ def decode_pairs(js, packed, mode: str, device) -> torch.Tensor:
     j0 = js[0]
     idx, val, lens = packed
     with stage("torch.h2d"):
-        yq, cq = _quant(js, 0, device), _quant(js, 1, device)
+        yq, cq = (jed.quant_stack(js, c, device) for c in (0, 1))
         idx, val = to_device(idx, device), to_device(val, device)
     with stage("torch.device_decode"), device_trace("decode_420", device):
         cut = np.cumsum([0, *lens]).tolist()
@@ -201,37 +209,138 @@ def decode_pairs(js, packed, mode: str, device) -> torch.Tensor:
             order="rgba", mode=mode, hw=(j0.height, j0.width))
 
 
+def _entropy_runs(datas) -> list:
+    """The plan of the device-entropy route of
+    ``ffpic_tpu/pipeline.py:88-167``, from the members' headers: DRI
+    baseline 4:2:0 members (``jed.eligible``) merged into one entropy
+    launch when there are 4 or more; with ``FFPIC_SPEC_ENTROPY=1`` each
+    group of 4 or more DRI-less members of one ``spec_group_key`` through
+    the speculative decoder.  ``FFPIC_HYBRID`` (default on) keeps ``n -
+    k`` members of an all-DRI batch of 6 or more for the host, k = max(4,
+    round(n * FFPIC_HYBRID_FRAC)) (default 0.5), when n - k >= 2.  A run
+    larger than one launch takes is split (``jed.launch_runs``).  Returns
+    [(route, [(index, header), ...])]."""
+    n = len(datas)
+    dri_list: list = []
+    spec_groups: dict = {}
+    use_spec = os.environ.get("FFPIC_SPEC_ENTROPY") == "1"
+    with stage("torch.entropy.headers"):
+        for i, data in enumerate(datas):
+            # DRI is the marker FF DD, which entropy-coded data never
+            # holds (its FF bytes are stuffed): without those bytes the
+            # file has no restart interval, and only the speculative
+            # route could take it
+            if data[:2] != b"\xff\xd8" or (
+                    not use_spec and b"\xff\xdd" not in data):
+                continue
+            try:
+                # a malformed header is left to the host path, which
+                # raises its ValueError
+                with registry.corrupt_as_value_error("JPG"):
+                    jh, _ = jpg.parse_and_decode(data, skip_decode=True)
+            except (ValueError, NotImplementedError):
+                continue
+            if jed.eligible(jh):
+                dri_list.append((i, jh))
+            elif use_spec and jed.spec_eligible(jh):
+                spec_groups.setdefault(jed.spec_group_key(jh),
+                                       []).append((i, jh))
+    runs = []
+    if len(dri_list) >= 4:
+        members = dri_list
+        if (os.environ.get("FFPIC_HYBRID", "1") != "0"
+                and len(dri_list) == n and n >= 6):
+            k = max(4, int(round(n * float(
+                os.environ.get("FFPIC_HYBRID_FRAC", "0.5")))))
+            if n - k >= 2:
+                members = dri_list[:k]
+        runs += [(jed.decode_batch_dri_mixed, r)
+                 for r in jed.launch_runs(members, datas)]
+    for m in spec_groups.values():
+        if len(m) >= 4:
+            runs += [(jed.decode_batch_spec, r)
+                     for r in jed.launch_runs(m, datas)]
+    return runs
+
+
+def _run_entropy(runs, datas, slots, mode: str, dev) -> list:
+    """Run ``_entropy_runs``'s routes on the caller's thread, filling
+    ``slots`` with the members they decode, cropped views.  A route that
+    raises ``jed.Declined`` (the spec decoder's failed
+    self-synchronisation, a scan it cannot stage) or
+    ``NotImplementedError`` leaves its members to the host path: their
+    indices are returned.  Anything else propagates."""
+    declined = []
+    for route, members in runs:
+        try:
+            with device_trace("device_entropy", dev):
+                out = route([datas[i] for i, _ in members],
+                            [jh for _, jh in members], order="rgba",
+                            mode=mode, device=dev)
+        except (jed.Declined, NotImplementedError):
+            declined += [i for i, _ in members]
+            continue
+        for k, (i, jh) in enumerate(members):
+            slots[i] = out[k][:jh.height, :jh.width]
+    return declined
+
+
 def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
-                 mode: str = "bt601", device=None, mesh=None) -> torch.Tensor:
+                 dtype="uint8", mode: str = "bt601", mesh=None, *,
+                 device=None) -> torch.Tensor:
     """Decode a batch of JPEGs and PNGs (paths or bytes) to one ``(N,
     H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
-    when CUDA is absent).  ``size=(h, w)`` resizes each image; without
-    it all images must share one size.  ``mode`` is the colour
-    conversion of the 4:2:0 JPEG members: "bt601", "reference" or
-    "rgb"."""
+    when CUDA is absent).  The reference's signature
+    (``ffpic_tpu/pipeline.py:73-74``), ``device`` keyword-only.
+    ``size=(h, w)`` resizes each image; without it all images must
+    share one size.  ``dtype`` is "uint8" (or ``torch.uint8``), the only
+    one the reference produces.  ``mode`` is the colour conversion of
+    the 4:2:0 JPEG members: "bt601", "reference" or "rgb".
+
+    ``FFPIC_DEVICE_ENTROPY``: the device-entropy route
+    (``_entropy_runs``) is on by default on CUDA, forced by "1" (the
+    plain versions on the CPU) and off with "0"."""
+    if dtype not in ("uint8", torch.uint8):
+        raise ValueError(f"decode_batch: dtype {dtype!r}; only uint8")
     if mesh is not None:
         raise NotImplementedError(
             "decode_batch(mesh=) waits for ROADMAP.md Queue 1 item 11")
-    if os.environ.get("FFPIC_DEVICE_ENTROPY") == "1":
-        raise NotImplementedError(
-            "device entropy decode waits for ROADMAP.md Queue 1 item 10")
     dev = resolve_device(device, "decode_batch")
     n = len(srcs)
     slots: list = [None] * n
 
-    env_t = os.environ.get("FFPIC_THREADS")
-    nw = max(1, min(int(env_t) if env_t else (os.cpu_count() or 1), n or 1))
-    with stage("torch.host_parse"):
+    with stage("torch.read"):
         datas = [_read(s) for s in srcs]
-        if nw > 1:
-            with ThreadPoolExecutor(max_workers=nw) as ex:
-                plans = list(ex.map(_prep, datas))
-        else:
-            plans = [_prep(d) for d in datas]
+    env_de = os.environ.get("FFPIC_DEVICE_ENTROPY")
+    runs = (_entropy_runs(datas) if env_de != "0"
+            and (env_de == "1" or dev.type == "cuda") else [])
+    routed = {i for _route, members in runs for i, _ in members}
+    todo = [i for i in range(n) if i not in routed]
+
+    env_t = os.environ.get("FFPIC_THREADS")
+    nw = max(1, min(int(env_t) if env_t else (os.cpu_count() or 1),
+                    len(todo) or 1))
+    if nw > 1:
+        # the pool parses the host members while this thread stages the
+        # device route and enqueues its launches
+        with ThreadPoolExecutor(max_workers=nw) as ex:
+            pending = ex.map(_prep, [datas[i] for i in todo])
+            declined = _run_entropy(runs, datas, slots, mode, dev)
+            with stage("torch.host_parse"):
+                plans = list(pending)
+    else:
+        declined = _run_entropy(runs, datas, slots, mode, dev)
+        with stage("torch.host_parse"):
+            plans = [_prep(datas[i]) for i in todo]
+    if declined:
+        with stage("torch.host_parse"):
+            plans += [_prep(datas[i]) for i in declined]
+        todo, plans = zip(*sorted(zip(todo + declined, plans),
+                                  key=lambda t: t[0]))
 
     # one bucket per 4:2:0 image size: one block geometry and one crop
     buckets: dict[tuple, list] = {}
-    for i, (plan, kind, pairs) in enumerate(plans):
+    for i, (plan, kind, pairs) in zip(todo, plans):
         if kind == "420":
             buckets.setdefault((plan.height, plan.width), []).append(
                 (i, plan, pairs))
@@ -259,7 +368,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                 with stage("torch.pack"):
                     host, g, e = jk.stack_packed_fused([j.packed for j in js])
                 with stage("torch.h2d"):
-                    yq, cq = _quant(js, 0, dev), _quant(js, 1, dev)
+                    yq, cq = (jed.quant_stack(js, c, dev) for c in (0, 1))
                     staged = to_device(host, dev)
                     bmap = packed_block_map(j0, dev)
                 with stage("torch.device_decode"), \

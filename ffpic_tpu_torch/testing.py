@@ -12,6 +12,9 @@ the kernel edge cases that the tests and ``chip_smoke.py`` share.
   step ``encode_baseline`` ends with, on the CPU;
 * ``encode_png`` is a general PNG writer: every colour type and bit
   depth, chosen filters per row, Adam7, palette, tRNS and extra chunks;
+* ``entropy_cases`` makes JPEG batches at the edges of the device
+  Huffman decode (K9-K11), and ``entropy_stages`` runs one through
+  the kernels or the plain versions;
 * ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``,
   ``mcu_cases``, ``scatter_cases``, ``unfilter_cases`` and
   ``rgba_cases`` make the inputs at the edges of the ``count_scan``,
@@ -661,3 +664,140 @@ def rgba_cases(seed: int = 0) -> dict[str, tuple]:
                 name = f"ct{ct}_bd{bd}" + ("_trns" if with_trns else "")
                 out[name] = (recon, palette, trns, ct, bd, w, h)
     return out
+
+
+def _scan_span(data: bytes) -> tuple[int, int]:
+    """[start, end) of the entropy-coded bytes of a JPEG's first scan."""
+    from ffpic_tpu_torch.ops.jpeg_entropy_device import extract_scan
+    scan = extract_scan(data)
+    start = data.index(scan)
+    return start, start + len(scan)
+
+
+def luma_on_chroma_tables(data: bytes) -> bytes:
+    """``data``, a baseline ``encode_jpeg`` file, with its scan coded
+    again on the chroma Huffman tables for every component and those
+    tables written as tables 0 too: the same coefficients under a second
+    table set."""
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.formats import jpg_encode as E
+    from ffpic_tpu_torch.ops.golden import ZIGZAG
+    j, _ = jpg.parse_and_decode(data)
+    zz = [c.reshape(-1, 64)[:, ZIGZAG] for c in j.coeffs]
+    mcus = E._mcu_order([(c.h, c.v) for c in j.comps], j.mcus_x, j.mcus_y)
+    cmaps = E._huffman_maps()[1]
+    step = j.restart_interval or len(mcus)
+    w = E.BitWriter()
+    for k, first in enumerate(range(0, len(mcus), step)):
+        if k:                                   # RSTn, as encode_blocks
+            w.align_byte(fill=1)
+            w.buf += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        E._encode_blocks_entropy(w, zz, [b for m in mcus[first:first + step]
+                                         for b in m], [cmaps] * len(zz))
+    w.align_byte(fill=1)
+
+    def dht(tc, counts, syms):
+        return b"\xff\xc4" + struct.pack(">HB", 19 + len(syms), tc << 4) + \
+            bytes(counts) + bytes(syms)
+    a, b = _scan_span(data)
+    head = data[:a]
+    for tc, (yc, ys), (uc, us) in (
+            (0, (E.Y_DC_COUNT, E.Y_DC_SYM), (E.UV_DC_COUNT, E.UV_DC_SYM)),
+            (1, (E.Y_AC_COUNT, E.Y_AC_SYM), (E.UV_AC_COUNT, E.UV_AC_SYM))):
+        head = head.replace(dht(tc, yc, ys), dht(tc, uc, us))
+    return head + bytes(w.buf) + data[b:]
+
+
+def _spill_pixels(h: int, w: int, seed: int) -> np.ndarray:
+    """Content whose quality-100 coefficients need long codes: a
+    checkerboard of black and white 12x12 cells, whose edges fall inside
+    blocks (AC values of size 10) and between them (DC differences of
+    size 11), under mild noise (zigzag runs of 16 zeros and more, blocks
+    whose last nonzero is at 62 or 63)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.where(((yy // 12) + (xx // 12)) % 2, 255, 0).astype(np.float64)
+    img = img[..., None] + rng.normal(0, 1.5, (h, w, 3))
+    return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+def entropy_cases(seed: int = 0) -> dict[str, dict]:
+    """JPEG batches at the edges of the device Huffman decode (K9
+    ``entropy_decode``, K10 ``spec_scan``, K11 ``spec_merge``), made
+    with ``encode_jpeg`` from a seed, as name -> {"kind": "dri" (one
+    launch over ``decode_coeffs_device_mixed``) or "spec"
+    (``spec_stages``), "datas": [bytes], "chunk_bytes": for "spec"}:
+
+    * ``dri_spill``: quality 100 over ``_spill_pixels``, DRI 2: magnitude
+      spills (code and magnitude over 16 bits, the ``RUN_CODE`` entries)
+      for DC and AC, blocks that end at k = 63 with and without an EOB
+      there, runs of 16 zeros (ZRL);
+    * ``dri_zero_lanes``: an extra restart segment after the last MCU,
+      so its lane starts at blk0 >= blk_end and decodes nothing;
+    * ``dri_invalid``: six 0xFF bytes (stuffed) inside a segment, a
+      48-bit run of ones in which every code is invalid (e == 0);
+    * ``dri_cut``: the scan cut inside its last segment, so that lane
+      reads past the bytes (window indices clamped to the last byte);
+    * ``dri_mixed``: two geometries and two Huffman table sets
+      (``luma_on_chroma_tables``) in one launch;
+    * ``spec_mid_mcu``: DRI-less, 512-byte chunks, whose emission lanes
+      start mid-MCU (nonzero k0, sub0 and DC predictors, with bit_stop);
+    * ``spec_fail``: 64-byte chunks at quality 95, too short to
+      self-synchronise: chunks that do not merge, ok False;
+    * ``spec_invalid``: DRI-less with invalid codes inside a chunk."""
+    out = {}
+
+    def jpeg(h, w, q, s, ri=0, **kw):
+        return encode_jpeg(synth_rgb(h, w, seed + s), q, restart_interval=ri,
+                           **kw)
+
+    def insert_ff(data, frac, count=6):
+        a, b = _scan_span(data)
+        at = a + int((b - a) * frac)
+        while data[at - 1] == 0xFF:        # not inside a stuffed pair
+            at += 1
+        return data[:at] + b"\xff\x00" * count + data[at:]
+
+    spill = encode_jpeg(_spill_pixels(64, 96, seed), 100, restart_interval=2)
+    out["dri_spill"] = {"kind": "dri", "datas": [spill, spill]}
+    base = jpeg(48, 80, 85, 1, ri=3)
+    a, b = _scan_span(base)
+    extra = base[:b] + b"\xff\xd7\x12\x34\x56" + base[b:]
+    out["dri_zero_lanes"] = {"kind": "dri", "datas": [extra, base]}
+    out["dri_invalid"] = {"kind": "dri",
+                          "datas": [insert_ff(base, 0.4), base]}
+    cut = base[:a + (b - a) * 9 // 10] + b"\xff\xd9"
+    out["dri_cut"] = {"kind": "dri", "datas": [base, cut]}
+    out["dri_mixed"] = {"kind": "dri", "datas": [
+        jpeg(64, 96, 80, 2, ri=3),
+        luma_on_chroma_tables(jpeg(48, 48, 70, 3, ri=2)),
+        luma_on_chroma_tables(jpeg(64, 96, 90, 4, ri=5)),
+        jpeg(48, 48, 95, 5, ri=1)]}
+    plain = jpeg(128, 160, 75, 6)
+    out["spec_mid_mcu"] = {"kind": "spec", "datas": [plain, plain],
+                           "chunk_bytes": 512}
+    out["spec_fail"] = {"kind": "spec", "datas": [jpeg(96, 128, 95, 7)],
+                        "chunk_bytes": 64}
+    out["spec_invalid"] = {"kind": "spec",
+                           "datas": [insert_ff(plain, 0.5), plain],
+                           "chunk_bytes": 512}
+    return out
+
+
+def entropy_stages(case: dict, device) -> dict[str, torch.Tensor]:
+    """What each stage of the device Huffman decode makes for an
+    ``entropy_cases`` case on ``device`` (the kernels on CUDA, the plain
+    versions on the CPU), as CPU tensors: "flat" and
+    "steps" (K9), and for "spec" cases "exits", "snap" (K10), "merged"
+    (K11), the emission's "lanes" and "ok"."""
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+    if case["kind"] == "dri":
+        js = [jpg.parse_and_decode(d, skip_decode=True)[0]
+              for d in case["datas"]]
+        flat, _off, steps = jed.decode_coeffs_device_mixed(
+            case["datas"], js, device=device)
+        return {"flat": flat.cpu(), "steps": steps.cpu()}
+    r = jed.spec_stages(case["datas"], case["chunk_bytes"], device=device)
+    return {k: r[k].cpu() for k in ("exits", "snap", "merged", "lanes",
+                                    "flat", "steps", "ok")}

@@ -164,6 +164,21 @@ def test_load_skip_decode_matches_jax():
     assert got.pixels is None and got.meta["scans"]
 
 
+def test_header_only_load_needs_no_cuda(monkeypatch):
+    """A header-only load or info with device=None runs where CUDA is
+    absent (it decodes no pixels) and gives ffpic_tpu's metadata; a
+    decoding load still raises there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = _corpus("jpeg_512_422.jpg")
+    _same_pic(lambda: ffpic_tpu_torch.load(data, skip_decode=True),
+              ffpic_tpu.load(data, skip_decode=True))
+    pics = ffpic_tpu_torch.load_all(data, skip_decode=True)
+    assert [p.meta for p in pics] == [
+        p.meta for p in ffpic_tpu.load_all(data, skip_decode=True)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ffpic_tpu_torch.load(data)
+
+
 @pytest.mark.parametrize("corrupt", ["missing_table", "not_an_image"])
 def test_corrupt_file_raises_value_error(corrupt):
     data = bytearray(testing.synth_jpeg_420(32, 48, 80, 3))

@@ -1,0 +1,404 @@
+"""ffpic_tpu_torch.ops.jpeg_entropy_device (CPU, plain versions) against
+ffpic_tpu.ops.jpeg_entropy_device on the same inputs.
+
+Exact throughout: the copied numpy helpers give equal arrays; the plain
+loops give JAX's coefficients (``flat[:-1]``; the trailing dump slot
+holds only JAX's garbage), JAX's step count (the maximum of the port's
+per-lane counts) and every output of the speculative passes; the
+speculative decoder raises ValueError exactly when JAX's does.  The
+edge cases that the CUDA kernels are held to on the card
+(``testing.entropy_cases``) run here through the plain versions against
+JAX, and their properties are checked from the host decoder's
+coefficients.
+"""
+
+import functools
+import io
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import jax.numpy as jnp
+from ffpic_tpu.formats import jpg as jax_jpg
+from ffpic_tpu.ops import jpeg_entropy_device as J
+from ffpic_tpu_torch import testing
+from ffpic_tpu_torch.formats import jpg
+from ffpic_tpu_torch.ops import jpeg_entropy_device as P
+from ffpic_tpu_torch.ops.golden import ZIGZAG
+
+
+@functools.lru_cache(maxsize=None)
+def _pil(h=96, w=128, quality=85, rows=0, blocks=0, opt=False, seed=0):
+    """A baseline 4:2:0 JPEG written by PIL (restart markers every
+    ``rows`` MCU rows or ``blocks`` MCUs), as the reference's tests make
+    them."""
+    rng = np.random.default_rng(seed)
+    arr = np.kron(rng.integers(0, 256, (h // 16, w // 16, 3)),
+                  np.ones((16, 16, 1))).astype(np.uint8)
+    arr = np.clip(arr.astype(int) + rng.integers(-20, 20, arr.shape), 0,
+                  255).astype(np.uint8)
+    kw = {}
+    if rows:
+        kw["restart_marker_rows"] = rows
+    if blocks:
+        kw["restart_marker_blocks"] = blocks
+    b = io.BytesIO()
+    Image.fromarray(arr).save(b, "JPEG", quality=quality, subsampling="4:2:0",
+                              optimize=opt, **kw)
+    return b.getvalue()
+
+
+def _both_heads(data):
+    return (jax_jpg.parse_and_decode(data, skip_decode=True)[0],
+            jpg.parse_and_decode(data, skip_decode=True)[0])
+
+
+def _host_coeffs(data) -> np.ndarray:
+    j, _ = jpg.parse_and_decode(data)
+    return np.concatenate([c.reshape(-1) for c in j.coeffs])
+
+
+# --- the copied numpy helpers ----------------------------------------------
+
+@pytest.mark.parametrize("opt", [False, True])
+def test_luts_and_frame_match_jax(opt):
+    data = _pil(quality=75, rows=1, opt=opt, seed=3)
+    jj, pj = _both_heads(data)
+    for (tc, th), (counts, syms) in jj.dht_raw.items():
+        np.testing.assert_array_equal(
+            P.build_lut16(counts, syms, tc == 1),
+            J.build_lut16(counts, syms, tc == 1))
+    np.testing.assert_array_equal(P.build_luts_from_dht(pj.dht_raw),
+                                  J.build_luts_from_dht(jj.dht_raw))
+    for _ in range(2):                  # built, then from the cache
+        np.testing.assert_array_equal(P.luts_for(pj),
+                                      J.build_luts_from_dht(jj.dht_raw))
+    want, got = J.prepare_frame(jj), P.prepare_frame(pj)
+    assert want.keys() == got.keys()
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]))
+    assert P.extract_scan(data) == J.extract_scan(data)
+
+
+def test_luts_without_chroma_tables_match_jax():
+    gray = testing.encode_jpeg(testing.synth_rgb(32, 48, 1)[..., 0], 80,
+                               ((1, 1),))
+    jj, pj = _both_heads(gray)
+    np.testing.assert_array_equal(P.build_luts_from_dht(pj.dht_raw),
+                                  J.build_luts_from_dht(jj.dht_raw))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1001])
+def test_sliding_u32_matches_jax(n):
+    buf = np.random.default_rng(n).integers(0, 256, n).astype(np.uint8)
+    np.testing.assert_array_equal(P.sliding_u32(buf), J.sliding_u32(buf))
+
+
+def _progressive():
+    b = io.BytesIO()
+    Image.fromarray(testing.synth_rgb(64, 96, 1)).save(
+        b, "JPEG", quality=80, progressive=True)
+    return b.getvalue()
+
+
+@pytest.mark.parametrize("name", ["dri_rows", "dri_blocks_opt", "plain",
+                                  "plain_opt", "444_dri", "progressive",
+                                  "gray", "cr_table_dri"])
+def test_eligibility_and_keys_match_jax(name):
+    data = {
+        "dri_rows": lambda: _pil(rows=1),
+        "dri_blocks_opt": lambda: _pil(blocks=4, opt=True),
+        "plain": lambda: _pil(),
+        "plain_opt": lambda: _pil(opt=True, seed=2),
+        "444_dri": lambda: testing.encode_jpeg(
+            testing.synth_rgb(32, 48, 1), 80, testing.SAMPLINGS["444"],
+            restart_interval=2),
+        "progressive": _progressive,
+        "gray": lambda: testing.encode_jpeg(
+            testing.synth_rgb(32, 48, 1)[..., 0], 80, ((1, 1),),
+            restart_interval=3),
+        "cr_table_dri": lambda: testing.encode_jpeg(
+            testing.synth_rgb(32, 48, 1), 80, cr_quality=30,
+            restart_interval=3),
+    }[name]()
+    jj, pj = _both_heads(data)
+    assert P.eligible(pj) == J.eligible(jj)
+    assert P.spec_eligible(pj) == J.spec_eligible(jj)
+    assert P.group_key(pj) == J.group_key(jj)
+    assert P.spec_group_key(pj) == J.spec_group_key(jj)
+
+
+# --- decode_lanes_bmap -------------------------------------------------------
+
+@pytest.mark.parametrize("quality,rows", [(85, 1), (95, 1), (30, 2), (85, 4)])
+def test_decode_coeffs_device_matches_jax(quality, rows):
+    data = _pil(quality=quality, rows=rows, seed=quality + rows)
+    want, _js, _c, wsteps = J.decode_coeffs_device([data, data])
+    got, _js, _c, steps = P.decode_coeffs_device([data, data], device="cpu")
+    np.testing.assert_array_equal(got[:-1].numpy(), np.asarray(want)[:-1])
+    assert int(steps.max()) == int(wsteps)
+    host = _host_coeffs(data)
+    np.testing.assert_array_equal(got[:host.size].numpy(), host)
+
+
+def test_decode_coeffs_device_mixed_matches_jax():
+    """Mixed sizes and mixed Huffman tables (optimize=True) in one
+    launch: each image's section equals JAX's, though the port lays the
+    images out geometry group by geometry group."""
+    datas = [_pil(64, 96, 85, blocks=4), _pil(128, 80, 70, blocks=4, opt=True),
+             _pil(96, 96, 92, blocks=4, opt=True, seed=5),
+             _pil(48, 48, 80, blocks=4), _pil(64, 96, 60, blocks=4, seed=7)]
+    jjs = [jax_jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+    pjs = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+    want, woff, wsteps = J.decode_coeffs_device_mixed(datas, jjs)
+    got, off, steps = P.decode_coeffs_device_mixed(datas, pjs, device="cpu")
+    want = np.asarray(want)
+    assert off != woff                          # grouped by geometry
+    for i, d in enumerate(datas):
+        n = _host_coeffs(d).size
+        np.testing.assert_array_equal(got[off[i]:off[i] + n].numpy(),
+                                      want[woff[i]:woff[i] + n])
+        np.testing.assert_array_equal(got[off[i]:off[i] + n].numpy(),
+                                      _host_coeffs(d))
+    assert int(steps.max()) == int(wsteps)
+
+
+def _jax_lanes(st, lanes, out_size, bpm):
+    """JAX's decode_lanes_bmap over the port's staged inputs and lane
+    table."""
+    c = lanes.numpy()
+    flat, steps = J.decode_lanes_bmap(
+        jnp.asarray(st.u32win.numpy().astype(np.uint32)),
+        jnp.asarray(st.luts.numpy().view(np.uint32)),
+        jnp.asarray(st.zz.numpy()), jnp.asarray(st.comp_of_sub.numpy()),
+        jnp.asarray(st.tclass_of_sub.numpy()), jnp.asarray(st.bmap.numpy()),
+        *(jnp.asarray(c[:, i]) for i in range(4)), bpm, out_size, 1 << 22,
+        lut_idx=jnp.asarray(c[:, 4]), bmap_base=jnp.asarray(c[:, 5]),
+        k0=jnp.asarray(c[:, 6]), sub0=jnp.asarray(c[:, 7]),
+        pred0=jnp.asarray(c[:, 8:11]), bit_stop=jnp.asarray(c[:, 11]))
+    return np.asarray(flat), int(steps)
+
+
+def _stage_spec(datas, chunk):
+    """The port's staged inputs of a speculative decode and its chunk
+    table, as ``spec_stages`` makes them."""
+    pj = jpg.parse_and_decode(datas[0], skip_decode=True)[0]
+    consts = P.prepare_frame(pj)
+    concat, offs, _b = P._destuff(datas)
+    st = P.Staged(concat, P.build_luts_from_dht(pj.dht_raw), consts,
+                  consts["bmap"], torch.device("cpu"))
+    bit0, bit_end, lane_img = P.spec_chunks(
+        np.diff([*offs, len(concat)]), chunk)
+    return st, consts, bit0, bit_end, lane_img
+
+
+def test_decode_lanes_bmap_mid_mcu_entry_matches_jax():
+    """The emission lanes of a speculative decode start mid-MCU (nonzero
+    k0, sub0 and DC predictors) and stop at bit_stop: the plain loop
+    gives JAX's coefficients and step count on them."""
+    case = testing.entropy_cases()["spec_mid_mcu"]
+    r = P.spec_stages(case["datas"], case["chunk_bytes"], device="cpu")
+    lanes = r["lanes"]
+    assert bool(r["ok"])
+    assert (lanes[:, 6] != 0).any() and (lanes[:, 7] != 0).any()
+    assert (lanes[:, 8:11] != 0).any() and (lanes[:, 11] < P.NO_STOP).all()
+    st, consts, *_ = _stage_spec(case["datas"], case["chunk_bytes"])
+    out_size = r["flat"].numel()
+    flat, steps = P.decode_lanes(st, lanes, out_size)
+    want, wsteps = _jax_lanes(st, lanes, out_size, consts["bpm"])
+    np.testing.assert_array_equal(flat[:-1].numpy(), want[:-1])
+    assert int(steps.max()) == wsteps
+    assert torch.equal(flat, r["flat"])
+
+
+# --- the speculative passes --------------------------------------------------
+
+def test_spec_passes_match_jax():
+    """spec_snap_lanes, spec_scan_lanes (from the guessed entries and
+    from shifted ones) and spec_merge_lanes: every output equal."""
+    data = testing.encode_jpeg(testing.synth_rgb(128, 160, 6), 75)
+    st, consts, bit0, bit_end, lane_img = _stage_spec([data, data], 512)
+    bpm = consts["bpm"]
+    u32 = jnp.asarray(st.u32win.numpy().astype(np.uint32))
+    luts = jnp.asarray(st.luts.numpy().view(np.uint32))
+    cos = jnp.asarray(st.comp_of_sub.numpy())
+    tos = jnp.asarray(st.tclass_of_sub.numpy())
+    b0, be = torch.from_numpy(bit0), torch.from_numpy(bit_end)
+    snap = P.spec_snap_lanes(st.u32win, st.luts, st.comp_of_sub,
+                             st.tclass_of_sub, b0, be, bpm)
+    wsnap = J.spec_snap_lanes(u32, luts, cos, tos,
+                              jnp.asarray(bit0, jnp.int32),
+                              jnp.asarray(bit_end, jnp.int32), jnp.int32(bpm))
+    for k, (lo, hi) in enumerate(((0, 1), (1, 2), (2, 3), (3, 4), (4, 7))):
+        np.testing.assert_array_equal(
+            snap[..., lo:hi].numpy().reshape(np.asarray(wsnap[k]).shape),
+            np.asarray(wsnap[k]))
+    rng = np.random.default_rng(0)
+    k0 = rng.integers(0, 64, len(bit0))
+    sub0 = rng.integers(0, bpm, len(bit0))
+    for kk, ss in ((np.zeros_like(k0), np.zeros_like(k0)), (k0, sub0)):
+        got = P.spec_scan_lanes(st.u32win, st.luts, st.comp_of_sub,
+                                st.tclass_of_sub, b0, be, torch.from_numpy(kk),
+                                torch.from_numpy(ss), bpm, 1 << 22)
+        want = J.spec_scan_lanes(u32, luts, cos, tos,
+                                 jnp.asarray(bit0, jnp.int32),
+                                 jnp.asarray(bit_end, jnp.int32),
+                                 jnp.asarray(kk, jnp.int32),
+                                 jnp.asarray(ss, jnp.int32), jnp.int32(bpm),
+                                 1 << 22)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # merge from the predecessors' exits, and from entries one bit off
+    # (another trajectory, which self-synchronises too)
+    eb, ek, es = (t.numpy() for t in got[:3])
+    first = np.r_[True, lane_img[1:] != lane_img[:-1]]
+    for shift in (0, 1):
+        ent = [np.where(first, bit0, np.roll(eb, 1)) + shift,
+               np.where(first, 0, np.roll(ek, 1)),
+               np.where(first, 0, np.roll(es, 1))]
+        got = P.spec_merge_lanes(st.u32win, st.luts, st.comp_of_sub,
+                                 st.tclass_of_sub,
+                                 *(torch.from_numpy(e) for e in ent), bpm,
+                                 snap)
+        want = J.spec_merge_lanes(u32, luts, cos, tos,
+                                  *(jnp.asarray(e, jnp.int32) for e in ent),
+                                  jnp.int32(bpm), *wsnap)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("chunk", [512, 1024, 4096])
+def test_decode_coeffs_device_spec_matches_jax(chunk):
+    data = _pil(quality=85, seed=77)
+    want, *_ = J.decode_coeffs_device_spec([data, data], chunk_bytes=chunk,
+                                           unroll=2)
+    got, _js, _c, lanes = P.decode_coeffs_device_spec(
+        [data, data], chunk_bytes=chunk, device="cpu")
+    np.testing.assert_array_equal(got[:-1].numpy(), np.asarray(want)[:-1])
+    host = _host_coeffs(data)
+    np.testing.assert_array_equal(got[:host.size].numpy(), host)
+
+
+@pytest.mark.parametrize("quality,seed", [(95, 80), (85, 81)])
+def test_spec_fallback_contract_matches_jax(quality, seed):
+    """256-byte chunks: the port raises ValueError exactly when JAX does,
+    and otherwise gives JAX's (and the host decoder's) coefficients."""
+    data = _pil(quality=quality, seed=seed)
+    try:
+        want = np.asarray(J.decode_coeffs_device_spec(
+            [data], chunk_bytes=256, unroll=2)[0])
+    except ValueError:
+        want = None
+    if want is None:
+        with pytest.raises(ValueError, match="self-synchronize"):
+            P.decode_coeffs_device_spec([data], chunk_bytes=256,
+                                        device="cpu")
+        return
+    got = P.decode_coeffs_device_spec([data], chunk_bytes=256,
+                                      device="cpu")[0]
+    np.testing.assert_array_equal(got[:-1].numpy(), want[:-1])
+
+
+def test_spec_fallback_contract_raises_on_one_case():
+    """At least one of the contract cases takes the fallback in both."""
+    data = _pil(quality=95, seed=80)
+    with pytest.raises(ValueError):
+        J.decode_coeffs_device_spec([data], chunk_bytes=256, unroll=2)
+    with pytest.raises(ValueError):
+        P.decode_coeffs_device_spec([data], chunk_bytes=256, device="cpu")
+
+
+# --- the kernels' edge cases, through the plain versions ---------------------
+
+CASES = testing.entropy_cases()
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_entropy_cases_match_jax(name):
+    """Each edge case's stage outputs (``testing.entropy_stages`` on the
+    CPU) against JAX's functions on the same inputs."""
+    case = CASES[name]
+    got = testing.entropy_stages(case, "cpu")
+    datas = case["datas"]
+    if case["kind"] == "dri":
+        jjs = [jax_jpg.parse_and_decode(d, skip_decode=True)[0]
+               for d in datas]
+        want, woff, wsteps = J.decode_coeffs_device_mixed(datas, jjs)
+        pjs = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+        _f, off, _s = P.decode_coeffs_device_mixed(datas, pjs, device="cpu")
+        want = np.asarray(want)
+        for i, j in enumerate(pjs):
+            n = P.prepare_frame(j)["comp_space"] * 64
+            np.testing.assert_array_equal(
+                got["flat"][off[i]:off[i] + n].numpy(),
+                want[woff[i]:woff[i] + n])
+        assert int(got["steps"].max()) == int(wsteps)
+        return
+    st, consts, bit0, bit_end, lane_img = _stage_spec(datas,
+                                                      case["chunk_bytes"])
+    L = len(bit0)
+    starts = np.searchsorted(lane_img, np.arange(len(datas)))
+    lasts = np.concatenate([starts[1:], [L]]) - 1
+    first = np.zeros(L, bool)
+    first[starts] = True
+    out_size = len(datas) * consts["comp_space"] * 64 + 1
+    wflat, wok = J.spec_decode_full(
+        jnp.asarray(st.u32win.numpy().astype(np.uint32)),
+        jnp.asarray(st.luts.numpy().view(np.uint32)),
+        jnp.asarray(st.zz.numpy()), jnp.asarray(st.comp_of_sub.numpy()),
+        jnp.asarray(st.tclass_of_sub.numpy()), jnp.asarray(st.bmap.numpy()),
+        jnp.asarray(bit0, jnp.int32), jnp.asarray(bit_end, jnp.int32),
+        jnp.asarray(first), jnp.asarray(starts[lane_img], jnp.int32),
+        jnp.asarray(lasts[lane_img], jnp.int32),
+        jnp.asarray(lane_img * consts["comp_space"] * 64, jnp.int32),
+        consts["bpm"], out_size, consts["blocks_per_img"], 1 << 22, 1)
+    assert bool(got["ok"]) == bool(wok)
+    np.testing.assert_array_equal(got["flat"][:-1].numpy(),
+                                  np.asarray(wflat)[:-1])
+    # the plain composite gives what the stage entries gave
+    flat, ok = P.spec_decode_full(
+        st.u32win, st.luts, st.zz, st.comp_of_sub, st.tclass_of_sub,
+        st.bmap, torch.from_numpy(bit0), torch.from_numpy(bit_end),
+        torch.from_numpy(first), torch.from_numpy(starts[lane_img]),
+        torch.from_numpy(lasts[lane_img]),
+        torch.from_numpy(lane_img * consts["comp_space"] * 64),
+        consts["bpm"], out_size, consts["blocks_per_img"], 1 << 22)
+    assert torch.equal(flat, got["flat"]) and bool(ok) == bool(got["ok"])
+
+
+def test_entropy_cases_reach_their_edges():
+    """The cases hold what their names promise, read from the host
+    decoder's coefficients and the stage outputs."""
+    spill = CASES["dri_spill"]["datas"][0]
+    j, _ = jpg.parse_and_decode(spill)
+    blocks = np.concatenate([c.reshape(-1, 64)[:, ZIGZAG] for c in j.coeffs])
+    y = j.coeffs[0].reshape(-1, 64)[:, ZIGZAG]
+    # luma AC of size 10 (code 0/A is 16 bits) and DC differences of
+    # size 11 (a 9-bit code): more than 16 bits, the RUN_CODE entries
+    assert (np.abs(y[:, 1:]) >= 512).any()
+    dc = y[:, 0].astype(np.int64)
+    assert (np.abs(np.diff(dc)) >= 1024).any()
+    assert ((blocks[:, 62] != 0) & (blocks[:, 63] == 0)).any()  # EOB at 63
+    assert (blocks[:, 63] != 0).any()                           # no EOB
+    runs = 0
+    for b in blocks:
+        nz = np.flatnonzero(b[1:]) + 1
+        runs += int((np.diff(np.r_[0, nz]) - 1 >= 16).sum())
+    assert runs > 0                                             # ZRL
+    np.testing.assert_array_equal(
+        testing.entropy_stages(CASES["dri_spill"], "cpu")["flat"][
+            :blocks.size].numpy(), _host_coeffs(spill))
+    zero = testing.entropy_stages(CASES["dri_zero_lanes"], "cpu")
+    assert (zero["steps"] == 0).any()
+    mixed = [jpg.parse_and_decode(d, skip_decode=True)[0]
+             for d in CASES["dri_mixed"]["datas"]]
+    assert len({(j.mcus_x, j.mcus_y) for j in mixed}) == 2
+    assert len({P._dht_key(j) for j in mixed}) == 2
+    assert not bool(testing.entropy_stages(CASES["spec_fail"], "cpu")["ok"])
+    # the invalid run stops its lane early: the same segment decodes
+    # fewer symbols than in the intact file beside it
+    inv = testing.entropy_stages(CASES["dri_invalid"], "cpu")["steps"]
+    half = inv.numel() // 2
+    assert (inv[:half] < inv[half:]).any()

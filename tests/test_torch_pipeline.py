@@ -105,10 +105,17 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
+        "import os\n"
         "from ffpic_tpu_torch import decode_batch, testing\n"
+        "from ffpic_tpu_torch.ops import cuda_entropy, jpeg_entropy_device\n"
         "d = testing.synth_jpeg_420(64, 96, 80, 0)\n"
         "out = decode_batch([d, d], size=(32, 32), device='cpu')\n"
         "assert tuple(out.shape) == (2, 32, 32, 4), out.shape\n"
+        "os.environ['FFPIC_DEVICE_ENTROPY'] = '1'\n"
+        "r = testing.encode_jpeg(testing.synth_rgb(32, 48, 1), 80,\n"
+        "                        restart_interval=2)\n"
+        "out = decode_batch([r] * 4, device='cpu')\n"
+        "assert tuple(out.shape) == (4, 32, 48, 4), out.shape\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -180,8 +187,8 @@ def test_device_none_raises_without_cuda(monkeypatch):
         ffpic_tpu_torch.decode_batch([_jpeg(120, 200, 80, 4)])
 
 
-@pytest.mark.parametrize("case", ["webp", "gif", "mesh", "device_entropy"])
-def test_outside_the_slice_raises(case, monkeypatch):
+@pytest.mark.parametrize("case", ["webp", "gif", "mesh"])
+def test_outside_the_slice_raises(case):
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
     if case == "webp":
@@ -189,10 +196,8 @@ def test_outside_the_slice_raises(case, monkeypatch):
                     + bytes(52))
     elif case == "gif":
         srcs.append(b"GIF89a" + bytes(64))
-    elif case == "mesh":
-        kw["mesh"] = object()
     else:
-        monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "1")
+        kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ffpic_tpu_torch.decode_batch(srcs, device="cpu", **kw)
 
@@ -399,3 +404,262 @@ def test_sparse_route_follows_the_reference_rule(kind, monkeypatch):
                       "decode_batch_420_dense"]
     np.testing.assert_array_equal(got, dense.numpy())
     np.testing.assert_array_equal(got, sparse.numpy())
+
+
+# --- the decode_batch signature (the reference's) ---------------------------
+
+def test_decode_batch_signature_is_the_references():
+    """(srcs, size, dtype, mode, mesh, *, device): a positional call
+    reaches the same arguments as the keyword form; dtype takes uint8
+    only; device is keyword-only."""
+    import inspect
+    srcs = [_jpeg(64, 96, 80, 1), _jpeg(64, 96, 60, 2)]
+    got = ffpic_tpu_torch.decode_batch(srcs, None, "uint8", "reference",
+                                       device="cpu")
+    want = ffpic_tpu_torch.decode_batch(srcs, mode="reference", device="cpu")
+    assert torch.equal(got, want)
+    assert not torch.equal(got, ffpic_tpu_torch.decode_batch(srcs,
+                                                             device="cpu"))
+    assert torch.equal(ffpic_tpu_torch.decode_batch(
+        srcs, dtype=torch.uint8, device="cpu"), ffpic_tpu_torch.decode_batch(
+        srcs, device="cpu"))
+    with pytest.raises(ValueError, match="dtype"):
+        ffpic_tpu_torch.decode_batch(srcs, dtype="float32", device="cpu")
+    with pytest.raises(TypeError):
+        ffpic_tpu_torch.decode_batch(srcs, None, "uint8", "bt601", None,
+                                     "cpu")
+    names = list(inspect.signature(ffpic_tpu_torch.decode_batch).parameters)
+    assert names == list(inspect.signature(
+        ffpic_tpu.decode_batch).parameters) + ["device"]
+
+
+# --- the device-entropy route ------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _dri(h: int, w: int, q: int, seed: int, rows: int = 1,
+         opt: bool = False) -> bytes:
+    """A baseline 4:2:0 JPEG with a restart marker every ``rows`` MCU
+    rows (PIL), as the reference's device-entropy tests make them."""
+    from PIL import Image
+    buf = io.BytesIO()
+    kw = {"restart_marker_rows": rows} if rows else {}
+    Image.fromarray(testing.synth_rgb(h, w, seed)).save(
+        buf, "JPEG", quality=q, subsampling="4:2:0", optimize=opt, **kw)
+    return buf.getvalue()
+
+
+def _entropy_env(monkeypatch, **env):
+    for k in ("FFPIC_DEVICE_ENTROPY", "FFPIC_SPEC_ENTROPY", "FFPIC_HYBRID",
+              "FFPIC_HYBRID_FRAC"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+
+ENTROPY_BATCHES = {
+    # 5 DRI members (mixed tables) and one without restart markers
+    "five_dri_one_plain": ([(96, 128, 85, 1), (96, 128, 70, 2, 1, True),
+                            (96, 128, 92, 3, 2), (96, 128, 60, 4),
+                            (96, 128, 85, 5, 1, True), (96, 128, 80, 6, 0)],
+                           {"FFPIC_DEVICE_ENTROPY": "1"}, None),
+    # all DRI, 8 of them in three sizes: the hybrid split keeps 4
+    "hybrid_eight_sized": ([(96, 128, 85, 1), (64, 96, 90, 2),
+                            (96, 128, 70, 3), (80, 112, 75, 4),
+                            (96, 128, 95, 5), (64, 96, 60, 6),
+                            (96, 128, 80, 7), (80, 112, 88, 8)],
+                           {"FFPIC_DEVICE_ENTROPY": "1"}, (80, 96)),
+    # DRI-less members of one geometry and tables: the speculative group
+    "spec_group": ([(96, 128, 85, 1, 0), (96, 128, 70, 2, 0),
+                    (96, 128, 92, 3, 0), (96, 128, 60, 4, 0),
+                    (96, 128, 80, 5, 1)],
+                   {"FFPIC_DEVICE_ENTROPY": "1", "FFPIC_SPEC_ENTROPY": "1"},
+                   None),
+    "switched_off": ([(96, 128, 85, 1), (96, 128, 70, 2), (96, 128, 92, 3),
+                      (96, 128, 60, 4)], {"FFPIC_DEVICE_ENTROPY": "0"},
+                     None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTROPY_BATCHES))
+def test_device_entropy_route_matches_jax(name, monkeypatch):
+    """decode_batch(device="cpu") under the reference's switches against
+    ffpic_tpu.decode_batch under the same: the colour up to XLA's
+    contraction choice, or within 1 LSB with size=; and exactly the
+    port's host route (FFPIC_DEVICE_ENTROPY=0)."""
+    specs, env, size = ENTROPY_BATCHES[name]
+    srcs = [_dri(*s) for s in specs]
+    _entropy_env(monkeypatch, **env)
+    kw = {"size": size} if size else {}
+    taken = _route_spy(monkeypatch)
+    got, want = _both(srcs, **kw)
+    assert taken == {"five_dri_one_plain": [("decode_batch_dri_mixed", 5)],
+                     "hybrid_eight_sized": [("decode_batch_dri_mixed", 4)],
+                     "spec_group": [("decode_batch_spec", 4)],
+                     "switched_off": []}[name]
+    if size:
+        assert got.shape == (len(srcs), *size, 4)
+        assert np.abs(got.astype(int) - want).max() <= 1
+    else:
+        testing.assert_equal_up_to_contraction(lambda: _port(srcs), want)
+    monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "0")
+    np.testing.assert_array_equal(got, _port(srcs, **kw))
+
+
+def _route_spy(monkeypatch):
+    from ffpic_tpu_torch import pipeline
+    taken = []
+    for name in ("decode_batch_dri_mixed", "decode_batch_spec"):
+        real = getattr(pipeline.jed, name)
+
+        def spy(datas, js, *a, _real=real, _name=name, **k):
+            out = _real(datas, js, *a, **k)
+            taken.append((_name, len(datas)))      # it returned
+            return out
+        monkeypatch.setattr(pipeline.jed, name, spy)
+    return taken
+
+
+@pytest.mark.parametrize("n,env,members", [
+    (8, {}, 4), (8, {"FFPIC_HYBRID_FRAC": "0.75"}, 6),
+    (8, {"FFPIC_HYBRID": "0"}, 8), (6, {}, 4), (5, {}, 5), (3, {}, 0)])
+def test_device_entropy_routing_follows_the_reference(n, env, members,
+                                                      monkeypatch):
+    """The members the device route takes: all DRI members when there
+    are 4 or more, and of an all-DRI batch of 6 or more only the first
+    k = max(4, round(n * FFPIC_HYBRID_FRAC)) when n - k >= 2
+    (``ffpic_tpu/pipeline.py:126-142``)."""
+    _entropy_env(monkeypatch, FFPIC_DEVICE_ENTROPY="1", **env)
+    taken = _route_spy(monkeypatch)
+    srcs = [_dri(32, 48, 60 + 5 * i, i) for i in range(n)]
+    got = _port(srcs)
+    assert taken == ([("decode_batch_dri_mixed", members)] if members
+                     else [])
+    monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "0")
+    np.testing.assert_array_equal(got, _port(srcs))
+
+
+def test_device_entropy_headers_skip_dri_less_members(monkeypatch):
+    """Without FFPIC_SPEC_ENTROPY a member whose bytes hold no DRI marker
+    (FF DD) cannot take the device route, and its header is not parsed
+    for it; with the marker it is."""
+    from ffpic_tpu_torch import pipeline
+    _entropy_env(monkeypatch, FFPIC_DEVICE_ENTROPY="1")
+    heads = []
+    real = pipeline.jpg.parse_and_decode
+
+    def spy(data, *a, **k):
+        if k.get("skip_decode"):
+            heads.append(len(data))
+        return real(data, *a, **k)
+    monkeypatch.setattr(pipeline.jpg, "parse_and_decode", spy)
+    plain = [_jpeg(32, 48, 70 + i, i) for i in range(4)]
+    dri = _dri(32, 48, 80, 7)
+    assert all(b"\xff\xdd" not in d for d in plain) and b"\xff\xdd" in dri
+    _port(plain + [dri])
+    assert heads == [len(dri)]
+    monkeypatch.setenv("FFPIC_SPEC_ENTROPY", "1")
+    heads.clear()
+    _port(plain + [dri])
+    assert set(heads) == {len(d) for d in plain + [dri]}
+
+
+def test_device_entropy_errors(monkeypatch):
+    """The route's ``Declined`` (the spec decoder's failed
+    self-synchronisation) leaves the members to the host path; any other
+    error propagates: a plain ValueError, a RuntimeError (what a build
+    or a launch raises)."""
+    from ffpic_tpu_torch import pipeline
+    _entropy_env(monkeypatch, FFPIC_DEVICE_ENTROPY="1",
+                 FFPIC_SPEC_ENTROPY="1")
+    srcs = [_dri(32, 48, 70 + i, i, 0) for i in range(4)]
+    want = _port(srcs)
+
+    def fail(kind):
+        def raise_(*a, **k):
+            raise kind("from inside the route")
+        return raise_
+    monkeypatch.setattr(pipeline.jed, "spec_stages",
+                        fail(pipeline.jed.Declined))
+    np.testing.assert_array_equal(_port(srcs), want)
+    for kind in (ValueError, RuntimeError):
+        monkeypatch.setattr(pipeline.jed, "spec_stages", fail(kind))
+        with pytest.raises(kind, match="inside the route"):
+            _port(srcs)
+    dri = [_dri(32, 48, 70 + i, i) for i in range(4)]
+    monkeypatch.setattr(pipeline.jed, "decode_lanes", fail(RuntimeError))
+    with pytest.raises(RuntimeError, match="inside the route"):
+        _port(dri)
+
+
+@pytest.mark.parametrize("route", ["dri", "spec"])
+def test_device_entropy_wrapper_checks_propagate(route, monkeypatch):
+    """A kernel wrapper's check that refuses its launch inside the route
+    (here: the staged tensors are not on CUDA) raises out of
+    decode_batch; the members do not quietly take the host path."""
+    from ffpic_tpu_torch import pipeline
+    _entropy_env(monkeypatch, FFPIC_DEVICE_ENTROPY="1",
+                 FFPIC_SPEC_ENTROPY="1")
+    monkeypatch.setattr(pipeline.jed, "_on_cuda", lambda t: True)
+    srcs = [_dri(32, 48, 70 + i, i, 1 if route == "dri" else 0)
+            for i in range(4)]
+    with pytest.raises(ValueError, match="expected a CUDA tensor") as e:
+        _port(srcs)
+    assert not isinstance(e.value, pipeline.jed.Declined)
+
+
+def test_device_entropy_splits_what_one_launch_cannot_take(monkeypatch):
+    """``jed.launch_runs`` splits the route's members into launches by
+    their coefficients (and bytes), in order, and leaves a file too
+    large alone to the host path; the pixels stay those of the host
+    route."""
+    from ffpic_tpu_torch import pipeline
+    _entropy_env(monkeypatch, FFPIC_DEVICE_ENTROPY="1", FFPIC_HYBRID="0")
+    srcs = [_dri(32, 48, 60 + 5 * i, i) for i in range(5)] + \
+        [_dri(64, 96, 90, 9)]
+    small = 2 * 3 * 6 * 64                  # a 32x48 member's coefficients
+    monkeypatch.setattr(pipeline.jed, "LAUNCH_COEFFS", 2 * small + 1)
+    taken = _route_spy(monkeypatch)
+    got = _port(srcs, size=(32, 48))
+    assert taken == [("decode_batch_dri_mixed", 2)] * 2 + \
+        [("decode_batch_dri_mixed", 1)]
+    monkeypatch.setattr(pipeline.jed, "LAUNCH_COEFFS", 10 ** 9)
+    monkeypatch.setattr(pipeline.jed, "LAUNCH_BYTES",
+                        max(len(s) for s in srcs[:5]) * 2)
+    taken.clear()
+    _port(srcs, size=(32, 48))
+    assert [n for _r, n in taken] == [2, 2, 1]
+    monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "0")
+    np.testing.assert_array_equal(got, _port(srcs, size=(32, 48)))
+
+
+def test_device_entropy_overlaps_the_pool(monkeypatch):
+    """The device route runs on the caller's thread while the pool
+    parses the other members: the pool has started before the route
+    returns, and does no route work."""
+    from ffpic_tpu_torch import pipeline
+    _entropy_env(monkeypatch, FFPIC_DEVICE_ENTROPY="1", FFPIC_HYBRID="0")
+    monkeypatch.setenv("FFPIC_THREADS", "4")
+    started = threading.Event()
+    seen = {}
+    real_route = pipeline.jed.decode_batch_dri_mixed
+    real_prep = pipeline._prep
+
+    def route(*a, **k):
+        seen["route"] = threading.get_ident()
+        seen["pool_started"] = started.wait(timeout=30)
+        return real_route(*a, **k)
+
+    def prep(*a, **k):
+        seen.setdefault("prep", set()).add(threading.get_ident())
+        started.set()
+        return real_prep(*a, **k)
+    monkeypatch.setattr(pipeline.jed, "decode_batch_dri_mixed", route)
+    monkeypatch.setattr(pipeline, "_prep", prep)
+    srcs = [_dri(32, 48, 70 + i, i) for i in range(4)] + \
+        [_jpeg(32, 48, 80, 9), _jpeg(32, 48, 85, 10)]
+    got = _port(srcs)
+    assert got.shape == (6, 32, 48, 4)
+    assert seen["route"] == threading.get_ident() and seen["pool_started"]
+    assert threading.get_ident() not in seen["prep"]
+    monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "0")
+    np.testing.assert_array_equal(got, _port(srcs))

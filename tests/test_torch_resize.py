@@ -54,3 +54,33 @@ def test_resize_rgba_batched_equals_per_image():
     batched = resize_rgba(imgs, (64, 64))
     assert torch.equal(batched,
                        torch.stack([resize_rgba(i, (64, 64)) for i in imgs]))
+
+
+def test_resize_ignores_and_keeps_the_callers_matmul_precision(monkeypatch):
+    """With the caller's float32 matmul precision at "medium" (TF32 or
+    bf16 products where a backend has them), resize_rgba gives the same
+    result as at "highest", and leaves the caller's setting as it was:
+    it computes in float64 and never sets the global, which another
+    thread may be reading, even for the length of the call."""
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.integers(0, 256, (2, 96, 128, 4),
+                                        dtype=np.uint8))
+    prev = torch.get_float32_matmul_precision()
+    real_set = torch.set_float32_matmul_precision
+    try:
+        real_set("highest")
+        want = resize_rgba(img, (80, 64))
+        real_set("medium")
+        sets = []
+        monkeypatch.setattr(torch, "set_float32_matmul_precision",
+                            lambda p: sets.append(p) or real_set(p))
+        got = resize_rgba(img, (80, 64))
+        assert sets == []
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        real_set(prev)
+    assert torch.equal(got, want)
+    jax_want = np.stack([np.asarray(jax_resize_rgba(jnp.asarray(x.numpy()),
+                                                    (80, 64), "bilinear"))
+                         for x in img])
+    assert np.abs(got.numpy().astype(int) - jax_want).max() <= 1
