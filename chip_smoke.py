@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
-process per source) and the host library
-``ffpic_tpu_torch/native/host_jpeg.c`` + ``host_png.c`` (cc), holds each
-kernel against its plain PyTorch version on the card (bit-exact) at its
-paths' shapes and at the edges of its tiling (``testing.scan_cases``,
-``unpack_cases``, ``idct_cases``, ``assemble_cases``, ``mcu_cases``,
-``scatter_cases``, ``unfilter_cases``, ``rgba_cases``), and drives
+process per source) and the host library ``ffpic_tpu_torch/native/``
+``host_jpeg.c``, ``host_png.c``, ``host_vp8.c``, ``host_vp8l.c`` (cc),
+holds each kernel against its plain PyTorch version on the card
+(bit-exact) at its paths' shapes and at the edges of its tiling
+(``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
+``assemble_cases``, ``mcu_cases``, ``scatter_cases``,
+``unfilter_cases``, ``rgba_cases``, ``vp8_cases``), and drives
 these paths, each with the launch counts set to 0 just before it and
 read just after:
 
@@ -52,7 +53,19 @@ read just after:
   no fallback), equal to the host route.  The end-to-end medians are
   printed under the JAX bench's names (``device_entropy_dri_mps``,
   ``hybrid_pipeline_mps``, ``device_entropy_spec_mps``) beside the host
-  route and the host spans.
+  route and the host spans;
+* WebP (K12 vp8_residuals, K13 vp8_yuv_to_rgba; ``testing.vp8_cases``
+  and the 1080p fixture's parse state and planes against their plain
+  versions, and against the host transform and colour): ``load`` of
+  each committed fixture of ``ffpic_tpu_torch/testdata`` (1080p lossy,
+  512x512, 1080p with alpha, 333x199, VP8L, animated) under the four
+  combinations of ``FFPIC_VP8_DEVICE`` (K12 once a VP8 picture) and
+  ``FFPIC_VP8_DEVICE_COLOR`` (K13 once a still), each equal to the CPU
+  route; ``decode_batch`` of 8 x 1080p WebPs under the colour switch
+  (K13 x 8) and of 4 JPEGs, 2 PNGs and 2 WebPs under both, each equal
+  to the CPU route.  The load medians are printed under the JAX bench's
+  names (``webp_512_mps`` for the default route, ``webp_device_mps`` for
+  ``FFPIC_VP8_DEVICE``) beside the colour route and the host spans.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -82,6 +95,7 @@ CU = "ffpic_tpu_torch/csrc/jpeg_decode.cu"
 CODEC_CU = "ffpic_tpu_torch/csrc/jpeg_codec.cu"
 PNG_CU = "ffpic_tpu_torch/csrc/png_decode.cu"
 ENTROPY_CU = "ffpic_tpu_torch/csrc/jpeg_entropy.cu"
+VP8_CU = "ffpic_tpu_torch/csrc/vp8_decode.cu"
 REPLACES = {
     "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
     "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
@@ -95,11 +109,14 @@ REPLACES = {
     "entropy_decode": "ffpic_tpu/ops/jpeg_entropy_device.py:139",
     "spec_scan": "ffpic_tpu/ops/jpeg_entropy_device.py:374",
     "spec_merge": "ffpic_tpu/ops/jpeg_entropy_device.py:490",
+    "vp8_residuals": "ffpic_tpu/ops/vp8_kernels.py:69",
+    "vp8_yuv_to_rgba": "ffpic_tpu/ops/vp8_kernels.py:107",
 }
 SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
            "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU,
            "entropy_decode": ENTROPY_CU, "spec_scan": ENTROPY_CU,
-           "spec_merge": ENTROPY_CU}
+           "spec_merge": ENTROPY_CU, "vp8_residuals": VP8_CU,
+           "vp8_yuv_to_rgba": VP8_CU}
 PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
@@ -130,7 +147,7 @@ def ptxas_report(text: str) -> dict:
     arguments, e.g. ``assemble_color<1,0>`` (mode, order),
     ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
-    depth); K9-K11 have no template arguments."""
+    depth); K9-K13 have no template arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -138,7 +155,8 @@ def ptxas_report(text: str) -> dict:
             k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color|"
                           r"assemble_mcu|fdct|scatter_plane|unfilter_rows|"
                           r"unfilter_cols|assemble_rgba|entropy_decode|"
-                          r"spec_scan|spec_merge)_kernel"
+                          r"spec_scan|spec_merge|vp8_residuals|"
+                          r"vp8_yuv_to_rgba)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -489,7 +507,7 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
     (edge cases and the 1080p shapes), ``load`` of the two 1080p RGBA
     files and of smaller ones, the mixed JPEG + PNG ``decode_batch``,
     each path with fresh launch counts; the timings.  Returns {kernel:
-    timing entry} and the launches of each path."""
+    timing entry}, the launches of each path and the two 1080p files."""
     import numpy as np
     import torch
     import ffpic_tpu_torch
@@ -688,7 +706,8 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
         mixed_1080p_decode_mps=f"{mp / wall:.2f}",
         stage_ms=json.dumps(stages).replace(" ", ""))
     return timed, {"load": loads["subup"], "load_adaptive":
-                   loads["adaptive"], "mixed": launches_mixed}
+                   loads["adaptive"], "mixed": launches_mixed}, \
+        [subup, adaptive]
 
 
 def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
@@ -1192,6 +1211,273 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
                    "dri_mixed": mixed_launches, "spec_batch": spec_launches}
 
 
+def riff_chunks(data: bytes) -> dict:
+    """A WebP file's top-level chunks, {tag: payload}."""
+    import struct
+    pos, out = 12, {}
+    while pos + 8 <= len(data):
+        tag = data[pos:pos + 4].decode("latin1")
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        out[tag] = data[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+    return out
+
+
+WEBP_ENV = ("FFPIC_VP8_DEVICE", "FFPIC_VP8_DEVICE_COLOR", "FFPIC_HOST_COLOR")
+WEBP_SWITCHES = {"neither": {}, "vp8_device": {"FFPIC_VP8_DEVICE": "1"},
+                 "device_color": {"FFPIC_VP8_DEVICE_COLOR": "1"},
+                 "both": {"FFPIC_VP8_DEVICE": "1",
+                          "FFPIC_VP8_DEVICE_COLOR": "1"}}
+WEBP_FIXTURES = ("lossy_1080p.webp", "lossy_512.webp", "alpha_1080p.webp",
+                 "odd_333x199.webp", "lossless_160x120.webp",
+                 "animated_96x64.webp")
+
+
+def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
+    """The WebP codec on the card: K12 and K13 against their plain
+    versions (``testing.vp8_cases`` and the 1080p path shapes, K12 also
+    against the native host transform), ``load`` of every committed
+    fixture under the four combinations of ``FFPIC_VP8_DEVICE`` and
+    ``FFPIC_VP8_DEVICE_COLOR`` (each equal to the CPU route, with fresh
+    launch counts), ``decode_batch`` of 8 x 1080p WebPs under the colour
+    switch and a mixed JPEG + PNG + WebP batch under both; the timings.
+    Returns {kernel: timing entry} and the launches of each path."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import native, testing
+    from ffpic_tpu_torch.formats import vp8, webp
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_vp8
+    from ffpic_tpu_torch.ops import vp8_kernels as vk
+    from ffpic_tpu_torch.utils.timing import gpu_ms
+
+    def reset():
+        torch.cuda.synchronize()
+        cuda_jpeg.reset_launches()
+        cuda_png.reset_launches()
+        cuda_vp8.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**{k: v for k, v in cuda_jpeg.launches.items() if v},
+                **{k: v for k, v in cuda_png.launches.items() if v},
+                **cuda_vp8.launches}
+
+    clear = {k: None for k in WEBP_ENV}
+    files = {n: testing.webp_fixture(n) for n in WEBP_FIXTURES}
+    log("inputs webp", fixtures=",".join(f"{n}:{len(d)}"
+                                         for n, d in files.items()))
+
+    # --- K12 and K13 against their plain versions on the card ---------------
+    def to(*arrays):
+        return [None if a is None else torch.from_numpy(np.ascontiguousarray(
+            a)).to(dev) for a in arrays]
+
+    for levels, dq, has_y2 in testing.vp8_cases()["residuals"].values():
+        t = to(levels, dq, has_y2)
+        exact("vp8_residuals", cuda_vp8.vp8_residuals(*t),
+              vk.vp8_residuals_plain(*t), errs)
+    for Y, U, V, h, w, alpha in testing.vp8_cases()["color"].values():
+        ty, tu, tv, ta = to(Y, U, V, alpha)
+        exact("vp8_yuv_to_rgba",
+              cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, h, w, ta),
+              vk.vp8_yuv_to_rgba_plain(ty, tu, tv, h, w, ta), errs)
+        # rows at a pitch of their own: a view into wider planes
+        wide = [torch.zeros((p.shape[0], p.shape[1] + 24), dtype=torch.uint8,
+                            device=dev) for p in (ty, tu, tv)]
+        for dst, src in zip(wide, (ty, tu, tv)):
+            dst[:, 8:8 + src.shape[1]] = src
+        views = [d[:, 8:8 + s.shape[1]] for d, s in zip(wide, (ty, tu, tv))]
+        exact("vp8_yuv_to_rgba", cuda_vp8.vp8_yuv_to_rgba(*views, h, w, ta),
+              vk.vp8_yuv_to_rgba_plain(ty, tu, tv, h, w, ta), errs)
+    # the path shapes: the 1080p fixtures' parse state and planes
+    chunks = {n: riff_chunks(files[n]) for n in
+              ("lossy_1080p.webp", "alpha_1080p.webp")}
+    dec = vp8.VP8Decoder(chunks["lossy_1080p.webp"]["VP8 "], device=dev)
+    dec._parse_control_partition()
+    dec._dequant_tables()
+    dec._parse_mb_headers()
+    dec._parse_tokens()
+    seg = (dec.seg if dec.hdr.seg_enabled
+           else np.zeros((dec.mbh, dec.mbw), np.int32))
+    lv_d, dq_d, hy_d = to(dec.levels, np.array(dec.dq, np.int32)[seg],
+                          dec.has_y2)
+    res = cuda_vp8.vp8_residuals(lv_d, dq_d, hy_d)
+    exact("vp8_residuals", res, vk.vp8_residuals_plain(lv_d, dq_d, hy_d), errs)
+    host_res = native.vp8_residuals(
+        dec.levels, dec.nnz_total, np.array(dec.dq, np.int32),
+        dec.seg if dec.hdr.seg_enabled else None,
+        dec.has_y2.astype(np.uint8), dec.mbh, dec.mbw)
+    exact("vp8_residuals", res.cpu(), torch.from_numpy(host_res), errs)
+    Y, U, V = vp8.VP8Decoder(chunks["lossy_1080p.webp"]["VP8 "]).decode()
+    alpha = webp._decode_alpha(chunks["alpha_1080p.webp"]["ALPH"], H, W)
+    ty, tu, tv, ta = to(Y, U, V, alpha)
+    rgba = cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W)
+    exact("vp8_yuv_to_rgba", rgba, vk.vp8_yuv_to_rgba_plain(ty, tu, tv, H, W),
+          errs)
+    exact("vp8_yuv_to_rgba", rgba.cpu(), torch.from_numpy(
+        native.vp8_color_libwebp(np.ascontiguousarray(Y[:H, :W]), U, V, H, W)),
+          errs)
+    exact("vp8_yuv_to_rgba", cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W, ta),
+          vk.vp8_yuv_to_rgba_plain(ty, tu, tv, H, W, ta), errs)
+    log("check K12 K13", vp8_residuals="exact", vp8_yuv_to_rgba="exact",
+        cases=",".join([*testing.vp8_cases()["residuals"],
+                        *testing.vp8_cases()["color"]]) +
+        ",1080p_parse,1080p_planes,1080p_alpha,pitched_rows",
+        host_residuals="exact", host_color="exact",
+        macroblocks=f"{dec.mbw}x{dec.mbh}",
+        segments=int(dec.hdr.seg_enabled),
+        bpred_mbs=int((dec.ymode == vp8.B_PRED).sum()))
+
+    # --- load of every fixture under the four switch combinations -----------
+    loads = {}
+    for name, data in files.items():
+        with environ(**clear):
+            want = [p.pixels for p in ffpic_tpu_torch.load_all(
+                data, device="cpu")]
+        vp8_still = "VP8 " in riff_chunks(data)
+        n_vp8 = (len(want) if name.startswith("animated")
+                 else int(vp8_still))
+        for sw, env in WEBP_SWITCHES.items():
+            with environ(**{**clear, **env}):
+                reset()
+                got = ffpic_tpu_torch.load_all(data)
+                n = counts()
+            loads[(name, sw)] = n
+            k12 = n_vp8 if "FFPIC_VP8_DEVICE" in env else 0
+            k13 = int(vp8_still) if "FFPIC_VP8_DEVICE_COLOR" in env else 0
+            if (n["vp8_residuals"], n["vp8_yuv_to_rgba"]) != (k12, k13) \
+                    or len(n) != 2:
+                raise AssertionError(f"webp load {name} {sw}: launches {n}, "
+                                     f"expected K12 {k12}, K13 {k13}")
+            if len(got) != len(want):
+                raise AssertionError(f"webp load {name} {sw}: {len(got)} "
+                                     f"pictures, the CPU route {len(want)}")
+            for g, w_ in zip(got, want):
+                if g.pixels.device.type != dev.type or g.pixels.dtype != \
+                        torch.uint8 or not torch.equal(g.pixels.cpu(), w_):
+                    raise AssertionError(
+                        f"webp load {name} {sw}: differs from the CPU route")
+        shape = tuple(want[0].shape)
+        if shape[2] != 4 or (name.endswith("1080p.webp")
+                             and shape[:2] != (H, W)):
+            raise AssertionError(f"webp load {name}: shape {shape}")
+        log("webp load path", file=name, shape=shape, pictures=len(want),
+            launches=json.dumps({sw: [loads[(name, sw)]["vp8_residuals"],
+                                      loads[(name, sw)]["vp8_yuv_to_rgba"]]
+                                 for sw in WEBP_SWITCHES}).replace(" ", ""),
+            switches="4", cpu_route="exact")
+
+    # --- decode_batch: 8 x 1080p WebPs, and a mixed batch -------------------
+    batch = [files["lossy_1080p.webp"], files["alpha_1080p.webp"]] * (N // 2)
+    with environ(**clear):
+        cpu = ffpic_tpu_torch.decode_batch(batch, device="cpu")
+    with environ(**{**clear, "FFPIC_VP8_DEVICE_COLOR": "1"}):
+        reset()
+        out = ffpic_tpu_torch.decode_batch(batch, device=dev)
+        launches_batch = counts()
+    if (launches_batch["vp8_yuv_to_rgba"] != N
+            or launches_batch["vp8_residuals"] != 0
+            or len(launches_batch) != 2):
+        raise AssertionError(f"webp decode_batch: launches {launches_batch}")
+    if tuple(out.shape) != (N, H, W, 4) or not torch.equal(out.cpu(), cpu):
+        raise AssertionError("webp decode_batch: the card differs from the "
+                             "CPU route by up to "
+                             f"{max_abs_err(out.cpu(), cpu)}")
+    log("webp decode_batch", members="lossy,alpha x 4 at 1080p",
+        switch="FFPIC_VP8_DEVICE_COLOR", shape=tuple(out.shape),
+        launches=launches_batch, cpu_route="exact")
+    del out, cpu
+    mixed = [jpegs[0], files["lossy_1080p.webp"], jpegs[1], pngs[0],
+             jpegs[0], files["alpha_1080p.webp"], pngs[1], jpegs[1]]
+    with environ(**clear):
+        cpu = ffpic_tpu_torch.decode_batch(mixed, device="cpu")
+    with environ(**{**clear, "FFPIC_VP8_DEVICE": "1",
+                    "FFPIC_VP8_DEVICE_COLOR": "1"}):
+        reset()
+        out = ffpic_tpu_torch.decode_batch(mixed, device=dev)
+        launches_mixed = counts()
+    if (launches_mixed["vp8_residuals"], launches_mixed["vp8_yuv_to_rgba"]) \
+            != (2, 2) or min(launches_mixed.get(k, 0) for k in (
+                *PATH_420, "assemble_rgba")) < 1:
+        raise AssertionError(f"mixed webp decode_batch: launches "
+                             f"{launches_mixed}")
+    if tuple(out.shape) != (N, H, W, 4) or not torch.equal(out.cpu(), cpu):
+        raise AssertionError("mixed webp decode_batch: the card differs from "
+                             f"the CPU route by up to "
+                             f"{max_abs_err(out.cpu(), cpu)}")
+    log("webp mixed decode_batch", members="4 jpeg, 2 png, 2 webp at 1080p",
+        switches="FFPIC_VP8_DEVICE,FFPIC_VP8_DEVICE_COLOR",
+        shape=tuple(out.shape), launches=launches_mixed, cpu_route="exact")
+    del out, cpu
+
+    # --- timing --------------------------------------------------------------
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    nmb = dec.mbh * dec.mbw
+    # ops, a multiply-add as 2: 16 dequant products a block, the two
+    # passes of the 4x4 IDCT (about 176 integer ops a block) and the Y2
+    # block's dequant and IWHT (about 80 a macroblock); K13 about 40 a
+    # pixel (two chroma mixes of 7, the colour matrix and the clips)
+    timed = {
+        "vp8_residuals": time_entry(
+            "vp8_residuals", lambda: cuda_vp8.vp8_residuals(lv_d, dq_d, hy_d),
+            lambda: vk.vp8_residuals_plain(lv_d, dq_d, hy_d),
+            nmb * (1600 + 24 + 1 + 768), nmb * (24 * 192 + 80), "int32",
+            floor_ms, flush, "webp load 1080p FFPIC_VP8_DEVICE"),
+        "vp8_yuv_to_rgba": time_entry(
+            "vp8_yuv_to_rgba",
+            lambda: cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W),
+            lambda: vk.vp8_yuv_to_rgba_plain(ty, tu, tv, H, W),
+            H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2) + 4 * H * W,
+            40 * H * W, "int32", floor_ms, flush,
+            "webp load 1080p FFPIC_VP8_DEVICE_COLOR"),
+    }
+    timed["vp8_yuv_to_rgba"]["with_alpha_ms"] = gpu_ms(
+        lambda: cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W, ta), 50)
+    del flush
+
+    def per_load(data, n=5):
+        # the JAX bench's webp_512 trial: 5 loads back to back
+        def run():
+            for _ in range(n):
+                ffpic_tpu_torch.load(data)
+        return run
+
+    for name, mp in (("lossy_512.webp", 512 * 512 / 1e6),
+                     ("lossy_1080p.webp", H * W / 1e6)):
+        for sw, env in (("neither", {}), *[(k, WEBP_SWITCHES[k]) for k in (
+                "vp8_device", "device_color")]):
+            with environ(**{**clear, **env}):
+                ffpic_tpu_torch.load(files[name])
+                wall, runs, stages = spans(per_load(files[name]), 5)
+            metric = {("lossy_512.webp", "neither"): "webp_512_mps",
+                      ("lossy_512.webp", "vp8_device"): "webp_device_mps",
+                      ("lossy_512.webp", "device_color"):
+                          "webp_device_color_mps"}.get(
+                (name, sw), f"webp_1080p_{sw}_mps")
+            log("time webp load", file=name, route=sw, metric=metric,
+                value=f"{mp * 5 / wall:.2f}",
+                ms_per_load=f"{wall / 5 * 1e3:.3f}",
+                runs_ms=json.dumps([round(r / 5 * 1e3, 3)
+                                    for r in runs]).replace(" ", ""),
+                stage_ms=json.dumps(stages).replace(" ", ""))
+    with environ(**{**clear, "FFPIC_VP8_DEVICE_COLOR": "1"}):
+        wall, runs, stages = spans(lambda: ffpic_tpu_torch.decode_batch(
+            batch, device=dev), 5)
+    mp = N * H * W / 1e6
+    log("time webp decode_batch", megapixels=mp, route="device_color",
+        end_to_end_ms=f"{wall * 1e3:.3f}",
+        end_to_end_ms_runs=json.dumps([round(w_ * 1e3, 3)
+                                       for w_ in runs]).replace(" ", ""),
+        webp_1080p_batch_mps=f"{mp / wall:.2f}",
+        stage_ms=json.dumps(stages).replace(" ", ""))
+    return timed, {"load_vp8_device": loads[("lossy_1080p.webp",
+                                             "vp8_device")],
+                   "load_device_color": loads[("lossy_1080p.webp",
+                                               "device_color")],
+                   "batch": launches_batch, "mixed": launches_mixed}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1522,13 +1808,15 @@ def main() -> int:
         stage_ms=json.dumps(stages).replace(" ", ""))
 
     codec_timed, path_launches = codec_paths(dev, jpegs, floor_ms, errs)
-    png_timed, png_launches = png_paths(dev, jpegs, floor_ms, errs)
+    png_timed, png_launches, pngs = png_paths(dev, jpegs, floor_ms, errs)
     timed["scatter_plane"], sparse_launches = sparse_path(
         dev, srcs, plain, floor_ms, errs)
     timed.update(png_timed)
     entropy_timed, entropy_launches = entropy_paths(dev, jpegs, plain,
                                                     floor_ms, errs)
     timed.update(entropy_timed)
+    webp_timed, webp_launches = webp_paths(dev, jpegs, pngs, floor_ms, errs)
+    timed.update(webp_timed)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6's
     # two passes at 4 bytes a pixel, K7 for 8-bit RGBA
@@ -1553,6 +1841,14 @@ def main() -> int:
     launches["spec_merge"] = entropy_launches["spec_batch"]["spec_merge"]
     timed["entropy_decode"]["launches_per_path"] = {
         k: v["entropy_decode"] for k, v in entropy_launches.items()}
+    # K12 on the 1080p load under FFPIC_VP8_DEVICE, K13 on the 8 x 1080p
+    # WebP batch under FFPIC_VP8_DEVICE_COLOR; their other paths beside
+    launches["vp8_residuals"] = \
+        webp_launches["load_vp8_device"]["vp8_residuals"]
+    launches["vp8_yuv_to_rgba"] = webp_launches["batch"]["vp8_yuv_to_rgba"]
+    for name in ("vp8_residuals", "vp8_yuv_to_rgba"):
+        timed[name]["launches_per_path"] = {
+            k: v[name] for k, v in webp_launches.items()}
     for name in ("unfilter_subup", "assemble_rgba"):
         timed[name]["launches_mixed_decode_batch"] = \
             png_launches["mixed"][name]

@@ -2,16 +2,16 @@
 
 The public API mirrors ``ffpic_tpu``'s: ``probe``, ``load``,
 ``load_all``, ``info``, ``encode``, ``find_codec`` and
-``registered_codecs`` over the port's own codec registry (JPEG and PNG
-so far), the ``Pic`` container, and ``decode_batch``, which decodes a
-batch of JPEGs and PNGs into one ``(N, H, W, 4)`` uint8 tensor on an
-NVIDIA GPU, restart-interval JPEGs with their Huffman decode on the
-card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take
+``registered_codecs`` over the port's own codec registry (JPEG, PNG
+and WebP so far), the ``Pic`` container, and ``decode_batch``, which
+decodes a batch of JPEGs, PNGs and WebPs into one ``(N, H, W, 4)``
+uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
+Huffman decode on the card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take
 ``device``: None means CUDA and raises without it (a header-only
 ``load`` needs none), "cpu" runs the plain PyTorch versions of the
 kernels.  Host parsing and host Huffman decoding are the package's own
 copy of ``ffpic_tpu``'s host layer (``formats.jpg``, ``formats.png``,
-``native/host_jpeg.c`` and ``host_png.c``, built with cc at first
+``formats.webp`` and ``native/``'s C sources, built with cc at first
 use); the device stages
 are hand-written CUDA kernels (``csrc/``) built with nvcc at first use,
 each with a plain PyTorch version that CPU tensors take.  This package

@@ -1,1 +1,2 @@
-"""Format helpers of the port; parsing itself is ffpic_tpu's host code."""
+"""Codecs of the port: the registry, ``Pic`` and each format's copy of
+``ffpic_tpu``'s host code."""

@@ -1,23 +1,33 @@
 """The port's native host kernels: builds and loads host_jpeg.c (the
-JPEG entropy decoder and the sparse coefficient packer) and host_png.c
-(the PNG scanline unfilter).
+JPEG entropy decoder and the sparse coefficient packer), host_png.c
+(the PNG scanline unfilter), host_vp8.c (the VP8 token, header and
+probability parsers, residual transform, intra reconstruction, loop
+filter and colour conversion) and host_vp8l.c (the VP8L entropy
+decoder).
 
-Copied from the JPEG and PNG parts of ``ffpic_tpu/native/__init__.py``
-(``_build``, ``_load``, ``available``, ``jpeg_decode_scan``,
-``jpeg_decode_scan_packed``, ``jpeg_destuff``, ``png_unfilter``,
-``pack_nonzero``), with these changes:
+Copied from the JPEG, PNG and WebP parts of
+``ffpic_tpu/native/__init__.py`` (``_build``, ``_load``, ``available``,
+``jpeg_decode_scan``, ``jpeg_decode_scan_packed``, ``jpeg_destuff``,
+``png_unfilter``, ``pack_nonzero``, ``vp8_loop_filter``,
+``vp8_tokens``, ``vp8_residuals``, ``vp8_coeff_probs``,
+``vp8_recon_fused``, ``vp8_recon``, ``vp8_mb_headers``,
+``vp8l_entropy``, ``vp8_color_libwebp``), with these changes:
 
-* only ``host_jpeg.c`` and ``host_png.c`` (this directory) are compiled,
-  with ``cc``, into one library in ``ffpic_tpu_torch/build/``, named by
-  a hash of both sources and the flags; the library is written under a
-  temporary name and renamed, so another process never loads a
-  half-written file;
+* only these four sources (this directory) are compiled, with ``cc``,
+  into one library in ``ffpic_tpu_torch/build/``, named by a hash of
+  the sources and the flags; the library is written under a temporary
+  name and renamed, so another process never loads a half-written
+  file;
 * the loader holds a lock, so threads that ask for the library while
   the first one builds it wait for it instead of seeing none;
 * a failed build raises: there is no Python Huffman decoder to fall
   back to;
 * ``png_unfilter`` refuses a buffer shorter than its rows instead of
-  reading past it.
+  reading past it;
+* the VP8 wrappers raise ``ValueError`` on a plane the C code would
+  write that is not C-contiguous uint8, on residuals of another shape
+  and on planes too small for the picture (the original asserts, or
+  passes them on).
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ import threading
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c")]
+SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c",
+                                           "host_vp8.c", "host_vp8l.c")]
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 
@@ -41,6 +52,7 @@ _lib = None
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _long = ctypes.c_long
+_u32 = ctypes.c_uint32
 _SIGNATURES = {
     "ffpic_jpeg_decode_scan": (_int, [_vp, _long, _vp, _vp, _vp, _int, _vp,
                                       _vp, _int, _int, _vp, _vp, _vp, _vp,
@@ -53,6 +65,25 @@ _SIGNATURES = {
     "ffpic_jpeg_destuff": (_int, [_vp, _long, _vp, _vp, _vp]),
     "ffpic_png_unfilter": (_int, [_vp, _vp, _long, _long, _int]),
     "ffpic_pack_nonzero": (_long, [_vp, _long, _vp, _vp]),
+    "ffpic_vp8_loop_filter": (None, [_vp, _vp, _vp, _int, _int, _vp, _vp,
+                                     _int, _int]),
+    "ffpic_vp8_tokens": (_int, [_vp, _long, _vp, _vp, _int, _vp, _vp, _vp,
+                                _int, _int, _vp, _vp]),
+    "ffpic_vp8_residuals": (None, [_vp, _vp, _vp, _vp, _vp, _int, _int,
+                                   _vp]),
+    "ffpic_vp8_coeff_probs": (None, [_vp, _long, _vp, _vp, _vp, _vp, _vp,
+                                     _vp]),
+    "ffpic_vp8_recon_fused": (None, [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                     _vp, _vp, _vp, _int, _int]),
+    "ffpic_vp8_recon": (None, [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int,
+                               _int]),
+    "ffpic_vp8_mb_headers": (None, [_vp, _long, _long, _u32, _u32, _int,
+                                    _int, _int, _int, _vp, _int, _int, _vp,
+                                    _vp, _vp, _vp, _vp, _vp]),
+    "ffpic_vp8l_entropy": (_int, [_vp, _long, _vp, _vp, _int, _int, _int,
+                                  _vp, _vp, _vp]),
+    "vp8_color_libwebp": (None, [_vp, _long, _vp, _vp, _long, _int, _int,
+                                 _vp, _vp]),
 }
 
 
@@ -265,3 +296,188 @@ def pack_nonzero(plane: np.ndarray):
     val = np.empty(n, np.int16)
     nnz = lib.ffpic_pack_nonzero(_p(flat), n, _p(idx), _p(val))
     return idx[:nnz], val[:nnz]
+
+
+def _c(a: np.ndarray, dtype) -> np.ndarray:
+    """``a`` as a C-contiguous array of ``dtype`` (a copy only if needed)."""
+    return np.ascontiguousarray(a, dtype)
+
+
+def _plane(a: np.ndarray, name: str) -> int:
+    """Pointer to a plane the C code writes in place."""
+    if a.dtype != np.uint8 or not a.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"{name} must be a C-contiguous uint8 plane")
+    return _p(a)
+
+
+def vp8_loop_filter(Y: np.ndarray, U: np.ndarray, V: np.ndarray,
+                    levels: np.ndarray, inner: np.ndarray,
+                    simple: bool, sharpness: int) -> None:
+    """In-place VP8 loop filter over whole planes (host_vp8.c)."""
+    lib = _load()
+    mbh, mbw = levels.shape
+    levels, inner = _c(levels, np.int32), _c(inner, np.uint8)
+    lib.ffpic_vp8_loop_filter(_plane(Y, "Y"), _plane(U, "U"), _plane(V, "V"),
+                              mbh, mbw, _p(levels), _p(inner),
+                              1 if simple else 0, sharpness)
+
+
+def vp8_tokens(rest: bytes, part_off, part_len, probs: np.ndarray,
+               skip: np.ndarray, has_y2: np.ndarray,
+               mbh: int, mbw: int):
+    """Native VP8 token-partition decode (host_vp8.c).  Returns
+    (levels (mbh,mbw,25,16) int32, nnz_total (mbh,mbw,25) int32)."""
+    lib = _load()
+    levels = np.zeros((mbh, mbw, 25, 16), np.int32)
+    nnz = np.zeros((mbh, mbw, 25), np.int32)
+    rest_b = np.frombuffer(rest, np.uint8)
+    off = _c(part_off, np.int64)
+    ln = _c(part_len, np.int64)
+    probs, skip, has_y2 = (_c(probs, np.uint8), _c(skip, np.uint8),
+                           _c(has_y2, np.uint8))
+    rc = lib.ffpic_vp8_tokens(_p(rest_b), len(rest), _p(off), _p(ln),
+                              len(off), _p(probs), _p(skip), _p(has_y2),
+                              mbh, mbw, _p(levels), _p(nnz))
+    if rc != 0:
+        raise ValueError(f"vp8 token decode failed ({rc})")
+    return levels, nnz
+
+
+def _seg(seg):
+    return None if seg is None else _c(seg, np.int32)
+
+
+def vp8_residuals(levels: np.ndarray, nnz: np.ndarray, dq: np.ndarray,
+                  seg, has_y2: np.ndarray, mbh: int, mbw: int) -> np.ndarray:
+    """Native dequant + Y2 IWHT + 4x4 IDCT over the whole image with
+    zero/DC-only block fast paths (host_vp8.c).  Returns
+    (mbh, mbw, 24, 4, 4) int16 residuals."""
+    lib = _load()
+    out = np.empty((mbh, mbw, 24, 4, 4), np.int16)
+    levels, nnz, dq = (_c(levels, np.int32), _c(nnz, np.int32),
+                       _c(dq, np.int32))
+    seg, has_y2 = _seg(seg), _c(has_y2, np.uint8)
+    lib.ffpic_vp8_residuals(_p(levels), _p(nnz), _p(dq),
+                            None if seg is None else _p(seg), _p(has_y2),
+                            mbh, mbw, _p(out))
+    return out
+
+
+def vp8_coeff_probs(part0: bytes, br, update_probs: np.ndarray,
+                    probs: np.ndarray) -> None:
+    """Native RFC 6386 13.4 coefficient-probability update parse;
+    resumes the Python BoolDecoder ``br`` in place and updates
+    ``probs`` (4,8,3,11) in place."""
+    lib = _load()
+    if probs.dtype != np.uint8 or not probs.flags["C_CONTIGUOUS"]:
+        raise ValueError("probs must be C-contiguous uint8")
+    buf = np.frombuffer(part0, np.uint8)
+    pos = ctypes.c_long(br.pos)
+    value = ctypes.c_uint32(br.value)
+    rng = ctypes.c_uint32(br.range)
+    bc = ctypes.c_int(br.bit_count)
+    upd = _c(update_probs, np.uint8)
+    lib.ffpic_vp8_coeff_probs(_p(buf), len(part0), ctypes.addressof(pos),
+                              ctypes.addressof(value), ctypes.addressof(rng),
+                              ctypes.addressof(bc), _p(upd), _p(probs))
+    br.pos, br.value, br.range, br.bit_count = (
+        pos.value, value.value, rng.value, bc.value)
+
+
+def vp8_recon_fused(Y, U, V, levels, nnz, dq, seg, has_y2,
+                    ymode, bmodes, uvmode, mbh: int, mbw: int) -> None:
+    """Fused native residual transform + intra recon (host_vp8.c):
+    one MB walk, no whole-image residual intermediate."""
+    lib = _load()
+    levels, nnz, dq = (_c(levels, np.int32), _c(nnz, np.int32),
+                       _c(dq, np.int32))
+    seg, has_y2 = _seg(seg), _c(has_y2, np.uint8)
+    ymode, bmodes, uvmode = (_c(ymode, np.int32), _c(bmodes, np.int32),
+                             _c(uvmode, np.int32))
+    lib.ffpic_vp8_recon_fused(
+        _plane(Y, "Y"), _plane(U, "U"), _plane(V, "V"), _p(levels), _p(nnz),
+        _p(dq), None if seg is None else _p(seg), _p(has_y2), _p(ymode),
+        _p(bmodes), _p(uvmode), mbh, mbw)
+
+
+def vp8_recon(Y, U, V, residual, ymode, bmodes, uvmode,
+              mbh: int, mbw: int) -> None:
+    """Native intra prediction + residual add (host_vp8.c), writing
+    the planes in place."""
+    lib = _load()
+    residual = _c(residual, np.int16)
+    if residual.shape != (mbh, mbw, 24, 4, 4):
+        raise ValueError(f"residual {residual.shape}: expected "
+                         f"{(mbh, mbw, 24, 4, 4)}")
+    ymode, bmodes, uvmode = (_c(ymode, np.int32), _c(bmodes, np.int32),
+                             _c(uvmode, np.int32))
+    lib.ffpic_vp8_recon(_plane(Y, "Y"), _plane(U, "U"), _plane(V, "V"),
+                        _p(residual), _p(ymode), _p(bmodes), _p(uvmode),
+                        mbh, mbw)
+
+
+def vp8_mb_headers(part0: bytes, state, mbh: int, mbw: int,
+                   seg_update: bool, seg_probs, mb_no_skip: bool,
+                   prob_skip: int, kf_bmode_probs: np.ndarray):
+    """Native VP8 MB-header parse resuming a bool-decoder state
+    (pos, value, range, bit_count).  Returns (seg, skip, ymode,
+    uvmode, bmodes(mbh,mbw,4,4)) int32 arrays."""
+    lib = _load()
+    pos, value, rng, bit_count = state
+    seg = np.zeros((mbh, mbw), np.int32)
+    skip = np.zeros((mbh, mbw), np.int32)
+    ymode = np.zeros((mbh, mbw), np.int32)
+    uvmode = np.zeros((mbh, mbw), np.int32)
+    bmodes = np.zeros((mbh, mbw, 16), np.int32)
+    buf = np.frombuffer(part0, np.uint8)
+    seg_probs, kf = _c(seg_probs, np.uint8), _c(kf_bmode_probs, np.uint8)
+    lib.ffpic_vp8_mb_headers(
+        _p(buf), len(part0), pos, value, rng, bit_count, mbh, mbw,
+        1 if seg_update else 0, _p(seg_probs), 1 if mb_no_skip else 0,
+        prob_skip, _p(kf), _p(seg), _p(skip), _p(ymode), _p(uvmode),
+        _p(bmodes))
+    return seg, skip, ymode, uvmode, bmodes.reshape(mbh, mbw, 4, 4)
+
+
+def vp8l_entropy(data: bytes, pos: int, bit: int, w: int, h: int,
+                 allow_meta: bool, clcl_order, dist_map):
+    """Native VP8L entropy-image decode.  Returns (argb (h,w,4) uint8,
+    new_pos, new_bit)."""
+    lib = _load()
+    out = np.empty((h, w, 4), np.uint8)
+    buf = np.frombuffer(data, np.uint8)
+    p = ctypes.c_long(pos)
+    b = ctypes.c_int(bit)
+    clcl, dmap = _c(clcl_order, np.uint8), _c(dist_map, np.int16)
+    rc = lib.ffpic_vp8l_entropy(_p(buf), len(data), ctypes.addressof(p),
+                                ctypes.addressof(b), w, h,
+                                1 if allow_meta else 0, _p(clcl), _p(dmap),
+                                _p(out))
+    if rc != 0:
+        raise ValueError(f"corrupt VP8L stream ({rc})")
+    return out, p.value, b.value
+
+
+def vp8_color_libwebp(Y, U, V, H: int, W: int, A=None):
+    """libwebp-exact host YUV420->RGBA (host_vp8.c): fancy chroma
+    upsample + fixed-point matrix; bit-identical to the numpy path in
+    formats/webp.py."""
+    lib = _load()
+    Y = _c(Y, np.uint8)
+    ch, cw = (H + 1) // 2, (W + 1) // 2
+    U = _c(U[:ch, :cw], np.uint8)
+    V = _c(V[:ch, :cw], np.uint8)
+    if Y.shape[0] < H or Y.shape[1] < W or U.shape != (ch, cw) \
+            or V.shape != (ch, cw):
+        raise ValueError(f"planes {Y.shape}, {U.shape}, {V.shape} cannot "
+                         f"hold a {W}x{H} picture")
+    out = np.empty((H, W, 4), np.uint8)
+    a_ptr = None
+    if A is not None:
+        A = _c(A, np.uint8)
+        if A.shape != (H, W):
+            raise ValueError(f"alpha {A.shape}: expected {(H, W)}")
+        a_ptr = _p(A)
+    lib.vp8_color_libwebp(_p(Y), Y.shape[1], _p(U), _p(V), U.shape[1], H, W,
+                          a_ptr, _p(out))
+    return out

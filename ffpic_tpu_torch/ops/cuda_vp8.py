@@ -1,0 +1,115 @@
+"""ctypes wrappers of the CUDA kernels in ``csrc/vp8_decode.cu``: K12
+``vp8_residuals`` and K13 ``vp8_yuv_to_rgba``.
+
+As in ``ops.cuda_jpeg``: each wrapper takes CUDA tensors only, checks
+device, dtype, shape and layout and raises on anything else, allocates
+its output with ``torch.empty``, launches on the current stream and
+raises if the launch reports an error, without synchronising.
+``launches`` counts each kernel's launches.  The plain PyTorch versions
+live in ``ops.vp8_kernels``; the kernels never run on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ffpic_tpu_torch.ops import _build
+
+launches = {"vp8_residuals": 0, "vp8_yuv_to_rgba": 0}
+
+_vp = ctypes.c_void_p
+_int = ctypes.c_int
+_i64 = ctypes.c_longlong
+_SIGNATURES = {
+    "ffpic_vp8_residuals": [_vp, _vp, _vp, _vp, _i64, _vp],
+    "ffpic_vp8_yuv_to_rgba": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _int,
+                              _int, _vp],
+}
+_launch = _build.launcher(_SIGNATURES, launches)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _cuda(t, name: str, dtype: torch.dtype, shape: tuple | None = None):
+    """A contiguous CUDA tensor of ``dtype`` (and ``shape``)."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype}, got "
+                         f"{t.dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _plane(t, name: str, rows: int, cols: int) -> None:
+    """A 2-D uint8 CUDA plane of at least ``rows`` x ``cols`` whose rows
+    are contiguous, at any pitch."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got "
+                         f"{getattr(t, 'device', type(t))}")
+    if t.dtype != torch.uint8 or t.dim() != 2:
+        raise ValueError(f"{name}: expected 2-D uint8, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.shape[0] < rows or t.shape[1] < cols:
+        raise ValueError(f"{name} {tuple(t.shape)}: needs at least {rows} "
+                         f"rows of {cols}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: each row must be contiguous")
+
+
+def vp8_residuals(levels: torch.Tensor, dq_per_mb: torch.Tensor,
+                  has_y2: torch.Tensor) -> torch.Tensor:
+    """K12: levels (mbh, mbw, 25, 16) int32, dq_per_mb (mbh, mbw, 6)
+    int32 [y1dc, y1ac, y2dc, y2ac, uvdc, uvac], has_y2 (mbh, mbw) bool
+    -> residuals (mbh, mbw, 24, 4, 4) int16; a thread per 4x4 block."""
+    if levels.dim() != 4:
+        raise ValueError(f"levels: expected (mbh, mbw, 25, 16), got "
+                         f"{tuple(levels.shape)}")
+    mbh, mbw = levels.shape[:2]
+    _cuda(levels, "levels", torch.int32, (mbh, mbw, 25, 16))
+    _cuda(dq_per_mb, "dq_per_mb", torch.int32, (mbh, mbw, 6))
+    _cuda(has_y2, "has_y2", torch.bool, (mbh, mbw))
+    if levels.device != dq_per_mb.device or levels.device != has_y2.device:
+        raise ValueError("levels, dq_per_mb and has_y2 must share a device")
+    if mbh * mbw * 24 >= 2 ** 31 * 256:
+        raise ValueError(f"{mbw}x{mbh} macroblocks: too large for one launch")
+    out = torch.empty((mbh, mbw, 24, 4, 4), dtype=torch.int16,
+                      device=levels.device)
+    if out.numel():
+        _launch("ffpic_vp8_residuals", "vp8_residuals",
+                _vp(levels.data_ptr()), _vp(dq_per_mb.data_ptr()),
+                _vp(has_y2.data_ptr()), _vp(out.data_ptr()), mbh * mbw)
+    return out
+
+
+def vp8_yuv_to_rgba(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
+                    h: int, w: int,
+                    alpha: torch.Tensor | None = None) -> torch.Tensor:
+    """K13: Y (>= h, >= w), U and V (>= (h+1)//2, >= (w+1)//2) uint8
+    planes at any row pitch, alpha None or (h, w) uint8 -> (h, w, 4)
+    uint8 RGBA; a thread per 2x2 output quad."""
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    _plane(Y, "Y", h, w)
+    _plane(U, "U", ch, cw)
+    _plane(V, "V", ch, cw)
+    if alpha is not None:
+        _cuda(alpha, "alpha", torch.uint8, (h, w))
+    if len({t.device for t in (Y, U, V, alpha) if t is not None}) != 1:
+        raise ValueError("Y, U, V and alpha must share a device")
+    if h >= 2 ** 31 or w >= 2 ** 31 or (ch + 7) // 8 > 65535:
+        raise ValueError(f"{w}x{h}: too large for one launch")
+    out = torch.empty((h, w, 4), dtype=torch.uint8, device=Y.device)
+    if out.numel():
+        _launch("ffpic_vp8_yuv_to_rgba", "vp8_yuv_to_rgba",
+                _vp(Y.data_ptr()), Y.stride(0), _vp(U.data_ptr()),
+                U.stride(0), _vp(V.data_ptr()), V.stride(0),
+                _vp(None if alpha is None else alpha.data_ptr()),
+                _vp(out.data_ptr()), h, w)
+    return out

@@ -1,8 +1,8 @@
-"""Batched decode of JPEGs and PNGs into one ``(N, H, W, 4)`` uint8
-device tensor.
+"""Batched decode of JPEGs, PNGs and WebPs into one ``(N, H, W, 4)``
+uint8 device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of JPEGs and PNGs:
+batches of JPEGs, PNGs and WebPs:
 
 0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
    by default on CUDA; ``FFPIC_DEVICE_ENTROPY``, ``FFPIC_SPEC_ENTROPY``,
@@ -22,16 +22,22 @@ batches of JPEGs and PNGs:
    nonzeros are packed there too (``member_pairs``).  Any other
    JPEG (another sampling, gray) is Huffman-decoded there into dense
    planes of its first picture; a PNG is parsed, inflated and, where
-   its rows use Average or Paeth, unfiltered (``formats.png.parse``).
-   The pool does no device work: every copy and launch below runs on
-   the caller's thread, so on the caller's current stream.
-2. Each other JPEG and each PNG is decoded as the port's registry
-   decodes it, as ``ffpic_tpu/pipeline.py:183-190, 211-212`` does
-   through ``registry.load``: ``jpg.to_pic`` with the registry's
+   its rows use Average or Paeth, unfiltered (``formats.png.parse``); a
+   WebP is decoded to RGBA, or under ``FFPIC_VP8_DEVICE_COLOR`` to its
+   planes (``formats.webp.parse``, the registry's defaults).  The pool
+   does no device work, except that under ``FFPIC_VP8_DEVICE`` a WebP's
+   residual transform launches there and its read-back synchronises
+   (the launch counts are taken under a lock): every other copy and
+   launch below runs on the caller's thread, so on the caller's current
+   stream.
+2. Each other JPEG, each PNG and each WebP is decoded as the port's
+   registry decodes it, as ``ffpic_tpu/pipeline.py:180-190, 211-212``
+   does through ``registry.load``: ``jpg.to_pic`` with the registry's
    defaults (``mode="reference"``, nearest upsampling, not
-   ``decode_batch``'s ``mode``), 8-aligned wide, or ``png.to_pic``
-   (K6 for None/Sub/Up rows, K7); malformed files raise ``ValueError``.
-   Its pixels stay on the device.
+   ``decode_batch``'s ``mode``), 8-aligned wide, ``png.to_pic`` (K6 for
+   None/Sub/Up rows, K7), or the first picture of ``webp.to_pics`` (the
+   staging copy, or K13 under ``FFPIC_VP8_DEVICE_COLOR``); malformed
+   files raise ``ValueError``.  Its pixels stay on the device.
 3. Per 4:2:0 image size (one block geometry and one crop), ONE staged
    transfer through pinned memory and one device decode: the packed
    members through ``decode_batch_420_packed_fused`` (a single member is
@@ -44,9 +50,9 @@ batches of JPEGs and PNGs:
 4. Optional resize to ``size``, and stacking in input order; a batch
    that one decode covers in input order is returned as it is.
 
-The host layer (``formats.jpg``, ``formats.png``, ``native``) is the
-port's own copy of ``ffpic_tpu``'s; ``_read`` and ``_jpeg_420_plan`` are
-copied from ``ffpic_tpu/pipeline.py:29-70``.
+The host layer (``formats.jpg``, ``formats.png``, ``formats.webp``,
+``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and
+``_jpeg_420_plan`` are copied from ``ffpic_tpu/pipeline.py:29-70``.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ import numpy as np
 import torch
 
 from ffpic_tpu_torch import native
-from ffpic_tpu_torch.formats import jpg, png, registry
+from ffpic_tpu_torch.formats import jpg, png, registry, webp
 from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
@@ -67,8 +73,8 @@ from ffpic_tpu_torch.ops.resize import resize_rgba
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1, 8 and 9 (the other codecs of "
-                "the registry)")
+_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1 and 9 (the other codecs of the "
+                "registry)")
 # dense members are staged as packed pairs when those take less than
 # this share of their dense bytes (the reference's threshold)
 SPARSE_SHARE = 0.7
@@ -101,11 +107,12 @@ def _jpeg_420_plan(data: bytes):
     return j
 
 
-def _prep(data: bytes):
+def _prep(data: bytes, device=None):
     """A member's host work, as (plan, kind, pairs): its 4:2:0 plan
     ("420"), the dense planes of any other JPEG's first picture ("jpg"),
-    or a parsed PNG ("png"); ``pairs`` is a dense 4:2:0 plan's
-    ``member_pairs``, else None."""
+    a parsed PNG ("png") or a parsed WebP ("webp", ``device`` where its
+    ``FFPIC_VP8_DEVICE`` residual transform runs); ``pairs`` is a dense
+    4:2:0 plan's ``member_pairs``, else None."""
     j = _jpeg_420_plan(data)
     if j is None:
         if jpg.probe(data):
@@ -114,9 +121,12 @@ def _prep(data: bytes):
         if png.probe(data):
             with registry.corrupt_as_value_error("PNG"):
                 return png.parse(data), "png", None
+        if webp.probe(data):
+            with registry.corrupt_as_value_error("WEBP"):
+                return webp.parse(data, device=device), "webp", None
         raise NotImplementedError(
-            "decode_batch: only JPEG and PNG members are ported; other "
-            f"formats wait for {_CODECS_ITEM}")
+            "decode_batch: only JPEG, PNG and WebP members are ported; "
+            f"other formats wait for {_CODECS_ITEM}")
     if j.packed is None:
         return j, "420", member_pairs(j)
     # the packed emission is a view of per-thread native scratch that
@@ -288,14 +298,16 @@ def _run_entropy(runs, datas, slots, mode: str, dev) -> list:
 def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                  dtype="uint8", mode: str = "bt601", mesh=None, *,
                  device=None) -> torch.Tensor:
-    """Decode a batch of JPEGs and PNGs (paths or bytes) to one ``(N,
-    H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
+    """Decode a batch of JPEGs, PNGs and WebPs (paths or bytes) to one
+    ``(N, H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
     when CUDA is absent).  The reference's signature
     (``ffpic_tpu/pipeline.py:73-74``), ``device`` keyword-only.
     ``size=(h, w)`` resizes each image; without it all images must
     share one size.  ``dtype`` is "uint8" (or ``torch.uint8``), the only
     one the reference produces.  ``mode`` is the colour conversion of
-    the 4:2:0 JPEG members: "bt601", "reference" or "rgb".
+    the 4:2:0 JPEG members: "bt601", "reference" or "rgb".  Other
+    members decode with their registry's defaults (a WebP: libwebp's
+    colour; an animation: its first canvas).
 
     ``FFPIC_DEVICE_ENTROPY``: the device-entropy route
     (``_entropy_runs``) is on by default on CUDA, forced by "1" (the
@@ -324,17 +336,18 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
         # the pool parses the host members while this thread stages the
         # device route and enqueues its launches
         with ThreadPoolExecutor(max_workers=nw) as ex:
-            pending = ex.map(_prep, [datas[i] for i in todo])
+            pending = ex.map(lambda d: _prep(d, dev),
+                             [datas[i] for i in todo])
             declined = _run_entropy(runs, datas, slots, mode, dev)
             with stage("torch.host_parse"):
                 plans = list(pending)
     else:
         declined = _run_entropy(runs, datas, slots, mode, dev)
         with stage("torch.host_parse"):
-            plans = [_prep(datas[i]) for i in todo]
+            plans = [_prep(datas[i], dev) for i in todo]
     if declined:
         with stage("torch.host_parse"):
-            plans += [_prep(datas[i]) for i in declined]
+            plans += [_prep(datas[i], dev) for i in declined]
         todo, plans = zip(*sorted(zip(todo + declined, plans),
                                   key=lambda t: t[0]))
 
@@ -345,10 +358,13 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
             buckets.setdefault((plan.height, plan.width), []).append(
                 (i, plan, pairs))
             continue
-        codec = jpg if kind == "jpg" else png
         with stage("torch.device_decode"), \
                 registry.corrupt_as_value_error(kind.upper()):
-            slots[i] = codec.to_pic(plan, dev).pixels
+            if kind == "webp":
+                slots[i] = webp.to_pics(plan, dev)[0].pixels
+            else:
+                slots[i] = (jpg if kind == "jpg" else png).to_pic(
+                    plan, dev).pixels
 
     outs = []
     for allmembers in buckets.values():

@@ -1,5 +1,6 @@
-"""Synthetic JPEGs and PNGs made from a seed, without jax or PIL, and
-the kernel edge cases that the tests and ``chip_smoke.py`` share.
+"""Synthetic JPEGs and PNGs made from a seed, without jax or PIL,
+committed WebP fixtures, and the kernel edge cases that the tests and
+``chip_smoke.py`` share.
 
 * ``synth_rgb`` makes photo-like content; ``synth_jpeg_420`` encodes it
   with the port's ``encode_baseline`` (the bytes of
@@ -15,6 +16,10 @@ the kernel edge cases that the tests and ``chip_smoke.py`` share.
 * ``entropy_cases`` makes JPEG batches at the edges of the device
   Huffman decode (K9-K11), and ``entropy_stages`` runs one through
   the kernels or the plain versions;
+* ``webp_fixture`` reads the committed WebP files of ``testdata/``
+  (``make_webp_fixtures`` wrote them with PIL); ``vp8_cases`` makes the
+  inputs at the edges of the ``vp8_residuals`` and ``vp8_yuv_to_rgba``
+  kernels (K12, K13), with ``vp8_dq`` a segment's dequant factors;
 * ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``,
   ``mcu_cases``, ``scatter_cases``, ``unfilter_cases`` and
   ``rgba_cases`` make the inputs at the edges of the ``count_scan``,
@@ -801,3 +806,88 @@ def entropy_stages(case: dict, device) -> dict[str, torch.Tensor]:
     r = jed.spec_stages(case["datas"], case["chunk_bytes"], device=device)
     return {k: r[k].cpu() for k in ("exits", "snap", "merged", "lanes",
                                     "flat", "steps", "ok")}
+
+
+def webp_fixture(name: str) -> bytes:
+    """The bytes of a committed WebP fixture of ``ffpic_tpu_torch/
+    testdata`` (``make_webp_fixtures`` lists them), e.g.
+    ``"lossy_1080p.webp"``; machines without PIL read these."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "testdata", name)
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def vp8_dq(q: int, deltas=(0, 0, 0, 0, 0)) -> tuple:
+    """One segment's dequant factors (y1dc, y1ac, y2dc, y2ac, uvdc,
+    uvac) at quantizer index ``q`` with the five deltas of RFC 6386 9.6
+    (y1 DC, y2 DC, y2 AC, uv DC, uv AC), as
+    ``formats.vp8.VP8Decoder._dequant_tables`` computes them."""
+    from types import SimpleNamespace
+
+    from ffpic_tpu_torch.formats.vp8 import FrameHeader, VP8Decoder
+    d = SimpleNamespace(hdr=FrameHeader(q_yac=q, **dict(zip(
+        ("q_ydc_delta", "q_y2dc_delta", "q_y2ac_delta", "q_uvdc_delta",
+         "q_uvac_delta"), deltas))))
+    VP8Decoder._dequant_tables(d)
+    return d.dq[0]
+
+
+def vp8_cases(seed: int = 0) -> dict[str, dict]:
+    """Inputs at the edges of K12 ``vp8_residuals`` and K13
+    ``vp8_yuv_to_rgba``: {"residuals": name -> (levels (mbh, mbw, 25, 16)
+    i32, dq_per_mb (mbh, mbw, 6) i32, has_y2 (mbh, mbw) bool), "color":
+    name -> (Y, U, V, h, w, alpha (h, w) u8 or None)}.
+
+    Residuals: 1x1 and 1xN macroblock grids; levels a token can code
+    (|level| <= 2048 + 67) at the quantizers' extremes, so products
+    overflow int16 after dequant; levels over the whole int32 range, so
+    products wrap int32; mixed has_y2; four segments of their own
+    factors; an all-zero grid.  Colour: MB-padded planes of random bytes
+    at h, w of 1, 2, odd and not MB multiples, a 1xN and Nx1 strip, with
+    and without alpha."""
+    rng = np.random.default_rng(seed)
+    res = {}
+
+    def levels(mbh, mbw, lim=2048 + 67):
+        lv = rng.integers(-lim, lim + 1, (mbh, mbw, 25, 16))
+        lv[rng.random((mbh, mbw, 25, 16)) < 0.6] = 0   # mostly zeros
+        return lv.astype(np.int32)
+
+    def dq_of(seg, rows):
+        return np.array(rows, np.int32)[seg]
+
+    one = dq_of(np.zeros((1, 1), int), [vp8_dq(40)])
+    res["mb1x1_y2"] = (levels(1, 1), one, np.ones((1, 1), bool))
+    res["mb1x1_bpred"] = (levels(1, 1), one, np.zeros((1, 1), bool))
+    seg = rng.integers(0, 4, (1, 37))
+    res["mb1x37_mixed"] = (levels(1, 37), dq_of(seg, [
+        vp8_dq(q) for q in (0, 30, 90, 127)]), rng.random((1, 37)) < 0.5)
+    seg = rng.integers(0, 4, (5, 7))
+    rows = [vp8_dq(127, (15, 15, 15, 15, 15)), vp8_dq(0, (-15,) * 5),
+            vp8_dq(64, (3, -4, 5, -6, 7)), vp8_dq(100)]
+    res["wrap_int16_4seg"] = (levels(5, 7), dq_of(seg, rows),
+                              rng.random((5, 7)) < 0.5)
+    res["wrap_int32"] = (
+        rng.integers(-2 ** 31, 2 ** 31, (3, 4, 25, 16)).astype(np.int32),
+        rng.integers(-2 ** 31, 2 ** 31, (3, 4, 6)).astype(np.int32),
+        rng.random((3, 4)) < 0.5)
+    res["zeros"] = (np.zeros((2, 3, 25, 16), np.int32),
+                    dq_of(np.zeros((2, 3), int), [vp8_dq(90)]),
+                    np.ones((2, 3), bool))
+
+    col = {}
+    for name, h, w, with_alpha in (
+            ("1x1", 1, 1, False), ("2x2_alpha", 2, 2, True),
+            ("15x17", 15, 17, False), ("17x33_alpha", 17, 33, True),
+            ("33x40", 33, 40, False), ("40x15", 40, 15, True),
+            ("1x301", 1, 301, False), ("301x1_alpha", 301, 1, True),
+            ("199x333_alpha", 199, 333, True)):
+        ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+        planes = [rng.integers(0, 256, s).astype(np.uint8)
+                  for s in ((ph, pw), (ph // 2, pw // 2), (ph // 2, pw // 2))]
+        alpha = (rng.integers(0, 256, (h, w)).astype(np.uint8)
+                 if with_alpha else None)
+        col[name] = (*planes, h, w, alpha)
+    return {"residuals": res, "color": col}

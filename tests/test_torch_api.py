@@ -217,12 +217,21 @@ def test_encode_takes_bgra():
 
 
 def test_registry_is_the_ports_own():
-    """The port's codecs are a subset of the JAX package's, in the same
-    relative order, and importing ffpic_tpu registers nothing in it."""
+    """The port's codecs are a subset of the JAX package's, in the
+    relative order of its probe table (``ffpic_tpu/formats/
+    all_formats.py``; its live list follows import order, and a test
+    that imports ``ffpic_tpu.formats.webp`` before the list fills puts
+    WEBP first), and importing ffpic_tpu registers nothing in it."""
+    import re
     mine, theirs = (ffpic_tpu_torch.registered_codecs(),
                     ffpic_tpu.registered_codecs())
-    assert mine == ["JPG", "PNG"]
-    assert [c for c in theirs if c in mine] == mine
+    assert mine == ["JPG", "PNG", "WEBP"]
+    assert set(mine) <= set(theirs)
+    table = re.findall(r"^from ffpic_tpu\.formats import (\w+)", (
+        REPO / "ffpic_tpu" / "formats" / "all_formats.py").read_text(), re.M)
+    mods = [ffpic_tpu_torch.find_codec(c).load.__module__.rsplit(".")[-1]
+            for c in mine]
+    assert mods == [m for m in table if m in mods]
     codec = ffpic_tpu_torch.find_codec("jpeg")
     assert codec is ffpic_tpu_torch.find_codec("JPG")
     assert codec.load.__module__ == "ffpic_tpu_torch.formats.jpg"
@@ -235,7 +244,7 @@ def test_registry_is_the_ports_own():
 
 def test_registry_fills_once_under_threads(monkeypatch):
     """Eight threads ask for the codec list of an empty registry at once:
-    each waits for the one import that fills it and sees both codecs
+    each waits for the one import that fills it and sees every codec
     (the reference's registry marks itself filled first, and a second
     thread can find no codec)."""
     import sys
@@ -244,8 +253,8 @@ def test_registry_fills_once_under_threads(monkeypatch):
     monkeypatch.setattr(registry, "_codecs", [])
     monkeypatch.setattr(registry, "_initialized", False)
     import ffpic_tpu_torch.formats as formats
-    for mod in ("all_formats", "jpg", "png"):    # imported afresh: they
-        monkeypatch.delitem(sys.modules,         # register as they load
+    for mod in ("all_formats", "jpg", "png", "webp"):  # imported afresh:
+        monkeypatch.delitem(sys.modules,         # they register as they load
                             f"ffpic_tpu_torch.formats.{mod}")
         monkeypatch.delattr(formats, mod)
     barrier = threading.Barrier(8)
@@ -270,7 +279,7 @@ def test_registry_fills_once_under_threads(monkeypatch):
         sys.setswitchinterval(prev)
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
-    assert seen == [["JPG", "PNG"]] * 8
+    assert seen == [["JPG", "PNG", "WEBP"]] * 8
 
 
 def test_load_and_encode_read_paths(tmp_path):

@@ -101,7 +101,9 @@ def test_decode_batch_reads_paths(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Decoding through the port in a fresh interpreter loads no jax."""
+    """Decoding through the port in a fresh interpreter loads no jax:
+    JPEG batches on both routes, a lossy WebP under both VP8 switches
+    and a batch of lossless WebPs."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -116,6 +118,16 @@ def test_port_imports_no_jax():
         "                        restart_interval=2)\n"
         "out = decode_batch([r] * 4, device='cpu')\n"
         "assert tuple(out.shape) == (4, 32, 48, 4), out.shape\n"
+        "from ffpic_tpu_torch import load\n"
+        "from ffpic_tpu_torch.formats import vp8, vp8l, vp8l_enc, webp\n"
+        "from ffpic_tpu_torch.ops import cuda_vp8, vp8_kernels\n"
+        "os.environ['FFPIC_VP8_DEVICE'] = '1'\n"
+        "os.environ['FFPIC_VP8_DEVICE_COLOR'] = '1'\n"
+        "w = testing.webp_fixture('odd_333x199.webp')\n"
+        "assert tuple(load(w, device='cpu').pixels.shape) == (199, 333, 4)\n"
+        "l = testing.webp_fixture('lossless_160x120.webp')\n"
+        "out = decode_batch([l, l], device='cpu')\n"
+        "assert tuple(out.shape) == (2, 120, 160, 4), out.shape\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -144,7 +156,9 @@ def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
     single member, a progressive member and a 4:4:4 member on the CPU,
     loads a 4:4:4 file and encodes it as JPEG and PNG, loads the PNG and
     decodes a batch of JPEG and PNG members (one of Sub/Up rows, one of
-    all five filters), and loads no module of ffpic_tpu and no jax."""
+    all five filters), loads a WebP with alpha and an animated one,
+    encodes the animation, decodes a JPEG, WebP and PNG batch, and loads
+    no module of ffpic_tpu and no jax."""
     files = {"a": _jpeg(64, 96, 80, 0), "b": _jpeg(64, 96, 60, 1),
              "c": _jpeg(40, 72, 90, 2), "p": _jpeg(64, 96, 70, 3, True),
              "s": _jpeg(64, 96, 75, 4, subsampling="4:4:4")}
@@ -172,6 +186,16 @@ def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
         "assert (load(png, device='cpu').pixels == pic.pixels).all()\n"
         "out = decode_batch([f'{d}/a.jpg', png, f'{d}/u.png'], device='cpu')\n"
         "assert tuple(out.shape) == (3, 64, 96, 4), out.shape\n"
+        "from ffpic_tpu_torch import testing\n"
+        "w = load(testing.webp_fixture('alpha_1080p.webp'), device='cpu')\n"
+        "assert tuple(w.pixels.shape) == (1080, 1920, 4), w.pixels.shape\n"
+        "a = testing.webp_fixture('animated_96x64.webp')\n"
+        "assert load(a, device='cpu').n_frames == 3\n"
+        "e = encode(load(a, device='cpu'), 'WEBP', device='cpu')\n"
+        "assert load(e, device='cpu').n_frames == 3\n"
+        "out = decode_batch([f'{d}/a.jpg', e, png], size=(32, 32),\n"
+        "                   device='cpu')\n"
+        "assert tuple(out.shape) == (3, 32, 32, 4), out.shape\n"
         "bad = [m for m in sys.modules if m.startswith('ffpic_tpu.')"
         " or m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
@@ -189,12 +213,18 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("case", ["webp", "gif", "mesh"])
 def test_outside_the_slice_raises(case):
+    """GIF members and ``mesh`` wait for the ROADMAP.  WebP is ported: a
+    member that is only a WebP header now raises the registry's
+    ValueError for a corrupt file, not NotImplementedError."""
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
     if case == "webp":
         srcs.append(b"RIFF" + (60).to_bytes(4, "little") + b"WEBPVP8 "
                     + bytes(52))
-    elif case == "gif":
+        with pytest.raises(ValueError, match="corrupt WEBP"):
+            ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+        return
+    if case == "gif":
         srcs.append(b"GIF89a" + bytes(64))
     else:
         kw["mesh"] = object()

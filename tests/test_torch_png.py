@@ -338,7 +338,7 @@ def test_png_is_registered_after_jpg():
     assert codec is ffpic_tpu_torch.find_codec("PNG")
     assert codec.load.__module__ == "ffpic_tpu_torch.formats.png"
     assert ffpic_tpu_torch.probe(png.SIGNATURE + bytes(16)) is codec
-    assert ffpic_tpu_torch.registered_codecs() == ["JPG", "PNG"]
+    assert ffpic_tpu_torch.registered_codecs()[:2] == ["JPG", "PNG"]
 
 
 @functools.lru_cache(maxsize=None)
