@@ -5,12 +5,14 @@
 
 Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
 process per source) and the host library ``ffpic_tpu_torch/native/``
-``host_jpeg.c``, ``host_png.c``, ``host_vp8.c``, ``host_vp8l.c`` (cc),
+``host_jpeg.c``, ``host_png.c``, ``host_vp8.c``, ``host_vp8l.c``,
+``host_hevc.c`` (cc),
 holds each kernel against its plain PyTorch version on the card
 (bit-exact) at its paths' shapes and at the edges of its tiling
 (``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
 ``assemble_cases``, ``mcu_cases``, ``scatter_cases``,
-``unfilter_cases``, ``rgba_cases``, ``vp8_cases``), and drives
+``unfilter_cases``, ``rgba_cases``, ``vp8_cases``, ``hevc_cases``,
+``heif_color_cases``), and drives
 these paths, each with the launch counts set to 0 just before it and
 read just after:
 
@@ -65,7 +67,21 @@ read just after:
   (K13 x 8) and of 4 JPEGs, 2 PNGs and 2 WebPs under both, each equal
   to the CPU route.  The load medians are printed under the JAX bench's
   names (``webp_512_mps`` for the default route, ``webp_device_mps`` for
-  ``FFPIC_VP8_DEVICE``) beside the colour route and the host spans.
+  ``FFPIC_VP8_DEVICE``) beside the colour route and the host spans;
+* HEIF (K14 hevc_residuals, K15 hevc_yuv_to_rgba; ``testing.hevc_cases``,
+  ``heif_color_cases`` and the TU lists and planes of the committed 12 MP
+  grid's 48 tiles against their plain versions): ``load`` of
+  ``ffpic_tpu_torch/testdata/heic_12mp_grid.heic`` and of the small
+  HEICs of ``testing.heif_cases`` (10-bit, transform skip, bypass,
+  deblocking on, a 2x2 grid with alpha, 333x199) under the four
+  combinations of ``FFPIC_HEVC_DEVICE`` (K14 once a tile) and
+  ``FFPIC_HEIF_DEVICE_COLOR`` (K15 once a tile), each equal to the CPU
+  route, the fixture also against its source content; ``decode_batch``
+  of two HEICs beside a JPEG under each combination.  The load medians
+  are printed under the JAX bench's names (``heic_12mp_mps``,
+  ``heic_device_mps``) and as ``heic_device_color_mps``, with the host
+  spans and the grid pool's worker count; K14 and K15 are timed per
+  launch and per load (48 launches) beside the launch floor.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -96,6 +112,7 @@ CODEC_CU = "ffpic_tpu_torch/csrc/jpeg_codec.cu"
 PNG_CU = "ffpic_tpu_torch/csrc/png_decode.cu"
 ENTROPY_CU = "ffpic_tpu_torch/csrc/jpeg_entropy.cu"
 VP8_CU = "ffpic_tpu_torch/csrc/vp8_decode.cu"
+HEVC_CU = "ffpic_tpu_torch/csrc/hevc_decode.cu"
 REPLACES = {
     "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
     "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
@@ -111,12 +128,15 @@ REPLACES = {
     "spec_merge": "ffpic_tpu/ops/jpeg_entropy_device.py:490",
     "vp8_residuals": "ffpic_tpu/ops/vp8_kernels.py:69",
     "vp8_yuv_to_rgba": "ffpic_tpu/ops/vp8_kernels.py:107",
+    "hevc_residuals": "ffpic_tpu/ops/hevc_kernels.py:80",
+    "hevc_yuv_to_rgba": "ffpic_tpu/formats/heif.py:356",
 }
 SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
            "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU,
            "entropy_decode": ENTROPY_CU, "spec_scan": ENTROPY_CU,
            "spec_merge": ENTROPY_CU, "vp8_residuals": VP8_CU,
-           "vp8_yuv_to_rgba": VP8_CU}
+           "vp8_yuv_to_rgba": VP8_CU, "hevc_residuals": HEVC_CU,
+           "hevc_yuv_to_rgba": HEVC_CU}
 PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
@@ -147,7 +167,8 @@ def ptxas_report(text: str) -> dict:
     arguments, e.g. ``assemble_color<1,0>`` (mode, order),
     ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
-    depth); K9-K13 have no template arguments."""
+    depth), ``hevc_yuv_to_rgba<1>`` (mode); K9-K14 have no template
+    arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -156,7 +177,8 @@ def ptxas_report(text: str) -> dict:
                           r"assemble_mcu|fdct|scatter_plane|unfilter_rows|"
                           r"unfilter_cols|assemble_rgba|entropy_decode|"
                           r"spec_scan|spec_merge|vp8_residuals|"
-                          r"vp8_yuv_to_rgba)_kernel"
+                          r"vp8_yuv_to_rgba|hevc_residuals|"
+                          r"hevc_yuv_to_rgba)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -1249,7 +1271,7 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
     from ffpic_tpu_torch.formats import vp8, webp
     from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_vp8
     from ffpic_tpu_torch.ops import vp8_kernels as vk
-    from ffpic_tpu_torch.utils.timing import gpu_ms
+    from ffpic_tpu_torch.utils.timing import INT32_OPS_PER_S, bound, gpu_ms
 
     def reset():
         torch.cuda.synchronize()
@@ -1435,6 +1457,18 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
     timed["vp8_yuv_to_rgba"]["with_alpha_ms"] = gpu_ms(
         lambda: cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W, ta), 50)
     del flush
+    # B12 (ffpic_tpu/ops/vp8_wavefront.py:171 make_wavefront, not ported)
+    # at this frame's shapes: residual (mbh, mbw, 16, 4, 4) int32, ymode
+    # (mbh, mbw) and bmodes (mbh, mbw, 16) int32 in, the luma plane out;
+    # about 8 integer ops a pixel (prediction, residual add, clip), and
+    # 2 (mbh - 1) + mbw macroblock diagonals in sequence
+    b12_bytes = nmb * (256 * 4 + 4 + 16 * 4) + nmb * 256
+    b12_ops = 8 * nmb * 256
+    b12 = bound(b12_bytes, b12_ops, INT32_OPS_PER_S)
+    log("bound B12", function="ffpic_tpu/ops/vp8_wavefront.py:171",
+        at="webp load 1080p", macroblocks=nmb, bytes=b12_bytes,
+        ops=b12_ops, ops_type="int32", bound_ms=f"{b12[0]:.4f}",
+        bound_by=b12[1], diagonals=2 * (dec.mbh - 1) + dec.mbw)
 
     def per_load(data, n=5):
         # the JAX bench's webp_512 trial: 5 loads back to back
@@ -1476,6 +1510,292 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
                    "load_device_color": loads[("lossy_1080p.webp",
                                                "device_color")],
                    "batch": launches_batch, "mixed": launches_mixed}
+
+
+HEIF_ENV = ("FFPIC_HEVC_DEVICE", "FFPIC_HEIF_DEVICE_COLOR",
+            "FFPIC_NO_NATIVE_RECON")
+HEIF_SWITCHES = {"neither": {}, "hevc_device": {"FFPIC_HEVC_DEVICE": "1"},
+                 "device_color": {"FFPIC_HEIF_DEVICE_COLOR": "1"},
+                 "both": {"FFPIC_HEVC_DEVICE": "1",
+                          "FFPIC_HEIF_DEVICE_COLOR": "1"}}
+
+
+def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
+    """HEIF on the card: K14 and K15 against their plain versions
+    (``testing.hevc_cases``, ``heif_color_cases`` and the 12 MP fixture's
+    48 tiles), ``load`` of the fixture and of ``testing.heif_cases``'
+    small HEICs under the four combinations of ``FFPIC_HEVC_DEVICE`` and
+    ``FFPIC_HEIF_DEVICE_COLOR`` (each equal to the CPU route, with fresh
+    launch counts), a ``decode_batch`` of two HEICs beside a JPEG; the
+    timings.  Returns {kernel: timing entry} and the launches of each
+    path."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import heif
+    from ffpic_tpu_torch.make_heif_fixtures import synth_rgb
+    from ffpic_tpu_torch.ops import cuda_hevc, cuda_jpeg
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
+                                              bound, gpu_ms, gpu_ms_cold)
+
+    def reset():
+        torch.cuda.synchronize()
+        cuda_jpeg.reset_launches()
+        cuda_hevc.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {**{k: v for k, v in cuda_jpeg.launches.items() if v},
+                **cuda_hevc.launches}
+
+    clear = {k: None for k in HEIF_ENV}
+    t0 = time.perf_counter()
+    data = testing.heif_fixture()
+    s = heif.parse_structure(data)
+    tiles = [t for r, f, tos in s["refs"] if r == "dimg" for t in tos]
+    tus = [testing.heif_tile_tus(data, t, s) for t in tiles]
+    sizes = np.concatenate([tu[:, 2] for tu, _, _ in tus])
+    dst = int(sum(int(((tu[:, 2] == 4) & (tu[:, 7] != 0)).sum())
+                  for tu, _, _ in tus))
+    log("inputs heif", file="heic_12mp_grid.heic", bytes=len(data),
+        tiles=len(tiles), tus=len(sizes),
+        levels=sum(lv.size for _, lv, _ in tus),
+        buckets=json.dumps({"4dct": int((sizes == 4).sum()) - dst,
+                            "4dst": dst, **{str(n): int((sizes == n).sum())
+                                            for n in (8, 16, 32)}})
+        .replace(" ", ""),
+        skip=int(sum(tu[:, 4].sum() for tu, _, _ in tus)),
+        bypass=int(sum(tu[:, 5].sum() for tu, _, _ in tus)),
+        seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # --- K14 and K15 against their plain versions on the card ---------------
+    for meta, lv, bd in [*testing.hevc_cases().values(), *tus]:
+        m_d, lv_d, plan = hk.stage_residuals(meta, lv, dev)
+        exact("hevc_residuals", cuda_hevc.hevc_residuals(m_d, lv_d, bd, *plan),
+              hk.hevc_residuals_plain(m_d, lv_d, bd), errs)
+
+    def to(*arrays):
+        return [None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    for y, u, v, oh, ow, mode in testing.heif_color_cases().values():
+        planes = to(y, u, v)
+        exact("hevc_yuv_to_rgba",
+              cuda_hevc.hevc_yuv_to_rgba(*planes, oh, ow, mode),
+              hk.hevc_yuv_to_rgba_plain(*planes, oh, ow, mode), errs)
+        # into a canvas, at an offset, cut at its edge
+        got = torch.zeros((oh + 3, ow - ow // 3 + 5, 4), dtype=torch.uint8,
+                          device=dev)
+        want = got.clone()
+        cuda_hevc.hevc_yuv_to_rgba(*planes, oh, ow, mode, got, 3, 5)
+        hk.hevc_yuv_to_rgba_plain(*planes, oh, ow, mode, want, 3, 5)
+        exact("hevc_yuv_to_rgba", got, want, errs)
+    with environ(**clear):
+        items = heif._map_tiles(
+            lambda t: heif._decode_item_planes(data, s, t), tiles, None)
+    grid = heif._grid_layout(heif.read_item(data, s, s["primary"]))
+    gh, gw = grid["height"], grid["width"]
+    staged = heif._stage_tiles(items, dev)
+    for mode in ("bt601", "reference"):
+        got = torch.zeros((gh, gw, 4), dtype=torch.uint8, device=dev)
+        want = got.clone()
+        for k, (t, planes) in enumerate(zip(items, staged)):
+            y0, x0 = divmod(k, grid["cols"])
+            y0, x0 = y0 * t.out_h, x0 * t.out_w
+            cuda_hevc.hevc_yuv_to_rgba(*planes, t.out_h, t.out_w, mode, got,
+                                       y0, x0)
+            hk.hevc_yuv_to_rgba_plain(*planes, t.out_h, t.out_w, mode, want,
+                                      y0, x0)
+        exact("hevc_yuv_to_rgba", got, want, errs)
+    del got, want
+    log("check K14 K15", hevc_residuals="exact", hevc_yuv_to_rgba="exact",
+        cases=",".join([*testing.hevc_cases(), *testing.heif_color_cases()])
+        + f",{len(tiles)}_fixture_tiles_tus,{len(tiles)}_fixture_tiles_"
+        "colour_bt601_reference")
+
+    # --- load of the fixture and the small HEICs under the switches ---------
+    small = testing.heif_cases()
+    loads = {}
+    psnr = None
+    for name, d in (("heic_12mp_grid", data), *small.items()):
+        for sw, env in HEIF_SWITCHES.items():
+            with environ(**{**clear, **env}):
+                want = ffpic_tpu_torch.load(d, device="cpu")
+                reset()
+                got = ffpic_tpu_torch.load(d)
+                n = counts()
+            loads[(name, sw)] = n
+            if got.pixels.device.type != dev.type or not torch.equal(
+                    got.pixels.cpu(), want.pixels):
+                raise AssertionError(f"heif load {name} {sw}: differs from "
+                                     "the CPU route by up to "
+                                     f"{max_abs_err(got.pixels.cpu(), want.pixels)}")
+            if (got.width, got.height) != (want.width, want.height):
+                raise AssertionError(f"heif load {name} {sw}: size")
+            if name == "heic_12mp_grid":
+                k14 = len(tiles) if "FFPIC_HEVC_DEVICE" in env else 0
+                k15 = len(tiles) if "FFPIC_HEIF_DEVICE_COLOR" in env else 0
+                if (n["hevc_residuals"], n["hevc_yuv_to_rgba"]) != \
+                        (k14, k15) or len(n) != 2:
+                    raise AssertionError(f"heif load {name} {sw}: launches "
+                                         f"{n}, expected K14 {k14}, K15 "
+                                         f"{k15}")
+            elif ("FFPIC_HEVC_DEVICE" in env) != (n["hevc_residuals"] > 0) \
+                    or ("FFPIC_HEIF_DEVICE_COLOR" in env) != (
+                        n["hevc_yuv_to_rgba"] > 0) or len(n) != 2:
+                raise AssertionError(f"heif load {name} {sw}: launches {n}")
+        if name == "heic_12mp_grid":
+            # the decode against the content the fixture was made from
+            # (27.14 dB on the CPU: the q50 encode drops the noise)
+            px = want.pixels
+            ref = torch.from_numpy(synth_rgb(gh, gw, 11))
+            mse = (px[..., :3].double() - ref.double()).pow(2).mean().item()
+            psnr = round(float(10 * np.log10(255 ** 2 / mse)), 2)
+            if tuple(px.shape) != (gh, gw, 4) or psnr < 25 \
+                    or not bool((px[..., 3] == 255).all()):
+                raise AssertionError(f"heif fixture: shape {tuple(px.shape)}"
+                                     f", PSNR {psnr} dB against its source")
+            del px, ref
+        log("heif load path", file=name, shape=(got.height, got.width),
+            launches=json.dumps({sw: [loads[(name, sw)]["hevc_residuals"],
+                                      loads[(name, sw)]["hevc_yuv_to_rgba"]]
+                                 for sw in HEIF_SWITCHES}).replace(" ", ""),
+            switches="4", cpu_route="exact",
+            **({"psnr_db": psnr} if name == "heic_12mp_grid" else {}))
+    del got, want
+
+    # --- decode_batch: two HEICs beside a JPEG ------------------------------
+    jpeg = testing.synth_jpeg_420(128, 128, 85, 3)
+    batch = [small["skip"], jpeg, small["deblock"]]
+    mixed = {}
+    for sw, env in HEIF_SWITCHES.items():
+        with environ(**{**clear, **env}):
+            cpu = ffpic_tpu_torch.decode_batch(batch, device="cpu")
+            reset()
+            out = ffpic_tpu_torch.decode_batch(batch, device=dev)
+            n = counts()
+        mixed[sw] = n
+        want_n = (2 * ("FFPIC_HEVC_DEVICE" in env),
+                  2 * ("FFPIC_HEIF_DEVICE_COLOR" in env))
+        if (n["hevc_residuals"], n["hevc_yuv_to_rgba"]) != want_n or \
+                min(n.get(k, 0) for k in PATH_420) < 1:
+            raise AssertionError(f"heif decode_batch {sw}: launches {n}")
+        if tuple(out.shape) != (3, 128, 128, 4) or not torch.equal(
+                out.cpu(), cpu):
+            raise AssertionError(f"heif decode_batch {sw}: differs from the "
+                                 "CPU route")
+    log("heif decode_batch", members="heic skip, jpeg, heic deblock at 128",
+        launches=json.dumps({k: [v["hevc_residuals"], v["hevc_yuv_to_rgba"]]
+                             for k, v in mixed.items()}).replace(" ", ""),
+        cpu_route="exact")
+
+    # --- timing --------------------------------------------------------------
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    # K14 per launch at the median tile, and per load (all 48 tiles'
+    # launches back to back); bytes: levels in and residuals out at 2
+    # each, tu_meta (32), offs and perm (8) a TU, a CTA row (16); ops: the
+    # direct product of both passes, 4 n^3 a TU (a multiply-add as 2)
+    staged_tus = [hk.stage_residuals(meta, lv, dev) for meta, lv, _ in tus]
+    bd = tus[0][2]
+    per = sorted(range(len(tus)), key=lambda k: len(tus[k][0]))
+    mid = per[len(per) // 2]
+
+    def k14_bytes(k):
+        meta, lv, _ = tus[k]
+        return 4 * lv.size + 40 * len(meta) + 16 * len(staged_tus[k][2][2])
+
+    def k14_ops(k):
+        return int((4 * tus[k][0][:, 2].astype(np.int64) ** 3).sum())
+
+    m_d, lv_d, plan = staged_tus[mid]
+    timed = {"hevc_residuals": time_entry(
+        "hevc_residuals",
+        lambda: cuda_hevc.hevc_residuals(m_d, lv_d, bd, *plan),
+        lambda: hk.hevc_residuals_plain(m_d, lv_d, bd), k14_bytes(mid),
+        k14_ops(mid), "int32", floor_ms, flush,
+        f"heif load FFPIC_HEVC_DEVICE, tile {tiles[mid]} of 48 "
+        f"({len(tus[mid][0])} TUs)")}
+
+    def all_k14():
+        for m_, l_, p_ in staged_tus:
+            cuda_hevc.hevc_residuals(m_, l_, bd, *p_)
+    load_bytes = sum(k14_bytes(k) for k in range(len(tus)))
+    load_ops = sum(k14_ops(k) for k in range(len(tus)))
+    b_ms, b_by = bound(load_bytes, load_ops, INT32_OPS_PER_S)
+    t = timed["hevc_residuals"]
+    # 2 loads a timing: 96 launches take the host about 3 ms to enqueue,
+    # well inside the spin kernel that gpu_ms queues them behind
+    t.update(per_load_ms=gpu_ms(all_k14, 2), per_load_ms_cold=gpu_ms_cold(
+        all_k14, 5, flush), per_load_bytes=load_bytes, per_load_ops=load_ops,
+        per_load_bound_ms=b_ms, per_load_bound_by=b_by,
+        per_load_launches=len(tus))
+    t["per_load_floor_share"] = len(tus) * floor_ms / t["per_load_ms"]
+    log("time kernel per load", name="hevc_residuals",
+        ms=f"{t['per_load_ms']:.4f}", ms_cold=f"{t['per_load_ms_cold']:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes=load_bytes,
+        ops=load_ops, launches=len(tus),
+        launch_floor_share=f"{t['per_load_floor_share']:.3f}")
+    # K15 per launch (the median tile into the canvas) and per load; bytes:
+    # 2 of luma and 1 of chroma read a pixel, 4 written; about 13 f32 ops
+    # a pixel (K3's count)
+    canvas = torch.zeros((gh, gw, 4), dtype=torch.uint8, device=dev)
+    ti, tp = items[mid], staged[mid]
+    npx = ti.out_h * ti.out_w
+    timed["hevc_yuv_to_rgba"] = time_entry(
+        "hevc_yuv_to_rgba",
+        lambda: cuda_hevc.hevc_yuv_to_rgba(*tp, ti.out_h, ti.out_w, "bt601",
+                                           canvas, 0, 0),
+        lambda: hk.hevc_yuv_to_rgba_plain(*tp, ti.out_h, ti.out_w, "bt601",
+                                          canvas, 0, 0),
+        7 * npx, 13 * npx, "f32", floor_ms, flush,
+        "heif load FFPIC_HEIF_DEVICE_COLOR, one 512x512 tile into the canvas")
+
+    def all_k15():
+        for k, (it, pl) in enumerate(zip(items, staged)):
+            y0, x0 = divmod(k, grid["cols"])
+            cuda_hevc.hevc_yuv_to_rgba(*pl, it.out_h, it.out_w, "bt601",
+                                       canvas, y0 * it.out_h, x0 * it.out_w)
+    b_ms, b_by = bound(7 * gh * gw, 13 * gh * gw, F32_OPS_PER_S)
+    t = timed["hevc_yuv_to_rgba"]
+    t.update(per_load_ms=gpu_ms(all_k15, 2), per_load_ms_cold=gpu_ms_cold(
+        all_k15, 5, flush), per_load_bytes=7 * gh * gw,
+        per_load_ops=13 * gh * gw, per_load_bound_ms=b_ms,
+        per_load_bound_by=b_by, per_load_launches=len(items))
+    t["per_load_floor_share"] = len(items) * floor_ms / t["per_load_ms"]
+    log("time kernel per load", name="hevc_yuv_to_rgba",
+        ms=f"{t['per_load_ms']:.4f}", ms_cold=f"{t['per_load_ms_cold']:.4f}",
+        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes=7 * gh * gw,
+        launches=len(items),
+        launch_floor_share=f"{t['per_load_floor_share']:.3f}")
+    del flush, canvas, staged, staged_tus
+
+    mp = gh * gw / 1e6
+    # the kernels' device time a load (the staging copies aside)
+    kernel_ms = {"neither": 0.0,
+                 "hevc_device": timed["hevc_residuals"]["per_load_ms"],
+                 "device_color": timed["hevc_yuv_to_rgba"]["per_load_ms"]}
+    for sw, metric in (("neither", "heic_12mp_mps"),
+                       ("hevc_device", "heic_device_mps"),
+                       ("device_color", "heic_device_color_mps")):
+        with environ(**{**clear, **HEIF_SWITCHES[sw]}):
+            ffpic_tpu_torch.load(data)
+            wall, runs, stages = spans(lambda: ffpic_tpu_torch.load(data), 5)
+        log("time heif load", file="heic_12mp_grid.heic", route=sw,
+            metric=metric, value=f"{mp / wall:.3f}",
+            ms_per_load=f"{wall * 1e3:.3f}",
+            kernel_ms=f"{kernel_ms[sw]:.4f}",
+            kernel_busy_share=f"{kernel_ms[sw] / (wall * 1e3):.4f}",
+            runs_ms=json.dumps([round(r * 1e3, 3) for r in runs])
+            .replace(" ", ""), grid_workers=heif._grid_workers(len(tiles)),
+            stage_ms=json.dumps(stages).replace(" ", ""))
+    return timed, {"load_hevc_device": loads[("heic_12mp_grid",
+                                              "hevc_device")],
+                   "load_device_color": loads[("heic_12mp_grid",
+                                               "device_color")],
+                   "load_both": loads[("heic_12mp_grid", "both")],
+                   "decode_batch_both": mixed["both"]}
 
 
 def main() -> int:
@@ -1776,6 +2096,10 @@ def main() -> int:
         "rgba", "bt601", (H, W)), 3)
     resize_ms = gpu_ms(lambda: torch.stack(
         [resize_rgba(p, (224, 224)) for p in out]), 10)
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    resize_ms_cold = gpu_ms_cold(lambda: torch.stack(
+        [resize_rgba(p, (224, 224)) for p in out]), 5, flush)
+    del flush
     # resize as ops/resize.py runs it: uint8 in and out once, and the
     # f32 products of the two dense weight matrices (1080->224 over
     # rows, then 1920->224 over columns), 2 ops a multiply-add
@@ -1799,6 +2123,7 @@ def main() -> int:
         device_pipeline_mps=f"{mp / dev_ms * 1e3:.1f}",
         plain_device_ms=f"{plain_dev_ms:.4f}",
         resize_224_ms=f"{resize_ms:.4f}",
+        resize_224_ms_cold=f"{resize_ms_cold:.4f}",
         resize_224_bound_ms=f"{resize_bound[0]:.4f}",
         resize_224_bound_by=resize_bound[1],
         end_to_end_ms=f"{wall * 1e3:.3f}",
@@ -1817,6 +2142,8 @@ def main() -> int:
     timed.update(entropy_timed)
     webp_timed, webp_launches = webp_paths(dev, jpegs, pngs, floor_ms, errs)
     timed.update(webp_timed)
+    heif_timed, heif_launches = heif_paths(dev, jpegs, floor_ms, errs)
+    timed.update(heif_timed)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6's
     # two passes at 4 bytes a pixel, K7 for 8-bit RGBA
@@ -1824,7 +2151,8 @@ def main() -> int:
                                "cols": ptxas["unfilter_cols"]}
     built = {"assemble_color": "assemble_color<1,0>",
              "assemble_mcu": "assemble_mcu<1,0,1>",
-             "assemble_rgba": "assemble_rgba<6,8>"}
+             "assemble_rgba": "assemble_rgba<6,8>",
+             "hevc_yuv_to_rgba": "hevc_yuv_to_rgba<1>"}
     # each kernel's launches on the path it serves: decode_batch for
     # K1a-K3, load for K4, encode for K5, PNG load (Sub/Up file) for K6
     # and K7, the sparse route for K8; K2's on load beside them
@@ -1849,6 +2177,16 @@ def main() -> int:
     for name in ("vp8_residuals", "vp8_yuv_to_rgba"):
         timed[name]["launches_per_path"] = {
             k: v[name] for k, v in webp_launches.items()}
+    # K14 on the 12 MP fixture's load under FFPIC_HEVC_DEVICE (a launch a
+    # tile), K15 on its load under FFPIC_HEIF_DEVICE_COLOR; their other
+    # paths beside
+    launches["hevc_residuals"] = \
+        heif_launches["load_hevc_device"]["hevc_residuals"]
+    launches["hevc_yuv_to_rgba"] = \
+        heif_launches["load_device_color"]["hevc_yuv_to_rgba"]
+    for name in ("hevc_residuals", "hevc_yuv_to_rgba"):
+        timed[name]["launches_per_path"] = {
+            k: v[name] for k, v in heif_launches.items()}
     for name in ("unfilter_subup", "assemble_rgba"):
         timed[name]["launches_mixed_decode_batch"] = \
             png_launches["mixed"][name]

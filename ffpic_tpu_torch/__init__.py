@@ -2,17 +2,17 @@
 
 The public API mirrors ``ffpic_tpu``'s: ``probe``, ``load``,
 ``load_all``, ``info``, ``encode``, ``find_codec`` and
-``registered_codecs`` over the port's own codec registry (JPEG, PNG
-and WebP so far), the ``Pic`` container, and ``decode_batch``, which
-decodes a batch of JPEGs, PNGs and WebPs into one ``(N, H, W, 4)``
+``registered_codecs`` over the port's own codec registry (JPEG, PNG,
+WebP and HEIF so far), the ``Pic`` container, and ``decode_batch``, which
+decodes a batch of JPEGs, PNGs, WebPs and HEIFs into one ``(N, H, W, 4)``
 uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
 Huffman decode on the card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take
 ``device``: None means CUDA and raises without it (a header-only
 ``load`` needs none), "cpu" runs the plain PyTorch versions of the
 kernels.  Host parsing and host Huffman decoding are the package's own
 copy of ``ffpic_tpu``'s host layer (``formats.jpg``, ``formats.png``,
-``formats.webp`` and ``native/``'s C sources, built with cc at first
-use); the device stages
+``formats.webp``, ``formats.heif`` with ``formats.hevc`` and
+``native/``'s C sources, built with cc at first use); the device stages
 are hand-written CUDA kernels (``csrc/``) built with nvcc at first use,
 each with a plain PyTorch version that CPU tensors take.  This package
 imports neither jax nor ``ffpic_tpu``, which stays the reference it is

@@ -2,8 +2,9 @@
 JPEG entropy decoder and the sparse coefficient packer), host_png.c
 (the PNG scanline unfilter), host_vp8.c (the VP8 token, header and
 probability parsers, residual transform, intra reconstruction, loop
-filter and colour conversion) and host_vp8l.c (the VP8L entropy
-decoder).
+filter and colour conversion), host_vp8l.c (the VP8L entropy
+decoder) and host_hevc.c (the HEVC CABAC slice syntax pass, intra
+reconstruction and YUV to RGBA colour).
 
 Copied from the JPEG, PNG and WebP parts of
 ``ffpic_tpu/native/__init__.py`` (``_build``, ``_load``, ``available``,
@@ -11,9 +12,11 @@ Copied from the JPEG, PNG and WebP parts of
 ``png_unfilter``, ``pack_nonzero``, ``vp8_loop_filter``,
 ``vp8_tokens``, ``vp8_residuals``, ``vp8_coeff_probs``,
 ``vp8_recon_fused``, ``vp8_recon``, ``vp8_mb_headers``,
-``vp8l_entropy``, ``vp8_color_libwebp``), with these changes:
+``vp8l_entropy``, ``vp8_color_libwebp``, ``hevc_decode_slice``,
+``hevc_picture_state``, ``hevc_decode_segment``, ``hevc_recon``,
+``hevc_color``), with these changes:
 
-* only these four sources (this directory) are compiled, with ``cc``,
+* only these five sources (this directory) are compiled, with ``cc``,
   into one library in ``ffpic_tpu_torch/build/``, named by a hash of
   the sources and the flags; the library is written under a temporary
   name and renamed, so another process never loads a half-written
@@ -27,7 +30,11 @@ Copied from the JPEG, PNG and WebP parts of
 * the VP8 wrappers raise ``ValueError`` on a plane the C code would
   write that is not C-contiguous uint8, on residuals of another shape
   and on planes too small for the picture (the original asserts, or
-  passes them on).
+  passes them on);
+* the HEVC wrappers raise ``ValueError`` on planes that are not
+  C-contiguous int32, on a ``tu_meta`` that is not (m, 8), on levels or
+  residuals shorter than the TUs' n² sums and on picture state of the
+  wrong size (the original asserts, or passes them on).
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c",
-                                           "host_vp8.c", "host_vp8l.c")]
+                                           "host_vp8.c", "host_vp8l.c",
+                                           "host_hevc.c")]
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 
@@ -53,6 +61,7 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _long = ctypes.c_long
 _u32 = ctypes.c_uint32
+_f32 = ctypes.c_float
 _SIGNATURES = {
     "ffpic_jpeg_decode_scan": (_int, [_vp, _long, _vp, _vp, _vp, _int, _vp,
                                       _vp, _int, _int, _vp, _vp, _vp, _vp,
@@ -84,6 +93,20 @@ _SIGNATURES = {
                                   _vp, _vp, _vp]),
     "vp8_color_libwebp": (None, [_vp, _long, _vp, _vp, _long, _int, _int,
                                  _vp, _vp]),
+    "ffpic_hevc_decode_slice": (_long, [_vp, _long, _vp, _vp, _vp, _vp,
+                                        _long, _vp, _long, _vp, _long, _vp,
+                                        _vp, _vp, _vp, _vp, _vp]),
+    "ffpic_hevc_decode_segment": (_long, [_vp, _long, _vp, _vp, _vp, _vp,
+                                          _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                          _vp, _vp, _long, _vp, _long, _vp,
+                                          _long, _vp, _vp, _vp, _vp, _vp,
+                                          _vp]),
+    "ffpic_hevc_recon2": (_int, [_vp, _vp, _vp, _int, _int, _int, _int,
+                                 _int, _int, _int, _vp, _long, _vp, _long,
+                                 _vp, _vp]),
+    "ffpic_yuv_to_rgba": (None, [_vp, _vp, _vp, _int, _int, _int, _int,
+                                 _int, _int, _f32, _f32, _f32, _f32, _int,
+                                 _int, _vp]),
 }
 
 
@@ -480,4 +503,222 @@ def vp8_color_libwebp(Y, U, V, H: int, W: int, A=None):
         a_ptr = _p(A)
     lib.vp8_color_libwebp(_p(Y), Y.shape[1], _p(U), _p(V), U.shape[1], H, W,
                           a_ptr, _p(out))
+    return out
+
+
+# --- HEVC (host_hevc.c) ----------------------------------------------------
+
+def _i32_plane(a: np.ndarray, name: str) -> None:
+    if not isinstance(a, np.ndarray) or a.dtype != np.int32 \
+            or a.ndim != 2 or not a.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"{name} must be a 2-D C-contiguous int32 plane")
+
+
+def _tu_levels(tu_meta: np.ndarray, levels: np.ndarray, name: str):
+    """``tu_meta`` as C-contiguous (m, 8) int32 and ``levels`` (or
+    residuals) as int16 holding at least the TUs' n² sum."""
+    tu_meta = _c(tu_meta, np.int32)
+    if tu_meta.ndim != 2 or tu_meta.shape[1] != 8:
+        raise ValueError(f"tu_meta {tu_meta.shape}: expected (m, 8)")
+    need = int((tu_meta[:, 2].astype(np.int64) ** 2).sum())
+    levels = _c(levels, np.int16).reshape(-1)
+    if levels.size < need:
+        raise ValueError(f"{name}: {levels.size} values for TUs of {need}")
+    return tu_meta, levels
+
+
+def hevc_decode_slice(data: bytes, params, init_state: np.ndarray,
+                      init_mps: np.ndarray):
+    """Native HEVC I-slice syntax decode (host_hevc.c).  Returns
+    (ops (n,6) int32, tu_meta (m,8) int32, levels int16 packed,
+    sao (ctbs,21) int32, ct_depth, luma_mode, qp_map int8 maps,
+    bypass_map uint8)."""
+    lib = _load()
+    if len(params) != 21:
+        raise ValueError(f"{len(params)} slice parameters: expected 21")
+    w, h, ctb_log2 = params[0], params[1], params[2]
+    mw, mh = (w + 3) // 4, (h + 3) // 4
+    ctbs = (((w + (1 << ctb_log2) - 1) >> ctb_log2)
+            * ((h + (1 << ctb_log2) - 1) >> ctb_log2))
+    n44 = mw * mh
+    # np.empty: the C side fully initializes every entry it reports
+    # (levels are memset per TU, maps are memset at entry)
+    ops = np.empty((3 * n44 + 64, 6), np.int32)
+    tu_meta = np.empty((3 * n44 + 64, 8), np.int32)
+    levels = np.empty(2 * w * h + 4096, np.int16)
+    sao = np.zeros((ctbs, 21), np.int32)     # zeros: sparse writes
+    ct_depth = np.empty(n44, np.int8)
+    luma_mode = np.empty(n44, np.int8)
+    qp_map = np.empty(n44, np.int8)
+    bypass_map = np.empty(n44, np.uint8)
+    n_tus = np.zeros(1, np.int64)
+    buf = np.frombuffer(data, np.uint8)
+    prm = _c(params, np.int32)
+    st, mp = _c(init_state, np.uint8), _c(init_mps, np.uint8)
+    n_ops = lib.ffpic_hevc_decode_slice(
+        _p(buf), len(data), _p(prm), _p(st), _p(mp), _p(ops), len(ops),
+        _p(tu_meta), len(tu_meta), _p(levels), len(levels), _p(sao),
+        _p(ct_depth), _p(luma_mode), _p(qp_map), _p(bypass_map), _p(n_tus))
+    if n_ops < 0:
+        raise ValueError(f"hevc native slice decode failed ({n_ops})")
+    m = int(n_tus[0])
+    return (ops[:n_ops], tu_meta[:m], levels, sao,
+            ct_depth.reshape(mh, mw), luma_mode.reshape(mh, mw),
+            qp_map.reshape(mh, mw), bypass_map.reshape(mh, mw))
+
+
+def hevc_picture_state(w: int, h: int, ctb_log2: int, layout) -> dict:
+    """Persistent per-picture buffers for multi-segment native decode
+    (ffpic_hevc_decode_segment): syntax maps, availability zones, WPP
+    context snapshot, tile-scan address maps."""
+    mw, mh = (w + 3) // 4, (h + 3) // 4
+    ctbs = (((w + (1 << ctb_log2) - 1) >> ctb_log2)
+            * ((h + (1 << ctb_log2) - 1) >> ctb_log2))
+    ident = layout is None or not getattr(layout, "n_tiles", 1) > 1
+    return dict(
+        mw=mw, mh=mh, ctbs=ctbs,
+        zone=np.full(mw * mh, -1, np.int32),
+        slice_of=np.full(ctbs, -1, np.int32),
+        ct_depth=np.full(mw * mh, -1, np.int8),
+        luma_mode=np.full(mw * mh, -1, np.int8),
+        qp_map=np.zeros(mw * mh, np.int8),
+        bypass_map=np.zeros(mw * mh, np.uint8),
+        sao=np.zeros((ctbs, 21), np.int32),
+        wpp_sm=np.zeros(137, np.uint8),
+        wpp_meta=np.zeros(2, np.int32),
+        ts_to_rs=(None if ident
+                  else _c(layout.ts_to_rs, np.int32)),
+        rs_to_ts=(None if ident
+                  else _c(layout.rs_to_ts, np.int32)),
+        tile_of=(None if ident
+                 else _c(layout.tile_of_rs, np.int32)),
+    )
+
+
+_STATE = {"zone": (np.int32, "n44"), "slice_of": (np.int32, "ctbs"),
+          "ct_depth": (np.int8, "n44"), "luma_mode": (np.int8, "n44"),
+          "qp_map": (np.int8, "n44"), "bypass_map": (np.uint8, "n44"),
+          "sao": (np.int32, "sao"), "wpp_sm": (np.uint8, 137),
+          "wpp_meta": (np.int32, 2)}
+
+
+def _check_state(state: dict) -> None:
+    """The buffers ``hevc_picture_state`` made, of their types and sizes
+    (the C code writes them in place)."""
+    sizes = {"n44": state["mw"] * state["mh"], "ctbs": state["ctbs"],
+             "sao": state["ctbs"] * 21}
+    for key, (dtype, size) in _STATE.items():
+        a = state[key]
+        want = sizes.get(size, size)
+        if a.dtype != dtype or not a.flags["C_CONTIGUOUS"] \
+                or a.size != want:
+            raise ValueError(f"picture state {key!r}: expected {want} "
+                             f"C-contiguous {np.dtype(dtype).name}")
+    for key in ("ts_to_rs", "rs_to_ts", "tile_of"):
+        a = state[key]
+        if a is not None and (a.dtype != np.int32
+                              or not a.flags["C_CONTIGUOUS"]
+                              or a.size < state["ctbs"]):
+            raise ValueError(f"picture state {key!r}: expected "
+                             f"{state['ctbs']} C-contiguous int32")
+
+
+def hevc_decode_segment(data: bytes, params, segp, sub_bounds,
+                        state: dict, sm_fresh: np.ndarray,
+                        sm_io: np.ndarray):
+    """Decode one slice segment (native); returns (ops, tu_meta,
+    levels) — maps/sao/zone accumulate in `state`, contexts carry in
+    sm_io."""
+    lib = _load()
+    if len(params) != 21:
+        raise ValueError(f"{len(params)} slice parameters: expected 21")
+    _check_state(state)
+    if sm_io.dtype != np.uint8 or not sm_io.flags["C_CONTIGUOUS"] \
+            or sm_io.size != 137:
+        raise ValueError("sm_io must be 137 C-contiguous uint8")
+    w, h = params[0], params[1]
+    n44 = state["mw"] * state["mh"]
+    ops = np.empty((3 * n44 + 64, 6), np.int32)
+    tu_meta = np.empty((3 * n44 + 64, 8), np.int32)
+    levels = np.empty(2 * w * h + 4096, np.int16)
+    n_tus = np.zeros(1, np.int64)
+    buf = np.frombuffer(data, np.uint8)
+    prm = _c(params, np.int32)
+    sg = _c(segp, np.int32)
+    sb = _c(sub_bounds, np.int32)
+    fresh = _c(sm_fresh, np.uint8)
+
+    def ptr(a):
+        return None if a is None else _p(a)
+    n_ops = lib.ffpic_hevc_decode_segment(
+        _p(buf), len(data), _p(prm), _p(sg), _p(sb),
+        ptr(state["ts_to_rs"]), ptr(state["rs_to_ts"]),
+        ptr(state["tile_of"]), _p(state["slice_of"]), _p(fresh),
+        _p(sm_io), _p(state["wpp_sm"]), _p(state["wpp_meta"]),
+        _p(state["zone"]), _p(ops), len(ops), _p(tu_meta), len(tu_meta),
+        _p(levels), len(levels), _p(state["sao"]), _p(state["ct_depth"]),
+        _p(state["luma_mode"]), _p(state["qp_map"]),
+        _p(state["bypass_map"]), _p(n_tus))
+    if n_ops < 0:
+        raise ValueError(f"hevc native segment decode failed ({n_ops})")
+    m = int(n_tus[0])
+    nlv = int((tu_meta[:m, 2].astype(np.int64) ** 2).sum()) if m else 0
+    return ops[:n_ops].copy(), tu_meta[:m].copy(), levels[:nlv].copy()
+
+
+def hevc_recon(planes, bd: int, strong: bool, ops: np.ndarray,
+               tu_meta: np.ndarray, levels: np.ndarray,
+               residuals: np.ndarray | None = None) -> None:
+    """Native HEVC reconstruction (host_hevc.c): runs the op list
+    (prediction + residual add) in place on int32 planes.  With
+    `residuals` (int16, packed like `levels`), the transforms are
+    skipped and the precomputed values (from the ``hevc_residuals``
+    kernel or its plain version) are added instead."""
+    lib = _load()
+    for k, p in enumerate(planes):
+        _i32_plane(p, f"plane {k}")
+    Y = planes[0]
+    U = planes[1] if len(planes) > 1 else np.zeros((1, 1), np.int32)
+    V = planes[2] if len(planes) > 1 else np.zeros((1, 1), np.int32)
+    if U.shape != V.shape:
+        raise ValueError(f"chroma planes {U.shape} and {V.shape} differ")
+    ops = _c(ops, np.int32)
+    if ops.ndim != 2 or ops.shape[1] != 6:
+        raise ValueError(f"ops {ops.shape}: expected (n, 6)")
+    tu_meta, levels = _tu_levels(tu_meta, levels, "levels")
+    resid = None
+    if residuals is not None:
+        _, resid = _tu_levels(tu_meta, residuals, "residuals")
+    rc = lib.ffpic_hevc_recon2(
+        _p(Y), _p(U), _p(V), Y.shape[1], Y.shape[0], U.shape[1],
+        U.shape[0], len(planes), bd, 1 if strong else 0, _p(ops),
+        len(ops), _p(tu_meta), len(tu_meta), _p(levels),
+        None if resid is None else _p(resid))
+    if rc != 0:
+        raise ValueError(f"hevc native recon failed ({rc})")
+
+
+def hevc_color(planes, bd: int, coeffs, limited: bool,
+               trunc: bool) -> np.ndarray:
+    """Native YUV420/400 int32 planes -> RGBA uint8 (host_hevc.c
+    ffpic_yuv_to_rgba); bit-identical to the numpy float32 path in
+    formats/heif.py (same op order/constants)."""
+    lib = _load()
+    for k, p in enumerate(planes):
+        _i32_plane(p, f"plane {k}")
+    Y = planes[0]
+    mono = len(planes) < 2
+    U = planes[1] if not mono else np.zeros((1, 1), np.int32)
+    V = planes[2] if not mono else np.zeros((1, 1), np.int32)
+    h, w = Y.shape
+    if not mono and (U.shape != V.shape or U.shape[0] < (h + 1) // 2
+                     or U.shape[1] < (w + 1) // 2):
+        raise ValueError(f"chroma planes {U.shape}, {V.shape} cannot "
+                         f"cover a {w}x{h} luma plane")
+    out = np.empty((h, w, 4), np.uint8)
+    a_rv, a_gu, a_gv, a_bu = coeffs
+    lib.ffpic_yuv_to_rgba(_p(Y), _p(U), _p(V), w, h, U.shape[1],
+                          U.shape[0], 1 if mono else 0, bd, a_rv, a_gu,
+                          a_gv, a_bu, 1 if limited else 0,
+                          1 if trunc else 0, _p(out))
     return out

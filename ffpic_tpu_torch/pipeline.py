@@ -1,8 +1,8 @@
-"""Batched decode of JPEGs, PNGs and WebPs into one ``(N, H, W, 4)``
-uint8 device tensor.
+"""Batched decode of JPEGs, PNGs, WebPs and HEIFs into one
+``(N, H, W, 4)`` uint8 device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of JPEGs, PNGs and WebPs:
+batches of JPEGs, PNGs, WebPs and HEIFs:
 
 0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
    by default on CUDA; ``FFPIC_DEVICE_ENTROPY``, ``FFPIC_SPEC_ENTROPY``,
@@ -24,11 +24,15 @@ batches of JPEGs, PNGs and WebPs:
    planes of its first picture; a PNG is parsed, inflated and, where
    its rows use Average or Paeth, unfiltered (``formats.png.parse``); a
    WebP is decoded to RGBA, or under ``FFPIC_VP8_DEVICE_COLOR`` to its
-   planes (``formats.webp.parse``, the registry's defaults).  The pool
-   does no device work, except that under ``FFPIC_VP8_DEVICE`` a WebP's
-   residual transform launches there and its read-back synchronises
-   (the launch counts are taken under a lock): every other copy and
-   launch below runs on the caller's thread, so on the caller's current
+   planes (``formats.webp.parse``, the registry's defaults); a HEIF is
+   decoded to RGBA, or under ``FFPIC_HEIF_DEVICE_COLOR`` to its tiles'
+   planes (``formats.heif.parse``, the registry's defaults, its grid
+   tiles in a pool of their own).  The pool does no device work, except
+   that under ``FFPIC_VP8_DEVICE`` a WebP's and under
+   ``FFPIC_HEVC_DEVICE`` a HEIF's residual transform launches there, on
+   the caller's current stream, and its read-back synchronises (the
+   launch counts are taken under a lock): every other copy and launch
+   below runs on the caller's thread, so on the caller's current
    stream.
 2. Each other JPEG, each PNG and each WebP is decoded as the port's
    registry decodes it, as ``ffpic_tpu/pipeline.py:180-190, 211-212``
@@ -36,8 +40,10 @@ batches of JPEGs, PNGs and WebPs:
    defaults (``mode="reference"``, nearest upsampling, not
    ``decode_batch``'s ``mode``), 8-aligned wide, ``png.to_pic`` (K6 for
    None/Sub/Up rows, K7), or the first picture of ``webp.to_pics`` (the
-   staging copy, or K13 under ``FFPIC_VP8_DEVICE_COLOR``); malformed
-   files raise ``ValueError``.  Its pixels stay on the device.
+   staging copy, or K13 under ``FFPIC_VP8_DEVICE_COLOR``), or the
+   picture of ``heif.to_pics`` (the staging copy, or K15 per tile under
+   ``FFPIC_HEIF_DEVICE_COLOR``); malformed files raise ``ValueError``.
+   Its pixels stay on the device.
 3. Per 4:2:0 image size (one block geometry and one crop), ONE staged
    transfer through pinned memory and one device decode: the packed
    members through ``decode_batch_420_packed_fused`` (a single member is
@@ -51,7 +57,7 @@ batches of JPEGs, PNGs and WebPs:
    that one decode covers in input order is returned as it is.
 
 The host layer (``formats.jpg``, ``formats.png``, ``formats.webp``,
-``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and
+``formats.heif``, ``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and
 ``_jpeg_420_plan`` are copied from ``ffpic_tpu/pipeline.py:29-70``.
 """
 
@@ -66,6 +72,9 @@ import torch
 
 from ffpic_tpu_torch import native
 from ffpic_tpu_torch.formats import jpg, png, registry, webp
+# after webp: importing a codec registers it, and the registry probes
+# in that order (ffpic_tpu/formats/all_formats.py's)
+from ffpic_tpu_torch.formats import heif
 from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
@@ -73,7 +82,7 @@ from ffpic_tpu_torch.ops.resize import resize_rgba
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1 and 9 (the other codecs of the "
+_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1 and 16 (the other codecs of the "
                 "registry)")
 # dense members are staged as packed pairs when those take less than
 # this share of their dense bytes (the reference's threshold)
@@ -110,9 +119,10 @@ def _jpeg_420_plan(data: bytes):
 def _prep(data: bytes, device=None):
     """A member's host work, as (plan, kind, pairs): its 4:2:0 plan
     ("420"), the dense planes of any other JPEG's first picture ("jpg"),
-    a parsed PNG ("png") or a parsed WebP ("webp", ``device`` where its
-    ``FFPIC_VP8_DEVICE`` residual transform runs); ``pairs`` is a dense
-    4:2:0 plan's ``member_pairs``, else None."""
+    a parsed PNG ("png"), a parsed WebP ("webp") or a parsed HEIF
+    ("heif"; ``device`` is where a WebP's ``FFPIC_VP8_DEVICE`` or a
+    HEIF's ``FFPIC_HEVC_DEVICE`` residual transform runs); ``pairs`` is
+    a dense 4:2:0 plan's ``member_pairs``, else None."""
     j = _jpeg_420_plan(data)
     if j is None:
         if jpg.probe(data):
@@ -124,9 +134,12 @@ def _prep(data: bytes, device=None):
         if webp.probe(data):
             with registry.corrupt_as_value_error("WEBP"):
                 return webp.parse(data, device=device), "webp", None
+        if heif.probe(data):
+            with registry.corrupt_as_value_error("HEIF"):
+                return heif.parse(data, device=device), "heif", None
         raise NotImplementedError(
-            "decode_batch: only JPEG, PNG and WebP members are ported; "
-            f"other formats wait for {_CODECS_ITEM}")
+            "decode_batch: only JPEG, PNG, WebP and HEIF members are "
+            f"ported; other formats wait for {_CODECS_ITEM}")
     if j.packed is None:
         return j, "420", member_pairs(j)
     # the packed emission is a view of per-thread native scratch that
@@ -298,7 +311,7 @@ def _run_entropy(runs, datas, slots, mode: str, dev) -> list:
 def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                  dtype="uint8", mode: str = "bt601", mesh=None, *,
                  device=None) -> torch.Tensor:
-    """Decode a batch of JPEGs, PNGs and WebPs (paths or bytes) to one
+    """Decode a batch of JPEGs, PNGs, WebPs and HEIFs (paths or bytes) to one
     ``(N, H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
     when CUDA is absent).  The reference's signature
     (``ffpic_tpu/pipeline.py:73-74``), ``device`` keyword-only.
@@ -307,7 +320,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
     one the reference produces.  ``mode`` is the colour conversion of
     the 4:2:0 JPEG members: "bt601", "reference" or "rgb".  Other
     members decode with their registry's defaults (a WebP: libwebp's
-    colour; an animation: its first canvas).
+    colour; an animation: its first canvas; a HEIF: bt601 or its nclx).
 
     ``FFPIC_DEVICE_ENTROPY``: the device-entropy route
     (``_entropy_runs``) is on by default on CUDA, forced by "1" (the
@@ -332,12 +345,18 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
     env_t = os.environ.get("FFPIC_THREADS")
     nw = max(1, min(int(env_t) if env_t else (os.cpu_count() or 1),
                     len(todo) or 1))
+    # a worker that launches (FFPIC_VP8_DEVICE, FFPIC_HEVC_DEVICE) does so
+    # on this thread's current stream, not on its own default stream
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def prep(d):
+        with torch.cuda.stream(stream):
+            return _prep(d, dev)
     if nw > 1:
         # the pool parses the host members while this thread stages the
         # device route and enqueues its launches
         with ThreadPoolExecutor(max_workers=nw) as ex:
-            pending = ex.map(lambda d: _prep(d, dev),
-                             [datas[i] for i in todo])
+            pending = ex.map(prep, [datas[i] for i in todo])
             declined = _run_entropy(runs, datas, slots, mode, dev)
             with stage("torch.host_parse"):
                 plans = list(pending)
@@ -362,6 +381,8 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                 registry.corrupt_as_value_error(kind.upper()):
             if kind == "webp":
                 slots[i] = webp.to_pics(plan, dev)[0].pixels
+            elif kind == "heif":
+                slots[i] = heif.to_pics(plan, dev)[0].pixels
             else:
                 slots[i] = (jpg if kind == "jpg" else png).to_pic(
                     plan, dev).pixels

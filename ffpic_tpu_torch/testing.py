@@ -20,6 +20,13 @@ committed WebP fixtures, and the kernel edge cases that the tests and
   (``make_webp_fixtures`` wrote them with PIL); ``vp8_cases`` makes the
   inputs at the edges of the ``vp8_residuals`` and ``vp8_yuv_to_rgba``
   kernels (K12, K13), with ``vp8_dq`` a segment's dequant factors;
+* ``heif_fixture`` reads the committed 12 MP grid HEIC
+  (``make_heif_fixtures``); ``hevc_stream`` writes an HEVC intra
+  picture of any of ``HEVC_STREAMS`` with the port's encoder,
+  ``heif_item`` wraps one in a HEIC, ``heif_cases`` makes the small
+  HEICs the card's run decodes; ``hevc_cases`` and ``heif_color_cases``
+  make the inputs at the edges of the ``hevc_residuals`` and
+  ``hevc_yuv_to_rgba`` kernels (K14, K15);
 * ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``,
   ``mcu_cases``, ``scatter_cases``, ``unfilter_cases`` and
   ``rgba_cases`` make the inputs at the edges of the ``count_scan``,
@@ -812,6 +819,17 @@ def webp_fixture(name: str) -> bytes:
     """The bytes of a committed WebP fixture of ``ffpic_tpu_torch/
     testdata`` (``make_webp_fixtures`` lists them), e.g.
     ``"lossy_1080p.webp"``; machines without PIL read these."""
+    return _testdata(name)
+
+
+def heif_fixture(name: str = "heic_12mp_grid.heic") -> bytes:
+    """The bytes of the committed HEIF fixture of ``ffpic_tpu_torch/
+    testdata`` (``make_heif_fixtures`` wrote it with the port's
+    encoder)."""
+    return _testdata(name)
+
+
+def _testdata(name: str) -> bytes:
     import os
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "testdata", name)
@@ -891,3 +909,265 @@ def vp8_cases(seed: int = 0) -> dict[str, dict]:
                  if with_alpha else None)
         col[name] = (*planes, h, w, alpha)
     return {"residuals": res, "color": col}
+
+
+# --- HEVC / HEIF ------------------------------------------------------------
+
+def hevc_planes(w: int, h: int, seed: int, bd: int = 8):
+    """(y, u, v) int32 4:2:0 planes of ``bd``-bit samples: 8x8 blocks of
+    random levels plus noise, so that the encoder takes every TU size."""
+    rng = np.random.default_rng(seed)
+    mx = (1 << bd) - 1
+    k = 1 << (bd - 8)
+
+    def plane(ph, pw, lo, hi, noise):
+        blocks = rng.integers(lo * k, hi * k, (-(-ph // 8), -(-pw // 8)))
+        p = np.kron(blocks, np.ones((8, 8)))[:ph, :pw]
+        return (p + rng.integers(-noise * k, noise * k, (ph, pw))) \
+            .clip(0, mx).astype(np.int32)
+    return (plane(h, w, 0, 256, 20), plane(h // 2, w // 2, 64, 192, 10),
+            plane(h // 2, w // 2, 64, 192, 10))
+
+
+def hevc_policy(**kw):
+    """The encoder policy that takes every intra mode, CU and TU split
+    and NxN partition (``tests/test_hevc_slice.py``'s full policy)."""
+    from ffpic_tpu_torch.coding.hevc_enc import EncPolicy
+    d = dict(seed=2, split_prob=0.5, tt_split_prob=0.4, nxn_prob=0.5,
+             mode_candidates=tuple(range(35)))
+    d.update(kw)
+    return EncPolicy(**d)
+
+
+def _custom_lists(seed: int) -> dict:
+    from ffpic_tpu_torch.coding.hevc_scaling import matrix_ids
+    rng = np.random.default_rng(seed)
+    sl = {}
+    for size_id in range(4):
+        for matrix_id in matrix_ids(size_id):
+            n = 16 if size_id == 0 else 64
+            sl[(size_id, matrix_id)] = (
+                rng.integers(8, 100, n).astype(np.int32),
+                int(rng.integers(8, 60)))
+    return sl
+
+
+# stream kind -> (sps extras, pps extras, policy extras, encode_picture
+# arguments)
+HEVC_STREAMS = {
+    "single": ({}, {"sign_hiding": True}, {}, {}),
+    "multislice": ({}, {}, {}, {"n_slices": 3}),
+    "tiles": ({}, {"tiles": (2, 2)}, {}, {}),
+    "wpp": ({}, {"wpp": True}, {}, {}),
+    "dependent": ({}, {"dependent_slices": True}, {},
+                  {"dependent_splits": 2}),
+    "pcm": ({"pcm": dict(bd_luma=8, bd_chroma=8, log2_min=3, log2_diff=2)},
+            {}, {"pcm_prob": 0.5}, {}),
+    "scaling_default": ({"scaling_lists": "default"}, {}, {}, {}),
+    "scaling_custom": ({"scaling_lists": "custom"}, {}, {}, {}),
+    "skip": ({}, {"transform_skip": True},
+             {"tt_split_prob": 0.5, "nxn_prob": 0.6,
+              "transform_skip_prob": 0.6}, {}),
+    "bypass": ({}, {"transquant_bypass": True}, {"bypass_prob": 0.5}, {}),
+    "10bit": ({"bit_depth": 10}, {"sign_hiding": True}, {}, {}),
+    "deblock": ({}, {"deblocking_disabled": False, "cu_qp_delta_depth": 1},
+                {}, {}),
+}
+
+
+def hevc_stream(kind: str, w: int = 64, h: int = 64, seed: int = 5,
+                qp: int = 30):
+    """An HEVC intra picture of ``kind`` (a key of ``HEVC_STREAMS``)
+    written by the port's encoder: returns the ``SliceEncoder`` (its
+    ``sps``, ``pps``, ``sps_rbsp``, ``pps_rbsp`` and ``pic``, the
+    encoder's reconstruction before the loop filters) and the slice
+    NALUs."""
+    from ffpic_tpu_torch.coding.hevc_enc import SliceEncoder
+    sps_x, pps_x, pol_x, pic_x = HEVC_STREAMS[kind]
+    sp = dict(width=w, height=h, ctb_log2=5, **sps_x)
+    if sp.get("scaling_lists") == "custom":
+        sp["scaling_lists"] = _custom_lists(seed)
+    enc = SliceEncoder(sp, dict(pps_x), qp,
+                       hevc_planes(w, h, seed, sp.get("bit_depth", 8)),
+                       hevc_policy(**pol_x))
+    return enc, enc.encode_picture(**pic_x)
+
+
+def heif_item(enc, nalus, w: int, h: int) -> bytes:
+    """A HEIC whose primary item is the hvc1 picture ``nalus`` of
+    encoder ``enc`` (its parameter sets in the hvcC), ``w`` x ``h``."""
+    from ffpic_tpu_torch.formats import heif_enc
+    payload = b"".join(struct.pack(">I", len(n)) + n for n in nalus)
+    items = [(1, b"hvc1", payload, [
+        (heif_enc._box("hvcC", heif_enc._hvcc(enc.sps_rbsp, enc.pps_rbsp)),
+         True), (heif_enc._ispe(w, h), False)])]
+    return heif_enc._assemble(items, [], 1)
+
+
+def heif_pic(w: int, h: int, seed: int, alpha: bool = False) -> Pic:
+    """An RGBA picture of 16x16 blocks (and 32x32 alpha blocks) to
+    encode (``tests/test_heif.py``'s ``_pic``)."""
+    rng = np.random.default_rng(seed)
+    base = np.kron(rng.integers(0, 256, (-(-h // 16), -(-w // 16), 3)),
+                   np.ones((16, 16, 1)))[:h, :w]
+    a = (np.kron(rng.integers(0, 256, (-(-h // 32), -(-w // 32))),
+                 np.ones((32, 32)))[:h, :w] if alpha
+         else np.full((h, w), 255))
+    rgba = np.concatenate([base, a[:, :, None]], axis=-1).astype(np.uint8)
+    return Pic(width=w, height=h, depth=32, pitch=w * 4, codec="raw",
+               pixels=rgba)
+
+
+def heif_cases(seed: int = 0) -> dict[str, bytes]:
+    """Small HEICs (about 128x128) written by the port's encoder at the
+    edges of the HEIF path: a 10-bit item, transform skip, transquant
+    bypass, deblocking on (with cu_qp_delta), a 2x2 grid with an alpha
+    item, and an odd 333x199 single item."""
+    from ffpic_tpu_torch.formats.heif_enc import encode_heif
+    out = {}
+    for kind in ("10bit", "skip", "bypass", "deblock"):
+        enc, nalus = hevc_stream(kind, 128, 128, seed + 5)
+        out[kind] = heif_item(enc, nalus, 128, 128)
+    out["grid_alpha"] = encode_heif(heif_pic(128, 120, seed + 2, True),
+                                    qp=24, tile=64)
+    out["odd_333x199"] = encode_heif(heif_pic(333, 199, seed + 4), qp=30)
+    return out
+
+
+def hevc_cases(seed: int = 0) -> dict[str, tuple]:
+    """Inputs at the edges of K14 ``hevc_residuals``: name -> (tu_meta
+    (m, 8) int32, levels int16 packed per TU, bit depth).  Every size
+    and kind (4x4 DCT and DST, 8x8, 16x16, 32x32, transform skip,
+    bypass) mixed in one list at bit depths 8 and 10, QPs over 0..63,
+    levels sparse or dense, at +-32767 and -32768; a list of one TU of
+    each size; a single 32x32 TU."""
+    rng = np.random.default_rng(seed)
+
+    def tus(kinds, bd, qmax=63):
+        rows, lvs = [], []
+        for n, dst, skip, byp in kinds:
+            lv = rng.integers(-40, 41, n * n)
+            r = rng.random()
+            if r < 0.3:
+                lv[rng.random(n * n) < 0.7] = 0
+            elif r < 0.4:
+                lv = rng.integers(-32768, 32768, n * n)
+            elif r < 0.45:
+                lv[:] = 32767
+            elif r < 0.5:
+                lv[:] = -32768
+            rows.append((0, 0, n, int(rng.integers(0, 3)), skip, byp,
+                         int(rng.integers(0, qmax + 1)), dst))
+            lvs.append(lv)
+        return (np.array(rows, np.int32),
+                np.concatenate(lvs).astype(np.int16), bd)
+
+    kinds = ([(4, 0, 0, 0)] * 70 + [(4, 1, 0, 0)] * 40 + [(8, 0, 0, 0)] * 30
+             + [(16, 0, 0, 0)] * 9 + [(32, 0, 0, 0)] * 3
+             + [(4, 0, 1, 0)] * 20 + [(8, 0, 1, 0)] * 3
+             + [(4, 0, 0, 1)] * 10 + [(16, 0, 0, 1)] * 2)
+    out = {}
+    for bd in (8, 10):
+        order = rng.permutation(len(kinds))
+        out[f"mixed_bd{bd}"] = tus([kinds[i] for i in order], bd)
+    out["one_each"] = tus([(4, 0, 0, 0), (4, 1, 0, 0), (8, 0, 0, 0),
+                           (16, 0, 0, 0), (32, 0, 0, 0), (4, 0, 1, 0),
+                           (4, 0, 0, 1)], 8)
+    out["one_32"] = tus([(32, 0, 0, 0)], 10)
+    return out
+
+
+def heif_color_cases(seed: int = 0) -> dict[str, tuple]:
+    """Inputs at the edges of K15 ``hevc_yuv_to_rgba``: name -> (Y, U, V
+    int16 planes, U = V = None for 4:0:0; out_h, out_w; mode).  Samples
+    over -300..555, so that every clip is taken; crops of odd sizes;
+    4:0:0; all three modes."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, h, w, oh, ow, mono, mode in (
+            ("64_bt601", 64, 64, 64, 64, False, "bt601"),
+            ("64_reference", 64, 64, 64, 64, False, "reference"),
+            ("crop_61x37", 64, 48, 61, 37, False, "bt601"),
+            ("crop_1x1", 8, 8, 1, 1, False, "reference"),
+            ("gray_40x24", 40, 24, 33, 24, True, "bt601"),
+            ("rgb_16x32", 16, 32, 16, 32, False, "rgb")):
+        y = rng.integers(-300, 556, (h, w)).astype(np.int16)
+        u = None if mono else rng.integers(-300, 556, (h // 2, w // 2)) \
+            .astype(np.int16)
+        v = None if mono else rng.integers(-300, 556, (h // 2, w // 2)) \
+            .astype(np.int16)
+        out[name] = (y, u, v, oh, ow, mode)
+    return out
+
+
+def residuals_by_plan(tu_meta: np.ndarray, levels: np.ndarray,
+                      bd: int) -> np.ndarray:
+    """K14's walk over its launch plan, in numpy: for each CTA row of
+    ``hevc_kernels.plan_residuals``, its TUs by ``perm``, their levels
+    at ``offs``, the dequant, the two passes and the skip and bypass
+    cases with the kernel's integer arithmetic (int64 dequant product,
+    int32 sums).  The CPU tests hold it against the plain version, which
+    checks the plan and the kernel's indexing where the kernel cannot
+    run."""
+    from ffpic_tpu_torch.coding.hevc_consts import DST4, LEVEL_SCALE, \
+        dct_matrix
+    from ffpic_tpu_torch.ops.hevc_kernels import CTA_SAMPLES, plan_residuals
+    offs, perm, ctas = plan_residuals(tu_meta)
+    out = np.full(int((tu_meta[:, 2].astype(np.int64) ** 2).sum()), -12345,
+                  np.int64)
+    t32 = dct_matrix(32).astype(np.int64)
+    for start, cnt, l2, _ in ctas:
+        n = 1 << l2
+        assert cnt * n * n <= CTA_SAMPLES
+        m = t32[::32 // n, :n]
+        bs = bd + l2 - 5
+        for t in perm[start:start + cnt]:
+            _x, _y, tn, _c, skip, byp, qp, dst = tu_meta[t]
+            assert tn == n
+            lv = levels[offs[t]:offs[t] + n * n].astype(np.int64)
+            if byp:
+                out[offs[t]:offs[t] + n * n] = lv
+                continue
+            scale = (16 * LEVEL_SCALE[qp % 6]) << (qp // 6)
+            d = np.clip((lv * scale + (1 << (bs - 1))) >> bs, -32768,
+                        32767).reshape(n, n)
+            sh = 20 - bd
+            if skip:
+                r = (d * 128 + (1 << (sh - 1))) >> sh
+            else:
+                mm = DST4.astype(np.int64) if (n == 4 and dst) else m
+                e = np.clip((mm.T @ d + 64) >> 7, -32768, 32767)
+                r = (e @ mm + (1 << (sh - 1))) >> sh
+            out[offs[t]:offs[t] + n * n] = np.clip(r, -32768, 32767).ravel()
+    assert (out != -12345).all()
+    return out.astype(np.int16)
+
+
+def heif_tile_tus(data: bytes, item_id: int, structure: dict | None = None):
+    """The TU list K14 takes for one single-slice hvc1 item of a HEIC:
+    the native syntax pass's (tu_meta (m, 8) int32, levels int16 (the
+    TUs' n² sum), bit depth), as ``formats.hevc`` hands them to
+    ``ops.hevc_kernels.residuals_packed``."""
+    from ffpic_tpu_torch import native
+    from ffpic_tpu_torch.coding.hevc_slice import parse_slice_header
+    from ffpic_tpu_torch.formats import heif, hevc
+    from ffpic_tpu_torch.utils.bitstream import BitReader
+    s = structure or heif.parse_structure(data)
+    hvcc = s["items"][item_id]["properties"]["hvcC"]
+    sps = hevc.parse_sps(hvcc["nalus"]["sps"][0])
+    pps = hevc.parse_pps(hvcc["nalus"]["pps"][0])
+    blob = heif.read_item(data, s, item_id)
+    (nalu,) = [n for n in hevc.split_nalus_length_prefixed(
+        blob, hvcc["length_size"]) if hevc.nal_type(n) < 32]
+    rbsp = hevc.unescape(nalu)
+    r = BitReader(rbsp)
+    r.skip_bits(16)
+    hdr = parse_slice_header(r, hevc.nal_type(nalu), sps, pps)
+    states, mps = hevc._ctx_init_arrays(hdr.qp)
+    _ops, tu, levels, *_ = native.hevc_decode_slice(
+        rbsp[hdr.data_bit_offset // 8:], hevc._params_for_native(sps, pps,
+                                                                 hdr),
+        states, mps)
+    need = int((tu[:, 2].astype(np.int64) ** 2).sum())
+    return np.ascontiguousarray(tu), levels[:need].copy(), \
+        sps.bit_depth_luma

@@ -225,7 +225,7 @@ def test_registry_is_the_ports_own():
     import re
     mine, theirs = (ffpic_tpu_torch.registered_codecs(),
                     ffpic_tpu.registered_codecs())
-    assert mine == ["JPG", "PNG", "WEBP"]
+    assert mine == ["JPG", "PNG", "WEBP", "HEIF"]
     assert set(mine) <= set(theirs)
     table = re.findall(r"^from ffpic_tpu\.formats import (\w+)", (
         REPO / "ffpic_tpu" / "formats" / "all_formats.py").read_text(), re.M)

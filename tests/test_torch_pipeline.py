@@ -102,8 +102,9 @@ def test_decode_batch_reads_paths(tmp_path):
 
 def test_port_imports_no_jax():
     """Decoding through the port in a fresh interpreter loads no jax:
-    JPEG batches on both routes, a lossy WebP under both VP8 switches
-    and a batch of lossless WebPs."""
+    JPEG batches on both routes, a lossy WebP under both VP8 switches,
+    a batch of lossless WebPs, and a HEIF grid with alpha written by the
+    port's encoder, loaded and batched under both HEVC switches."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -128,6 +129,20 @@ def test_port_imports_no_jax():
         "l = testing.webp_fixture('lossless_160x120.webp')\n"
         "out = decode_batch([l, l], device='cpu')\n"
         "assert tuple(out.shape) == (2, 120, 160, 4), out.shape\n"
+        "from ffpic_tpu_torch import encode\n"
+        "from ffpic_tpu_torch.formats import (basemedia, heif, heif_enc,\n"
+        "    hevc, hevc_recon)\n"
+        "from ffpic_tpu_torch.coding import (cabac, cabac_enc, golomb,\n"
+        "    hevc_consts, hevc_enc, hevc_scaling, hevc_slice)\n"
+        "from ffpic_tpu_torch.ops import cuda_hevc, hevc_kernels\n"
+        "from ffpic_tpu_torch import make_heif_fixtures\n"
+        "os.environ['FFPIC_HEVC_DEVICE'] = '1'\n"
+        "os.environ['FFPIC_HEIF_DEVICE_COLOR'] = '1'\n"
+        "h = encode(testing.heif_pic(80, 72, 3, True), 'HEIF', qp=30,\n"
+        "           tile=64, device='cpu')\n"
+        "assert tuple(load(h, device='cpu').pixels.shape) == (72, 80, 4)\n"
+        "out = decode_batch([h, h], device='cpu')\n"
+        "assert tuple(out.shape) == (2, 72, 80, 4), out.shape\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -157,8 +172,9 @@ def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
     loads a 4:4:4 file and encodes it as JPEG and PNG, loads the PNG and
     decodes a batch of JPEG and PNG members (one of Sub/Up rows, one of
     all five filters), loads a WebP with alpha and an animated one,
-    encodes the animation, decodes a JPEG, WebP and PNG batch, and loads
-    no module of ffpic_tpu and no jax."""
+    encodes the animation, decodes a JPEG, WebP and PNG batch, encodes a
+    JPEG's picture as HEIF, loads it and decodes it beside a JPEG and a
+    WebP, and loads no module of ffpic_tpu and no jax."""
     files = {"a": _jpeg(64, 96, 80, 0), "b": _jpeg(64, 96, 60, 1),
              "c": _jpeg(40, 72, 90, 2), "p": _jpeg(64, 96, 70, 3, True),
              "s": _jpeg(64, 96, 75, 4, subsampling="4:4:4")}
@@ -196,6 +212,12 @@ def test_port_runs_with_ffpic_tpu_blocked(tmp_path):
         "out = decode_batch([f'{d}/a.jpg', e, png], size=(32, 32),\n"
         "                   device='cpu')\n"
         "assert tuple(out.shape) == (3, 32, 32, 4), out.shape\n"
+        "h = encode(load(f'{d}/a.jpg', device='cpu'), 'HEIF', qp=30,\n"
+        "           device='cpu')\n"
+        "assert load(h, device='cpu').width == 96\n"
+        "out = decode_batch([f'{d}/a.jpg', h, e], size=(32, 32),\n"
+        "                   device='cpu')\n"
+        "assert tuple(out.shape) == (3, 32, 32, 4), out.shape\n"
         "bad = [m for m in sys.modules if m.startswith('ffpic_tpu.')"
         " or m == 'jax' or m.startswith('jax.')]\n"
         "assert not bad, bad\n"
@@ -211,11 +233,13 @@ def test_device_none_raises_without_cuda(monkeypatch):
         ffpic_tpu_torch.decode_batch([_jpeg(120, 200, 80, 4)])
 
 
-@pytest.mark.parametrize("case", ["webp", "gif", "mesh"])
+@pytest.mark.parametrize("case", ["webp", "gif", "mesh", "heif", "h265"])
 def test_outside_the_slice_raises(case):
-    """GIF members and ``mesh`` wait for the ROADMAP.  WebP is ported: a
-    member that is only a WebP header now raises the registry's
-    ValueError for a corrupt file, not NotImplementedError."""
+    """GIF members, raw ``.265`` streams and ``mesh`` wait for the
+    ROADMAP.  WebP and HEIF are ported: a member that is only a WebP
+    header raises the registry's ValueError for a corrupt file, a HEIF
+    without a meta box the parser's ValueError, not
+    NotImplementedError."""
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
     if case == "webp":
@@ -224,8 +248,25 @@ def test_outside_the_slice_raises(case):
         with pytest.raises(ValueError, match="corrupt WEBP"):
             ffpic_tpu_torch.decode_batch(srcs, device="cpu")
         return
+    if case == "heif":
+        srcs.append((24).to_bytes(4, "big") + b"ftypheic" + bytes(12))
+        with pytest.raises(ValueError, match="no meta box"):
+            ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+        return
     if case == "gif":
         srcs.append(b"GIF89a" + bytes(64))
+    elif case == "h265":
+        enc, nalus = testing.hevc_stream("single", 64, 64)
+        from ffpic_tpu_torch.coding.hevc_enc import make_nalu
+        raw = b"".join(b"\0\0\0\1" + n for n in (
+            make_nalu(33, enc.sps_rbsp), make_nalu(34, enc.pps_rbsp),
+            *nalus))
+        assert ffpic_tpu.probe(raw).name != "HEIF"
+        with pytest.raises(NotImplementedError, match="items 1 and 16"):
+            ffpic_tpu_torch.decode_batch(srcs + [raw], device="cpu")
+        with pytest.raises(ValueError, match="unrecognized"):
+            ffpic_tpu_torch.load(raw, device="cpu")
+        return
     else:
         kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -693,3 +734,64 @@ def test_device_entropy_overlaps_the_pool(monkeypatch):
     assert threading.get_ident() not in seen["prep"]
     monkeypatch.setenv("FFPIC_DEVICE_ENTROPY", "0")
     np.testing.assert_array_equal(got, _port(srcs))
+
+
+def _heif(w, h, seed, **kw) -> bytes:
+    return ffpic_tpu_torch.encode(testing.heif_pic(w, h, seed, alpha=True),
+                                  "HEIF", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("env", [{}, {"FFPIC_HEVC_DEVICE": "1"},
+                                 {"FFPIC_HEIF_DEVICE_COLOR": "1"}])
+@pytest.mark.parametrize("size", [None, (48, 48)])
+def test_decode_batch_heif_members_match_jax(env, size, monkeypatch):
+    """HEIF members (a grid with alpha, a single item) beside 4:2:0 JPEG
+    ones, under the HEVC switches: the reference's pixels (the device
+    colour up to contraction; sized within 1 LSB)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    srcs = [_heif(96, 64, 1, qp=28, tile=64), _jpeg(64, 96, 85, 2),
+            _heif(96, 64, 2, qp=33)]
+    if size is None:
+        _same_as_jax(srcs)
+    else:
+        got, want = _both(srcs, size=size)
+        assert got.shape == (3, 48, 48, 4)
+        assert np.abs(got.astype(int) - want).max() <= 1
+
+
+def test_decode_batch_heif_workers_launch_on_the_callers_stream(monkeypatch):
+    """Under FFPIC_HEVC_DEVICE the pool's workers (and a grid's tile
+    workers) run the residual transform inside the stream context the
+    caller's thread had: ``torch.cuda.stream`` is entered with the
+    stream captured there (None on the CPU), in every worker."""
+    import torch as _torch
+    from ffpic_tpu_torch.ops import hevc_kernels
+    seen = []
+
+    class Spy:
+        def __init__(self, stream):
+            self.stream = stream
+
+        def __enter__(self):
+            seen.append((threading.get_ident(), self.stream))
+
+        def __exit__(self, *a):
+            return False
+    monkeypatch.setattr(_torch.cuda, "stream", Spy)
+    calls = []
+    real = hevc_kernels.residuals_packed
+
+    def spy(*a, **k):
+        calls.append(threading.get_ident())
+        return real(*a, **k)
+    monkeypatch.setattr(hevc_kernels, "residuals_packed", spy)
+    monkeypatch.setenv("FFPIC_HEVC_DEVICE", "1")
+    monkeypatch.setenv("FFPIC_THREADS", "3")
+    srcs = [_heif(64, 64, 3, qp=30, tile=32), _heif(64, 64, 4, qp=30),
+            _heif(64, 64, 5, qp=30)]
+    ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+    assert len(calls) >= 4
+    entered = {t for t, _ in seen}
+    assert set(calls) <= entered and threading.get_ident() not in calls
+    assert all(s is None for _, s in seen)

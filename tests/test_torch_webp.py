@@ -541,7 +541,8 @@ def test_webp_is_registered_after_png():
     assert codec.load.__module__ == "ffpic_tpu_torch.formats.webp"
     assert ffpic_tpu_torch.probe(testing.webp_fixture("lossy_512.webp")) \
         is codec
-    assert ffpic_tpu_torch.registered_codecs() == ["JPG", "PNG", "WEBP"]
+    assert ffpic_tpu_torch.registered_codecs() == ["JPG", "PNG", "WEBP",
+                                                   "HEIF"]
 
 
 # --- decode_batch -----------------------------------------------------------
