@@ -55,7 +55,10 @@ read just after:
   no fallback), equal to the host route.  The end-to-end medians are
   printed under the JAX bench's names (``device_entropy_dri_mps``,
   ``hybrid_pipeline_mps``, ``device_entropy_spec_mps``) beside the host
-  route and the host spans;
+  route and the host spans; ``[time entropy kernels]`` gives K9's CTAs,
+  each kernel's ns a symbol on its longest lane (K10: chunk) and the
+  share of symbols the fast table answers (``fast_walks`` replays K9's
+  lanes and K10's chunks with the plain step on the card);
 * WebP (K12 vp8_residuals, K13 vp8_yuv_to_rgba; ``testing.vp8_cases``
   and the 1080p fixture's parse state and planes against their plain
   versions, and against the host transform and colour): ``load`` of
@@ -901,6 +904,93 @@ ENTROPY_ENV = ("FFPIC_DEVICE_ENTROPY", "FFPIC_SPEC_ENTROPY", "FFPIC_HYBRID",
                "FFPIC_HYBRID_FRAC")
 
 
+def fast_walks(st, bit0, steps=None, bit_end=None) -> dict:
+    """The symbols of each lane's walk from (bit0, k = 0, sub = 0), for
+    ``steps`` symbols (K9's lanes) or to the first boundary at or past
+    ``bit_end`` (K10's chunks), replayed with the plain step
+    (``jed._advance``) on the card, and how many of them the fast table
+    (``st.fast``, one table group) answers: each symbol's 16-bit window
+    and table, as the kernels form them.  Returns {"symbols", "longest",
+    "hits", "hit_share", "exit_bit"}."""
+    import torch
+    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+    if st.luts.shape[0] != 4:
+        raise AssertionError("fast_walks replays one table group")
+    tabs = jed._spec_tables(st.u32win, st.luts, st.comp_of_sub,
+                            st.tclass_of_sub)
+    u32, _lut, _cos, tos = tabs
+    fast = jed._u32(st.fast.reshape(-1))
+    bit = bit0.to(torch.int64)
+    k, sub, blk = (torch.zeros_like(bit) for _ in range(3))
+    dcs = torch.zeros((bit.shape[0], 3), dtype=torch.int64, device=bit.device)
+    n = torch.zeros_like(bit)
+    hits = torch.zeros_like(bit)
+    shift = 16 - jed.FAST_BITS
+
+    def active_now():
+        return n < steps.to(torch.int64) if steps is not None \
+            else bit < bit_end.to(torch.int64)
+
+    active = active_now()
+    while bool(active.any()):
+        w32 = jed._gather(u32, bit >> 3)
+        win16 = (w32 >> (16 - (bit & 7))) & 0xFFFF
+        tbl = tos[sub.clamp(0, st.bpm - 1)] * 2 + (k != 0).to(torch.int64)
+        hit = fast[(tbl << jed.FAST_BITS) + (win16 >> shift)] \
+            != jed.FAST_MISS
+        hits += hit & active
+        bit, k, sub, blk, dcs = jed._advance(tabs, st.bpm, active, bit, k,
+                                             sub, blk, dcs)
+        n += active
+        active = active_now()
+    symbols = int(n.sum())
+    return {"symbols": symbols, "longest": int(n.max()),
+            "hits": int(hits.sum()), "hit_share": int(hits.sum()) / symbols,
+            "exit_bit": bit}
+
+
+PLAN_TRAP = """
+import sys
+import numpy as np
+import torch
+from ffpic_tpu_torch import testing
+from ffpic_tpu_torch.formats import jpg
+from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+datas = testing.entropy_cases()["dri_mixed"]["datas"]
+js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+st, lanes, plan, n, _off = jed.stage_dri(datas, js, torch.device("cuda"))
+groups = sorted(set(lanes[:, 4].tolist()))
+wrong = jed.to_device(jed.cta_plan(np.zeros(lanes.shape[0])), st.device)
+if groups != [0, 1]:
+    sys.exit(f"dri_mixed's table groups: {groups}")
+try:
+    jed.decode_lanes(st, lanes, wrong, n)
+    torch.cuda.synchronize()
+except RuntimeError as e:     # the launch's or the stream's error
+    print("refused", type(e).__name__, str(e).splitlines()[0])
+    sys.exit(0)
+print("decoded")
+sys.exit(1)
+"""
+
+
+def plan_trap_check() -> str:
+    """K9 with a CTA plan that does not match its lanes (``dri_mixed``'s
+    two table groups, a plan of group 0 only), in a process of its own,
+    since a trap loses the CUDA context: the launch must fail.  Returns
+    the child's report."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", PLAN_TRAP], cwd=root,
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": root})
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not out or not out[-1].startswith("refused"):
+        raise AssertionError("K9 took a plan that does not match its "
+                             f"lanes: rc {r.returncode}, {r.stdout}"
+                             f"{r.stderr[-2000:]}")
+    return out[-1]
+
+
 def merge_work(st, r, lut_bytes: int) -> dict:
     """What K11 did in the ``spec_stages`` run ``r``: each lane's walk
     from its true entry to the snapshot it met, replayed with the plain
@@ -1003,8 +1093,8 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
         """K9 over a DRI batch against ``decode_lanes_plain`` on the same
         staged tensors; its symbol counts."""
         js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
-        st, lanes, out_size, _off = jed.stage_dri(datas, js, dev)
-        flat, steps = jed.decode_lanes(st, lanes, out_size)
+        st, lanes, plan, out_size, _off = jed.stage_dri(datas, js, dev)
+        flat, steps = jed.decode_lanes(st, lanes, plan, out_size)
         pflat, psteps = jed.decode_lanes_plain(st, lanes, out_size)
         exact("entropy_decode", flat, pflat, errs)
         exact("entropy_decode", steps, psteps, errs)
@@ -1043,6 +1133,7 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
                 exact(kernel, got[key], want[key], errs)
     log("check K9-K11 cases", entropy_decode="exact", spec_scan="exact",
         spec_merge="exact", cpu="exact", cases=",".join(cases))
+    log("check K9 plan", mismatched_plan=plan_trap_check())
 
     # --- the path shapes: all 8 against the host decoder, 2 against the
     # plain versions -------------------------------------------------------
@@ -1178,27 +1269,39 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
 
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
     js8 = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in dri_srcs]
-    st, lanes, out_size, _off = jed.stage_dri(dri_srcs, js8, dev)
-    _f, steps8 = jed.decode_lanes(st, lanes, out_size)
+    st, lanes, plan, out_size, _off = jed.stage_dri(dri_srcs, js8, dev)
+    _f, steps8 = jed.decode_lanes(st, lanes, plan, out_size)
     lut_bytes = 4 * st.luts.numel()
     rs = jed.spec_stages(spec_srcs, 4096, device=dev)
     ss = rs["staged"]
     nl = rs["L"]
     spec_symbols = int(rs["steps"].sum())
     merge = merge_work(ss, rs, lut_bytes)
+    # the fast table's hits on the walks K9 and K10 make, replayed with
+    # the plain step: K9's lanes their symbol counts from (bit0, k = 0,
+    # sub = 0), K10's chunks to their exits
+    k9_walk = fast_walks(st, lanes[:, 0], steps=steps8)
+    k10_walk = fast_walks(ss, rs["chunks"][:, 0],
+                          bit_end=rs["chunks"][:, 1])
+    if not torch.equal(k10_walk["exit_bit"],
+                       rs["exits"][:, 0].to(torch.int64)):
+        raise AssertionError("fast_walks: the replay missed K10's exits")
     timed = {
         "entropy_decode": time_entry(
-            "entropy_decode", lambda: jed.decode_lanes(st, lanes, out_size),
+            "entropy_decode",
+            lambda: jed.decode_lanes(st, lanes, plan, out_size),
             lambda: jed.decode_lanes_plain(st, lanes, out_size),
-            st.n + lut_bytes + 2 * out_size + 4 * lanes.numel()
-            + 4 * st.bmap.numel(), int(steps8.sum()), "int32", floor_ms,
+            st.n + lut_bytes + 4 * st.fast.numel() + 2 * out_size
+            + 4 * lanes.numel() + 4 * plan.numel() + 4 * st.bmap.numel(),
+            int(steps8.sum()), "int32", floor_ms,
             flush, f"dri batch 8x1080p, {lanes.shape[0]} lanes",
             plain_iters=1, plain_warmup=0),
         "spec_scan": time_entry(
             "spec_scan", lambda: jed.spec_scan(ss, rs["chunks"]),
             lambda: jed.spec_scan_plain(ss, rs["chunks"]),
-            ss.n + 4 * ss.luts.numel() + 8 * nl + 28 * nl
-            + 4 * rs["snap"].numel(), spec_symbols, "int32", floor_ms,
+            ss.n + 4 * ss.luts.numel() + 4 * ss.fast.numel() + 8 * nl
+            + 28 * nl + 4 * rs["snap"].numel(), spec_symbols, "int32",
+            floor_ms,
             flush, f"spec batch 8x1080p, {nl} chunks", plain_iters=1,
             plain_warmup=0),
         "spec_merge": time_entry(
@@ -1210,19 +1313,40 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
     }
     del flush
     timed["entropy_decode"].update(
-        lanes=int(lanes.shape[0]), longest_lane_symbols=int(steps8.max()),
-        symbols=int(steps8.sum()),
-        spec_emit_ms=gpu_ms(lambda: jed.decode_lanes(ss, rs["lanes"],
-                                                     rs["flat"].numel()), 10))
+        lanes=int(lanes.shape[0]), ctas=int(plan.shape[0]),
+        longest_lane_symbols=int(steps8.max()), symbols=int(steps8.sum()),
+        fast_hit_share=k9_walk["hit_share"],
+        spec_emit_ms=gpu_ms(lambda: jed.decode_lanes(
+            ss, rs["lanes"], rs["plan"], rs["flat"].numel()), 10))
     for name in ("spec_scan", "spec_merge"):
         timed[name]["lanes"] = nl
+    timed["spec_scan"].update(symbols=k10_walk["symbols"],
+                              longest_lane_symbols=k10_walk["longest"],
+                              fast_hit_share=k10_walk["hit_share"])
     timed["spec_merge"].update(symbols=merge["symbols"],
                                longest_lane_symbols=merge["longest"])
+    for name in ("entropy_decode", "spec_scan"):
+        t = timed[name]
+        t["ns_per_symbol_longest_lane"] = \
+            t["ms"] * 1e6 / t["longest_lane_symbols"]
+        t["ns_per_symbol_longest_lane_cold"] = \
+            t["ms_cold"] * 1e6 / t["longest_lane_symbols"]
+    k9, k10 = timed["entropy_decode"], timed["spec_scan"]
     log("time entropy kernels", k9_lanes=int(lanes.shape[0]),
+        k9_ctas=int(plan.shape[0]),
         k9_longest_lane_symbols=int(steps8.max()),
         k9_symbols=int(steps8.sum()),
+        k9_ns_per_symbol_longest_lane=
+        f"{k9['ns_per_symbol_longest_lane']:.1f}",
+        k9_fast_hit_share=f"{k9_walk['hit_share']:.4f}",
         k9_spec_emit_ms=f"{timed['entropy_decode']['spec_emit_ms']:.4f}",
         spec_chunks=nl, spec_symbols=spec_symbols,
+        k10_longest_chunk_symbols=k10_walk["longest"],
+        k10_ns_per_symbol_longest_chunk=
+        f"{k10['ns_per_symbol_longest_lane']:.1f}",
+        k10_fast_hit_share=f"{k10_walk['hit_share']:.4f}",
+        fast_bits=jed.FAST_BITS,
+        fast_table_smem_bytes_requested=4 * (4 << jed.FAST_BITS),
         merge_symbols=merge["symbols"],
         merge_longest_lane_symbols=merge["longest"],
         merge_scan_bytes=merge["scan_bytes"],

@@ -60,15 +60,15 @@ def _run(cmd: list[str]) -> str:
     return r.stdout + r.stderr
 
 
-def compile_library(cus: list[str], out: str) -> str:
+def compile_library(cus: list[str], out: str, extra=()) -> str:
     """Build the ``.cu`` files ``cus`` into the shared library ``out``:
-    one nvcc per file, all started together, then one link.  Returns
-    the compiler's output."""
+    one nvcc per file, all started together (``extra`` flags after
+    FLAGS), then one link.  Returns the compiler's output."""
     objs = [f"{out}.{os.path.basename(s)}.o" for s in cus]
     try:
         with ThreadPoolExecutor(len(cus)) as ex:
-            logs = list(ex.map(_run, [[_nvcc(), *FLAGS, "-c", "-o", o, s]
-                                      for s, o in zip(cus, objs)]))
+            logs = list(ex.map(_run, [[_nvcc(), *FLAGS, *extra, "-c", "-o",
+                                       o, s] for s, o in zip(cus, objs)]))
         logs.append(_run([_nvcc(), *ARCH, "-shared", "-o", out, *objs]))
     finally:
         for o in objs:
@@ -105,17 +105,17 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def launcher(signatures: dict, launches: dict):
-    """``launch(name, counter, *args)``: call the library's C entry
-    ``name`` (argument types from ``signatures``, the current CUDA
-    stream appended), raise if it returns an error, else add one to
-    ``launches[counter]`` (under a lock: ``decode_batch`` may launch from
-    several threads)."""
+def launcher(signatures: dict, launches: dict, library=load):
+    """``launch(name, counter, *args)``: call the C entry ``name`` of
+    ``library()``, the kernel library unless given (argument types from
+    ``signatures``, the current CUDA stream appended), raise if it
+    returns an error, else add one to ``launches[counter]`` (under a
+    lock: ``decode_batch`` may launch from several threads)."""
     import torch
     count_lock = threading.Lock()
 
     def launch(name: str, counter: str, *args) -> None:
-        fn = getattr(load(), name)
+        fn = getattr(library(), name)
         fn.argtypes = signatures[name]
         fn.restype = ctypes.c_int
         rc = fn(*args,

@@ -27,6 +27,11 @@ holds
   a CUDA tensor, the plain versions (``decode_lanes_plain``,
   ``spec_scan_plain``, ``spec_merge_plain``, which take any device) on a
   CPU one;
+* K9 and K10's staged inputs of their own: ``fast_tables`` (cached per
+  table set by ``fast_for``, beside ``luts_for``), the fast tables that
+  each CTA holds in shared memory, and ``cta_plan``, the rows (group,
+  first lane, lane count) that give each K9 CTA one table group
+  (``check_plan`` holds a plan to its lanes on the CPU);
 * ``launch_runs``, which splits a route's files into launches, and
   ``Declined``, the one error after which a caller's host path takes the
   files;
@@ -77,6 +82,15 @@ MERGE_STEPS = SNAP * SNAP_STRIDE + 16
 
 LANE_COLS = 12
 NO_STOP = 2 ** 31 - 1
+# K9 and K10 look a symbol up first in a fast table in shared memory,
+# indexed by the first FAST_BITS bits of the window (fast_tables); a
+# FAST_MISS entry sends the lookup to the 16-bit LUT. 11 bits (32 KB a
+# CTA, so 7 CTAs fit an SM) and 2 lanes a K9 CTA, from tune_entropy's
+# runs on an H100 (PERF.md)
+FAST_BITS = 11
+FAST_MISS = 0xFFFFFFFF
+CTA_LANES = 2      # the most lanes a K9 CTA takes (cta_plan)
+CTA_THREADS = 32   # K9's CTA width: no plan row may hold more lanes
 MAX_STEPS = 1 << 22
 PAD = 8            # zero bytes staged after the scan bytes
 # what one launch takes: bit positions are int32 (K9-K11), and K2 takes
@@ -218,6 +232,72 @@ def luts_for(j) -> np.ndarray:
     """``build_luts_from_dht(j.dht_raw)``, built once per table set (a
     batch's members usually share one; the build takes milliseconds)."""
     return _cached_luts(_dht_key(j))
+
+
+def fast_tables(luts, bits: int = FAST_BITS) -> np.ndarray:
+    """(T, 2**bits) uint32 fast tables of a (T, 65536) LUT stack, which
+    K9 and K10 hold in shared memory.  Entry p is the LUT entry of every
+    16-bit window whose first ``bits`` bits are p, where all those
+    windows hold the same entry and its code (with a combined magnitude)
+    fits in ``bits`` bits; else FAST_MISS, which no LUT entry equals.
+    Entry 0, an invalid code, is a hit where the whole prefix is
+    invalid; a spill (``RUN_CODE``: the magnitude follows outside the
+    window) never is.  So a hit is the 16-bit lookup by construction, and
+    a miss takes it."""
+    x = np.asarray(luts, np.uint32).reshape(len(luts), 1 << bits,
+                                            1 << (16 - bits))
+    e = x[..., 0]
+    hit = (x == e[..., None]).all(axis=-1) & ((e >> 24) <= bits) \
+        & (((e >> 16) & 0xFF) != RUN_CODE)
+    return np.where(hit, e, np.uint32(FAST_MISS)).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=16)
+def _cached_fast(key: tuple) -> np.ndarray:
+    out = fast_tables(_cached_luts(key))
+    out.setflags(write=False)
+    return out
+
+
+def fast_for(j) -> np.ndarray:
+    """``fast_tables(luts_for(j))``, built once per table set."""
+    return _cached_fast(_dht_key(j))
+
+
+def cta_plan(lut_idx, max_lanes: int = CTA_LANES) -> np.ndarray:
+    """K9's CTA plan for lanes whose table groups are ``lut_idx``, in
+    lane order: (C, 3) int32 rows (group, first lane, lane count), each
+    a run of at most ``max_lanes`` consecutive lanes of one group, so
+    that a CTA holds one group's fast tables; together they cover every
+    lane once, in order."""
+    g = np.asarray(lut_idx, np.int64).reshape(-1)
+    n = len(g)
+    if n == 0:
+        return np.zeros((0, 3), np.int32)
+    starts = np.flatnonzero(np.r_[True, g[1:] != g[:-1]])
+    ends = np.r_[starts[1:], n]
+    per_run = (ends - starts + max_lanes - 1) // max_lanes
+    run = np.repeat(np.arange(len(starts)), per_run)
+    nth = np.arange(len(run)) - np.repeat(np.cumsum(per_run) - per_run,
+                                          per_run)
+    first = starts[run] + nth * max_lanes
+    count = np.minimum(max_lanes, ends[run] - first)
+    return np.stack([g[first], first, count], axis=1).astype(np.int32)
+
+
+def check_plan(plan, lut_idx) -> None:
+    """Raise ValueError unless ``plan``'s rows (group, first lane, lane
+    count) cover the lanes of ``lut_idx`` once each, in order, at most
+    CTA_THREADS a row, each lane's lut_idx its row's group."""
+    plan = np.asarray(plan, np.int64).reshape(-1, 3)
+    g = np.asarray(lut_idx, np.int64).reshape(-1)
+    count = plan[:, 2]
+    ok = bool((count >= 1).all() and (count <= CTA_THREADS).all()
+              and np.array_equal(plan[:, 1], np.cumsum(count) - count)
+              and int(count.sum()) == len(g))
+    if not ok or not np.array_equal(np.repeat(plan[:, 0], count), g):
+        raise ValueError("K9's CTA plan does not match the lanes: "
+                         "make it with cta_plan(lut_idx)")
 
 
 def extract_scan(data: bytes) -> bytes:
@@ -678,11 +758,14 @@ def spec_decode_full(u32win, luts, zz, comp_of_sub, tclass_of_sub, bmap,
 class Staged:
     """A batch's entropy inputs on one device: ``data`` the destuffed
     bytes with PAD zero bytes after them (uint8), ``n`` their count
-    without the padding, ``luts`` (G*4, 65536) uint32 values as int32,
-    ``zz``, ``comp_of_sub``, ``tclass_of_sub`` and ``bmap`` int32."""
+    without the padding, ``luts`` (G*4, 65536) and their ``fast`` tables
+    (G*4, 2**FAST_BITS) uint32 values as int32 (``fast_tables(luts)``
+    unless given), ``zz``, ``comp_of_sub``, ``tclass_of_sub`` and
+    ``bmap`` int32."""
 
     def __init__(self, concat: np.ndarray, luts: np.ndarray, consts: dict,
-                 bmap: np.ndarray, device: torch.device):
+                 bmap: np.ndarray, device: torch.device,
+                 fast: np.ndarray | None = None):
         if len(concat) == 0:
             raise Declined("device entropy decode: empty scan")
         self.n = len(concat)
@@ -691,6 +774,10 @@ class Staged:
         padded[:self.n] = concat
         self.data = to_device(padded, device)
         self.luts = to_device(np.ascontiguousarray(luts, np.uint32)
+                              .view(np.int32), device)
+        if fast is None:
+            fast = fast_tables(luts)
+        self.fast = to_device(np.ascontiguousarray(fast, np.uint32)
                               .view(np.int32), device)
         self.zz = to_device(np.asarray(ZIGZAG, np.int32), device)
         self.comp_of_sub = to_device(consts["comp_of_sub"], device)
@@ -709,16 +796,23 @@ class Staged:
         return self._u32win
 
 
-def decode_lanes(st: Staged, lanes: torch.Tensor, out_size: int,
-                 max_steps: int = MAX_STEPS):
+def decode_lanes(st: Staged, lanes: torch.Tensor, plan: torch.Tensor,
+                 out_size: int, max_steps: int = MAX_STEPS):
     """Decode the lanes of the (L, LANE_COLS) int32 table ``lanes`` into
     int16[out_size] flat coefficients: K9 on CUDA, ``decode_lanes_bmap``
-    on the CPU.  Returns (flat, int32[L] symbols each lane decoded)."""
+    on the CPU.  ``plan`` is K9's CTA plan of the lanes (``cta_plan`` of
+    their lut_idx column, (C, 3) int32 on the same device).  On the CPU
+    it is checked against the lanes (ValueError); on CUDA a lane whose
+    lut_idx is not its CTA's group stops the launch (``cuda_entropy.
+    entropy_decode``).  Returns (flat, int32[L] symbols each lane
+    decoded)."""
     if _on_cuda(st.data):
         from ffpic_tpu_torch.ops import cuda_entropy
         return cuda_entropy.entropy_decode(
-            st.data, st.n, st.luts, st.zz, st.comp_of_sub, st.tclass_of_sub,
-            st.bmap, lanes, st.bpm, out_size, max_steps)
+            st.data, st.n, st.luts, st.fast, st.zz, st.comp_of_sub,
+            st.tclass_of_sub, st.bmap, lanes, plan, st.bpm, out_size,
+            max_steps)
+    check_plan(plan.numpy(), lanes[:, 4].numpy())
     return decode_lanes_plain(st, lanes, out_size, max_steps)
 
 
@@ -740,7 +834,7 @@ def spec_scan(st: Staged, chunks: torch.Tensor, max_steps: int = MAX_STEPS):
     bit, k, sub, blocks, DC sums; snapshots (L, SNAP, 7) int32)."""
     if _on_cuda(st.data):
         from ffpic_tpu_torch.ops import cuda_entropy
-        return cuda_entropy.spec_scan(st.data, st.n, st.luts,
+        return cuda_entropy.spec_scan(st.data, st.n, st.luts, st.fast,
                                       st.comp_of_sub, st.tclass_of_sub,
                                       chunks, st.bpm, max_steps)
     return spec_scan_plain(st, chunks, max_steps)
@@ -858,9 +952,10 @@ def decode_coeffs_device(datas, max_steps: int = MAX_STEPS, unroll: int = 1,
     j0 = js[0]
     if j0.restart_interval <= 0:
         raise Declined("device entropy path needs DRI > 0")
-    st, lanes, out_size, _off = stage_dri(datas, [j0] * len(datas), dev)
+    st, lanes, plan, out_size, _off = stage_dri(datas, [j0] * len(datas),
+                                                dev)
     with stage("torch.entropy.device"):
-        flat, steps = decode_lanes(st, lanes, out_size, max_steps)
+        flat, steps = decode_lanes(st, lanes, plan, out_size, max_steps)
     return flat, js, prepare_frame(j0), steps
 
 
@@ -871,22 +966,24 @@ def stage_dri(datas, js, device):
     sub-block maps agree).  The images are laid out geometry group by
     geometry group (groups in order of first appearance), so that each
     group's coefficients are one contiguous run.  Returns (Staged, lanes
-    (L, LANE_COLS) int32 on ``device``, out_size, per-image flat offsets
-    in input order)."""
+    (L, LANE_COLS) int32 on ``device``, their CTA plan (``cta_plan``, on
+    ``device``), out_size, per-image flat offsets in input order)."""
     order: dict = {}
     for i, j in enumerate(js):
         order.setdefault((j.mcus_x, j.mcus_y), []).append(i)
     seq = [i for idxs in order.values() for i in idxs]
 
     with stage("torch.entropy.lut"):
-        lut_list, lut_key_to_idx, img_lut = [], {}, {}
+        lut_list, fast_list, lut_key_to_idx, img_lut = [], [], {}, {}
         for i in seq:
             key = _dht_key(js[i])
             if key not in lut_key_to_idx:
                 lut_key_to_idx[key] = len(lut_list)
                 lut_list.append(luts_for(js[i]))
+                fast_list.append(fast_for(js[i]))
             img_lut[i] = lut_key_to_idx[key]
         luts = np.concatenate(lut_list, axis=0)        # (G*4, 65536)
+        fast = np.concatenate(fast_list, axis=0)
 
     geo, bmap_parts, bmap_off, boff = {}, [], {}, 0
     for gk, idxs in order.items():
@@ -915,10 +1012,12 @@ def stage_dri(datas, js, device):
         out_off += cst["comp_space"] * 64
     r = np.array(rows, np.int64).reshape(-1, 6).T
     with stage("torch.entropy.h2d"):
-        st = Staged(concat, luts, c0, np.concatenate(bmap_parts), device)
+        st = Staged(concat, luts, c0, np.concatenate(bmap_parts), device,
+                    fast)
         lanes = to_device(lane_table(*r[:4], lut_idx=r[4], bmap_base=r[5]),
                           device)
-    return st, lanes, out_off + 1, img_out_off
+        plan = to_device(cta_plan(r[4]), device)
+    return st, lanes, plan, out_off + 1, img_out_off
 
 
 def decode_coeffs_device_mixed(datas, js, max_steps: int = MAX_STEPS,
@@ -928,9 +1027,9 @@ def decode_coeffs_device_mixed(datas, js, max_steps: int = MAX_STEPS,
     per-image flat offsets in input order, int32[L] each lane's symbol
     count)."""
     dev = resolve_device(device, "decode_coeffs_device_mixed")
-    st, lanes, out_size, img_out_off = stage_dri(datas, js, dev)
+    st, lanes, plan, out_size, img_out_off = stage_dri(datas, js, dev)
     with stage("torch.entropy.device"):
-        flat, steps = decode_lanes(st, lanes, out_size, max_steps)
+        flat, steps = decode_lanes(st, lanes, plan, out_size, max_steps)
     return flat, img_out_off, steps
 
 
@@ -1003,8 +1102,8 @@ def spec_stages(datas, chunk_bytes: int = 1024, max_steps: int = MAX_STEPS,
     predecessor's exit (``spec_merge``: K11), stitched by segmented
     prefix sums (torch), then emitted (``decode_lanes``: K9); the plain
     versions on the CPU.  Returns what each stage made, on the device:
-    ``exits``, ``snap``, ``merged``, the emission's ``lanes``, ``flat``
-    and ``steps``, and ``ok`` (a 0-d bool tensor, not read back), with
+    ``exits``, ``snap``, ``merged``, the emission's ``lanes`` (one table
+    group) and CTA ``plan``, ``flat`` and ``steps``, and ``ok`` (a 0-d bool tensor, not read back), with
     ``js``, ``consts``, the lane count ``L``, the ``staged`` inputs, the
     ``chunks`` table (bit0, bit_end) and the true entries ``ent``."""
     dev = resolve_device(device, "spec_stages")
@@ -1013,7 +1112,7 @@ def spec_stages(datas, chunk_bytes: int = 1024, max_steps: int = MAX_STEPS,
     j0 = js[0]
     consts = prepare_frame(j0)
     with stage("torch.entropy.lut"):
-        luts = luts_for(j0)
+        luts, fast = luts_for(j0), fast_for(j0)
     with stage("torch.entropy.destuff"):
         concat, offs, _bounds = _destuff(datas)
     bit0, bit_end, lane_img = spec_chunks(np.diff([*offs, len(concat)]),
@@ -1027,10 +1126,11 @@ def spec_stages(datas, chunk_bytes: int = 1024, max_steps: int = MAX_STEPS,
     blocks_per_img = consts["blocks_per_img"]
     out_size = len(datas) * comp_space * 64 + 1
     with stage("torch.entropy.h2d"):
-        st = Staged(concat, luts, consts, consts["bmap"], dev)
+        st = Staged(concat, luts, consts, consts["bmap"], dev, fast)
         table = to_device(np.stack([
             bit0, bit_end, first, starts[lane_img], lasts[lane_img],
             lane_img * comp_space * 64], axis=1).astype(np.int32), dev)
+        plan = to_device(cta_plan(np.zeros(L, np.int64)), dev)
     with stage("torch.entropy.device"):
         exits, snap = spec_scan(st, table[:, :2].contiguous(), max_steps)
         ent = spec_entries(exits, table[:, 2] != 0, table[:, 0])
@@ -1044,9 +1144,9 @@ def spec_stages(datas, chunk_bytes: int = 1024, max_steps: int = MAX_STEPS,
                          table[:, 5].to(i64), zeros, zeros,
                          ent[:, 1].to(i64), ent[:, 2].to(i64)], dim=1),
             pred0, exits[:, :1].to(i64)], dim=1).to(torch.int32)
-        flat, steps = decode_lanes(st, lanes, out_size, max_steps)
+        flat, steps = decode_lanes(st, lanes, plan, out_size, max_steps)
     return {"exits": exits, "snap": snap, "merged": merged, "lanes": lanes,
-            "flat": flat, "steps": steps, "ok": ok, "js": js,
+            "plan": plan, "flat": flat, "steps": steps, "ok": ok, "js": js,
             "consts": consts, "L": L, "staged": st,
             "chunks": table[:, :2].contiguous(), "ent": ent}
 

@@ -206,7 +206,7 @@ def test_decode_lanes_bmap_mid_mcu_entry_matches_jax():
     assert (lanes[:, 8:11] != 0).any() and (lanes[:, 11] < P.NO_STOP).all()
     st, consts, *_ = _stage_spec(case["datas"], case["chunk_bytes"])
     out_size = r["flat"].numel()
-    flat, steps = P.decode_lanes(st, lanes, out_size)
+    flat, steps = P.decode_lanes(st, lanes, r["plan"], out_size)
     want, wsteps = _jax_lanes(st, lanes, out_size, consts["bpm"])
     np.testing.assert_array_equal(flat[:-1].numpy(), want[:-1])
     assert int(steps.max()) == wsteps
@@ -402,3 +402,166 @@ def test_entropy_cases_reach_their_edges():
     inv = testing.entropy_stages(CASES["dri_invalid"], "cpu")["steps"]
     half = inv.numel() // 2
     assert (inv[:half] < inv[half:]).any()
+
+
+# --- K9 and K10's staged inputs: the fast tables and the CTA plan ------------
+
+def _random_dht(seed: int, is_ac: bool):
+    """A valid Huffman table from a seed: distinct symbols of the table's
+    class (AC: EOB, ZRL and run/size pairs of size 1..10; DC: sizes
+    0..11), codes of 1..16 bits whose Kraft sum stays below 1, so no code
+    is all ones."""
+    rng = np.random.default_rng(seed)
+    pool = ([0x00, 0xF0] + [(r << 4) | s for r in range(16)
+                            for s in range(1, 11)]) if is_ac else \
+        list(range(12))
+    syms = [int(x) for x in rng.permutation(pool)]
+    counts, room, used = [0] * 16, 1.0, 0
+    for length in rng.integers(1, 17, size=len(syms) * 4):
+        if used == len(syms):
+            break
+        if room - 2.0 ** -int(length) > 2.0 ** -17:
+            counts[int(length) - 1] += 1
+            room -= 2.0 ** -int(length)
+            used += 1
+    return counts, syms[:used]
+
+
+def _table_sets(name: str) -> list:
+    """(4, 65536) LUT stacks: each table set of an ``entropy_cases``
+    batch, of the q85/q95 8 x 1080p DRI batch (``encode_jpeg`` writes
+    the same tables at every size and quality, so small files carry
+    them), or of seeded random valid DHTs."""
+    if name == "random_dht":
+        return [np.stack([P.build_lut16(*_random_dht(10 * s + t, t % 2 == 1),
+                                        t % 2 == 1) for t in range(4)])
+                for s in range(3)]
+    if name == "dri_batch":
+        datas = [testing.encode_jpeg(testing.synth_rgb(16, 32, q), q,
+                                     restart_interval=1) for q in (85, 95)]
+    else:
+        datas = CASES[name]["datas"]
+    heads = {P._dht_key(j): j for j in
+             (jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas)}
+    return [P.luts_for(j) for j in heads.values()]
+
+
+@pytest.mark.parametrize("bits", [10, 11, 12])
+@pytest.mark.parametrize("name", sorted(CASES) + ["dri_batch",
+                                                  "random_dht"])
+def test_fast_table_lookup_equals_lut16(name, bits):
+    """Every 16-bit window of every table, looked up through the fast
+    table and, on a miss, the 16-bit LUT (as K9 and K10 look it up),
+    gives build_lut16's entry; every hit's code (and combined magnitude)
+    fits in the fast table's bits, and no hit is a spill; the miss marker
+    is no LUT entry."""
+    windows = np.arange(65536)
+    for luts in _table_sets(name):
+        fast = P.fast_tables(luts, bits)
+        assert fast.shape == (4, 1 << bits) and fast.dtype == np.uint32
+        e = fast[:, windows >> (16 - bits)]
+        hit = e != P.FAST_MISS
+        np.testing.assert_array_equal(np.where(hit, e, luts), luts)
+        assert ((e[hit] >> 24) <= bits).all()
+        assert (((e[hit] >> 16) & 0xFF) != P.RUN_CODE).all()
+        assert not (luts == P.FAST_MISS).any()
+        assert hit.any() and (luts[:, :1 << 15] != 0).any()
+
+
+def test_fast_tables_cached_and_staged():
+    """``fast_for`` gives ``fast_tables(luts_for(j))`` from its cache, and
+    ``stage_dri`` stages each group's fast tables beside its LUTs."""
+    datas = CASES["dri_mixed"]["datas"]
+    js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+    for j in js:
+        assert P.fast_for(j) is P.fast_for(j)
+        np.testing.assert_array_equal(P.fast_for(j),
+                                      P.fast_tables(P.luts_for(j)))
+    st, lanes, plan, out_size, _off = P.stage_dri(datas, js,
+                                                  torch.device("cpu"))
+    assert st.luts.shape[0] == 8 and st.fast.shape == (8, 1 << P.FAST_BITS)
+    np.testing.assert_array_equal(
+        st.fast.numpy().view(np.uint32),
+        P.fast_tables(st.luts.numpy().view(np.uint32)))
+    flat, steps = P.decode_lanes(st, lanes, plan, out_size)
+    want, wsteps = P.decode_lanes_plain(st, lanes, out_size)
+    assert torch.equal(flat, want) and torch.equal(steps, wsteps)
+
+
+def _check_plan(plan: np.ndarray, lut_idx: np.ndarray, max_lanes: int):
+    assert plan.dtype == np.int32 and plan.shape[1] == 3
+    group, first, count = plan.T
+    assert (count >= 1).all() and (count <= max_lanes).all()
+    # every lane once, in order
+    np.testing.assert_array_equal(np.concatenate(
+        [np.arange(f, f + c) for f, c in zip(first, count)]),
+        np.arange(len(lut_idx)))
+    for g, f, c in plan:
+        assert (lut_idx[f:f + c] == g).all()
+
+
+def test_cta_plan_on_dri_mixed():
+    """The staged plan of ``dri_mixed`` (two table sets and two
+    geometries in one launch): each CTA one group, at most CTA_LANES
+    lanes, every lane once in order; with 32 lanes a CTA, a group
+    boundary still splits the CTAs."""
+    datas = CASES["dri_mixed"]["datas"]
+    js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+    _st, lanes, plan, _n, _off = P.stage_dri(datas, js, torch.device("cpu"))
+    lut_idx = lanes[:, 4].numpy()
+    assert len(set(lut_idx.tolist())) == 2
+    plan = plan.numpy()
+    assert 1 <= P.CTA_LANES <= 32
+    _check_plan(plan, lut_idx, P.CTA_LANES)
+    np.testing.assert_array_equal(plan, P.cta_plan(lut_idx))
+    wide = P.cta_plan(lut_idx, 32)
+    _check_plan(wide, lut_idx, 32)
+    assert len(wide) > -(-len(lut_idx) // 32)
+
+
+@pytest.mark.parametrize("max_lanes", [1, 8, 32])
+def test_cta_plan_random_groups(max_lanes):
+    rng = np.random.default_rng(max_lanes)
+    for n in (1, 31, 32, 33, 200):
+        lut_idx = np.repeat(rng.integers(0, 3, n),
+                            rng.integers(1, 50, n))[:n]
+        _check_plan(P.cta_plan(lut_idx, max_lanes), lut_idx, max_lanes)
+    assert P.cta_plan(np.zeros(0)).shape == (0, 3)
+
+
+def test_spec_stages_plan_matches_its_lanes():
+    """The speculative route's emission lanes take one table group, and
+    ``spec_stages`` stages their CTA plan with them."""
+    case = testing.entropy_cases()["spec_mid_mcu"]
+    r = P.spec_stages(case["datas"], case["chunk_bytes"], device="cpu")
+    lut_idx = r["lanes"][:, 4].numpy()
+    assert (lut_idx == 0).all()
+    np.testing.assert_array_equal(r["plan"].numpy(), P.cta_plan(lut_idx))
+
+
+def _wrong_plans(plan: np.ndarray) -> dict:
+    one_group = plan.copy()
+    one_group[:, 0] = 0
+    too_wide = np.array([[0, 0, P.CTA_THREADS + 1]], np.int32)
+    return {"one_group": one_group, "short": plan[:-1],
+            "overlap": np.r_[plan[:1], plan],
+            "too_wide": too_wide}
+
+
+@pytest.mark.parametrize("kind", ["one_group", "short", "overlap",
+                                  "too_wide"])
+def test_decode_lanes_refuses_a_plan_that_does_not_match(kind):
+    """``decode_lanes`` takes K9's CTA plan with the lanes; on the CPU a
+    plan that does not cover them once each, in order, with each lane's
+    own group and at most CTA_THREADS a row raises (the kernel traps on
+    a lane of another group, ``chip_smoke.plan_trap_check``)."""
+    datas = CASES["dri_mixed"]["datas"]
+    js = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in datas]
+    st, lanes, plan, out_size, _off = P.stage_dri(datas, js,
+                                                  torch.device("cpu"))
+    P.check_plan(plan.numpy(), lanes[:, 4].numpy())
+    for m in (1, 8, P.CTA_THREADS):
+        P.check_plan(P.cta_plan(lanes[:, 4].numpy(), m), lanes[:, 4].numpy())
+    wrong = torch.from_numpy(_wrong_plans(plan.numpy())[kind])
+    with pytest.raises(ValueError, match="CTA plan"):
+        P.decode_lanes(st, lanes, wrong, out_size)
