@@ -116,6 +116,7 @@ PNG_CU = "ffpic_tpu_torch/csrc/png_decode.cu"
 ENTROPY_CU = "ffpic_tpu_torch/csrc/jpeg_entropy.cu"
 VP8_CU = "ffpic_tpu_torch/csrc/vp8_decode.cu"
 HEVC_CU = "ffpic_tpu_torch/csrc/hevc_decode.cu"
+RESIZE_CU = "ffpic_tpu_torch/csrc/resize.cu"
 REPLACES = {
     "count_scan": "ffpic_tpu/ops/jpeg_kernels.py:313",
     "unpack": "ffpic_tpu/ops/jpeg_kernels.py:323",
@@ -133,13 +134,16 @@ REPLACES = {
     "vp8_yuv_to_rgba": "ffpic_tpu/ops/vp8_kernels.py:107",
     "hevc_residuals": "ffpic_tpu/ops/hevc_kernels.py:80",
     "hevc_yuv_to_rgba": "ffpic_tpu/formats/heif.py:356",
+    "resize_rgba": "ffpic_tpu/ops/resize.py:13",
+    "normalize_resize": "ffpic_tpu/ops/resize.py:27",
 }
 SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
            "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU,
            "entropy_decode": ENTROPY_CU, "spec_scan": ENTROPY_CU,
            "spec_merge": ENTROPY_CU, "vp8_residuals": VP8_CU,
            "vp8_yuv_to_rgba": VP8_CU, "hevc_residuals": HEVC_CU,
-           "hevc_yuv_to_rgba": HEVC_CU}
+           "hevc_yuv_to_rgba": HEVC_CU, "resize_rgba": RESIZE_CU,
+           "normalize_resize": RESIZE_CU}
 PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
@@ -170,8 +174,9 @@ def ptxas_report(text: str) -> dict:
     arguments, e.g. ``assemble_color<1,0>`` (mode, order),
     ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
-    depth), ``hevc_yuv_to_rgba<1>`` (mode); K9-K14 have no template
-    arguments."""
+    depth), ``hevc_yuv_to_rgba<1>`` (mode), ``resize<0,1>`` (K16, a 32-bit
+    load an RGBA pixel) and ``resize<1,1>`` (K17); K9-K14 have no
+    template arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -181,7 +186,7 @@ def ptxas_report(text: str) -> dict:
                           r"unfilter_cols|assemble_rgba|entropy_decode|"
                           r"spec_scan|spec_merge|vp8_residuals|"
                           r"vp8_yuv_to_rgba|hevc_residuals|"
-                          r"hevc_yuv_to_rgba)_kernel"
+                          r"hevc_yuv_to_rgba|resize)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -503,9 +508,11 @@ def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
                plain_iters: int = 3, plain_warmup: int = 2) -> dict:
     """One kernel's timing entry: warm and L2-flushed ms, its plain
     version's and (where one exists) one PyTorch call's ms, its bound."""
-    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
-                                              bound, gpu_ms, gpu_ms_cold)
-    rate = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S}[ops_type]
+    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, F64_OPS_PER_S,
+                                              INT32_OPS_PER_S, bound, gpu_ms,
+                                              gpu_ms_cold)
+    rate = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S,
+            "f64": F64_OPS_PER_S}[ops_type]
     b_ms, b_by = bound(nbytes, ops, rate)
     t = {"ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
          "plain_ms": gpu_ms(plain, plain_iters, plain_warmup),
@@ -1922,6 +1929,343 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
                    "decode_batch_both": mixed["both"]}
 
 
+CONFIG5_SIZE = (224, 224)
+VIT_REL_TOL = 1e-2      # card logits against the CPU forward, of max |logit|
+
+
+def dense_resize(img, size):
+    """The resize the port ran before K16 (two float64 einsums over
+    ``_weight_mat``'s dense matrices, rounded to f32 after each axis),
+    kept here only as the yardstick the banded kernel replaced."""
+    import torch
+    from ffpic_tpu_torch.ops.resize import _weight_mat
+    h, w = size
+    x = img.to(torch.float64)
+    if x.shape[-3] != h:
+        wh = _weight_mat(x.shape[-3], h, x.device).to(torch.float64)
+        x = torch.einsum("...hwc,hH->...Hwc", x, wh).to(torch.float32) \
+            .to(torch.float64)
+    if x.shape[-2] != w:
+        ww = _weight_mat(x.shape[-2], w, x.device).to(torch.float64)
+        x = torch.einsum("...hwc,wW->...hWc", x, ww).to(torch.float32)
+    return torch.round(x).clamp(0, 255).to(torch.uint8)
+
+
+def exact_f32(name: str, got, want, errs: dict) -> None:
+    """A float kernel's output against its plain version: bit-equal."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    errs[name] = max(errs.get(name, 0), err)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"by up to {err}")
+
+
+def tap_ops(n: int, size_in, size_out, ch: int) -> int:
+    """f64 operations of the banded resize, a multiply and an add a tap:
+    the H pass over every input column, then the W pass."""
+    from ffpic_tpu_torch.ops.resize import taps
+    (hi, wi), (h, w) = size_in, size_out
+    ops = 0
+    if hi != h:
+        ops += 2 * n * wi * ch * int(taps(hi, h)[1].sum())
+    if wi != w:
+        ops += 2 * n * h * ch * int(taps(wi, w)[1].sum())
+    return ops
+
+
+def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
+    """BASELINE config 5 on the card: a mixed batch of images into a
+    ViT.  K16 and K17 against their plain versions (``testing.
+    resize_cases`` and ``normalize_cases``, and the path's shapes), then
+    the path with fresh launch counts: ``decode_batch`` of the 8 x 1080p
+    mixed batch at ``size=(224, 224)`` (K16 a slot), ``normalize_for_
+    model`` (K17), ViT-B/16's forward with seeded weights; the card's
+    batch, input and logits against the CPU's.  Also the 8 x 1080p JPEG
+    batch through ``normalize_for_model(size=(224, 224))`` (K17 with its
+    resize) into the ViT.  The timings: each kernel warm and L2 flushed
+    beside its bound, the launch floor, the float64 matmul it replaced
+    and ``F.interpolate(antialias=True)``; the ViT's forward at batch 8
+    and 64; each chain end to end with its spans.  Returns {kernel:
+    timing entry} and the path's launches."""
+    import torch
+    import torch.nn.functional as F
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.models import vit
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_resize, cuda_vp8
+    from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils.timing import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                              F64_OPS_PER_S, bound, gpu_ms,
+                                              gpu_ms_cold)
+    mods = (cuda_jpeg, cuda_png, cuda_vp8, cuda_resize)
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for m in mods for k, v in m.launches.items() if v}
+
+    size = CONFIG5_SIZE
+    t0 = time.perf_counter()
+    members = testing.config5_members(H, W)
+    log("inputs config 5", members="jpeg,webp,jpeg,png,jpeg,webp,png,jpeg",
+        size=f"{W}x{H}", bytes=[len(m) for m in members],
+        seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # --- K16 and K17 against their plain versions on the card --------------
+    for img, sz in testing.resize_cases().values():
+        t = torch.from_numpy(img).to(dev)
+        exact("resize_rgba", cuda_resize.resize_rgba(t, sz),
+              rs.resize_rgba_plain(t, sz), errs)
+    for b, sz, mean, std in testing.normalize_cases().values():
+        t = torch.from_numpy(b).to(dev)
+        exact_f32("normalize_resize", cuda_resize.normalize_resize(
+            t, sz, mean, std), rs.normalize_plain(t, sz, mean, std), errs)
+    full = ffpic_tpu_torch.decode_batch(members, device=dev)
+    if tuple(full.shape) != (N, H, W, 4):
+        raise AssertionError(f"config 5 unsized: {tuple(full.shape)}")
+    crop = full[:, 3:H - 5, 7:W - 1]            # strided rows, as slots are
+    # the same pixels one byte off a 4-byte boundary: byte loads, not one
+    # 32-bit load a pixel
+    unaligned = torch.empty(full.numel() + 1, dtype=torch.uint8,
+                            device=dev)[1:].view(full.shape)
+    unaligned.copy_(full)
+    for t in (full, crop, full[2], unaligned):
+        exact("resize_rgba", cuda_resize.resize_rgba(t, size),
+              rs.resize_rgba_plain(t, size), errs)
+    sized_plain = rs.resize_rgba_plain(full, size)
+    for img, sz in ((full, None), (sized_plain, None), (jpeg_batch, size),
+                    (crop, size), (unaligned, size)):
+        exact_f32("normalize_resize", cuda_resize.normalize_resize(img, sz),
+                  rs.normalize_plain(img, sz), errs)
+    x_jpeg_plain = rs.normalize_plain(jpeg_batch, size, testing.MEAN_IMAGENET,
+                                      testing.STD_IMAGENET)
+    exact_f32("normalize_resize", cuda_resize.normalize_resize(
+        jpeg_batch, size, testing.MEAN_IMAGENET, testing.STD_IMAGENET),
+        x_jpeg_plain, errs)
+    if not torch.equal(x_jpeg_plain.cpu(), rs.normalize_plain(
+            jpeg_batch.cpu(), size, testing.MEAN_IMAGENET,
+            testing.STD_IMAGENET)):
+        raise AssertionError("normalize_plain differs between the card and "
+                             "the CPU")
+    log("check K16 K17", resize_rgba="exact", normalize_resize="exact",
+        cases=",".join([*testing.resize_cases(), *testing.normalize_cases()]),
+        path_shapes=f"{N}x{W}x{H}->224 batch,crop,slot,unaligned; "
+        f"{N}x224 norm; "
+        f"{N}x{W}x{H} jpeg norm+resize", plain_cpu_vs_card="exact")
+
+    # --- the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16 ---
+    cfg = vit.VIT_B16
+    state = vit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = vit.ViT(cfg, state, device=dev)
+    model_cpu = vit.ViT(cfg, state, device="cpu")
+    reset()
+    batch = ffpic_tpu_torch.decode_batch(members, size=size, device=dev)
+    x = rs.normalize_for_model(batch)
+    logits = model(x)
+    path_launches = counts()
+    if (path_launches.get("resize_rgba"), path_launches.get(
+            "normalize_resize")) != (N, 1):
+        raise AssertionError(f"config 5 path: launches {path_launches}")
+    if min(path_launches.get(k, 0) for k in (*PATH_420,
+                                             "assemble_rgba")) < 1:
+        raise AssertionError(f"config 5 path: a decode kernel never ran: "
+                             f"{path_launches}")
+    batch_cpu = ffpic_tpu_torch.decode_batch(members, size=size,
+                                             device="cpu")
+    if tuple(batch.shape) != (N, *size, 4) or not torch.equal(batch.cpu(),
+                                                              batch_cpu):
+        raise AssertionError("config 5 batch: the card differs from the CPU "
+                             "route")
+    x_cpu = rs.normalize_for_model(batch_cpu)
+    if x.dtype != torch.float32 or not torch.equal(x.cpu(), x_cpu):
+        raise AssertionError("config 5 input: the card differs from the CPU")
+    t0 = time.perf_counter()
+    logits_cpu = model_cpu(x_cpu)
+    cpu_forward_s = time.perf_counter() - t0
+
+    def against_cpu(name, got, want):
+        if tuple(got.shape) != (N, cfg.n_classes) or not bool(
+                got.isfinite().all()):
+            raise AssertionError(f"{name}: logits {tuple(got.shape)}, "
+                                 "finite: " + str(bool(got.isfinite().all())))
+        err = float((got.cpu().double() - want.double()).abs().max())
+        scale = float(want.abs().max())
+        agree = float((got.cpu().argmax(1) == want.argmax(1)).double()
+                      .mean())
+        if err > VIT_REL_TOL * scale:
+            raise AssertionError(f"{name}: card logits differ from the CPU "
+                                 f"forward by {err} (max |logit| {scale})")
+        return err, scale, agree
+
+    err, scale, agree = against_cpu("config 5", logits, logits_cpu)
+    log("config 5", members=N, size=size, shape=tuple(logits.shape),
+        launches=json.dumps(path_launches).replace(" ", ""),
+        batch_cpu_route="exact", input_cpu="exact",
+        logits_max_abs_vs_cpu=f"{err:.6g}", logits_max_abs=f"{scale:.6g}",
+        tolerance=f"{VIT_REL_TOL:g}*max|logit|", argmax_equal_share=agree,
+        cpu_forward_seconds=f"{cpu_forward_s:.3f}")
+    # the JPEG batch resized by normalize_for_model itself
+    reset()
+    x2 = rs.normalize_for_model(jpeg_batch, size)
+    logits2 = model(x2)
+    jpeg_launches = counts()
+    if jpeg_launches != {"normalize_resize": 1}:
+        raise AssertionError(f"normalize(size=) path: launches "
+                             f"{jpeg_launches}")
+    x2_plain = rs.normalize_plain(jpeg_batch.cpu(), size)
+    if not torch.equal(x2.cpu(), x2_plain):
+        raise AssertionError("normalize(size=): the card differs from the CPU")
+    err2, scale2, agree2 = against_cpu("normalize(size=)", logits2,
+                                       model_cpu(x2_plain))
+    log("config 5 jpeg normalize(size=)", batch=f"{N}x{W}x{H} jpeg",
+        launches=jpeg_launches, input_cpu="exact",
+        logits_max_abs_vs_cpu=f"{err2:.6g}", logits_max_abs=f"{scale2:.6g}",
+        argmax_equal_share=agree2)
+    del model_cpu
+
+    # --- timing -------------------------------------------------------------
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    at = f"config 5: {N} x {W}x{H} RGBA to 224 x 224"
+    nchw = full.permute(0, 3, 1, 2).contiguous()
+
+    def interp(t=nchw):
+        return F.interpolate(t.float(), size=size, mode="bilinear",
+                             antialias=True, align_corners=False)
+
+    # K16 as the path launches it: once a slot, one 1080p image each
+    slot, slots = full[0], list(full)
+    k16 = time_entry(
+        "resize_rgba", lambda: cuda_resize.resize_rgba(slot, size),
+        lambda: rs.resize_rgba_plain(slot, size),
+        slot.numel() + size[0] * size[1] * 4, tap_ops(1, (H, W), size, 4),
+        "f64", floor_ms, flush, f"{at}, one slot a launch",
+        library=lambda: interp(nchw[:1]))
+    # beside it: the path's eight launches back to back, and one launch
+    # over the whole batch (which the path does not make), also with
+    # byte loads (the pixels off a 4-byte boundary)
+    batched = lambda: cuda_resize.resize_rgba(full, size)  # noqa: E731
+    k16.update(
+        slots_ms=gpu_ms(lambda: [cuda_resize.resize_rgba(s, size)
+                                 for s in slots], 20),
+        batched_ms=gpu_ms(batched, 50),
+        batched_ms_cold=gpu_ms_cold(batched, 20, flush),
+        batched_bound_ms=bound(full.numel() + N * size[0] * size[1] * 4,
+                               tap_ops(N, (H, W), size, 4),
+                               F64_OPS_PER_S)[0],
+        batched_byte_loads_ms=gpu_ms(
+            lambda: cuda_resize.resize_rgba(unaligned, size), 50),
+        batched_library_ms=gpu_ms(interp, 50),
+        batched_library_ms_cold=gpu_ms_cold(interp, 20, flush),
+        library_max_abs_vs_plain=max_abs_err(
+            interp().round().clamp(0, 255).to(torch.uint8)
+            .permute(0, 2, 3, 1), sized_plain),
+        dense_f64_ms=gpu_ms(lambda: dense_resize(full, size), 5),
+        dense_f64_ms_cold=gpu_ms_cold(lambda: dense_resize(full, size), 3,
+                                      flush),
+        launches_per_path=N)
+    if not torch.equal(dense_resize(full, size), sized_plain):
+        k16["dense_f64_max_abs_vs_plain"] = max_abs_err(
+            dense_resize(full, size), sized_plain)
+    log("time resize_rgba extra", at=at,
+        **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+           for k, v in k16.items() if k.startswith(
+               ("slots_", "batched_", "library_max", "dense_f64"))})
+    nb = batch.numel()
+    k17 = time_entry(
+        "normalize_resize", lambda: cuda_resize.normalize_resize(batch),
+        lambda: rs.normalize_plain(batch), nb + nb // 4 * 3 * 4,
+        3 * nb // 4 * 3, "f32", floor_ms, flush,
+        f"config 5: {N} x 224 x 224, size=None")
+    k17["launches_per_path"] = 1
+    sized_in = jpeg_batch.numel()
+    k17["with_resize"] = w = {
+        "at": f"{N} x {W}x{H} jpeg to 224 x 224",
+        "ms": gpu_ms(lambda: cuda_resize.normalize_resize(jpeg_batch, size),
+                     50),
+        "ms_cold": gpu_ms_cold(lambda: cuda_resize.normalize_resize(
+            jpeg_batch, size), 20, flush),
+        "plain_ms": gpu_ms(lambda: rs.normalize_plain(jpeg_batch, size), 3),
+        "bytes": sized_in + N * size[0] * size[1] * 12,
+        "ops": tap_ops(N, (H, W), size, 3), "ops_type": "f64"}
+    w["bound_ms"], w["bound_by"] = bound(w["bytes"], w["ops"], F64_OPS_PER_S)
+    log("time normalize_resize with resize", **{
+        k: (f"{v:.4f}" if isinstance(v, float) else v) for k, v in w.items()})
+    del flush
+
+    # the ViT's forward, CUDA events, at batch 8 and 64
+    vit_ms = {}
+    for n in (N, 64):
+        xin = x if n == N else x.repeat(n // N, 1, 1, 1)
+        ms = gpu_ms(lambda: model(xin), 10 if n == N else 3)
+        flops = vit.forward_flops(cfg, n)
+        vit_ms[n] = ms
+        log("time vit", config="ViT-B/16", batch=n, ms=f"{ms:.4f}",
+            flops=flops, tflops=f"{flops / ms / 1e9:.2f}",
+            bf16_peak_share=f"{flops / (ms / 1e3) / BF16_OPS_PER_S:.4f}",
+            f32_peak_share=f"{flops / (ms / 1e3) / F32_OPS_PER_S:.4f}",
+            weights="seeded (torch.Generator seed 0), not pretrained")
+        del xin
+
+    # end to end, host clock, bytes to synchronised logits, with spans
+    from ffpic_tpu_torch.utils import trace
+
+    def chain(decode, norm):
+        def run():
+            t0 = time.perf_counter()
+            b = decode()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            xx = norm(b)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            model(xx)
+            torch.cuda.synchronize()
+            return t1 - t0, t2 - t1, time.perf_counter() - t2
+        return run
+
+    for name, run in (
+            ("mixed", chain(lambda: ffpic_tpu_torch.decode_batch(
+                members, size=size, device=dev), rs.normalize_for_model)),
+            ("jpeg", chain(lambda: ffpic_tpu_torch.decode_batch(
+                srcs, device=dev), lambda b: rs.normalize_for_model(
+                    b, size)))):
+        run()
+        trace.reset()
+        trace.enable()
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            parts = run()
+            runs.append((time.perf_counter() - t0, *parts))
+        trace.enable(False)
+        stages = {k: round(v["mean"] * 1e3, 3)
+                  for k, v in trace.report().items()}
+        runs.sort()
+        wall = runs[len(runs) // 2]
+        mp = N * H * W / 1e6
+        log("time config 5", chain=name, megapixels=mp,
+            end_to_end_ms=f"{wall[0] * 1e3:.3f}",
+            end_to_end_ms_runs=json.dumps([round(r[0] * 1e3, 3)
+                                           for r in runs]).replace(" ", ""),
+            images_per_s=f"{N / wall[0]:.2f}", mps=f"{mp / wall[0]:.2f}",
+            span_decode_ms=f"{wall[1] * 1e3:.3f}",
+            span_normalize_ms=f"{wall[2] * 1e3:.3f}",
+            span_vit_ms=f"{wall[3] * 1e3:.3f}",
+            vit_event_ms=f"{vit_ms[N]:.4f}",
+            stage_ms=json.dumps(stages).replace(" ", ""))
+    return {"resize_rgba": k16, "normalize_resize": k17}, path_launches
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2218,18 +2562,6 @@ def main() -> int:
     plain_dev_ms = gpu_ms(lambda: jk.decode_batch_420(
         jk.unpack_coeffs(counts, ks, vals, bmap, nblocks), yq, cq, shapes,
         "rgba", "bt601", (H, W)), 3)
-    resize_ms = gpu_ms(lambda: torch.stack(
-        [resize_rgba(p, (224, 224)) for p in out]), 10)
-    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
-    resize_ms_cold = gpu_ms_cold(lambda: torch.stack(
-        [resize_rgba(p, (224, 224)) for p in out]), 5, flush)
-    del flush
-    # resize as ops/resize.py runs it: uint8 in and out once, and the
-    # f32 products of the two dense weight matrices (1080->224 over
-    # rows, then 1920->224 over columns), 2 ops a multiply-add
-    resize_bound = bound(
-        4 * N * (H * W + 224 * 224),
-        2 * 4 * N * (W * H * 224 + 224 * W * 224), F32_OPS_PER_S)
     mp = N * H * W / 1e6
     trace.reset()
     trace.enable()
@@ -2246,10 +2578,6 @@ def main() -> int:
         device_busy_share=f"{dev_ms / (wall * 1e3):.4f}",
         device_pipeline_mps=f"{mp / dev_ms * 1e3:.1f}",
         plain_device_ms=f"{plain_dev_ms:.4f}",
-        resize_224_ms=f"{resize_ms:.4f}",
-        resize_224_ms_cold=f"{resize_ms_cold:.4f}",
-        resize_224_bound_ms=f"{resize_bound[0]:.4f}",
-        resize_224_bound_by=resize_bound[1],
         end_to_end_ms=f"{wall * 1e3:.3f}",
         end_to_end_ms_runs=json.dumps([round(w * 1e3, 3) for w in walls]).replace(" ", ""),
         jpeg_1080p_420_decode_end_to_end_mps=f"{mp / wall:.2f}",
@@ -2268,6 +2596,9 @@ def main() -> int:
     timed.update(webp_timed)
     heif_timed, heif_launches = heif_paths(dev, jpegs, floor_ms, errs)
     timed.update(heif_timed)
+    config5_timed, config5_launches = config5_paths(dev, out, srcs, floor_ms,
+                                                    errs)
+    timed.update(config5_timed)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6's
     # two passes at 4 bytes a pixel, K7 for 8-bit RGBA
@@ -2276,7 +2607,9 @@ def main() -> int:
     built = {"assemble_color": "assemble_color<1,0>",
              "assemble_mcu": "assemble_mcu<1,0,1>",
              "assemble_rgba": "assemble_rgba<6,8>",
-             "hevc_yuv_to_rgba": "hevc_yuv_to_rgba<1>"}
+             "hevc_yuv_to_rgba": "hevc_yuv_to_rgba<1>",
+             "resize_rgba": "resize<0,1>",
+             "normalize_resize": "resize<1,1>"}
     # each kernel's launches on the path it serves: decode_batch for
     # K1a-K3, load for K4, encode for K5, PNG load (Sub/Up file) for K6
     # and K7, the sparse route for K8; K2's on load beside them
@@ -2311,6 +2644,10 @@ def main() -> int:
     for name in ("hevc_residuals", "hevc_yuv_to_rgba"):
         timed[name]["launches_per_path"] = {
             k: v[name] for k, v in heif_launches.items()}
+    # K16 and K17 on config 5's path: decode_batch(size=) (a launch a
+    # slot), then normalize_for_model
+    launches["resize_rgba"] = config5_launches["resize_rgba"]
+    launches["normalize_resize"] = config5_launches["normalize_resize"]
     for name in ("unfilter_subup", "assemble_rgba"):
         timed[name]["launches_mixed_decode_batch"] = \
             png_launches["mixed"][name]

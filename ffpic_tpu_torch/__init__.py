@@ -14,9 +14,11 @@ copy of ``ffpic_tpu``'s host layer (``formats.jpg``, ``formats.png``,
 ``formats.webp``, ``formats.heif`` with ``formats.hevc`` and
 ``native/``'s C sources, built with cc at first use); the device stages
 are hand-written CUDA kernels (``csrc/``) built with nvcc at first use,
-each with a plain PyTorch version that CPU tensors take.  This package
-imports neither jax nor ``ffpic_tpu``, which stays the reference it is
-tested against.
+each with a plain PyTorch version that CPU tensors take.  A resized
+batch goes on into a model through ``ops.resize.normalize_for_model``
+and ``models.vit.ViT`` (BASELINE config 5).  This package imports
+neither jax nor ``ffpic_tpu``, which stays the reference it is tested
+against.
 """
 
 from ffpic_tpu_torch.formats.pic import Pic

@@ -1,15 +1,31 @@
-"""Resize of decoded RGBA images on the device.
+"""Resize and normalisation of decoded RGBA images for a model
+(BASELINE config 5): the PyTorch counterpart of ``ffpic_tpu/ops/resize.py``.
 
-``resize_rgba`` gives what ``jax.image.resize(img.astype(f32), (h, w, 4),
-"bilinear")`` gives, rounded half to even and clipped to uint8: per axis
-a triangle-kernel weight matrix, widened by 1/scale when shrinking
-(JAX antialiases by default; ``F.interpolate`` does not), applied as a
-float64 matrix product and rounded to float32 after each axis, as JAX
-rounds its f32 products.  The weights are f32 values, which float64
-holds exactly, and float64 ignores the TF32 setting, so no global
-precision setting is read or changed.  The sums run in another order
-and width than XLA's, so a sum can land on the other side of .5:
-outputs agree with the JAX package to 1 LSB.
+It holds
+
+* ``resize_rgba_plain`` (K16's function) and ``normalize_plain``
+  (K17's), the plain PyTorch versions.  They run on any device and are
+  the reference the CUDA kernels are held against;
+* the entries named as the reference's, ``resize_rgba`` and
+  ``normalize_for_model``.  They dispatch on the tensor's device: a CPU
+  tensor takes the plain version, a CUDA tensor the kernel of
+  ``ops.cuda_resize`` (which raises rather than falls back).
+
+The resize is ``jax.image.resize(x, ..., "bilinear")``: per axis a
+triangle kernel widened by 1/scale when shrinking (JAX antialiases by
+default; ``F.interpolate`` does not), H first and then W, the result
+rounded to float32 after each axis, as JAX rounds its f32 products.  An
+axis whose size does not change is skipped, as JAX skips it.  Each
+output index reads a run of inputs (its taps: the first input index and
+the run's nonzero f32 weights, ``taps``).  Both the plain versions and
+the kernels sum a run in float64, in ascending input order, a product
+and then a sum each rounded to float64 (no fused multiply-add), so they
+agree bit for bit.  On the first axis of ``resize_rgba`` the products
+(uint8 x f32) and their sums are exact in float64.  The sums run in
+another order and width than XLA's, so a value can land on the other
+side of .5 before ``resize_rgba`` rounds it: outputs agree with the JAX
+package to 1 LSB, and ``normalize_for_model``'s to float32 rounding.
+Nothing here reads or changes a global matmul precision setting.
 """
 
 from __future__ import annotations
@@ -18,39 +34,127 @@ import functools
 
 import torch
 
+from ffpic_tpu_torch.ops.jpeg_kernels import _on_cuda
+
+F32, F64 = torch.float32, torch.float64
+MEAN = STD = (0.5, 0.5, 0.5)          # the reference's defaults
+
 
 @functools.lru_cache(maxsize=64)
 def _weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
     """(in_size, out_size) float32 weights, step for step as
     ``jax._src.image.scale.compute_weight_mat`` with the triangle kernel,
     antialias on and no translation."""
-    f32 = torch.float32
     # JAX takes 1/scale of a Python float, then rounds it to f32 in use
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = max(inv_scale, 1.0)
-    sample_f = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32)[:, None]) \
+    sample_f = (torch.arange(out_size, dtype=F32) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=F32)[:, None]) \
         .abs() / kernel_scale
     weights = torch.clamp(1 - x.abs(), min=0)
     total = weights.sum(dim=0, keepdim=True)
-    eps = torch.finfo(torch.float32).eps
+    eps = torch.finfo(F32).eps
     weights = torch.where(total.abs() > 1000.0 * eps,
                           weights / torch.where(total != 0, total, 1.0), 0.0)
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
     return torch.where(inside[None, :], weights, 0.0).to(device)
 
 
-def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
-    """(..., H, W, C) uint8 -> (..., h, w, C) uint8, bilinear with
-    antialiasing, on the tensor's device.  An axis whose size does not
-    change is left as it is, as JAX skips it."""
+@functools.lru_cache(maxsize=64)
+def taps(in_size: int, out_size: int, device=torch.device("cpu")):
+    """The banded form of ``_weight_mat``: for each output index its
+    first input index ``start`` (out,) int32, the length ``count``
+    (out,) int32 of its run of weights from the first nonzero to the
+    last (0 where all are zero), and the run's f32 weights (out, K),
+    zero past ``count``, K the longest run, held as float64 (exactly),
+    the width the sums take them in."""
+    wm = _weight_mat(in_size, out_size, torch.device("cpu")).T
+    nz = wm != 0
+    count = torch.zeros(out_size, dtype=torch.int32)
+    start = torch.zeros(out_size, dtype=torch.int32)
+    any_nz = nz.any(dim=1)
+    idx = torch.arange(in_size)
+    first = torch.where(nz, idx, in_size).amin(dim=1)
+    last = torch.where(nz, idx, -1).amax(dim=1)
+    start[any_nz] = first[any_nz].to(torch.int32)
+    count[any_nz] = (last - first + 1)[any_nz].to(torch.int32)
+    k = max(int(count.max()), 1)
+    pos = (start[:, None].long() + torch.arange(k)).clamp(max=in_size - 1)
+    wts = torch.where(torch.arange(k) < count[:, None],
+                      wm.gather(1, pos), torch.zeros((), dtype=F32))
+    return start.to(device), count.to(device), wts.to(device, F64)
+
+
+def _resize_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+    """One axis of the resize: ``x`` (any dtype) along ``dim`` to
+    ``out_size``, each run summed in float64 in ascending input order,
+    then rounded to float32."""
+    in_size = x.shape[dim]
+    start, _count, wts = taps(in_size, out_size, x.device)
+    k = wts.shape[1]
+    pos = (start[:, None].long() + torch.arange(k, device=x.device)) \
+        .clamp(max=in_size - 1)
+    bshape = [1] * (x.dim() - dim % x.dim())
+    bshape[0] = out_size
+    acc = None
+    for t in range(k):
+        prod = x.index_select(dim, pos[:, t]).to(F64) \
+            * wts[:, t].view(bshape)
+        acc = prod if acc is None else acc + prod
+    return acc.to(F32)
+
+
+def _resize_f32(x: torch.Tensor, size) -> torch.Tensor:
+    """``(..., H, W, C)`` -> ``(..., h, w, C)`` float32, H first."""
     h, w = size
-    x = img.to(torch.float64)
     if x.shape[-3] != h:
-        wh = _weight_mat(x.shape[-3], h, x.device).to(torch.float64)
-        x = torch.einsum("...hwc,hH->...Hwc", x, wh).to(torch.float32) \
-            .to(torch.float64)
+        x = _resize_axis(x, -3, h)
     if x.shape[-2] != w:
-        ww = _weight_mat(x.shape[-2], w, x.device).to(torch.float64)
-        x = torch.einsum("...hwc,wW->...hWc", x, ww).to(torch.float32)
-    return torch.round(x).clamp(0, 255).to(torch.uint8)
+        x = _resize_axis(x, -2, w)
+    return x.to(F32)
+
+
+def resize_rgba_plain(img: torch.Tensor, size) -> torch.Tensor:
+    """K16's function: ``(..., H, W, C)`` uint8 -> ``(..., h, w, C)``
+    uint8, bilinear with antialiasing, rounded half to even and clipped
+    (``ffpic_tpu/ops/resize.py:13``)."""
+    return torch.round(_resize_f32(img, size)).clamp(0, 255).to(torch.uint8)
+
+
+def _consts(values, device) -> torch.Tensor:
+    # a tensor on the data's device, never a CPU scalar: PyTorch's CUDA
+    # division by a CPU scalar multiplies by its reciprocal instead
+    return torch.tensor(values, dtype=F32, device=device)
+
+
+def normalize_plain(batch: torch.Tensor, size=None, mean=MEAN,
+                    std=STD) -> torch.Tensor:
+    """K17's function: ``(..., H, W, C>=3)`` uint8 RGBA -> ``(..., h, w,
+    3)`` float32: ``rgb / 255`` (an f32 division), the resize when
+    ``size`` is given (in f32, no uint8 rounding), then ``(x - mean) /
+    std`` (f32 subtract and divide) (``ffpic_tpu/ops/resize.py:27``)."""
+    x = batch[..., :3].to(F32) / _consts(255.0, batch.device)
+    if size is not None:
+        x = _resize_f32(x, tuple(size))
+    return (x - _consts(mean, x.device)) / _consts(std, x.device)
+
+
+def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
+    """(..., H, W, C) uint8 -> (..., h, w, C) uint8 on the tensor's
+    device: K16 on CUDA, the plain version on the CPU."""
+    if not _on_cuda(img):
+        return resize_rgba_plain(img, tuple(size))
+    from ffpic_tpu_torch.ops import cuda_resize
+    return cuda_resize.resize_rgba(img, tuple(size))
+
+
+def normalize_for_model(batch: torch.Tensor, size=None, mean=MEAN,
+                        std=STD) -> torch.Tensor:
+    """uint8 RGBA batch (N, H, W, 4) -> float32 RGB normalised (N, h, w,
+    3) on the batch's device, resized to ``size`` when given: K17 on
+    CUDA, the plain version on the CPU."""
+    size = None if size is None else tuple(size)
+    if not _on_cuda(batch):
+        return normalize_plain(batch, size, mean, std)
+    from ffpic_tpu_torch.ops import cuda_resize
+    return cuda_resize.normalize_resize(batch, size, mean, std)

@@ -53,8 +53,12 @@ batches of JPEGs, PNGs, WebPs and HEIFs:
    take under 0.7 of the dense bytes, else the planes through
    ``decode_batch_420_dense``.  Both routes give the same pixels.  All
    write the cropped images.
-4. Optional resize to ``size``, and stacking in input order; a batch
-   that one decode covers in input order is returned as it is.
+4. Optional resize to ``size``, a slot at a time as the reference
+   resizes (``ffpic_tpu/pipeline.py:309-311``): ``ops.resize.resize_rgba``,
+   K16 on the card (a launch a slot, reading a cropped slot in place),
+   the plain version on the CPU; then stacking in input order.  Without
+   ``size`` a batch that one decode covers in input order is returned as
+   it is.
 
 The host layer (``formats.jpg``, ``formats.png``, ``formats.webp``,
 ``formats.heif``, ``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and

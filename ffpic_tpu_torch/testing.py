@@ -36,7 +36,11 @@ committed WebP fixtures, and the kernel edge cases that the tests and
   indexing of the ``dequant_idct`` and ``assemble_mcu`` kernels;
 * ``unfused_colour`` and ``assert_equal_up_to_contraction`` hold a
   colour result to JAX's up to XLA's choice of contracting the colour
-  products into FMAs.
+  products into FMAs;
+* ``resize_cases`` and ``normalize_cases`` make the inputs at the edges
+  of the ``resize_rgba`` and ``normalize_resize`` kernels (K16, K17);
+  ``config5_members`` the mixed JPEG, PNG and WebP batch of BASELINE
+  config 5.
 """
 
 from __future__ import annotations
@@ -1171,3 +1175,76 @@ def heif_tile_tus(data: bytes, item_id: int, structure: dict | None = None):
     need = int((tu[:, 2].astype(np.int64) ** 2).sum())
     return np.ascontiguousarray(tu), levels[:need].copy(), \
         sps.bit_depth_luma
+
+
+def resize_cases(seed: int = 0) -> dict[str, tuple]:
+    """Inputs at the edges of K16 ``resize_rgba``: name -> (uint8 image
+    (..., H, W, C) as numpy, (h, w)).  A 1080p shrink to 224 x 224 (about
+    10 vertical and 18 horizontal taps), a grow from 160 (2 taps), one
+    axis kept (skipped) in either place, both kept, odd sizes, 3 and 4
+    channels, a batch dimension, and sizes where a tap run starts or ends
+    at the image's edge."""
+    rng = np.random.default_rng(seed)
+
+    def img(*shape):
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    return {
+        "shrink_1080p": (img(1, 1080, 1920, 4), (224, 224)),
+        "grow_160": (img(2, 160, 160, 4), (224, 224)),
+        "keep_h": (img(512, 400, 4), (512, 224)),
+        "keep_w_c3": (img(400, 512, 3), (224, 512)),
+        "keep_both": (img(64, 48, 4), (64, 48)),
+        "odd_333x199_c3": (img(199, 333, 3), (224, 224)),
+        "odd_down": (img(2, 199, 333, 4), (97, 61)),
+        "odd_up_c3": (img(7, 5, 3), (11, 13)),
+        "to_one": (img(37, 29, 4), (1, 1)),
+        "from_one": (img(1, 1, 4), (5, 3)),
+    }
+
+
+MEAN_IMAGENET = (0.485, 0.456, 0.406)
+STD_IMAGENET = (0.229, 0.224, 0.225)
+
+
+def normalize_cases(seed: int = 0) -> dict[str, tuple]:
+    """Inputs of K17 ``normalize_resize``: name -> (uint8 batch (N, H, W,
+    C>=3) as numpy, size or None, mean, std): no resize (the config-5
+    path's call), a shrink, a grow, one axis kept, odd sizes, 3 channels,
+    the reference's default mean and std and ImageNet's."""
+    rng = np.random.default_rng(seed)
+    half = ((0.5,) * 3, (0.5,) * 3)
+    imagenet = (MEAN_IMAGENET, STD_IMAGENET)
+
+    def batch(*shape):
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+
+    return {
+        "none_224": (batch(8, 224, 224, 4), None, *half),
+        "none_odd_c3": (batch(2, 37, 53, 3), None, *imagenet),
+        "shrink_1080p": (batch(1, 1080, 1920, 4), (224, 224), *imagenet),
+        "grow_160": (batch(2, 160, 160, 4), (224, 224), *half),
+        "keep_w": (batch(2, 96, 128, 4), (64, 128), *imagenet),
+        "odd_333x199": (batch(1, 199, 333, 4), (97, 61), *half),
+        "same_size": (batch(1, 64, 48, 4), (64, 48), *imagenet),
+    }
+
+
+def config5_members(h: int = 1080, w: int = 1920,
+                    webps=("lossy_1080p.webp", "alpha_1080p.webp")) -> list:
+    """The mixed batch of BASELINE config 5 (images of several formats
+    batched into a model): 4 baseline 4:2:0 JPEGs (q85 and q95 of two
+    ``synth_rgb`` images), 2 RGBA PNGs (one with the port's encoder's
+    adaptive filters, one with Sub and Up rows only) and 2 committed WebP
+    fixtures, interleaved as ``[jpeg, webp, jpeg, png, jpeg, webp, png,
+    jpeg]``.  At 1080p these are the members ``chip_smoke.py``'s JPEG,
+    PNG and WebP phases make."""
+    jpegs = [synth_jpeg_420(h, w, 85, 1), synth_jpeg_420(h, w, 95, 2)]
+    px = np.concatenate([synth_rgb(h, w, 31), synth_rgb(h, w, 32)[..., :1]],
+                        -1)
+    pngs = [png.encode(Pic(pixels=px, width=w, height=h),
+                       device=torch.device("cpu")),
+            encode_png(px, 6, 8, filters=(1, 2))]
+    wp = [webp_fixture(n) for n in webps]
+    return [jpegs[0], wp[0], jpegs[1], pngs[0], jpegs[0], wp[1], pngs[1],
+            jpegs[1]]

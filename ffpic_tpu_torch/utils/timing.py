@@ -3,12 +3,13 @@ the card could take for a piece of work (its roofline bound).
 
 Used by ``chip_smoke.py`` and ``ffpic_tpu_torch.tune_unpack_tile``.
 The peaks are the NVIDIA H100 SXM's, valid at its full 700 W power
-limit: memory and f32 from the data sheet; int32 from the CUDA C++
-programming guide's throughput table for compute capability 9.0 (64
-int32 multiply-adds per clock per SM, half the 128 f32 lanes) over the
-132 SMs at the SM's maximum clock of 1,980 MHz (``nvidia-smi
---query-gpu=clocks.max.sm``).  A multiply-add counts as 2 operations
-in both rates.
+limit: memory, f32 and bf16 (dense, tensor cores) from the data sheet;
+int32 and f64 from the CUDA C++ programming guide's throughput table
+for compute capability 9.0 (64 int32 and 64 f64 multiply-adds per clock
+per SM, half the 128 f32 lanes) over the 132 SMs at the SM's maximum
+clock of 1,980 MHz (``nvidia-smi --query-gpu=clocks.max.sm``; the data
+sheet gives 34 TFLOP/s f64 outside the tensor cores).  A multiply-add
+counts as 2 operations in every rate.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12                   # device memory
 F32_OPS_PER_S = 67e12                       # f32 outside the tensor cores
 INT32_OPS_PER_S = 64 * 132 * 1.98e9 * 2     # 33.45e12
+F64_OPS_PER_S = 64 * 132 * 1.98e9 * 2       # 33.45e12
+BF16_OPS_PER_S = 989e12                     # dense, tensor cores
 
 
 def gpu_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -61,8 +64,8 @@ def gpu_ms_cold(fn, iters: int, flush) -> float:
 
 def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
     """Least time in ms for the card to move ``nbytes`` and do ``ops``
-    operations at ``ops_per_s`` (``F32_OPS_PER_S`` or
-    ``INT32_OPS_PER_S``, whichever type the work is in), and which of
+    operations at ``ops_per_s`` (``F32_OPS_PER_S``, ``INT32_OPS_PER_S``
+    or ``F64_OPS_PER_S``, whichever type the work is in), and which of
     the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3

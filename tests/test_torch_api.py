@@ -22,6 +22,7 @@ from ffpic_tpu.formats.pic import Pic as JaxPic
 from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.formats import registry
 from ffpic_tpu_torch.formats.pic import Pic, PixelFormat
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CORPUS = REPO / "corpus"

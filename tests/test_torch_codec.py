@@ -21,6 +21,7 @@ from ffpic_tpu.ops import jpeg_kernels as jax_jk
 from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.ops import cuda_jpeg
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 MODES = ("reference", "bt601", "rgb")
 ORDERS = ("rgba", "bgra")

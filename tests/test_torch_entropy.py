@@ -27,6 +27,7 @@ from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.formats import jpg
 from ffpic_tpu_torch.ops import jpeg_entropy_device as P
 from ffpic_tpu_torch.ops.golden import ZIGZAG
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 
 @functools.lru_cache(maxsize=None)

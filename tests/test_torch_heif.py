@@ -31,6 +31,7 @@ from ffpic_tpu.formats.pic import Pic as JaxPic
 from ffpic_tpu_torch import make_heif_fixtures, testing
 from ffpic_tpu_torch.formats import heif, heif_enc
 from ffpic_tpu_torch.formats.pic import Pic
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 SWITCHES = {"host": {}, "hevc_device": {"FFPIC_HEVC_DEVICE": "1"},
             "device_color": {"FFPIC_HEIF_DEVICE_COLOR": "1"},

@@ -35,6 +35,7 @@ from ffpic_tpu_torch.coding import hevc_slice
 from ffpic_tpu_torch.coding.hevc_enc import make_nalu
 from ffpic_tpu_torch.formats import hevc, hevc_recon
 from ffpic_tpu_torch.utils import bitstream
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 KINDS = list(testing.HEVC_STREAMS)
 ROUTES = {"native": {}, "python_recon": {"FFPIC_NO_NATIVE_RECON": "1"},

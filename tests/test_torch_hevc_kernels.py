@@ -33,6 +33,7 @@ from ffpic_tpu_torch import native, testing
 from ffpic_tpu_torch.coding import hevc_consts as hc
 from ffpic_tpu_torch.ops import cuda_hevc
 from ffpic_tpu_torch.ops import hevc_kernels as hk
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 CASES = list(testing.hevc_cases(0))
 COLOR_CASES = list(testing.heif_color_cases(0))

@@ -25,6 +25,7 @@ from ffpic_tpu_torch import native, testing
 from ffpic_tpu_torch.formats import jpg, jpg_encode
 from ffpic_tpu_torch.ops import golden
 from ffpic_tpu_torch.utils import trace
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 
 def _pil_jpeg(h, w, q, seed, **kw) -> bytes:

@@ -31,6 +31,7 @@ from ffpic_tpu_torch.formats.jpg_encode import encode_baseline
 from ffpic_tpu_torch.formats.pic import Pic
 from ffpic_tpu_torch.ops import _build, cuda_jpeg, golden
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 MODES = ("reference", "bt601", "rgb")
 ORDERS = ("rgba", "bgra")

@@ -28,6 +28,7 @@ import ffpic_tpu
 import ffpic_tpu_torch
 from ffpic_tpu import native
 from ffpic_tpu_torch import testing
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -103,8 +104,10 @@ def test_decode_batch_reads_paths(tmp_path):
 def test_port_imports_no_jax():
     """Decoding through the port in a fresh interpreter loads no jax:
     JPEG batches on both routes, a lossy WebP under both VP8 switches,
-    a batch of lossless WebPs, and a HEIF grid with alpha written by the
-    port's encoder, loaded and batched under both HEVC switches."""
+    a batch of lossless WebPs, a HEIF grid with alpha written by the
+    port's encoder, loaded and batched under both HEVC switches, and a
+    resized batch through ``normalize_for_model`` into a ``VIT_TINY``
+    forward."""
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
@@ -143,6 +146,13 @@ def test_port_imports_no_jax():
         "assert tuple(load(h, device='cpu').pixels.shape) == (72, 80, 4)\n"
         "out = decode_batch([h, h], device='cpu')\n"
         "assert tuple(out.shape) == (2, 72, 80, 4), out.shape\n"
+        "from ffpic_tpu_torch.models import vit\n"
+        "from ffpic_tpu_torch.ops import cuda_resize, resize\n"
+        "b = decode_batch([d, h], size=(64, 64), device='cpu')\n"
+        "x = resize.normalize_for_model(b)\n"
+        "logits = vit.ViT(vit.VIT_TINY, device='cpu')(x)\n"
+        "assert tuple(logits.shape) == (2, 10), logits.shape\n"
+        "assert bool(logits.isfinite().all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

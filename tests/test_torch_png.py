@@ -34,6 +34,7 @@ from ffpic_tpu_torch.formats.pic import Pic, PixelFormat
 from ffpic_tpu_torch.ops import cuda_png
 from ffpic_tpu_torch.ops import png_kernels as pk
 from ffpic_tpu_torch.utils import checksum
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CORPUS_PNGS = ["png_512_rgb.png", "png_512_rgba.png", "png_1080p_rgba.png"]

@@ -1,13 +1,28 @@
 """ffpic_tpu_torch.ops.resize against ffpic_tpu.ops.resize (JAX's
 ``jax.image.resize``, bilinear, antialiased when shrinking) on the same
-random uint8 images.
+random uint8 images: ``resize_rgba`` and ``normalize_for_model``, whose
+CPU entries run the plain versions (K16's and K17's functions: banded
+taps summed in float64 in ascending order).
 
-Tolerance: 1 LSB.  The weights are the same to a few float32 ulps (the
-column sums that normalise them run in another order), and the two
-matrix products sum in another order than XLA's, so a value can land on
-the other side of .5 before rounding.  Observed on these inputs: 0 to
-0.011 % of the outputs are off by 1 (5.0e-6 for 512->224, none for
-160->224, 1.5e-5 for 300x512->224, 1.0e-4 for 512x400->512x224).
+Tolerance of ``resize_rgba``: 1 LSB.  The weights are the same to a few
+float32 ulps (the column sums that normalise them run in another order),
+and the sums run in another order and width than XLA's, so a value can
+land on the other side of .5 before rounding.  Observed on these inputs:
+0 to 0.034 % of the outputs are off by 1 (5.0e-6 for 512->224, none for
+160->224, 2.0e-5 for 300x512->224, 3.2e-4 for 512x400->512x224, 5.0e-6
+for 1080x1920->224).
+
+Tolerance of ``normalize_for_model``, on x = rgb / 255 (the error times
+``std``): without a resize 2**-22, two ulps of 1.0 (XLA turns the
+division by 255 into a product by the f32 reciprocal, which is off by
+one ulp for half the values; observed up to 1.1e-7).  With a resize one
+ulp of the f32 sample positions near the larger input side, e.g.
+1.5e-5 at 160 (observed up to 7.3e-6 at 160->224, 1.9e-6 at
+1080x1920->224): JAX computes the weight matrix inside the jitted
+resize, where XLA rounds the positions' arithmetic differently from the
+un-jitted ``compute_weight_mat`` that ``_weight_mat`` reproduces (96->160
+weights differ by up to 1.9e-6), and with no uint8 rounding after it
+that difference shows.
 """
 
 import jax.numpy as jnp
@@ -16,8 +31,13 @@ import pytest
 import torch
 from jax._src.image import scale as jax_scale
 
+from ffpic_tpu.ops.resize import normalize_for_model as jax_normalize
 from ffpic_tpu.ops.resize import resize_rgba as jax_resize_rgba
+from ffpic_tpu_torch import testing
+from ffpic_tpu_torch.ops import cuda_resize
+from ffpic_tpu_torch.ops import resize as port_resize
 from ffpic_tpu_torch.ops.resize import _weight_mat, resize_rgba
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 
 @pytest.mark.parametrize("n_in,n_out", [(512, 224), (160, 224), (1080, 224),
@@ -35,6 +55,7 @@ def test_weight_mat_matches_jax(n_in, n_out):
     ((160, 160), (224, 224)),      # grow
     ((300, 512), (224, 224)),      # grow one axis, shrink the other
     ((512, 400), (512, 224)),      # an unchanged axis is skipped
+    ((1080, 1920), (224, 224)),    # config 5: 1080p to ViT-B/16's input
 ])
 def test_resize_rgba_matches_jax(src, dst):
     rng = np.random.default_rng(sum(src) + sum(dst))
@@ -84,3 +105,102 @@ def test_resize_ignores_and_keeps_the_callers_matmul_precision(monkeypatch):
                                                     (80, 64), "bilinear"))
                          for x in img])
     assert np.abs(got.numpy().astype(int) - jax_want).max() <= 1
+
+
+@pytest.mark.parametrize("n_in,n_out", [(1080, 224), (1920, 224), (160, 224),
+                                        (333, 97), (7, 11), (37, 1), (1, 5)])
+def test_taps_hold_the_weight_matrix(n_in, n_out):
+    """Each output's run (start, count, weights) rebuilds its column of
+    the dense matrix exactly, and no nonzero weight lies outside it; the
+    weights are f32 values held as float64."""
+    start, count, wts = port_resize.taps(n_in, n_out)
+    assert wts.dtype == torch.float64
+    assert torch.equal(wts.float().double(), wts)   # f32 values
+    dense = torch.zeros(n_in, n_out)
+    for j in range(n_out):
+        s, c = int(start[j]), int(count[j])
+        assert s >= 0 and s + c <= n_in
+        assert not wts[j, c:].any()
+        dense[s:s + c, j] = wts[j, :c]
+    assert torch.equal(dense, _weight_mat(n_in, n_out, torch.device("cpu")))
+
+
+def _jax_resize_each(img, size):
+    flat = img.reshape(-1, *img.shape[-3:])
+    return np.stack([np.asarray(jax_resize_rgba(jnp.asarray(i), size))
+                     for i in flat]).reshape(*img.shape[:-3], *size,
+                                             img.shape[-1])
+
+
+@pytest.mark.parametrize("name", list(testing.resize_cases()))
+def test_resize_cases_match_jax(name):
+    img, size = testing.resize_cases()[name]
+    got = resize_rgba(torch.from_numpy(img), size)
+    assert got.dtype == torch.uint8
+    assert tuple(got.shape) == (*img.shape[:-3], *size, img.shape[-1])
+    diff = np.abs(got.numpy().astype(int) - _jax_resize_each(img, size))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 1e-3
+
+
+def _normalize_tol(shape, size) -> float:
+    if size is None or tuple(size) == tuple(shape[-3:-1]):
+        return 2.0 ** -22
+    return float(np.spacing(np.float32(max(shape[-3:-1]))))
+
+
+@pytest.mark.parametrize("name", list(testing.normalize_cases()))
+def test_normalize_for_model_matches_jax(name):
+    """Without a resize, with a shrink, a grow, one axis kept, odd sizes,
+    3 channels, and the reference's and ImageNet's mean and std."""
+    batch, size, mean, std = testing.normalize_cases()[name]
+    got = port_resize.normalize_for_model(torch.from_numpy(batch), size,
+                                          mean, std)
+    want = np.asarray(jax_normalize(jnp.asarray(batch), size, mean, std))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    err_x = (np.abs(got.numpy().astype(np.float64) - want)
+             * np.asarray(std)).max()
+    assert err_x <= _normalize_tol(batch.shape, size), err_x
+
+
+def test_normalize_default_mean_std_and_size_none():
+    rng = np.random.default_rng(4)
+    batch = rng.integers(0, 256, (2, 40, 56, 4), dtype=np.uint8)
+    got = port_resize.normalize_for_model(torch.from_numpy(batch))
+    x = torch.from_numpy(batch[..., :3]).float() / 255.0
+    assert torch.equal(got, (x - 0.5) / 0.5)
+    want = np.asarray(jax_normalize(jnp.asarray(batch)))
+    assert np.abs(got.numpy() - want).max() <= 2 * 2.0 ** -22
+
+
+def test_entries_take_the_plain_versions_on_the_cpu():
+    img, size = testing.resize_cases()["odd_down"]
+    t = torch.from_numpy(img)
+    assert torch.equal(resize_rgba(t, size),
+                       port_resize.resize_rgba_plain(t, size))
+    b = torch.from_numpy(testing.normalize_cases()["keep_w"][0])
+    assert torch.equal(port_resize.normalize_for_model(b, (64, 128)),
+                       port_resize.normalize_plain(b, (64, 128)))
+    with pytest.raises(ValueError, match="device"):
+        resize_rgba(t.to("meta"), size)
+
+
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
+    """The kernels' wrappers take CUDA tensors only, and check the rest
+    before any build or launch."""
+    img = torch.zeros(2, 8, 8, 4, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_resize.resize_rgba(img, (4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_resize.normalize_resize(img, (4, 4))
+    assert cuda_resize.launches == {"resize_rgba": 0, "normalize_resize": 0}
+
+
+def test_cropped_slots_resize_like_contiguous_ones():
+    """decode_batch resizes cropped views of its decodes: the plain
+    version reads them as the contiguous copy."""
+    rng = np.random.default_rng(6)
+    full = torch.from_numpy(rng.integers(0, 256, (64, 80, 4), dtype=np.uint8))
+    crop = full[:50, :72]
+    assert torch.equal(resize_rgba(crop, (24, 40)),
+                       resize_rgba(crop.contiguous(), (24, 40)))

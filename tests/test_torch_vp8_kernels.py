@@ -21,6 +21,7 @@ from ffpic_tpu.ops import vp8_kernels as jax_vk
 from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.ops import cuda_vp8, golden
 from ffpic_tpu_torch.ops import vp8_kernels as vk
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 SIZES = [1, 2, 15, 17, 33, 40]
 

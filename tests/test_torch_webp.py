@@ -38,6 +38,7 @@ from ffpic_tpu_torch.formats import vp8, vp8_tables, vp8l, webp
 from ffpic_tpu_torch.formats.pic import Pic
 from ffpic_tpu_torch.ops import vp8_kernels as vk
 from ffpic_tpu_torch.utils import vlog
+import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 FIXTURE_SIZES = {"lossy_1080p.webp": (1920, 1080),
                  "lossy_512.webp": (512, 512),
