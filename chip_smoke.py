@@ -71,6 +71,15 @@ read just after:
   to the CPU route.  The load medians are printed under the JAX bench's
   names (``webp_512_mps`` for the default route, ``webp_device_mps`` for
   ``FFPIC_VP8_DEVICE``) beside the colour route and the host spans;
+* the VP8 luma wavefront (K18 vp8_wavefront, B12; ``testing.
+  wavefront_cases`` and every committed lossy fixture's frames against
+  the plain version, each launched twice, and against the host
+  ``native.vp8_recon``'s luma): ``ops.vp8_wavefront.make_wavefront`` on
+  the 1080p fixture (K18 once a frame), and the chain on the card, the
+  frame's levels through K12 into K18, both equal to the host's luma;
+  ``[time wavefront]`` gives K18 at 1080p and 512x512 beside its chain
+  of 2 (mbh - 1) + mbw macroblock steps and the host ``vp8_recon`` (Y,
+  U and V, host clock, median of 5);
 * HEIF (K14 hevc_residuals, K15 hevc_yuv_to_rgba; ``testing.hevc_cases``,
   ``heif_color_cases`` and the TU lists and planes of the committed 12 MP
   grid's 48 tiles against their plain versions): ``load`` of
@@ -136,6 +145,7 @@ REPLACES = {
     "hevc_yuv_to_rgba": "ffpic_tpu/formats/heif.py:356",
     "resize_rgba": "ffpic_tpu/ops/resize.py:13",
     "normalize_resize": "ffpic_tpu/ops/resize.py:27",
+    "vp8_wavefront": "ffpic_tpu/ops/vp8_wavefront.py:171 make_wavefront",
 }
 SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
            "unfilter_subup": PNG_CU, "assemble_rgba": PNG_CU,
@@ -143,7 +153,7 @@ SOURCES = {"assemble_mcu": CODEC_CU, "fdct": CODEC_CU,
            "spec_merge": ENTROPY_CU, "vp8_residuals": VP8_CU,
            "vp8_yuv_to_rgba": VP8_CU, "hevc_residuals": HEVC_CU,
            "hevc_yuv_to_rgba": HEVC_CU, "resize_rgba": RESIZE_CU,
-           "normalize_resize": RESIZE_CU}
+           "normalize_resize": RESIZE_CU, "vp8_wavefront": VP8_CU}
 PATH_420 = ("count_scan", "unpack", "dequant_idct", "assemble_color")
 
 
@@ -186,7 +196,7 @@ def ptxas_report(text: str) -> dict:
                           r"unfilter_cols|assemble_rgba|entropy_decode|"
                           r"spec_scan|spec_merge|vp8_residuals|"
                           r"vp8_yuv_to_rgba|hevc_residuals|"
-                          r"hevc_yuv_to_rgba|resize)_kernel"
+                          r"hevc_yuv_to_rgba|resize|vp8_wavefront)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -1402,7 +1412,7 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
     from ffpic_tpu_torch.formats import vp8, webp
     from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_vp8
     from ffpic_tpu_torch.ops import vp8_kernels as vk
-    from ffpic_tpu_torch.utils.timing import INT32_OPS_PER_S, bound, gpu_ms
+    from ffpic_tpu_torch.utils.timing import gpu_ms
 
     def reset():
         torch.cuda.synchronize()
@@ -1414,7 +1424,8 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
         torch.cuda.synchronize()
         return {**{k: v for k, v in cuda_jpeg.launches.items() if v},
                 **{k: v for k, v in cuda_png.launches.items() if v},
-                **cuda_vp8.launches}
+                **{k: v for k, v in cuda_vp8.launches.items()
+                   if v or k != "vp8_wavefront"}}
 
     clear = {k: None for k in WEBP_ENV}
     files = {n: testing.webp_fixture(n) for n in WEBP_FIXTURES}
@@ -1588,19 +1599,6 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
     timed["vp8_yuv_to_rgba"]["with_alpha_ms"] = gpu_ms(
         lambda: cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W, ta), 50)
     del flush
-    # B12 (ffpic_tpu/ops/vp8_wavefront.py:171 make_wavefront, not ported)
-    # at this frame's shapes: residual (mbh, mbw, 16, 4, 4) int32, ymode
-    # (mbh, mbw) and bmodes (mbh, mbw, 16) int32 in, the luma plane out;
-    # about 8 integer ops a pixel (prediction, residual add, clip), and
-    # 2 (mbh - 1) + mbw macroblock diagonals in sequence
-    b12_bytes = nmb * (256 * 4 + 4 + 16 * 4) + nmb * 256
-    b12_ops = 8 * nmb * 256
-    b12 = bound(b12_bytes, b12_ops, INT32_OPS_PER_S)
-    log("bound B12", function="ffpic_tpu/ops/vp8_wavefront.py:171",
-        at="webp load 1080p", macroblocks=nmb, bytes=b12_bytes,
-        ops=b12_ops, ops_type="int32", bound_ms=f"{b12[0]:.4f}",
-        bound_by=b12[1], diagonals=2 * (dec.mbh - 1) + dec.mbw)
-
     def per_load(data, n=5):
         # the JAX bench's webp_512 trial: 5 loads back to back
         def run():
@@ -1641,6 +1639,150 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
                    "load_device_color": loads[("lossy_1080p.webp",
                                                "device_color")],
                    "batch": launches_batch, "mixed": launches_mixed}
+
+
+def wavefront_paths(dev, floor_ms: float, errs: dict):
+    """B12 on the card: K18 ``vp8_wavefront`` against its plain version
+    (``testing.wavefront_cases`` and every committed lossy fixture's VP8
+    frames, each launched twice: fresh scratch) and against the host
+    ``native.vp8_recon``'s luma; the path with fresh launch counts,
+    ``ops.vp8_wavefront.make_wavefront`` on the 1080p fixture (K18 once a
+    frame); the chain on the card, the 1080p levels through K12
+    ``vp8_residuals`` into K18, against the host's luma.  The timings:
+    K18 warm and L2 flushed beside its bound and its chain of macroblock
+    steps, its plain version once, the host ``vp8_recon`` on the same
+    frame.  Returns {kernel: timing entry} and the path's launches."""
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import native, testing
+    from ffpic_tpu_torch.ops import cuda_vp8
+    from ffpic_tpu_torch.ops import vp8_kernels as vk
+    from ffpic_tpu_torch.ops import vp8_wavefront as wf
+    from ffpic_tpu_torch.utils.timing import gpu_ms
+
+    def to(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    def k18_twice(res, ym, bm, want_plain):
+        first = cuda_vp8.vp8_wavefront(res, ym, bm)
+        exact("vp8_wavefront", first, want_plain, errs)
+        exact("vp8_wavefront", cuda_vp8.vp8_wavefront(res, ym, bm), first,
+              errs)
+
+    t0 = time.perf_counter()
+    cases = testing.wavefront_cases()
+    for arrays in cases.values():
+        t = to(*arrays)
+        k18_twice(*t, wf.vp8_wavefront_plain(*t))
+    frames = {}
+    for name in testing.WAVEFRONT_FIXTURES:
+        for k in range(len(testing.vp8_bitstreams(
+                testing.webp_fixture(name)))):
+            frames[f"{name}:{k}"] = inp = testing.wavefront_inputs(name, k)
+            t = to(inp["residual"], inp["ymode"], inp["bmodes"])
+            k18_twice(*t, wf.vp8_wavefront_plain(*t))
+            exact("vp8_wavefront", cuda_vp8.vp8_wavefront(*t).cpu(),
+                  torch.from_numpy(inp["Y"]), errs)
+    # more rows than the card holds CTAs at once (132 SMs x 8 of 256
+    # threads): later rows start only when earlier CTAs take a second
+    # ticket or finish; against the host luma (the plain version would
+    # walk 2,401 diagonals)
+    rng = np.random.default_rng(7)
+    tall = (1200, 2)
+    t_res = rng.integers(-300, 301, (*tall, 16, 4, 4)).astype(np.int32)
+    t_ym = rng.integers(0, 5, tall).astype(np.int32)
+    t_bm = rng.integers(0, 10, (*tall, 16)).astype(np.int32)
+    r24 = np.zeros((*tall, 24, 4, 4), np.int16)
+    r24[:, :, :16] = t_res
+    t_y = np.zeros((16 * tall[0], 16 * tall[1]), np.uint8)
+    t_uv = [np.zeros((8 * tall[0], 8 * tall[1]), np.uint8) for _ in "uv"]
+    native.vp8_recon(t_y, *t_uv, r24, t_ym, t_bm, np.zeros(tall, np.int32),
+                     *tall)
+    exact("vp8_wavefront", cuda_vp8.vp8_wavefront(*to(t_res, t_ym, t_bm))
+          .cpu(), torch.from_numpy(t_y), errs)
+    log("check K18", vp8_wavefront="exact", cases=",".join(cases),
+        tall=f"{tall[1]}x{tall[0]} against the host luma",
+        fixtures=",".join(frames), launched_twice="exact",
+        host_vp8_recon="exact",
+        bpred_mbs=json.dumps({k: int((f["ymode"] == 4).sum())
+                              for k, f in frames.items()}).replace(" ", ""),
+        seconds=f"{time.perf_counter() - t0:.3f}")
+
+    # --- the path: make_wavefront on the 1080p frame -------------------------
+    inp = frames["lossy_1080p.webp:0"]
+    mbh, mbw = inp["mb"]
+    res, ym, bm = to(inp["residual"], inp["ymode"], inp["bmodes"])
+    run = wf.make_wavefront(mbh, mbw)
+    torch.cuda.synchronize()
+    cuda_vp8.reset_launches()
+    y = run(res, ym, bm)
+    torch.cuda.synchronize()
+    launches = dict(cuda_vp8.launches)
+    if launches != {"vp8_residuals": 0, "vp8_yuv_to_rgba": 0,
+                    "vp8_wavefront": 1}:
+        raise AssertionError(f"wavefront path: launches {launches}")
+    if tuple(y.shape) != (16 * mbh, 16 * mbw) or y.dtype != torch.uint8 \
+            or not torch.equal(y.cpu(), torch.from_numpy(inp["Y"])):
+        raise AssertionError("wavefront path: differs from the host luma")
+    # the chain on the card: the levels through K12, its luma blocks into
+    # K18, no host step between
+    lv, dq, hy = to(inp["levels"], inp["dq_per_mb"], inp["has_y2"])
+    cuda_vp8.reset_launches()
+    y_chain = run(vk.vp8_residuals(lv, dq, hy)[:, :, :16].to(torch.int32)
+                  .contiguous(), ym, bm)
+    torch.cuda.synchronize()
+    chain_launches = dict(cuda_vp8.launches)
+    if chain_launches != {"vp8_residuals": 1, "vp8_yuv_to_rgba": 0,
+                          "vp8_wavefront": 1}:
+        raise AssertionError(f"wavefront chain: launches {chain_launches}")
+    if not torch.equal(y_chain.cpu(), torch.from_numpy(inp["Y"])):
+        raise AssertionError("K12 -> K18 differs from the host luma")
+    steps = 2 * (mbh - 1) + mbw
+    log("wavefront path", file="lossy_1080p.webp", macroblocks=f"{mbw}x{mbh}",
+        bpred_mbs=int((inp["ymode"] == 4).sum()), launches=launches,
+        host_luma="exact", chain="K12 vp8_residuals -> K18",
+        chain_launches=chain_launches, chain_host_luma="exact")
+
+    # --- timing --------------------------------------------------------------
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    nmb = mbh * mbw
+    # bytes: the residuals (1 KB an MB), ymode and bmodes read once, the
+    # luma written once; ops about 8 integer ops a pixel (prediction,
+    # residual add, clip); the chain: 2 (mbh - 1) + mbw MB steps in turn
+    timed = {"vp8_wavefront": time_entry(
+        "vp8_wavefront", lambda: cuda_vp8.vp8_wavefront(res, ym, bm),
+        lambda: wf.vp8_wavefront_plain(res, ym, bm),
+        nmb * (256 * 4 + 4 + 16 * 4) + nmb * 256, 8 * nmb * 256, "int32",
+        floor_ms, flush, "wavefront 1080p", plain_iters=1, plain_warmup=1)}
+    del flush
+    e = timed["vp8_wavefront"]
+    small = frames["lossy_512.webp:0"]
+    r5, y5, b5 = to(small["residual"], small["ymode"], small["bmodes"])
+    e["ms_512"] = gpu_ms(lambda: cuda_vp8.vp8_wavefront(r5, y5, b5), 50)
+
+    def host():
+        Y = np.zeros((16 * mbh, 16 * mbw), np.uint8)
+        U = np.zeros((8 * mbh, 8 * mbw), np.uint8)
+        V = np.zeros((8 * mbh, 8 * mbw), np.uint8)
+        native.vp8_recon(Y, U, V, inp["residual24"], inp["ymode"],
+                         inp["bmodes"], inp["uvmode"], mbh, mbw)
+    host()
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        host()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    e["host_vp8_recon_ms"] = sorted(walls)[2]
+    log("time wavefront", ms=f"{e['ms']:.4f}", ms_cold=f"{e['ms_cold']:.4f}",
+        ms_512=f"{e['ms_512']:.4f}", chain_steps=steps,
+        chain_steps_512=2 * (small["mb"][0] - 1) + small["mb"][1],
+        ms_per_chain_step=f"{e['ms'] / steps:.5f}",
+        bound_ms=f"{e['bound_ms']:.4f}", plain_ms=f"{e['plain_ms']:.1f}",
+        host_vp8_recon_ms=f"{e['host_vp8_recon_ms']:.4f}",
+        host_vp8_recon_ms_runs=json.dumps([round(w, 4) for w in walls])
+        .replace(" ", ""), host_planes="Y,U,V (host clock, median of 5)")
+    return timed, {"path": launches, "chain": chain_launches}
 
 
 HEIF_ENV = ("FFPIC_HEVC_DEVICE", "FFPIC_HEIF_DEVICE_COLOR",
@@ -2594,6 +2736,8 @@ def main() -> int:
     timed.update(entropy_timed)
     webp_timed, webp_launches = webp_paths(dev, jpegs, pngs, floor_ms, errs)
     timed.update(webp_timed)
+    wave_timed, wave_launches = wavefront_paths(dev, floor_ms, errs)
+    timed.update(wave_timed)
     heif_timed, heif_launches = heif_paths(dev, jpegs, floor_ms, errs)
     timed.update(heif_timed)
     config5_timed, config5_launches = config5_paths(dev, out, srcs, floor_ms,
@@ -2646,6 +2790,10 @@ def main() -> int:
             k: v[name] for k, v in heif_launches.items()}
     # K16 and K17 on config 5's path: decode_batch(size=) (a launch a
     # slot), then normalize_for_model
+    # K18 on make_wavefront of the 1080p frame, and in the K12 -> K18 chain
+    launches["vp8_wavefront"] = wave_launches["path"]["vp8_wavefront"]
+    timed["vp8_wavefront"]["launches_chain"] = \
+        wave_launches["chain"]["vp8_wavefront"]
     launches["resize_rgba"] = config5_launches["resize_rgba"]
     launches["normalize_resize"] = config5_launches["normalize_resize"]
     for name in ("unfilter_subup", "assemble_rgba"):

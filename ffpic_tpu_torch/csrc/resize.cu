@@ -5,8 +5,10 @@
 //                         bilinear with antialiasing, rounded half to
 //                         even and clipped
 //   K17 normalize_resize  (N, H, W, Cin >= 3) uint8 RGBA -> (N, h, w, 3)
-//                         f32: rgb / 255, the same resize in f32 with no
-//                         uint8 rounding, then (x - mean) / std
+//                         f32: rgb * f32(1/255), the same resize in f32
+//                         with no uint8 rounding, then (x - mean) / std;
+//                         without a resize fma(rgb, f32(1/255), -mean) /
+//                         std
 //
 // Every launcher is extern "C", launches on the caller's stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -27,9 +29,12 @@
 // products of K16 (uint8 x f32) and their sums are exact in double; on W
 // the products (f32 x f32, 48 bits) are exact and the sums are not, which
 // is why both versions keep one order. K16 then rounds half to even
-// (rintf) and clips; K17 takes rgb / 255 as an f32 division before the
-// resize and (x - mean) / std after it, an f32 subtract and an f32 divide
-// (__fdiv_rn, never a product by the reciprocal).
+// (rintf) and clips. K17 follows what XLA's CPU backend compiles the
+// jitted original to: / 255 is a product by f32(1/255), rounded before
+// the resize, and (x - mean) / std after it, an f32 subtract and an f32
+// divide (__fdiv_rn, never a product by the reciprocal); when neither
+// axis changes, the product and the subtraction are one FMA
+// (__fmaf_rn), as XLA contracts them there.
 //
 // Bound, at config 5 (8 x 1080p RGBA to 224 x 224): each input byte read
 // once and each output written once, 66.4 + 1.6 MB for K16, 0.020 ms at
@@ -60,6 +65,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr float kInv255 = 1.0f / 255.0f;   // XLA's f32(1/255)
 
 struct Taps {
   const int* start;    // (out,) first input index
@@ -76,8 +82,8 @@ struct Norm {
 // An input byte as the value the sums take. K16: the byte, built as a
 // double from its bits (2^52 + v, less 2^52: exact, one f64 add), since
 // a conversion to or from a 64-bit type issues at a quarter of the f64
-// rate on sm_90. K17: rgb / 255 as an f32 division, read from a table
-// of the 256 quotients in shared memory.
+// rate on sm_90. K17: rgb * f32(1/255) rounded to f32, read from a
+// table of the 256 products in shared memory.
 template <bool NORM>
 __device__ __forceinline__ double widen(unsigned v, const float* lut) {
   if (NORM) return (double)lut[v];
@@ -163,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float lut[NORM ? 256 : 1];
   if (NORM) {
     for (int v = threadIdx.x; v < 256; v += kThreads)
-      lut[v] = __fdiv_rn((float)v, 255.0f);
+      lut[v] = __fmul_rn((float)v, kInv255);
     __syncthreads();
   }
   const int y = blockIdx.x;
@@ -182,6 +188,16 @@ __global__ void __launch_bounds__(kThreads)
         group_taps<NORM, WORD>(px, row, vt, y, nc, lut, f);
       } else {
         const unsigned v = load_group<WORD>(px + (long long)y * row, nc);
+        if (NORM && !horiz) {                // no resize: one FMA
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < nc)
+              static_cast<float*>(out)[out_row + x * ch + c0 + c] =
+                  __fdiv_rn(__fmaf_rn((float)((v >> (8 * c)) & 255u),
+                                      kInv255, -nm.mean[c0 + c]),
+                            nm.std[c0 + c]);
+          continue;
+        }
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           f[c] = (float)widen<NORM>((v >> (8 * c)) & 255u, lut);

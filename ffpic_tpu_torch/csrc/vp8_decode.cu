@@ -10,6 +10,12 @@
 //                        (h, w, 4) uint8 RGBA: libwebp's fancy chroma
 //                        upsampling and fixed-point colour matrix, alpha
 //                        255 or from an (h, w) plane
+//   K18 vp8_wavefront    residuals (mbh, mbw, 16, 4, 4) int32, ymode
+//                        (mbh, mbw) and bmodes (mbh, mbw, 16) int32 ->
+//                        the luma plane (16 mbh, 16 mbw) uint8: the whole
+//                        frame's intra prediction and reconstruction in
+//                        one launch, rows of macroblocks advancing behind
+//                        each other
 //
 // Every launcher is extern "C", launches on the caller's stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError(). All
@@ -212,6 +218,218 @@ __global__ void __launch_bounds__(kQuadX * kQuadY)
   }
 }
 
+// K18. Replaces ffpic_tpu/ops/vp8_wavefront.py:make_wavefront (:171), a
+// lax.scan over the 2 (mbh - 1) + mbw macroblock (MB) anti-diagonals. Its
+// plain version is ops.vp8_wavefront.vp8_wavefront_plain, whose module
+// docstring lists the edge rules this kernel keeps.
+// Bound: each residual read once (1 KB an MB), the modes (68 bytes) and
+// each luma byte written once (256), 11.0 MB at 1920x1080, 0.0033 ms at
+// 3.35 TB/s; but the work is a chain: MB (my, mx) needs (my, mx - 1),
+// (my - 1, mx) and (my - 1, mx + 1), so at least 2 (mbh - 1) + mbw MB
+// steps run one after another (254 at 1080p), and inside a B_PRED MB 10
+// steps of 4x4 subblocks. What sets the time is the latency of one MB
+// step, not bytes or operations.
+//
+// Design (simple first): one launch a frame. A CTA of 256 threads owns
+// one MB row at a time, taken from a ticket counter (atomicAdd) when it
+// starts and again when it finishes, and walks the row left to right.
+// The card need not schedule CTAs in blockIdx order, so a row never waits
+// on a row that a CTA has not yet claimed: the row above is always held
+// by a CTA that is already running, and row 0 waits on nothing. After
+// each MB the row publishes done[my] = mx + 1 (a barrier, a fence, then a
+// release store by thread 0); row my may start MB mx once done[my - 1] >=
+// min(mx + 2, mbw) (thread 0 spins on an acquire load), which covers the
+// pixels above and above-right. Pixels of the row above are read with
+// __ldcg, from L2, so a stale L1 line is never used.
+//
+// Shared memory holds the MB's 17 x 21 patch as the original's: row 0 the
+// corner, the 16 pixels above and 4 above-right (the row above clamped to
+// the frame's last column, or the virtual 127 row), column 0 the left
+// column (the previous MB's right column, or the virtual 129), rows and
+// columns 1..16 the MB. Thread t owns pixel (r, c) = ((t >> 2) & 3, t & 3)
+// of subblock t >> 4, so the 256 residuals of an MB load as one coalesced
+// run. A 16x16 mode computes every pixel at once. B_PRED runs the 16
+// subblocks as their own wavefront, step 2 sy + sx (0..9), a barrier
+// between steps; each subblock reads its 13 edges from the patch, the
+// right column's above-right from row 0 (columns 17..20), and each of the
+// eight averaging modes is four edges from a table (sum + 2) >> 2.
+constexpr int kWaveThreads = 256;
+
+// Each averaging B-mode (VE, HE, RD, VR, LD, VL, HD, HU: bitstream modes
+// 2..9) at pixel r * 4 + c of a subblock: four edge indices, a byte each
+// (low byte first), into {X, A, B, C, D, E, F, G, H, I, J, K, L} (corner,
+// 4 above, 4 above-right, 4 left); avg3(a, b, c) is (a, b, b, c) and
+// avg2(a, b) is (a, a, b, b). The same table as ops.vp8_wavefront.B4_TAPS.
+__device__ const uint32_t kB4Taps[8][16] = {
+    {0x02010100, 0x03020201, 0x04030302, 0x05040403,  // VE
+     0x02010100, 0x03020201, 0x04030302, 0x05040403,
+     0x02010100, 0x03020201, 0x04030302, 0x05040403,
+     0x02010100, 0x03020201, 0x04030302, 0x05040403},
+    {0x0a090900, 0x0a090900, 0x0a090900, 0x0a090900,  // HE
+     0x0b0a0a09, 0x0b0a0a09, 0x0b0a0a09, 0x0b0a0a09,
+     0x0c0b0b0a, 0x0c0b0b0a, 0x0c0b0b0a, 0x0c0b0b0a,
+     0x0c0c0c0b, 0x0c0c0c0b, 0x0c0c0c0b, 0x0c0c0c0b},
+    {0x09000001, 0x00010102, 0x01020203, 0x02030304,  // RD
+     0x0a090900, 0x09000001, 0x00010102, 0x01020203,
+     0x0b0a0a09, 0x0a090900, 0x09000001, 0x00010102,
+     0x0c0b0b0a, 0x0b0a0a09, 0x0a090900, 0x09000001},
+    {0x01010000, 0x02020101, 0x03030202, 0x04040303,  // VR
+     0x01000009, 0x02010100, 0x03020201, 0x04030302,
+     0x0009090a, 0x01010000, 0x02020101, 0x03030202,
+     0x090a0a0b, 0x01000009, 0x02010100, 0x03020201},
+    {0x03020201, 0x04030302, 0x05040403, 0x06050504,  // LD
+     0x04030302, 0x05040403, 0x06050504, 0x07060605,
+     0x05040403, 0x06050504, 0x07060605, 0x08070706,
+     0x06050504, 0x07060605, 0x08070706, 0x08080807},
+    {0x02020101, 0x03030202, 0x04040303, 0x05050404,  // VL
+     0x03020201, 0x04030302, 0x05040403, 0x06050504,
+     0x03030202, 0x04040303, 0x05050404, 0x07060605,
+     0x04030302, 0x05040403, 0x06050504, 0x08070706},
+    {0x09090000, 0x01000009, 0x02010100, 0x03020201,  // HD
+     0x0a0a0909, 0x0a090900, 0x09090000, 0x01000009,
+     0x0b0b0a0a, 0x0b0a0a09, 0x0a0a0909, 0x0a090900,
+     0x0c0c0b0b, 0x0c0b0b0a, 0x0b0b0a0a, 0x0b0a0a09},
+    {0x0a0a0909, 0x0b0a0a09, 0x0b0b0a0a, 0x0c0b0b0a,  // HU
+     0x0b0b0a0a, 0x0c0b0b0a, 0x0c0c0b0b, 0x0c0c0c0b,
+     0x0c0c0b0b, 0x0c0c0c0b, 0x0c0c0c0c, 0x0c0c0c0c,
+     0x0c0c0c0c, 0x0c0c0c0c, 0x0c0c0c0c, 0x0c0c0c0c},
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int clip255(int x) {
+  return x < 0 ? 0 : (x > 255 ? 255 : x);
+}
+
+// Edge j of the subblock whose top-left pixel is P[by][bx] (sx its column).
+__device__ __forceinline__ int b4_edge(int (*P)[21], int j, int by,
+                                       int bx, int sx) {
+  if (j == 0) return P[by - 1][bx - 1];
+  if (j <= 8) return j >= 5 && sx == 3 ? P[0][j + 12] : P[by - 1][bx + j - 1];
+  return P[by + j - 9][bx - 1];
+}
+
+// res: nmb x 256 int32; ymode: nmb; bmodes: nmb x 16; Y: (16 mbh) x (16
+// mbw) bytes; sync: mbh + 1 ints, zeroed: [0] the ticket, [1 + r] the MBs
+// row r has done.
+__global__ void __launch_bounds__(kWaveThreads)
+    vp8_wavefront_kernel(const int* __restrict__ res,
+                         const int* __restrict__ ymode,
+                         const int* __restrict__ bmodes,
+                         uint8_t* __restrict__ Y, int* __restrict__ sync,
+                         int mbh, int mbw) {
+  __shared__ int P[17][21];
+  __shared__ uint32_t taps[8][16];
+  __shared__ int s_row;
+  const int t = threadIdx.x;
+  if (t < 128) taps[t >> 4][t & 15] = kB4Taps[t >> 4][t & 15];
+  const int sb = t >> 4, sy = sb >> 2, sx = sb & 3;
+  const int r = (t >> 2) & 3, c = t & 3;
+  const int by = 1 + 4 * sy, bx = 1 + 4 * sx;   // the subblock in P
+  const int py = by + r, px = bx + c;           // this thread's pixel
+  const long long W = 16LL * mbw;
+  int* done = sync + 1;
+  for (;;) {
+    __syncthreads();                  // the last row is finished with P
+    if (t == 0) s_row = atomicAdd(sync, 1);
+    __syncthreads();
+    const int my = s_row;
+    if (my >= mbh) return;
+    const long long y0 = 16LL * my;
+    for (int mx = 0; mx < mbw; ++mx) {
+      const long long x0 = 16LL * mx;
+      const long long mb = (long long)my * mbw + mx;
+      const int rv = __ldg(res + mb * 256 + t);
+      const int ym = __ldg(ymode + mb);
+      int bm = __ldg(bmodes + mb * 16 + sb);
+      bm = min(max(bm < 0 ? bm + 10 : bm, 0), 9);
+      if (my > 0 && t == 0) {
+        const int need = min(mx + 2, mbw);
+        while (ld_acquire(done + my - 1) < need) __nanosleep(32);
+      }
+      __syncthreads();
+      if (t < 21) {                   // row 0: corner, above, above-right
+        int v = 127;
+        if (my > 0) {
+          const long long col = min(x0 + t, W);   // padded column
+          v = col == 0 ? 129 : __ldcg(Y + (y0 - 1) * W + col - 1);
+        }
+        P[0][t] = v;
+      } else if (t >= 32 && t < 48) { // column 0: left
+        P[t - 31][0] = mx == 0 ? 129 : P[t - 31][16];
+      }
+      __syncthreads();
+      int rec = 0;
+      if (ym == 4) {                  // B_PRED: 10 steps of subblocks
+        for (int k = 0; k < 10; ++k) {
+          if (2 * sy + sx == k) {
+            int pred;
+            if (bm == 0) {            // B_DC
+              int sum = 4;
+#pragma unroll
+              for (int j = 1; j <= 4; ++j)
+                sum += b4_edge(P, j, by, bx, sx) + b4_edge(P, j + 8, by, bx,
+                                                           sx);
+              pred = sum >> 3;
+            } else if (bm == 1) {     // B_TM
+              pred = clip255(b4_edge(P, 9 + r, by, bx, sx) +
+                             b4_edge(P, 1 + c, by, bx, sx) -
+                             b4_edge(P, 0, by, bx, sx));
+            } else {
+              const uint32_t q = taps[bm - 2][r * 4 + c];
+              pred = (b4_edge(P, q & 255, by, bx, sx) +
+                      b4_edge(P, (q >> 8) & 255, by, bx, sx) +
+                      b4_edge(P, (q >> 16) & 255, by, bx, sx) +
+                      b4_edge(P, q >> 24, by, bx, sx) + 2) >> 2;
+            }
+            rec = clip255((int)((unsigned)pred + (unsigned)rv));
+            P[py][px] = rec;
+          }
+          __syncthreads();
+        }
+      } else {                        // 16x16: DC, V, H, TM
+        const int m = min(max(ym, 0), 3);
+        int pred;
+        if (m == 0) {
+          int st = 0, sl = 0;
+          for (int i = 1; i <= 16; ++i) {
+            st += P[0][i];
+            sl += P[i][0];
+          }
+          pred = my > 0 && mx > 0 ? (st + sl + 16) >> 5
+                 : my > 0         ? (st + 8) >> 4
+                 : mx > 0         ? (sl + 8) >> 4
+                                  : 128;
+        } else if (m == 1) {
+          pred = P[0][px];
+        } else if (m == 2) {
+          pred = P[py][0];
+        } else {
+          pred = clip255(P[py][0] + P[0][px] - P[0][0]);
+        }
+        rec = clip255((int)((unsigned)pred + (unsigned)rv));
+        P[py][px] = rec;              // rows and columns 1..16 only
+      }
+      Y[(y0 + py - 1) * W + x0 + px - 1] = (uint8_t)rec;
+      __syncthreads();
+      if (t == 0) {
+        __threadfence();
+        st_release(done + my, mx + 1);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -248,6 +466,20 @@ int ffpic_vp8_yuv_to_rgba(const void* Y, long long ys, const void* U,
   vp8_yuv_to_rgba_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)Y, ys, (const uint8_t*)U, us, (const uint8_t*)V, vs,
       (const uint8_t*)A, (uchar4*)out, h, w);
+  return (int)cudaGetLastError();
+}
+
+// res: mbh x mbw x 256 int32; ymode: mbh x mbw int32; bmodes: mbh x mbw x
+// 16 int32; out: (16 mbh) x (16 mbw) bytes; sync: mbh + 1 ints, zeroed
+int ffpic_vp8_wavefront(const void* res, const void* ymode,
+                        const void* bmodes, void* out, void* sync, int mbh,
+                        int mbw, void* stream) {
+  if (mbh <= 0 || mbw <= 0 || mbw > (1 << 26) / 16)
+    return (int)cudaErrorInvalidValue;
+  vp8_wavefront_kernel<<<(unsigned)mbh, kWaveThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const int*)res, (const int*)ymode, (const int*)bmodes, (uint8_t*)out,
+      (int*)sync, mbh, mbw);
   return (int)cudaGetLastError();
 }
 

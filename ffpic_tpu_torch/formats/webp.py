@@ -207,6 +207,20 @@ def _blend_libwebp(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     return np.where((sa == 0)[..., None], dst, out)
 
 
+def chunks_of(buf: bytes, pos: int, what: str):
+    """The (tag, body) RIFF chunks of ``buf`` from ``pos`` on, each body
+    padded to an even size; a chunk that claims more bytes than are left
+    raises ValueError."""
+    while pos + 8 <= len(buf):
+        tag = buf[pos:pos + 4].decode("latin1")
+        size = struct.unpack_from("<I", buf, pos + 4)[0]
+        if pos + 8 + size > len(buf):
+            raise ValueError(f"truncated {what}: chunk {tag!r} claims "
+                             f"{size} bytes past the end")
+        yield tag, buf[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size & 1)
+
+
 def _load_animation(anmf: list, chunks: dict, meta: dict,
                     skip_decode: bool, mode: str, device) -> list:
     """ANIM/ANMF animation: each frame decodes like a still WebP and
@@ -241,15 +255,7 @@ def _load_animation(anmf: list, chunks: dict, meta: dict,
         dispose_bg = bool(flags & 1)
         if fy + fh > ch or fx + fw > cw:
             raise ValueError("ANMF frame rect outside canvas")
-        sub: dict[str, bytes] = {}
-        p = 16
-        while p + 8 <= len(payload):
-            tag = payload[p:p + 4].decode("latin1")
-            size = struct.unpack_from("<I", payload, p + 4)[0]
-            if p + 8 + size > len(payload):
-                raise ValueError("truncated ANMF subchunk")
-            sub[tag] = payload[p + 8:p + 8 + size]
-            p += 8 + size + (size & 1)
+        sub = dict(chunks_of(payload, 16, "ANMF subchunk"))
         rgba = _decode_frame_rgba(sub, mode, device)[:fh, :fw]
         if dispose_rect is not None:
             dy, dx, dh, dw = dispose_rect
@@ -285,22 +291,15 @@ def parse(data: bytes, skip_decode: bool = False, mode: str = "libwebp",
     """The host part of a decode (``webp.py:246-352``).  ``device`` is
     where ``FFPIC_VP8_DEVICE``'s residual transform runs (None: CUDA)."""
     riff_size = struct.unpack_from("<I", data, 4)[0]
-    pos = 12
     chunks: dict[str, bytes] = {}
     anmf: list[bytes] = []
     order = []
-    while pos + 8 <= len(data):
-        tag = data[pos:pos + 4].decode("latin1")
-        size = struct.unpack_from("<I", data, pos + 4)[0]
-        if pos + 8 + size > len(data):
-            raise ValueError(f"truncated WEBP: chunk {tag!r} claims "
-                             f"{size} bytes past end of file")
+    for tag, body in chunks_of(data, 12, "WEBP"):
         if tag == "ANMF":
-            anmf.append(data[pos + 8:pos + 8 + size])
+            anmf.append(body)
         else:
-            chunks[tag] = data[pos + 8:pos + 8 + size]
+            chunks[tag] = body
         order.append(tag)
-        pos += 8 + size + (size & 1)
 
     meta = dict(chunks=order, riff_size=riff_size)
     if "VP8X" in chunks:

@@ -1,12 +1,13 @@
 """ctypes wrappers of the CUDA kernels in ``csrc/vp8_decode.cu``: K12
-``vp8_residuals`` and K13 ``vp8_yuv_to_rgba``.
+``vp8_residuals``, K13 ``vp8_yuv_to_rgba`` and K18 ``vp8_wavefront``.
 
 As in ``ops.cuda_jpeg``: each wrapper takes CUDA tensors only, checks
 device, dtype, shape and layout and raises on anything else, allocates
 its output with ``torch.empty``, launches on the current stream and
 raises if the launch reports an error, without synchronising.
 ``launches`` counts each kernel's launches.  The plain PyTorch versions
-live in ``ops.vp8_kernels``; the kernels never run on the CPU.
+live in ``ops.vp8_kernels`` (K18's in ``ops.vp8_wavefront``); the
+kernels never run on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 from ffpic_tpu_torch.ops import _build
 
-launches = {"vp8_residuals": 0, "vp8_yuv_to_rgba": 0}
+launches = {"vp8_residuals": 0, "vp8_yuv_to_rgba": 0, "vp8_wavefront": 0}
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -26,6 +27,7 @@ _SIGNATURES = {
     "ffpic_vp8_residuals": [_vp, _vp, _vp, _vp, _i64, _vp],
     "ffpic_vp8_yuv_to_rgba": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _int,
                               _int, _vp],
+    "ffpic_vp8_wavefront": [_vp, _vp, _vp, _vp, _vp, _int, _int],
 }
 _launch = _build.launcher(_SIGNATURES, launches)
 
@@ -35,17 +37,29 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _cuda(t, name: str, dtype: torch.dtype, shape: tuple | None = None):
-    """A contiguous CUDA tensor of ``dtype`` (and ``shape``)."""
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got "
-                         f"{getattr(t, 'device', type(t))}")
-    if t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype}, got "
-                         f"{t.dtype}")
+def _typed(t, name: str, dtype: torch.dtype, shape: tuple | None = None):
+    """A tensor of ``dtype`` (and ``shape``)."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a CUDA tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected shape {shape}, got "
                          f"{tuple(t.shape)}")
+
+
+def _on_card(t: torch.Tensor, name: str) -> None:
+    """A contiguous tensor on a CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _cuda(t, name: str, dtype: torch.dtype, shape: tuple | None = None):
+    """A contiguous CUDA tensor of ``dtype`` (and ``shape``)."""
+    _typed(t, name, dtype, shape)
+    _on_card(t, name)
 
 
 def _plane(t, name: str, rows: int, cols: int) -> None:
@@ -112,4 +126,33 @@ def vp8_yuv_to_rgba(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
                 U.stride(0), _vp(V.data_ptr()), V.stride(0),
                 _vp(None if alpha is None else alpha.data_ptr()),
                 _vp(out.data_ptr()), h, w)
+    return out
+
+
+def vp8_wavefront(residual: torch.Tensor, ymode: torch.Tensor,
+                  bmodes: torch.Tensor) -> torch.Tensor:
+    """K18: residual (mbh, mbw, 16, 4, 4), ymode (mbh, mbw) and bmodes
+    (mbh, mbw, 16), int32 -> the luma plane (16 mbh, 16 mbw) uint8, in
+    one launch; a CTA of 256 threads a macroblock row.  Its scratch, a
+    row ticket and each row's progress, is zeroed for every launch."""
+    if not isinstance(ymode, torch.Tensor) or ymode.dim() != 2:
+        raise ValueError(f"ymode: expected (mbh, mbw), got "
+                         f"{getattr(ymode, 'shape', type(ymode))}")
+    mbh, mbw = ymode.shape
+    args = ((residual, "residual", (mbh, mbw, 16, 4, 4)),
+            (ymode, "ymode", (mbh, mbw)), (bmodes, "bmodes", (mbh, mbw, 16)))
+    for t, name, shape in args:      # dtype and shape before the device
+        _typed(t, name, torch.int32, shape)
+    for t, name, _ in args:
+        _on_card(t, name)
+    if residual.device != ymode.device or residual.device != bmodes.device:
+        raise ValueError("residual, ymode and bmodes must share a device")
+    out = torch.empty((16 * mbh, 16 * mbw), dtype=torch.uint8,
+                      device=residual.device)
+    if out.numel():
+        sync = torch.zeros(mbh + 1, dtype=torch.int32, device=residual.device)
+        _launch("ffpic_vp8_wavefront", "vp8_wavefront",
+                _vp(residual.data_ptr()), _vp(ymode.data_ptr()),
+                _vp(bmodes.data_ptr()), _vp(out.data_ptr()),
+                _vp(sync.data_ptr()), mbh, mbw)
     return out

@@ -17,15 +17,18 @@ default; ``F.interpolate`` does not), H first and then W, the result
 rounded to float32 after each axis, as JAX rounds its f32 products.  An
 axis whose size does not change is skipped, as JAX skips it.  Each
 output index reads a run of inputs (its taps: the first input index and
-the run's nonzero f32 weights, ``taps``).  Both the plain versions and
-the kernels sum a run in float64, in ascending input order, a product
-and then a sum each rounded to float64 (no fused multiply-add), so they
-agree bit for bit.  On the first axis of ``resize_rgba`` the products
-(uint8 x f32) and their sums are exact in float64.  The sums run in
-another order and width than XLA's, so a value can land on the other
-side of .5 before ``resize_rgba`` rounds it: outputs agree with the JAX
-package to 1 LSB, and ``normalize_for_model``'s to float32 rounding.
-Nothing here reads or changes a global matmul precision setting.
+the run's nonzero f32 weights, ``taps``), the weights as XLA's CPU
+backend computes them inside the jitted original (``_weight_mat``).
+Both the plain versions and the kernels sum a run in float64, in
+ascending input order, a product and then a sum each rounded to float64
+(no fused multiply-add), so they agree bit for bit.  On the first axis
+of ``resize_rgba`` the products (uint8 x f32) and their sums are exact
+in float64.  The sums run in another order and width than XLA's f32
+dot, so a value can land on the other side of .5 before
+``resize_rgba`` rounds it: outputs agree with the JAX package to 1 LSB,
+and ``normalize_for_model``'s to a few float32 ulps (bit for bit
+without a resize).  Nothing here reads or changes a global matmul
+precision setting.
 """
 
 from __future__ import annotations
@@ -40,19 +43,93 @@ F32, F64 = torch.float32, torch.float64
 MEAN = STD = (0.5, 0.5, 0.5)          # the reference's defaults
 
 
+def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` of float32 values rounded once to float32, as the
+    fused multiply-add that XLA's CPU backend emits: the product is exact
+    in float64, the sum is rounded to odd there (its TwoSum error breaks
+    an even result toward the exact value), so the one rounding to
+    float32 that follows is correct."""
+    p = a.to(F64) * torch.as_tensor(b, dtype=F64, device=a.device)
+    c = torch.as_tensor(c, dtype=F64, device=a.device)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    s = torch.where(even & (err != 0), torch.nextafter(s, s + err), s)
+    return s.to(F32)
+
+
+def _xla_column_sum(w: torch.Tensor) -> torch.Tensor:
+    """Column sums of (n, m) float32 as XLA's CPU backend takes them
+    (its tree-reduction rewrite of ``jnp.sum(axis=0)``): while more than
+    32 rows are left, pad with zero rows, pad // 2 above and the rest
+    below, to a multiple of 32, and sum each window of 32 rows in order;
+    then sum the rows left in order.  Every add rounds to float32."""
+    while w.shape[0] > 32:
+        pad = -w.shape[0] % 32
+        w = torch.nn.functional.pad(w, (0, 0, pad // 2, pad - pad // 2))
+        w = w.view(-1, 32, w.shape[1])
+        acc = w[:, 0]
+        for k in range(1, 32):
+            acc = acc + w[:, k]
+        w = acc
+    acc = w[0]
+    for k in range(1, w.shape[0]):
+        acc = acc + w[k]
+    return acc
+
+
+def _triangle(sample_f: torch.Tensor, in_size: int, recip, fused: bool):
+    """(in_size, out) f32 triangle weights ``max(0, 1 - |s - i| * recip)``
+    of the sample positions; ``recip`` None when the kernel is not
+    widened (XLA drops the division by 1); ``fused``: the product and
+    the subtraction as one FMA."""
+    d = (sample_f[None, :] - torch.arange(in_size, dtype=F32)[:, None]).abs()
+    if recip is None:
+        w = 1 - d
+    elif fused:
+        w = _fma32(-d, recip, 1.0)
+    else:
+        w = 1 - d * recip
+    return torch.clamp(w, min=0)
+
+
 @functools.lru_cache(maxsize=64)
 def _weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
-    """(in_size, out_size) float32 weights, step for step as
-    ``jax._src.image.scale.compute_weight_mat`` with the triangle kernel,
-    antialias on and no translation."""
+    """(in_size, out_size) float32 weights of
+    ``jax._src.image.scale.compute_weight_mat`` (triangle kernel,
+    antialias on, no translation) as XLA's CPU backend computes them
+    inside the jitted resize of ``ffpic_tpu/ops/resize.py``.  The
+    optimised HLO holds two fusions that each recompute the weights from
+    iotas: one feeds the column total (a tree of 32-row reduce-windows,
+    ``_xla_column_sum``), the other divides by it and applies the masks.
+
+    * Sample positions ``(j + 0.5) * f32(1/scale) - 0.5``: in the total's
+      fusion LLVM folds them to constants, a product and a difference
+      each rounded; in the other they are one FMA.
+    * ``|s - i| / kernel_scale`` becomes a product by the f32 reciprocal
+      of the f32 ``kernel_scale`` (XLA's divide-by-constant rewrite), and
+      goes away when ``kernel_scale`` is 1 (growing).  ``1 - that`` is
+      one FMA in the total's fusion and two roundings in the other.
+    * The weights are divided by the total (an f32 division) where
+      ``|total| > 1000 eps`` and zeroed where the sample lies outside.
+
+    Those FMA choices are LLVM's at the output sizes of config 5 (224)
+    and when growing.  At some other sizes it makes other ones (at 97
+    -> 61 it unrolls the second fusion's loop, folds the positions and
+    fuses ``1 - ...`` there too), and a few weights differ, by up to
+    1.5e-6 (ROADMAP Queue 3, ``tests/test_torch_resize.py``)."""
     # JAX takes 1/scale of a Python float, then rounds it to f32 in use
     inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (torch.arange(out_size, dtype=F32) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=F32)[:, None]) \
-        .abs() / kernel_scale
-    weights = torch.clamp(1 - x.abs(), min=0)
-    total = weights.sum(dim=0, keepdim=True)
+    inv32 = float(torch.tensor(inv_scale, dtype=F32))
+    kernel_scale = torch.tensor(max(inv_scale, 1.0), dtype=F32)
+    recip = (None if kernel_scale == 1 else
+             float(torch.reciprocal(kernel_scale)))
+    half = torch.arange(out_size, dtype=F32) + 0.5
+    folded = half * inv32 - 0.5
+    sample_f = _fma32(half, inv32, -0.5)
+    total = _xla_column_sum(_triangle(folded, in_size, recip, True))[None]
+    weights = _triangle(sample_f, in_size, recip, False)
     eps = torch.finfo(F32).eps
     weights = torch.where(total.abs() > 1000.0 * eps,
                           weights / torch.where(total != 0, total, 1.0), 0.0)
@@ -127,16 +204,25 @@ def _consts(values, device) -> torch.Tensor:
     return torch.tensor(values, dtype=F32, device=device)
 
 
+INV255 = float(torch.tensor(1 / 255, dtype=F32))   # XLA's f32(1/255)
+
+
 def normalize_plain(batch: torch.Tensor, size=None, mean=MEAN,
                     std=STD) -> torch.Tensor:
     """K17's function: ``(..., H, W, C>=3)`` uint8 RGBA -> ``(..., h, w,
-    3)`` float32: ``rgb / 255`` (an f32 division), the resize when
-    ``size`` is given (in f32, no uint8 rounding), then ``(x - mean) /
-    std`` (f32 subtract and divide) (``ffpic_tpu/ops/resize.py:27``)."""
-    x = batch[..., :3].to(F32) / _consts(255.0, batch.device)
-    if size is not None:
-        x = _resize_f32(x, tuple(size))
-    return (x - _consts(mean, x.device)) / _consts(std, x.device)
+    3)`` float32 (``ffpic_tpu/ops/resize.py:27``), as XLA's CPU backend
+    compiles the jitted original: ``/ 255.0`` becomes a product by
+    ``f32(1/255)``.  When ``size`` changes an axis, that product is
+    rounded to f32, the resize follows (in f32, no uint8 rounding), then
+    ``(x - mean) / std`` (f32 subtract and divide).  Otherwise product
+    and subtraction are one FMA, ``fma(rgb, f32(1/255), -mean) / std``."""
+    rgb = batch[..., :3].to(F32)
+    mean = _consts(mean, batch.device)
+    std = _consts(std, batch.device)
+    if size is None or tuple(size) == tuple(rgb.shape[-3:-1]):
+        return _fma32(rgb, INV255, -mean) / std
+    x = _resize_f32(rgb * _consts(INV255, batch.device), tuple(size))
+    return (x - mean) / std
 
 
 def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:

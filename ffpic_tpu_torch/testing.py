@@ -915,6 +915,87 @@ def vp8_cases(seed: int = 0) -> dict[str, dict]:
     return {"residuals": res, "color": col}
 
 
+
+def vp8_bitstreams(data: bytes) -> list[bytes]:
+    """The VP8 key frames of a WebP file: its ``VP8 `` chunk, or that of
+    each ``ANMF`` frame (after the frame's 16-byte header)."""
+    from ffpic_tpu_torch.formats.webp import chunks_of
+    out = []
+    for tag, body in chunks_of(data, 12, "WEBP"):
+        if tag == "VP8 ":
+            out.append(body)
+        elif tag == "ANMF":
+            out += [b for t, b in chunks_of(body, 16, "ANMF subchunk")
+                    if t == "VP8 "]
+    return out
+
+
+WAVEFRONT_FIXTURES = ("lossy_512.webp", "odd_333x199.webp",
+                      "lossy_1080p.webp", "alpha_1080p.webp",
+                      "animated_96x64.webp")
+
+
+def wavefront_inputs(name: str, frame: int = 0) -> dict:
+    """The inputs of B12 (``ops.vp8_wavefront``) for VP8 frame ``frame`` of
+    the committed WebP fixture ``name``, through the port's
+    ``VP8Decoder`` up to its residuals (the host transform, or K12's plain
+    version under ``FFPIC_VP8_DEVICE``), as ``tests/test_vp8_wavefront.py``
+    captures them: {"residual": (mbh, mbw, 16, 4, 4) int32 (the luma
+    blocks), "ymode": (mbh, mbw) int32, "bmodes": (mbh, mbw, 16) int32,
+    "Y": the host reconstruction ``native.vp8_recon``'s luma before the
+    loop filter, (16 mbh, 16 mbw) uint8, "mb": (mbh, mbw), "levels",
+    "dq_per_mb" and "has_y2" (K12's inputs), and "residual24" (all 24
+    blocks, int16) and "uvmode" (``vp8_recon``'s other inputs)}."""
+    from ffpic_tpu_torch.formats.vp8 import VP8Decoder
+    dec = VP8Decoder(vp8_bitstreams(webp_fixture(name))[frame],
+                     device=torch.device("cpu"))
+    dec._parse_control_partition()
+    dec._dequant_tables()
+    dec._parse_mb_headers()
+    dec._parse_tokens()
+    dec._residuals()
+    dec._reconstruct()
+    mbh, mbw = dec.mbh, dec.mbw
+    seg = (dec.seg if dec.hdr.seg_enabled
+           else np.zeros((mbh, mbw), np.int32))
+    return {"residual": np.ascontiguousarray(dec.residual[:, :, :16],
+                                             np.int32),
+            "ymode": np.asarray(dec.ymode, np.int32).copy(),
+            "bmodes": np.asarray(dec.bmodes, np.int32)
+            .reshape(mbh, mbw, 16).copy(),
+            "Y": dec.Y.copy(), "mb": (mbh, mbw), "levels": dec.levels,
+            "residual24": dec.residual, "uvmode": dec.uvmode,
+            "dq_per_mb": np.array(dec.dq, np.int32)[seg],
+            "has_y2": np.asarray(dec.has_y2, bool)}
+
+
+def wavefront_cases(seed: int = 0) -> dict[str, tuple]:
+    """Random inputs of B12: name -> (residual (mbh, mbw, 16, 4, 4) int32
+    in +-300, ymode (mbh, mbw) int32, bmodes (mbh, mbw, 16) int32) at the
+    grids 1x1 (B_PRED, every B-mode), 1x7, 7x1, 3x4 (all B_PRED) and 5x9;
+    together they hold every ymode 0-4 and every B-mode 0-9 at the
+    frame's edges and inside it."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (mbh, mbw), p_bpred in (("mb1x1_bpred", (1, 1), 1.0),
+                                      ("mb1x7", (1, 7), 0.5),
+                                      ("mb7x1", (7, 1), 0.5),
+                                      ("mb3x4_bpred", (3, 4), 1.0),
+                                      ("mb5x9", (5, 9), 0.4)):
+        res = rng.integers(-300, 301, (mbh, mbw, 16, 4, 4))
+        ymode = np.where(rng.random((mbh, mbw)) < p_bpred, 4,
+                         rng.integers(0, 4, (mbh, mbw)))
+        bmodes = rng.integers(0, 10, (mbh, mbw, 16))
+        if name == "mb1x1_bpred":
+            bmodes[0, 0] = np.concatenate([rng.permutation(10),
+                                           rng.integers(0, 10, 6)])
+        out[name] = (res.astype(np.int32), ymode.astype(np.int32),
+                     bmodes.astype(np.int32))
+    ym = np.concatenate([c[1].ravel() for c in out.values()])
+    bm = np.concatenate([c[2][c[1] == 4].ravel() for c in out.values()])
+    assert set(ym) == set(range(5)) and set(bm) == set(range(10))
+    return out
+
 # --- HEVC / HEIF ------------------------------------------------------------
 
 def hevc_planes(w: int, h: int, seed: int, bd: int = 8):
