@@ -32,7 +32,9 @@ read just after:
   then K7 assemble_rgba) and one by ``testing.encode_png`` with Sub and
   Up rows only (K6 unfilter_subup, then K7), each equal to its source
   pixels; smaller palette, 16-bit, gray and Adam7 files against the CPU
-  route;
+  route; K7 is held to its plain version on all fifteen (colour type,
+  bit depth) instances at widths 37 and 64, with contiguous rows and at
+  pitches aligned to 16, 8 and 4 bytes and at an odd address;
 * ``decode_batch`` over 4 baseline 4:2:0 1080p JPEGs and 4 1080p RGBA
   PNGs (K1a-K3, K6, K7), against the CPU route;
 * the sparse route of dense 4:2:0 members, reached through the
@@ -80,26 +82,38 @@ read just after:
   ``[time wavefront]`` gives K18 at 1080p and 512x512 beside its chain
   of 2 (mbh - 1) + mbw macroblock steps and the host ``vp8_recon`` (Y,
   U and V, host clock, median of 5);
-* HEIF (K14 hevc_residuals, K15 hevc_yuv_to_rgba; ``testing.hevc_cases``,
-  ``heif_color_cases`` and the TU lists and planes of the committed 12 MP
-  grid's 48 tiles against their plain versions): ``load`` of
+* HEIF (K14 hevc_residuals, K15 hevc_yuv_to_rgba; ``testing.hevc_cases``
+  each in a launch of its own, the TU lists of the committed 12 MP
+  grid's 48 tiles in one launch, ``heif_color_cases`` and the tiles'
+  planes, against their plain versions): ``load`` of
   ``ffpic_tpu_torch/testdata/heic_12mp_grid.heic`` and of the small
   HEICs of ``testing.heif_cases`` (10-bit, transform skip, bypass,
   deblocking on, a 2x2 grid with alpha, 333x199) under the four
-  combinations of ``FFPIC_HEVC_DEVICE`` (K14 once a tile) and
-  ``FFPIC_HEIF_DEVICE_COLOR`` (K15 once a tile), each equal to the CPU
-  route, the fixture also against its source content; ``decode_batch``
-  of two HEICs beside a JPEG under each combination.  The load medians
-  are printed under the JAX bench's names (``heic_12mp_mps``,
-  ``heic_device_mps``) and as ``heic_device_color_mps``, with the host
-  spans and the grid pool's worker count; K14 and K15 are timed per
-  launch and per load (48 launches) beside the launch floor.
+  combinations of ``FFPIC_HEVC_DEVICE`` (K14 once a grid or single
+  item) and ``FFPIC_HEIF_DEVICE_COLOR`` (K15 once a tile), each equal to
+  the CPU route, the fixture also against its source content;
+  ``decode_batch`` of two HEICs beside a JPEG under each combination.
+  The load medians are printed under the JAX bench's names
+  (``heic_12mp_mps``, ``heic_device_mps``) and as
+  ``heic_device_color_mps``, with the host spans (``hevc.
+  residuals_device`` apart, and beside it the sum over a load's tiles
+  of ``hevc.residuals_part``, each tile's share of the plan made in the
+  syntax phase's workers) and the grid pool's worker count; K14 is
+  timed a launch (the median tile alone) and a load (one launch over
+  the 48 tiles, with the 48 launches of a launch a tile beside it),
+  against its bound by bytes and the operations it runs (``hevc_ops``)
+  and, under its own name, the direct product's 4 n^3 a TU; K15 a
+  launch and a load (48 launches), beside the launch floor.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
 one (``torch.cumsum`` for ``count_scan``, ``torch.zeros`` +
 ``index_add_`` for ``scatter_plane``, a device copy of the rows for
-``assemble_rgba`` on 8-bit RGBA) and the launch floor (the fastest
+``assemble_rgba`` on 8-bit RGBA, warm and L2-flushed; both warm over
+eight copies of the rows in turn, 66 MB that L2 cannot hold, so that
+the bound by device memory applies, and beside that with the rows
+resident in L2) and the launch
+floor (the fastest
 empty launch in the same loop), and each path end to end with its host
 spans.  One line per phase; then the kernel table as
 one JSON line, and last ``{"ok": true, "device": {...}}``.  Any failure
@@ -109,6 +123,7 @@ raises and exits non-zero; without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -513,6 +528,13 @@ def spans(fn, runs: int):
     return sorted(walls)[len(walls) // 2], walls, stages
 
 
+def in_turn(fn, inputs):
+    """``fn`` as a call of no arguments that takes ``inputs`` in turn,
+    one each call."""
+    it = itertools.cycle(inputs)
+    return lambda: fn(next(it))
+
+
 def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
                floor_ms: float, flush, at: str, library=None,
                plain_iters: int = 3, plain_warmup: int = 2) -> dict:
@@ -529,6 +551,8 @@ def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
          "bound_ms": b_ms,
          "bound_by": b_by,
          "library_ms": gpu_ms(library, 50) if library else None,
+         "library_ms_cold": gpu_ms_cold(library, 20, flush) if library
+         else None,
          "launch_floor_ms": floor_ms, "ops_type": ops_type, "bytes": nbytes,
          "ops": ops}
     t["share"] = b_ms / t["ms"]
@@ -540,7 +564,9 @@ def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
         share_warm=f"{t['share']:.3f}", share_cold=f"{t['share_cold']:.3f}",
         bytes=nbytes, launch_floor_ms=f"{floor_ms:.4f}",
         library_ms=("null" if t["library_ms"] is None
-                    else f"{t['library_ms']:.4f}"))
+                    else f"{t['library_ms']:.4f}"),
+        library_ms_cold=("null" if t["library_ms_cold"] is None
+                         else f"{t['library_ms_cold']:.4f}"))
     return t
 
 
@@ -609,18 +635,42 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
         "1080p_random_filters")
 
     # --- K7 against its plain version ----------------------------------------
+    # every (colour type, bit depth) at an odd width and at one a multiple
+    # of 4, each as contiguous rows (K7's flat run) and at row pitches
+    # aligned to 16, 8 and 4 bytes and from an odd address at an odd pitch
+    # (its four load widths)
+    def rgba_layouts(rec):
+        h, stride = rec.shape
+        flat = torch.from_numpy(rec).to(dev)
+        out = {"flat": flat}
+        wide = -(-stride // 16) * 16 + 16
+        for name, pitch, at in (("pitch16", wide, 0), ("pitch8", wide + 8, 0),
+                                ("pitch4", wide + 4, 0),
+                                ("unaligned", stride + 7, 1)):
+            buf = torch.zeros((h, pitch + at), dtype=torch.uint8, device=dev)
+            buf[:, at:at + stride] = flat
+            out[name] = buf[:, at:at + stride]
+        return out
+
+    n_rgba = 0
     for rec, pal, key, ct, bd, w, h in testing.rgba_cases().values():
-        r = torch.from_numpy(rec).to(dev)
-        exact("assemble_rgba", cuda_png.assemble_rgba(r, pal, key, ct, bd, w, h),
-              pk.expand_rgba(r, pal, key, ct, bd, w, h), errs)
+        for width in (w, 64):
+            stride = (width * pk.NCH[ct] * bd + 7) // 8
+            r_np = np.tile(rec, (1, -(-stride // rec.shape[1])))[:, :stride]
+            for r in rgba_layouts(np.ascontiguousarray(r_np)).values():
+                exact("assemble_rgba",
+                      cuda_png.assemble_rgba(r, pal, key, ct, bd, width, h),
+                      pk.expand_rgba(r, pal, key, ct, bd, width, h), errs)
+                n_rgba += 1
     pal, key = fs.palette, fs.trns.astype(np.int32)
     host_recon = torch.from_numpy(fa.passes[0].recon).to(dev)
     for r in (recon, host_recon, host_recon[:, 1:1 + 4 * W - 4]):
         w = r.shape[1] // 4
         exact("assemble_rgba", cuda_png.assemble_rgba(r, pal, key, 6, 8, w, H),
               pk.expand_rgba(r, pal, key, 6, 8, w, H), errs)
-    log("check K7", assemble_rgba="exact",
-        cases=",".join(testing.rgba_cases()) + ",1080p_k6_recon,"
+    log("check K7", assemble_rgba="exact", launches_checked=n_rgba,
+        cases=",".join(testing.rgba_cases()) + " at widths 37 and 64, each "
+        "flat, pitch16, pitch8, pitch4, unaligned; 1080p_k6_recon,"
         "1080p_host_recon,1080p_unaligned")
 
     # --- the load paths ------------------------------------------------------
@@ -709,6 +759,11 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
             recon, pal, key, 6, 8, W, H)):
         raise AssertionError("K7's library yardstick computes another "
                              "function")
+    # K7's 16.6 MB fit in the 50 MB L2, so back-to-back launches on one
+    # input read it from L2 and beat the bound by device memory: its warm
+    # time (and the copy's) takes the rows from eight copies in turn,
+    # 66 MB; the L2-resident times are logged beside, with no share
+    rows8 = [recon.clone() for _ in range(8)]
     timed = {
         "unfilter_subup": time_entry(
             "unfilter_subup",
@@ -718,12 +773,28 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
             flush, "png load 1080p Sub/Up"),
         "assemble_rgba": time_entry(
             "assemble_rgba",
-            lambda: cuda_png.assemble_rgba(recon, pal, key, 6, 8, W, H),
+            in_turn(lambda r: cuda_png.assemble_rgba(r, pal, key, 6, 8, W, H),
+                    rows8),
             lambda: pk.expand_rgba(recon, pal, key, 6, 8, W, H),
             H * stride + 4 * H * W, 4 * H * W, "int32", floor_ms, flush,
-            "png load 1080p", library=lambda: recon.clone().view(H, W, 4)),
+            "png load 1080p, rows from 8 copies in turn",
+            library=in_turn(lambda r: r.clone().view(H, W, 4), rows8)),
     }
-    del flush
+    t = timed["assemble_rgba"]
+    t["ms_l2"] = gpu_ms(
+        lambda: cuda_png.assemble_rgba(recon, pal, key, 6, 8, W, H), 50)
+    t["library_ms_l2"] = gpu_ms(lambda: recon.clone().view(H, W, 4), 50)
+    log("time K7 against the device copy", instance="assemble_rgba<6,8>",
+        at="png load 1080p", ms=f"{t['ms']:.4f}",
+        copy_ms=f"{t['library_ms']:.4f}", ms_cold=f"{t['ms_cold']:.4f}",
+        copy_ms_cold=f"{t['library_ms_cold']:.4f}",
+        ms_l2=f"{t['ms_l2']:.4f}", copy_ms_l2=f"{t['library_ms_l2']:.4f}",
+        warm_ratio=f"{t['ms'] / t['library_ms']:.3f}",
+        cold_ratio=f"{t['ms_cold'] / t['library_ms_cold']:.3f}",
+        l2_ratio=f"{t['ms_l2'] / t['library_ms_l2']:.3f}",
+        copy_share_warm=f"{t['bound_ms'] / t['library_ms']:.3f}",
+        copy_share_cold=f"{t['bound_ms'] / t['library_ms_cold']:.3f}")
+    del flush, rows8
     walls = {}
     for name, data in (("subup", subup), ("adaptive", adaptive)):
         wall, runs, stages = spans(lambda d=data: ffpic_tpu_torch.load(d), 5)
@@ -1793,6 +1864,32 @@ HEIF_SWITCHES = {"neither": {}, "hevc_device": {"FFPIC_HEVC_DEVICE": "1"},
                           "FFPIC_HEIF_DEVICE_COLOR": "1"}}
 
 
+def butterfly_ops(n: int) -> int:
+    """int32 operations of one n-point 1-D inverse DCT as K14 runs it, a
+    multiply-add as 2: the (n/2)^2 multiply-adds and n sums of each level
+    of the even/odd recursion, 64 * c at its root."""
+    return 1 if n == 1 else butterfly_ops(n // 2) + 2 * (n // 2) ** 2 + n
+
+
+def hevc_ops(metas) -> int:
+    """The int32 operations K14 runs over the TUs of ``metas`` (tu_meta
+    arrays): each transform TU's 2n 1-D passes (butterflies; the 4x4
+    DST's direct 16 multiply-adds, 32), 4 a level of dequant (product,
+    rounding add, shift, clip) and 3 a level of each pass's rounding;
+    skip TUs the dequant and one rounding; bypass TUs nothing."""
+    import numpy as np
+    total = 0
+    for meta in metas:
+        n = meta[:, 2].astype(np.int64)
+        skip, byp, dst = meta[:, 4] != 0, meta[:, 5] != 0, meta[:, 7] != 0
+        one_d = np.select([dst & (n == 4)], [32],
+                          np.vectorize(butterfly_ops)(n))
+        tr = ~skip & ~byp
+        total += int((tr * (2 * n * one_d + 10 * n * n)).sum()
+                     + (skip & ~byp).astype(np.int64) @ (7 * n * n))
+    return total
+
+
 def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
     """HEIF on the card: K14 and K15 against their plain versions
     (``testing.hevc_cases``, ``heif_color_cases`` and the 12 MP fixture's
@@ -1810,6 +1907,7 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
     from ffpic_tpu_torch.make_heif_fixtures import synth_rgb
     from ffpic_tpu_torch.ops import cuda_hevc, cuda_jpeg
     from ffpic_tpu_torch.ops import hevc_kernels as hk
+    from ffpic_tpu_torch.utils import trace
     from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
                                               bound, gpu_ms, gpu_ms_cold)
 
@@ -1844,10 +1942,16 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
         seconds=f"{time.perf_counter() - t0:.3f}")
 
     # --- K14 and K15 against their plain versions on the card ---------------
-    for meta, lv, bd in [*testing.hevc_cases().values(), *tus]:
-        m_d, lv_d, plan = hk.stage_residuals(meta, lv, dev)
-        exact("hevc_residuals", cuda_hevc.hevc_residuals(m_d, lv_d, bd, *plan),
-              hk.hevc_residuals_plain(m_d, lv_d, bd), errs)
+    # each edge case in a launch of its own; the 48 tiles' TUs in one
+    # launch, as a grid load under FFPIC_HEVC_DEVICE runs them
+    grid_tus = [*testing.hevc_cases().values(),
+                (np.concatenate([tu for tu, _, _ in tus]),
+                 np.concatenate([lv for _, lv, _ in tus]), tus[0][2])]
+    for meta, lv, bd in grid_tus:
+        lv_d, plan, _ = hk.stage_residuals([(meta, lv)], dev)
+        exact("hevc_residuals", cuda_hevc.hevc_residuals(lv_d, bd, *plan),
+              hk.hevc_residuals_plain(torch.from_numpy(meta).to(dev), lv_d,
+                                      bd), errs)
 
     def to(*arrays):
         return [None if a is None else torch.from_numpy(
@@ -1885,8 +1989,8 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
     del got, want
     log("check K14 K15", hevc_residuals="exact", hevc_yuv_to_rgba="exact",
         cases=",".join([*testing.hevc_cases(), *testing.heif_color_cases()])
-        + f",{len(tiles)}_fixture_tiles_tus,{len(tiles)}_fixture_tiles_"
-        "colour_bt601_reference")
+        + f",{len(tiles)}_fixture_tiles_tus_in_one_launch,{len(tiles)}_"
+        "fixture_tiles_colour_bt601_reference")
 
     # --- load of the fixture and the small HEICs under the switches ---------
     small = testing.heif_cases()
@@ -1908,7 +2012,8 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
             if (got.width, got.height) != (want.width, want.height):
                 raise AssertionError(f"heif load {name} {sw}: size")
             if name == "heic_12mp_grid":
-                k14 = len(tiles) if "FFPIC_HEVC_DEVICE" in env else 0
+                # K14 once a grid load, K15 once a tile
+                k14 = 1 if "FFPIC_HEVC_DEVICE" in env else 0
                 k15 = len(tiles) if "FFPIC_HEIF_DEVICE_COLOR" in env else 0
                 if (n["hevc_residuals"], n["hevc_yuv_to_rgba"]) != \
                         (k14, k15) or len(n) != 2:
@@ -1966,50 +2071,70 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
 
     # --- timing --------------------------------------------------------------
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
-    # K14 per launch at the median tile, and per load (all 48 tiles'
-    # launches back to back); bytes: levels in and residuals out at 2
-    # each, tu_meta (32), offs and perm (8) a TU, a CTA row (16); ops: the
-    # direct product of both passes, 4 n^3 a TU (a multiply-add as 2)
-    staged_tus = [hk.stage_residuals(meta, lv, dev) for meta, lv, _ in tus]
+    # K14 as the grid load runs it, one launch over all 48 tiles' TUs;
+    # beside it the 48 launches of a launch a tile and the median tile
+    # alone. Bytes: levels in and residuals out at 2 each, a TU's
+    # descriptor (8), a CTA row (16); ops: those K14 runs (hevc_ops:
+    # butterflies, dequant, roundings), and beside them the direct
+    # product of both passes, 4 n^3 a TU (a multiply-add as 2)
+    staged_tus = [hk.stage_residuals([(meta, lv)], dev)
+                  for meta, lv, _ in tus]
+    lv_all, plan_all, _ = hk.stage_residuals(
+        [(meta, lv) for meta, lv, _ in tus], dev)
+    metas = [m for m, _, _ in tus]
+    meta_all = torch.from_numpy(np.concatenate(metas)).to(dev)
     bd = tus[0][2]
-    per = sorted(range(len(tus)), key=lambda k: len(tus[k][0]))
-    mid = per[len(per) // 2]
 
-    def k14_bytes(k):
-        meta, lv, _ = tus[k]
-        return 4 * lv.size + 40 * len(meta) + 16 * len(staged_tus[k][2][2])
+    def k14_bytes(metas, lvs, nctas):
+        return 4 * sum(lv.size for lv in lvs) + 8 * sum(map(len, metas)) \
+            + 16 * nctas
 
-    def k14_ops(k):
-        return int((4 * tus[k][0][:, 2].astype(np.int64) ** 3).sum())
+    def k14_direct(metas):
+        return sum(int((4 * m[:, 2].astype(np.int64) ** 3).sum())
+                   for m in metas)
 
-    m_d, lv_d, plan = staged_tus[mid]
+    load_bytes = k14_bytes(metas, [lv for _, lv, _ in tus], len(plan_all[1]))
     timed = {"hevc_residuals": time_entry(
         "hevc_residuals",
-        lambda: cuda_hevc.hevc_residuals(m_d, lv_d, bd, *plan),
-        lambda: hk.hevc_residuals_plain(m_d, lv_d, bd), k14_bytes(mid),
-        k14_ops(mid), "int32", floor_ms, flush,
-        f"heif load FFPIC_HEVC_DEVICE, tile {tiles[mid]} of 48 "
-        f"({len(tus[mid][0])} TUs)")}
+        lambda: cuda_hevc.hevc_residuals(lv_all, bd, *plan_all),
+        lambda: hk.hevc_residuals_plain(meta_all, lv_all, bd), load_bytes,
+        hevc_ops(metas), "int32", floor_ms, flush,
+        f"heif load FFPIC_HEVC_DEVICE, the {len(tiles)} tiles' "
+        f"{len(meta_all)} TUs in one launch")}
 
-    def all_k14():
-        for m_, l_, p_ in staged_tus:
-            cuda_hevc.hevc_residuals(m_, l_, bd, *p_)
-    load_bytes = sum(k14_bytes(k) for k in range(len(tus)))
-    load_ops = sum(k14_ops(k) for k in range(len(tus)))
-    b_ms, b_by = bound(load_bytes, load_ops, INT32_OPS_PER_S)
+    def per_tile():
+        for l_, p_, _ in staged_tus:
+            cuda_hevc.hevc_residuals(l_, bd, *p_)
+    per = sorted(range(len(tus)), key=lambda k: len(tus[k][0]))
+    mid = per[len(per) // 2]
+    lv_d, plan, _ = staged_tus[mid]
+    a_tile = {
+        "tile": tiles[mid], "tus": len(tus[mid][0]),
+        "ms": gpu_ms(lambda: cuda_hevc.hevc_residuals(lv_d, bd, *plan), 50),
+        "ms_cold": gpu_ms_cold(
+            lambda: cuda_hevc.hevc_residuals(lv_d, bd, *plan), 20, flush),
+        "bytes": k14_bytes([tus[mid][0]], [tus[mid][1]], len(plan[1])),
+        "ops": hevc_ops([tus[mid][0]])}
+    a_tile["bound_ms"], a_tile["bound_by"] = bound(
+        a_tile["bytes"], a_tile["ops"], INT32_OPS_PER_S)
     t = timed["hevc_residuals"]
-    # 2 loads a timing: 96 launches take the host about 3 ms to enqueue,
-    # well inside the spin kernel that gpu_ms queues them behind
-    t.update(per_load_ms=gpu_ms(all_k14, 2), per_load_ms_cold=gpu_ms_cold(
-        all_k14, 5, flush), per_load_bytes=load_bytes, per_load_ops=load_ops,
-        per_load_bound_ms=b_ms, per_load_bound_by=b_by,
-        per_load_launches=len(tus))
-    t["per_load_floor_share"] = len(tus) * floor_ms / t["per_load_ms"]
-    log("time kernel per load", name="hevc_residuals",
-        ms=f"{t['per_load_ms']:.4f}", ms_cold=f"{t['per_load_ms_cold']:.4f}",
-        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes=load_bytes,
-        ops=load_ops, launches=len(tus),
-        launch_floor_share=f"{t['per_load_floor_share']:.3f}")
+    # 2 loads a timing of the 48 launches: 96 launches take the host about
+    # 3 ms to enqueue, well inside the spin kernel that gpu_ms queues them
+    # behind. The kernels line takes the measured times; the counts
+    # worked out from the TU lists stay on the detail line
+    t.update(launches_48_ms=gpu_ms(per_tile, 2),
+             launches_48_ms_cold=gpu_ms_cold(per_tile, 5, flush))
+    ops_direct = k14_direct(metas)
+    log("time kernel hevc_residuals detail", ctas=len(plan_all[1]),
+        ops_direct=ops_direct,
+        bound_direct_ms=f"{ops_direct / INT32_OPS_PER_S * 1e3:.4f}",
+        launch_a_tile_ms=f"{t['launches_48_ms']:.4f}",
+        launch_a_tile_ms_cold=f"{t['launches_48_ms_cold']:.4f}",
+        a_tile=f"tile {a_tile['tile']} ({a_tile['tus']} TUs) alone",
+        a_tile_ms=f"{a_tile['ms']:.4f}",
+        a_tile_ms_cold=f"{a_tile['ms_cold']:.4f}",
+        a_tile_bytes=a_tile["bytes"], a_tile_ops=a_tile["ops"],
+        a_tile_bound_ms=f"{a_tile['bound_ms']:.4f}")
     # K15 per launch (the median tile into the canvas) and per load; bytes:
     # 2 of luma and 1 of chroma read a pixel, 4 written; about 13 f32 ops
     # a pixel (K3's count)
@@ -2042,12 +2167,12 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
         bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes=7 * gh * gw,
         launches=len(items),
         launch_floor_share=f"{t['per_load_floor_share']:.3f}")
-    del flush, canvas, staged, staged_tus
+    del flush, canvas, staged, staged_tus, lv_all, plan_all, meta_all
 
     mp = gh * gw / 1e6
     # the kernels' device time a load (the staging copies aside)
     kernel_ms = {"neither": 0.0,
-                 "hevc_device": timed["hevc_residuals"]["per_load_ms"],
+                 "hevc_device": timed["hevc_residuals"]["ms"],
                  "device_color": timed["hevc_yuv_to_rgba"]["per_load_ms"]}
     for sw, metric in (("neither", "heic_12mp_mps"),
                        ("hevc_device", "heic_device_mps"),
@@ -2055,9 +2180,19 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
         with environ(**{**clear, **HEIF_SWITCHES[sw]}):
             ffpic_tpu_torch.load(data)
             wall, runs, stages = spans(lambda: ffpic_tpu_torch.load(data), 5)
+        # each tile's share of the plan and its pinned levels, made in
+        # the syntax phase's workers: the sum over a load's tiles (CPU
+        # time of 8 threads, not wall), beside the one staging, launch
+        # and read-back of hevc.residuals_device
+        part = trace.report().get("hevc.residuals_part")
+        part_ms = part["total"] / len(runs) * 1e3 if part else 0.0
+        res_ms = stages.get("hevc.residuals_device", 0.0)
         log("time heif load", file="heic_12mp_grid.heic", route=sw,
             metric=metric, value=f"{mp / wall:.3f}",
             ms_per_load=f"{wall * 1e3:.3f}",
+            residuals_device_ms=res_ms,
+            residuals_part_ms_sum=f"{part_ms:.3f}",
+            residuals_device_and_part_ms=f"{res_ms + part_ms:.3f}",
             kernel_ms=f"{kernel_ms[sw]:.4f}",
             kernel_busy_share=f"{kernel_ms[sw] / (wall * 1e3):.4f}",
             runs_ms=json.dumps([round(r * 1e3, 3) for r in runs])
@@ -2778,9 +2913,9 @@ def main() -> int:
     for name in ("vp8_residuals", "vp8_yuv_to_rgba"):
         timed[name]["launches_per_path"] = {
             k: v[name] for k, v in webp_launches.items()}
-    # K14 on the 12 MP fixture's load under FFPIC_HEVC_DEVICE (a launch a
-    # tile), K15 on its load under FFPIC_HEIF_DEVICE_COLOR; their other
-    # paths beside
+    # K14 on the 12 MP fixture's load under FFPIC_HEVC_DEVICE (one launch
+    # over the grid's tiles), K15 on its load under FFPIC_HEIF_DEVICE_COLOR
+    # (a launch a tile); their other paths beside
     launches["hevc_residuals"] = \
         heif_launches["load_hevc_device"]["hevc_residuals"]
     launches["hevc_yuv_to_rgba"] = \

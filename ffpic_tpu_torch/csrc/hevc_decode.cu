@@ -1,9 +1,9 @@
 // HEVC (HEIF) decode kernels for Hopper (sm_90a): the device stages of
 // ffpic_tpu_torch.formats.hevc and formats.heif.
 //
-//   K14 hevc_residuals    every TU of a picture in the native flat layout
-//                         (tu_meta rows x, y, n, cidx, skip, bypass, qp,
-//                         dst; int16 levels packed per TU) -> int16
+//   K14 hevc_residuals    every TU of a picture, or of a grid's tiles, in
+//                         the native flat layout (int16 levels packed per
+//                         TU, described by the host's plan) -> int16
 //                         residuals in the same layout: 8.6.3 dequant,
 //                         then the 2-D inverse DCT (4 to 32 points) or the
 //                         4-point DST, or the transform-skip scaling, or
@@ -24,79 +24,6 @@
 
 namespace {
 
-// transMatrix of 8.6.4.2: row k (frequency), column i (sample) of the
-// 32-point DCT; the N-point matrix is rows k * 32 / N, columns 0..N-1.
-__constant__ int8_t kT32[32 * 32] = {
-    64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64,
-    64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64,
-    90, 90, 88, 85, 82, 78, 73, 67, 61, 54, 46, 38, 31, 22, 13, 4,
-    -4, -13, -22, -31, -38, -46, -54, -61, -67, -73, -78, -82, -85, -88, -90, -90,
-    90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90,
-    -90, -87, -80, -70, -57, -43, -25, -9, 9, 25, 43, 57, 70, 80, 87, 90,
-    90, 82, 67, 46, 22, -4, -31, -54, -73, -85, -90, -88, -78, -61, -38, -13,
-    13, 38, 61, 78, 88, 90, 85, 73, 54, 31, 4, -22, -46, -67, -82, -90,
-    89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89,
-    89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89,
-    88, 67, 31, -13, -54, -82, -90, -78, -46, -4, 38, 73, 90, 85, 61, 22,
-    -22, -61, -85, -90, -73, -38, 4, 46, 78, 90, 82, 54, 13, -31, -67, -88,
-    87, 57, 9, -43, -80, -90, -70, -25, 25, 70, 90, 80, 43, -9, -57, -87,
-    -87, -57, -9, 43, 80, 90, 70, 25, -25, -70, -90, -80, -43, 9, 57, 87,
-    85, 46, -13, -67, -90, -73, -22, 38, 82, 88, 54, -4, -61, -90, -78, -31,
-    31, 78, 90, 61, 4, -54, -88, -82, -38, 22, 73, 90, 67, 13, -46, -85,
-    83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83,
-    83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83,
-    82, 22, -54, -90, -61, 13, 78, 85, 31, -46, -90, -67, 4, 73, 88, 38,
-    -38, -88, -73, -4, 67, 90, 46, -31, -85, -78, -13, 61, 90, 54, -22, -82,
-    80, 9, -70, -87, -25, 57, 90, 43, -43, -90, -57, 25, 87, 70, -9, -80,
-    -80, -9, 70, 87, 25, -57, -90, -43, 43, 90, 57, -25, -87, -70, 9, 80,
-    78, -4, -82, -73, 13, 85, 67, -22, -88, -61, 31, 90, 54, -38, -90, -46,
-    46, 90, 38, -54, -90, -31, 61, 88, 22, -67, -85, -13, 73, 82, 4, -78,
-    75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75,
-    75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75,
-    73, -31, -90, -22, 78, 67, -38, -90, -13, 82, 61, -46, -88, -4, 85, 54,
-    -54, -85, 4, 88, 46, -61, -82, 13, 90, 38, -67, -78, 22, 90, 31, -73,
-    70, -43, -87, 9, 90, 25, -80, -57, 57, 80, -25, -90, -9, 87, 43, -70,
-    -70, 43, 87, -9, -90, -25, 80, 57, -57, -80, 25, 90, 9, -87, -43, 70,
-    67, -54, -78, 38, 85, -22, -90, 4, 90, 13, -88, -31, 82, 46, -73, -61,
-    61, 73, -46, -82, 31, 88, -13, -90, -4, 90, 22, -85, -38, 78, 54, -67,
-    64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64,
-    64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64,
-    61, -73, -46, 82, 31, -88, -13, 90, -4, -90, 22, 85, -38, -78, 54, 67,
-    -67, -54, 78, 38, -85, -22, 90, 4, -90, 13, 88, -31, -82, 46, 73, -61,
-    57, -80, -25, 90, -9, -87, 43, 70, -70, -43, 87, 9, -90, 25, 80, -57,
-    -57, 80, 25, -90, 9, 87, -43, -70, 70, 43, -87, -9, 90, -25, -80, 57,
-    54, -85, -4, 88, -46, -61, 82, 13, -90, 38, 67, -78, -22, 90, -31, -73,
-    73, 31, -90, 22, 78, -67, -38, 90, -13, -82, 61, 46, -88, 4, 85, -54,
-    50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50,
-    50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50,
-    46, -90, 38, 54, -90, 31, 61, -88, 22, 67, -85, 13, 73, -82, 4, 78,
-    -78, -4, 82, -73, -13, 85, -67, -22, 88, -61, -31, 90, -54, -38, 90, -46,
-    43, -90, 57, 25, -87, 70, 9, -80, 80, -9, -70, 87, -25, -57, 90, -43,
-    -43, 90, -57, -25, 87, -70, -9, 80, -80, 9, 70, -87, 25, 57, -90, 43,
-    38, -88, 73, -4, -67, 90, -46, -31, 85, -78, 13, 61, -90, 54, 22, -82,
-    82, -22, -54, 90, -61, -13, 78, -85, 31, 46, -90, 67, 4, -73, 88, -38,
-    36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36,
-    36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36,
-    31, -78, 90, -61, 4, 54, -88, 82, -38, -22, 73, -90, 67, -13, -46, 85,
-    -85, 46, 13, -67, 90, -73, 22, 38, -82, 88, -54, -4, 61, -90, 78, -31,
-    25, -70, 90, -80, 43, 9, -57, 87, -87, 57, -9, -43, 80, -90, 70, -25,
-    -25, 70, -90, 80, -43, -9, 57, -87, 87, -57, 9, 43, -80, 90, -70, 25,
-    22, -61, 85, -90, 73, -38, -4, 46, -78, 90, -82, 54, -13, -31, 67, -88,
-    88, -67, 31, 13, -54, 82, -90, 78, -46, 4, 38, -73, 90, -85, 61, -22,
-    18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18,
-    18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18,
-    13, -38, 61, -78, 88, -90, 85, -73, 54, -31, 4, 22, -46, 67, -82, 90,
-    -90, 82, -67, 46, -22, -4, 31, -54, 73, -85, 90, -88, 78, -61, 38, -13,
-    9, -25, 43, -57, 70, -80, 87, -90, 90, -87, 80, -70, 57, -43, 25, -9,
-    -9, 25, -43, 57, -70, 80, -87, 90, -90, 87, -80, 70, -57, 43, -25, 9,
-    4, -13, 22, -31, 38, -46, 54, -61, 67, -73, 78, -82, 85, -88, 90, -90,
-    90, -90, 88, -85, 82, -78, 73, -67, 61, -54, 46, -38, 31, -22, 13, -4,
-};
-
-// the 4-point DST-VII of 4x4 intra luma (8.6.4.2, eq. 8-303), [k][i]
-__constant__ int8_t kDst4[16] = {29, 55,  74,  84, 74,  74, 0, -74,
-                                 84, -29, -74, 55, 55, -84, 74, -29};
-
 // levelScale[qP % 6] of 8.6.3
 __constant__ int kLevelScale[6] = {40, 45, 51, 57, 64, 72};
 
@@ -104,137 +31,204 @@ __device__ __forceinline__ int clip16(long long v) {
   return v < -32768 ? -32768 : (v > 32767 ? 32767 : (int)v);
 }
 
+// transMatrix of 8.6.4.2, row k (frequency), column i (sample) of the
+// 32-point DCT; the N-point matrix is rows k * 32 / N, columns 0..N-1.
+// Every entry is +-a[u] for the angle u = (2i + 1) k mod 128 (in pi / 64)
+// folded into 0..32, as the cosines it rounds. Called with constants
+// only (every loop below is unrolled), so each entry is an immediate.
+__host__ __device__ constexpr int trans_coef(int k, int i) {
+  const int a[33] = {64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80,
+                     78, 75, 73, 70, 67, 64, 61, 57, 54, 50, 46,
+                     43, 38, 36, 31, 25, 22, 18, 13, 9,  4,  0};
+  int u = ((2 * i + 1) * k) & 127;
+  if (u > 64) u = 128 - u;
+  return u > 32 ? -a[64 - u] : a[u];
+}
+
+// out[i] = sum_k T_N[k][i] c[k * S], i < N: the N-point inverse DCT as
+// the even/odd butterfly of HM's partialButterflyInverse. The even
+// coefficients are the N/2-point transform (T_N[2k][i] = T_{N/2}[k][i]),
+// the odd ones are antisymmetric (T_N[k][N-1-i] = -T_N[k][i] for odd k),
+// so out[i] = E[i] + O[i] and out[N-1-i] = E[i] - O[i]: (N/2)^2
+// multiply-adds at each level, 342 for N = 32 against 1,024. Sums are
+// int32 and exact (at most 32768 * 90 * 32 < 2^31), so any order of
+// summation gives the direct product's bits.
+template <int N, int S>
+__device__ __forceinline__ void inv_dct(const int* c, int* out) {
+  if constexpr (N == 1) {
+    out[0] = 64 * c[0];
+  } else {
+    int e[N / 2];
+    inv_dct<N / 2, 2 * S>(c, e);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      int o = 0;
+#pragma unroll
+      for (int k = 1; k < N; k += 2) o += trans_coef(k * (32 / N), i) * c[k * S];
+      out[i] = e[i] + o;
+      out[N - 1 - i] = e[i] - o;
+    }
+  }
+}
+
+// the 4-point DST-VII of 4x4 intra luma (8.6.4.2, eq. 8-303), direct:
+// out[i] = sum_k D[k][i] c[k]
+__device__ __forceinline__ void inv_dst(const int* c, int* out) {
+  constexpr int D[4][4] = {{29, 55, 74, 84}, {74, 74, 0, -74},
+                           {84, -29, -74, 55}, {55, -84, 74, -29}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    out[i] = D[0][i] * c[0] + D[1][i] * c[1] + D[2][i] * c[2] + D[3][i] * c[3];
+}
+
 // K14. Replaces ffpic_tpu/ops/hevc_kernels.py:dequant_itransform_batch
 // (:80, with _dequant_dev :65 and _exact_matmul_i16 :46) and
 // dequant_skip_batch (:104), as their callers residuals_packed (:143) and
 // residuals_for_ops (:113) run them: one launch per (n, dst, skip) bucket
-// there, one launch for all of a picture's TUs here.
-// Bound: a TU of n points takes 4 n^3 integer operations (two passes of
-// n^2 sums of n multiply-adds) against 4 n^2 bytes of levels and
-// residuals, so a picture's mix of 4x4 to 32x32 TUs is bound by
-// operations (about 1.3 G for the 12 MP fixture's 48 tiles, against 78 MB).
-// The TPU needed a hi/lo f32 split because its matrix unit has no integer
-// path; here the sums are int32 (at most 32768 * 90 * 32).
+// there; one launch for all TUs of a picture, or of every tile of a HEIF
+// grid, here. The TPU needed a hi/lo f32 split because its matrix unit
+// has no integer path; here the sums are int32.
+// Bound: it reads 2 bytes a level and writes 2 a residual, with 8 bytes
+// a TU of descriptor (73 MB for the 12 MP fixture's 48 tiles); the
+// butterflies' int32 work (about 0.5 G operations there) takes less time
+// at the card's int32 rate, so it is bound by bytes.
 //
-// The host sorts the TUs by size (perm) and cuts them into CTAs of 1024
-// samples: 64 TUs of 4x4, 16 of 8x8, 4 of 16x16 or one 32x32 (ctas rows:
-// first perm entry, TU count, log2 n). A CTA of 256 threads stages its
-// N-point matrix from __constant__ into shared memory (constant memory
-// serialises the different addresses of a warp), and each TU's offset,
-// QP and flags. Then, four samples a thread:
-//   1. dequant into shared memory: (level * scale + 2^(s-1)) >> s in
-//      int64, s = bd + log2 n - 5, clipped to int16 (equal to the
-//      reference's pre-clipped int32); bypass TUs copy their levels out;
-//   2. barrier, column pass e[y][x] = sum_j M[j][y] d[j][x],
-//      clip((e + 64) >> 7);
-//   3. barrier, row pass r[y][x] = sum_j M[j][x] e[y][j],
+// The host orders the TUs largest first and cuts them into CTAs of 128
+// threads of one TU size (desc rows: level offset, QP | skip << 8 |
+// bypass << 9 | dst << 10; ctas rows: first desc row, TU count, log2 n,
+// 0), so the long 32x32 CTAs start first and the 4x4 ones fill the tail.
+// A TU takes n neighbouring lanes of one warp (a warp holds 32 / n TUs),
+// so a TU's steps need only __syncwarp, never a CTA barrier:
+//   1. its lanes copy its n^2 levels (32-byte aligned) into the warp's
+//      shared memory with 16-byte loads;
+//   2. lane x takes column x: dequant (level * scale + 2^(bs-1)) >> bs in
+//      int64, bs = bd + log2 n - 5, clipped to int16 (equal to the
+//      reference's pre-clipped int32), then the column transform in
+//      registers, clip((e + 64) >> 7), into the transpose buffer
+//      e[y][x] (rows padded to n + 1 words: no bank conflict either
+//      way); skip and bypass TUs store the dequantised values or the
+//      levels as they are;
+//   3. lane y takes row y from the buffer: the row transform,
 //      clip((r + 2^(19-bd)) >> (20-bd)); skip TUs take
-//      clip(((d << 7) + 2^(19-bd)) >> (20-bd)) instead.
-// A warp covers one row of a 32x32 TU (or several rows, or several
-// TUs): in the column pass M[j][y] is one broadcast and d[j][x] 32
-// neighbouring words, in the row pass the other way round, so neither
-// has a bank conflict. >> of a negative int32 is arithmetic, as the
+//      clip((d * 128 + 2^(19-bd)) >> (20-bd)), bypass TUs the levels;
+//      the row goes out as one 8- or 16-byte store per 4 or 8 values.
+// The coefficients are immediates (trans_coef), so no multiply-add
+// loads a matrix entry. >> of a negative int is arithmetic, as the
 // reference's floor shift. QPs are 0..87 (the route checks), where C's
 // / and % on them are the reference's floor // and %.
-constexpr int kResThreads = 256;
-constexpr int kResSamples = 1024;
-constexpr int kResMaxTus = 64;
+constexpr int kResThreads = 128;
+constexpr int kResMaxLv = 4 * (32 * 32 + 2 * 32);   // int16, 32x32 CTAs
+constexpr int kResMaxE = 4 * 32 * 33;                // int32, 32x32 CTAs
 
 template <int L2>
-__device__ __forceinline__ void residuals_cta(
-    const int16_t* __restrict__ levels, int16_t* __restrict__ out, int cnt,
-    int bd, int* s_d, int* s_e, const int16_t* s_m, const int16_t* s_dst,
-    const int* s_off, const int* s_qp, const int* s_flags) {
-  constexpr int N = 1 << L2, NN = N * N;
-  const int total = cnt * NN;
-  const int bs = bd + L2 - 5;
-  for (int i = threadIdx.x; i < total; i += kResThreads) {
-    const int t = i / NN, p = i % NN;
-    const int lv = levels[s_off[t] + p];
-    if (s_flags[t] & 2) {                    // bypass: the levels
-      out[s_off[t] + p] = (int16_t)lv;
-      continue;
-    }
-    const int qp = s_qp[t];
-    const long long scale = (long long)(16 * kLevelScale[qp % 6])
-                            << (qp / 6);
-    s_d[i] = clip16(((long long)lv * scale + (1LL << (bs - 1))) >> bs);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < total; i += kResThreads) {
-    const int t = i / NN, p = i % NN;
-    if (s_flags[t] & 3) continue;            // skip or bypass
-    const int y = p / N, x = p % N;
-    const int16_t* m = (N == 4 && (s_flags[t] & 4)) ? s_dst : s_m;
-    const int* d = s_d + t * NN;
-    int acc = 0;
+__device__ __forceinline__ void residual_tus(
+    const int2* __restrict__ desc, int first, int cnt,
+    const int16_t* __restrict__ levels, int16_t* __restrict__ out, int bd,
+    int16_t* s_lv, int* s_e) {
+  constexpr int N = 1 << L2, PER_WARP = 32 / N;
+  // a TU's levels at a stride of n^2 + 2n int16 (16-byte multiples that
+  // spread the TUs of a warp over the banks), its transpose at n (n + 1)
+  constexpr int LV = N * N + 2 * N, E = N * (N + 1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp * PER_WARP >= cnt) return;          // the whole warp idles
+  const int slot = warp * PER_WARP + lane / N;  // this lane's TU in the CTA
+  const int x = lane % N;                       // its column, then its row
+  const bool live = slot < cnt;
+  const int2 dsc = live ? __ldg(desc + first + slot) : make_int2(0, 0);
+  const int off = dsc.x, qp = dsc.y & 255;
+  const bool skip = (dsc.y >> 8) & 1, bypass = (dsc.y >> 9) & 1,
+             dst = (dsc.y >> 10) & 1;
+  int16_t* lv = s_lv + slot * LV;
+  int* e = s_e + slot * E;
+  if (live) {
+    const uint4* src = reinterpret_cast<const uint4*>(levels + off);
 #pragma unroll
-    for (int j = 0; j < N; j++) acc += m[j * N + y] * d[j * N + x];
-    s_e[i] = clip16((acc + 64) >> 7);
+    for (int i = x; i < N * N / 8; i += N)
+      reinterpret_cast<uint4*>(lv)[i] = __ldg(src + i);
   }
-  __syncthreads();
-  const int shift2 = 20 - bd, rnd2 = 1 << (shift2 - 1);
-  for (int i = threadIdx.x; i < total; i += kResThreads) {
-    const int t = i / NN, p = i % NN;
-    const int f = s_flags[t];
-    if (f & 2) continue;
-    int r;
-    if (f & 1) {
-      r = (s_d[i] * 128 + rnd2) >> shift2;
+  __syncwarp();
+  if (live) {
+    const int bs = bd + L2 - 5;
+    const long long scale = (long long)(16 * kLevelScale[qp % 6]) << (qp / 6);
+    int d[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int l = lv[j * N + x];
+      d[j] = bypass ? l : clip16(((long long)l * scale + (1LL << (bs - 1))) >> bs);
+    }
+    if (skip || bypass) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) e[j * (N + 1) + x] = d[j];
     } else {
-      const int y = p / N, x = p % N;
-      const int16_t* m = (N == 4 && (f & 4)) ? s_dst : s_m;
-      const int* e = s_e + t * NN + y * N;
-      int acc = 0;
+      int r[N];
+      if constexpr (N == 4) {
+        if (dst) inv_dst(d, r);
+        else inv_dct<4, 1>(d, r);
+      } else {
+        inv_dct<N, 1>(d, r);
+      }
 #pragma unroll
-      for (int j = 0; j < N; j++) acc += m[j * N + x] * e[j];
-      r = (acc + rnd2) >> shift2;
+      for (int y = 0; y < N; ++y) e[y * (N + 1) + x] = clip16((r[y] + 64) >> 7);
     }
-    out[s_off[t] + p] = (int16_t)clip16(r);
+  }
+  __syncwarp();
+  if (!live) return;
+  int g[N], r[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) g[j] = e[x * (N + 1) + j];
+  const int shift2 = 20 - bd, rnd2 = 1 << (shift2 - 1);
+  if (bypass) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) r[j] = g[j];
+  } else if (skip) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) r[j] = clip16((g[j] * 128 + rnd2) >> shift2);
+  } else {
+    int t[N];
+    if constexpr (N == 4) {
+      if (dst) inv_dst(g, t);
+      else inv_dct<4, 1>(g, t);
+    } else {
+      inv_dct<N, 1>(g, t);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) r[j] = clip16((t[j] + rnd2) >> shift2);
+  }
+  uint32_t wds[N / 2];
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j)
+    wds[j] = ((uint32_t)r[2 * j] & 0xffffu) | ((uint32_t)r[2 * j + 1] << 16);
+  int16_t* dst_row = out + off + x * N;
+  if constexpr (N == 4) {
+    *reinterpret_cast<uint2*>(dst_row) = make_uint2(wds[0], wds[1]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      reinterpret_cast<uint4*>(dst_row)[j] =
+          make_uint4(wds[4 * j], wds[4 * j + 1], wds[4 * j + 2], wds[4 * j + 3]);
   }
 }
 
 __global__ void __launch_bounds__(kResThreads)
-    hevc_residuals_kernel(const int* __restrict__ meta,
-                          const int* __restrict__ offs,
-                          const int* __restrict__ perm,
+    hevc_residuals_kernel(const int2* __restrict__ desc,
                           const int4* __restrict__ ctas,
                           const int16_t* __restrict__ levels,
                           int16_t* __restrict__ out, int bd) {
-  __shared__ int s_d[kResSamples];
-  __shared__ int s_e[kResSamples];
-  __shared__ int16_t s_m[kResSamples];
-  __shared__ int16_t s_dst[16];
-  __shared__ int s_off[kResMaxTus], s_qp[kResMaxTus], s_flags[kResMaxTus];
-  const int4 c = ctas[blockIdx.x];
-  const int start = c.x, cnt = c.y, l2 = c.z, n = 1 << l2;
-  for (int i = threadIdx.x; i < n * n; i += kResThreads)
-    s_m[i] = kT32[((i >> l2) << (5 - l2)) * 32 + (i & (n - 1))];
-  if (threadIdx.x < 16) s_dst[threadIdx.x] = kDst4[threadIdx.x];
-  if (threadIdx.x < cnt) {
-    const int t = perm[start + threadIdx.x];
-    const int* r = meta + 8LL * t;
-    s_off[threadIdx.x] = offs[t];
-    s_qp[threadIdx.x] = r[6];
-    s_flags[threadIdx.x] = (r[4] ? 1 : 0) | (r[5] ? 2 : 0) | (r[7] ? 4 : 0);
-  }
-  __syncthreads();
-  switch (l2) {
-    case 2:
-      residuals_cta<2>(levels, out, cnt, bd, s_d, s_e, s_m, s_dst, s_off,
-                       s_qp, s_flags);
-      break;
-    case 3:
-      residuals_cta<3>(levels, out, cnt, bd, s_d, s_e, s_m, s_dst, s_off,
-                       s_qp, s_flags);
+  __shared__ __align__(16) int16_t s_lv[kResMaxLv];
+  __shared__ int s_e[kResMaxE];
+  const int4 c = __ldg(ctas + blockIdx.x);
+  switch (c.z) {
+    case 5:
+      residual_tus<5>(desc, c.x, c.y, levels, out, bd, s_lv, s_e);
       break;
     case 4:
-      residuals_cta<4>(levels, out, cnt, bd, s_d, s_e, s_m, s_dst, s_off,
-                       s_qp, s_flags);
+      residual_tus<4>(desc, c.x, c.y, levels, out, bd, s_lv, s_e);
+      break;
+    case 3:
+      residual_tus<3>(desc, c.x, c.y, levels, out, bd, s_lv, s_e);
       break;
     default:
-      residuals_cta<5>(levels, out, cnt, bd, s_d, s_e, s_m, s_dst, s_off,
-                       s_qp, s_flags);
+      residual_tus<2>(desc, c.x, c.y, levels, out, bd, s_lv, s_e);
       break;
   }
 }
@@ -279,17 +273,20 @@ __global__ void __launch_bounds__(kColX * kColY)
 
 extern "C" {
 
-// meta: m x 8 int32; offs, perm: m int32; ctas: k x 4 int32, 16-byte
-// aligned, each row (first perm entry, TU count <= 1024 >> 2 log2 n,
-// log2 n in 2..5, 0); levels, out: int16 at the offsets; bd 8..14
-int ffpic_hevc_residuals(const void* meta, const void* offs, const void* perm,
-                         const void* ctas, const void* levels, void* out,
-                         int k, int bd, void* stream) {
-  if (k <= 0 || bd < 8 || bd > 14 || ((uintptr_t)ctas & 15))
+// desc: m x 2 int32 and ctas: k x 4 int32 (hevc_kernels.plan_residuals),
+// both 16-byte aligned; each ctas row (first desc row, TU count <= 128 >>
+// log2 n, log2 n in 2..5, 0); levels, out: int16 at the desc offsets
+// (multiples of 16), 16-byte aligned; bd 8..14
+int ffpic_hevc_residuals(const void* desc, const void* ctas,
+                         const void* levels, void* out, int k, int bd,
+                         void* stream) {
+  if (k <= 0 || bd < 8 || bd > 14 || ((uintptr_t)desc & 15) ||
+      ((uintptr_t)ctas & 15) || ((uintptr_t)levels & 15) ||
+      ((uintptr_t)out & 15))
     return (int)cudaErrorInvalidValue;
   hevc_residuals_kernel<<<k, kResThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)meta, (const int*)offs, (const int*)perm,
-      (const int4*)ctas, (const int16_t*)levels, (int16_t*)out, bd);
+      (const int2*)desc, (const int4*)ctas, (const int16_t*)levels,
+      (int16_t*)out, bd);
   return (int)cudaGetLastError();
 }
 

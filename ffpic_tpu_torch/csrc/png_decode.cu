@@ -145,32 +145,61 @@ void launch_unfilter_rows(const uint8_t* src, long long src_pitch,
 // K7. Replaces ffpic_tpu/ops/png_kernels.py:assemble_rgba (:40) with the
 // unpack_samples (:21) it calls. Bound: it reads the reconstructed bytes
 // once and writes 4 bytes a pixel (8.3 + 8.3 MB for 1920x1080 RGBA), so
-// it is memory-bound; the ops are a few integer ones a sample.
+// it is memory-bound; the ops are a few integer ones a sample. On 8-bit
+// RGBA the function is a copy, which a device copy runs with 16-byte
+// accesses; the design below makes K7 one too.
 //
-// A thread per pixel, templated on (colour type, bit depth): it reads
-// its samples straight from the packed row (sub-byte samples MSB first,
-// 16-bit big-endian; for 8-bit RGBA rows that are 4-byte aligned one
-// 32-bit load) and writes the pixel as one 32-bit store, so a warp
-// writes 128 contiguous bytes. The palette (256 x 4 bytes) and the tRNS
-// table (256 int32) come by value with the launch (a __grid_constant__
-// parameter, 2 KB) and are staged in shared memory for the palette's
-// gather; the colour key of gray and
-// truecolour is compared on the samples before scaling, as in the
-// reference. blockIdx.y walks the rows, looping past 65535.
+// A thread takes a group of four output pixels (16 bytes), kRgbaUnroll
+// groups at a time (all their loads issued before any store), in a
+// grid-stride loop over a grid of at most kRgbaCtasPerSm CTAs an SM
+// (on the H100, 2-16 CTAs an SM and 1-4 groups a thread time alike at
+// 1080p; PERF.md). When the rows are contiguous (the pitch is the row's bytes, no padding bits)
+// the launcher views the image as one row of h * w pixels: no group
+// crosses a row and no division finds one; otherwise a group is (row,
+// four columns), the row found by a 32-bit division. A full group of
+// byte-sized samples (BD 8 and 16) loads its 4 * BPP input bytes as
+// words, as wide as the rows' alignment allows (the launcher passes it):
+// uint4 for 4 and 8 bytes a pixel (8-bit RGBA, 16-bit gray + alpha and
+// RGBA), uint2 for 2 and 6, 32-bit words for 1 and 3, and on a row at an
+// odd address the 16-byte chunks around the group, shifted into place;
+// for 8-bit RGBA the words are the pixels. A group cut by
+// the row's end, and sub-byte samples (MSB first), read sample by
+// sample. The four pixels go out as one uint4 store where the output is
+// 16-byte aligned (every full group of a contiguous image), else as
+// 32-bit stores. The palette (its RGBA words with the tRNS alpha folded
+// in on the host) goes by value only to colour type 3, staged in shared
+// memory for the gather; the colour key (the tRNS of gray and
+// truecolour, compared on the samples before scaling, as the reference
+// does) only to colour types 0 and 2; the other instances take no table.
 constexpr int kRgbaThreads = 256;
+constexpr int kRgbaCtasPerSm = 4;
+constexpr int kRgbaUnroll = 2;       // groups a thread loads at once
 
-struct PngTables {
-  uint32_t pal[256];   // RGBA bytes, little-endian
-  int32_t trns[256];   // per-index alpha, or the colour key in 0..2; -1 none
+template <int CT>
+struct RgbaTables {};                // the instances that read no table
+template <>
+struct RgbaTables<3> {
+  uint32_t pal[256];                 // RGBA words, little-endian, tRNS alpha
+};
+template <>
+struct RgbaTables<0> {
+  int key[3];                        // the colour key; key[0] < 0: none
+};
+template <>
+struct RgbaTables<2> {
+  int key[3];
 };
 
+template <int CT>
+constexpr int kChannels = CT == 0 || CT == 3 ? 1 : CT == 4 ? 2 : CT == 2 ? 3 : 4;
+
 template <int BD>
-__device__ __forceinline__ unsigned sample(const uint8_t* row, int s) {
+__device__ __forceinline__ unsigned sample(const uint8_t* row, long long s) {
   if (BD == 8) return __ldg(row + s);
   if (BD == 16)
     return ((unsigned)__ldg(row + 2 * s) << 8) | __ldg(row + 2 * s + 1);
-  const int bit = s * BD;
-  return ((unsigned)__ldg(row + (bit >> 3)) >> (8 - BD - (bit & 7))) &
+  const long long bit = s * BD;
+  return ((unsigned)__ldg(row + (bit >> 3)) >> (8 - BD - (int)(bit & 7))) &
          ((1u << BD) - 1u);
 }
 
@@ -186,63 +215,227 @@ __device__ __forceinline__ unsigned rgba(unsigned r, unsigned g, unsigned b,
   return r | (g << 8) | (b << 16) | (a << 24);
 }
 
-template <int CT, int BD>
-__global__ void __launch_bounds__(kRgbaThreads)
-    assemble_rgba_kernel(const uint8_t* __restrict__ recon, long long pitch,
-                         uint32_t* __restrict__ out, int w, int h,
-                         bool aligned,
-                         const __grid_constant__ PngTables tables) {
-  __shared__ uint32_t pal[256];
-  __shared__ int32_t trns[256];
-  if (CT == 3) {
-    pal[threadIdx.x] = tables.pal[threadIdx.x];
-    trns[threadIdx.x] = tables.trns[threadIdx.x];
-    __syncthreads();
-  }
-  const int x = blockIdx.x * kRgbaThreads + threadIdx.x;
-  if (x >= w) return;
-  for (long long y = blockIdx.y; y < h; y += gridDim.y) {
-    const uint8_t* row = recon + y * pitch;
-    unsigned px;
-    if (CT == 3) {
-      const unsigned i = sample<BD>(row, x);
-      const int a = trns[i];
-      px = (pal[i] & 0x00FFFFFFu) | ((unsigned)(a >= 0 ? a : 255) << 24);
-    } else if (CT == 0) {
-      const unsigned v = sample<BD>(row, x), g = scale8<BD>(v);
-      const int key = tables.trns[0];
-      px = rgba(g, g, g, key >= 0 && v == (unsigned)key ? 0u : 255u);
-    } else if (CT == 4) {
-      const unsigned g = scale8<BD>(sample<BD>(row, 2 * x));
-      px = rgba(g, g, g, scale8<BD>(sample<BD>(row, 2 * x + 1)));
-    } else if (CT == 2) {
-      const unsigned r = sample<BD>(row, 3 * x), g = sample<BD>(row, 3 * x + 1),
-                     b = sample<BD>(row, 3 * x + 2);
-      const int k0 = tables.trns[0];
-      const bool hit = k0 >= 0 && r == (unsigned)k0 &&
-                       g == (unsigned)tables.trns[1] &&
-                       b == (unsigned)tables.trns[2];
-      px = rgba(scale8<BD>(r), scale8<BD>(g), scale8<BD>(b), hit ? 0u : 255u);
-    } else if (BD == 8 && aligned) {
-      px = __ldg(reinterpret_cast<const uint32_t*>(row) + x);
-    } else {
-      px = rgba(scale8<BD>(sample<BD>(row, 4 * x)),
-                scale8<BD>(sample<BD>(row, 4 * x + 1)),
-                scale8<BD>(sample<BD>(row, 4 * x + 2)),
-                scale8<BD>(sample<BD>(row, 4 * x + 3)));
-    }
-    out[y * (long long)w + x] = px;
+// one pixel from its samples s(0..channels-1), unscaled
+template <int CT, int BD, class S>
+__device__ __forceinline__ uint32_t to_rgba(S s, const uint32_t* pal,
+                                            const RgbaTables<CT>& t) {
+  if constexpr (CT == 3) {
+    return pal[s(0)];
+  } else if constexpr (CT == 0) {
+    const unsigned v = s(0), g = scale8<BD>(v);
+    return rgba(g, g, g, t.key[0] >= 0 && v == (unsigned)t.key[0] ? 0u : 255u);
+  } else if constexpr (CT == 4) {
+    const unsigned g = scale8<BD>(s(0));
+    return rgba(g, g, g, scale8<BD>(s(1)));
+  } else if constexpr (CT == 2) {
+    const unsigned r = s(0), g = s(1), b = s(2);
+    const bool hit = t.key[0] >= 0 && r == (unsigned)t.key[0] &&
+                     g == (unsigned)t.key[1] && b == (unsigned)t.key[2];
+    return rgba(scale8<BD>(r), scale8<BD>(g), scale8<BD>(b), hit ? 0u : 255u);
+  } else {
+    return rgba(scale8<BD>(s(0)), scale8<BD>(s(1)), scale8<BD>(s(2)),
+                scale8<BD>(s(3)));
   }
 }
 
+// a full group's 4 * BPP input bytes at p as BPP little-endian words, in
+// loads as wide as p's alignment al (16, 8, 4 or 1) allows
+template <int BPP>
+__device__ __forceinline__ void load_group(const uint8_t* p, int al,
+                                           uint32_t (&w)[BPP]) {
+  constexpr int kWide = (4 * BPP) % 16 == 0 ? 16 : (4 * BPP) % 8 == 0 ? 8 : 4;
+  if (kWide == 16 && al >= 16) {
+#pragma unroll
+    for (int i = 0; i < BPP / 4; ++i) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      w[4 * i] = v.x;
+      w[4 * i + 1] = v.y;
+      w[4 * i + 2] = v.z;
+      w[4 * i + 3] = v.w;
+    }
+  } else if (kWide >= 8 && al >= 8) {
+#pragma unroll
+    for (int i = 0; i < BPP / 2; ++i) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p) + i);
+      w[2 * i] = v.x;
+      w[2 * i + 1] = v.y;
+    }
+  } else if (al >= 4) {
+#pragma unroll
+    for (int i = 0; i < BPP; ++i)
+      w[i] = __ldg(reinterpret_cast<const uint32_t*>(p) + i);
+  } else {
+    // a row at any byte: the 16-byte-aligned chunks that hold the
+    // group's bytes (no other is read), the words from the group's
+    // start selected (no indexing by a variable, which would put the
+    // words in local memory) and funnel-shifted pairwise
+    constexpr int kChunks = (4 * BPP + 15) / 16 + 1;
+    const int r = (int)((uintptr_t)p & 15), q = r >> 2, sh = (r & 3) * 8;
+    const uint4* a = reinterpret_cast<const uint4*>(p - r);
+    uint32_t W[4 * kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const uint4 v =
+          16 * c < r + 4 * BPP ? __ldg(a + c) : make_uint4(0u, 0u, 0u, 0u);
+      W[4 * c] = v.x;
+      W[4 * c + 1] = v.y;
+      W[4 * c + 2] = v.z;
+      W[4 * c + 3] = v.w;
+    }
+    uint32_t V[BPP + 1];
+#pragma unroll
+    for (int j = 0; j <= BPP; ++j)
+      V[j] = q == 0 ? W[j] : q == 1 ? W[j + 1] : q == 2 ? W[j + 2] : W[j + 3];
+#pragma unroll
+    for (int i = 0; i < BPP; ++i) w[i] = __funnelshift_r(V[i], V[i + 1], sh);
+  }
+}
+
+// the group of n <= 4 pixels from x0 of a row: px[0..n-1]
 template <int CT, int BD>
-void launch_assemble_rgba(const uint8_t* recon, long long pitch, uint32_t* out,
-                          int w, int h, bool aligned, const PngTables& t,
-                          cudaStream_t st) {
-  dim3 grid((unsigned)((w + kRgbaThreads - 1) / kRgbaThreads),
-            (unsigned)(h < 65535 ? h : 65535));
+__device__ __forceinline__ void group_pixels(const uint8_t* row, long long x0,
+                                             int n, int al,
+                                             const uint32_t* pal,
+                                             const RgbaTables<CT>& t,
+                                             uint32_t (&px)[4]) {
+  constexpr int C = kChannels<CT>;
+  if constexpr (BD >= 8) {
+    if (n == 4) {
+      constexpr int BPP = C * BD / 8;
+      uint32_t w[BPP];
+      load_group<BPP>(row + x0 * BPP, al, w);
+      if constexpr (CT == 6 && BD == 8) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) px[j] = w[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          auto s = [&](int c) -> unsigned {
+            const int k = j * C + c;
+            if (BD == 8) return (w[k >> 2] >> (8 * (k & 3))) & 255u;
+            const int b = 2 * k;   // big-endian: bytes b, b + 1
+            return (((w[b >> 2] >> (8 * (b & 3))) & 255u) << 8) |
+                   ((w[(b + 1) >> 2] >> (8 * ((b + 1) & 3))) & 255u);
+          };
+          px[j] = to_rgba<CT, BD>(s, pal, t);
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j < n) {
+      const long long x = x0 + j;
+      px[j] = to_rgba<CT, BD>(
+          [&](int c) { return sample<BD>(row, x * C + c); }, pal, t);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_group(uint32_t* o, int n,
+                                            const uint32_t (&px)[4]) {
+  if (n == 4 && ((uintptr_t)o & 15) == 0) {
+    *reinterpret_cast<uint4*>(o) = make_uint4(px[0], px[1], px[2], px[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < n) o[j] = px[j];
+  }
+}
+
+// recon: rows of cols pixels at pitch (one row of h * w pixels when the
+// image is contiguous); groups = ceil(cols / 4) a row; al: the alignment
+// of every row's start (16, 8, 4 or 1). Every group's loads go out
+// before any store, kRgbaUnroll groups a thread at a time.
+template <int CT, int BD>
+__global__ void __launch_bounds__(kRgbaThreads)
+    assemble_rgba_kernel(const uint8_t* __restrict__ recon, long long pitch,
+                         uint32_t* __restrict__ out, long long cols, int rows,
+                         long long groups, int al,
+                         const __grid_constant__ RgbaTables<CT> t) {
+  __shared__ uint32_t pal[CT == 3 ? 256 : 1];
+  if constexpr (CT == 3) {
+    for (int i = threadIdx.x; i < 256; i += kRgbaThreads) pal[i] = t.pal[i];
+    __syncthreads();
+  }
+  const long long total = groups * rows;
+  const long long stride = (long long)gridDim.x * kRgbaThreads;
+  for (long long base = (long long)blockIdx.x * kRgbaThreads + threadIdx.x;
+       base < total; base += stride * kRgbaUnroll) {
+    uint32_t px[kRgbaUnroll][4];
+    uint32_t* o[kRgbaUnroll];
+    int n[kRgbaUnroll];
+#pragma unroll
+    for (int u = 0; u < kRgbaUnroll; ++u) {
+      const long long it = base + u * stride;
+      n[u] = 0;
+      if (it >= total) continue;
+      long long y = 0, g = it;
+      if (rows > 1) {
+        y = it < 0xffffffffLL ? (long long)((unsigned)it / (unsigned)groups)
+                              : it / groups;
+        g = it - y * groups;
+      }
+      const long long x0 = 4 * g;
+      n[u] = cols - x0 < 4 ? (int)(cols - x0) : 4;
+      o[u] = out + y * cols + x0;
+      group_pixels<CT, BD>(recon + y * pitch, x0, n[u], al, pal, t, px[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kRgbaUnroll; ++u)
+      if (n[u]) store_group(o[u], n[u], px[u]);
+  }
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+template <int CT, int BD>
+int launch_assemble_rgba(const uint8_t* recon, long long pitch, uint32_t* out,
+                         int w, int h, const RgbaTables<CT>& t,
+                         cudaStream_t st) {
+  // contiguous rows: one row of h * w pixels
+  const bool flat = h == 1 || pitch * 8 == (long long)w * kChannels<CT> * BD;
+  const long long cols = flat ? (long long)w * h : w;
+  const int rows = flat ? 1 : h;
+  const long long groups = (cols + 3) / 4;
+  int al = 16;
+  while (al > 1 && (((uintptr_t)recon % al) || (!flat && pitch % al)))
+    al = al == 16 ? 8 : al == 8 ? 4 : 1;
+  const int sms = sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const long long per_cta = (long long)kRgbaThreads * kRgbaUnroll;
+  const long long need = (groups * rows + per_cta - 1) / per_cta;
+  const long long cap = (long long)sms * kRgbaCtasPerSm;
   assemble_rgba_kernel<CT, BD>
-      <<<grid, kRgbaThreads, 0, st>>>(recon, pitch, out, w, h, aligned, t);
+      <<<(unsigned)(need < cap ? need : cap), kRgbaThreads, 0, st>>>(
+          recon, pitch, out, cols, rows, groups, al, t);
+  return (int)cudaGetLastError();
+}
+
+template <int CT, int BD>
+int assemble_with_tables(const uint8_t* recon, long long pitch,
+                         const uint8_t* palette, const int32_t* trns,
+                         uint32_t* out, int w, int h, cudaStream_t st) {
+  RgbaTables<CT> t;
+  if constexpr (CT == 3) {
+    for (int i = 0; i < 256; ++i) {
+      const uint32_t a = trns[i] >= 0 ? (uint32_t)trns[i] & 255u : 255u;
+      t.pal[i] = (uint32_t)palette[4 * i] |
+                 ((uint32_t)palette[4 * i + 1] << 8) |
+                 ((uint32_t)palette[4 * i + 2] << 16) | (a << 24);
+    }
+  } else if constexpr (CT == 0 || CT == 2) {
+    for (int i = 0; i < 3; ++i) t.key[i] = trns[i];
+  }
+  return launch_assemble_rgba<CT, BD>(recon, pitch, out, w, h, t, st);
 }
 
 }  // namespace
@@ -280,42 +473,36 @@ int ffpic_unfilter_subup(const void* src, long long src_pitch, void* dst,
 }
 
 // recon: h rows at pitch; palette: 256 x 4 bytes and trns: 256 int32 on
-// the host, passed by value; out: (h, w, 4) uint8, 4-byte aligned
+// the host (read only by the instances that use them), passed by value;
+// out: (h, w, 4) uint8, 4-byte aligned
 int ffpic_assemble_rgba(const void* recon, long long pitch,
                         const void* palette, const void* trns, void* out,
                         int w, int h, int color_type, int bitdepth,
                         void* stream) {
   if (w <= 0 || h <= 0 || ((uintptr_t)out & 3)) return (int)cudaErrorInvalidValue;
-  PngTables t;
-  const uint8_t* p = (const uint8_t*)palette;
-  for (int i = 0; i < 256; ++i) {
-    t.pal[i] = (uint32_t)p[4 * i] | ((uint32_t)p[4 * i + 1] << 8) |
-               ((uint32_t)p[4 * i + 2] << 16) | ((uint32_t)p[4 * i + 3] << 24);
-    t.trns[i] = ((const int32_t*)trns)[i];
-  }
   const uint8_t* r = (const uint8_t*)recon;
+  const uint8_t* p = (const uint8_t*)palette;
+  const int32_t* k = (const int32_t*)trns;
   uint32_t* o = (uint32_t*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  const bool al = ((uintptr_t)r % 4 == 0) && pitch % 4 == 0;
   switch (color_type * 100 + bitdepth) {
-    case 1: launch_assemble_rgba<0, 1>(r, pitch, o, w, h, al, t, st); break;
-    case 2: launch_assemble_rgba<0, 2>(r, pitch, o, w, h, al, t, st); break;
-    case 4: launch_assemble_rgba<0, 4>(r, pitch, o, w, h, al, t, st); break;
-    case 8: launch_assemble_rgba<0, 8>(r, pitch, o, w, h, al, t, st); break;
-    case 16: launch_assemble_rgba<0, 16>(r, pitch, o, w, h, al, t, st); break;
-    case 208: launch_assemble_rgba<2, 8>(r, pitch, o, w, h, al, t, st); break;
-    case 216: launch_assemble_rgba<2, 16>(r, pitch, o, w, h, al, t, st); break;
-    case 301: launch_assemble_rgba<3, 1>(r, pitch, o, w, h, al, t, st); break;
-    case 302: launch_assemble_rgba<3, 2>(r, pitch, o, w, h, al, t, st); break;
-    case 304: launch_assemble_rgba<3, 4>(r, pitch, o, w, h, al, t, st); break;
-    case 308: launch_assemble_rgba<3, 8>(r, pitch, o, w, h, al, t, st); break;
-    case 408: launch_assemble_rgba<4, 8>(r, pitch, o, w, h, al, t, st); break;
-    case 416: launch_assemble_rgba<4, 16>(r, pitch, o, w, h, al, t, st); break;
-    case 608: launch_assemble_rgba<6, 8>(r, pitch, o, w, h, al, t, st); break;
-    case 616: launch_assemble_rgba<6, 16>(r, pitch, o, w, h, al, t, st); break;
+    case 1: return assemble_with_tables<0, 1>(r, pitch, p, k, o, w, h, st);
+    case 2: return assemble_with_tables<0, 2>(r, pitch, p, k, o, w, h, st);
+    case 4: return assemble_with_tables<0, 4>(r, pitch, p, k, o, w, h, st);
+    case 8: return assemble_with_tables<0, 8>(r, pitch, p, k, o, w, h, st);
+    case 16: return assemble_with_tables<0, 16>(r, pitch, p, k, o, w, h, st);
+    case 208: return assemble_with_tables<2, 8>(r, pitch, p, k, o, w, h, st);
+    case 216: return assemble_with_tables<2, 16>(r, pitch, p, k, o, w, h, st);
+    case 301: return assemble_with_tables<3, 1>(r, pitch, p, k, o, w, h, st);
+    case 302: return assemble_with_tables<3, 2>(r, pitch, p, k, o, w, h, st);
+    case 304: return assemble_with_tables<3, 4>(r, pitch, p, k, o, w, h, st);
+    case 308: return assemble_with_tables<3, 8>(r, pitch, p, k, o, w, h, st);
+    case 408: return assemble_with_tables<4, 8>(r, pitch, p, k, o, w, h, st);
+    case 416: return assemble_with_tables<4, 16>(r, pitch, p, k, o, w, h, st);
+    case 608: return assemble_with_tables<6, 8>(r, pitch, p, k, o, w, h, st);
+    case 616: return assemble_with_tables<6, 16>(r, pitch, p, k, o, w, h, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

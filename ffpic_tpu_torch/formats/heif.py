@@ -24,12 +24,15 @@ its imports rewritten to the port's modules (EXIF through
 * ``parse`` is the host part (span ``heif.parse`` for the boxes): the
   HEVC decode of every item, grid tiles in a thread pool
   (``_grid_workers``), each tile's CABAC syntax and reconstruction on
-  the host (``formats.hevc``; under ``FFPIC_HEVC_DEVICE`` its residual
-  transform runs on the device, in the pool's threads, on the stream
-  that was current where ``parse`` was called, and is read back), then
-  the host colour (span ``heif.color``: ``native.hevc_color``), the
-  paste into the canvas, the alpha item (span ``heif.alpha``) and
-  ``irot``, as the original does them.  With
+  the host (``formats.hevc``; under ``FFPIC_HEVC_DEVICE`` the residual
+  transform runs on the device, on the stream that was current where
+  ``parse`` was called: a single item's in one launch of its own, a
+  grid's in three phases, ``_decode_tiles``: every tile's syntax pass
+  in the pool, then one staging, one launch over all tiles' TUs and one
+  read-back on the calling thread, then every tile's recon in the
+  pool), then the host colour (span ``heif.color``:
+  ``native.hevc_color``), the paste into the canvas, the alpha item
+  (span ``heif.alpha``) and ``irot``, as the original does them.  With
   ``FFPIC_HEIF_DEVICE_COLOR`` set (and a mode other than nclx) it stops
   at each tile's planes, cast to int16 as the original stages them;
 * ``to_pics`` is the device part: the staging copy (span ``heif.h2d``)
@@ -483,9 +486,11 @@ def load(data: bytes, skip_decode: bool = False, *, device: torch.device,
     return to_pics(f, device)
 
 
-def _decode_item_yuv(data, s, item_id, device=None):
+def _decode_item_yuv(data, s, item_id, device=None, defer=False):
     """Decode one hvc1 item's NALUs to a reconstructed Picture
-    (heif.c decode_hvc1, heif.c:244-256 -> coding/hevc.c:7194)."""
+    (heif.c decode_hvc1, heif.c:244-256 -> coding/hevc.c:7194), or with
+    ``defer`` to a ``hevc.PendingPicture`` where its residuals would go
+    to the device (``hevc.decode_picture``'s ``defer_residuals``)."""
     item = s["items"][item_id]
     props = item["properties"]
     hvcc = props.get("hvcC")
@@ -515,7 +520,8 @@ def _decode_item_yuv(data, s, item_id, device=None):
             slices.append(nalu)
     if not slices:
         raise ValueError("no slice NALU in hvc1 item")
-    pic = hevc.decode_picture(sps, pps, slices, device=device)
+    pic = hevc.decode_picture(sps, pps, slices, device=device,
+                              defer_residuals=defer)
     return pic, sps, props
 
 
@@ -554,16 +560,22 @@ def _yuv_pic_to_rgba(pic, sps, out_w, out_h, mode):
 
 
 def _decode_item_rgba(data, s, item_id, mode, device=None):
-    pic, sps, props = _decode_item_yuv(data, s, item_id, device)
+    return _host_colour(*_decode_item_yuv(data, s, item_id, device), mode)
+
+
+def _host_colour(pic, sps, props, mode):
     with trace.stage("heif.color"):
         return _yuv_pic_to_rgba(pic, sps, props.get("width"),
                                 props.get("height"), mode)
 
 
 def _decode_item_planes(data, s, item_id, device=None) -> _Tile:
+    return _tile_planes(*_decode_item_yuv(data, s, item_id, device))
+
+
+def _tile_planes(pic, sps, props) -> _Tile:
     """One item decoded for the device colour: its planes cast to int16,
     as the original stages them (``heif.py:363-366``)."""
-    pic, sps, props = _decode_item_yuv(data, s, item_id, device)
     out_w, out_h = _out_size(pic, sps, props.get("width"),
                              props.get("height"))
     planes = [p.astype(np.int16) for p in pic.planes]
@@ -598,6 +610,54 @@ def _map_tiles(fn, tile_ids, device):
     return [run(tid) for tid in tile_ids]
 
 
+def _decode_tiles(data, s, tile_ids, device, finish) -> list:
+    """``finish(pic, sps, props)`` of every grid tile's decoded picture,
+    in order, in ``_grid_workers`` threads.  Under ``FFPIC_HEVC_DEVICE``
+    in three phases, so that the grid's residual transform is one
+    launch: every tile's syntax pass in the pool (a tile whose residuals
+    would take a launch of its own comes back as a
+    ``hevc.PendingPicture``, its share of the launch's plan made and its
+    levels pinned there, ``hevc_kernels.stage_part``, span
+    ``hevc.residuals_part`` in each worker); on this thread one staging
+    of all their TUs and levels, one launch and one read-back for each
+    bit depth among them (``hevc_kernels.residuals_grid``, span
+    ``hevc.residuals_device``); then every tile's recon with its slice
+    of the residuals, and ``finish``, in the pool.  The transform reads
+    only a TU's levels, QP and flags, so no byte changes.  Spans: the
+    pool's wall ``heif.grid_tiles``, or ``heif.grid_syntax`` and
+    ``heif.grid_recon`` for the first and last phases."""
+    if not hevc.device_residuals():
+        with trace.stage("heif.grid_tiles"):
+            return _map_tiles(
+                lambda tid: finish(*_decode_item_yuv(data, s, tid, device)),
+                tile_ids, device)
+
+    def syntax(tid):
+        pic, sps, props = _decode_item_yuv(data, s, tid, device, defer=True)
+        if not isinstance(pic, hevc.PendingPicture):
+            return pic, sps, props, None
+        with trace.stage("hevc.residuals_part"):
+            staged = hevc_kernels.stage_part(pic.tu_meta, pic.levels, device)
+        return pic, sps, props, staged
+    with trace.stage("heif.grid_syntax"):
+        items = _map_tiles(syntax, tile_ids, device)
+    pending = [k for k, item in enumerate(items) if item[3] is not None]
+    resid = {}
+    with trace.stage("hevc.residuals_device"):
+        for bd in sorted({items[k][0].bit_depth for k in pending}):
+            ks = [k for k in pending if items[k][0].bit_depth == bd]
+            resid.update(zip(ks, hevc_kernels.residuals_grid(
+                [items[k][3] for k in ks], bd, device)))
+
+    def run(k):
+        pic, sps, props, _ = items[k]
+        if k in resid:
+            pic = pic.finish(resid[k])
+        return finish(pic, sps, props)
+    with trace.stage("heif.grid_recon"):
+        return _map_tiles(run, range(len(items)), device)
+
+
 def _decode_grid(data, s, tile_ids, grid, mode, device=None):
     """Grid image: decode every dimg tile and paste row-major
     (heif.c:273-312).  Each tile is an independent batch element —
@@ -606,9 +666,8 @@ def _decode_grid(data, s, tile_ids, grid, mode, device=None):
     cols = grid["cols"]
     canvas = np.zeros((H, W, 4), np.uint8)
     canvas[:, :, 3] = 255
-    tiles = _map_tiles(
-        lambda tid: _decode_item_rgba(data, s, tid, mode, device),
-        tile_ids, device)
+    tiles = _decode_tiles(data, s, tile_ids, device,
+                          lambda *item: _host_colour(*item, mode))
     for idx, tile in enumerate(tiles):
         r, c = divmod(idx, cols)
         th, tw = tile.shape[:2]
@@ -622,8 +681,7 @@ def _decode_grid(data, s, tile_ids, grid, mode, device=None):
 def _decode_grid_tiles(data, s, tile_ids, grid, device=None) -> list:
     """``_decode_grid`` for the device colour: every tile's planes, each
     placed where ``_decode_grid`` pastes it."""
-    tiles = _map_tiles(lambda tid: _decode_item_planes(data, s, tid, device),
-                       tile_ids, device)
+    tiles = _decode_tiles(data, s, tile_ids, device, _tile_planes)
     for idx, t in enumerate(tiles):
         r, c = divmod(idx, grid["cols"])
         t.y0, t.x0 = r * t.out_h, c * t.out_w

@@ -17,7 +17,10 @@ with its imports rewritten to the port's modules.  What differs:
   ``ops.hevc_kernels.residuals_packed`` (one launch of the
   ``hevc_residuals`` CUDA kernel over the picture's TUs, its plain
   version on the CPU; span ``hevc.residuals_device``), on the Python
-  route through ``hevc_recon.execute_ops``;
+  route through ``hevc_recon.execute_ops``.  With
+  ``defer_residuals=True`` the native single-slice route stops before
+  the transform and returns a ``PendingPicture``, so that a HEIF grid
+  runs every tile's TUs in one launch (``formats.heif``);
 * the native routes are taken whatever ``FFPIC_NO_NATIVE`` says: the
   port's native build raises on failure (``ROADMAP.md`` Queue 1
   item 5);
@@ -34,6 +37,7 @@ with its imports rewritten to the port's modules.  What differs:
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -426,7 +430,8 @@ def decode_idr_slice(sps: SPS, pps: PPS, nalu: bytes, device=None):
 
 
 def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
-                   inter_env: dict | None = None, device=None):
+                   inter_env: dict | None = None, device=None,
+                   defer_residuals: bool = False):
     """Decode all slice segment NALUs of one picture to a
     reconstructed Picture (CABAC syntax -> recon -> deblock -> SAO).
 
@@ -440,7 +445,11 @@ def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
     hevc.c:6285-6397); with `inter_env` (the original's sequence state
     for a full inter decode) they raise ``NotImplementedError``: the
     port has no inter decode yet.  ``device`` is where
-    ``FFPIC_HEVC_DEVICE``'s residuals run (None: CUDA).
+    ``FFPIC_HEVC_DEVICE``'s residuals run (None: CUDA).  With
+    ``defer_residuals`` a picture whose residuals would go to the device
+    in one launch of its own (the native single-slice route under
+    ``FFPIC_HEVC_DEVICE``) comes back as a ``PendingPicture`` after its
+    syntax pass; any other comes back decoded.
     """
     from ffpic_tpu_torch.coding.hevc_slice import (SharedPictureState,
                                                    SliceDecoder,
@@ -503,6 +512,15 @@ def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
     simple = (len(parsed) == 1 and hdr0.first_slice
               and not pps.tiles_enabled and not pps.entropy_coding_sync)
     if native_ok:
+        if simple and defer_residuals and device_residuals():
+            ops_a, tu_a, levels = _slice_syntax_native(
+                sps, pps, hdr0, parsed[0][1], pic)
+            # copies: the syntax pass's scratch buffers (about 4 MB for a
+            # 512x512 tile) are freed now, not after the launch that
+            # waits for every tile of a grid
+            need = int((tu_a[:, 2].astype(np.int64) ** 2).sum())
+            return PendingPicture(pic, sps, pps, hdr0, ops_a.copy(),
+                                  tu_a.copy(), levels[:need].copy())
         if simple:
             ops = _decode_slice_native(sps, pps, hdr0, parsed[0][1], pic,
                                        device)
@@ -755,14 +773,44 @@ def _ctx_init_arrays(qp: int):
     return hit
 
 
-def _decode_slice_native(sps, pps, hdr, data: bytes, pic, device=None):
-    """Drive the native slice-syntax decoder (native/host_hevc.c) and
-    convert its flat outputs to the recon op list (empty when the
-    native recon ran).  ``device``: where ``FFPIC_HEVC_DEVICE``'s
-    residuals run."""
-    import numpy as np
+@dataclass
+class PendingPicture:
+    """A picture decoded up to its residual transform
+    (``decode_picture(..., defer_residuals=True)``): the native syntax
+    pass's TU list ``tu_meta`` and ``levels`` wait for a launch over
+    several pictures' TUs (``ops.hevc_kernels.residuals_grid``);
+    ``finish(residuals)`` then runs the native recon with them,
+    deblocking and SAO, and returns the Picture."""
+    pic: object
+    sps: SPS
+    pps: PPS
+    hdr: object
+    ops: np.ndarray
+    tu_meta: np.ndarray
+    levels: np.ndarray
+
+    @property
+    def bit_depth(self) -> int:
+        return self.sps.bit_depth_luma
+
+    def finish(self, residuals: np.ndarray):
+        _recon_native(self.sps, self.pic, self.ops, self.tu_meta,
+                      self.levels, residuals)
+        return _finish_picture(self.pic, self.hdr, self.pps)
+
+
+def device_residuals() -> bool:
+    """``FFPIC_HEVC_DEVICE`` on the native recon: the residual transform
+    of a single-slice picture runs on the device, ahead of the recon."""
+    return bool(os.environ.get("FFPIC_HEVC_DEVICE")) \
+        and not os.environ.get("FFPIC_NO_NATIVE_RECON")
+
+
+def _slice_syntax_native(sps, pps, hdr, data: bytes, pic):
+    """The native slice-syntax decoder (native/host_hevc.c) on one slice:
+    fills ``pic``'s QP, bypass, SAO and deblocking-edge state and
+    returns its flat outputs, (ops, tu_meta, levels)."""
     from ffpic_tpu_torch import native
-    from ffpic_tpu_torch.coding.hevc_slice import _CTX_SET, Contexts, PredOp, TU
     from ffpic_tpu_torch.formats.hevc_recon import SaoParam
 
     states, mps = _ctx_init_arrays(hdr.qp)
@@ -801,26 +849,40 @@ def _decode_slice_native(sps, pps, hdr, data: bytes, pic, device=None):
     if not hdr.deblocking_disabled:
         luma = ops_a[ops_a[:, 0] == 0]
         pic.mark_edges_batch(luma[:, 1], luma[:, 2], luma[:, 3])
+    return ops_a, tu_a, levels
 
-    # native recon end-to-end (prediction + residual add in C);
-    # FFPIC_HEVC_DEVICE=1 computes ALL residual transforms on the device
-    # first (one launch over the picture's TUs, ops/hevc_kernels) and C
-    # only adds them to the prediction wavefront
-    import os as _os
-    if not _os.environ.get("FFPIC_NO_NATIVE_RECON"):
+
+def _recon_native(sps, pic, ops_a, tu_a, levels, residuals=None) -> None:
+    """Native recon end-to-end (prediction + residual add in C), adding
+    the device's ``residuals`` where given."""
+    from ffpic_tpu_torch import native
+    with trace.stage("hevc.recon"):
+        native.hevc_recon(pic.planes, sps.bit_depth_luma,
+                          getattr(sps, "strong_intra_smoothing", False),
+                          ops_a, tu_a, levels, residuals=residuals)
+    for p in range(len(pic.planes)):
+        pic.masks[p][:] = True
+
+
+def _decode_slice_native(sps, pps, hdr, data: bytes, pic, device=None):
+    """Drive the native slice-syntax decoder (native/host_hevc.c) and
+    convert its flat outputs to the recon op list (empty when the
+    native recon ran).  ``device``: where ``FFPIC_HEVC_DEVICE``'s
+    residuals run."""
+    from ffpic_tpu_torch.coding.hevc_slice import PredOp, TU
+
+    ops_a, tu_a, levels = _slice_syntax_native(sps, pps, hdr, data, pic)
+    # native recon end-to-end; FFPIC_HEVC_DEVICE=1 computes ALL residual
+    # transforms on the device first (one launch over the picture's TUs,
+    # ops/hevc_kernels) and C only adds them to the prediction wavefront
+    if not os.environ.get("FFPIC_NO_NATIVE_RECON"):
         resid = None
-        if _os.environ.get("FFPIC_HEVC_DEVICE"):
+        if device_residuals():
             from ffpic_tpu_torch.ops.hevc_kernels import residuals_packed
             with trace.stage("hevc.residuals_device"):
                 resid = residuals_packed(tu_a, levels,
                                          sps.bit_depth_luma, device)
-        with trace.stage("hevc.recon"):
-            native.hevc_recon(pic.planes, sps.bit_depth_luma,
-                              getattr(sps, "strong_intra_smoothing",
-                                      False),
-                              ops_a, tu_a, levels, residuals=resid)
-        for p in range(len(pic.planes)):
-            pic.masks[p][:] = True
+        _recon_native(sps, pic, ops_a, tu_a, levels, resid)
         return []
 
     tus = []

@@ -25,7 +25,7 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _i64 = ctypes.c_longlong
 _SIGNATURES = {
-    "ffpic_hevc_residuals": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int],
+    "ffpic_hevc_residuals": [_vp, _vp, _vp, _vp, _int, _int],
     "ffpic_hevc_yuv_to_rgba": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _i64,
                                _int, _int, _int],
 }
@@ -38,23 +38,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def hevc_residuals(tu_meta: torch.Tensor, levels: torch.Tensor,
-                   bit_depth: int, offs: torch.Tensor, perm: torch.Tensor,
+def hevc_residuals(levels: torch.Tensor, bit_depth: int, desc: torch.Tensor,
                    ctas: torch.Tensor) -> torch.Tensor:
-    """K14: ``tu_meta`` (m, 8) int32, ``levels`` int16 (exactly the TUs'
-    n² sum), and the launch plan of ``hevc_kernels.plan_residuals``
-    (``offs``, ``perm`` (m,) int32, ``ctas`` (k, 4) int32) -> int16
-    residuals, one per level; a CTA per row of ``ctas``.  The plan and
-    the level count are trusted as the route made them (checking them
-    here would read the device): the kernel reads and writes where the
-    plan points."""
-    if tu_meta.dim() != 2:
-        raise ValueError(f"tu_meta: expected (m, 8), got "
-                         f"{tuple(tu_meta.shape)}")
-    m = tu_meta.shape[0]
-    _cuda(tu_meta, "tu_meta", torch.int32, (m, 8))
-    _cuda(offs, "offs", torch.int32, (m,))
-    _cuda(perm, "perm", torch.int32, (m,))
+    """K14: ``levels`` int16 (exactly the TUs' n² sum) and the launch
+    plan of ``hevc_kernels.plan_residuals`` (``desc`` (m, 2) int32, one
+    row a TU, largest first; ``ctas`` (k, 4) int32) -> int16 residuals,
+    one per level; a CTA of 128 threads per row of ``ctas``, a TU of n
+    points on n lanes.  The plan and the level count are trusted as the
+    route made them (checking them here would read the device): the
+    kernel reads and writes where the plan points."""
+    if desc.dim() != 2:
+        raise ValueError(f"desc: expected (m, 2), got {tuple(desc.shape)}")
+    _cuda(desc, "desc", torch.int32, (desc.shape[0], 2))
     if ctas.dim() != 2:
         raise ValueError(f"ctas: expected (k, 4), got {tuple(ctas.shape)}")
     k = ctas.shape[0]
@@ -62,19 +57,18 @@ def hevc_residuals(tu_meta: torch.Tensor, levels: torch.Tensor,
     if levels.dim() != 1:
         raise ValueError(f"levels: expected 1-D, got {tuple(levels.shape)}")
     _cuda(levels, "levels", torch.int16)
-    if len({t.device for t in (tu_meta, offs, perm, ctas, levels)}) != 1:
-        raise ValueError("tu_meta, the plan and levels must share a device")
+    if len({t.device for t in (desc, ctas, levels)}) != 1:
+        raise ValueError("the plan and levels must share a device")
     if bit_depth not in range(8, 15):
         raise ValueError(f"bit depth {bit_depth}: K14 takes 8 to 14")
     if k >= 2 ** 31:
         raise ValueError(f"{k} CTAs: too many for one launch")
-    if ctas.data_ptr() % 16:
-        raise ValueError("ctas must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (desc, ctas, levels)):
+        raise ValueError("desc, ctas and levels must be 16-byte aligned")
     out = torch.empty_like(levels)
     if k:
         _launch("ffpic_hevc_residuals", "hevc_residuals",
-                _vp(tu_meta.data_ptr()), _vp(offs.data_ptr()),
-                _vp(perm.data_ptr()), _vp(ctas.data_ptr()),
+                _vp(desc.data_ptr()), _vp(ctas.data_ptr()),
                 _vp(levels.data_ptr()), _vp(out.data_ptr()), k, bit_depth)
     return out
 

@@ -78,8 +78,11 @@ def assemble_rgba(recon: torch.Tensor, palette: np.ndarray, trns: np.ndarray,
                   color_type: int, bitdepth: int, width: int,
                   height: int) -> torch.Tensor:
     """K7: (H, stride) uint8 reconstructed rows (any row pitch) -> (H, W, 4)
-    uint8 RGBA, a thread per pixel; ``palette`` (256, 4) uint8 and
-    ``trns`` (256,) int32 host arrays go with the launch by value."""
+    uint8 RGBA, four pixels (a 16-byte store) a thread in a grid-stride
+    loop, contiguous rows as one run; of the ``palette`` (256, 4) uint8
+    and ``trns`` (256,) int32 host arrays the launch takes by value only
+    what its colour type reads (the palette with the tRNS alpha for
+    colour type 3, the colour key for 0 and 2)."""
     check_format(color_type, bitdepth)
     _rows(recon, "recon")
     need = (width * NCH[color_type] * bitdepth + 7) // 8

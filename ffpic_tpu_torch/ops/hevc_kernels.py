@@ -12,12 +12,15 @@ The PyTorch counterpart of ``ffpic_tpu/ops/hevc_kernels.py``.  It holds
   ``hevc_yuv_to_rgba_plain`` (K15's: the branch of
   ``ffpic_tpu/formats/heif.py:356-371``).  They run on any device and
   are the reference the CUDA kernels are held against;
-* ``plan_residuals``, the host side of K14's launch: the TUs' level
-  offsets, their order by size, and the work of each CTA, all from
-  vectorised index arrays (no Python loop over TUs);
+* ``plan_residuals``, the host side of K14's launch: each TU's level
+  offset and flags in launch order (largest TUs first) and the work of
+  each CTA, all from vectorised index arrays (no Python loop over TUs);
+  ``stage_residuals`` packs it with the levels of one picture or of
+  several (a HEIF grid's tiles) into one host-to-device copy;
 * the entries the codec calls: ``residuals_packed`` and
-  ``residuals_for_ops`` (named as the reference's), ``hevc_residuals``
-  and ``hevc_yuv_to_rgba``.  They dispatch on the tensor's device: a
+  ``residuals_for_ops`` (named as the reference's), ``residuals_grid``
+  (several pictures' TUs in one launch), ``hevc_residuals`` and
+  ``hevc_yuv_to_rgba``.  They dispatch on the tensor's device: a
   CPU tensor takes the plain version, a CUDA tensor the kernel of
   ``ops.cuda_hevc`` (which raises rather than falls back).
 
@@ -35,18 +38,23 @@ route, in both packages (``ROADMAP.md`` Queue 3).
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from ffpic_tpu_torch.coding.hevc_consts import DST4, LEVEL_SCALE, dct_matrix
 from ffpic_tpu_torch.ops.jpeg_kernels import _on_cuda, color_convert
-from ffpic_tpu_torch.utils.device import resolve_device, to_device
+from ffpic_tpu_torch.utils import trace
+from ffpic_tpu_torch.utils.device import resolve_device
 
 # TU sizes as log2: 4, 8, 16 and 32 points
 _LOG2 = {4: 2, 8: 3, 16: 4, 32: 5}
-# K14 works on 1024 samples a CTA: 64 TUs of 4x4, 16 of 8x8, 4 of 16x16
-# or one of 32x32
-CTA_SAMPLES = 1024
+# K14's CTAs have 128 threads, n of them a TU of n points: 32 TUs of
+# 4x4, 16 of 8x8, 8 of 16x16 or 4 of 32x32
+CTA_THREADS = 128
+# the flags of a TU's descriptor word, above its QP (bits 0-7)
+SKIP, BYPASS, DST = 1 << 8, 1 << 9, 1 << 10
 # the largest QP a TU carries: 51 + QpBdOffset at 14 bits (at 16 bits
 # the reference's int32 dequant bound overflows)
 MAX_QP = 51 + 6 * (14 - 8)
@@ -181,48 +189,75 @@ def hevc_yuv_to_rgba_plain(Y: torch.Tensor, U: torch.Tensor | None,
 # --- K14's launch plan ------------------------------------------------------
 
 def plan_residuals(tu_meta: np.ndarray):
-    """The host side of a K14 launch over ``tu_meta`` (m, 8) int32:
-    ``offs`` (m,) int32, where each TU's levels start; ``perm`` (m,)
-    int32, the TUs ordered by size (stable); ``ctas`` (k, 4) int32, one
-    row a CTA: (first entry of ``perm``, TU count, log2 n, 0), each CTA
-    taking ``CTA_SAMPLES`` // n² TUs of one size.  Vectorised over the
-    TUs; raises ``ValueError`` on a size other than 4, 8, 16 or 32 or on
-    more levels than int32 offsets reach."""
-    meta = np.asarray(tu_meta)
-    ns = meta[:, 2].astype(np.int64)
-    lg = np.zeros(len(ns), np.int64)
-    for n, l2 in _LOG2.items():
-        lg[ns == n] = l2
-    if (lg == 0).any():
-        raise ValueError(f"TU sizes {sorted(set(ns[lg == 0].tolist()))}: "
-                         "only 4, 8, 16 and 32 are taken")
-    n2 = ns * ns
-    offs = np.cumsum(n2) - n2
-    if len(ns) and offs[-1] + n2[-1] >= 2 ** 31:
+    """The host side of a K14 launch over ``tu_meta`` (m, 8) int32, whose
+    levels lie packed in row order: ``desc`` (m, 2) int32, one row a TU
+    in launch order, largest TUs first (stable within a size): (where
+    its levels start, QP | ``SKIP`` | ``BYPASS`` | ``DST``); ``ctas``
+    (k, 4) int32, one row a CTA: (first row of ``desc``, TU count, log2
+    n, 0), each CTA taking ``CTA_THREADS`` // n TUs of one size.
+    Vectorised over the TUs; raises ``ValueError`` on a size other than
+    4, 8, 16 or 32 or on more levels than int32 offsets reach."""
+    desc, counts, need = _part_desc(tu_meta)
+    if need >= 2 ** 31:
         raise ValueError("too many levels for one launch")
-    perm = np.argsort(lg, kind="stable")
-    counts = np.bincount(lg, minlength=6)[2:]
-    per = CTA_SAMPLES >> (2 * np.arange(2, 6))        # TUs a CTA, by size
+    return desc.astype(np.int32), _ctas(counts)
+
+
+# log2 n of a TU size, 0 for a size K14 does not take
+_LG = np.zeros(64, np.int8)
+_LG[[4, 8, 16, 32]] = [2, 3, 4, 5]
+_SIZES = np.array([5, 4, 3, 2])          # log2 n in launch order
+
+
+def _part_desc(tu_meta: np.ndarray):
+    """One picture's part of the plan: its ``desc`` rows (level offsets
+    from its own first level, int64), its TU counts by size in launch
+    order (32, 16, 8, 4) and its level count."""
+    meta = np.asarray(tu_meta)
+    ns = meta[:, 2]
+    lg = np.take(_LG, ns, mode="clip")
+    if not lg.all():
+        bad = sorted(set(ns[lg == 0].tolist()))
+        raise ValueError(f"TU sizes {bad}: only 4, 8, 16 and 32 are taken")
+    n2 = ns.astype(np.int64) ** 2
+    offs = np.cumsum(n2) - n2
+    perm = np.argsort(5 - lg, kind="stable")
+    info = meta[:, 6].astype(np.int32)
+    info |= (meta[:, 4] != 0) * SKIP
+    info |= (meta[:, 5] != 0) * BYPASS
+    info |= (meta[:, 7] != 0) * DST
+    desc = np.empty((len(ns), 2), np.int64)
+    desc[:, 0] = offs[perm]
+    desc[:, 1] = info[perm]
+    return desc, np.bincount(lg, minlength=6)[_SIZES], int(n2.sum())
+
+
+def _ctas(counts: np.ndarray) -> np.ndarray:
+    """The CTA rows over ``desc`` rows ordered by size, ``counts`` TUs of
+    each size in launch order."""
+    per = CTA_THREADS >> _SIZES                        # TUs a CTA
     nctas = -(-counts // per)
     first = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    l2s = np.repeat(np.arange(2, 6), nctas)
+    l2s = np.repeat(_SIZES, nctas)
+    per_cta = np.repeat(per, nctas)
     k = np.arange(int(nctas.sum())) - np.repeat(
         np.concatenate([[0], np.cumsum(nctas)[:-1]]), nctas)
-    start = np.repeat(first, nctas) + k * per[l2s - 2]
+    start = np.repeat(first, nctas) + k * per_cta
     end = np.repeat(first + counts, nctas)
-    ctas = np.stack([start, np.minimum(end - start, per[l2s - 2]), l2s,
+    ctas = np.stack([start, np.minimum(end - start, per_cta), l2s,
                      np.zeros_like(l2s)], axis=1)
-    return (offs.astype(np.int32), perm.astype(np.int32),
-            np.ascontiguousarray(ctas, np.int32))
+    return np.ascontiguousarray(ctas, np.int32)
 
 
-def check_tus(tu_meta: np.ndarray, n_levels: int, bit_depth: int) -> None:
+def check_tus(tu_meta: np.ndarray, n_levels: int,
+              bit_depth: int | None = None) -> None:
     """The route's checks on the host, before staging: (m, 8) rows,
     levels for every TU, QPs in 0..MAX_QP and a bit depth of 8 to 14
-    (the kernel's dequant takes the reference's arithmetic only there)."""
+    (the kernel's dequant takes the reference's arithmetic only there;
+    None leaves it to the launch)."""
     if tu_meta.ndim != 2 or tu_meta.shape[1] != 8:
         raise ValueError(f"tu_meta {tu_meta.shape}: expected (m, 8)")
-    if bit_depth not in BIT_DEPTHS:
+    if bit_depth is not None and bit_depth not in BIT_DEPTHS:
         raise ValueError(f"bit depth {bit_depth}: the device residuals "
                          "take 8 to 14")
     qp = tu_meta[:, 6]
@@ -239,7 +274,8 @@ def check_tus(tu_meta: np.ndarray, n_levels: int, bit_depth: int) -> None:
 def hevc_residuals(tu_meta: torch.Tensor, levels: torch.Tensor,
                    bit_depth: int, plan=None) -> torch.Tensor:
     """Every TU's residual over the flat layout: K14 on CUDA tensors
-    (``plan``: ``plan_residuals``' arrays as CUDA tensors), the plain
+    (``plan``: ``plan_residuals``' arrays as CUDA tensors, which the
+    kernel reads in place of ``tu_meta``), the plain
     ``hevc_residuals_plain`` on CPU ones."""
     if not _on_cuda(levels):
         return hevc_residuals_plain(tu_meta, levels, bit_depth)
@@ -247,34 +283,117 @@ def hevc_residuals(tu_meta: torch.Tensor, levels: torch.Tensor,
     if plan is None:
         raise ValueError("hevc_residuals on CUDA needs the launch plan "
                          "(plan_residuals, staged)")
-    return cuda_hevc.hevc_residuals(tu_meta, levels, bit_depth, *plan)
+    return cuda_hevc.hevc_residuals(levels, bit_depth, *plan)
 
 
-def stage_residuals(tu_meta: np.ndarray, levels: np.ndarray,
-                    device: torch.device):
-    """One host-to-device copy of a launch's inputs: ``tu_meta``, its
-    plan (``plan_residuals``) and the levels, packed into one int32
-    buffer.  Returns (tu_meta, levels, plan) on ``device``."""
+@dataclass
+class StagedPart:
+    """One picture's share of a K14 launch (``stage_part``): its TU list,
+    its ``desc`` rows (level offsets from its own first level, launch
+    order) and TU counts by size in launch order, and its levels, pinned
+    on CUDA."""
+    tu_meta: np.ndarray
+    desc: np.ndarray
+    counts: np.ndarray
+    levels: torch.Tensor
+
+
+def stage_part(tu_meta: np.ndarray, levels: np.ndarray,
+               device=None) -> StagedPart:
+    """The host work of one picture's share of a launch, done where the
+    picture was decoded (a grid tile's worker): the route's checks, its
+    part of the plan and a pinned copy of its levels (the TUs' n² sum
+    of them)."""
+    dev = resolve_device(device, "stage_part")
     meta = np.ascontiguousarray(tu_meta, np.int32)
-    lv = np.ascontiguousarray(levels, np.int16).reshape(-1)
-    offs, perm, ctas = plan_residuals(meta)
-    m, k = len(meta), len(ctas)
-    # meta | offs | perm | ctas | levels, ctas and levels on 16 bytes
-    at_ctas = 10 * m + (-10 * m) % 4
-    head = at_ctas + 4 * k
-    buf = np.zeros(head + (lv.size + 1) // 2, np.int32)
-    buf[:8 * m] = meta.reshape(-1)
-    buf[8 * m:9 * m] = offs
-    buf[9 * m:10 * m] = perm
-    buf[at_ctas:head] = ctas.reshape(-1)
-    buf[head:].view(np.int16)[:lv.size] = lv
-    dev = to_device(buf, device)
-    meta_d = dev[:8 * m].view(m, 8)
-    offs_d = dev[8 * m:9 * m]
-    perm_d = dev[9 * m:10 * m]
-    ctas_d = dev[at_ctas:head].view(k, 4)
-    lv_d = dev[head:].view(torch.int16)[:lv.size]
-    return meta_d, lv_d, (offs_d, perm_d, ctas_d)
+    lv = np.asarray(levels).reshape(-1)
+    check_tus(meta, lv.size)
+    desc, counts, need = _part_desc(meta)
+    host = torch.empty(need, dtype=torch.int16,
+                       pin_memory=dev.type == "cuda")
+    host.numpy()[:] = lv[:need]
+    return StagedPart(meta, desc, counts, host)
+
+
+def stage_residuals(parts, device: torch.device):
+    """A launch's inputs on ``device``: ``parts``, a list of
+    ``StagedPart``s or of (tu_meta (m, 8), levels) pairs, of one picture
+    or of several (a grid's tiles), whose levels are laid one after
+    another.  The plan of ``plan_residuals`` over all their TUs goes in
+    one pinned buffer and one copy; each part's pinned levels are copied
+    into one device buffer, all without waiting.  Returns (levels, (desc,
+    ctas)) on ``device``, each 16-byte aligned, and the level count of
+    each part."""
+    parts = [p if isinstance(p, StagedPart) else stage_part(*p, device)
+             for p in parts]
+    counts = np.array([p.counts for p in parts]).reshape(-1, 4)
+    needs = [p.levels.numel() for p in parts]
+    if sum(needs) >= 2 ** 31:
+        raise ValueError("too many levels for one launch")
+    ctas = _ctas(counts.sum(0))
+    m, k = int(counts.sum()), len(ctas)
+    # where each part's TUs of each size go: sizes in launch order, parts
+    # in order within a size
+    at = (np.cumsum(counts.sum(0)) - counts.sum(0))[None, :] + \
+        np.cumsum(counts, 0) - counts
+    base = np.cumsum([0, *needs])
+    # desc | ctas, each on 16 bytes
+    at_ctas = 2 * m + (-2 * m) % 4
+    host = torch.empty(at_ctas + 4 * k, dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    desc = buf[:2 * m].reshape(m, 2)
+    buf[at_ctas:] = ctas.reshape(-1)
+    for p, part in enumerate(parts):
+        first = 0
+        for pos, c in zip(at[p], counts[p]):
+            d = desc[pos:pos + c]
+            d[:] = part.desc[first:first + c]
+            d[:, 0] += base[p]
+            first += c
+    on_card = device.type == "cuda"
+    plan = host.to(device, non_blocking=True) if on_card else host
+    lv_d = torch.empty(int(base[-1]), dtype=torch.int16, device=device)
+    for p, part in enumerate(parts):
+        lv_d[base[p]:base[p + 1]].copy_(part.levels, non_blocking=on_card)
+    return lv_d, (plan[:2 * m].view(m, 2), plan[at_ctas:].view(k, 4)), \
+        needs
+
+
+def residuals_grid(parts, bit_depth: int, device=None) -> list:
+    """Device residuals of several pictures' TUs in one launch (a HEIF
+    grid's tiles): ``parts`` a list of (tu_meta, levels), as
+    ``residuals_packed`` takes each, or of their ``stage_part``s.  One
+    staging of them all, one launch of K14 over every TU (the plain
+    version on the CPU) and one read-back into pinned memory, which
+    synchronises with the current stream.  Returns each part's int16
+    residuals, views of one buffer.  ``device`` None means CUDA.  Spans
+    ``hevc.residuals_stage`` (the plan's assembly and the copies'
+    enqueue) and ``hevc.residuals_readback`` (the launch and the
+    read-back, which waits for the copies)."""
+    dev = resolve_device(device, "residuals_grid")
+    if bit_depth not in BIT_DEPTHS:
+        raise ValueError(f"bit depth {bit_depth}: the device residuals "
+                         "take 8 to 14")
+    parts = [p if isinstance(p, StagedPart) else stage_part(*p, dev)
+             for p in parts]
+    if not any(len(p.tu_meta) for p in parts):
+        return [np.zeros(0, np.int16) for _ in parts]
+    with trace.stage("hevc.residuals_stage"):
+        lv_d, plan, needs = stage_residuals(parts, dev)
+    on_card = dev.type == "cuda"
+    meta = None if on_card else torch.from_numpy(
+        np.concatenate([p.tu_meta for p in parts]))   # the plain version's
+    with trace.stage("hevc.residuals_readback"):
+        res = hevc_residuals(meta, lv_d, bit_depth, plan)
+        if on_card:
+            host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+            host.copy_(res, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            res = host
+    flat = res.numpy()
+    cut = np.cumsum([0, *needs])
+    return [flat[a:b] for a, b in zip(cut[:-1], cut[1:])]
 
 
 def residuals_packed(tu_meta: np.ndarray, levels: np.ndarray,
@@ -283,18 +402,12 @@ def residuals_packed(tu_meta: np.ndarray, levels: np.ndarray,
     x,y,n,cidx,skip,bypass,qp,dst; levels int16 packed per TU), as
     ``hevc_kernels.py:143``: returns int16 packed residuals in the same
     layout (one per level of the TUs), to feed
-    ``native.hevc_recon(..., residuals=...)``.  One staged copy, one
-    launch of K14 over every TU of the picture (the plain version on
-    the CPU) and one read-back, which synchronises with the current
-    stream.  ``device`` None means CUDA."""
-    dev = resolve_device(device, "residuals_packed")
-    meta = np.ascontiguousarray(tu_meta, np.int32)
-    check_tus(meta, np.asarray(levels).size, bit_depth)
-    if len(meta) == 0:
-        return np.zeros(0, np.int16)
-    need = int((meta[:, 2].astype(np.int64) ** 2).sum())
-    m_d, lv_d, plan = stage_residuals(meta, np.asarray(levels)[:need], dev)
-    return hevc_residuals(m_d, lv_d, bit_depth, plan).cpu().numpy()
+    ``native.hevc_recon(..., residuals=...)``.  ``residuals_grid`` of
+    the one picture: one staged copy, one launch of K14 over every TU
+    of the picture (the plain version on the CPU) and one read-back,
+    which synchronises with the current stream.  ``device`` None means
+    CUDA."""
+    return residuals_grid([(tu_meta, levels)], bit_depth, device)[0]
 
 
 def residuals_for_ops(ops, bit_depth: int, device=None) -> dict:

@@ -1185,45 +1185,95 @@ def heif_color_cases(seed: int = 0) -> dict[str, tuple]:
     return out
 
 
+# |transMatrix| entries by folded angle, as csrc/hevc_decode.cu's
+# trans_coef holds them
+_TRANS_A = (64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80, 78, 75, 73, 70, 67,
+            64, 61, 57, 54, 50, 46, 43, 38, 36, 31, 25, 22, 18, 13, 9, 4, 0)
+_DST4_KI = ((29, 55, 74, 84), (74, 74, 0, -74), (84, -29, -74, 55),
+            (55, -84, 74, -29))
+
+
+def trans_coef(k: int, i: int) -> int:
+    """K14's entry of the 32-point transMatrix, row k, column i, as
+    ``hevc_decode.cu``'s ``trans_coef`` computes it: the angle (2i + 1) k
+    mod 128 folded into 0..32 and signed."""
+    u = ((2 * i + 1) * k) & 127
+    if u > 64:
+        u = 128 - u
+    return -_TRANS_A[64 - u] if u > 32 else _TRANS_A[u]
+
+
+def inverse_butterfly(c: np.ndarray, n: int, dst: bool = False
+                      ) -> np.ndarray:
+    """K14's 1-D inverse transform along the last axis of ``c`` (..., n),
+    in int64, as its kernel computes it: the even/odd recursion of
+    ``inv_dct`` (the N/2-point transform of the even coefficients, the
+    odd part's sums O[i], then E[i] + O[i] and E[i] - O[i]), or the
+    direct 4-point DST of ``inv_dst``.  Raises if a sum leaves int32,
+    where the kernel keeps them."""
+    c = np.asarray(c, np.int64)
+    if dst:
+        out = sum(np.multiply.outer(c[..., k], _DST4_KI[k])
+                  for k in range(4))
+    else:
+        out = _inv_dct(c, n, 1)
+    return out
+
+
+def _inv_dct(c: np.ndarray, n: int, s: int) -> np.ndarray:
+    if n == 1:
+        return 64 * c[..., :1]
+    e = _inv_dct(c, n // 2, 2 * s)
+    out = np.empty(c.shape[:-1] + (n,), np.int64)
+    for i in range(n // 2):
+        o = sum(trans_coef(k * (32 // n), i) * c[..., k * s]
+                for k in range(1, n, 2))
+        out[..., i] = e[..., i] + o
+        out[..., n - 1 - i] = e[..., i] - o
+    if np.abs(out).max(initial=0) >= 2 ** 31 or \
+            np.abs(e).max(initial=0) >= 2 ** 31:
+        raise OverflowError("a butterfly sum leaves int32")
+    return out
+
+
 def residuals_by_plan(tu_meta: np.ndarray, levels: np.ndarray,
                       bd: int) -> np.ndarray:
     """K14's walk over its launch plan, in numpy: for each CTA row of
-    ``hevc_kernels.plan_residuals``, its TUs by ``perm``, their levels
-    at ``offs``, the dequant, the two passes and the skip and bypass
-    cases with the kernel's integer arithmetic (int64 dequant product,
-    int32 sums).  The CPU tests hold it against the plain version, which
-    checks the plan and the kernel's indexing where the kernel cannot
-    run."""
-    from ffpic_tpu_torch.coding.hevc_consts import DST4, LEVEL_SCALE, \
-        dct_matrix
-    from ffpic_tpu_torch.ops.hevc_kernels import CTA_SAMPLES, plan_residuals
-    offs, perm, ctas = plan_residuals(tu_meta)
+    ``hevc_kernels.plan_residuals``, its TUs' descriptors (level offset,
+    QP and flags), their levels, the dequant, the column pass and the
+    row pass as ``inverse_butterfly`` (the kernel's even/odd butterflies,
+    int32 sums), and the skip and bypass cases with the kernel's integer
+    arithmetic (int64 dequant product).  The CPU tests hold it against
+    the plain version, which checks the plan, the butterflies and the
+    kernel's indexing where the kernel cannot run."""
+    from ffpic_tpu_torch.coding.hevc_consts import LEVEL_SCALE
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    desc, ctas = hk.plan_residuals(tu_meta)
     out = np.full(int((tu_meta[:, 2].astype(np.int64) ** 2).sum()), -12345,
                   np.int64)
-    t32 = dct_matrix(32).astype(np.int64)
     for start, cnt, l2, _ in ctas:
         n = 1 << l2
-        assert cnt * n * n <= CTA_SAMPLES
-        m = t32[::32 // n, :n]
+        assert 1 <= cnt <= hk.CTA_THREADS // n
         bs = bd + l2 - 5
-        for t in perm[start:start + cnt]:
-            _x, _y, tn, _c, skip, byp, qp, dst = tu_meta[t]
-            assert tn == n
-            lv = levels[offs[t]:offs[t] + n * n].astype(np.int64)
-            if byp:
-                out[offs[t]:offs[t] + n * n] = lv
-                continue
-            scale = (16 * LEVEL_SCALE[qp % 6]) << (qp // 6)
-            d = np.clip((lv * scale + (1 << (bs - 1))) >> bs, -32768,
-                        32767).reshape(n, n)
-            sh = 20 - bd
-            if skip:
-                r = (d * 128 + (1 << (sh - 1))) >> sh
+        sh = 20 - bd
+        for off, info in desc[start:start + cnt]:
+            qp = int(info) & 255
+            lv = levels[off:off + n * n].astype(np.int64).reshape(n, n)
+            if info & hk.BYPASS:
+                r = lv
             else:
-                mm = DST4.astype(np.int64) if (n == 4 and dst) else m
-                e = np.clip((mm.T @ d + 64) >> 7, -32768, 32767)
-                r = (e @ mm + (1 << (sh - 1))) >> sh
-            out[offs[t]:offs[t] + n * n] = np.clip(r, -32768, 32767).ravel()
+                scale = (16 * LEVEL_SCALE[qp % 6]) << (qp // 6)
+                d = np.clip((lv * scale + (1 << (bs - 1))) >> bs, -32768,
+                            32767)
+                if info & hk.SKIP:
+                    r = (d * 128 + (1 << (sh - 1))) >> sh
+                else:
+                    dst = n == 4 and bool(info & hk.DST)
+                    e = np.clip((inverse_butterfly(d.T, n, dst).T + 64)
+                                >> 7, -32768, 32767)
+                    r = (inverse_butterfly(e, n, dst) + (1 << (sh - 1))) \
+                        >> sh
+            out[off:off + n * n] = np.clip(r, -32768, 32767).ravel()
     assert (out != -12345).all()
     return out.astype(np.int16)
 

@@ -7,7 +7,9 @@ colour, multi-slice/tiles/WPP/dependent items) and of
 encoder's bytes; the committed 12 MP fixture, byte-equal with the JAX
 bench's and decoded byte-equal by both packages; the small HEICs of
 ``testing.heif_cases`` under the four combinations of
-``FFPIC_HEVC_DEVICE`` and ``FFPIC_HEIF_DEVICE_COLOR``; and the two
+``FFPIC_HEVC_DEVICE`` and ``FFPIC_HEIF_DEVICE_COLOR``; a grid's
+three-phase route under ``FFPIC_HEVC_DEVICE`` (every tile's syntax, one
+residual launch over all tiles, every tile's recon); and the two
 reference faults the port mirrors (scaling lists under
 ``FFPIC_HEVC_DEVICE``, 10-bit items under ``FFPIC_HEIF_DEVICE_COLOR``).
 Pixels are exact; the device colour is held up to XLA's choice of
@@ -311,6 +313,90 @@ def test_heif_cases_under_the_switches_match_jax(case, switch, monkeypatch):
             want.np_pixels())
     else:
         np.testing.assert_array_equal(got.np_pixels(), want.np_pixels())
+
+
+def _spy_residuals(monkeypatch) -> dict:
+    """Counts the residual entries' calls (and the parts of each grid
+    call) while they run as they would."""
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    calls = {"grid": [], "packed": 0}
+    grid, packed = hk.residuals_grid, hk.residuals_packed
+
+    def spy_grid(parts, *a, **k):
+        calls["grid"].append(len(parts))
+        return grid(parts, *a, **k)
+
+    def spy_packed(*a, **k):
+        calls["packed"] += 1
+        return packed(*a, **k)
+    monkeypatch.setattr(hk, "residuals_grid", spy_grid)
+    monkeypatch.setattr(hk, "residuals_packed", spy_packed)
+    return calls
+
+
+@pytest.mark.parametrize("colour", ["host", "device_color"])
+def test_grid_under_hevc_device_is_one_residual_launch(colour, monkeypatch):
+    """Under ``FFPIC_HEVC_DEVICE`` on the CPU a 3x2 grid HEIC decodes in
+    three phases: the residual entry runs once for the grid, over its six
+    tiles (no launch a tile), and the bytes are the host route's and the
+    reference's (its device colour up to contraction)."""
+    data = heif_enc.encode_heif(testing.heif_pic(150, 120, 3), qp=24,
+                                tile=64)
+    if colour == "device_color":
+        monkeypatch.setenv("FFPIC_HEIF_DEVICE_COLOR", "1")
+    host = ft.load(data, device="cpu").np_pixels()
+    want = ffpic_tpu.load(data).np_pixels()
+    calls = _spy_residuals(monkeypatch)
+    monkeypatch.setenv("FFPIC_HEVC_DEVICE", "1")
+    got = ft.load(data, device="cpu")
+    assert got.meta["grid"]["rows"] * got.meta["grid"]["cols"] == 6
+    assert calls == {"grid": [6], "packed": 0}
+    np.testing.assert_array_equal(got.np_pixels(), host)
+    if colour == "device_color":
+        testing.assert_equal_up_to_contraction(
+            lambda: ft.load(data, device="cpu").np_pixels(), want)
+    else:
+        np.testing.assert_array_equal(got.np_pixels(), want)
+
+
+def test_fixture_under_hevc_device_is_one_residual_launch(monkeypatch):
+    """The 12 MP fixture under ``FFPIC_HEVC_DEVICE`` on the CPU: one
+    residual call over its 48 tiles, and the host route's bytes."""
+    data = testing.heif_fixture()
+    host = ft.load(data, device="cpu").np_pixels()
+    calls = _spy_residuals(monkeypatch)
+    monkeypatch.setenv("FFPIC_HEVC_DEVICE", "1")
+    np.testing.assert_array_equal(ft.load(data, device="cpu").np_pixels(),
+                                  host)
+    assert calls == {"grid": [48], "packed": 0}
+
+
+def test_grid_under_python_recon_keeps_one_pool(monkeypatch):
+    """With ``FFPIC_NO_NATIVE_RECON`` beside ``FFPIC_HEVC_DEVICE`` no
+    tile defers its residuals (``hevc.device_residuals``): the grid
+    decodes in one pool pass (span ``heif.grid_tiles``, not the three
+    phases), each tile's Python recon calling the residual entry itself,
+    and gives the host route's bytes."""
+    from ffpic_tpu_torch.utils import trace
+    data = heif_enc.encode_heif(testing.heif_pic(150, 120, 3), qp=24,
+                                tile=64)
+    host = ft.load(data, device="cpu").np_pixels()
+    calls = _spy_residuals(monkeypatch)
+    monkeypatch.setenv("FFPIC_HEVC_DEVICE", "1")
+    monkeypatch.setenv("FFPIC_NO_NATIVE_RECON", "1")
+    trace.reset()
+    trace.enable()
+    try:
+        got = ft.load(data, device="cpu").np_pixels()
+        spans = trace.report()
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert "heif.grid_tiles" in spans
+    assert not {"heif.grid_syntax", "hevc.residuals_part",
+                "heif.grid_recon"} & spans.keys()
+    assert calls["packed"] == 6 and calls["grid"] == [1] * 6
+    np.testing.assert_array_equal(got, host)
 
 
 def test_execute_ops_device_path_matches_host(monkeypatch):

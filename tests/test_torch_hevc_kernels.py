@@ -7,7 +7,11 @@ DST, bit depths 8 and 10, QPs 0..63 and the level extremes;
 ``residuals_packed`` and ``residuals_for_ops`` against JAX's on flat
 layouts with skip and bypass TUs, from ``testing.hevc_cases`` and from
 real streams; ``testing.residuals_by_plan`` (K14's walk over its launch
-plan) against the plain version; ``hevc_yuv_to_rgba_plain`` (K15's
+plan with its even/odd butterflies) against the plain version, the
+butterflies (``testing.inverse_butterfly``) against the direct product
+of ``dct_matrix(n)`` and the DST, and the plan over several tiles' TUs
+(largest first) with ``residuals_grid``'s one launch against a launch a
+tile; ``hevc_yuv_to_rgba_plain`` (K15's
 function) against the JAX branch of ``heif._yuv_pic_to_rgba``
 (``jnp.repeat`` + ``color_convert``).  The residual stages are integer:
 the tolerance is zero.  Colour is held up to XLA's choice of contracting
@@ -121,42 +125,154 @@ def test_kernel_walk_over_its_plan_matches_plain(case):
                                   want)
 
 
-def test_plan_residuals_layout():
+def _check_plan(meta: np.ndarray) -> None:
     """The plan covers every TU once, CTAs of one size each, at most
-    1024 samples a CTA, sizes in ascending order, and offsets the
-    cumulative n² sum."""
-    meta, lv, _ = testing.hevc_cases(0)["mixed_bd8"]
-    offs, perm, ctas = hk.plan_residuals(meta)
+    128 / n TUs a CTA, sizes in descending order (stable within a
+    size), each TU's descriptor its level offset (the cumulative n² sum)
+    and its QP and flags."""
+    desc, ctas = hk.plan_residuals(meta)
     n = meta[:, 2].astype(np.int64)
-    np.testing.assert_array_equal(offs, np.cumsum(n * n) - n * n)
-    assert sorted(perm.tolist()) == list(range(len(meta)))
-    assert (np.diff(n[perm]) >= 0).all()
+    offs = np.cumsum(n * n) - n * n
+    assert desc.shape == (len(meta), 2) and desc.dtype == np.int32
+    assert ctas.dtype == np.int32 and ctas.flags["C_CONTIGUOUS"]
+    # each descriptor names one TU by its offset
+    row = {int(o): k for k, o in enumerate(offs)}
+    order = np.array([row[int(o)] for o in desc[:, 0]])
+    assert sorted(order.tolist()) == list(range(len(meta)))
+    assert (np.diff(n[order]) <= 0).all()
+    for size in (32, 16, 8, 4):
+        same = order[n[order] == size]
+        assert (np.diff(same) > 0).all()
+    want = (meta[order, 6] | (meta[order, 4] != 0) * hk.SKIP
+            | (meta[order, 5] != 0) * hk.BYPASS
+            | (meta[order, 7] != 0) * hk.DST)
+    np.testing.assert_array_equal(desc[:, 1], want)
     covered = []
     for start, cnt, l2, pad in ctas:
-        assert pad == 0 and 1 <= cnt and cnt << (2 * l2) <= hk.CTA_SAMPLES
-        assert (n[perm[start:start + cnt]] == 1 << l2).all()
-        covered += perm[start:start + cnt].tolist()
-    assert sorted(covered) == list(range(len(meta)))
-    assert ctas.dtype == np.int32 and ctas.flags["C_CONTIGUOUS"]
+        assert pad == 0 and 1 <= cnt <= hk.CTA_THREADS >> l2
+        assert (n[order[start:start + cnt]] == 1 << l2).all()
+        covered += list(range(start, start + cnt))
+    assert covered == list(range(len(meta)))
+
+
+def test_plan_residuals_layout():
+    """The plan of ``mixed_bd8`` (``_check_plan``); a size K14 does not
+    take raises."""
+    meta, lv, _ = testing.hevc_cases(0)["mixed_bd8"]
+    _check_plan(meta)
     with pytest.raises(ValueError, match="only 4, 8, 16 and 32"):
         hk.plan_residuals(np.array([[0, 0, 2, 0, 0, 0, 20, 0]], np.int32))
 
 
+def test_plan_over_several_tiles_covers_each_tu_once_largest_first():
+    """The plan over the concatenated TUs of three fixture tiles, as a
+    grid's one launch takes them."""
+    data = testing.heif_fixture()
+    tus = [testing.heif_tile_tus(data, t) for t in (2, 25, 49)]
+    _check_plan(np.concatenate([tu for tu, _, _ in tus]))
+
+
 @pytest.mark.parametrize("case", ["one_each", "one_32", "mixed_bd8"])
 def test_stage_residuals_packs_one_buffer(case):
-    """One buffer holds the TU rows, the plan and the levels; the CTA
-    rows and the levels start on 16 bytes, as the kernel loads them."""
+    """One buffer holds the plan (the descriptors, then the CTA rows), one
+    the levels; each starts on 16 bytes, as the kernel loads them; the
+    pair and its ``stage_part`` stage alike."""
     meta, lv, _ = testing.hevc_cases(0)[case]
-    m_d, lv_d, (offs, perm, ctas) = hk.stage_residuals(meta, lv,
-                                                      torch.device("cpu"))
-    np.testing.assert_array_equal(m_d.numpy(), meta)
-    np.testing.assert_array_equal(lv_d.numpy(), lv)
-    for got, want in zip((offs, perm, ctas), hk.plan_residuals(meta)):
-        np.testing.assert_array_equal(got.numpy(), want)
-    base = m_d.data_ptr()
-    assert all(t.data_ptr() - base >= 0 for t in (offs, perm, ctas, lv_d))
-    assert (ctas.data_ptr() - base) % 16 == 0
-    assert (lv_d.data_ptr() - base) % 16 == 0
+    cpu = torch.device("cpu")
+    for part in ((meta, lv), hk.stage_part(meta, lv, cpu)):
+        lv_d, (desc, ctas), needs = hk.stage_residuals([part], cpu)
+        np.testing.assert_array_equal(lv_d.numpy(), lv)
+        assert needs == [lv.size]
+        for got, want in zip((desc, ctas), hk.plan_residuals(meta)):
+            np.testing.assert_array_equal(got.numpy(), want)
+        assert ctas.data_ptr() - desc.data_ptr() == 4 * (
+            2 * len(meta) + (-2 * len(meta)) % 4)
+        assert all(t.data_ptr() % 16 == 0 for t in (desc, ctas, lv_d))
+
+
+def test_stage_residuals_of_several_tiles_is_the_plan_of_all():
+    """Three fixture tiles staged apart (``stage_part``, as a grid's
+    workers do) and assembled: the plan of their concatenated TUs and
+    their levels one after another."""
+    data = testing.heif_fixture()
+    tus = [testing.heif_tile_tus(data, t) for t in (2, 25, 49)]
+    cpu = torch.device("cpu")
+    lv_d, (desc, ctas), needs = hk.stage_residuals(
+        [hk.stage_part(tu, lv, cpu) for tu, lv, _ in tus], cpu)
+    want = hk.plan_residuals(np.concatenate([tu for tu, _, _ in tus]))
+    np.testing.assert_array_equal(desc.numpy(), want[0])
+    np.testing.assert_array_equal(ctas.numpy(), want[1])
+    np.testing.assert_array_equal(
+        lv_d.numpy(), np.concatenate([lv for _, lv, _ in tus]))
+    assert needs == [lv.size for _, lv, _ in tus]
+
+
+@pytest.mark.parametrize("n,dst", [(4, False), (4, True), (8, False),
+                                   (16, False), (32, False)])
+def test_butterfly_equals_the_direct_product(n, dst):
+    """The kernel's even/odd butterflies (and its direct DST), modelled in
+    numpy, against the direct product with ``dct_matrix(n)`` (``DST4``)
+    on random int16 inputs with the extremes +-32768 planted: equal
+    exactly, every sum inside int32."""
+    rng = np.random.default_rng(40 + n + dst)
+    c = rng.integers(-32768, 32768, (64, n)).astype(np.int64)
+    c[0] = 32768
+    c[1] = -32768
+    c[2, ::2], c[2, 1::2] = 32768, -32768
+    c[3] = 0
+    c[4, 0] = -32768
+    m = np.asarray(hc.DST4 if dst else hc.dct_matrix(n), np.int64)
+    np.testing.assert_array_equal(testing.inverse_butterfly(c, n, dst),
+                                  c @ m)
+    for k in range(n):
+        for i in range(n):
+            assert dst or testing.trans_coef(k * 32 // n, i) == m[k, i]
+
+
+def test_kernel_source_holds_the_models_constants():
+    """``csrc/hevc_decode.cu``'s table of ``trans_coef``, its folding of
+    the angle and its DST matrix are the numpy model's, so the butterfly
+    test above speaks for the kernel's immediates."""
+    import re
+    from ffpic_tpu_torch.ops import _build
+    with open(f"{_build.CSRC}/hevc_decode.cu") as f:
+        src = f.read()
+
+    def ints(pattern):
+        return [int(v) for v in re.findall(
+            r"-?\d+", re.search(pattern, src, re.S).group(1))]
+    assert tuple(ints(r"const int a\[33\] = \{(.*?)\};")) == \
+        testing._TRANS_A
+    assert ints(r"constexpr int D\[4\]\[4\] = \{(.*?)\};") == \
+        [v for row in testing._DST4_KI for v in row]
+    fold = re.search(r"trans_coef\(int k, int i\) \{.*?\n\}", src, re.S)
+    assert "int u = ((2 * i + 1) * k) & 127;" in fold.group(0)
+    assert "if (u > 64) u = 128 - u;" in fold.group(0)
+    assert "return u > 32 ? -a[64 - u] : a[u];" in fold.group(0)
+
+
+def test_residuals_grid_is_one_launch_of_every_tile():
+    """``residuals_grid`` over three fixture tiles: each tile's slice
+    equals ``residuals_packed`` of that tile alone, and the plain version
+    runs once."""
+    data = testing.heif_fixture()
+    tus = [testing.heif_tile_tus(data, t) for t in (2, 25, 49)]
+    calls = []
+    real = hk.hevc_residuals_plain
+
+    def spy(*a):
+        calls.append(a[1].numel())
+        return real(*a)
+    bd = tus[0][2]
+    try:
+        hk.hevc_residuals_plain = spy
+        got = hk.residuals_grid([(tu, lv) for tu, lv, _ in tus], bd, "cpu")
+    finally:
+        hk.hevc_residuals_plain = real
+    assert calls == [sum(lv.size for _, lv, _ in tus)]
+    for g, (tu, lv, _) in zip(got, tus):
+        np.testing.assert_array_equal(g, hk.residuals_packed(tu, lv, bd,
+                                                             "cpu"))
 
 
 @pytest.mark.parametrize("kind", ["single", "skip", "bypass", "10bit"])
@@ -273,10 +389,9 @@ def test_hevc_yuv_to_rgba_crops_at_the_canvas_edge():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     meta, lv, bd = testing.hevc_cases(0)["one_each"]
-    offs, perm, ctas = (torch.from_numpy(a) for a in hk.plan_residuals(meta))
+    desc, ctas = (torch.from_numpy(a) for a in hk.plan_residuals(meta))
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_hevc.hevc_residuals(torch.from_numpy(meta), torch.from_numpy(lv),
-                                 bd, offs, perm, ctas)
+        cuda_hevc.hevc_residuals(torch.from_numpy(lv), bd, desc, ctas)
     y = torch.zeros((8, 8), dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_hevc.hevc_yuv_to_rgba(y, None, None, 8, 8)
