@@ -58,8 +58,9 @@ read just after:
   printed under the JAX bench's names (``device_entropy_dri_mps``,
   ``hybrid_pipeline_mps``, ``device_entropy_spec_mps``) beside the host
   route and the host spans; ``[time entropy kernels]`` gives K9's CTAs,
-  each kernel's ns a symbol on its longest lane (K10: chunk) and the
-  share of symbols the fast table answers (``fast_walks`` replays K9's
+  each kernel's ns a symbol on its longest lane (K10: chunk; K11: walk,
+  replayed by ``testing.merge_work``) and the share of symbols the fast
+  table answers (``fast_walks`` replays K9's
   lanes and K10's chunks with the plain step on the card);
 * WebP (K12 vp8_residuals, K13 vp8_yuv_to_rgba; ``testing.vp8_cases``
   and the 1080p fixture's parse state and planes against their plain
@@ -76,12 +77,15 @@ read just after:
 * the VP8 luma wavefront (K18 vp8_wavefront, B12; ``testing.
   wavefront_cases`` and every committed lossy fixture's frames against
   the plain version, each launched twice, and against the host
-  ``native.vp8_recon``'s luma): ``ops.vp8_wavefront.make_wavefront`` on
+  ``native.vp8_recon``'s luma, as are tall grids of 1200 x 2 and 9000 x
+  2 macroblocks): ``ops.vp8_wavefront.make_wavefront`` on
   the 1080p fixture (K18 once a frame), and the chain on the card, the
   frame's levels through K12 into K18, both equal to the host's luma;
   ``[time wavefront]`` gives K18 at 1080p and 512x512 beside its chain
-  of 2 (mbh - 1) + mbw macroblock steps and the host ``vp8_recon`` (Y,
-  U and V, host clock, median of 5);
+  of 2 (mbh - 1) + mbw macroblock steps, the cost c of one macroblock
+  step from one-row frames of 120 B_PRED or 16x16 macroblocks, the row
+  hand-off L that T = (2 (mbh - 1) + mbw) c + (mbh - 1) L then implies,
+  and the host ``vp8_recon`` (Y, U and V, host clock, median of 5);
 * HEIF (K14 hevc_residuals, K15 hevc_yuv_to_rgba; ``testing.hevc_cases``
   each in a launch of its own, the TU lists of the committed 12 MP
   grid's 48 tiles in one launch, ``heif_color_cases`` and the tiles'
@@ -1079,47 +1083,6 @@ def plan_trap_check() -> str:
     return out[-1]
 
 
-def merge_work(st, r, lut_bytes: int) -> dict:
-    """What K11 did in the ``spec_stages`` run ``r``: each lane's walk
-    from its true entry to the snapshot it met, replayed with the plain
-    step (``jed._advance``) on the card.  Its bytes, each read once: the
-    scan bytes the walks cover (their bits, and a 4-byte window past
-    each), a table entry a symbol (at most the LUT stack), the bit column
-    of every used snapshot slot and one past, k and sub of the matched
-    slot, the entries and the merged rows."""
-    import torch
-    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
-    ent, snap, merged = (r[k].to(torch.int64)
-                         for k in ("ent", "snap", "merged"))
-    if not bool(merged[:, 0].all()):
-        raise AssertionError("spec_merge: a lane did not meet a snapshot")
-    rows = torch.arange(ent.shape[0], device=ent.device)
-    target = snap[rows, merged[:, 1], 0]
-    tabs = jed._spec_tables(st.u32win, st.luts, st.comp_of_sub,
-                            st.tclass_of_sub)
-    bit, k, sub = ent[:, 0].clone(), ent[:, 1].clone(), ent[:, 2].clone()
-    blk = torch.zeros_like(bit)
-    dcs = torch.zeros((bit.shape[0], 3), dtype=torch.int64,
-                      device=bit.device)
-    steps = torch.zeros_like(bit)
-    while bool((bit < target).any()):
-        active = bit < target
-        bit, k, sub, blk, dcs = jed._advance(tabs, st.bpm, active, bit, k,
-                                             sub, blk, dcs)
-        steps += active
-    if not torch.equal(bit, target):
-        raise AssertionError("spec_merge: a replayed walk passed its match")
-    symbols = int(steps.sum())
-    scan_bytes = int(((target - ent[:, 0] + 7) // 8 + 4).sum())
-    used = (snap[..., 0] != -1).sum(dim=1)
-    snap_bytes = int((4 * torch.clamp(used + 1, max=jed.SNAP) + 8).sum())
-    nbytes = scan_bytes + min(4 * symbols, lut_bytes) + snap_bytes \
-        + 12 * ent.shape[0] + 24 * ent.shape[0]
-    return {"symbols": symbols, "longest": int(steps.max()),
-            "scan_bytes": scan_bytes, "snap_bytes": snap_bytes,
-            "bytes": nbytes}
-
-
 def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
     """The device Huffman decode: K9, K10 and K11 against their plain
     versions on the card (``testing.entropy_cases`` and the path shapes)
@@ -1364,7 +1327,7 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
     ss = rs["staged"]
     nl = rs["L"]
     spec_symbols = int(rs["steps"].sum())
-    merge = merge_work(ss, rs, lut_bytes)
+    merge = testing.merge_work(ss, rs, lut_bytes)
     # the fast table's hits on the walks K9 and K10 make, replayed with
     # the plain step: K9's lanes their symbol counts from (bit0, k = 0,
     # sub = 0), K10's chunks to their exits
@@ -1437,6 +1400,8 @@ def entropy_paths(dev, jpegs, plain_out, floor_ms: float, errs: dict):
         fast_table_smem_bytes_requested=4 * (4 << jed.FAST_BITS),
         merge_symbols=merge["symbols"],
         merge_longest_lane_symbols=merge["longest"],
+        k11_ns_per_symbol_longest_walk=
+        f"{timed['spec_merge']['ms'] * 1e6 / merge['longest']:.1f}",
         merge_scan_bytes=merge["scan_bytes"],
         merge_snapshot_bytes=merge["snap_bytes"],
         merge_bytes=merge["bytes"])
@@ -1755,25 +1720,28 @@ def wavefront_paths(dev, floor_ms: float, errs: dict):
             k18_twice(*t, wf.vp8_wavefront_plain(*t))
             exact("vp8_wavefront", cuda_vp8.vp8_wavefront(*t).cpu(),
                   torch.from_numpy(inp["Y"]), errs)
-    # more rows than the card holds CTAs at once (132 SMs x 8 of 256
-    # threads): later rows start only when earlier CTAs take a second
-    # ticket or finish; against the host luma (the plain version would
-    # walk 2,401 diagonals)
+    # tall grids against the host luma (the plain version would walk
+    # thousands of diagonals): 1200 x 2, and 9000 x 2, more row groups
+    # than the card holds CTAs at once (132 SMs x at most 16 CTAs of 128
+    # threads), so later rows start only when earlier CTAs take a second
+    # ticket or finish
     rng = np.random.default_rng(7)
-    tall = (1200, 2)
-    t_res = rng.integers(-300, 301, (*tall, 16, 4, 4)).astype(np.int32)
-    t_ym = rng.integers(0, 5, tall).astype(np.int32)
-    t_bm = rng.integers(0, 10, (*tall, 16)).astype(np.int32)
-    r24 = np.zeros((*tall, 24, 4, 4), np.int16)
-    r24[:, :, :16] = t_res
-    t_y = np.zeros((16 * tall[0], 16 * tall[1]), np.uint8)
-    t_uv = [np.zeros((8 * tall[0], 8 * tall[1]), np.uint8) for _ in "uv"]
-    native.vp8_recon(t_y, *t_uv, r24, t_ym, t_bm, np.zeros(tall, np.int32),
-                     *tall)
-    exact("vp8_wavefront", cuda_vp8.vp8_wavefront(*to(t_res, t_ym, t_bm))
-          .cpu(), torch.from_numpy(t_y), errs)
+    talls = ((1200, 2), (9000, 2))
+    for tall in talls:
+        t_res = rng.integers(-300, 301, (*tall, 16, 4, 4)).astype(np.int32)
+        t_ym = rng.integers(0, 5, tall).astype(np.int32)
+        t_bm = rng.integers(0, 10, (*tall, 16)).astype(np.int32)
+        r24 = np.zeros((*tall, 24, 4, 4), np.int16)
+        r24[:, :, :16] = t_res
+        t_y = np.zeros((16 * tall[0], 16 * tall[1]), np.uint8)
+        t_uv = [np.zeros((8 * tall[0], 8 * tall[1]), np.uint8) for _ in "uv"]
+        native.vp8_recon(t_y, *t_uv, r24, t_ym, t_bm,
+                         np.zeros(tall, np.int32), *tall)
+        exact("vp8_wavefront", cuda_vp8.vp8_wavefront(
+            *to(t_res, t_ym, t_bm)).cpu(), torch.from_numpy(t_y), errs)
     log("check K18", vp8_wavefront="exact", cases=",".join(cases),
-        tall=f"{tall[1]}x{tall[0]} against the host luma",
+        tall=",".join(f"{w}x{h}" for h, w in talls) + " against the host "
+        "luma",
         fixtures=",".join(frames), launched_twice="exact",
         host_vp8_recon="exact",
         bpred_mbs=json.dumps({k: int((f["ymode"] == 4).sum())
@@ -1831,6 +1799,29 @@ def wavefront_paths(dev, floor_ms: float, errs: dict):
     small = frames["lossy_512.webp:0"]
     r5, y5, b5 = to(small["residual"], small["ymode"], small["bmodes"])
     e["ms_512"] = gpu_ms(lambda: cuda_vp8.vp8_wavefront(r5, y5, b5), 50)
+    # the chain: T = S c + R L over S = 2 (mbh - 1) + mbw MB steps, R = mbh
+    # - 1 of them row hand-offs; c an MB step's cost, from one-row frames
+    # (no row waits on another) of 120 MBs, all B_PRED or all 16x16, mixed
+    # by the frame's share of B_PRED MBs; L what the rest implies
+    # (the log line's alone: derived, not measured, so not in the entry)
+    rng = np.random.default_rng(18)
+    chain = {}
+    for kind in ("bpred", "16x16"):
+        ym1 = (np.full((1, 120), 4) if kind == "bpred"
+               else rng.integers(0, 4, (1, 120))).astype(np.int32)
+        one = to(rng.integers(-300, 301, (1, 120, 16, 4, 4)).astype(np.int32),
+                 ym1, rng.integers(0, 10, (1, 120, 16)).astype(np.int32))
+        exact("vp8_wavefront", cuda_vp8.vp8_wavefront(*one),
+              wf.vp8_wavefront_plain(*one), errs)
+        chain[f"c_{kind}_us"] = gpu_ms(
+            lambda: cuda_vp8.vp8_wavefront(*one), 50) * 1e3 / 120
+    for tag, f, ms in (("1080p", inp, e["ms"]), ("512", small, e["ms_512"])):
+        fh, fw = f["mb"]
+        share = float((f["ymode"] == 4).mean())
+        c = share * chain["c_bpred_us"] + (1 - share) * chain["c_16x16_us"]
+        chain[f"bpred_share_{tag}"] = share
+        chain[f"ms_per_chain_step_{tag}"] = ms / (2 * (fh - 1) + fw)
+        chain[f"L_us_{tag}"] = (ms * 1e3 - (2 * (fh - 1) + fw) * c) / (fh - 1)
 
     def host():
         Y = np.zeros((16 * mbh, 16 * mbw), np.uint8)
@@ -1849,6 +1840,13 @@ def wavefront_paths(dev, floor_ms: float, errs: dict):
         ms_512=f"{e['ms_512']:.4f}", chain_steps=steps,
         chain_steps_512=2 * (small["mb"][0] - 1) + small["mb"][1],
         ms_per_chain_step=f"{e['ms'] / steps:.5f}",
+        ms_per_chain_step_512=f"{chain['ms_per_chain_step_512']:.5f}",
+        c_bpred_us=f"{chain['c_bpred_us']:.4f}",
+        c_16x16_us=f"{chain['c_16x16_us']:.4f}",
+        bpred_share=f"{chain['bpred_share_1080p']:.4f}",
+        bpred_share_512=f"{chain['bpred_share_512']:.4f}",
+        L_us=f"{chain['L_us_1080p']:.4f}",
+        L_us_512=f"{chain['L_us_512']:.4f}",
         bound_ms=f"{e['bound_ms']:.4f}", plain_ms=f"{e['plain_ms']:.1f}",
         host_vp8_recon_ms=f"{e['host_vp8_recon_ms']:.4f}",
         host_vp8_recon_ms_runs=json.dumps([round(w, 4) for w in walls])

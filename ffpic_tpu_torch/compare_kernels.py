@@ -1,0 +1,446 @@
+"""Time named kernels of this tree beside those of an older checkout, on
+one NVIDIA GPU.
+
+    python3 -m ffpic_tpu_torch.compare_kernels --parent DIR \
+        [--kernels k18,entropy,vp8] [--rounds 1]
+    python3 -m ffpic_tpu_torch.compare_kernels --tree DIR [--kernels ...]
+
+``DIR`` holds an older checkout of the repository, e.g. the parent
+commit unpacked from ``git archive`` into a directory that
+``.gitignore`` lists.  Each round runs this file on the older tree,
+this tree, this tree and the older tree in turn, each in a fresh process
+that imports that tree's package alone and builds its kernels (nvcc,
+into that tree's ``ffpic_tpu_torch/build/``).  A run makes the same
+inputs from a seed (or the committed fixtures), checks each kernel's
+output, and times the groups that ``--kernels`` names (all of them by
+default):
+
+* ``k7``: K7 for every (colour type, bit depth) at 1920x1080, its rows
+  contiguous and at a pitch of the stride + 1 bytes, warm and with L2
+  flushed, each against its plain version; a device copy of the 8-bit
+  RGBA rows (K7's function there) beside it;
+* ``k14``: K14 over the 12 MP HEIF fixture's 48 tiles, a launch a tile
+  (48 in a row, each tile staged alone) and one launch over all of
+  them, against the plain version; ``load`` of the fixture by the host
+  route and under ``FFPIC_HEVC_DEVICE`` (median of 5, host clock, with
+  the ``hevc.*`` spans);
+* ``k18``: K18 on the 1080p lossy fixture's frame (warm and L2
+  flushed) and the 512x512 one, each equal to the host ``vp8_recon``
+  luma; one-row frames (``mbh = 1``: no row waits on another) of 120 and
+  60 macroblocks, all B_PRED or all 16x16, each against the plain
+  version.  From them the cost c of one macroblock step
+  (``c_*_us``: the 120-MB row's time over 120, and ``c_*_diff_us``: the
+  difference of the two rows over 60, without the launch), and the
+  hand-off latency L implied at 1080p: T = S c + R L, with S = 2 (mbh -
+  1) + mbw macroblock steps on the longest path, R = mbh - 1 of them row
+  hand-offs, and c the frame's mix of the two costs by its share of
+  B_PRED macroblocks; and ``L_path_us``, the L for which the longest
+  path through the frame's macroblock graph, each macroblock weighted
+  by its own mode's c and each row hand-off by L (``path_us``), takes
+  the measured time (absent where even L = 0 takes longer;
+  ``path_L0_us`` is that path's time at L = 0);
+* ``entropy``: K9 on the 8 x 1080p DRI batch, K10 and K11 on its
+  DRI-less files (4 KB chunks), warm and L2 flushed; K11 against its
+  plain version (its ns a symbol: ``chip_smoke.py``'s ``[time entropy
+  kernels]``);
+* ``vp8``: K12 on the 1080p frame's levels and K13 on 1080p planes,
+  warm and L2 flushed, each against its plain version.
+
+Each run prints one ``RESULT`` JSON line; the rounds end with a table of
+each number's median per tree, and the card's name and power limit.
+Needs CUDA and nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+H, W = 1080, 1920
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUPS = ("k7", "k14", "k18", "entropy", "vp8")
+KERNELS = {"k7": ("assemble_rgba",), "k14": ("hevc_residuals",),
+           "k18": ("vp8_wavefront",),
+           "entropy": ("entropy_decode", "spec_scan", "spec_merge"),
+           "vp8": ("vp8_residuals", "vp8_yuv_to_rgba")}
+
+
+def _timed(fn, flush, warm: int = 50, cold: int = 20) -> dict:
+    from ffpic_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
+    return {"ms": gpu_ms(fn, warm), "ms_cold": gpu_ms_cold(fn, cold, flush)}
+
+
+def _k14_launch(hk, cuda_hevc, parts, bd, dev):
+    """A launch of ``parts`` ((tu_meta, levels) of one or more tiles) as
+    ``hevc_kernels.residuals_grid`` stages it."""
+    import numpy as np
+    import torch
+    meta = np.concatenate([m for m, _ in parts])
+    lv_d, plan, _ = hk.stage_residuals(parts, dev)
+    return (lambda: cuda_hevc.hevc_residuals(lv_d, bd, *plan)), \
+        torch.from_numpy(meta).to(dev), lv_d
+
+
+def _k7(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch.ops import cuda_png
+    from ffpic_tpu_torch.ops import png_kernels as pk
+    rng = np.random.default_rng(12)
+    out = {}
+    for ct, depths in pk.LEGAL.items():
+        for bd in depths:
+            stride = (W * pk.NCH[ct] * bd + 7) // 8
+            rec = torch.from_numpy(rng.integers(0, 256, (H, stride),
+                                                dtype=np.uint8)).to(dev)
+            pal = rng.integers(0, 256, (256, 4)).astype(np.uint8)
+            key = np.full(256, -1, np.int32)
+            if ct == 3:
+                key[:100] = rng.integers(0, 256, 100)
+            elif ct in (0, 2):
+                key[:pk.NCH[ct]] = pk.unpack_samples(
+                    rec[:1].cpu(), bd, pk.NCH[ct])[0].numpy()
+            wide = torch.zeros((H, stride + 1), dtype=torch.uint8, device=dev)
+            wide[:, :stride] = rec
+            for layout, r in (("contiguous", rec),
+                              ("pitch+1", wide[:, :stride])):
+                def fn(r=r, pal=pal, key=key, ct=ct, bd=bd):
+                    return cuda_png.assemble_rgba(r, pal, key, ct, bd, W, H)
+                if not torch.equal(fn(), pk.expand_rgba(r, pal, key, ct, bd,
+                                                        W, H)):
+                    raise AssertionError(f"K7 <{ct},{bd}> {layout} differs "
+                                         "from its plain version")
+                t = _timed(fn, flush)
+                out[f"<{ct},{bd}> {layout} ms"] = t["ms"]
+                out[f"<{ct},{bd}> {layout} ms_cold"] = t["ms_cold"]
+            if (ct, bd) == (6, 8):
+                t = _timed(lambda rec=rec: rec.clone().view(H, W, 4), flush)
+                out["device copy <6,8> contiguous ms"] = t["ms"]
+                out["device copy <6,8> contiguous ms_cold"] = t["ms_cold"]
+    return out
+
+
+def _k14(dev, flush) -> dict:
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import heif
+    from ffpic_tpu_torch.ops import cuda_hevc
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    from ffpic_tpu_torch.utils import trace
+    data = testing.heif_fixture()
+    s = heif.parse_structure(data)
+    tiles = [t for r, f, tos in s["refs"] if r == "dimg" for t in tos]
+    tus = [testing.heif_tile_tus(data, t, s) for t in tiles]
+    bd = tus[0][2]
+    per_tile = [_k14_launch(hk, cuda_hevc, [(m, lv)], bd, dev)[0]
+                for m, lv, _ in tus]
+    one, m_d, lv_d = _k14_launch(hk, cuda_hevc,
+                                 [(m, lv) for m, lv, _ in tus], bd, dev)
+    if not torch.equal(one(), hk.hevc_residuals_plain(m_d, lv_d, bd)):
+        raise AssertionError("K14 over the 48 tiles differs from its plain "
+                             "version")
+
+    def tiles48():
+        for fn in per_tile:
+            fn()
+    out = {}
+    for name, fn, warm, cold in (("48 launches", tiles48, 2, 5),
+                                 ("one launch", one, 20, 10)):
+        t = _timed(fn, flush, warm, cold)
+        out[f"{name} ms"] = t["ms"]
+        out[f"{name} ms_cold"] = t["ms_cold"]
+    del per_tile, one, m_d, lv_d
+
+    mp = 4032 * 3024 / 1e6
+    for route, env in (("host", {}), ("hevc_device",
+                                      {"FFPIC_HEVC_DEVICE": "1"})):
+        saved = {k: os.environ.pop(k, None) for k in
+                 ("FFPIC_HEVC_DEVICE", "FFPIC_HEIF_DEVICE_COLOR")}
+        os.environ.update(env)
+        try:
+            ffpic_tpu_torch.load(data)
+            trace.reset()
+            trace.enable()
+            walls = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                ffpic_tpu_torch.load(data)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            trace.enable(False)
+            spans = trace.report()
+        finally:
+            for k in env:
+                os.environ.pop(k)
+            os.environ.update({k: v for k, v in saved.items() if v})
+        wall = statistics.median(walls)
+        out[f"load {route} ms"] = wall * 1e3
+        out[f"load {route} mps"] = mp / wall
+        for span, v in spans.items():
+            out[f"load {route} {span} ms"] = v["mean"] * 1e3
+    return out
+
+
+def path_us(ymode, c_bpred: float, c_16x16: float, hand_off: float) -> float:
+    """The longest path through a frame's macroblock graph: MB (y, x)
+    after (y, x - 1) and after (y - 1, min(x + 1, mbw - 1)) plus a row
+    hand-off, each MB weighted by its mode's step cost."""
+    mbh, mbw = ymode.shape
+    above = [0.0] * mbw
+    for y in range(mbh):
+        row, done = [0.0] * mbw, 0.0
+        for x in range(mbw):
+            start = done
+            if y:
+                start = max(start, above[min(x + 1, mbw - 1)] + hand_off)
+            done = start + (c_bpred if ymode[y, x] == 4 else c_16x16)
+            row[x] = done
+        above = row
+    return above[-1]
+
+
+def path_hand_off(ymode, c_bpred: float, c_16x16: float, t_us: float):
+    """The hand-off L for which ``path_us`` takes t_us, or None where
+    even L = 0 takes longer."""
+    lo, hi = 0.0, t_us
+    if path_us(ymode, c_bpred, c_16x16, lo) > t_us:
+        return None
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        if path_us(ymode, c_bpred, c_16x16, mid) > t_us:
+            hi = mid
+        else:
+            lo = mid
+    return lo
+
+
+def _k18(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import cuda_vp8
+    from ffpic_tpu_torch.ops import vp8_wavefront as wf
+    from ffpic_tpu_torch.utils.timing import gpu_ms
+
+    def to(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    out = {}
+    big = small = None
+    for name in ("lossy_1080p.webp", "lossy_512.webp"):
+        inp = testing.wavefront_inputs(name)
+        t = to(inp["residual"], inp["ymode"], inp["bmodes"])
+        if not torch.equal(cuda_vp8.vp8_wavefront(*t).cpu(),
+                           torch.from_numpy(inp["Y"])):
+            raise AssertionError(f"K18 on {name} differs from the host luma")
+        if big is None:
+            big, big_t = inp, t
+        else:
+            small, small_t = inp, t
+    t = _timed(lambda: cuda_vp8.vp8_wavefront(*big_t), flush)
+    out["1080p ms"], out["1080p ms_cold"] = t["ms"], t["ms_cold"]
+    out["512 ms"] = gpu_ms(lambda: cuda_vp8.vp8_wavefront(*small_t), 50)
+
+    rng = np.random.default_rng(18)
+    rows = {}
+    for kind in ("bpred", "16x16"):
+        for mbw in (120, 60):
+            res = rng.integers(-300, 301, (1, mbw, 16, 4, 4)).astype(np.int32)
+            ym = (np.full((1, mbw), 4) if kind == "bpred"
+                  else rng.integers(0, 4, (1, mbw))).astype(np.int32)
+            bm = rng.integers(0, 10, (1, mbw, 16)).astype(np.int32)
+            r = to(res, ym, bm)
+            if not torch.equal(cuda_vp8.vp8_wavefront(*r),
+                               wf.vp8_wavefront_plain(*r)):
+                raise AssertionError(f"K18 on a {kind} row of {mbw} differs "
+                                     "from its plain version")
+            rows[kind, mbw] = ms = gpu_ms(
+                lambda r=r: cuda_vp8.vp8_wavefront(*r), 50)
+            out[f"row {kind} x{mbw} ms"] = ms
+        out[f"c_{kind}_us"] = rows[kind, 120] * 1e3 / 120
+        out[f"c_{kind}_diff_us"] = (rows[kind, 120] - rows[kind, 60]) \
+            * 1e3 / 60
+    for name, inp, ms in (("1080p", big, out["1080p ms"]),
+                          ("512", small, out["512 ms"])):
+        mbh, mbw = inp["mb"]
+        steps, handoffs = 2 * (mbh - 1) + mbw, mbh - 1
+        f = float((inp["ymode"] == 4).mean())
+        out[f"{name} bpred_share"] = f
+        out[f"{name} us_per_chain_step"] = ms * 1e3 / steps
+        for how in ("", "_diff"):
+            c = f * out[f"c_bpred{how}_us"] + (1 - f) * out[f"c_16x16{how}_us"]
+            out[f"{name} L{how}_us"] = (ms * 1e3 - steps * c) / handoffs
+        out[f"{name} path_L0_us"] = path_us(inp["ymode"], out["c_bpred_us"],
+                                            out["c_16x16_us"], 0.0)
+        hand_off = path_hand_off(inp["ymode"], out["c_bpred_us"],
+                                 out["c_16x16_us"], ms * 1e3)
+        if hand_off is not None:
+            out[f"{name} L_path_us"] = hand_off
+    return out
+
+
+def _entropy(dev, flush) -> dict:
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+    dri = [testing.encode_jpeg(testing.synth_rgb(H, W, k + 1), q,
+                               restart_interval=W // 16)
+           for k, q in ((0, 85), (1, 95))]
+    jpegs = [testing.synth_jpeg_420(H, W, 85, 1),
+             testing.synth_jpeg_420(H, W, 95, 2)]
+    dri_srcs = [dri[k % 2] for k in range(8)]
+    spec_srcs = [jpegs[k % 2] for k in range(8)]
+    js8 = [jpg.parse_and_decode(d, skip_decode=True)[0] for d in dri_srcs]
+    st, lanes, plan, out_size, _off = jed.stage_dri(dri_srcs, js8, dev)
+    rs = jed.spec_stages(spec_srcs, 4096, device=dev)
+    ss = rs["staged"]
+    if not bool(rs["ok"]):
+        raise AssertionError("the spec batch did not self-synchronise")
+    if not torch.equal(jed.spec_merge(ss, rs["ent"], rs["snap"]),
+                       jed.spec_merge_plain(ss, rs["ent"], rs["snap"])):
+        raise AssertionError("K11 differs from its plain version")
+    out = {}
+    for name, fn in (
+            ("K9 dri batch", lambda: jed.decode_lanes(st, lanes, plan,
+                                                      out_size)),
+            ("K10 spec batch", lambda: jed.spec_scan(ss, rs["chunks"])),
+            ("K11 spec batch", lambda: jed.spec_merge(ss, rs["ent"],
+                                                      rs["snap"]))):
+        t = _timed(fn, flush)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+    return out
+
+
+def _vp8(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import cuda_vp8
+    from ffpic_tpu_torch.ops import vp8_kernels as vk
+    inp = testing.wavefront_inputs("lossy_1080p.webp")
+    lv, dq, hy = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (inp["levels"], inp["dq_per_mb"], inp["has_y2"]))
+    if not torch.equal(cuda_vp8.vp8_residuals(lv, dq, hy),
+                       vk.vp8_residuals_plain(lv, dq, hy)):
+        raise AssertionError("K12 differs from its plain version")
+    rng = np.random.default_rng(13)
+    planes = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
+              .to(dev) for s in ((1088, 1920), (544, 960), (544, 960))]
+    if not torch.equal(cuda_vp8.vp8_yuv_to_rgba(*planes, H, W),
+                       vk.vp8_yuv_to_rgba_plain(*planes, H, W)):
+        raise AssertionError("K13 differs from its plain version")
+    out = {}
+    for name, fn in (("K12 1080p", lambda: cuda_vp8.vp8_residuals(lv, dq,
+                                                                  hy)),
+                     ("K13 1080p", lambda: cuda_vp8.vp8_yuv_to_rgba(
+                         *planes, H, W))):
+        t = _timed(fn, flush)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+    return out
+
+
+def run(tree: str, groups) -> dict:
+    """One tree's numbers (see the module's docstring)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != here]
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch.ops import _build
+    pkg = os.path.dirname(os.path.abspath(ffpic_tpu_torch.__file__))
+    if pkg != os.path.join(os.path.abspath(tree), "ffpic_tpu_torch"):
+        raise RuntimeError(f"imported {pkg}, not the tree's package")
+    t0 = time.perf_counter()
+    so = _build.library_path()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    names = tuple(k for g in groups for k in KERNELS[g])
+    with open(so[:-3] + ".log") as f:
+        lines = [ln.strip() for ln in f if "Used" in ln or "Compiling" in ln]
+    ptxas = [ln for k, ln in enumerate(lines)
+             if any(n + "_kernel" in ln or
+                    (k and "Compiling" in lines[k - 1] and
+                     n + "_kernel" in lines[k - 1]) for n in names)]
+    dev = torch.device("cuda")
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    run_group = {"k7": _k7, "k14": _k14, "k18": _k18, "entropy": _entropy,
+                 "vp8": _vp8}
+    return {"tree": os.path.abspath(tree), "build_s": build_s,
+            "ptxas": ptxas,
+            "groups": {g: run_group[g](dev, flush) for g in groups}}
+
+
+def _rows(result: dict) -> dict:
+    return {f"{g} {k}": v for g, nums in result["groups"].items()
+            for k, v in nums.items()}
+
+
+def _one(tree: str, kernels: str) -> dict:
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
+                        tree, "--kernels", kernels], capture_output=True,
+                       text=True, timeout=900)
+    sys.stderr.write(r.stderr[-4000:])
+    if r.returncode != 0:
+        raise RuntimeError(f"run on {tree} failed ({r.returncode})")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    print(line, flush=True)
+    return json.loads(line[len("RESULT "):])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="an older checkout to compare with")
+    ap.add_argument("--tree", help="time this checkout alone (one run)")
+    ap.add_argument("--kernels", default=",".join(GROUPS),
+                    help=f"groups to time, of {','.join(GROUPS)}")
+    ap.add_argument("--rounds", type=int, default=1)
+    a = ap.parse_args()
+    groups = [g for g in a.kernels.split(",") if g]
+    if not groups or set(groups) - set(GROUPS):
+        ap.error(f"--kernels: name groups of {','.join(GROUPS)}")
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_kernels: CUDA is not available", file=sys.stderr)
+        return 1
+    if a.tree:
+        print("RESULT " + json.dumps(run(a.tree, groups)), flush=True)
+        return 0
+    if not a.parent:
+        ap.error("give --parent DIR or --tree DIR")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    got, ptxas = {"parent": [], "change": []}, {}
+    for _ in range(a.rounds):
+        for who, tree in (("parent", a.parent), ("change", HERE),
+                          ("change", HERE), ("parent", a.parent)):
+            result = _one(tree, ",".join(groups))
+            ptxas.setdefault(who, result["ptxas"])
+            got[who].append(_rows(result))
+    for who, lines in ptxas.items():
+        for ln in lines:
+            print(f"[ptxas {who}] {ln}")
+    med = {who: {k: statistics.median(r[k] for r in runs if k in r)
+                 for k in {k for r in runs for k in r}}
+           for who, runs in got.items()}
+    print(f"{'number':58s} {'parent':>10s} {'change':>10s} {'ratio':>7s}")
+    for k in sorted(med["parent"].keys() | med["change"].keys()):
+        p, c = med["parent"].get(k), med["change"].get(k)
+        cells = ["-" if v is None else f"{v:.4f}" for v in (p, c)]
+        ratio = f"{c / p:7.3f}" if p and c is not None else ""
+        print(f"{k:58s} {cells[0]:>10s} {cells[1]:>10s} {ratio}")
+    print("SUMMARY " + json.dumps({"device": smi, "median": med}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,7 +18,7 @@
 //                       recording every 8th boundary state on the way;
 //                       replaces spec_snap_lanes (:424) and
 //                       spec_scan_lanes (:374)
-//   K11 spec_merge      one thread per chunk: the walk from the
+//   K11 spec_merge      one thread per chunk: K10's walk from the
 //                       predecessor's exit until it meets a recorded
 //                       boundary of its own chunk; replaces
 //                       spec_merge_lanes (:490)
@@ -73,8 +73,13 @@
 //   and the launch fails). Few lanes a warp diverge little, and a warp has an SM scheduler to itself. K10
 //   takes one group, and any kSpecLanes chunks make a CTA.
 //
-// K11 keeps the plain chain (window and table entry from global memory
-// for every symbol, lookup and spec_step below); its walks are short.
+// K11 walks as K10 does (its SpecLane step) from another entry, the true
+// one, and compares the state before each symbol with the one snapshot
+// slot that can match it, whose (bit, k, sub) it holds in registers with
+// the next slot's loaded ahead (SnapCursor): no step waits on global
+// memory but for a miss of the fast table. Two chunks make a CTA (its
+// other threads only help copy the fast tables in): its walks are short,
+// and fewer lanes a warp diverge less.
 //
 // Every step follows ffpic_tpu/ops/jpeg_entropy_device.py exactly: a
 // window index past the bytes is clamped to the last byte, as a JAX
@@ -83,8 +88,7 @@
 // value wraps to int16 (stored through uint32); the block map is read
 // at clip(bmap_base + blk, 0, len - 1). A lane writes only what it
 // emits: the reference's dump slot receives garbage no result reads.
-// Table classes (tclass_of) are 0 or 1; K9 and K10 read a larger one as
-// 1.
+// Table classes (tclass_of) are 0 or 1; K9-K11 read a larger one as 1.
 //
 // Every launcher is extern "C", launches on the caller's stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
@@ -103,8 +107,11 @@ namespace {
 #define FFPIC_SPEC_LANES 8
 #endif
 
-constexpr int kLaneThreads = 32;   // K9 and K11: a warp per block
+constexpr int kLaneThreads = 32;   // K9: a warp per block
 constexpr int kSpecLanes = FFPIC_SPEC_LANES;   // K10: chunks a CTA
+constexpr int kMergeLanes = 2;     // K11: chunks a CTA
+constexpr int kMergeThreads = 128;  // K11: its CTA, to copy the fast tables
+static_assert(kMergeLanes <= kMergeThreads, "a K11 CTA walks kMergeLanes");
 constexpr int kLaneCols = 12;      // jpeg_entropy_device.LANE_COLS
 constexpr int kSnap = 256;         // jpeg_entropy_device.SNAP
 constexpr int kSnapStride = 8;     // jpeg_entropy_device.SNAP_STRIDE
@@ -134,9 +141,8 @@ __device__ __forceinline__ uint32_t window(const uint32_t* __restrict__ words,
                      (a << 12) | ((a + 1) << 8) | ((a + 2) << 4) | (a + 3));
 }
 
-// One table lookup at `bit` in table `tbl` and what follows from it, as
-// the reference's loop bodies compute it: K11's, through global memory
-// (K9 and K10 take fast_lookup below).
+// One table lookup and what follows from it, as the reference's loop
+// bodies compute it (fast_lookup below).
 struct Symbol {
   uint32_t e;     // the entry; 0 = invalid code
   int consume;    // bits of the code (and of a combined magnitude)
@@ -147,75 +153,14 @@ struct Symbol {
   int ext;        // the spilled magnitude EXTENDed (0 unless is_code)
 };
 
-__device__ __forceinline__ Symbol lookup(const uint32_t* __restrict__ words,
-                                         int nbytes,
-                                         const uint32_t* __restrict__ lut,
-                                         int tbl, int bit, bool is_dc) {
-  Symbol y;
-  const uint32_t w = window(words, nbytes, bit);
-  const int win16 = (int)((w >> (16 - (bit & 7))) & 0xFFFFu);
-  y.e = __ldg(lut + (size_t)tbl * 65536 + win16);
-  y.consume = (int)(y.e >> 24);
-  y.flags = (int)((y.e >> 16) & 0xFF);
-  const int v16 = (int)(y.e & 0xFFFF);
-  y.val = v16 - 2 * (v16 & 0x8000);
-  y.is_code = y.flags == kRunCode;
-  y.r_sp = is_dc ? 0 : (y.val >> 4);
-  y.sz_sp = is_dc ? y.val : (y.val & 15);
-  y.ext = 0;
-  if (y.is_code && y.sz_sp > 0) {
-    const int pos2 = bit + y.consume;
-    const uint32_t w2 = window(words, nbytes, pos2);
-    const int szu = clampi(y.sz_sp, 1, 16);
-    const int mag = (int)((w2 >> (32 - (pos2 & 7) - szu)) &
-                          ((1u << szu) - 1u));
-    y.ext = mag < (1 << clampi(y.sz_sp - 1, 0, 15))
-                ? mag - (1 << clampi(y.sz_sp, 0, 16)) + 1
-                : mag;
-  }
-  return y;
-}
-
 // A speculative lane's state: the reference's _spec_symbol_step and the
-// masked updates of its scan, snapshot and merge loops (K11's step; K10
-// inlines the same step on fast_lookup).
+// masked updates of its scan, snapshot and merge loops.
 struct SpecState {
   int bit, k, sub, blk;
   uint32_t dc[3];
 };
 
-__device__ __forceinline__ void spec_step(
-    const uint32_t* __restrict__ words, int nbytes,
-    const uint32_t* __restrict__ lut, const int32_t* __restrict__ comp_of,
-    const int32_t* __restrict__ tclass_of, int bpm, SpecState& s) {
-  const bool is_dc = s.k == 0;
-  const int subc = clampi(s.sub, 0, bpm - 1);
-  const Symbol y = lookup(words, nbytes, lut,
-                          __ldg(tclass_of + subc) * 2 + (is_dc ? 0 : 1),
-                          s.bit, is_dc);
-  const bool invalid = y.e == 0;
-  const int adv = invalid ? 1 : y.consume + (y.is_code ? y.sz_sp : 0);
-  if (is_dc && !invalid) {
-    const int comp = clampi(__ldg(comp_of + subc), 0, 2);
-    s.dc[comp] += (uint32_t)(y.is_code ? y.ext : y.val);
-  }
-  const bool is_comb = y.flags < 64;
-  const int run = is_comb ? y.flags : y.r_sp;
-  const int kk = s.k + run;
-  int k_next = is_dc ? 1 : (y.flags == kRunZrl ? s.k + 16 : kk + 1);
-  const bool block_end =
-      !is_dc && (y.flags == kRunEob || k_next > 63) && !invalid;
-  if (block_end) k_next = 0;
-  if (invalid) k_next = s.k;
-  int sub_next = block_end ? s.sub + 1 : s.sub;
-  if (sub_next >= bpm) sub_next = 0;
-  s.bit += adv;
-  s.k = k_next;
-  s.sub = sub_next;
-  s.blk += block_end;
-}
-
-// --- K9 and K10: the fast table and the register window -------------------
+// --- K9-K11: the fast table and the register window -----------------------
 
 // Word i of the staged bytes as stored: 0 before them (never read for a
 // window inside the bytes), word wlast past it (read only for windows
@@ -331,9 +276,10 @@ __device__ __forceinline__ uint32_t fast_entry(uint32_t sfast, int tbl,
                                  (win16 >> (16 - kFastBits)));
 }
 
-// lookup() from a fast-table entry `e` (the global table `lut` on a miss)
-// and the register window. Unchecked, the magnitude is formed for every
-// symbol, without a branch, and kept for a spill only.
+// The symbol of window win16 in table tbl: the fast-table entry `e` (the
+// global table `lut` on a miss), with the register window. Unchecked, the
+// magnitude is formed for every symbol, without a branch, and kept for a
+// spill only.
 template <bool kChecked>
 __device__ __forceinline__ Symbol fast_lookup(const BitWindow& r, uint32_t e,
                                               const uint32_t* __restrict__ lut,
@@ -574,8 +520,8 @@ __global__ void __launch_bounds__(kLaneThreads)
   steps_out[lane] = step;
 }
 
-// A K10 chunk's walk: spec_step through the fast table and the register
-// window.
+// A K10 chunk's walk (and K11's): the speculative step through the fast
+// table and the register window.
 struct SpecLane {
   BitWindow r;
   SubBlock sb;
@@ -711,45 +657,131 @@ __global__ void __launch_bounds__(kSpecLanes)
   o[6] = (int32_t)ex.dc[2];
 }
 
+// K11's view of a lane's snapshots (K10's rows bit, k, sub, ... in slot
+// order, the used slots first, their bits strictly increasing, the rest
+// -1): slot p's (bit, k, sub) in registers, and slot p + 1's loaded while
+// the walk goes on, so that moving to it waits on nothing (nothing reads a
+// loaded value before the move that takes it). The slot only moves
+// forward; p == kSnap is past the last slot.
+struct SnapCursor {
+  const int32_t* __restrict__ rec;
+  int p, bit, k, sub;        // slot p
+  int nbit, nk, nsub;        // slot p + 1 (the last slot's past it)
+
+  __device__ __forceinline__ void load_next() {
+    const int32_t* o = rec + (size_t)min(p + 1, kSnap - 1) * kSnapCols;
+    nbit = __ldg(o);
+    nk = __ldg(o + 1);
+    nsub = __ldg(o + 2);
+  }
+
+  __device__ __forceinline__ void init(const int32_t* __restrict__ r) {
+    rec = r;
+    p = 0;
+    bit = __ldg(r);
+    k = __ldg(r + 1);
+    sub = __ldg(r + 2);
+    load_next();
+  }
+
+  // Slot p is a used one.
+  __device__ __forceinline__ bool used() const {
+    return p < kSnap && bit != -1;
+  }
+
+  // Move past the used slots whose bit lies below `at`.
+  __device__ __forceinline__ void seek(int at) {
+    while (used() && bit < at) {
+      bit = nbit;
+      k = nk;
+      sub = nsub;
+      ++p;
+      load_next();
+    }
+  }
+
+  // Past the last recorded bit: every used slot lies below `at` (none
+  // used: the reference's maximum bit is then -1).
+  __device__ __forceinline__ bool past(int at) const {
+    return !used() && (p > 0 || at > -1);
+  }
+};
+
+// The state of walk c after t symbols against the snapshots: true to
+// stop, with matched set on a match.
+__device__ __forceinline__ bool merge_check(SnapCursor& sc, const SpecLane& c,
+                                            int t, int& matched) {
+  sc.seek(c.bit);
+  if (sc.used() && sc.bit == c.bit && sc.k == c.k && sc.sub == c.sb.sub) {
+    matched = 1;
+    return true;
+  }
+  return sc.past(c.bit) || t > kMergeSteps;
+}
+
 // K11. Replaces spec_merge_lanes (:490): from the true entry (the
 // predecessor's exit), check the state against the lane's snapshots
 // before each symbol; stop at the first match, past the last recorded
 // bit, or after kMergeSteps symbols. The used slots are the first ones,
 // their bits strictly increasing (every symbol advances at least one
-// bit), so a pointer that only moves forward finds the one slot that can
+// bit), so a cursor that only moves forward finds the one slot that can
 // hold the state's bit: the same first match as the reference's argmax
-// over all slots. Output row: matched, midx, blocks, DC sums.
-__global__ void __launch_bounds__(kLaneThreads)
+// over all slots. The walk is K10's (SpecLane: the group's fast tables in
+// shared memory, the register window, the entry read one symbol ahead),
+// the slot to compare with in registers (SnapCursor), kMergeLanes chunks a
+// CTA, whose kMergeThreads threads all copy the fast tables first.
+// Output row: matched, midx, blocks, DC sums.
+__global__ void __launch_bounds__(kMergeThreads)
     spec_merge_kernel(const uint32_t* __restrict__ words, int nbytes,
                       const uint32_t* __restrict__ lut,
+                      const uint32_t* __restrict__ fast,
                       const int32_t* __restrict__ comp_of,
                       const int32_t* __restrict__ tclass_of, int bpm,
                       const int32_t* __restrict__ ent, int n_lanes,
                       const int32_t* __restrict__ snap,
                       int32_t* __restrict__ merged) {
-  const int lane = blockIdx.x * kLaneThreads + threadIdx.x;
-  if (lane >= n_lanes) return;
-  const int32_t* rec = snap + (size_t)lane * kSnap * kSnapCols;
-  int nused = 0;
-  while (nused < kSnap && rec[nused * kSnapCols] != -1) ++nused;
-  const int maxbit = nused ? rec[(nused - 1) * kSnapCols] : -1;
-  SpecState s = {ent[3 * lane], ent[3 * lane + 1], ent[3 * lane + 2], 0,
-                 {0u, 0u, 0u}};
-  int matched = 0, midx = 0, p = 0;
-  for (int t = 0;; ++t) {
-    while (p < nused && rec[p * kSnapCols] < s.bit) ++p;
-    if (p < nused && rec[p * kSnapCols] == s.bit &&
-        rec[p * kSnapCols + 1] == s.k && rec[p * kSnapCols + 2] == s.sub) {
-      matched = 1;
-      midx = p;
-      break;
+  extern __shared__ uint4 fast_smem[];
+  load_fast(fast_smem, fast, 0);
+  __syncthreads();
+  const int lane = blockIdx.x * kMergeLanes + threadIdx.x;
+  if (threadIdx.x >= kMergeLanes || lane >= n_lanes) return;
+  SnapCursor sc;
+  sc.init(snap + (size_t)lane * kSnap * kSnapCols);
+  SpecLane c;
+  c.lut = lut;
+  c.sfast = smem_addr(fast_smem);
+  c.bit = ent[3 * lane];
+  c.k = ent[3 * lane + 1];
+  c.blk = 0;
+  c.d0 = c.d1 = c.d2 = 0u;
+  c.r.init(words, nbytes, c.bit);
+  c.sb.init(comp_of, tclass_of, bpm, ent[3 * lane + 2]);
+  const unsigned fast_end = (unsigned)unchecked_end(nbytes);
+  int t = 0, matched = 0;
+  while (!merge_check(sc, c, t, matched)) {
+    if ((unsigned)c.bit < fast_end) {
+      // steps with no bounds to check, as K10's; the state can meet a
+      // snapshot, or pass the last, only once its bit reaches slot p's
+      c.read_ahead();
+      bool stop = false;
+      do {
+        c.step<false>();
+        ++t;
+        if (c.bit >= sc.bit || t > kMergeSteps) {
+          stop = merge_check(sc, c, t, matched);
+          if (stop) break;
+        }
+      } while ((unsigned)c.bit < fast_end && c.r.synced(c.bit));
+      if (stop) break;
+      if (!c.r.synced(c.bit)) c.r.seek(c.bit);
+    } else {
+      c.step<true>();
+      ++t;
     }
-    if (s.bit > maxbit || t > kMergeSteps) break;
-    spec_step(words, nbytes, lut, comp_of, tclass_of, bpm, s);
   }
   int32_t* o = merged + (size_t)lane * 6;
-  o[0] = matched; o[1] = midx; o[2] = s.blk;
-  o[3] = (int32_t)s.dc[0]; o[4] = (int32_t)s.dc[1]; o[5] = (int32_t)s.dc[2];
+  o[0] = matched; o[1] = matched ? sc.p : 0; o[2] = c.blk;
+  o[3] = (int32_t)c.d0; o[4] = (int32_t)c.d1; o[5] = (int32_t)c.d2;
 }
 
 // bit positions are int: 8 * nbytes and the padding must fit
@@ -828,19 +860,26 @@ int ffpic_spec_scan(const void* data, int nbytes, const void* lut,
   return (int)cudaGetLastError();
 }
 
-// ent: (n_lanes, 3) int32 bit, k, sub; merged (n_lanes, 6) int32
+// fast: the 4 fast tables of 2^fast_bits uint32 of the one group, 16-byte
+// aligned; ent: (n_lanes, 3) int32 bit, k, sub; snap (n_lanes, snap_slots,
+// 7) int32 as K10 writes it; merged (n_lanes, 6) int32
 int ffpic_spec_merge(const void* data, int nbytes, const void* lut,
-                     const void* comp_of, const void* tclass_of, int bpm,
-                     const void* ent, int n_lanes, const void* snap,
-                     int snap_slots, void* merged, void* stream) {
-  if (bad_common(data, nbytes, bpm, n_lanes) || snap_slots != kSnap)
+                     const void* fast, int fast_bits, const void* comp_of,
+                     const void* tclass_of, int bpm, const void* ent,
+                     int n_lanes, const void* snap, int snap_slots,
+                     void* merged, void* stream) {
+  if (bad_common(data, nbytes, bpm, n_lanes) || bpm > kMaxBpm ||
+      snap_slots != kSnap || fast_bits != kFastBits ||
+      ((uintptr_t)fast & 15))
     return (int)cudaErrorInvalidValue;
-  spec_merge_kernel<<<lane_blocks(n_lanes, kLaneThreads), kLaneThreads, 0,
-                      (cudaStream_t)stream>>>(
+  const cudaError_t err = allow_fast_smem(spec_merge_kernel);
+  if (err != cudaSuccess) return (int)err;
+  spec_merge_kernel<<<lane_blocks(n_lanes, kMergeLanes), kMergeThreads,
+                      kFastBytes, (cudaStream_t)stream>>>(
       (const uint32_t*)data, nbytes, (const uint32_t*)lut,
-      (const int32_t*)comp_of, (const int32_t*)tclass_of, bpm,
-      (const int32_t*)ent, n_lanes, (const int32_t*)snap,
-      (int32_t*)merged);
+      (const uint32_t*)fast, (const int32_t*)comp_of,
+      (const int32_t*)tclass_of, bpm, (const int32_t*)ent, n_lanes,
+      (const int32_t*)snap, (int32_t*)merged);
   return (int)cudaGetLastError();
 }
 

@@ -226,34 +226,58 @@ __global__ void __launch_bounds__(kQuadX * kQuadY)
 // each luma byte written once (256), 11.0 MB at 1920x1080, 0.0033 ms at
 // 3.35 TB/s; but the work is a chain: MB (my, mx) needs (my, mx - 1),
 // (my - 1, mx) and (my - 1, mx + 1), so at least 2 (mbh - 1) + mbw MB
-// steps run one after another (254 at 1080p), and inside a B_PRED MB 10
-// steps of 4x4 subblocks. What sets the time is the latency of one MB
-// step, not bytes or operations.
+// steps run one after another (254 at 1080p), mbh - 1 of them hand-offs
+// from one row to the next, and inside a B_PRED MB 10 steps of 4x4
+// subblocks. What sets the time is the longest path through that graph,
+// each MB weighted by its step's latency (c, a B_PRED MB's several times a
+// 16x16 one's) and each row hand-off by its own (L).
 //
-// Design (simple first): one launch a frame. A CTA of 256 threads owns
-// one MB row at a time, taken from a ticket counter (atomicAdd) when it
-// starts and again when it finishes, and walks the row left to right.
-// The card need not schedule CTAs in blockIdx order, so a row never waits
-// on a row that a CTA has not yet claimed: the row above is always held
-// by a CTA that is already running, and row 0 waits on nothing. After
-// each MB the row publishes done[my] = mx + 1 (a barrier, a fence, then a
-// release store by thread 0); row my may start MB mx once done[my - 1] >=
-// min(mx + 2, mbw) (thread 0 spins on an acquire load), which covers the
-// pixels above and above-right. Pixels of the row above are read with
-// __ldcg, from L2, so a stale L1 line is never used.
+// Design: one launch a frame. A CTA of kRowWarps warps takes a group of
+// kRowWarps MB rows from a ticket counter (atomicAdd), a warp a row, and
+// takes another group when all its rows are done; a warp walks its row
+// left to right. The card need not schedule CTAs in blockIdx order, so a
+// row never waits on a row that a CTA has not yet claimed: the row above
+// is always held by a CTA that is already running (or by a warp of the
+// same CTA), and row 0 waits on nothing. Nothing on a step's chain waits
+// on memory that could have been read earlier:
 //
-// Shared memory holds the MB's 17 x 21 patch as the original's: row 0 the
-// corner, the 16 pixels above and 4 above-right (the row above clamped to
-// the frame's last column, or the virtual 127 row), column 0 the left
-// column (the previous MB's right column, or the virtual 129), rows and
-// columns 1..16 the MB. Thread t owns pixel (r, c) = ((t >> 2) & 3, t & 3)
-// of subblock t >> 4, so the 256 residuals of an MB load as one coalesced
-// run. A 16x16 mode computes every pixel at once. B_PRED runs the 16
-// subblocks as their own wavefront, step 2 sy + sx (0..9), a barrier
-// between steps; each subblock reads its 13 edges from the patch, the
-// right column's above-right from row 0 (columns 17..20), and each of the
-// eight averaging modes is four edges from a table (sum + 2) >> 2.
-constexpr int kWaveThreads = 256;
+// * the hand-off is one record an MB: the MB's bottom 16 pixels as four
+//   64-bit words, each 4 pixels beside a nonzero tag, written by the 4
+//   lanes that hold row 15. A 64-bit word is read or written whole, so a
+//   word read with its tag set holds its pixels: the pixels and the flag
+//   arrive in one round trip, with no fence, acquire or release. Between
+//   the warps of a CTA the records go through a ring of kRing slots in
+//   shared memory (tag: the MB's index + 1; a slot is written again only
+//   once the row below has taken its record); from a CTA's last row to
+//   the next group's first they go through scratch memory, zeroed for
+//   every launch (tag 1), stored and read relaxed at gpu scope;
+// * MB mx + 1's residuals (32 bytes a lane, two 16-byte loads) and modes
+//   are loaded into registers while MB mx runs, and, for a CTA's first
+//   row, the record above MB mx + 2;
+// * a 16x16 MB runs in registers: lane 2 sb + h holds rows 2h and 2h + 1
+//   of subblock sb (sy = sb / 4, sx = sb % 4) as two words of 4 bytes,
+//   which are also the residuals' order (8 int32 a lane, a coalesced
+//   run). The row above (four words, one per subblock column), the
+//   corner and the left column (four words: the previous MB's column 15,
+//   passed by __shfl_sync) are values every lane holds. No barrier: the
+//   warp's mode is one, so no lane diverges;
+// * B_PRED runs its 16 subblocks as their own wavefront, step 2 sy + sx
+//   (0..9), on the whole warp: a step has one or two subblocks, and its
+//   lanes 16a..16a + 15 take the step's a-th, a pixel each, so no lane
+//   waits for its own subblock's turn. The MB's edges, its pixels and its
+//   residuals lie in a patch of the warp's shared memory; a lane reads
+//   its subblock's 13 edges there (the right column's above-right from
+//   the row above the MB, columns 16..19, at every sy), writes its pixel
+//   back, and a __syncwarp closes the step;
+// * a B_PRED pixel of the eight averaging modes is four edges from a
+//   table, (sum + 2) >> 2: the edges lie as 13 bytes in four words, the
+//   four are gathered by two byte permutes (prmt) and a mask and summed
+//   by one dp4a; DC and TM are formulas.
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowWarps = 4;       // MB rows (warps) a CTA
+constexpr int kWaveThreads = 32 * kRowWarps;
+constexpr int kRing = 16;          // a power of two
+constexpr unsigned long long kRecTag = 1ull << 32;
 
 // Each averaging B-mode (VE, HE, RD, VR, LD, VL, HD, HU: bitstream modes
 // 2..9) at pixel r * 4 + c of a subblock: four edge indices, a byte each
@@ -295,137 +319,343 @@ __device__ const uint32_t kB4Taps[8][16] = {
      0x0c0c0c0c, 0x0c0c0c0c, 0x0c0c0c0c, 0x0c0c0c0c},
 };
 
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
-               : "memory");
+
+__device__ __forceinline__ unsigned long long ld_relaxed64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p));
   return v;
 }
 
-__device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
+__device__ __forceinline__ void st_relaxed64(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v));
 }
 
 __device__ __forceinline__ int clip255(int x) {
   return x < 0 ? 0 : (x > 255 ? 255 : x);
 }
 
-// Edge j of the subblock whose top-left pixel is P[by][bx] (sx its column).
-__device__ __forceinline__ int b4_edge(int (*P)[21], int j, int by,
-                                       int bx, int sx) {
-  if (j == 0) return P[by - 1][bx - 1];
-  if (j <= 8) return j >= 5 && sx == 3 ? P[0][j + 12] : P[by - 1][bx + j - 1];
-  return P[by + j - 9][bx - 1];
+// Word i of the record whose word `lane` lanes 0-3 hold in v, on every lane.
+__device__ __forceinline__ void record_words(unsigned long long v,
+                                             uint32_t (&w)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w[i] = __shfl_sync(kFull, (uint32_t)v, i);
 }
 
+// The record at p in device memory, on every lane: lanes 0-3 hold in v
+// word `lane` as last read (an MB ago); the words not yet written are
+// read again until all four are.
+__device__ __forceinline__ void await_global(const unsigned long long* p,
+                                             unsigned long long v, int lane,
+                                             uint32_t (&w)[4]) {
+  while (!__all_sync(kFull, lane >= 4 || (v >> 32) != 0)) {
+    if (lane < 4 && (v >> 32) == 0) v = ld_relaxed64(p + lane);
+  }
+  record_words(v, w);
+}
+
+// The record of MB m in a shared-memory ring slot, on every lane, once
+// its four words carry the tag m + 1.
+__device__ __forceinline__ void await_shared(
+    const volatile unsigned long long* slot, uint32_t tag, int lane,
+    uint32_t (&w)[4]) {
+  unsigned long long v = lane < 4 ? slot[lane] : 0;
+  while (!__all_sync(kFull, lane >= 4 || (uint32_t)(v >> 32) == tag)) {
+    if (lane < 4) v = slot[lane];
+  }
+  record_words(v, w);
+}
+
+// B_PRED pixel c of a subblock row: the edges as the bytes of v0..v3 ({X,
+// A, B, C}, {D, E, F, G}, {H, I, J, K}, {L}), its four edge indices as a
+// prmt selector (sel) and a byte mask of those past 7 (msk); DC's value
+// dc, TM's left pixel minus the corner lx and the pixels above wa; the
+// residual r. Returns the reconstructed pixel.
+__device__ __forceinline__ int bpred_pixel(uint32_t v0, uint32_t v1,
+                                           uint32_t v2, uint32_t v3,
+                                           uint32_t sel, uint32_t msk,
+                                           int mode, int dc, int lx,
+                                           uint32_t wa, int c, int r) {
+  const uint32_t g = (__byte_perm(v0, v1, sel) & ~msk) |
+                     (__byte_perm(v2, v3, sel) & msk);
+  const int avg = (int)(__dp4a(g, 0x01010101u, 2u) >> 2);
+  const int tm = clip255(lx + (int)((wa >> (8 * c)) & 255u));
+  const int pred = mode == 0 ? dc : (mode == 1 ? tm : avg);
+  return clip255((int)((unsigned)pred + (unsigned)r));
+}
+
+// Four pixels' prediction bytes plus four residuals, each sum wrapped to
+// int32 and clipped: the reconstructed row, 4 bytes.
+__device__ __forceinline__ uint32_t add_row(uint32_t pred, int4 r) {
+  const int rv[4] = {r.x, r.y, r.z, r.w};
+  uint32_t out = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    out |= (uint32_t)clip255((int)(((pred >> (8 * c)) & 255u) +
+                                   (unsigned)rv[c])) << (8 * c);
+  return out;
+}
+
+// A 16x16 prediction row of 4 pixels: mode 0..3 (DC, V, H, TM); dc the
+// DC value, a the 4 pixels above, l the left pixel, x the MB's corner.
+__device__ __forceinline__ uint32_t mb16_row(int mode, int dc, uint32_t a,
+                                             int l, int x) {
+  if (mode == 0) return (uint32_t)dc * 0x01010101u;
+  if (mode == 1) return a;
+  if (mode == 2) return (uint32_t)l * 0x01010101u;
+  uint32_t out = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    out |= (uint32_t)clip255(l + (int)((a >> (8 * c)) & 255u) - x)
+           << (8 * c);
+  return out;
+}
+
+// B_PRED's shared memory, a warp's: the MB's 17 x 24 byte patch (row 0:
+// bytes 3 the corner, 4..19 the 16 pixels above, 20..23 the 4 above-right;
+// rows 1..16: byte 3 the pixel to the left, 4..19 the MB's row) and its 256
+// residuals in the residual tensor's order.
+constexpr int kPatchPitch = 24;
+struct BPredScratch {
+  uint32_t patch[17 * kPatchPitch / 4];
+  int4 res[64];
+};
+
 // res: nmb x 256 int32; ymode: nmb; bmodes: nmb x 16; Y: (16 mbh) x (16
-// mbw) bytes; sync: mbh + 1 ints, zeroed: [0] the ticket, [1 + r] the MBs
-// row r has done.
+// mbw) bytes; scratch: 1 + 4 mbh mbw words, zeroed: the ticket of row
+// groups (an int in word 0), then each MB's record, 4 words.
 __global__ void __launch_bounds__(kWaveThreads)
     vp8_wavefront_kernel(const int* __restrict__ res,
                          const int* __restrict__ ymode,
                          const int* __restrict__ bmodes,
-                         uint8_t* __restrict__ Y, int* __restrict__ sync,
-                         int mbh, int mbw) {
-  __shared__ int P[17][21];
-  __shared__ uint32_t taps[8][16];
-  __shared__ int s_row;
-  const int t = threadIdx.x;
-  if (t < 128) taps[t >> 4][t & 15] = kB4Taps[t >> 4][t & 15];
-  const int sb = t >> 4, sy = sb >> 2, sx = sb & 3;
-  const int r = (t >> 2) & 3, c = t & 3;
-  const int by = 1 + 4 * sy, bx = 1 + 4 * sx;   // the subblock in P
-  const int py = by + r, px = bx + c;           // this thread's pixel
-  const long long W = 16LL * mbw;
-  int* done = sync + 1;
-  for (;;) {
-    __syncthreads();                  // the last row is finished with P
-    if (t == 0) s_row = atomicAdd(sync, 1);
-    __syncthreads();
-    const int my = s_row;
-    if (my >= mbh) return;
-    const long long y0 = 16LL * my;
-    for (int mx = 0; mx < mbw; ++mx) {
-      const long long x0 = 16LL * mx;
-      const long long mb = (long long)my * mbw + mx;
-      const int rv = __ldg(res + mb * 256 + t);
-      const int ym = __ldg(ymode + mb);
-      int bm = __ldg(bmodes + mb * 16 + sb);
-      bm = min(max(bm < 0 ? bm + 10 : bm, 0), 9);
-      if (my > 0 && t == 0) {
-        const int need = min(mx + 2, mbw);
-        while (ld_acquire(done + my - 1) < need) __nanosleep(32);
-      }
-      __syncthreads();
-      if (t < 21) {                   // row 0: corner, above, above-right
-        int v = 127;
-        if (my > 0) {
-          const long long col = min(x0 + t, W);   // padded column
-          v = col == 0 ? 129 : __ldcg(Y + (y0 - 1) * W + col - 1);
-        }
-        P[0][t] = v;
-      } else if (t >= 32 && t < 48) { // column 0: left
-        P[t - 31][0] = mx == 0 ? 129 : P[t - 31][16];
-      }
-      __syncthreads();
-      int rec = 0;
-      if (ym == 4) {                  // B_PRED: 10 steps of subblocks
-        for (int k = 0; k < 10; ++k) {
-          if (2 * sy + sx == k) {
-            int pred;
-            if (bm == 0) {            // B_DC
-              int sum = 4;
+                         uint8_t* __restrict__ Y,
+                         unsigned long long* __restrict__ scratch, int mbh,
+                         int mbw) {
+  __shared__ uint2 s_tap[8][16];      // (sel, msk) of B-modes 2..9
+  __shared__ BPredScratch s_bp[kRowWarps];
+  __shared__ unsigned long long s_rec[kRowWarps > 1 ? kRowWarps - 1 : 1]
+                                     [kRing][4];
+  __shared__ int s_taken[kRowWarps];  // records row w has taken from w - 1
+  __shared__ int s_group;
+  for (int i = threadIdx.x; i < 8 * 16; i += kWaveThreads) {
+    const uint32_t q = kB4Taps[i >> 4][i & 15];
+    uint32_t sel = 0, msk = 0;
 #pragma unroll
-              for (int j = 1; j <= 4; ++j)
-                sum += b4_edge(P, j, by, bx, sx) + b4_edge(P, j + 8, by, bx,
-                                                           sx);
-              pred = sum >> 3;
-            } else if (bm == 1) {     // B_TM
-              pred = clip255(b4_edge(P, 9 + r, by, bx, sx) +
-                             b4_edge(P, 1 + c, by, bx, sx) -
-                             b4_edge(P, 0, by, bx, sx));
-            } else {
-              const uint32_t q = taps[bm - 2][r * 4 + c];
-              pred = (b4_edge(P, q & 255, by, bx, sx) +
-                      b4_edge(P, (q >> 8) & 255, by, bx, sx) +
-                      b4_edge(P, (q >> 16) & 255, by, bx, sx) +
-                      b4_edge(P, q >> 24, by, bx, sx) + 2) >> 2;
-            }
-            rec = clip255((int)((unsigned)pred + (unsigned)rv));
-            P[py][px] = rec;
+    for (int b = 0; b < 4; ++b) {
+      const uint32_t t = (q >> (8 * b)) & 255u;
+      sel |= (t & 7u) << (4 * b);
+      msk |= (t >= 8 ? 0xffu : 0u) << (8 * b);
+    }
+    s_tap[i >> 4][i & 15] = make_uint2(sel, msk);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this lane's pixels outside B_PRED's steps: rows 2h, 2h + 1 of
+  // subblock sb
+  const int sb = lane >> 1, h = lane & 1, sy = sb >> 2, sx = sb & 3;
+  const long long W = 16LL * mbw;
+  int* ticket = reinterpret_cast<int*>(scratch);
+  unsigned long long* rec = scratch + 1;
+  volatile unsigned long long* ring_in =
+      warp > 0 ? &s_rec[warp - 1][0][0] : nullptr;
+  volatile unsigned long long* ring_out =
+      warp < kRowWarps - 1 ? &s_rec[warp][0][0] : nullptr;
+  volatile int* taken = s_taken;
+  uint8_t* patch = reinterpret_cast<uint8_t*>(s_bp[warp].patch);
+  int* sres = reinterpret_cast<int*>(s_bp[warp].res);
+  for (;;) {
+    __syncthreads();                  // the last group is done with s_rec
+    if (threadIdx.x == 0) s_group = atomicAdd(ticket, 1);
+    for (int i = threadIdx.x; i < (kRowWarps - 1) * kRing * 4;
+         i += kWaveThreads)
+      (&s_rec[0][0][0])[i] = 0;
+    if (threadIdx.x < kRowWarps) s_taken[threadIdx.x] = 0;
+    __syncthreads();
+    const int my = s_group * kRowWarps + warp;
+    if (s_group * kRowWarps >= mbh) return;
+    if (my >= mbh) continue;
+    // the row above: in device memory for the CTA's first row, else in
+    // the ring of the warp above; this row's records: in device memory
+    // from the CTA's last row, else in its ring, for the row below
+    const bool has_up = my > 0, from_global = warp == 0;
+    const bool publish = my + 1 < mbh;
+    const bool to_global = warp == kRowWarps - 1;
+    const unsigned long long* above = rec + 4LL * (my - 1) * mbw;
+    unsigned long long* mine = rec + 4LL * my * mbw;
+    uint32_t up[4], left[4];          // the edges of MB mx, on every lane
+    unsigned long long pend = 0;      // lanes 0-3: the next record's word
+    if (!has_up) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) up[i] = 0x7f7f7f7fu;
+    } else if (from_global) {
+      if (lane < 4) pend = ld_relaxed64(above + lane);
+      await_global(above, pend, lane, up);
+      if (mbw > 1 && lane < 4) pend = ld_relaxed64(above + 4 + lane);
+    } else {
+      await_shared(ring_in, 1u, lane, up);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) left[i] = 0x81818181u;
+    int corner = has_up ? 129 : 127;
+    const long long mb0 = (long long)my * mbw;
+    const int4* rp = reinterpret_cast<const int4*>(res + mb0 * 256) + 2 * lane;
+    int4 ra = __ldg(rp), rb = __ldg(rp + 1);
+    int ym = __ldg(ymode + mb0), bm = __ldg(bmodes + mb0 * 16 + sb);
+    for (int mx = 0; mx < mbw; ++mx) {
+      const long long mb = mb0 + mx;
+      // MB mx + 1's residuals and modes, in flight while MB mx runs
+      int4 na = ra, nb = rb;
+      int nym = ym, nbm = bm;
+      if (mx + 1 < mbw) {
+        const int4* np = reinterpret_cast<const int4*>(res + (mb + 1) * 256)
+                         + 2 * lane;
+        na = __ldg(np);
+        nb = __ldg(np + 1);
+        nym = __ldg(ymode + mb + 1);
+        nbm = __ldg(bmodes + (mb + 1) * 16 + sb);
+      }
+      // the row above over MB mx + 1: its first word is MB mx's
+      // above-right; past the frame, the row's last pixel four times
+      uint32_t nxt[4] = {0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu, 0x7f7f7f7fu};
+      uint32_t upr = 0x7f7f7f7fu;
+      if (has_up) {
+        if (mx + 1 < mbw) {
+          if (from_global) {
+            await_global(above + 4LL * (mx + 1), pend, lane, nxt);
+            if (mx + 2 < mbw && lane < 4)
+              pend = ld_relaxed64(above + 4LL * (mx + 2) + lane);
+          } else {
+            await_shared(ring_in + 4 * ((mx + 1) & (kRing - 1)), mx + 2,
+                         lane, nxt);
+            if (lane == 0) taken[warp] = mx + 2;
           }
-          __syncthreads();
-        }
-      } else {                        // 16x16: DC, V, H, TM
-        const int m = min(max(ym, 0), 3);
-        int pred;
-        if (m == 0) {
-          int st = 0, sl = 0;
-          for (int i = 1; i <= 16; ++i) {
-            st += P[0][i];
-            sl += P[i][0];
-          }
-          pred = my > 0 && mx > 0 ? (st + sl + 16) >> 5
-                 : my > 0         ? (st + 8) >> 4
-                 : mx > 0         ? (sl + 8) >> 4
-                                  : 128;
-        } else if (m == 1) {
-          pred = P[0][px];
-        } else if (m == 2) {
-          pred = P[py][0];
+          upr = nxt[0];
         } else {
-          pred = clip255(P[py][0] + P[0][px] - P[0][0]);
+          upr = (up[3] >> 24) * 0x01010101u;
         }
-        rec = clip255((int)((unsigned)pred + (unsigned)rv));
-        P[py][px] = rec;              // rows and columns 1..16 only
       }
-      Y[(y0 + py - 1) * W + x0 + px - 1] = (uint8_t)rec;
-      __syncthreads();
-      if (t == 0) {
-        __threadfence();
-        st_release(done + my, mx + 1);
+      uint32_t q0, q1;                // this lane's rows 2h and 2h + 1
+      if (ym == 4) {
+        // B_PRED: the 16 subblocks in 10 steps of the wavefront 2 sy + sx;
+        // in step k the 16 lanes 16a..16a + 15 take the step's a-th
+        // subblock (of at most two), a pixel each, from the patch, and
+        // write it back to it
+        if (lane < 4) {
+          reinterpret_cast<uint32_t*>(patch)[1 + lane] =
+              lane == 0 ? up[0] : lane == 1 ? up[1] : lane == 2 ? up[2]
+                                                                : up[3];
+        } else if (lane == 4) {
+          reinterpret_cast<uint32_t*>(patch)[5] = upr;
+        } else if (lane == 5) {
+          patch[3] = (uint8_t)corner;
+        }
+        if (lane < 16) {
+          const uint32_t lw = lane < 4 ? left[0] : lane < 8 ? left[1]
+                              : lane < 12 ? left[2] : left[3];
+          patch[kPatchPitch * (1 + lane) + 3] =
+              (uint8_t)(lw >> (8 * (lane & 3)));
+        }
+        reinterpret_cast<int4*>(sres)[2 * lane] = ra;
+        reinterpret_cast<int4*>(sres)[2 * lane + 1] = rb;
+        int own = bm < 0 ? bm + 10 : bm;   // the B-mode of subblock sb
+        own = min(max(own, 0), 9);
+        __syncwarp();
+        const int a = lane >> 4, r = (lane >> 2) & 3, c = lane & 3;
+#pragma unroll
+        for (int k = 0; k < 10; ++k) {
+          const int ky = max(0, (k - 2) >> 1) + a, kx = k - 2 * ky;
+          const int mode = __shfl_sync(kFull, own, (8 * ky + 2 * kx) & 31);
+          if (ky <= min(3, k >> 1) && kx >= 0) {
+            const int by = 1 + 4 * ky, bx = 4 + 4 * kx;
+            const uint8_t* above_row = patch + kPatchPitch * (by - 1);
+            const uint32_t wa =
+                *reinterpret_cast<const uint32_t*>(above_row + bx);
+            const uint32_t we = *reinterpret_cast<const uint32_t*>(
+                (kx == 3 ? patch : above_row) + bx + 4);
+            const int x = above_row[bx - 1];
+            const uint8_t* lc = patch + kPatchPitch * by + bx - 1;
+            const uint32_t wl = (uint32_t)lc[0] |
+                                ((uint32_t)lc[kPatchPitch] << 8) |
+                                ((uint32_t)lc[2 * kPatchPitch] << 16) |
+                                ((uint32_t)lc[3 * kPatchPitch] << 24);
+            const uint2 tap = s_tap[max(mode - 2, 0)][4 * r + c];
+            const int rv = sres[16 * (4 * ky + kx) + 4 * r + c];
+            const uint32_t v0 = __byte_perm((uint32_t)x, wa, 0x6540);
+            const uint32_t v1 = __byte_perm(wa, we, 0x6543);
+            const uint32_t v2 = __byte_perm(we, wl, 0x6543);
+            const uint32_t v3 = wl >> 24;
+            const int dc = (int)(__dp4a(wa, 0x01010101u,
+                                        __dp4a(wl, 0x01010101u, 4u)) >> 3);
+            const int lx = (int)((wl >> (8 * r)) & 255u) - x;
+            patch[kPatchPitch * (by + r) + bx + c] = (uint8_t)bpred_pixel(
+                v0, v1, v2, v3, tap.x, tap.y, mode, dc, lx, wa, c, rv);
+          }
+          __syncwarp();
+        }
+        const uint32_t* rows = reinterpret_cast<const uint32_t*>(
+            patch + kPatchPitch * (1 + 4 * sy + 2 * h) + 4 + 4 * sx);
+        q0 = rows[0];
+        q1 = rows[kPatchPitch / 4];
+        __syncwarp();                 // the patch is read before the next MB
+      } else {
+        // a 16x16 mode, in registers: this lane's two rows of 4 pixels
+        const int m = min(max(ym, 0), 3);
+        const uint32_t a = sx == 0 ? up[0] : sx == 1 ? up[1]
+                           : sx == 2 ? up[2] : up[3];
+        const uint32_t lw = sy == 0 ? left[0] : sy == 1 ? left[1]
+                            : sy == 2 ? left[2] : left[3];
+        int dc = 128;
+        if (m == 0) {
+          const int st = (int)__dp4a(up[0], 0x01010101u, __dp4a(up[1],
+                                     0x01010101u, __dp4a(up[2], 0x01010101u,
+                                     __dp4a(up[3], 0x01010101u, 0u))));
+          const int sl = (int)__dp4a(left[0], 0x01010101u, __dp4a(left[1],
+                                     0x01010101u, __dp4a(left[2],
+                                     0x01010101u, __dp4a(left[3],
+                                     0x01010101u, 0u))));
+          dc = has_up && mx > 0 ? (st + sl + 16) >> 5
+               : has_up         ? (st + 8) >> 4
+               : mx > 0         ? (sl + 8) >> 4
+                                : 128;
+        }
+        q0 = add_row(mb16_row(m, dc, a, (int)((lw >> (16 * h)) & 255u),
+                              corner), ra);
+        q1 = add_row(mb16_row(m, dc, a, (int)((lw >> (16 * h + 8)) & 255u),
+                              corner), rb);
       }
+      const long long y = 16LL * my + 4 * sy + 2 * h;
+      uint8_t* o = Y + y * W + 16LL * mx + 4 * sx;
+      *reinterpret_cast<uint32_t*>(o) = q0;
+      *reinterpret_cast<uint32_t*>(o + W) = q1;
+      if (publish) {
+        if (to_global) {
+          if (sy == 3 && h == 1) st_relaxed64(mine + 4 * mx + sx,
+                                              kRecTag | q1);
+        } else {
+          // the ring slot of record mx - kRing is free once the row below
+          // has taken it
+          while (mx - taken[warp + 1] >= kRing) {
+          }
+          if (sy == 3 && h == 1)
+            ring_out[4 * (mx & (kRing - 1)) + sx] =
+                ((unsigned long long)(mx + 1) << 32) | q1;
+        }
+      }
+      // MB mx + 1's left column: column 15, rows 4j..4j + 3 from the two
+      // lanes of subblock (j, 3); its corner: the pixel above MB mx's
+      // right column
+      const uint32_t rc = __byte_perm(q0, q1, 0x7773) & 0xffffu;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        left[j] = __shfl_sync(kFull, rc, 8 * j + 6) |
+                  (__shfl_sync(kFull, rc, 8 * j + 7) << 16);
+      corner = has_up ? (int)(up[3] >> 24) : 127;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) up[i] = has_up ? nxt[i] : up[i];
+      ra = na;
+      rb = nb;
+      ym = nym;
+      bm = nbm;
     }
   }
 }
@@ -470,16 +700,19 @@ int ffpic_vp8_yuv_to_rgba(const void* Y, long long ys, const void* U,
 }
 
 // res: mbh x mbw x 256 int32; ymode: mbh x mbw int32; bmodes: mbh x mbw x
-// 16 int32; out: (16 mbh) x (16 mbw) bytes; sync: mbh + 1 ints, zeroed
+// 16 int32, each 16-byte aligned; out: (16 mbh) x (16 mbw) bytes;
+// scratch: 1 + 4 mbh mbw 64-bit words, 8-byte aligned, zeroed
 int ffpic_vp8_wavefront(const void* res, const void* ymode,
-                        const void* bmodes, void* out, void* sync, int mbh,
+                        const void* bmodes, void* out, void* scratch, int mbh,
                         int mbw, void* stream) {
-  if (mbh <= 0 || mbw <= 0 || mbw > (1 << 26) / 16)
+  if (mbh <= 0 || mbw <= 0 || mbw > (1 << 26) / 16 ||
+      ((uintptr_t)res & 15) || ((uintptr_t)out & 3) || ((uintptr_t)scratch & 7))
     return (int)cudaErrorInvalidValue;
-  vp8_wavefront_kernel<<<(unsigned)mbh, kWaveThreads, 0,
+  vp8_wavefront_kernel<<<(unsigned)((mbh + kRowWarps - 1) / kRowWarps),
+                         kWaveThreads, 0,
                          (cudaStream_t)stream>>>(
       (const int*)res, (const int*)ymode, (const int*)bmodes, (uint8_t*)out,
-      (int*)sync, mbh, mbw);
+      (unsigned long long*)scratch, mbh, mbw);
   return (int)cudaGetLastError();
 }
 

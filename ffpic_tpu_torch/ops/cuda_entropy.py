@@ -15,9 +15,9 @@ then at least ``PAD`` zero bytes, 4-byte aligned); ``luts``, (G*4,
 65536) uint32 table entries stored as int32; ``fast``, their fast tables
 (``jpeg_entropy_device.fast_tables``: (G*4, 2**b) int32, b the built
 kernels' width, FAST_BITS unless built otherwise: the launchers refuse
-another), which K9 and K10 copy into shared memory; ``comp_of_sub`` and
-``tclass_of_sub``, int32[bpm], the table classes 0 or 1 (K9 and K10 read
-a class past 1 as 1).
+another), which K9-K11 copy into shared memory; ``comp_of_sub`` and
+``tclass_of_sub``, int32[bpm], the table classes 0 or 1 (K9-K11 read a
+class past 1 as 1).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from ffpic_tpu_torch.ops.jpeg_entropy_device import (LANE_COLS, PAD, SNAP,
                                                      SNAP_STRIDE)
 
 launches = {"entropy_decode": 0, "spec_scan": 0, "spec_merge": 0}
-MAX_BPM = 16       # sub-blocks an MCU that K9 and K10 take (JPEG: 10)
+MAX_BPM = 16       # sub-blocks an MCU that K9-K11 take (JPEG: 10)
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -41,8 +41,8 @@ _SIGNATURES = {
                              _int, _int, _vp, _int, _vp],
     "ffpic_spec_scan": [_vp, _int, _vp, _vp, _int, _vp, _vp, _int, _vp, _int,
                         _int, _vp, _vp, _int, _int, _vp],
-    "ffpic_spec_merge": [_vp, _int, _vp, _vp, _vp, _int, _vp, _int, _vp,
-                         _int, _vp, _vp],
+    "ffpic_spec_merge": [_vp, _int, _vp, _vp, _int, _vp, _vp, _int, _vp,
+                         _int, _vp, _int, _vp, _vp],
 }
 _launch = _build.launcher(_SIGNATURES, launches)
 _INT_MAX = 2 ** 31 - 1
@@ -92,7 +92,7 @@ def _common(data, n: int, luts, comp_of_sub, tclass_of_sub, groups=None,
     if bpm == 0:
         raise ValueError("comp_of_sub: empty")
     if fast is not None and bpm > MAX_BPM:
-        raise ValueError(f"comp_of_sub: {bpm} sub-blocks, K9 and K10 take "
+        raise ValueError(f"comp_of_sub: {bpm} sub-blocks, K9-K11 take "
                          f"at most {MAX_BPM}")
     return _vp(data.data_ptr()), _vp(luts.data_ptr()), \
         _vp(comp_of_sub.data_ptr()), _vp(tclass_of_sub.data_ptr())
@@ -177,13 +177,14 @@ def spec_scan(data, n: int, luts, fast, comp_of_sub, tclass_of_sub, chunks,
     return exits, snap
 
 
-def spec_merge(data, n: int, luts, comp_of_sub, tclass_of_sub, ent, snap,
-               bpm: int):
+def spec_merge(data, n: int, luts, fast, comp_of_sub, tclass_of_sub, ent,
+               snap, bpm: int):
     """K11: from each lane's true entry ``ent`` ((L, 3) int32 bit, k,
     sub), walk until the state meets one of the lane's snapshots (K10's
-    ``snap``).  One table group.  Returns (L, 6) int32: matched, midx,
-    blocks, DC sums."""
-    ptrs = _common(data, n, luts, comp_of_sub, tclass_of_sub, groups=1)
+    ``snap``), with K10's step and fast tables.  One table group.
+    Returns (L, 6) int32: matched, midx, blocks, DC sums."""
+    ptrs = _common(data, n, luts, comp_of_sub, tclass_of_sub, groups=1,
+                   fast=fast)
     if bpm != comp_of_sub.numel():
         raise ValueError(f"bpm {bpm} != {comp_of_sub.numel()} sub-blocks")
     _check(ent, "ent", torch.int32)
@@ -194,6 +195,7 @@ def spec_merge(data, n: int, luts, comp_of_sub, tclass_of_sub, ent, snap,
     merged = torch.empty((nl, 6), dtype=torch.int32, device=data.device)
     if nl:
         _launch("ffpic_spec_merge", "spec_merge", ptrs[0], n, ptrs[1],
-                ptrs[2], ptrs[3], bpm, _vp(ent.data_ptr()), nl,
+                _vp(fast.data_ptr()), _fast_bits(fast), ptrs[2], ptrs[3],
+                bpm, _vp(ent.data_ptr()), nl,
                 _vp(snap.data_ptr()), SNAP, _vp(merged.data_ptr()))
     return merged

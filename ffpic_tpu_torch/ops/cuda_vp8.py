@@ -133,8 +133,9 @@ def vp8_wavefront(residual: torch.Tensor, ymode: torch.Tensor,
                   bmodes: torch.Tensor) -> torch.Tensor:
     """K18: residual (mbh, mbw, 16, 4, 4), ymode (mbh, mbw) and bmodes
     (mbh, mbw, 16), int32 -> the luma plane (16 mbh, 16 mbw) uint8, in
-    one launch; a CTA of 256 threads a macroblock row.  Its scratch, a
-    row ticket and each row's progress, is zeroed for every launch."""
+    one launch; a warp a macroblock row.  Its scratch, a row ticket and
+    each macroblock's hand-off record (4 words of 64 bits), is zeroed for
+    every launch."""
     if not isinstance(ymode, torch.Tensor) or ymode.dim() != 2:
         raise ValueError(f"ymode: expected (mbh, mbw), got "
                          f"{getattr(ymode, 'shape', type(ymode))}")
@@ -147,12 +148,16 @@ def vp8_wavefront(residual: torch.Tensor, ymode: torch.Tensor,
         _on_card(t, name)
     if residual.device != ymode.device or residual.device != bmodes.device:
         raise ValueError("residual, ymode and bmodes must share a device")
+    if residual.data_ptr() % 16:
+        raise ValueError("residual: must be 16-byte aligned (a lane loads "
+                         "its 8 residuals 16 bytes at a time)")
     out = torch.empty((16 * mbh, 16 * mbw), dtype=torch.uint8,
                       device=residual.device)
     if out.numel():
-        sync = torch.zeros(mbh + 1, dtype=torch.int32, device=residual.device)
+        scratch = torch.zeros(1 + 4 * mbh * mbw, dtype=torch.int64,
+                              device=residual.device)
         _launch("ffpic_vp8_wavefront", "vp8_wavefront",
                 _vp(residual.data_ptr()), _vp(ymode.data_ptr()),
                 _vp(bmodes.data_ptr()), _vp(out.data_ptr()),
-                _vp(sync.data_ptr()), mbh, mbw)
+                _vp(scratch.data_ptr()), mbh, mbw)
     return out

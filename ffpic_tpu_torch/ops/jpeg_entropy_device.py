@@ -27,7 +27,7 @@ holds
   a CUDA tensor, the plain versions (``decode_lanes_plain``,
   ``spec_scan_plain``, ``spec_merge_plain``, which take any device) on a
   CPU one;
-* K9 and K10's staged inputs of their own: ``fast_tables`` (cached per
+* K9-K11's staged inputs of their own: ``fast_tables`` (cached per
   table set by ``fast_for``, beside ``luts_for``), the fast tables that
   each CTA holds in shared memory, and ``cta_plan``, the rows (group,
   first lane, lane count) that give each K9 CTA one table group
@@ -82,7 +82,7 @@ MERGE_STEPS = SNAP * SNAP_STRIDE + 16
 
 LANE_COLS = 12
 NO_STOP = 2 ** 31 - 1
-# K9 and K10 look a symbol up first in a fast table in shared memory,
+# K9-K11 look a symbol up first in a fast table in shared memory,
 # indexed by the first FAST_BITS bits of the window (fast_tables); a
 # FAST_MISS entry sends the lookup to the 16-bit LUT. 11 bits (32 KB a
 # CTA, so 7 CTAs fit an SM) and 2 lanes a K9 CTA, from tune_entropy's
@@ -236,7 +236,7 @@ def luts_for(j) -> np.ndarray:
 
 def fast_tables(luts, bits: int = FAST_BITS) -> np.ndarray:
     """(T, 2**bits) uint32 fast tables of a (T, 65536) LUT stack, which
-    K9 and K10 hold in shared memory.  Entry p is the LUT entry of every
+    K9-K11 hold in shared memory.  Entry p is the LUT entry of every
     16-bit window whose first ``bits`` bits are p, where all those
     windows hold the same entry and its code (with a combined magnitude)
     fits in ``bits`` bits; else FAST_MISS, which no LUT entry equals.
@@ -861,7 +861,7 @@ def spec_merge(st: Staged, ent: torch.Tensor, snap: torch.Tensor):
     (L, 6) int32: matched, midx, blocks, DC sums."""
     if _on_cuda(st.data):
         from ffpic_tpu_torch.ops import cuda_entropy
-        return cuda_entropy.spec_merge(st.data, st.n, st.luts,
+        return cuda_entropy.spec_merge(st.data, st.n, st.luts, st.fast,
                                        st.comp_of_sub, st.tclass_of_sub, ent,
                                        snap, st.bpm)
     return spec_merge_plain(st, ent, snap)

@@ -819,6 +819,46 @@ def entropy_stages(case: dict, device) -> dict[str, torch.Tensor]:
                                     "flat", "steps", "ok")}
 
 
+def merge_work(st, r, lut_bytes: int) -> dict:
+    """What K11 did in the ``spec_stages`` run ``r``: each lane's walk
+    from its true entry to the snapshot it met, replayed with the plain
+    step (``jed._advance``) where ``r``'s tensors lie.  Its bytes, each
+    read once: the scan bytes the walks cover (their bits, and a 4-byte
+    window past each), a table entry a symbol (at most the LUT stack), the
+    bit column of every used snapshot slot and one past, k and sub of the
+    matched slot, the entries and the merged rows."""
+    from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
+    ent, snap, merged = (r[k].to(torch.int64)
+                         for k in ("ent", "snap", "merged"))
+    if not bool(merged[:, 0].all()):
+        raise AssertionError("spec_merge: a lane did not meet a snapshot")
+    rows = torch.arange(ent.shape[0], device=ent.device)
+    target = snap[rows, merged[:, 1], 0]
+    tabs = jed._spec_tables(st.u32win, st.luts, st.comp_of_sub,
+                            st.tclass_of_sub)
+    bit, k, sub = ent[:, 0].clone(), ent[:, 1].clone(), ent[:, 2].clone()
+    blk = torch.zeros_like(bit)
+    dcs = torch.zeros((bit.shape[0], 3), dtype=torch.int64,
+                      device=bit.device)
+    steps = torch.zeros_like(bit)
+    while bool((bit < target).any()):
+        active = bit < target
+        bit, k, sub, blk, dcs = jed._advance(tabs, st.bpm, active, bit, k,
+                                             sub, blk, dcs)
+        steps += active
+    if not torch.equal(bit, target):
+        raise AssertionError("spec_merge: a replayed walk passed its match")
+    symbols = int(steps.sum())
+    scan_bytes = int(((target - ent[:, 0] + 7) // 8 + 4).sum())
+    used = (snap[..., 0] != -1).sum(dim=1)
+    snap_bytes = int((4 * torch.clamp(used + 1, max=jed.SNAP) + 8).sum())
+    nbytes = scan_bytes + min(4 * symbols, lut_bytes) + snap_bytes \
+        + 12 * ent.shape[0] + 24 * ent.shape[0]
+    return {"symbols": symbols, "longest": int(steps.max()),
+            "scan_bytes": scan_bytes, "snap_bytes": snap_bytes,
+            "bytes": nbytes}
+
+
 def webp_fixture(name: str) -> bytes:
     """The bytes of a committed WebP fixture of ``ffpic_tpu_torch/
     testdata`` (``make_webp_fixtures`` lists them), e.g.

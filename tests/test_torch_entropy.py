@@ -566,3 +566,128 @@ def test_decode_lanes_refuses_a_plan_that_does_not_match(kind):
     wrong = torch.from_numpy(_wrong_plans(plan.numpy())[kind])
     with pytest.raises(ValueError, match="CTA plan"):
         P.decode_lanes(st, lanes, wrong, out_size)
+
+
+# --- K11's snapshot cursor, run on the CPU -----------------------------------
+
+def _merge_with_a_cursor(st, ent, snap):
+    """K11's merge loop (csrc/jpeg_entropy.cu: ``spec_merge_kernel`` and
+    its ``SnapCursor``) on the CPU, lanes side by side, each symbol the
+    plain step: before each symbol the cursor moves past the used slots
+    whose bit lies below the state's, taking each slot's (bit, k, sub)
+    from the copy it read of it while on the slot before (slot p + 1,
+    clamped to the last slot; p == SNAP is past them); a match is a used
+    slot equal to the state; the walk stops at a match, once no used slot
+    is left (with none used at all, at a bit past -1) or past MERGE_STEPS
+    symbols.  Returns (L, 6) as ``spec_merge``."""
+    i64 = torch.int64
+    tabs = P._spec_tables(st.u32win, st.luts, st.comp_of_sub,
+                          st.tclass_of_sub)
+    snap = snap.to(i64)
+    L = snap.shape[0]
+    rows = torch.arange(L)
+    bit, k, sub = (ent[:, i].to(i64).clone() for i in range(3))
+    blk = torch.zeros(L, dtype=i64)
+    dcs = torch.zeros((L, 3), dtype=i64)
+
+    def slot(i):
+        j = i.clamp(max=P.SNAP - 1)
+        return snap[rows, j, 0], snap[rows, j, 1], snap[rows, j, 2]
+
+    p = torch.zeros(L, dtype=i64)
+    cur = list(slot(p))
+    nxt = list(slot(p + 1))
+    matched = torch.zeros(L, dtype=torch.bool)
+    midx = torch.zeros(L, dtype=i64)
+    active = torch.ones(L, dtype=torch.bool)
+    t = 0
+    while bool(active.any()):
+        while True:
+            used = (p < P.SNAP) & (cur[0] != -1)
+            move = active & used & (cur[0] < bit)
+            if not bool(move.any()):
+                break
+            cur = [torch.where(move, n, c) for n, c in zip(nxt, cur)]
+            p = p + move
+            nxt = [torch.where(move, a, n) for a, n in zip(slot(p + 1), nxt)]
+        hit = active & used & (cur[0] == bit) & (cur[1] == k) & (cur[2] == sub)
+        matched |= hit
+        midx = torch.where(hit, p, midx)
+        past = ~used & ((p > 0) | (bit > -1))
+        active &= ~(hit | past | (t > P.MERGE_STEPS))
+        bit, k, sub, blk, dcs = P._advance(tabs, st.bpm, active, bit, k, sub,
+                                           blk, dcs)
+        t += 1
+    return torch.cat([torch.stack([matched.to(i64), midx, blk], dim=1), dcs],
+                     dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize("entries", ["true", "shifted", "random",
+                                     "few_snapshots"])
+@pytest.mark.parametrize("name", ["spec_mid_mcu", "spec_fail",
+                                  "spec_invalid"])
+def test_k11_snapshot_cursor_matches_spec_merge_lanes(name, entries):
+    """K11's cursor over the snapshots, read one slot ahead, gives
+    ``spec_merge_lanes``' first match (its argmax over all slots), blocks
+    and DC sums: from the true entries, from entries 1-3 bits past them,
+    from random k and sub, and with each lane's snapshots cut to a random
+    number of used slots (none for some)."""
+    case = testing.entropy_cases()[name]
+    r = P.spec_stages(case["datas"], case["chunk_bytes"], device="cpu")
+    st, ent, snap = r["staged"], r["ent"].clone(), r["snap"].clone()
+    rng = np.random.default_rng(14)
+    L = ent.shape[0]
+    if entries == "shifted":
+        ent[:, 0] += torch.from_numpy(rng.integers(1, 4, L)).to(torch.int32)
+    elif entries == "random":
+        ent[:, 1] = torch.from_numpy(rng.integers(0, 64, L)).to(torch.int32)
+        ent[:, 2] = torch.from_numpy(rng.integers(0, st.bpm, L)) \
+            .to(torch.int32)
+    elif entries == "few_snapshots":
+        used = (snap[..., 0] != -1).sum(dim=1).numpy()
+        keep = rng.integers(0, used + 1)
+        keep[: max(1, L // 8)] = 0
+        for i in range(L):
+            snap[i, keep[i]:] = -1
+    want = P.spec_merge_plain(st, ent, snap)
+    got = _merge_with_a_cursor(st, ent, snap)
+    assert torch.equal(got, want)
+    if entries == "true":
+        assert bool(want[:, 0].any())
+
+
+def test_k11_wrapper_refuses_what_the_kernel_does_not_take():
+    """K11's wrapper takes CUDA tensors and the fast tables it copies
+    into shared memory; on the CPU it refuses before any launch."""
+    from ffpic_tpu_torch.ops import cuda_entropy
+    case = testing.entropy_cases()["spec_mid_mcu"]
+    r = P.spec_stages(case["datas"], case["chunk_bytes"], device="cpu")
+    st = r["staged"]
+    cuda_entropy.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_entropy.spec_merge(st.data, st.n, st.luts, st.fast,
+                                st.comp_of_sub, st.tclass_of_sub, r["ent"],
+                                r["snap"], st.bpm)
+    with pytest.raises(TypeError):
+        cuda_entropy.spec_merge(st.data, st.n, st.luts, st.comp_of_sub,
+                                st.tclass_of_sub, r["ent"], r["snap"],
+                                st.bpm)
+    assert cuda_entropy.launches["spec_merge"] == 0
+
+
+def test_merge_work_replays_each_walk_to_its_match():
+    """``testing.merge_work`` (K11's symbols and bytes in ``chip_smoke``)
+    runs on the CPU: every walk from its true entry ends on the slot K11
+    matched, the longest within MERGE_STEPS; a lane that met no slot
+    raises."""
+    case = testing.entropy_cases()["spec_mid_mcu"]
+    r = P.spec_stages(case["datas"], case["chunk_bytes"], device="cpu")
+    assert bool(r["merged"][:, 0].all())
+    lut_bytes = 4 * r["staged"].luts.numel()
+    w = testing.merge_work(r["staged"], r, lut_bytes)
+    assert 0 < w["longest"] <= min(w["symbols"], P.MERGE_STEPS)
+    assert w["scan_bytes"] + w["snap_bytes"] < w["bytes"]
+    unmatched = dict(r, merged=r["merged"].clone())
+    unmatched["merged"][0, 0] = 0
+    with pytest.raises(AssertionError, match="did not meet"):
+        testing.merge_work(r["staged"], unmatched, lut_bytes)
