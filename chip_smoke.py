@@ -88,13 +88,17 @@ read just after:
   and the host ``vp8_recon`` (Y, U and V, host clock, median of 5);
 * HEIF (K14 hevc_residuals, K15 hevc_yuv_to_rgba; ``testing.hevc_cases``
   each in a launch of its own, the TU lists of the committed 12 MP
-  grid's 48 tiles in one launch, ``heif_color_cases`` and the tiles'
-  planes, against their plain versions): ``load`` of
+  grid's 48 tiles in one launch; K15's one launch over a canvas's tiles
+  on ``heif_color_cases`` as single items and at an offset of a larger
+  canvas, on ``heif_tile_layouts`` (cropped edge tiles, an uncovered
+  canvas, overlapping tiles of unequal sizes, 4:0:0) and on the
+  fixture's 48 tiles in three modes, against their plain versions):
+  ``load`` of
   ``ffpic_tpu_torch/testdata/heic_12mp_grid.heic`` and of the small
   HEICs of ``testing.heif_cases`` (10-bit, transform skip, bypass,
   deblocking on, a 2x2 grid with alpha, 333x199) under the four
   combinations of ``FFPIC_HEVC_DEVICE`` (K14 once a grid or single
-  item) and ``FFPIC_HEIF_DEVICE_COLOR`` (K15 once a tile), each equal to
+  item) and ``FFPIC_HEIF_DEVICE_COLOR`` (K15 once a picture), each equal to
   the CPU route, the fixture also against its source content;
   ``decode_batch`` of two HEICs beside a JPEG under each combination.
   The load medians are printed under the JAX bench's names
@@ -107,7 +111,7 @@ read just after:
   the 48 tiles, with the 48 launches of a launch a tile beside it),
   against its bound by bytes and the operations it runs (``hevc_ops``)
   and, under its own name, the direct product's 4 n^3 a TU; K15 a
-  launch and a load (48 launches), beside the launch floor.
+  load (one launch over the 48 tiles that also fills the canvas).
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -203,9 +207,9 @@ def ptxas_report(text: str) -> dict:
     arguments, e.g. ``assemble_color<1,0>`` (mode, order),
     ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
-    depth), ``hevc_yuv_to_rgba<1>`` (mode), ``resize<0,1>`` (K16, a 32-bit
-    load an RGBA pixel) and ``resize<1,1>`` (K17); K9-K14 have no
-    template arguments."""
+    depth), ``hevc_yuv_to_rgba<1>`` (mode), ``resize<0,2>`` (K16) and
+    ``resize<1,2>`` (K17) at two output rows a CTA (``<.,1>`` at one);
+    K9-K14 have no template arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1906,8 +1910,8 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
     from ffpic_tpu_torch.ops import cuda_hevc, cuda_jpeg
     from ffpic_tpu_torch.ops import hevc_kernels as hk
     from ffpic_tpu_torch.utils import trace
-    from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, INT32_OPS_PER_S,
-                                              bound, gpu_ms, gpu_ms_cold)
+    from ffpic_tpu_torch.utils.timing import (INT32_OPS_PER_S, bound, gpu_ms,
+                                              gpu_ms_cold)
 
     def reset():
         torch.cuda.synchronize()
@@ -1951,44 +1955,39 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
               hk.hevc_residuals_plain(torch.from_numpy(meta).to(dev), lv_d,
                                       bd), errs)
 
-    def to(*arrays):
-        return [None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(dev) for a in arrays]
+    # K15: each colour case as a single item, and at an offset of a larger
+    # canvas that it leaves partly uncovered and that crops it; the tile
+    # layouts; the fixture's 48 tiles in one launch, in every mode
+    def k15(planes, boxes, ch, cw, mode):
+        st = hk.stage_tiles(planes, boxes, ch, cw, dev)
+        exact("hevc_yuv_to_rgba", hk.hevc_tiles_to_rgba(st, mode),
+              hk.hevc_tiles_to_rgba_plain(st, mode), errs)
 
     for y, u, v, oh, ow, mode in testing.heif_color_cases().values():
-        planes = to(y, u, v)
-        exact("hevc_yuv_to_rgba",
-              cuda_hevc.hevc_yuv_to_rgba(*planes, oh, ow, mode),
-              hk.hevc_yuv_to_rgba_plain(*planes, oh, ow, mode), errs)
-        # into a canvas, at an offset, cut at its edge
-        got = torch.zeros((oh + 3, ow - ow // 3 + 5, 4), dtype=torch.uint8,
-                          device=dev)
-        want = got.clone()
-        cuda_hevc.hevc_yuv_to_rgba(*planes, oh, ow, mode, got, 3, 5)
-        hk.hevc_yuv_to_rgba_plain(*planes, oh, ow, mode, want, 3, 5)
-        exact("hevc_yuv_to_rgba", got, want, errs)
+        planes = [p for p in (y, u, v) if p is not None]
+        k15([planes], [(0, 0, oh, ow)], oh, ow, mode)
+        k15([planes], [(3, 5, oh, ow)], oh + 3, ow - ow // 3 + 5, mode)
+    for layout in testing.heif_tile_layouts().values():
+        k15(*layout)
     with environ(**clear):
         items = heif._map_tiles(
             lambda t: heif._decode_item_planes(data, s, t), tiles, None)
     grid = heif._grid_layout(heif.read_item(data, s, s["primary"]))
     gh, gw = grid["height"], grid["width"]
-    staged = heif._stage_tiles(items, dev)
-    for mode in ("bt601", "reference"):
-        got = torch.zeros((gh, gw, 4), dtype=torch.uint8, device=dev)
-        want = got.clone()
-        for k, (t, planes) in enumerate(zip(items, staged)):
-            y0, x0 = divmod(k, grid["cols"])
-            y0, x0 = y0 * t.out_h, x0 * t.out_w
-            cuda_hevc.hevc_yuv_to_rgba(*planes, t.out_h, t.out_w, mode, got,
-                                       y0, x0)
-            hk.hevc_yuv_to_rgba_plain(*planes, t.out_h, t.out_w, mode, want,
-                                      y0, x0)
-        exact("hevc_yuv_to_rgba", got, want, errs)
-    del got, want
+    for k, t in enumerate(items):
+        r, c = divmod(k, grid["cols"])
+        t.y0, t.x0 = r * t.out_h, c * t.out_w
+    fixture = heif.HeifFile(pic=None, tiles=items, grid=(gh, gw))
+    staged = heif._stage_tiles(fixture, dev)
+    for mode in ("bt601", "reference", "rgb"):
+        exact("hevc_yuv_to_rgba", hk.hevc_tiles_to_rgba(staged, mode),
+              hk.hevc_tiles_to_rgba_plain(staged, mode), errs)
     log("check K14 K15", hevc_residuals="exact", hevc_yuv_to_rgba="exact",
-        cases=",".join([*testing.hevc_cases(), *testing.heif_color_cases()])
+        cases=",".join([*testing.hevc_cases(), *testing.heif_color_cases(),
+                        *testing.heif_tile_layouts()])
         + f",{len(tiles)}_fixture_tiles_tus_in_one_launch,{len(tiles)}_"
-        "fixture_tiles_colour_bt601_reference")
+        "fixture_tiles_colour_in_one_launch_bt601_reference_rgb",
+        colour_cases="single_item,offset_in_a_larger_canvas")
 
     # --- load of the fixture and the small HEICs under the switches ---------
     small = testing.heif_cases()
@@ -2010,9 +2009,9 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
             if (got.width, got.height) != (want.width, want.height):
                 raise AssertionError(f"heif load {name} {sw}: size")
             if name == "heic_12mp_grid":
-                # K14 once a grid load, K15 once a tile
+                # K14 and K15 once a grid load each
                 k14 = 1 if "FFPIC_HEVC_DEVICE" in env else 0
-                k15 = len(tiles) if "FFPIC_HEIF_DEVICE_COLOR" in env else 0
+                k15 = 1 if "FFPIC_HEIF_DEVICE_COLOR" in env else 0
                 if (n["hevc_residuals"], n["hevc_yuv_to_rgba"]) != \
                         (k14, k15) or len(n) != 2:
                     raise AssertionError(f"heif load {name} {sw}: launches "
@@ -2133,45 +2132,27 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
         a_tile_ms_cold=f"{a_tile['ms_cold']:.4f}",
         a_tile_bytes=a_tile["bytes"], a_tile_ops=a_tile["ops"],
         a_tile_bound_ms=f"{a_tile['bound_ms']:.4f}")
-    # K15 per launch (the median tile into the canvas) and per load; bytes:
-    # 2 of luma and 1 of chroma read a pixel, 4 written; about 13 f32 ops
-    # a pixel (K3's count)
-    canvas = torch.zeros((gh, gw, 4), dtype=torch.uint8, device=dev)
-    ti, tp = items[mid], staged[mid]
-    npx = ti.out_h * ti.out_w
+    # K15 as a load under FFPIC_HEIF_DEVICE_COLOR runs it: one launch over
+    # the fixture's 48 staged tiles, which writes every canvas pixel (no
+    # fill before it). Bytes: 2 of luma and 1 of chroma read a pixel, 4
+    # written, and the index (descriptors and cells); about 13 f32 ops a
+    # pixel (K3's count)
+    index_bytes = 4 * (staged.desc.numel() + gh + gw
+                       + staged.cell_map.numel())
     timed["hevc_yuv_to_rgba"] = time_entry(
         "hevc_yuv_to_rgba",
-        lambda: cuda_hevc.hevc_yuv_to_rgba(*tp, ti.out_h, ti.out_w, "bt601",
-                                           canvas, 0, 0),
-        lambda: hk.hevc_yuv_to_rgba_plain(*tp, ti.out_h, ti.out_w, "bt601",
-                                          canvas, 0, 0),
-        7 * npx, 13 * npx, "f32", floor_ms, flush,
-        "heif load FFPIC_HEIF_DEVICE_COLOR, one 512x512 tile into the canvas")
-
-    def all_k15():
-        for k, (it, pl) in enumerate(zip(items, staged)):
-            y0, x0 = divmod(k, grid["cols"])
-            cuda_hevc.hevc_yuv_to_rgba(*pl, it.out_h, it.out_w, "bt601",
-                                       canvas, y0 * it.out_h, x0 * it.out_w)
-    b_ms, b_by = bound(7 * gh * gw, 13 * gh * gw, F32_OPS_PER_S)
-    t = timed["hevc_yuv_to_rgba"]
-    t.update(per_load_ms=gpu_ms(all_k15, 2), per_load_ms_cold=gpu_ms_cold(
-        all_k15, 5, flush), per_load_bytes=7 * gh * gw,
-        per_load_ops=13 * gh * gw, per_load_bound_ms=b_ms,
-        per_load_bound_by=b_by, per_load_launches=len(items))
-    t["per_load_floor_share"] = len(items) * floor_ms / t["per_load_ms"]
-    log("time kernel per load", name="hevc_yuv_to_rgba",
-        ms=f"{t['per_load_ms']:.4f}", ms_cold=f"{t['per_load_ms_cold']:.4f}",
-        bound_ms=f"{b_ms:.4f}", bound_by=b_by, bytes=7 * gh * gw,
-        launches=len(items),
-        launch_floor_share=f"{t['per_load_floor_share']:.3f}")
-    del flush, canvas, staged, staged_tus, lv_all, plan_all, meta_all
+        lambda: hk.hevc_tiles_to_rgba(staged, "bt601"),
+        lambda: hk.hevc_tiles_to_rgba_plain(staged, "bt601"),
+        7 * gh * gw + index_bytes, 13 * gh * gw, "f32", floor_ms, flush,
+        f"heif load FFPIC_HEIF_DEVICE_COLOR, the {len(tiles)} tiles and "
+        "the canvas in one launch")
+    del flush, staged, staged_tus, lv_all, plan_all, meta_all
 
     mp = gh * gw / 1e6
     # the kernels' device time a load (the staging copies aside)
     kernel_ms = {"neither": 0.0,
                  "hevc_device": timed["hevc_residuals"]["ms"],
-                 "device_color": timed["hevc_yuv_to_rgba"]["per_load_ms"]}
+                 "device_color": timed["hevc_yuv_to_rgba"]["ms"]}
     for sw, metric in (("neither", "heic_12mp_mps"),
                        ("hevc_device", "heic_device_mps"),
                        ("device_color", "heic_device_color_mps")):
@@ -2258,7 +2239,7 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     ViT.  K16 and K17 against their plain versions (``testing.
     resize_cases`` and ``normalize_cases``, and the path's shapes), then
     the path with fresh launch counts: ``decode_batch`` of the 8 x 1080p
-    mixed batch at ``size=(224, 224)`` (K16 a slot), ``normalize_for_
+    mixed batch at ``size=(224, 224)`` (K16 once), ``normalize_for_
     model`` (K17), ViT-B/16's forward with seeded weights; the card's
     batch, input and logits against the CPU's.  Also the 8 x 1080p JPEG
     batch through ``normalize_for_model(size=(224, 224))`` (K17 with its
@@ -2316,6 +2297,29 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     for t in (full, crop, full[2], unaligned):
         exact("resize_rgba", cuda_resize.resize_rgba(t, size),
               rs.resize_rgba_plain(t, size), errs)
+    # the path's one launch over the slots: config 5's, and slots of mixed
+    # sources (1080p, 720x1280, a cropped slot, one off a 4-byte boundary)
+    g = torch.Generator(device=dev).manual_seed(5)
+    hd = torch.randint(0, 256, (720, 1280, 4), dtype=torch.uint8,
+                       device=dev, generator=g)
+    mixed_slots = [full[0], hd, crop[1], unaligned[2], hd[7:701, 5:1203]]
+    # 30 slots of distinct sizes (crops of one image): more tap tables
+    # than ops.resize.taps caches, so the launch must hold its own
+    big = torch.randint(0, 256, (1000, 1300, 4), dtype=torch.uint8,
+                        device=dev, generator=g)
+    sized_slots = [big[:300 + 23 * k, :400 + 29 * k] for k in range(30)]
+    # a 48 MP photo (8064 wide) and a 12000-wide strip: too wide for two
+    # output rows' lines a CTA, so their launches take one row a CTA
+    wide = torch.randint(0, 256, (6048, 8064, 4), dtype=torch.uint8,
+                         device=dev, generator=g)
+    strip = big[:, :1200].repeat(1, 10, 1)
+    for slots_ in (list(full), mixed_slots, sized_slots, [full[0], wide],
+                   [strip]):
+        exact("resize_rgba", rs.resize_batch(slots_, size),
+              rs.resize_batch_plain(slots_, size), errs)
+    for img in (wide, strip):
+        exact_f32("normalize_resize", cuda_resize.normalize_resize(
+            img, size), rs.normalize_plain(img, size), errs)
     sized_plain = rs.resize_rgba_plain(full, size)
     for img, sz in ((full, None), (sized_plain, None), (jpeg_batch, size),
                     (crop, size), (unaligned, size)):
@@ -2334,6 +2338,9 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     log("check K16 K17", resize_rgba="exact", normalize_resize="exact",
         cases=",".join([*testing.resize_cases(), *testing.normalize_cases()]),
         path_shapes=f"{N}x{W}x{H}->224 batch,crop,slot,unaligned; "
+        f"one launch over the {N} slots, over 1080p,720x1280,crop,"
+        "unaligned,crop of 720x1280, over 30 slots of distinct sizes, "
+        "over 1080p,8064x6048 and over 12000x1000 (K17 too); "
         f"{N}x224 norm; "
         f"{N}x{W}x{H} jpeg norm+resize", plain_cpu_vs_card="exact")
 
@@ -2348,7 +2355,7 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     logits = model(x)
     path_launches = counts()
     if (path_launches.get("resize_rgba"), path_launches.get(
-            "normalize_resize")) != (N, 1):
+            "normalize_resize")) != (1, 1):
         raise AssertionError(f"config 5 path: launches {path_launches}")
     if min(path_launches.get(k, 0) for k in (*PATH_420,
                                              "assemble_rgba")) < 1:
@@ -2416,51 +2423,44 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
         return F.interpolate(t.float(), size=size, mode="bilinear",
                              antialias=True, align_corners=False)
 
-    # K16 as the path launches it: once a slot, one 1080p image each
-    slot, slots = full[0], list(full)
+    # K16 as the path launches it: once over the 8 slots, each a 1080p
+    # image of its own; beside it one slot alone and the slots off a 4-byte
+    # boundary (byte loads)
+    slots = [s_.clone() for s_ in full]
     k16 = time_entry(
-        "resize_rgba", lambda: cuda_resize.resize_rgba(slot, size),
-        lambda: rs.resize_rgba_plain(slot, size),
-        slot.numel() + size[0] * size[1] * 4, tap_ops(1, (H, W), size, 4),
-        "f64", floor_ms, flush, f"{at}, one slot a launch",
-        library=lambda: interp(nchw[:1]))
-    # beside it: the path's eight launches back to back, and one launch
-    # over the whole batch (which the path does not make), also with
-    # byte loads (the pixels off a 4-byte boundary)
-    batched = lambda: cuda_resize.resize_rgba(full, size)  # noqa: E731
+        "resize_rgba", lambda: rs.resize_batch(slots, size),
+        lambda: rs.resize_batch_plain(slots, size),
+        full.numel() + N * size[0] * size[1] * 4,
+        tap_ops(N, (H, W), size, 4), "f64", floor_ms, flush,
+        f"{at}, one launch over the slots", library=interp)
     k16.update(
-        slots_ms=gpu_ms(lambda: [cuda_resize.resize_rgba(s, size)
-                                 for s in slots], 20),
-        batched_ms=gpu_ms(batched, 50),
-        batched_ms_cold=gpu_ms_cold(batched, 20, flush),
-        batched_bound_ms=bound(full.numel() + N * size[0] * size[1] * 4,
-                               tap_ops(N, (H, W), size, 4),
-                               F64_OPS_PER_S)[0],
-        batched_byte_loads_ms=gpu_ms(
+        one_slot_ms=gpu_ms(lambda: cuda_resize.resize_rgba(slots[0], size),
+                           50),
+        one_slot_ms_cold=gpu_ms_cold(
+            lambda: cuda_resize.resize_rgba(slots[0], size), 20, flush),
+        byte_loads_ms=gpu_ms(
             lambda: cuda_resize.resize_rgba(unaligned, size), 50),
-        batched_library_ms=gpu_ms(interp, 50),
-        batched_library_ms_cold=gpu_ms_cold(interp, 20, flush),
         library_max_abs_vs_plain=max_abs_err(
             interp().round().clamp(0, 255).to(torch.uint8)
             .permute(0, 2, 3, 1), sized_plain),
         dense_f64_ms=gpu_ms(lambda: dense_resize(full, size), 5),
         dense_f64_ms_cold=gpu_ms_cold(lambda: dense_resize(full, size), 3,
                                       flush),
-        launches_per_path=N)
+        launches_per_path=path_launches["resize_rgba"])
     if not torch.equal(dense_resize(full, size), sized_plain):
         k16["dense_f64_max_abs_vs_plain"] = max_abs_err(
             dense_resize(full, size), sized_plain)
     log("time resize_rgba extra", at=at,
         **{k: (f"{v:.4f}" if isinstance(v, float) else v)
            for k, v in k16.items() if k.startswith(
-               ("slots_", "batched_", "library_max", "dense_f64"))})
+               ("one_slot", "byte_loads", "library_max", "dense_f64"))})
     nb = batch.numel()
     k17 = time_entry(
         "normalize_resize", lambda: cuda_resize.normalize_resize(batch),
         lambda: rs.normalize_plain(batch), nb + nb // 4 * 3 * 4,
         3 * nb // 4 * 3, "f32", floor_ms, flush,
         f"config 5: {N} x 224 x 224, size=None")
-    k17["launches_per_path"] = 1
+    k17["launches_per_path"] = path_launches["normalize_resize"]
     sized_in = jpeg_batch.numel()
     k17["with_resize"] = w = {
         "at": f"{N} x {W}x{H} jpeg to 224 x 224",
@@ -2885,8 +2885,8 @@ def main() -> int:
              "assemble_mcu": "assemble_mcu<1,0,1>",
              "assemble_rgba": "assemble_rgba<6,8>",
              "hevc_yuv_to_rgba": "hevc_yuv_to_rgba<1>",
-             "resize_rgba": "resize<0,1>",
-             "normalize_resize": "resize<1,1>"}
+             "resize_rgba": "resize<0,2>",
+             "normalize_resize": "resize<1,2>"}
     # each kernel's launches on the path it serves: decode_batch for
     # K1a-K3, load for K4, encode for K5, PNG load (Sub/Up file) for K6
     # and K7, the sparse route for K8; K2's on load beside them
@@ -2911,9 +2911,9 @@ def main() -> int:
     for name in ("vp8_residuals", "vp8_yuv_to_rgba"):
         timed[name]["launches_per_path"] = {
             k: v[name] for k, v in webp_launches.items()}
-    # K14 on the 12 MP fixture's load under FFPIC_HEVC_DEVICE (one launch
-    # over the grid's tiles), K15 on its load under FFPIC_HEIF_DEVICE_COLOR
-    # (a launch a tile); their other paths beside
+    # K14 on the 12 MP fixture's load under FFPIC_HEVC_DEVICE, K15 on its
+    # load under FFPIC_HEIF_DEVICE_COLOR (each one launch over the grid's
+    # tiles); their other paths beside
     launches["hevc_residuals"] = \
         heif_launches["load_hevc_device"]["hevc_residuals"]
     launches["hevc_yuv_to_rgba"] = \
@@ -2921,8 +2921,8 @@ def main() -> int:
     for name in ("hevc_residuals", "hevc_yuv_to_rgba"):
         timed[name]["launches_per_path"] = {
             k: v[name] for k, v in heif_launches.items()}
-    # K16 and K17 on config 5's path: decode_batch(size=) (a launch a
-    # slot), then normalize_for_model
+    # K16 and K17 on config 5's path: decode_batch(size=) (one launch over
+    # the slots), then normalize_for_model
     # K18 on make_wavefront of the 1080p frame, and in the K12 -> K18 chain
     launches["vp8_wavefront"] = wave_launches["path"]["vp8_wavefront"]
     timed["vp8_wavefront"]["launches_chain"] = \

@@ -3,7 +3,7 @@ one NVIDIA GPU.
 
     python3 -m ffpic_tpu_torch.compare_kernels --parent DIR \
         [--kernels k18,entropy,vp8] [--rounds 1]
-    python3 -m ffpic_tpu_torch.compare_kernels --tree DIR [--kernels ...]
+    python3 DIR/ffpic_tpu_torch/compare_kernels.py --tree DIR [--kernels ...]
 
 ``DIR`` holds an older checkout of the repository, e.g. the parent
 commit unpacked from ``git archive`` into a directory that
@@ -44,7 +44,24 @@ default):
   plain version (its ns a symbol: ``chip_smoke.py``'s ``[time entropy
   kernels]``);
 * ``vp8``: K12 on the 1080p frame's levels and K13 on 1080p planes,
-  warm and L2 flushed, each against its plain version.
+  warm and L2 flushed, each against its plain version;
+* ``k16``: config 5's resize of 8 slots of 1080p RGBA to 224 x 224 as
+  ``decode_batch`` runs it (``ops.resize.resize_batch``, one launch),
+  against ``resize_batch_plain``; K16 on one slot, on a 48 MP slot
+  (8064 x 6048, one output row a CTA) and on the 8 in one tensor, and
+  each of its passes alone there: 1080x1920 -> 224x1920 (pass 1, the
+  vertical taps) and 1080x1920 -> 1080x224 (pass 2, the horizontal
+  taps, over each input row copied); K17 with its resize on the 8
+  slots (the JPEG chain's call) and without one on the 8 x 224 x 224
+  batch (config 5's call); each warm and L2 flushed;
+* ``k15``: ``heif.color`` of the 12 MP fixture under
+  ``FFPIC_HEIF_DEVICE_COLOR`` on its staged tiles as ``heif.to_pics``
+  runs it (``hevc_kernels.hevc_tiles_to_rgba``, one launch that also
+  fills the canvas), warm and L2 flushed (2 and 5 loads), against the
+  CPU route's pixels; and ``load`` of the fixture under that switch
+  (median of 5, host clock).
+
+``k16`` and ``k15`` need both trees to have those one-launch entries.
 
 Each run prints one ``RESULT`` JSON line; the rounds end with a table of
 each number's median per tree, and the card's name and power limit.
@@ -63,11 +80,12 @@ import time
 
 H, W = 1080, 1920
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = ("k7", "k14", "k18", "entropy", "vp8")
+GROUPS = ("k7", "k14", "k18", "entropy", "vp8", "k16", "k15")
 KERNELS = {"k7": ("assemble_rgba",), "k14": ("hevc_residuals",),
            "k18": ("vp8_wavefront",),
            "entropy": ("entropy_decode", "spec_scan", "spec_merge"),
-           "vp8": ("vp8_residuals", "vp8_yuv_to_rgba")}
+           "vp8": ("vp8_residuals", "vp8_yuv_to_rgba"),
+           "k16": ("resize",), "k15": ("hevc_yuv_to_rgba",)}
 
 
 def _timed(fn, flush, warm: int = 50, cold: int = 20) -> dict:
@@ -347,6 +365,106 @@ def _vp8(dev, flush) -> dict:
     return out
 
 
+def _k16(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch.ops import cuda_resize
+    from ffpic_tpu_torch.ops import resize as rs
+    size, n = (224, 224), 8
+    rng = np.random.default_rng(16)
+    slots = [torch.from_numpy(rng.integers(0, 256, (H, W, 4), dtype=np.uint8))
+             .to(dev) for _ in range(n)]
+    batch = torch.stack(slots)
+    def path():
+        return rs.resize_batch(slots, size)
+    if not torch.equal(path(), rs.resize_batch_plain(slots, size)):
+        raise AssertionError("K16 on the 8 slots differs from its plain "
+                             "version")
+    # a 48 MP photo: too wide for the lines of two output rows a CTA
+    wide = torch.from_numpy(rng.integers(0, 256, (6048, 8064, 4),
+                                         dtype=np.uint8)).to(dev)
+    if not torch.equal(cuda_resize.resize_rgba(wide, size),
+                       rs.resize_rgba_plain(wide, size)):
+        raise AssertionError("K16 on the 48 MP slot differs from its plain "
+                             "version")
+    small = batch[:, :224].contiguous()
+    sized = torch.from_numpy(rng.integers(0, 256, (n, *size, 4),
+                                          dtype=np.uint8)).to(dev)
+    for x, sz in ((batch[:1], (224, W)), (batch[:1], (H, 224)),
+                  (small, (112, 224))):
+        if not torch.equal(cuda_resize.resize_rgba(x, sz),
+                           rs.resize_rgba_plain(x, sz)):
+            raise AssertionError(f"K16 to {sz} differs from its plain "
+                                 "version")
+    for x, sz in ((batch, size), (sized, None)):
+        if not torch.equal(cuda_resize.normalize_resize(x, sz),
+                           rs.normalize_plain(x, sz)):
+            raise AssertionError(f"K17 to {sz} differs from its plain "
+                                 "version")
+    out = {}
+    for name, fn in (
+            ("path 8 slots", path),
+            ("one slot", lambda: cuda_resize.resize_rgba(slots[0], size)),
+            ("48 MP slot", lambda: cuda_resize.resize_rgba(wide, size)),
+            ("8 slots one tensor", lambda: cuda_resize.resize_rgba(batch,
+                                                                   size)),
+            ("pass 1 one slot", lambda: cuda_resize.resize_rgba(
+                batch[:1], (224, W))),
+            ("pass 1 8 slots", lambda: cuda_resize.resize_rgba(batch,
+                                                               (224, W))),
+            ("pass 2 one slot", lambda: cuda_resize.resize_rgba(
+                batch[:1], (H, 224))),
+            ("pass 2 8 slots", lambda: cuda_resize.resize_rgba(batch,
+                                                               (H, 224))),
+            ("K17 with resize 8 slots", lambda: cuda_resize.normalize_resize(
+                batch, size)),
+            ("K17 8 x 224", lambda: cuda_resize.normalize_resize(sized))):
+        t = _timed(fn, flush, 20, 10)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+    return out
+
+
+def _k15(dev, flush) -> dict:
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import heif
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    data = testing.heif_fixture()
+    saved = {k: os.environ.pop(k, None) for k in
+             ("FFPIC_HEVC_DEVICE", "FFPIC_HEIF_DEVICE_COLOR")}
+    os.environ["FFPIC_HEIF_DEVICE_COLOR"] = "1"
+    try:
+        want = ffpic_tpu_torch.load(data, device="cpu").pixels
+        f = heif.parse(data, False, "bt601", dev)
+        staged = heif._stage_tiles(f, dev)
+
+        def colour():
+            return hk.hevc_tiles_to_rgba(staged, f.mode)
+        if not torch.equal(colour().cpu(), want):
+            raise AssertionError("heif.color of the fixture differs from the "
+                                 "CPU route")
+        out = {}
+        # 2 loads a timing: a design with a launch a tile takes the host
+        # about 1 ms a load to enqueue, so gpu_ms's spin kernel holds only
+        # a few loads; older trees' numbers were timed so too
+        t = _timed(colour, flush, 2, 5)
+        out["heif.color 12mp ms"] = t["ms"]
+        out["heif.color 12mp ms_cold"] = t["ms_cold"]
+        ffpic_tpu_torch.load(data)
+        walls = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            ffpic_tpu_torch.load(data)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        out["load device_color ms"] = statistics.median(walls) * 1e3
+    finally:
+        os.environ.pop("FFPIC_HEIF_DEVICE_COLOR")
+        os.environ.update({k: v for k, v in saved.items() if v})
+    return out
+
+
 def run(tree: str, groups) -> dict:
     """One tree's numbers (see the module's docstring)."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -372,7 +490,7 @@ def run(tree: str, groups) -> dict:
     dev = torch.device("cuda")
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
     run_group = {"k7": _k7, "k14": _k14, "k18": _k18, "entropy": _entropy,
-                 "vp8": _vp8}
+                 "vp8": _vp8, "k16": _k16, "k15": _k15}
     return {"tree": os.path.abspath(tree), "build_s": build_s,
             "ptxas": ptxas,
             "groups": {g: run_group[g](dev, flush) for g in groups}}

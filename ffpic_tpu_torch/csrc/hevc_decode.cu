@@ -8,9 +8,10 @@
 //                         then the 2-D inverse DCT (4 to 32 points) or the
 //                         4-point DST, or the transform-skip scaling, or
 //                         the bypass copy
-//   K15 hevc_yuv_to_rgba  int16 Y and 4:2:0 U, V planes (or Y alone, 4:0:0)
-//                         -> RGBA uint8 written at an offset of a canvas:
-//                         nearest 2x chroma, crop, colour as K3/K4
+//   K15 hevc_yuv_to_rgba  every tile of a picture (int16 Y and 4:2:0 U, V
+//                         planes, or Y alone, 4:0:0) -> the RGBA uint8
+//                         canvas, each pixel written once: nearest 2x
+//                         chroma, crop, colour as K3/K4, the paste
 //
 // Every launcher is extern "C", launches on the caller's stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError(). K14 is
@@ -236,37 +237,133 @@ __global__ void __launch_bounds__(kResThreads)
 // K15. Replaces the device branch of ffpic_tpu/formats/heif.py:
 // _yuv_pic_to_rgba (:356-371): jnp.repeat of U and V by 2 on both axes,
 // the crop, and ffpic_tpu/ops/jpeg_kernels.py:color_convert (:144); and
-// the paste of each grid tile into the canvas (heif.py:_decode_grid,
-// :459-487), which the reference does on the host after reading each
-// tile back.
+// the canvas of a grid with the paste of each tile into it
+// (heif.py:_decode_grid, :459-487), which the reference does on the host
+// after reading each tile back.
 // Bound: it reads 2 bytes of luma and 1 of chroma a pixel and writes 4:
-// 7 bytes a pixel, 84.7 MB for the 12 MP grid; the float colour's 10
+// 7 bytes a pixel, 85.3 MB for the 12 MP grid; the float colour's 13
 // operations a pixel are nothing beside that, so it is bound by bytes.
 //
-// A thread per output pixel, 32 x 8 a CTA, neighbouring threads on
-// neighbouring pixels of a row: a warp reads 64 bytes of Y and 32 of U
-// and of V (pairs of threads share a chroma sample) and writes 128 of
-// RGBA. Chroma is the nearest sample (y >> 1, x >> 1) of the planes as
-// staged, 128 for 4:0:0; the colour is color.cuh's pixel(), alpha 255.
-constexpr int kColX = 32, kColY = 8;
+// One launch a picture writes every canvas pixel once: a pixel that a
+// tile covers gets that tile's colour (the last tile in paste order where
+// tiles overlap), a pixel that none covers (0, 0, 0, 255); so the canvas
+// needs no fill before it. The host (ops.hevc_kernels.stage_tiles) cuts
+// the canvas at every tile edge into cells: row_cell[y] and col_cell[x]
+// name a pixel's cell, cell_map[r * cells_x + c] the tile that covers it
+// last (-1 for none), and desc[t] the tile's planes (TileDesc). A grid of
+// one tile size has a cell a tile; a single item is one tile.
+//
+// A thread takes four pixels of a row, a CTA 4 rows of 64 threads. Where
+// the four lie in one cell, at an even column of the tile, with the
+// planes' rows aligned, it loads 8 bytes of luma and 4 of each chroma
+// plane and stores 16 bytes of RGBA; else (a tile or canvas edge that
+// is not a multiple of 4) it takes the pixels one by one. Chroma is the
+// nearest sample (y >> 1, x >> 1) of the planes as staged, 128 for 4:0:0;
+// the colour is color.cuh's pixel(), alpha 255.
+constexpr int kColGroups = 64, kColRows = 4;
+constexpr uint32_t kUncovered = 0xFF000000u;   // (0, 0, 0, 255)
+
+// A tile's planes as ops.hevc_kernels.stage_tiles lays out its 8 int32:
+// the offsets of Y, U and V in the staged planes (int16 elements, U = V
+// = -1 for 4:0:0), the luma and chroma row pitches, and its place.
+struct TileDesc {
+  const int16_t* y;
+  const int16_t* u;
+  const int16_t* v;
+  int ys, cs, y0, x0;
+};
+
+__device__ __forceinline__ TileDesc tile_desc(const int16_t* planes,
+                                              const int4* desc, int t) {
+  const int4 a = __ldg(desc + 2 * t), b = __ldg(desc + 2 * t + 1);
+  TileDesc d;
+  d.y = planes + a.x;
+  d.u = a.y < 0 ? nullptr : planes + a.y;
+  d.v = a.z < 0 ? nullptr : planes + a.z;
+  d.ys = a.w;
+  d.cs = b.x;
+  d.y0 = b.y;
+  d.x0 = b.z;
+  return d;
+}
 
 template <int kMode>
-__global__ void __launch_bounds__(kColX * kColY)
-    hevc_yuv_to_rgba_kernel(const int16_t* __restrict__ Y, long long ys,
-                            const int16_t* __restrict__ U, long long us,
-                            const int16_t* __restrict__ V, long long vs,
-                            uint32_t* __restrict__ out, long long os, int h,
-                            int w) {
-  const int x = blockIdx.x * kColX + threadIdx.x;
-  const int y = blockIdx.y * kColY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const int yv = __ldg(Y + y * ys + x);
+__device__ __forceinline__ uint32_t one_pixel(const int16_t* planes,
+                                              const int4* desc,
+                                              const int* cell_map, int rc,
+                                              const int* col_cell, int y,
+                                              int x) {
+  const int t = __ldg(cell_map + rc + __ldg(col_cell + x));
+  if (t < 0) return kUncovered;
+  const TileDesc d = tile_desc(planes, desc, t);
+  const int yl = y - d.y0, xl = x - d.x0;
+  const int yv = __ldg(d.y + (long long)yl * d.ys + xl);
   int u = 128, v = 128;
-  if (U) {
-    u = __ldg(U + (y >> 1) * us + (x >> 1));
-    v = __ldg(V + (y >> 1) * vs + (x >> 1));
+  if (d.u) {
+    const long long o = (long long)(yl >> 1) * d.cs + (xl >> 1);
+    u = __ldg(d.u + o);
+    v = __ldg(d.v + o);
   }
-  out[y * os + x] = pixel<kMode, 0>(yv, u, v);
+  return pixel<kMode, 0>(yv, u, v);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kColGroups * kColRows)
+    hevc_yuv_to_rgba_kernel(const int16_t* __restrict__ planes,
+                            const int4* __restrict__ desc,
+                            const int* __restrict__ row_cell,
+                            const int* __restrict__ col_cell,
+                            const int* __restrict__ cell_map, int cells_x,
+                            uint32_t* __restrict__ out, int H, int W) {
+  const int y = blockIdx.y * kColRows + threadIdx.y;
+  const int x = (blockIdx.x * kColGroups + threadIdx.x) * 4;
+  if (y >= H || x >= W) return;
+  const int rc = __ldg(row_cell + y) * cells_x;
+  uint32_t* o = out + (long long)y * W + x;
+  if (x + 4 <= W) {
+    const int c = __ldg(col_cell + x);
+    if (c == __ldg(col_cell + x + 3)) {
+      const int t = __ldg(cell_map + rc + c);
+      uint4 px = make_uint4(kUncovered, kUncovered, kUncovered, kUncovered);
+      bool whole = t < 0;
+      if (!whole) {
+        const TileDesc d = tile_desc(planes, desc, t);
+        const int yl = y - d.y0, xl = x - d.x0;
+        const int16_t* py = d.y + (long long)yl * d.ys + xl;
+        const long long co = (long long)(yl >> 1) * d.cs + (xl >> 1);
+        whole = (xl & 1) == 0 && ((uintptr_t)py & 7) == 0 &&
+                (!d.u || (((uintptr_t)(d.u + co) & 3) == 0 &&
+                          ((uintptr_t)(d.v + co) & 3) == 0));
+        if (whole) {
+          const uint2 yy = __ldg(reinterpret_cast<const uint2*>(py));
+          uint32_t uu = 0x00800080u, vv = 0x00800080u;
+          if (d.u) {
+            uu = __ldg(reinterpret_cast<const uint32_t*>(d.u + co));
+            vv = __ldg(reinterpret_cast<const uint32_t*>(d.v + co));
+          }
+          px = make_uint4(pixel<kMode, 0>(lo16(yy.x), lo16(uu), lo16(vv)),
+                          pixel<kMode, 0>(hi16(yy.x), lo16(uu), lo16(vv)),
+                          pixel<kMode, 0>(lo16(yy.y), hi16(uu), hi16(vv)),
+                          pixel<kMode, 0>(hi16(yy.y), hi16(uu), hi16(vv)));
+        }
+      }
+      if (whole) {
+        if (((uintptr_t)o & 15) == 0) {
+          *reinterpret_cast<uint4*>(o) = px;
+        } else {
+          o[0] = px.x;
+          o[1] = px.y;
+          o[2] = px.z;
+          o[3] = px.w;
+        }
+        return;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (x + k < W)
+      o[k] = one_pixel<kMode>(planes, desc, cell_map, rc, col_cell, y, x + k);
 }
 
 }  // namespace
@@ -290,33 +387,37 @@ int ffpic_hevc_residuals(const void* desc, const void* ctas,
   return (int)cudaGetLastError();
 }
 
-// Y: h rows of at least w int16 at pitch ys (elements); U, V: (h + 1) / 2
-// rows of at least (w + 1) / 2 at pitches us, vs, or both null (4:0:0);
-// out: h rows of w pixels (4 bytes each, 4-byte aligned) at pitch os
-// pixels; mode 0 reference, 1 bt601, 2 rgb
-int ffpic_hevc_yuv_to_rgba(const void* Y, long long ys, const void* U,
-                           long long us, const void* V, long long vs,
-                           void* out, long long os, int h, int w, int mode,
-                           void* stream) {
-  if (h <= 0 || w <= 0 || ((uintptr_t)out & 3) || mode < 0 || mode > 2 ||
-      (U == nullptr) != (V == nullptr))
+// planes: the staged int16 planes; desc: 8 int32 a tile (TileDesc),
+// 16-byte aligned; row_cell: H int32, col_cell: W int32, cell_map:
+// cells_x int32 a row of cells (every entry -1 or a tile of desc); out:
+// H x W pixels of 4 bytes, 16-byte aligned, every one written; mode 0
+// reference, 1 bt601, 2 rgb
+int ffpic_hevc_yuv_to_rgba(const void* planes, const void* desc,
+                           const void* row_cell, const void* col_cell,
+                           const void* cell_map, int cells_x, void* out,
+                           int H, int W, int mode, void* stream) {
+  if (H <= 0 || W <= 0 || cells_x <= 0 || ((uintptr_t)out & 15) ||
+      ((uintptr_t)desc & 15) || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
-  const dim3 block(kColX, kColY);
-  const dim3 grid((w + kColX - 1) / kColX, (h + kColY - 1) / kColY);
+  const dim3 block(kColGroups, kColRows);
+  const dim3 grid((W + 4 * kColGroups - 1) / (4 * kColGroups),
+                  (H + kColRows - 1) / kColRows);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int16_t *y = (const int16_t*)Y, *u = (const int16_t*)U,
-                *v = (const int16_t*)V;
+  const int16_t* p = (const int16_t*)planes;
+  const int4* d = (const int4*)desc;
+  const int *rc = (const int*)row_cell, *cc = (const int*)col_cell,
+            *cm = (const int*)cell_map;
   uint32_t* o = (uint32_t*)out;
   if (mode == 0)
-    hevc_yuv_to_rgba_kernel<0><<<grid, block, 0, s>>>(y, ys, u, us, v, vs, o,
-                                                      os, h, w);
+    hevc_yuv_to_rgba_kernel<0><<<grid, block, 0, s>>>(p, d, rc, cc, cm,
+                                                      cells_x, o, H, W);
   else if (mode == 1)
-    hevc_yuv_to_rgba_kernel<1><<<grid, block, 0, s>>>(y, ys, u, us, v, vs, o,
-                                                      os, h, w);
+    hevc_yuv_to_rgba_kernel<1><<<grid, block, 0, s>>>(p, d, rc, cc, cm,
+                                                      cells_x, o, H, W);
   else
-    hevc_yuv_to_rgba_kernel<2><<<grid, block, 0, s>>>(y, ys, u, us, v, vs, o,
-                                                      os, h, w);
+    hevc_yuv_to_rgba_kernel<2><<<grid, block, 0, s>>>(p, d, rc, cc, cm,
+                                                      cells_x, o, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -1,77 +1,123 @@
 // Resize kernels for Hopper (sm_90a): the device half of
 // ffpic_tpu_torch.ops.resize (BASELINE config 5, the model's input).
 //
-//   K16 resize_rgba       (N, H, W, C) uint8 -> (N, h, w, C) uint8:
-//                         bilinear with antialiasing, rounded half to
-//                         even and clipped
-//   K17 normalize_resize  (N, H, W, Cin >= 3) uint8 RGBA -> (N, h, w, 3)
-//                         f32: rgb * f32(1/255), the same resize in f32
-//                         with no uint8 rounding, then (x - mean) / std;
+//   K16 resize_rgba       N slots, each (H_n, W_n, C) uint8 of its own size
+//                         and pitch -> (N, h, w, C) uint8 in one launch:
+//                         bilinear with antialiasing, rounded half to even
+//                         and clipped
+//   K17 normalize_resize  N images (H_n, W_n, Cin >= 3) uint8 RGBA -> (N, h,
+//                         w, 3) f32: rgb * f32(1/255), the same resize in
+//                         f32 with no uint8 rounding, then (x - mean) / std;
 //                         without a resize fma(rgb, f32(1/255), -mean) /
 //                         std
 //
 // Every launcher is extern "C", launches on the caller's stream, does not
 // synchronise, allocates nothing and returns cudaGetLastError().
 //
-// Both replace B4, ffpic_tpu/ops/resize.py: K16 resize_rgba (:13), K17
+// Both replace B4, ffpic_tpu/ops/resize.py: K16 resize_rgba (:13), which
+// ffpic_tpu/pipeline.py:309-311 calls once a slot, K17
 // normalize_for_model (:27), each a jax.image.resize, which XLA runs as
 // two dense products over (in, out) weight matrices. Here each output
 // index reads only its taps: a run of inputs from `start`, `count` long,
 // with its f32 weights (host tables from ops.resize.taps, the nonzero run
-// of each column of JAX's weight matrix).
+// of each column of JAX's weight matrix). One launch covers a batch:
+// each slot has a descriptor (Slot: its pixels, row pitch and the taps of
+// each axis), so slots of other sizes and pitches share the launch and
+// the output is written in place of a stack of per-slot results (64
+// slots a launch, by value).
 //
 // Arithmetic, bit for bit with ops.resize's plain versions: an axis whose
 // size changes is summed in double, over its taps in ascending input
-// order, each product and each sum rounded to double (__dmul_rn and
-// __dadd_rn: nvcc would otherwise contract them into FMAs, which the
-// plain version does not do), then rounded to float; H first, then W; an
-// axis whose size does not change is skipped, as JAX skips it. On H the
-// products of K16 (uint8 x f32) and their sums are exact in double; on W
-// the products (f32 x f32, 48 bits) are exact and the sums are not, which
+// order, each sum rounded to double, then rounded to float; H first, then
+// W; an axis whose size does not change is skipped, as JAX skips it. The
+// plain versions round each product to double and then each sum. Every
+// product here is exact in double: a uint8 (8 bits), a K17 input (an f32,
+// 24) or a pass-1 result (an f32, 24) times an f32 weight (24) needs at
+// most 48 of the 53 bits. So the product's rounding does nothing, and one
+// fused multiply-add (__fma_rn) rounds exactly as the plain version's
+// product-then-sum (tests/test_torch_resize.py checks the products of
+// every weight with Fractions). The sums are not exact in general, which
 // is why both versions keep one order. K16 then rounds half to even
 // (rintf) and clips. K17 follows what XLA's CPU backend compiles the
-// jitted original to: / 255 is a product by f32(1/255), rounded before
-// the resize, and (x - mean) / std after it, an f32 subtract and an f32
-// divide (__fdiv_rn, never a product by the reciprocal); when neither
-// axis changes, the product and the subtraction are one FMA
-// (__fmaf_rn), as XLA contracts them there.
+// jitted original to: / 255 is a product by
+// f32(1/255), rounded before the resize, and (x - mean) / std after it,
+// an f32 subtract and an f32 divide (__fdiv_rn, never a product by the
+// reciprocal); when neither axis changes, the product and the subtraction
+// are one FMA (__fmaf_rn), as XLA contracts them there.
 //
 // Bound, at config 5 (8 x 1080p RGBA to 224 x 224): each input byte read
 // once and each output written once, 66.4 + 1.6 MB for K16, 0.020 ms at
-// 3.35 TB/s. The double work is a multiply and an add a tap, about 10
-// taps a row element and 18 a column element, 0.32 G f64 ops, 0.010 ms
-// at the card's 33.45 T f64 op/s (an FMA counted as 2). So it is bound
-// by bytes.
+// 3.35 TB/s. The double work is an FMA a tap, about 10 taps a row element
+// and 18 a column element, 0.32 G f64 ops, 0.010 ms at the card's 33.45 T
+// f64 op/s (an FMA counted as 2). So it is bound by bytes. What sets the
+// time instead is pass 1's instructions a tap and channel and the round
+// trips each thread waits on (PERF.md, section 6).
 //
-// Design (simple first): one CTA per (output row, image). Pass 1
-// computes the output row over all W input columns from its vertical
-// taps (or takes the input row when H does not change), a thread a
-// pixel's group of up to four channels, and keeps it in shared memory as
-// f32, W x C x 4 bytes (30 KB at 1920 x 4). Pass 2 computes the row's
-// w x C outputs from their horizontal taps there. What sets the time is
-// each thread's chain of round trips to memory in pass 1, not the f64
-// work, so a thread loads kBatch taps' inputs before it sums them, and
-// an RGBA pixel is one 32-bit load a tap (chip_smoke.py times the byte
-// loads on the same pixels beside it). The f32 weights come widened
-// to double, and K16's bytes are made doubles from their bits, since
-// every conversion to or from a 64-bit type issues at a quarter of the
-// f64 rate on sm_90. Neighbouring output rows share about half their
-// input rows when shrinking by 4.8, so a byte comes from device memory
-// about once and from L2 about twice.
+// Design. One CTA per kRows output rows of a slot. Pass 1 computes the rows
+// over all W input columns from their vertical taps (or takes the input rows
+// when H does not change), a thread a pixel's group of up to four channels,
+// and keeps them in shared memory as f32, kRows x W x C x 4 bytes (60 KB at
+// 1920 x 4). A launch whose widest slot's kRows lines do not fit shared memory
+// (RGBA wider than about 7,200 pixels) takes one output row a CTA instead, so
+// the widest slot is what one row's line allows, about 14,400 RGBA pixels.
+// Neighbouring output rows share about half their input rows when shrinking by
+// 4.8, so the CTA stages, once, each row's weight for every input row of the
+// band its runs span (0 outside a row's run, which adds nothing), and a thread
+// then loads each input row of the band once (kBatch rows in flight), widens
+// it once and adds it to every row, with no branch in the loop: the zero FMAs
+// cost less than a branch a tap did. A K16 byte becomes a double by one f64
+// add (2^52 + v less 2^52), which takes fewer instructions than integer
+// operations would; a K17 input is an f32 product (f32 add and multiply) moved
+// into a double by integer operations (f32_as_f64); each sum is rounded to f32
+// once an element. Pass 2 computes the rows' w pixels from their horizontal
+// taps there, a thread a pixel's group of channels in every row: its weights
+// kBatch2 at a time into registers ahead of the FMAs (no load waits inside the
+// chain of taps), each weight used for every row, each f32 widened by integer
+// operations (no conversion, which issues at a quarter of the f64 rate). An
+// RGBA pixel is one 32-bit load where the slot is 4-byte aligned (byte loads
+// otherwise). The channel count is a compile-time constant for K16 on RGBA and
+// for K17, and a CTA keeps to 85 registers so that 3 fit an SM (PERF.md holds
+// the sweep of rows a CTA, loads in flight and registers these constants come
+// from).
 
+#include <climits>
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kRows = 2;                   // output rows a CTA, or 1
+constexpr int kBatch = 16;                 // pass 1: input rows in flight
+constexpr int kBatch2 = 8;                 // pass 2: weights read ahead
 constexpr float kInv255 = 1.0f / 255.0f;   // XLA's f32(1/255)
 
-struct Taps {
-  const int* start;    // (out,) first input index
-  const int* count;    // (out,) length of the run
-  const double* w;     // (out, k) its f32 weights, widened on the host
+// One axis of one slot: the run of each output index (start, count) and
+// its f32 weights widened to double, k a row; `start` null when the axis
+// keeps its size. n: the slot's input size on the axis.
+struct Axis {
+  const int* start;
+  const int* count;
+  const double* w;
   int k;
+  int n;
+};
+
+// One slot: its pixel (y, x, c) at src + y * row + x * cin + c.
+// 80 bytes, as ops.cuda_resize lays it out: ten 64-bit words.
+struct Slot {
+  const uint8_t* src;
+  long long row;
+  Axis v, h;
+};
+
+// A launch's slots, passed by value (5 KB of kernel parameters, which
+// sm_90 takes up to 32 KB): no copy to the device before the launch,
+// and each CTA reads its slot from the constant bank.
+constexpr int kMaxSlots = 64;
+struct Slots {
+  Slot s[kMaxSlots];
 };
 
 struct Norm {
@@ -79,23 +125,44 @@ struct Norm {
   float std[3];
 };
 
-// An input byte as the value the sums take. K16: the byte, built as a
-// double from its bits (2^52 + v, less 2^52: exact, one f64 add), since
-// a conversion to or from a 64-bit type issues at a quarter of the f64
-// rate on sm_90. K17: rgb * f32(1/255) rounded to f32, read from a
-// table of the 256 products in shared memory.
+// A value the sums take, 0 or a positive normal f32, as a double by
+// integer operations: the exponent rebased by 1023 - 127 = 896 and the
+// mantissa moved up 29 bits, no conversion. The values here are K17's
+// inputs (bytes times f32(1/255)) and pass-1 results: sums of products of
+// bytes or those (at least 2^-8 when not 0) and f32 weights that are 0 or
+// at least 2^-108, so never negative, subnormal, infinite or NaN.
+__device__ __forceinline__ double f32_as_f64(float f) {
+  const unsigned b = __float_as_uint(f);
+  return __hiloint2double(b ? (int)((b >> 3) + 0x38000000u) : 0,
+                          (int)(b << 29));
+}
+
+// Byte c of the word v as the f32 value the sums take: K16 the byte, K17
+// its product by f32(1/255), rounded to f32 as XLA rounds it. The byte
+// becomes a float from its bits (2^23 + v, less 2^23: an exact f32 add).
 template <bool NORM>
-__device__ __forceinline__ double widen(unsigned v, const float* lut) {
-  if (NORM) return (double)lut[v];
-  return __dadd_rn(__hiloint2double(0x43300000, (int)v),
+__device__ __forceinline__ float byte_value(unsigned v, int c) {
+  const float f = __fsub_rn(
+      __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7540 + c)), 8388608.0f);
+  return NORM ? __fmul_rn(f, kInv255) : f;
+}
+
+// The same as a double, for pass 1's sums. K16: the byte as a double
+// from its bits (2^52 + v, less 2^52: exact, one f64 add, fewer
+// instructions than any other way); K17: its f32 value moved into a
+// double (f32_as_f64).
+template <bool NORM>
+__device__ __forceinline__ double widen(unsigned v, int c) {
+  if (NORM) return f32_as_f64(byte_value<true>(v, c));
+  return __dadd_rn(__hiloint2double(0x43300000, (int)((v >> (8 * c)) & 255u)),
                    -4503599627370496.0);
 }
 
 // A thread takes a pixel's group of up to four channels, `nc` bytes
-// from p: one 32-bit load when the launcher found every pixel 4-byte
-// aligned with four channels (RGBA: WORD), else a byte load a channel.
-// WORD is a template argument, so the batch of loads below holds no
-// branch that would keep nvcc from issuing it together.
+// from p: one 32-bit load when the slot's pixels are 4-byte aligned with
+// four channels (WORD), else a byte load a channel. WORD is a template
+// argument, so the batch of loads below holds no branch that would keep
+// nvcc from issuing it together.
 template <bool WORD>
 __device__ __forceinline__ unsigned load_group(const uint8_t* p, int nc) {
   if (WORD) return __ldg(reinterpret_cast<const unsigned*>(p));
@@ -106,42 +173,43 @@ __device__ __forceinline__ unsigned load_group(const uint8_t* p, int nc) {
   return v;
 }
 
-// The vertical taps of one group, each channel summed in ascending order.
-// A chain of dependent loads would leave each thread waiting on one round
-// trip to memory a tap; the inputs of kBatch taps are loaded first, so
-// their round trips overlap, and then summed in order.
-constexpr int kBatch = 16;
-
-template <bool NORM, bool WORD>
-__device__ __forceinline__ void group_taps(const uint8_t* px,
-                                           long long pitch, const Taps& t,
-                                           int o, int nc, const float* lut,
-                                           float* f) {
-  const int s = t.start[o], n = t.count[o];
-  const double* w = t.w + (long long)o * t.k;
-  double acc[4] = {0.0, 0.0, 0.0, 0.0};
-  for (int i0 = 0; i0 < n; i0 += kBatch) {
+// The vertical taps of one group of channels for the CTA's rows: the
+// span input rows from lo (a multiple of kBatch; rows past the image's
+// last read as it), each loaded and widened once and added to every
+// output row r with its weight wt[r * span + i - lo] (shared memory; 0
+// where the row's run does not hold input row i, which adds nothing); each
+// sum in ascending input order. No branch: the inputs of kBatch rows are
+// loaded first, so their round trips to memory overlap, then summed.
+template <bool NORM, bool WORD, int ROWS>
+__device__ __forceinline__ void group_taps(const uint8_t* px, long long pitch,
+                                           int lo, int span, int last,
+                                           const double* wt, int nc,
+                                           float (*f)[4]) {
+  double acc[ROWS][4] = {};
+  for (int k0 = 0; k0 < span; k0 += kBatch) {
     unsigned v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
-      v[u] = i0 + u < n
-                 ? load_group<WORD>(px + (long long)(s + i0 + u) * pitch,
-                                    nc)
-                 : 0u;
+      v[u] = load_group<WORD>(px + (long long)min(lo + k0 + u, last) * pitch,
+                              nc);
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      if (i0 + u < n) {
-        const double wt = __ldg(w + i0 + u);
+      double x[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[c] = c < nc ? widen<NORM>(v[u], c) : 0.0;
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const double w = wt[r * span + k0 + u];
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (c < nc)
-            acc[c] = __dadd_rn(acc[c], __dmul_rn(
-                wt, widen<NORM>((v[u] >> (8 * c)) & 255u, lut)));
+          if (c < nc) acc[r][c] = __fma_rn(w, x[c], acc[r][c]);
       }
     }
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) f[c] = __double2float_rn(acc[c]);
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[r][c] = __double2float_rn(acc[r][c]);
 }
 
 template <bool NORM>
@@ -156,145 +224,281 @@ __device__ __forceinline__ void store(void* out, long long at, int c,
   }
 }
 
-// in: image n, row y, column x, channel c at in + n * img + y * row +
-// x * cin + c; out: contiguous (N, h, w, ch); ch = cin for K16, 3 for
-// K17. Grid (h, N). Dynamic shared memory: W * ch floats when W != w.
-template <bool NORM, bool WORD>
-__global__ void __launch_bounds__(kThreads)
-    resize_kernel(const uint8_t* __restrict__ in, long long img,
-                  long long row, int cin, void* __restrict__ out, int H,
-                  int W, int h, int w, int ch, Taps vt, Taps ht, Norm nm) {
-  extern __shared__ float4 line4[];          // 16-byte aligned
-  float* line = reinterpret_cast<float*>(line4);
-  __shared__ float lut[NORM ? 256 : 1];
-  if (NORM) {
-    for (int v = threadIdx.x; v < 256; v += kThreads)
-      lut[v] = __fmul_rn((float)v, kInv255);
-    __syncthreads();
-  }
-  const int y = blockIdx.x;
-  const long long n = blockIdx.y;
-  const uint8_t* src = in + n * img;
-  const bool vert = H != h, horiz = W != w;
-  const long long out_row = (n * h + y) * (long long)w * ch;
-  // pass 1: output row y over the W input columns, a thread a pixel, a
+// Output rows y0..y0+rows-1 of slot s into out, contiguous (N, h, w, ch),
+// the first at out_row. vw: the rows' vertical weights over the span
+// input rows from lo, zero-padded, in shared memory (staged by the
+// caller); line: rows x W x ch floats of shared memory. CH: the channels
+// as a compile-time constant (K16 on RGBA 4, K17 3; 0 for any other K16
+// input, then ch_any), so no channel's work is predicated where it is
+// known.
+template <bool NORM, bool WORD, int CH, int ROWS>
+__device__ __forceinline__ void resize_rows(const Slot& s, int cin,
+                                            void* out, long long out_row,
+                                            int y0, int rows, int w,
+                                            int ch_any, const Norm& nm,
+                                            const double* vw, int lo,
+                                            int span, float* line) {
+  const int ch = CH ? CH : ch_any;
+  const bool vert = s.v.start != nullptr, horiz = s.h.start != nullptr;
+  const int W = s.h.n;
+  const long long out_pitch = (long long)w * ch;
+  const int line_pitch = W * ch;
+  // pass 1: the output rows over the W input columns, a thread a pixel, a
   // group of up to four of its channels at a time
   for (int x = threadIdx.x; x < W; x += kThreads) {
     for (int c0 = 0; c0 < ch; c0 += 4) {
       const int nc = min(4, ch - c0);
-      const uint8_t* px = src + (long long)x * cin + c0;
-      float f[4];
+      const uint8_t* px = s.src + (long long)x * cin + c0;
+      float f[ROWS][4];
       if (vert) {
-        group_taps<NORM, WORD>(px, row, vt, y, nc, lut, f);
+        group_taps<NORM, WORD, ROWS>(px, s.row, lo, span, s.v.n - 1, vw, nc,
+                                     f);
       } else {
-        const unsigned v = load_group<WORD>(px + (long long)y * row, nc);
-        if (NORM && !horiz) {                // no resize: one FMA
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (c < nc)
-              static_cast<float*>(out)[out_row + x * ch + c0 + c] =
+        for (int r = 0; r < ROWS; ++r) {
+          if (r >= rows) break;
+          const unsigned v = load_group<WORD>(px + (y0 + r) * s.row, nc);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (NORM && !horiz && c < nc)    // no resize: one FMA
+              static_cast<float*>(out)[out_row + r * out_pitch + x * ch +
+                                       c0 + c] =
                   __fdiv_rn(__fmaf_rn((float)((v >> (8 * c)) & 255u),
                                       kInv255, -nm.mean[c0 + c]),
                             nm.std[c0 + c]);
+            f[r][c] = byte_value<NORM>(v, c);
+          }
+        }
+        if (NORM && !horiz) continue;
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r >= rows) break;
+        float* ln = line + r * line_pitch;
+        if (horiz && ch == 4) {              // one 16-byte store
+          reinterpret_cast<float4*>(ln)[x] =
+              make_float4(f[r][0], f[r][1], f[r][2], f[r][3]);
           continue;
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          f[c] = (float)widen<NORM>((v >> (8 * c)) & 255u, lut);
-      }
-      if (horiz && ch == 4) {                // one 16-byte store
-        line4[x] = make_float4(f[0], f[1], f[2], f[3]);
-        continue;
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (c >= nc) continue;
-        const int at = x * ch + c0 + c;
-        if (horiz)
-          line[at] = f[c];
-        else
-          store<NORM>(out, out_row + at, c0 + c, f[c], nm);
+        for (int c = 0; c < 4; ++c) {
+          if (c >= nc) continue;
+          const int at = x * ch + c0 + c;
+          if (horiz)
+            ln[at] = f[r][c];
+          else
+            store<NORM>(out, out_row + r * out_pitch + at, c0 + c, f[r][c],
+                        nm);
+        }
       }
     }
   }
   if (!horiz) return;
   __syncthreads();
-  // pass 2: the row's w outputs from their horizontal taps
-  const int oc = w * ch;
-  for (int e = threadIdx.x; e < oc; e += kThreads) {
-    const int j = e / ch, c = e - j * ch;
-    const int s = ht.start[j], cnt = ht.count[j];
-    const double* wp = ht.w + (long long)j * ht.k;
-    double acc = 0.0;
-    for (int i = 0; i < cnt; ++i)
-      acc = __dadd_rn(acc, __dmul_rn(__ldg(wp + i),
-                                     (double)line[(s + i) * ch + c]));
-    store<NORM>(out, out_row + e, c, __double2float_rn(acc), nm);
+  // pass 2: the rows' w pixels from their horizontal taps, a thread a
+  // pixel's group of up to four channels in every row; its weights
+  // kBatch2 at a time into registers ahead of the FMAs, each for all rows
+  const int groups = (ch + 3) / 4;
+  for (int e = threadIdx.x; e < w * groups; e += kThreads) {
+    const int j = e / groups, c0 = (e - j * groups) * 4;
+    const int nc = min(4, ch - c0);
+    const int s0 = __ldg(s.h.start + j), cnt = __ldg(s.h.count + j);
+    const double* wp = s.h.w + (long long)j * s.h.k;
+    double acc[ROWS][4] = {};
+    for (int i0 = 0; i0 < cnt; i0 += kBatch2) {
+      double wt[kBatch2];
+#pragma unroll
+      for (int u = 0; u < kBatch2; ++u)
+        wt[u] = i0 + u < cnt ? __ldg(wp + i0 + u) : 0.0;
+#pragma unroll
+      for (int u = 0; u < kBatch2; ++u) {
+        if (i0 + u >= cnt) break;
+        const int at = (s0 + i0 + u) * ch + c0;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r >= rows) break;
+          const float* ln = line + r * line_pitch + at;
+          float4 q;
+          if (ch == 4) {
+            q = *reinterpret_cast<const float4*>(ln);
+          } else {
+            q.x = ln[0];
+            q.y = nc > 1 ? ln[1] : 0.0f;
+            q.z = nc > 2 ? ln[2] : 0.0f;
+            q.w = nc > 3 ? ln[3] : 0.0f;
+          }
+          acc[r][0] = __fma_rn(wt[u], f32_as_f64(q.x), acc[r][0]);
+          acc[r][1] = __fma_rn(wt[u], f32_as_f64(q.y), acc[r][1]);
+          acc[r][2] = __fma_rn(wt[u], f32_as_f64(q.z), acc[r][2]);
+          acc[r][3] = __fma_rn(wt[u], f32_as_f64(q.w), acc[r][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= rows) break;
+      const long long at = out_row + r * out_pitch + (long long)j * ch + c0;
+      if (!NORM && ch == 4) {                // one 32-bit store a pixel
+        unsigned px = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          px |= (unsigned)fminf(
+                    fmaxf(rintf(__double2float_rn(acc[r][c])), 0.0f), 255.0f)
+                << (8 * c);
+        *reinterpret_cast<unsigned*>(static_cast<uint8_t*>(out) + at) = px;
+        continue;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (c < nc)
+          store<NORM>(out, at + c, c0 + c, __double2float_rn(acc[r][c]), nm);
+    }
+  }
+}
+
+// Grid (ceil(h / ROWS), N): output rows ROWS * blockIdx.x on of slot
+// blockIdx.y, ROWS kRows or 1 (launch). Dynamic shared memory: ROWS x vk
+// doubles (vk, a multiple of kBatch, the most input rows the runs of
+// kRows output rows of a slot span, rounded up) for the rows' weights,
+// then the rows' lines, ROWS x the most W x ch floats of a slot whose W
+// changes. A slot's pixels take 32-bit loads when it has four channels
+// and every pixel is 4-byte aligned. At most 85 registers, so that 3 CTAs
+// fit an SM.
+template <bool NORM, int ROWS>
+__global__ void __launch_bounds__(kThreads, 3)
+    resize_kernel(const __grid_constant__ Slots slots, int cin,
+                  void* __restrict__ out, int h, int w, int ch, int vk,
+                  Norm nm) {
+  extern __shared__ float4 smem4[];              // 16-byte aligned
+  double* vw = reinterpret_cast<double*>(smem4);
+  const Slot& s = slots.s[blockIdx.y];
+  const int y0 = blockIdx.x * ROWS, rows = min(ROWS, h - y0);
+  int lo = 0, span = 0;
+  if (s.v.start) {
+    // the rows' runs, the input rows they span, and each row's weight for
+    // each of them (0 outside its run)
+    int st[ROWS], ct[ROWS], hi = 0;
+    lo = INT_MAX;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      st[r] = r < rows ? __ldg(s.v.start + y0 + r) : 0;
+      ct[r] = r < rows ? __ldg(s.v.count + y0 + r) : 0;
+      if (ct[r]) {
+        lo = min(lo, st[r]);
+        hi = max(hi, st[r] + ct[r]);
+      }
+    }
+    lo = min(lo, hi);
+    span = (hi - lo + kBatch - 1) / kBatch * kBatch;
+    for (int k = threadIdx.x; k < ROWS * span; k += kThreads) {
+      const int r = k / span;
+      int sr = st[0], cr = ct[0];
+#pragma unroll
+      for (int q = 1; q < ROWS; ++q)
+        if (r == q) {
+          sr = st[q];
+          cr = ct[q];
+        }
+      const int i = lo + k - r * span - sr;
+      vw[k] = (unsigned)i < (unsigned)cr
+                  ? __ldg(s.v.w + (long long)(y0 + r) * s.v.k + i)
+                  : 0.0;
+    }
+  }
+  __syncthreads();
+  float* line = reinterpret_cast<float*>(vw + ROWS * vk);
+  const long long out_row = ((long long)blockIdx.y * h + y0) * w * ch;
+  const bool word = cin == 4 && ((uintptr_t)s.src & 3) == 0 &&
+                    (s.row & 3) == 0;
+  constexpr int kCh = NORM ? 3 : 4;        // K17's 3, K16's RGBA
+  if (NORM || ch == 4) {
+    if (word)
+      resize_rows<NORM, true, kCh, ROWS>(s, cin, out, out_row, y0, rows, w,
+                                         ch, nm, vw, lo, span, line);
+    else
+      resize_rows<NORM, false, kCh, ROWS>(s, cin, out, out_row, y0, rows, w,
+                                          ch, nm, vw, lo, span, line);
+  } else if (word) {
+    resize_rows<NORM, true, 0, ROWS>(s, cin, out, out_row, y0, rows, w, ch,
+                                     nm, vw, lo, span, line);
+  } else {
+    resize_rows<NORM, false, 0, ROWS>(s, cin, out, out_row, y0, rows, w, ch,
+                                      nm, vw, lo, span, line);
   }
 }
 
 constexpr size_t kMaxSmem = 232448;   // a CTA's most on sm_90, all dynamic
 
-template <bool NORM>
-int launch(const uint8_t* in, long long img, long long row, int cin,
-           void* out, int n, int H, int W, int h, int w, int ch, Taps vt,
-           Taps ht, Norm nm, cudaStream_t st) {
-  if (n <= 0 || n > 65535 || H <= 0 || W <= 0 || h <= 0 || w <= 0 ||
-      ch <= 0 || ch > cin || (H != h && (!vt.start || vt.k <= 0)) ||
-      (W != w && (!ht.start || ht.k <= 0)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = W != w ? (size_t)W * ch * sizeof(float) : 0;
-  if (smem + 1024 > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const bool word = cin == 4 && (uintptr_t)in % 4 == 0 && row % 4 == 0 &&
-                    img % 4 == 0;
-  auto kernel = word ? resize_kernel<NORM, true> : resize_kernel<NORM, false>;
+// A CTA's dynamic shared memory at `rows` output rows: their weights over
+// vk input rows, then their lines.
+size_t smem_bytes(int rows, int vk, int line_w, int ch) {
+  return (size_t)rows * vk * sizeof(double) +
+         (size_t)rows * line_w * ch * sizeof(float);
+}
+
+template <bool NORM, int ROWS>
+int launch_rows(const Slots& p, int n, int cin, void* out, int h, int w,
+                int ch, int vk, size_t smem, Norm nm, cudaStream_t st) {
+  auto kernel = resize_kernel<NORM, ROWS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3((unsigned)h, (unsigned)n), kThreads, smem, st>>>(
-      in, img, row, cin, out, H, W, h, w, ch, vt, ht, nm);
+  kernel<<<dim3((unsigned)((h + ROWS - 1) / ROWS), (unsigned)n), kThreads,
+           smem, st>>>(p, cin, out, h, w, ch, vk, nm);
   return (int)cudaGetLastError();
+}
+
+// slots: n <= kMaxSlots Slot descriptors in host memory; line_w: the
+// most W of a slot whose W changes (0 if none); vk: the most input rows
+// the runs of kRows output rows of a slot span (at least those of one).
+// kRows output rows a CTA where their lines fit shared memory, else one,
+// so a slot as wide as one row's line allows (about 14,400 RGBA pixels)
+// still takes a launch.
+template <bool NORM>
+int launch(const void* slots, int n, int cin, void* out, int h, int w,
+           int ch, int line_w, int vk, Norm nm, cudaStream_t st) {
+  if (n <= 0 || n > kMaxSlots || h <= 0 || w <= 0 || ch <= 0 || ch > cin ||
+      line_w < 0 || vk < 0)
+    return (int)cudaErrorInvalidValue;
+  vk = (vk + kBatch - 1) / kBatch * kBatch;
+  Slots p;
+  memcpy(p.s, slots, (size_t)n * sizeof(Slot));
+  size_t smem = smem_bytes(kRows, vk, line_w, ch);
+  if (smem + 1024 <= kMaxSmem)
+    return launch_rows<NORM, kRows>(p, n, cin, out, h, w, ch, vk, smem, nm,
+                                    st);
+  smem = smem_bytes(1, vk, line_w, ch);
+  if (smem + 1024 > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_rows<NORM, 1>(p, n, cin, out, h, w, ch, vk, smem, nm, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// in: (n, H, W, c) uint8, images `img` bytes apart, rows `row` bytes
-// apart, pixels c bytes apart; out: contiguous (n, h, w, c) uint8; the
-// taps' weights as doubles. The taps of an axis whose size does not
-// change may be null.
-int ffpic_resize_rgba(const void* in, long long img, long long row, int c,
-                      void* out, int n, int H, int W, int h, int w,
-                      const void* vs, const void* vc, const void* vw, int vk,
-                      const void* hs, const void* hc, const void* hw, int hk,
-                      void* stream) {
-  const Taps vt{(const int*)vs, (const int*)vc, (const double*)vw, vk};
-  const Taps ht{(const int*)hs, (const int*)hc, (const double*)hw, hk};
-  return launch<false>((const uint8_t*)in, img, row, c, out, n, H, W, h, w,
-                       c, vt, ht, Norm{}, (cudaStream_t)stream);
+// slots: n <= 64 Slot descriptors (ops.cuda_resize) in host memory,
+// pixels of c uint8 channels; out: contiguous (n, h, w, c) uint8.
+int ffpic_resize_rgba(const void* slots, int n, int c, void* out, int h,
+                      int w, int line_w, int vk, void* stream) {
+  return launch<false>(slots, n, c, out, h, w, c, line_w, vk, Norm{},
+                       (cudaStream_t)stream);
 }
 
-// in: (n, H, W, cin >= 3) uint8 as above; out: contiguous (n, h, w, 3)
-// f32; mean, std: 3 floats each on the host.
-int ffpic_normalize_resize(const void* in, long long img, long long row,
-                           int cin, void* out, int n, int H, int W, int h,
-                           int w, const void* vs, const void* vc,
-                           const void* vw, int vk, const void* hs,
-                           const void* hc, const void* hw, int hk,
+// slots as above, pixels of cin >= 3 uint8 channels; out: contiguous
+// (n, h, w, 3) f32; mean, std: 3 floats each on the host.
+int ffpic_normalize_resize(const void* slots, int n, int cin, void* out,
+                           int h, int w, int line_w, int vk,
                            const float* mean, const float* std,
                            void* stream) {
-  const Taps vt{(const int*)vs, (const int*)vc, (const double*)vw, vk};
-  const Taps ht{(const int*)hs, (const int*)hc, (const double*)hw, hk};
   Norm nm;
   for (int c = 0; c < 3; ++c) {
     nm.mean[c] = mean[c];
     nm.std[c] = std[c];
   }
-  return launch<true>((const uint8_t*)in, img, row, cin, out, n, H, W, h, w,
-                      3, vt, ht, nm, (cudaStream_t)stream);
+  return launch<true>(slots, n, cin, out, h, w, 3, line_w, vk, nm,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -36,13 +36,15 @@ its imports rewritten to the port's modules (EXIF through
   ``FFPIC_HEIF_DEVICE_COLOR`` set (and a mode other than nclx) it stops
   at each tile's planes, cast to int16 as the original stages them;
 * ``to_pics`` is the device part: the staging copy (span ``heif.h2d``)
-  of the RGBA pixels, or of every tile's planes in one copy, then per
-  tile the ``hevc_yuv_to_rgba`` kernel (span ``heif.color``; its plain
-  version on the CPU), which writes straight into the canvas on the
-  device where the original reads each tile back and pastes it on the
-  host; the alpha plane and ``irot`` are then applied on the device
-  (span ``heif.alpha``).  Pixels land on the load's device, as the
-  port's other codecs' do.
+  of the RGBA pixels, or of every tile's planes, descriptors and the
+  canvas's cells in one copy, then one launch of the
+  ``hevc_yuv_to_rgba`` kernel over every tile (span ``heif.color``;
+  ``hevc_kernels.hevc_tiles_to_rgba``, its plain version on the CPU),
+  which writes each canvas pixel once, the tiles' colour and the
+  uncovered (0, 0, 0, 255), where the original reads each tile back and
+  pastes it on the host; the alpha plane and ``irot`` are then applied
+  on the device (span ``heif.alpha``).  Pixels land on the load's
+  device, as the port's other codecs' do.
 
 ``decode_batch`` runs ``parse`` in its worker pool and ``to_pics`` on
 the caller's thread.  A file with an image sequence (moov/trak) raises
@@ -421,23 +423,10 @@ def to_pics(f: HeifFile, device: torch.device) -> list[Pic]:
             pic.pixels = _to_device(f.rgba, device)
         return [pic]
     with trace.stage("heif.h2d"):
-        staged = _stage_tiles(f.tiles, device)
+        staged = _stage_tiles(f, device)
     with trace.stage("heif.color"), \
             trace.device_trace("hevc_yuv_to_rgba", device):
-        if f.grid is None:
-            t = f.tiles[0]
-            rgba = hevc_kernels.hevc_yuv_to_rgba(*staged[0], t.out_h,
-                                                 t.out_w, f.mode)
-        else:
-            rgba = torch.zeros((*f.grid, 4), dtype=torch.uint8,
-                               device=device)
-            rgba[:, :, 3] = 255
-            for t, planes in zip(f.tiles, staged):
-                if t.y0 < f.grid[0] and t.x0 < f.grid[1]:
-                    hevc_kernels.hevc_yuv_to_rgba(*planes, t.out_h,
-                                                  t.out_w, f.mode,
-                                                  out=rgba, y0=t.y0,
-                                                  x0=t.x0)
+        rgba = hevc_kernels.hevc_tiles_to_rgba(staged, f.mode)
     with trace.stage("heif.alpha"):
         if f.alpha is not None:
             rgba[:, :, 3].copy_(_to_device(f.alpha, device))
@@ -452,30 +441,16 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return to_device(np.ascontiguousarray(arr), device)
 
 
-def _stage_tiles(tiles: list, device: torch.device) -> list:
-    """Every tile's int16 planes in one host-to-device copy (through
-    pinned memory on CUDA); returns each tile's (Y, U, V) views, U and
-    V None for 4:0:0."""
-    sizes = [p.size for t in tiles for p in t.planes]
-    host = torch.empty(sum(sizes), dtype=torch.int16,
-                       pin_memory=device.type == "cuda")
-    flat = host.numpy()
-    pos = 0
-    for t in tiles:
-        for p in t.planes:
-            flat[pos:pos + p.size] = p.reshape(-1)
-            pos += p.size
-    dev = host.to(device, non_blocking=True)
-    out = []
-    pos = 0
-    for t in tiles:
-        views = []
-        for p in t.planes:
-            views.append(dev[pos:pos + p.size].view(p.shape))
-            pos += p.size
-        out.append(tuple(views) if len(views) == 3
-                   else (views[0], None, None))
-    return out
+def _stage_tiles(f: HeifFile, device: torch.device):
+    """Every tile's int16 planes, a descriptor each and the canvas cut
+    into cells in one host-to-device copy (``hevc_kernels.stage_tiles``;
+    through pinned memory on CUDA): a grid's canvas, or a single item's
+    own crop as a canvas of one tile."""
+    h, w = f.grid if f.grid is not None else (f.tiles[0].out_h,
+                                              f.tiles[0].out_w)
+    return hevc_kernels.stage_tiles(
+        [t.planes for t in f.tiles],
+        [(t.y0, t.x0, t.out_h, t.out_w) for t in f.tiles], h, w, device)
 
 
 def load(data: bytes, skip_decode: bool = False, *, device: torch.device,

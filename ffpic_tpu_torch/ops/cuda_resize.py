@@ -7,12 +7,23 @@ its output with ``torch.empty``, launches on the current stream and
 raises if the launch reports an error, without synchronising.
 ``launches`` counts each kernel's launches.  The plain PyTorch versions
 live in ``ops.resize``; the kernels never run on the CPU.  The taps of
-each axis are ``ops.resize.taps``, cached there on the device.
+each axis are ``ops.resize.taps``, cached there on the device; the
+descriptors hold only their addresses, so a launch keeps the tap
+tensors it was given referenced until it is enqueued (the cache may
+drop them, and the allocator reuse their memory, before then).
+
+One launch covers a batch of up to ``MAX_SLOTS`` images: each image (a
+slot) gets a descriptor of ten 64-bit words (``slot_words``, the layout
+of ``resize.cu``'s ``Slot``), passed by value as a kernel parameter, so
+images of other sizes and pitches share the launch and the output is
+written as one ``(N, h, w, C)`` tensor; a larger batch takes a launch
+for each ``MAX_SLOTS`` of its images.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,15 +35,15 @@ launches = {"resize_rgba": 0, "normalize_resize": 0}
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
-_i64 = ctypes.c_longlong
-_AXES = [_vp, _vp, _vp, _int] * 2
 _SIGNATURES = {
-    "ffpic_resize_rgba": [_vp, _i64, _i64, _int, _vp, _int, _int, _int,
-                          _int, _int, *_AXES],
-    "ffpic_normalize_resize": [_vp, _i64, _i64, _int, _vp, _int, _int, _int,
-                               _int, _int, *_AXES, _vp, _vp],
+    "ffpic_resize_rgba": [_vp, _int, _int, _vp, _int, _int, _int, _int],
+    "ffpic_normalize_resize": [_vp, _int, _int, _vp, _int, _int, _int, _int,
+                               _vp, _vp],
 }
 _launch = _build.launcher(_SIGNATURES, launches)
+SLOT_WORDS = 10          # resize.cu's Slot: src, row, then each Axis's 4
+MAX_SLOTS = 64           # resize.cu's kMaxSlots
+ROWS = 2                 # resize.cu's kRows: output rows a CTA
 
 
 def reset_launches() -> None:
@@ -40,37 +51,89 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _images(img: torch.Tensor, name: str, min_c: int):
-    """``img`` as (N, H, W, C) uint8 on CUDA whose pixels are contiguous
-    (any row and image pitch, so a crop of a larger decode needs no copy):
-    (tensor, N, H, W, C, image pitch, row pitch)."""
-    if not isinstance(img, torch.Tensor) or img.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got "
-                         f"{getattr(img, 'device', type(img))}")
-    if img.dtype != torch.uint8 or img.dim() < 3 or img.shape[-1] < min_c:
-        raise ValueError(f"{name}: expected (..., H, W, C>={min_c}) uint8, "
-                         f"got {img.dtype} {tuple(img.shape)}")
-    if img.dim() == 3:
-        img = img[None]
-    elif img.dim() > 4:
-        img = img.reshape(-1, *img.shape[-3:])
-    n, h, w, c = img.shape
-    if img.stride(-1) != 1 or (w > 1 and img.stride(-2) != c):
-        img = img.contiguous()
-    if n > 65535 or max(h, w) >= 2 ** 31:
-        raise ValueError(f"{name}: {tuple(img.shape)} too large for one "
-                         "launch")
-    return img, n, h, w, c, img.stride(0), img.stride(1)
+def _views(imgs, name: str, min_c: int) -> list:
+    """``imgs`` (a tensor (..., H, W, C), or a sequence of (H, W, C)
+    tensors of one C) as (H, W, C) uint8 CUDA views on one device whose
+    pixels are contiguous (any row pitch, so a crop of a larger decode
+    needs no copy; a copy where the pixels are not)."""
+    if isinstance(imgs, torch.Tensor):
+        if imgs.dim() < 3:
+            raise ValueError(f"{name}: expected (..., H, W, C), got "
+                             f"{tuple(imgs.shape)}")
+        imgs = list(imgs.reshape(-1, *imgs.shape[-3:])) \
+            if imgs.dim() > 3 else [imgs]
+    out = []
+    for img in imgs:
+        if not isinstance(img, torch.Tensor) or img.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors, got "
+                             f"{getattr(img, 'device', type(img))}")
+        if img.dtype != torch.uint8 or img.dim() != 3 or \
+                img.shape[-1] < min_c:
+            raise ValueError(f"{name}: expected (H, W, C>={min_c}) uint8, "
+                             f"got {img.dtype} {tuple(img.shape)}")
+        h, w, c = img.shape
+        if img.stride(-1) != 1 or (w > 1 and img.stride(-2) != c):
+            img = img.contiguous()
+        if min(h, w) <= 0 or max(h, w) >= 2 ** 31:
+            raise ValueError(f"{name}: image {tuple(img.shape)} is empty or "
+                             "too large")
+        out.append(img)
+    if len({(v.shape[-1], v.device) for v in out}) > 1:
+        raise ValueError(f"{name}: the images must share C and a device")
+    return out
 
 
-def _axis_args(in_size: int, out_size: int, device) -> list:
-    """The taps of one axis as launch arguments; nulls when the axis
-    keeps its size (the kernel skips it)."""
+def _axis_words(in_size: int, out_size: int, device) -> tuple:
+    """One axis's four words of a descriptor: the addresses of its taps'
+    ``start``, ``count`` and weights (0 when the axis keeps its size,
+    which the kernel skips), then K | in_size << 32; and the tap tensors
+    at those addresses (none when skipped)."""
     if in_size == out_size:
-        return [None, None, None, 0]
+        return [0, 0, 0, in_size << 32], ()
     start, count, wts = taps(in_size, out_size, device)
-    return [_vp(start.data_ptr()), _vp(count.data_ptr()),
-            _vp(wts.data_ptr()), wts.shape[1]]
+    return [start.data_ptr(), count.data_ptr(), wts.data_ptr(),
+            wts.shape[1] | in_size << 32], (start, count, wts)
+
+
+@functools.lru_cache(maxsize=64)
+def band_rows(in_size: int, out_size: int) -> int:
+    """The most input rows that the runs of ``ROWS`` neighbouring output
+    rows span (a CTA's band, whose weights it stages)."""
+    start, count, _ = taps(in_size, out_size)
+    start, count = start.numpy(), count.numpy()
+    pad = -len(start) % ROWS
+    lo = np.where(count > 0, start, np.iinfo(np.int32).max)
+    hi = np.where(count > 0, start + count, 0)
+    lo = np.pad(lo, (0, pad), constant_values=np.iinfo(np.int32).max)
+    hi = np.pad(hi, (0, pad))
+    lo, hi = lo.reshape(-1, ROWS).min(1), hi.reshape(-1, ROWS).max(1)
+    return int(np.maximum(hi - np.minimum(lo, hi), 0).max())
+
+
+def slot_words(views: list, size, device) -> tuple:
+    """The descriptors of a launch over ``views`` ((H, W, C) tensors, as
+    ``_views`` returns them) to ``size``: (N, 10) int64, a row a slot
+    (its first pixel's address, its row pitch in bytes, the vertical
+    axis's words, the horizontal axis's), the widest W of a slot whose W
+    changes (its row's width in shared memory, 0 if none), the most
+    input rows a CTA's band of a slot spans (``band_rows``), and the tap
+    tensors whose addresses the descriptors hold, which the caller keeps
+    until the launch is enqueued."""
+    h, w = size
+    words = np.empty((len(views), SLOT_WORDS), np.int64)
+    line_w = vk = 0
+    held = []
+    for k, v in enumerate(views):
+        hi, wi = v.shape[:2]
+        vert, vt = _axis_words(hi, h, device)
+        horiz, ht = _axis_words(wi, w, device)
+        words[k] = [v.data_ptr(), v.stride(0), *vert, *horiz]
+        held += [*vt, *ht]
+        if wi != w:
+            line_w = max(line_w, wi)
+        if hi != h:
+            vk = max(vk, band_rows(hi, h))
+    return words, line_w, vk, held
 
 
 def _checked(size):
@@ -80,17 +143,48 @@ def _checked(size):
     return h, w
 
 
+def _run(fn: str, counter: str, views: list, size, out: torch.Tensor,
+         *tail) -> None:
+    """``out`` (N, h, w, ...) from ``views``: a launch for each
+    ``MAX_SLOTS`` images."""
+    for k in range(0, len(views), MAX_SLOTS):
+        part = views[k:k + MAX_SLOTS]
+        # ``held`` keeps every tap table the words point at alive through
+        # the launch; once it is enqueued, stream order makes reuse safe
+        words, line_w, vk, held = slot_words(part, size, out.device)
+        _launch(fn, counter, _vp(words.ctypes.data), len(part),
+                views[0].shape[-1], _vp(out[k].data_ptr()), *size, line_w,
+                vk, *tail)
+
+
+def resize_batch(slots, size) -> torch.Tensor:
+    """K16 over a batch in one launch: the (H_n, W_n, C) uint8 slots, of
+    any sizes and pitches, -> (N, h, w, C) uint8, bilinear with
+    antialiasing (``ops.resize.resize_batch_plain``)."""
+    views = _views(slots, "resize_rgba", 1)
+    h, w = _checked(size)
+    if not views:
+        raise ValueError("resize_rgba: no slots")
+    out = torch.empty((len(views), h, w, views[0].shape[-1]),
+                      dtype=torch.uint8, device=views[0].device)
+    _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out)
+    return out
+
+
 def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
     """K16: (..., H, W, C) uint8 -> (..., h, w, C) uint8, bilinear with
-    antialiasing (``ops.resize.resize_rgba_plain``)."""
-    lead = img.shape[:-3] if isinstance(img, torch.Tensor) else ()
-    x, n, hi, wi, c, img_pitch, row_pitch = _images(img, "resize_rgba", 1)
+    antialiasing (``ops.resize.resize_rgba_plain``); every image of the
+    leading dimensions in one launch."""
+    if not isinstance(img, torch.Tensor) or img.dim() < 3:
+        raise ValueError("resize_rgba: expected a CUDA tensor (..., H, W, "
+                         f"C), got {getattr(img, 'device', type(img))}")
+    lead, c = img.shape[:-3], img.shape[-1]
     h, w = _checked(size)
-    out = torch.empty((n, h, w, c), dtype=torch.uint8, device=x.device)
-    if n:
-        _launch("ffpic_resize_rgba", "resize_rgba", _vp(x.data_ptr()),
-                img_pitch, row_pitch, c, _vp(out.data_ptr()), n, hi, wi, h, w,
-                *_axis_args(hi, h, x.device), *_axis_args(wi, w, x.device))
+    views = _views(img, "resize_rgba", 1)
+    out = torch.empty((len(views), h, w, c), dtype=torch.uint8,
+                      device=img.device)
+    if views and img.numel():
+        _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out)
     return out.view(*lead, h, w, c)
 
 
@@ -98,20 +192,20 @@ def normalize_resize(batch: torch.Tensor, size=None, mean=MEAN,
                      std=STD) -> torch.Tensor:
     """K17: (..., H, W, C>=3) uint8 RGBA -> (..., h, w, 3) f32: rgb / 255,
     the resize to ``size`` when given, then (x - mean) / std in one pass
-    (``ops.resize.normalize_plain``)."""
-    lead = batch.shape[:-3] if isinstance(batch, torch.Tensor) else ()
-    x, n, hi, wi, c, img_pitch, row_pitch = _images(batch, "normalize_resize",
-                                                    3)
-    h, w = (hi, wi) if size is None else _checked(size)
+    (``ops.resize.normalize_plain``); every image in one launch."""
+    if not isinstance(batch, torch.Tensor) or batch.dim() < 3:
+        raise ValueError("normalize_resize: expected a CUDA tensor (..., H, "
+                         f"W, C), got {getattr(batch, 'device', type(batch))}")
+    lead = batch.shape[:-3]
+    h, w = tuple(batch.shape[-3:-1]) if size is None else _checked(size)
+    views = _views(batch, "normalize_resize", 3)
     m = np.ascontiguousarray(mean, np.float32)
     s = np.ascontiguousarray(std, np.float32)
     if m.shape != (3,) or s.shape != (3,):
         raise ValueError(f"mean {m.shape} / std {s.shape}: expected 3 each")
-    out = torch.empty((n, h, w, 3), dtype=torch.float32, device=x.device)
-    if n:
-        _launch("ffpic_normalize_resize", "normalize_resize",
-                _vp(x.data_ptr()), img_pitch, row_pitch, c,
-                _vp(out.data_ptr()), n, hi, wi, h, w,
-                *_axis_args(hi, h, x.device), *_axis_args(wi, w, x.device),
-                _vp(m.ctypes.data), _vp(s.ctypes.data))
+    out = torch.empty((len(views), h, w, 3), dtype=torch.float32,
+                      device=batch.device)
+    if views and batch.numel():
+        _run("ffpic_normalize_resize", "normalize_resize", views, (h, w),
+             out, _vp(m.ctypes.data), _vp(s.ctypes.data))
     return out.view(*lead, h, w, 3)

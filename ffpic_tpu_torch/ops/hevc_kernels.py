@@ -8,19 +8,24 @@ The PyTorch counterpart of ``ffpic_tpu/ops/hevc_kernels.py``.  It holds
 * the plain PyTorch version of each stage: ``dequant_itransform_batch``
   and ``dequant_skip_batch`` (the reference's functions of the same
   names, one TU-size bucket each), ``hevc_residuals_plain`` (K14's
-  function: every TU of the native flat layout at once) and
-  ``hevc_yuv_to_rgba_plain`` (K15's: the branch of
-  ``ffpic_tpu/formats/heif.py:356-371``).  They run on any device and
-  are the reference the CUDA kernels are held against;
+  function: every TU of the native flat layout at once),
+  ``hevc_yuv_to_rgba_plain`` (a tile's colour: the branch of
+  ``ffpic_tpu/formats/heif.py:356-371``) and ``hevc_tiles_to_rgba_plain``
+  (K15's: the canvas built as ``heif._decode_grid`` builds it, every
+  tile pasted in order through ``hevc_yuv_to_rgba_plain``).  They run on
+  any device and are the reference the CUDA kernels are held against;
 * ``plan_residuals``, the host side of K14's launch: each TU's level
   offset and flags in launch order (largest TUs first) and the work of
   each CTA, all from vectorised index arrays (no Python loop over TUs);
   ``stage_residuals`` packs it with the levels of one picture or of
   several (a HEIF grid's tiles) into one host-to-device copy;
+* ``stage_tiles``, the host side of K15's launch: every tile's planes,
+  a descriptor a tile and the canvas cut into cells at every tile edge
+  (``tile_cells``), in one host-to-device copy;
 * the entries the codec calls: ``residuals_packed`` and
   ``residuals_for_ops`` (named as the reference's), ``residuals_grid``
   (several pictures' TUs in one launch), ``hevc_residuals`` and
-  ``hevc_yuv_to_rgba``.  They dispatch on the tensor's device: a
+  ``hevc_tiles_to_rgba``.  They dispatch on the tensor's device: a
   CPU tensor takes the plain version, a CUDA tensor the kernel of
   ``ops.cuda_hevc`` (which raises rather than falls back).
 
@@ -184,6 +189,140 @@ def hevc_yuv_to_rgba_plain(Y: torch.Tensor, U: torch.Tensor | None,
         return rgba
     out[y0:y0 + out_h, x0:x0 + out_w] = rgba
     return out
+
+
+# --- K15: every tile of a picture in one launch ------------------------------
+
+TILE_DESC = 8        # int32 a tile: Y, U, V offsets, pitches, y0, x0, 0
+_ALIGN = 8           # int16 elements: each staged plane starts 16-byte aligned
+
+
+@dataclass
+class StagedTiles:
+    """A picture's tiles staged for K15 in one host-to-device copy.
+    ``planes``: the int16 buffer on the device, every tile's Y, U and V
+    (each at a multiple of 8 elements, 16 bytes) then the index, whose
+    int32 views are ``desc`` (T, 8): each tile's Y, U and V offsets in
+    ``planes`` (U = V = -1 for 4:0:0), its luma and chroma row pitches,
+    y0, x0 and 0; ``row_cell`` (H,), ``col_cell`` (W,) and ``cell_map``
+    (R, C) of ``tile_cells``.  ``tiles``: each tile's ((Y, U, V) views,
+    out_h, out_w, y0, x0) in paste order, for the plain version."""
+    planes: torch.Tensor
+    desc: torch.Tensor
+    row_cell: torch.Tensor
+    col_cell: torch.Tensor
+    cell_map: torch.Tensor
+    tiles: list
+
+
+def tile_cells(spans, height: int, width: int):
+    """The (height, width) canvas cut at every edge of the tiles
+    ``spans`` ((y0, x0, out_h, out_w) each, in paste order, each cropped
+    to the canvas; one that starts outside it covers nothing):
+    ``row_cell`` (height,) and ``col_cell`` (width,) int32, the cell row
+    and column of each pixel row and column, and ``cell_map`` (R, C)
+    int32, the last tile that covers each cell, -1 where none does.  A
+    cell lies wholly inside or outside each tile, so a pixel (y, x) has
+    the colour of ``cell_map[row_cell[y], col_cell[x]]``, as
+    ``heif._decode_grid``'s pastes in order leave it."""
+    boxes = [(y0, x0, min(y0 + h, height), min(x0 + w, width))
+             for y0, x0, h, w in spans]
+    boxes = [(k, b) for k, b in enumerate(boxes)
+             if b[0] < height and b[1] < width]
+    yb = np.unique([0, height, *(v for _, b in boxes for v in b[0::2])])
+    xb = np.unique([0, width, *(v for _, b in boxes for v in b[1::2])])
+    row_cell = np.searchsorted(yb, np.arange(height), "right") - 1
+    col_cell = np.searchsorted(xb, np.arange(width), "right") - 1
+    cell_map = np.full((len(yb) - 1, len(xb) - 1), -1, np.int32)
+    for k, (y0, x0, y1, x1) in boxes:
+        r0, r1 = np.searchsorted(yb, (y0, y1))
+        c0, c1 = np.searchsorted(xb, (x0, x1))
+        cell_map[r0:r1, c0:c1] = k
+    return row_cell.astype(np.int32), col_cell.astype(np.int32), cell_map
+
+
+def _check_tile(ps, span, height: int, width: int) -> None:
+    """A tile's planes hold the part of it that lands on the canvas."""
+    y0, x0, oh, ow = span
+    if min(y0, x0) < 0 or min(oh, ow) <= 0 or len(ps) not in (1, 3):
+        raise ValueError(f"tile at ({y0}, {x0}) of {oh}x{ow} with "
+                         f"{len(ps)} planes")
+    h, w = min(oh, height - y0), min(ow, width - x0)
+    if h <= 0 or w <= 0:
+        return
+    need = [(h, w)] + [((h + 1) // 2, (w + 1) // 2)] * (len(ps) - 1)
+    for p, (r, c) in zip(ps, need):
+        if p.ndim != 2 or p.shape[0] < r or p.shape[1] < c:
+            raise ValueError(f"plane {p.shape}: the tile needs {r}x{c}")
+
+
+def stage_tiles(planes, spans, height: int, width: int,
+                device) -> StagedTiles:
+    """The host side of a K15 launch: ``planes`` each tile's int16
+    numpy planes ([Y] for 4:0:0, else [Y, U, V]), ``spans`` each tile's
+    (y0, x0, out_h, out_w) on the (height, width) canvas, in paste
+    order.  The planes (each padded to 16 bytes), the descriptors and
+    the cells go to ``device`` in one copy, through pinned memory on
+    CUDA."""
+    if len(planes) != len(spans) or not planes or height <= 0 or width <= 0:
+        raise ValueError(f"{len(planes)} tiles, {len(spans)} spans, canvas "
+                         f"{height}x{width}")
+    for ps, span in zip(planes, spans):
+        _check_tile(ps, span, height, width)
+    offsets, pos = [], 0
+    for ps in planes:
+        offsets.append([])
+        for p in ps:
+            offsets[-1].append(pos)
+            pos += -(-p.size // _ALIGN) * _ALIGN
+    row_cell, col_cell, cell_map = tile_cells(spans, height, width)
+    t = len(planes)
+    cuts = np.cumsum([0, t * TILE_DESC, height, width, cell_map.size])
+    if pos + 2 * cuts[-1] >= 2 ** 31:
+        raise ValueError("the tiles take more than 2**31 elements")
+    host = torch.empty(pos + 2 * int(cuts[-1]), dtype=torch.int16,
+                       pin_memory=device.type == "cuda")
+    flat = host.numpy()
+    for ps, offs in zip(planes, offsets):
+        for p, at in zip(ps, offs):
+            flat[at:at + p.size] = p.reshape(-1)
+    index = flat[pos:].view(np.int32)
+    desc = index[:cuts[1]].reshape(t, TILE_DESC)
+    for k, (ps, offs, (y0, x0, _h, _w)) in enumerate(zip(planes, offsets,
+                                                         spans)):
+        u, v = (offs[1], offs[2]) if len(ps) == 3 else (-1, -1)
+        desc[k] = (offs[0], u, v, ps[0].shape[1],
+                   ps[1].shape[1] if len(ps) == 3 else 0, y0, x0, 0)
+    index[cuts[1]:cuts[2]] = row_cell
+    index[cuts[2]:cuts[3]] = col_cell
+    index[cuts[3]:] = cell_map.reshape(-1)
+    dev = host.to(device, non_blocking=True)
+    dev_index = dev[pos:].view(torch.int32)
+    tiles = []
+    for ps, offs, (y0, x0, oh, ow) in zip(planes, offsets, spans):
+        views = [dev[at:at + p.size].view(p.shape) for p, at in zip(ps, offs)]
+        tiles.append(((*views, None, None)[:3], oh, ow, y0, x0))
+    return StagedTiles(
+        planes=dev, desc=dev_index[:cuts[1]].view(t, TILE_DESC),
+        row_cell=dev_index[cuts[1]:cuts[2]],
+        col_cell=dev_index[cuts[2]:cuts[3]],
+        cell_map=dev_index[cuts[3]:].view(cell_map.shape), tiles=tiles)
+
+
+def hevc_tiles_to_rgba_plain(st: StagedTiles, mode: str = "bt601"
+                             ) -> torch.Tensor:
+    """K15's function: the RGBA uint8 canvas (H, W, 4) as
+    ``heif._decode_grid`` builds it (``ffpic_tpu/formats/heif.py:459-
+    487``): (0, 0, 0, 255) everywhere, then each tile of ``st`` pasted in
+    order (``hevc_yuv_to_rgba_plain``), cropped at the canvas's edge."""
+    h, w = len(st.row_cell), len(st.col_cell)
+    canvas = torch.zeros((h, w, 4), dtype=torch.uint8,
+                         device=st.planes.device)
+    canvas[:, :, 3] = 255
+    for (y, u, v), oh, ow, y0, x0 in st.tiles:
+        if y0 < h and x0 < w:
+            hevc_yuv_to_rgba_plain(y, u, v, oh, ow, mode, canvas, y0, x0)
+    return canvas
 
 
 # --- K14's launch plan ------------------------------------------------------
@@ -436,15 +575,11 @@ def residuals_for_ops(ops, bit_depth: int, device=None) -> dict:
     return out
 
 
-def hevc_yuv_to_rgba(Y: torch.Tensor, U: torch.Tensor | None,
-                     V: torch.Tensor | None, out_h: int, out_w: int,
-                     mode: str = "bt601", out: torch.Tensor | None = None,
-                     y0: int = 0, x0: int = 0) -> torch.Tensor:
-    """A tile's colour: K15 on CUDA tensors, the plain
-    ``hevc_yuv_to_rgba_plain`` on CPU ones (same arguments)."""
-    if not _on_cuda(Y):
-        return hevc_yuv_to_rgba_plain(Y, U, V, out_h, out_w, mode, out,
-                                      y0, x0)
+def hevc_tiles_to_rgba(st: StagedTiles, mode: str = "bt601") -> torch.Tensor:
+    """A picture's colour and canvas: K15 (one launch over every tile of
+    ``st``, each canvas pixel written once) on CUDA, the plain
+    ``hevc_tiles_to_rgba_plain`` on the CPU."""
+    if not _on_cuda(st.planes):
+        return hevc_tiles_to_rgba_plain(st, mode)
     from ffpic_tpu_torch.ops import cuda_hevc
-    return cuda_hevc.hevc_yuv_to_rgba(Y, U, V, out_h, out_w, mode, out,
-                                      y0, x0)
+    return cuda_hevc.hevc_yuv_to_rgba(st, mode)

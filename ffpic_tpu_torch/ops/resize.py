@@ -3,13 +3,16 @@
 
 It holds
 
-* ``resize_rgba_plain`` (K16's function) and ``normalize_plain``
-  (K17's), the plain PyTorch versions.  They run on any device and are
-  the reference the CUDA kernels are held against;
+* ``resize_rgba_plain`` (K16's function), ``resize_batch_plain`` (K16's
+  over a batch of slots of any sizes: each slot resized alone, stacked)
+  and ``normalize_plain`` (K17's), the plain PyTorch versions.  They run
+  on any device and are the reference the CUDA kernels are held against;
 * the entries named as the reference's, ``resize_rgba`` and
-  ``normalize_for_model``.  They dispatch on the tensor's device: a CPU
+  ``normalize_for_model``, and ``resize_batch``, ``decode_batch``'s
+  resize of its slots.  They dispatch on the tensor's device: a CPU
   tensor takes the plain version, a CUDA tensor the kernel of
-  ``ops.cuda_resize`` (which raises rather than falls back).
+  ``ops.cuda_resize`` (which raises rather than falls back; one launch
+  over all the images).
 
 The resize is ``jax.image.resize(x, ..., "bilinear")``: per axis a
 triangle kernel widened by 1/scale when shrinking (JAX antialiases by
@@ -20,8 +23,10 @@ output index reads a run of inputs (its taps: the first input index and
 the run's nonzero f32 weights, ``taps``), the weights as XLA's CPU
 backend computes them inside the jitted original (``_weight_mat``).
 Both the plain versions and the kernels sum a run in float64, in
-ascending input order, a product and then a sum each rounded to float64
-(no fused multiply-add), so they agree bit for bit.  On the first axis
+ascending input order, so they agree bit for bit: the plain versions
+round a product and then a sum to float64, the kernels take one fused
+multiply-add, which rounds the same since every product is exact in
+float64 (at most 24 + 24 bits).  On the first axis
 of ``resize_rgba`` the products (uint8 x f32) and their sums are exact
 in float64.  The sums run in another order and width than XLA's f32
 dot, so a value can land on the other side of .5 before
@@ -198,6 +203,13 @@ def resize_rgba_plain(img: torch.Tensor, size) -> torch.Tensor:
     return torch.round(_resize_f32(img, size)).clamp(0, 255).to(torch.uint8)
 
 
+def resize_batch_plain(slots, size) -> torch.Tensor:
+    """K16's function over a batch: the (H_n, W_n, C) uint8 slots, each
+    of its own size, each resized alone by ``resize_rgba_plain``, then
+    stacked: (N, h, w, C) uint8."""
+    return torch.stack([resize_rgba_plain(s, tuple(size)) for s in slots])
+
+
 def _consts(values, device) -> torch.Tensor:
     # a tensor on the data's device, never a CPU scalar: PyTorch's CUDA
     # division by a CPU scalar multiplies by its reciprocal instead
@@ -232,6 +244,18 @@ def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
         return resize_rgba_plain(img, tuple(size))
     from ffpic_tpu_torch.ops import cuda_resize
     return cuda_resize.resize_rgba(img, tuple(size))
+
+
+def resize_batch(slots, size) -> torch.Tensor:
+    """``decode_batch``'s resize of its slots ((H_n, W_n, C) uint8 on one
+    device, of any sizes and pitches) -> (N, h, w, C) uint8: K16 in one
+    launch on CUDA, the plain version on the CPU."""
+    if not slots:
+        raise ValueError("resize_batch: no slots")
+    if not _on_cuda(slots[0]):
+        return resize_batch_plain(slots, tuple(size))
+    from ffpic_tpu_torch.ops import cuda_resize
+    return cuda_resize.resize_batch(slots, tuple(size))
 
 
 def normalize_for_model(batch: torch.Tensor, size=None, mean=MEAN,

@@ -53,10 +53,12 @@ batches of JPEGs, PNGs, WebPs and HEIFs:
    take under 0.7 of the dense bytes, else the planes through
    ``decode_batch_420_dense``.  Both routes give the same pixels.  All
    write the cropped images.
-4. Optional resize to ``size``, a slot at a time as the reference
-   resizes (``ffpic_tpu/pipeline.py:309-311``): ``ops.resize.resize_rgba``,
-   K16 on the card (a launch a slot, reading a cropped slot in place),
-   the plain version on the CPU; then stacking in input order.  Without
+4. Optional resize to ``size`` of every slot, each as the reference
+   resizes it (``ffpic_tpu/pipeline.py:309-311``):
+   ``ops.resize.resize_batch``, K16 on the card (one launch over the
+   slots, whatever their sizes, reading a cropped slot in place and
+   writing the (N, h, w, 4) batch in input order), the plain version on
+   the CPU.  Without
    ``size`` a batch that one decode covers in input order is returned as
    it is.
 
@@ -82,7 +84,7 @@ from ffpic_tpu_torch.formats import heif
 from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
-from ffpic_tpu_torch.ops.resize import resize_rgba
+from ffpic_tpu_torch.ops.resize import resize_batch
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
@@ -429,4 +431,4 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                 raise ValueError(
                     "mixed sizes: pass size=(H, W) to resize on device")
             return torch.stack(slots)
-        return torch.stack([resize_rgba(s, tuple(size)) for s in slots])
+        return resize_batch(slots, tuple(size))

@@ -24,9 +24,10 @@ committed WebP fixtures, and the kernel edge cases that the tests and
   (``make_heif_fixtures``); ``hevc_stream`` writes an HEVC intra
   picture of any of ``HEVC_STREAMS`` with the port's encoder,
   ``heif_item`` wraps one in a HEIC, ``heif_cases`` makes the small
-  HEICs the card's run decodes; ``hevc_cases`` and ``heif_color_cases``
-  make the inputs at the edges of the ``hevc_residuals`` and
-  ``hevc_yuv_to_rgba`` kernels (K14, K15);
+  HEICs the card's run decodes; ``hevc_cases``, ``heif_color_cases``
+  and ``heif_tile_layouts`` make the inputs at the edges of the
+  ``hevc_residuals`` and ``hevc_yuv_to_rgba`` kernels (K14, K15: a
+  tile's planes, and a canvas's tiles);
 * ``scan_cases``, ``unpack_cases``, ``idct_cases``, ``assemble_cases``,
   ``mcu_cases``, ``scatter_cases``, ``unfilter_cases`` and
   ``rgba_cases`` make the inputs at the edges of the ``count_scan``,
@@ -1223,6 +1224,50 @@ def heif_color_cases(seed: int = 0) -> dict[str, tuple]:
             .astype(np.int16)
         out[name] = (y, u, v, oh, ow, mode)
     return out
+
+
+def heif_tile_layouts(seed: int = 0) -> dict[str, tuple]:
+    """Canvases of tiles at the edges of K15 ``hevc_yuv_to_rgba``'s one
+    launch: name -> (planes, spans, height, width, mode), ``planes`` each
+    tile's int16 [Y] or [Y, U, V] (samples over -300..555), ``spans`` its
+    (y0, x0, out_h, out_w) in paste order.  A grid of one tile size whose
+    edge tiles the canvas crops; tiles that leave part of the canvas
+    uncovered (and one outside it); overlapping tiles of unequal sizes
+    placed as ``heif._decode_grid`` places them (row r at r * th, column
+    c at c * tw of each tile's own size, the later one winning); a 4:0:0
+    tile among 4:2:0 ones; tiles at odd offsets and of odd widths, planes
+    wider than the tile; a single item."""
+    rng = np.random.default_rng(seed)
+
+    def tile(h, w, mono=False, pad=(0, 0)):
+        ph, pw = h + pad[0], w + pad[1]
+        y = rng.integers(-300, 556, (ph, pw)).astype(np.int16)
+        if mono:
+            return [y]
+        return [y] + [rng.integers(-300, 556, ((ph + 1) // 2, (pw + 1) // 2))
+                      .astype(np.int16) for _ in range(2)]
+
+    grid = [(r * 24, c * 32, 24, 32) for r in range(3) for c in range(4)]
+    sizes = [(40, 36), (28, 52), (33, 20), (45, 45)]
+    unequal = [(r * h, c * w, h, w) for k, (h, w) in enumerate(sizes)
+               for r, c in [divmod(k, 2)]]
+    odd = [(1, 3, 21, 17), (0, 20, 25, 13), (22, 1, 9, 31)]
+    return {
+        "grid_cropped": ([tile(24, 32) for _ in grid], grid, 70, 120,
+                         "bt601"),
+        "uncovered": ([tile(20, 24), tile(16, 40), tile(8, 8)],
+                      [(4, 8, 20, 24), (30, 40, 16, 40), (90, 0, 8, 8)],
+                      60, 96, "reference"),
+        "overlap_unequal": ([tile(h, w) for h, w in sizes], unequal, 80, 96,
+                            "bt601"),
+        "mono_mix": ([tile(16, 24), tile(16, 24, True), tile(16, 24)],
+                     [(0, 0, 16, 24), (0, 24, 16, 24), (16, 0, 16, 24)], 32,
+                     48, "rgb"),
+        "odd_offsets": ([tile(h, w, pad=(3, 5)) for _, _, h, w in odd], odd,
+                        31, 36, "reference"),
+        "single": ([tile(61, 37, pad=(3, 11))], [(0, 0, 61, 37)], 61, 37,
+                   "bt601"),
+    }
 
 
 # |transMatrix| entries by folded angle, as csrc/hevc_decode.cu's

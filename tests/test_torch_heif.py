@@ -521,3 +521,26 @@ def test_10bit_under_device_colour_mirrors_jax(monkeypatch):
     testing.assert_equal_up_to_contraction(
         lambda: ft.load(data, device="cpu").np_pixels(), want)
     assert np.abs(got.astype(int) - host.astype(int)).max() > 100
+
+
+@pytest.mark.parametrize("kind", ["grid", "single"])
+def test_device_colour_is_one_call_a_picture(kind, monkeypatch):
+    """Under ``FFPIC_HEIF_DEVICE_COLOR`` a picture's colour is one call of
+    the K15 entry over every tile, a 3x2 grid's six or a single item's
+    one, and it gives the bytes the reference's device colour gives (up
+    to contraction)."""
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    data = heif_enc.encode_heif(testing.heif_pic(150, 120, 3), qp=24,
+                                tile=64 if kind == "grid" else None)
+    monkeypatch.setenv("FFPIC_HEIF_DEVICE_COLOR", "1")
+    want = ffpic_tpu.load(data).np_pixels()
+    calls = []
+    entry = hk.hevc_tiles_to_rgba
+    monkeypatch.setattr(hk, "hevc_tiles_to_rgba",
+                        lambda st, mode: calls.append(len(st.tiles))
+                        or entry(st, mode))
+    testing.assert_equal_up_to_contraction(
+        lambda: ft.load(data, device="cpu").np_pixels(), want)
+    calls.clear()
+    ft.load(data, device="cpu")
+    assert calls == [6 if kind == "grid" else 1]

@@ -11,11 +11,15 @@ plan with its even/odd butterflies) against the plain version, the
 butterflies (``testing.inverse_butterfly``) against the direct product
 of ``dct_matrix(n)`` and the DST, and the plan over several tiles' TUs
 (largest first) with ``residuals_grid``'s one launch against a launch a
-tile; ``hevc_yuv_to_rgba_plain`` (K15's
-function) against the JAX branch of ``heif._yuv_pic_to_rgba``
-(``jnp.repeat`` + ``color_convert``).  The residual stages are integer:
-the tolerance is zero.  Colour is held up to XLA's choice of contracting
-the colour products (``testing.assert_equal_up_to_contraction``).  The
+tile; ``hevc_yuv_to_rgba_plain`` (a tile's colour) against the JAX
+branch of ``heif._yuv_pic_to_rgba`` (``jnp.repeat`` + ``color_convert``),
+and ``hevc_tiles_to_rgba_plain`` (K15's function: a canvas's tiles)
+against that branch pasted as ``heif._decode_grid`` pastes it, on
+``testing.heif_tile_layouts``; ``stage_tiles``' descriptors and cells,
+read as K15 reads them, against the tiles pasted one by one.  The
+residual stages are integer: the tolerance is zero.  Colour is held up
+to XLA's choice of contracting the colour products
+(``testing.assert_equal_up_to_contraction``).  The
 CUDA kernels run only on a GPU (``chip_smoke.py``); here their wrappers
 are checked to refuse CPU tensors and the entries to take the plain
 versions for CPU tensors.
@@ -41,6 +45,7 @@ import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 CASES = list(testing.hevc_cases(0))
 COLOR_CASES = list(testing.heif_color_cases(0))
+TILE_LAYOUTS = list(testing.heif_tile_layouts(0))
 
 
 def _levels(rng, B: int, n: int) -> np.ndarray:
@@ -365,11 +370,11 @@ def test_hevc_yuv_to_rgba_plain_matches_jax(case):
     t = [None if a is None else torch.from_numpy(a) for a in (y, u, v)]
     want = _jax_colour(y, u, v, oh, ow, mode)
     testing.assert_equal_up_to_contraction(
-        lambda: hk.hevc_yuv_to_rgba(*t, oh, ow, mode), want)
+        lambda: hk.hevc_yuv_to_rgba_plain(*t, oh, ow, mode), want)
 
     def into_canvas():
         canvas = torch.zeros((oh + 3, ow + 5, 4), dtype=torch.uint8)
-        hk.hevc_yuv_to_rgba(*t, oh, ow, mode, out=canvas, y0=2, x0=4)
+        hk.hevc_yuv_to_rgba_plain(*t, oh, ow, mode, out=canvas, y0=2, x0=4)
         return canvas
     big = np.zeros((oh + 3, ow + 5, 4), np.uint8)
     big[2:2 + oh, 4:4 + ow] = want
@@ -381,8 +386,8 @@ def test_hevc_yuv_to_rgba_crops_at_the_canvas_edge():
     y, u, v, oh, ow, mode = testing.heif_color_cases(0)["crop_61x37"]
     t = [torch.from_numpy(a) for a in (y, u, v)]
     canvas = torch.full((40, 30, 4), 7, dtype=torch.uint8)
-    hk.hevc_yuv_to_rgba(*t, oh, ow, mode, out=canvas, y0=30, x0=20)
-    want = hk.hevc_yuv_to_rgba(*t, oh, ow, mode)
+    hk.hevc_yuv_to_rgba_plain(*t, oh, ow, mode, out=canvas, y0=30, x0=20)
+    want = hk.hevc_yuv_to_rgba_plain(*t, oh, ow, mode)
     assert torch.equal(canvas[30:, 20:], want[:10, :10])
     assert (canvas[:30] == 7).all() and (canvas[:, :20] == 7).all()
 
@@ -392,10 +397,78 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     desc, ctas = (torch.from_numpy(a) for a in hk.plan_residuals(meta))
     with pytest.raises(ValueError, match="CUDA"):
         cuda_hevc.hevc_residuals(torch.from_numpy(lv), bd, desc, ctas)
-    y = torch.zeros((8, 8), dtype=torch.int16)
+    y = np.zeros((8, 8), np.int16)
+    st = hk.stage_tiles([[y]], [(0, 0, 8, 8)], 8, 8, torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_hevc.hevc_yuv_to_rgba(y, None, None, 8, 8)
+        cuda_hevc.hevc_yuv_to_rgba(st)
     with pytest.raises(ValueError, match="mode"):
-        cuda_hevc.hevc_yuv_to_rgba(y, None, None, 8, 8, mode="nclx")
-    with pytest.raises(ValueError, match="both planes or neither"):
-        cuda_hevc.hevc_yuv_to_rgba(y, y, None, 8, 8)
+        cuda_hevc.hevc_yuv_to_rgba(st, mode="nclx")
+    with pytest.raises(ValueError, match="StagedTiles"):  # loose pieces
+        cuda_hevc.hevc_yuv_to_rgba(st.planes)
+    with pytest.raises(ValueError, match="planes"):      # U without V
+        hk.stage_tiles([[y, y[:4, :4]]], [(0, 0, 8, 8)], 8, 8,
+                       torch.device("cpu"))
+    with pytest.raises(ValueError, match="needs"):       # chroma too small
+        hk.stage_tiles([[y, y[:3, :4], y[:3, :4]]], [(0, 0, 8, 8)], 8, 8,
+                       torch.device("cpu"))
+
+
+def _jax_paste(planes, spans, height: int, width: int, mode: str):
+    """``ffpic_tpu/formats/heif.py:_decode_grid``'s canvas of the tiles'
+    device colour (``_jax_colour``): (0, 0, 0, 255), then each tile pasted
+    in order, cropped at the canvas's edge."""
+    canvas = np.zeros((height, width, 4), np.uint8)
+    canvas[:, :, 3] = 255
+    for ps, (y0, x0, oh, ow) in zip(planes, spans):
+        if y0 < height and x0 < width:
+            y, u, v = (*ps, None, None)[:3]
+            canvas[y0:y0 + oh, x0:x0 + ow] = _jax_colour(
+                y, u, v, oh, ow, mode)[:height - y0, :width - x0]
+    return canvas
+
+
+@pytest.mark.parametrize("layout", TILE_LAYOUTS)
+def test_tiles_plain_matches_jax_paste(layout):
+    """K15's plain counterpart (a canvas's tiles staged in one buffer,
+    pasted in order) equals the reference's canvas: a grid with cropped
+    edge tiles, an uncovered canvas, overlapping tiles of unequal sizes,
+    4:0:0 beside 4:2:0, odd offsets, a single item."""
+    planes, spans, h, w, mode = testing.heif_tile_layouts(0)[layout]
+    st = hk.stage_tiles(planes, spans, h, w, torch.device("cpu"))
+    testing.assert_equal_up_to_contraction(
+        lambda: hk.hevc_tiles_to_rgba(st, mode),
+        _jax_paste(planes, spans, h, w, mode))
+
+
+@pytest.mark.parametrize("layout", TILE_LAYOUTS)
+def test_stage_tiles_model_matches_the_paste(layout):
+    """``stage_tiles``' index read as K15 reads it: each pixel's cell
+    (``row_cell``, ``col_cell``) names the tile a paste in order leaves
+    there (``cell_map``), whose descriptor's offsets, pitches and place
+    find its Y, U and V in the staged buffer; coloured, that is the plain
+    counterpart's canvas bit for bit.  Every plane starts 16-byte
+    aligned."""
+    planes, spans, h, w, mode = testing.heif_tile_layouts(0)[layout]
+    st = hk.stage_tiles(planes, spans, h, w, torch.device("cpu"))
+    flat, desc = st.planes.numpy(), st.desc.numpy()
+    assert st.desc.shape == (len(spans), hk.TILE_DESC)
+    assert not (desc[:, :3][desc[:, :3] >= 0] % 8).any()
+    last = np.full((h, w), -1)
+    for k, (y0, x0, oh, ow) in enumerate(spans):
+        last[y0:y0 + oh, x0:x0 + ow] = k
+    cell = st.cell_map.numpy()[st.row_cell.numpy()][:, st.col_cell.numpy()]
+    np.testing.assert_array_equal(cell, last)
+    yy, xx = np.mgrid[0:h, 0:w]
+    covered = cell >= 0
+    d = desc[np.where(covered, cell, 0)].astype(np.int64)
+    yl, xl = yy - d[..., 5], xx - d[..., 6]
+    y = flat[np.where(covered, d[..., 0] + yl * d[..., 3] + xl, 0)]
+    chroma = covered & (d[..., 1] >= 0)
+    at = (yl >> 1) * d[..., 4] + (xl >> 1)
+    u = np.where(chroma, flat[np.where(chroma, d[..., 1] + at, 0)], 128)
+    v = np.where(chroma, flat[np.where(chroma, d[..., 2] + at, 0)], 128)
+    rgba = hk.color_convert(*(torch.from_numpy(a.astype(np.int16))
+                              for a in (y, u, v)), order="rgba", mode=mode)
+    rgba[torch.from_numpy(~covered)] = torch.tensor([0, 0, 0, 255],
+                                                    dtype=torch.uint8)
+    assert torch.equal(rgba, hk.hevc_tiles_to_rgba_plain(st, mode))

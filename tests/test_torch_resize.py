@@ -22,12 +22,23 @@ width than XLA's f32 dot, so a value can land on the other side of .5
 before rounding.  Observed on these inputs: 0 to 0.022 % of the outputs
 are off by 1 (1.0e-5 for 1080x1920->224, 2.0e-4 for 512x400->512x224).
 
+``resize_batch`` (``decode_batch``'s resize of its slots, K16 in one
+launch on the card) equals each slot resized alone, and JAX's per-slot
+resizes stacked to 1 LSB; K16's descriptors (``cuda_resize.slot_words``)
+read as the kernel reads them give the same bytes.  The kernels take
+each tap as one fused multiply-add where the plain versions round a
+product and then a sum: ``test_every_product_is_exact_in_double`` shows
+with Fractions that every weight times every value the sums take (a
+byte, or an f32) is exact in float64, so the two round alike.
+
 Tolerance of ``normalize_for_model``: without a resize the port equals
 the test's own FMA form ``fma(x, f32(1/255), -mean) / std`` and JAX bit
 for bit.  With a resize, 2**-21 on x = rgb / 255 (the error times
 ``std``): four ulps of 1.0 for the order of XLA's f32 dot (observed up
 to 1.6e-7).
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +51,7 @@ from ffpic_tpu.ops.resize import resize_rgba as jax_resize_rgba
 from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.ops import cuda_resize
 from ffpic_tpu_torch.ops import resize as port_resize
-from ffpic_tpu_torch.ops.resize import _weight_mat, resize_rgba
+from ffpic_tpu_torch.ops.resize import _weight_mat, resize_rgba, taps
 import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 
@@ -279,3 +290,202 @@ def test_cropped_slots_resize_like_contiguous_ones():
     crop = full[:50, :72]
     assert torch.equal(resize_rgba(crop, (24, 40)),
                        resize_rgba(crop.contiguous(), (24, 40)))
+
+
+def _mixed_slots():
+    """Slots of three sizes as ``decode_batch`` holds them: a contiguous
+    image, a crop of a larger decode (rows at the larger pitch) and a
+    slot of another size."""
+    rng = np.random.default_rng(15)
+    big = torch.from_numpy(rng.integers(0, 256, (120, 170, 4), np.uint8))
+    return [torch.from_numpy(rng.integers(0, 256, (96, 128, 4), np.uint8)),
+            big[5:101, 3:163],
+            torch.from_numpy(rng.integers(0, 256, (50, 61, 4), np.uint8))]
+
+
+def test_resize_batch_matches_jax_stack():
+    """``resize_batch`` over slots of other sizes equals each slot resized
+    alone by ``resize_rgba_plain``, and JAX's per-slot resizes stacked
+    (``jnp.stack``) to 1 LSB."""
+    slots, size = _mixed_slots(), (48, 64)
+    got = port_resize.resize_batch(slots, size)
+    assert torch.equal(got, port_resize.resize_batch_plain(slots, size))
+    assert torch.equal(got, torch.stack([port_resize.resize_rgba_plain(
+        s, size) for s in slots]))
+    want = np.asarray(jnp.stack([jax_resize_rgba(jnp.asarray(s.numpy()),
+                                                 size) for s in slots]))
+    diff = np.abs(got.numpy().astype(int) - want)
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+_EXACT_SIZES = sorted({(1080, 224), (1920, 224), *(
+    (n_in, n_out) for img, size in testing.resize_cases().values()
+    for n_in, n_out in zip(img.shape[-3:-1], size) if n_in != n_out)})
+
+
+@pytest.mark.parametrize("n_in,n_out", _EXACT_SIZES)
+def test_every_product_is_exact_in_double(n_in, n_out):
+    """Every tap weight (an f32) times every value the sums take is exact
+    in float64, so the kernels' one fused multiply-add a tap rounds as
+    the plain versions' product and then sum: checked with Fractions
+    against every byte (K16's first axis) and against f32 values of
+    full 24-bit significands up to 255 (K17's inputs and either pass's
+    f32 results).  Nonzero weights are at least 2**-108, which the
+    kernels' integer widening of f32 values takes as given."""
+    from fractions import Fraction
+    wts = taps(n_in, n_out)[2].numpy()
+    ws = np.unique(wts[wts != 0])
+    assert (ws.astype(np.float32).astype(np.float64) == ws).all()
+    assert ws.min() >= 2.0 ** -108
+    rng = np.random.default_rng(n_in * 7 + n_out)
+    f32 = np.unique(np.concatenate([
+        (rng.random(64) * 255).astype(np.float32),
+        (rng.random(64) * 2.0 ** -rng.integers(0, 30, 64)).astype(np.float32),
+        np.float32(1 / 255) * np.arange(256, dtype=np.float32)]))
+    values = [float(v) for v in np.arange(256)] + [float(v) for v in f32]
+    for w in ws.tolist():
+        fw = Fraction(w)
+        for x in values:
+            assert Fraction(w * x) == fw * Fraction(x), (w, x)
+
+
+def _read_slots(words, tensors: dict, size, channels: int) -> torch.Tensor:
+    """K16's launch as its CTAs read ``words``: each slot's pixels at its
+    address and row pitch, each axis's taps at their addresses (``tensors``:
+    data_ptr -> tensor) with K and the input size from the last word, an
+    axis with null addresses kept; sums in float64 in ascending order,
+    rounded to f32 after each axis, then to bytes."""
+    def axis(ws):
+        start, count, wts, last = (int(v) for v in ws)
+        n_in, k = last >> 32, last & 0xFFFFFFFF
+        if not start:
+            return n_in, None
+        wt = tensors[wts]
+        assert wt.shape[1] == k
+        return n_in, (tensors[start], tensors[count], wt)
+
+    out = []
+    for row in words:
+        img = tensors[int(row[0])]
+        assert img.stride(0) == int(row[1])
+        (hi, vt), (wi, ht) = axis(row[2:6]), axis(row[6:10])
+        assert img.shape[:2] == (hi, wi)
+        x = img.double()
+        for dim, t, n_out in ((0, vt, size[0]), (1, ht, size[1])):
+            if t is None:
+                continue
+            start, count, wt = t
+            acc = []
+            for j in range(n_out):
+                s_, c_ = int(start[j]), int(count[j])
+                part = torch.zeros_like(x.select(dim, 0))
+                for i in range(c_):
+                    part = part + wt[j, i] * x.select(dim, s_ + i)
+                acc.append(part)
+            x = torch.stack(acc, dim).float().double()
+        out.append(torch.round(x.float()).clamp(0, 255).to(torch.uint8))
+    assert all(o.shape[-1] == channels for o in out)
+    return torch.stack(out)
+
+
+def test_slot_words_model_the_per_slot_resize():
+    """``cuda_resize.slot_words``, the descriptors of K16's one launch,
+    read back as the kernel reads them (``_read_slots``), give the bytes
+    of the per-slot loop they replace; the widest changing W and the most
+    input rows a band of ``ROWS`` output rows spans size its shared
+    memory, and every band's runs fit that span."""
+    slots, size = _mixed_slots(), (48, 64)
+    dev = torch.device("cpu")
+    words, line_w, vk, held = cuda_resize.slot_words(slots, size, dev)
+    assert words.shape == (3, cuda_resize.SLOT_WORDS)
+    assert line_w == 170 - 10 and vk == max(
+        cuda_resize.band_rows(n, 48) for n in (96, 50))
+    tensors = {t.data_ptr(): t for t in (*slots, *held)}
+    assert torch.equal(_read_slots(words, tensors, size, 4),
+                       port_resize.resize_batch_plain(slots, size))
+    for n in (96, 50):
+        start, count, _ = taps(n, 48)
+        for j in range(0, 48, cuda_resize.ROWS):
+            band = [(int(start[k]), int(start[k] + count[k]))
+                    for k in range(j, min(j + cuda_resize.ROWS, 48))
+                    if count[k]]
+            if band:
+                assert max(b for _, b in band) - min(a for a, _ in band) \
+                    <= vk
+    src = open(os.path.join(os.path.dirname(cuda_resize.__file__), "..",
+                            "csrc", "resize.cu")).read()
+    assert f"constexpr int kRows = {cuda_resize.ROWS};" in src
+    assert f"constexpr int kMaxSlots = {cuda_resize.MAX_SLOTS};" in src
+    kept, _, kept_vk, _ = cuda_resize.slot_words([slots[0]], (96, 64), dev)
+    assert kept[0, 2:5].tolist() == [0, 0, 0] and kept[0, 5] == 96 << 32
+    assert kept_vk == 0
+
+
+def test_slot_words_hold_every_table_they_point_at():
+    """A launch over 70 slots of distinct sizes needs more tap tables
+    than ``taps`` caches, so the cache drops the first slots' tables
+    while the later ones' descriptors are built.  ``slot_words`` returns
+    every tensor its descriptors point at: each address of a tap table
+    is one of them, and it holds that slot's taps."""
+    rng = np.random.default_rng(70)
+    big = torch.from_numpy(rng.integers(0, 256, (110, 150, 4), np.uint8))
+    slots = [big[:40 + k, :80 - k // 2 + 3 * (k % 2)] for k in range(70)]
+    size = (16, 12)
+    words, _, _, held = cuda_resize.slot_words(slots, size,
+                                               torch.device("cpu"))
+    assert len({(s.shape[0], s.shape[1]) for s in slots}) == 70
+    assert len({(s.shape[0], size[0]) for s in slots} |
+               {(s.shape[1], size[1]) for s in slots}) > taps.cache_info() \
+        .maxsize
+    tables = {t.data_ptr(): t for t in held}
+    for s, row in zip(slots, words):
+        for n_in, n_out, ws in ((s.shape[0], size[0], row[2:5]),
+                                (s.shape[1], size[1], row[6:9])):
+            want = taps.__wrapped__(n_in, n_out)
+            for addr, t in zip(ws.tolist(), want):
+                assert addr in tables and torch.equal(tables[addr], t)
+
+
+def test_kernel_bit_conversions_are_exact():
+    """``resize.cu``'s conversions without a conversion instruction, run
+    here as numpy integer operations with the constants read from the
+    source: a byte c of a word as the f32 2^23 + v (``__byte_perm`` with
+    0x4B000000), less 2^23, is the byte, and times f32(1/255) K17's
+    input; an f32 that is 0 or positive normal moved into a double (the
+    exponent rebased by 896, the mantissa moved up 29 bits) is that f32's
+    value exactly, over bytes, their K17 values and f32 values from
+    2**-100 to 255."""
+    import re
+    src = open(os.path.join(os.path.dirname(cuda_resize.__file__), "..",
+                            "csrc", "resize.cu")).read()
+    perm = re.search(r"__byte_perm\(v, (0x[0-9A-F]+)u, (0x[0-9a-f]+) \+ c\)",
+                     src)
+    rebase = re.search(r"\(b >> 3\) \+ (0x[0-9A-F]+)u\) : 0,\s*"
+                       r"\(int\)\(b << 29\)", src)
+    assert perm and rebase and "8388608.0f" in src
+    magic, sel, bias = (int(g, 16) for g in (*perm.groups(), rebase[1]))
+
+    def byte_perm(x: int, y: int, s: int) -> int:
+        b = x.to_bytes(4, "little") + y.to_bytes(4, "little")
+        return int.from_bytes(bytes(b[(s >> 4 * k) & 7] for k in range(4)),
+                              "little")
+
+    def f32_as_f64(f) -> float:
+        b = int(np.float32(f).view(np.uint32))
+        hi = ((b >> 3) + bias) & 0xFFFFFFFF if b else 0
+        bits = (hi << 32) | ((b << 29) & 0xFFFFFFFF)
+        return float(np.uint64(bits).view(np.float64))
+
+    rng = np.random.default_rng(3)
+    inv255 = np.float32(port_resize.INV255)
+    for word in [0, 0xFFFFFFFF, *rng.integers(0, 2 ** 32, 300).tolist()]:
+        for c in range(4):
+            m = byte_perm(int(word), magic, sel + c)
+            f = np.uint32(m).view(np.float32) - np.float32(8388608.0)
+            assert f == (word >> 8 * c) & 255
+            assert f32_as_f64(f) == float(f)
+            k17 = np.float32(f * inv255)
+            assert f32_as_f64(k17) == float(k17)
+    for f in (rng.random(5000) * 255).astype(np.float32).tolist() + [
+            2.0 ** -100, 1.0, 255.0]:
+        assert f32_as_f64(f) == float(np.float32(f))
