@@ -40,7 +40,7 @@ read just after:
 * the sparse route of dense 4:2:0 members, reached through the
   pipeline's dense-member staging (``pipeline.member_pairs`` in a pool,
   then ``pipeline.decode_dense_members``) with the 8 x 1080p batch's
-  dense planes (K8 scatter_plane per plane, then K2 and K3), against
+  dense planes (K8 scatter_planes once over the three, then K2 and K3), against
   the plain route; the dense route (``pipeline.decode_planes``) timed
   beside it;
 * the device Huffman decode (K9 entropy_decode, K10 spec_scan, K11
@@ -205,7 +205,7 @@ def ptxas_report(text: str) -> dict:
     """``nvcc -Xptxas -v`` output -> {kernel: {registers, smem_bytes,
     stack_bytes, spill_bytes}}, a template instance named with its
     arguments, e.g. ``assemble_color<1,0>`` (mode, order),
-    ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_rows<4>``
+    ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_subup<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
     depth), ``hevc_yuv_to_rgba<1>`` (mode), ``resize<0,2>`` (K16) and
     ``resize<1,2>`` (K17) at two output rows a CTA (``<.,1>`` at one);
@@ -215,8 +215,8 @@ def ptxas_report(text: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"(count_scan|unpack|dequant_idct|assemble_color|"
-                          r"assemble_mcu|fdct|scatter_plane|unfilter_rows|"
-                          r"unfilter_cols|assemble_rgba|entropy_decode|"
+                          r"assemble_mcu|fdct|scatter_planes|"
+                          r"unfilter_subup|assemble_rgba|entropy_decode|"
                           r"spec_scan|spec_merge|vp8_residuals|"
                           r"vp8_yuv_to_rgba|hevc_residuals|"
                           r"hevc_yuv_to_rgba|resize|vp8_wavefront)_kernel"
@@ -625,10 +625,25 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
         encode_png_seconds=f"{t3 - t2:.3f}")
 
     # --- K6 against its plain version ----------------------------------------
+    # every case twice (the second launch reuses the status words of the
+    # first under a new epoch), and on a side stream (its own words); one
+    # kernel a call
+    side = torch.cuda.Stream()
     for rows, bpp in testing.unfilter_cases().values():
         t = torch.from_numpy(rows).to(dev)
-        exact("unfilter_subup", cuda_png.unfilter_subup(t, bpp),
-              pk.unfilter_subup(t, bpp), errs)
+        want = pk.unfilter_subup(t, bpp)
+        for _ in range(2):
+            exact("unfilter_subup", cuda_png.unfilter_subup(t, bpp), want,
+                  errs)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            got = cuda_png.unfilter_subup(t, bpp)
+        torch.cuda.current_stream().wait_stream(side)
+        exact("unfilter_subup", got, want, errs)
+        reset()
+        cuda_png.unfilter_subup(t, bpp)
+        if counts()["unfilter_subup"] != 1:
+            raise AssertionError("K6 took more than one launch a call")
     rng = np.random.default_rng(33)
     noise = rng.integers(0, 256, (H, 4 * W + 1)).astype(np.uint8)
     noise[:, 0] = rng.integers(0, 3, H)
@@ -638,9 +653,9 @@ def png_paths(dev, jpegs, floor_ms: float, errs: dict):
               pk.unfilter_subup(t, 4), errs)
     rows_d = torch.from_numpy(np.array(fs.passes[0].rows)).to(dev)
     recon = cuda_png.unfilter_subup(rows_d, 4)
-    log("check K6", unfilter_subup="exact",
-        cases=",".join(testing.unfilter_cases()) + ",1080p_subup,"
-        "1080p_random_filters")
+    log("check K6", unfilter_subup="exact", launches_a_call=1,
+        cases=",".join(testing.unfilter_cases()) + " (each twice and on a "
+        "side stream),1080p_subup,1080p_random_filters")
 
     # --- K7 against its plain version ----------------------------------------
     # every (colour type, bit depth) at an odd width and at one a multiple
@@ -845,18 +860,29 @@ def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
     from ffpic_tpu_torch.ops import jpeg_kernels as jk
     from ffpic_tpu_torch.utils.timing import gpu_ms
 
-    for idx, val, sh in testing.scatter_cases().values():
-        it, vt = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
-        want = jk.scatter_plane(it, vt, sh)
-        exact("scatter_plane", cuda_jpeg.scatter_plane(
-            it, vt, torch.empty_like(want)), want, errs)
-        slot = torch.full((sh[0], sh[1] + 5, 8, 8), 7, dtype=torch.int16,
+    # each case's planes in one launch into slots with a sentinel before,
+    # between none and after them, and each plane alone
+    for planes, n, sizes in testing.scatter_cases().values():
+        pd = [(torch.from_numpy(i).to(dev), torch.from_numpy(v).to(dev))
+              for i, v in planes]
+        want = jk.scatter_planes(pd, n, sizes)
+        nb = sum(sizes)
+        slot = torch.full((n, nb + 5, 8, 8), 7, dtype=torch.int16,
                           device=dev)
-        cuda_jpeg.scatter_plane(it, vt, slot[:, 2:2 + sh[1]])
-        exact("scatter_plane", slot[:, 2:2 + sh[1]], want, errs)
+        cuda_jpeg.scatter_planes(pd, slot[:, 2:2 + nb], sizes)
+        exact("scatter_plane", slot[:, 2:2 + nb], want, errs)
         if not (bool((slot[:, :2] == 7).all())
-                and bool((slot[:, 2 + sh[1]:] == 7).all())):
-            raise AssertionError("scatter_plane wrote outside its slot")
+                and bool((slot[:, 2 + nb:] == 7).all())):
+            raise AssertionError("scatter_planes wrote outside its slots")
+        exact("scatter_plane", cuda_jpeg.scatter_planes(
+            pd, torch.empty_like(want), sizes), want, errs)
+        off = 0
+        for (it, vt), b in zip(pd, sizes):
+            exact("scatter_plane", cuda_jpeg.scatter_plane(
+                it, vt, torch.empty((n, b, 8, 8), dtype=torch.int16,
+                                    device=dev)), want[:, off:off + b], errs)
+            off += b
+        del pd, want, slot
     t0 = time.perf_counter()
     js = [jpg.parse_and_decode(d)[0] for d in srcs]
     parse_s = time.perf_counter() - t0
@@ -888,14 +914,13 @@ def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
                for a, b in zip(cut[:-1], cut[1:])]
     coeffs = torch.empty((N, sum(sizes), 8, 8), dtype=torch.int16,
                          device=dev)
-    for (it, vt), nb, off in zip(pairs_d, sizes, np.cumsum([0, *sizes])):
-        exact("scatter_plane", cuda_jpeg.scatter_plane(
-            it, vt, coeffs[:, off:off + nb]), jk.scatter_plane(it, vt, (N, nb)),
-            errs)
+    exact("scatter_plane", cuda_jpeg.scatter_planes(pairs_d, coeffs, sizes),
+          jk.scatter_planes(pairs_d, N, sizes), errs)
     dense_bytes = sum(p.nbytes for p in planes)
     pair_bytes = idx_all.nbytes + val_all.nbytes
-    log("check K8", scatter_plane="exact",
-        cases=",".join(testing.scatter_cases()) + ",views,8x1080p_planes",
+    log("check K8", scatter_planes="exact",
+        cases=",".join(testing.scatter_cases()) + " (slots, whole, each "
+        "plane),8x1080p_planes",
         pairs=lens, pair_bytes=pair_bytes, dense_bytes=dense_bytes,
         share=f"{pair_bytes / dense_bytes:.4f}", pool_pairs="pack_coeffs",
         dense_parse_seconds=f"{parse_s:.3f}")
@@ -905,7 +930,7 @@ def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
     out = pipeline.decode_dense_members(js, pairs, "bt601", dev)
     torch.cuda.synchronize()
     launches = {k: v for k, v in cuda_jpeg.launches.items() if v}
-    if launches != {"scatter_plane": 3, "dequant_idct": 1,
+    if launches != {"scatter_plane": 1, "dequant_idct": 1,
                     "assemble_color": 1}:
         raise AssertionError(f"the sparse route ran {launches}")
     if not torch.equal(out, plain):
@@ -916,13 +941,10 @@ def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
     del out
 
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
-    slots = [coeffs[:, off:off + nb]
-             for nb, off in zip(sizes, np.cumsum([0, *sizes]))]
     longs = [(it.to(torch.int64), vt) for it, vt in pairs_d]
 
     def k8():
-        for (it, vt), slot in zip(pairs_d, slots):
-            cuda_jpeg.scatter_plane(it, vt, slot)
+        cuda_jpeg.scatter_planes(pairs_d, coeffs, sizes)
 
     def library():
         for (il, vt), nb in zip(longs, sizes):
@@ -931,11 +953,9 @@ def sparse_path(dev, srcs, plain, floor_ms: float, errs: dict):
 
     entries = sum(lens)
     timed = time_entry(
-        "scatter_plane", k8,
-        lambda: [jk.scatter_plane(it, vt, (N, nb))
-                 for (it, vt), nb in zip(pairs_d, sizes)],
+        "scatter_plane", k8, lambda: jk.scatter_planes(pairs_d, N, sizes),
         6 * entries + 2 * N * sum(sizes) * 64, entries, "int32", floor_ms,
-        flush, "sparse route 8x1080p, 3 planes", library)
+        flush, "sparse route 8x1080p, 3 planes in one launch", library)
     del flush
     # the launches one timed call of k8 makes
     torch.cuda.synchronize()
@@ -2877,11 +2897,11 @@ def main() -> int:
                                                     errs)
     timed.update(config5_timed)
 
-    # the instances the paths run: bt601, rgba (and fancy for K4), K6's
-    # two passes at 4 bytes a pixel, K7 for 8-bit RGBA
-    ptxas["unfilter_subup"] = {"rows": ptxas["unfilter_rows<4>"],
-                               "cols": ptxas["unfilter_cols"]}
+    # the instances the paths run: bt601, rgba (and fancy for K4), K6 at 4
+    # bytes a pixel, K7 for 8-bit RGBA
     built = {"assemble_color": "assemble_color<1,0>",
+             "unfilter_subup": "unfilter_subup<4>",
+             "scatter_plane": "scatter_planes",
              "assemble_mcu": "assemble_mcu<1,0,1>",
              "assemble_rgba": "assemble_rgba<6,8>",
              "hevc_yuv_to_rgba": "hevc_yuv_to_rgba<1>",

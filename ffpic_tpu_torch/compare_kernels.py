@@ -2,7 +2,7 @@
 one NVIDIA GPU.
 
     python3 -m ffpic_tpu_torch.compare_kernels --parent DIR \
-        [--kernels k18,entropy,vp8] [--rounds 1]
+        [--kernels k6,k8,jpeg] [--rounds 1]
     python3 DIR/ffpic_tpu_torch/compare_kernels.py --tree DIR [--kernels ...]
 
 ``DIR`` holds an older checkout of the repository, e.g. the parent
@@ -61,6 +61,23 @@ default):
   CPU route's pixels; and ``load`` of the fixture under that switch
   (median of 5, host clock).
 
+* ``k6``: K6 (``cuda_png.unfilter_subup``) on the 1080p Sub/Up RGBA
+  file's rows, the same rows all None, all Sub and all Up, rows of
+  random filters, and 64 rows of 20,000 px of 16-bit RGBA (Sub and Up in
+  turn), warm and L2 flushed, each against its plain version, with its
+  launches a call and, on the 1080p rows, each kernel's device time from
+  ``torch.profiler``; in trees with ``cuda_png.unfilter_bands``, K6 at
+  other bands (rows x chunk bytes) on three of them;
+* ``k8``: K8 over the sparse route's three planes of the 8 x 1080p batch
+  as each tree's ``decode_batch_420_sparse`` rebuilds them (one launch,
+  or a launch and a memset a plane), over the same pairs shuffled, and
+  over as many pairs a plane at random keys, warm and L2 flushed, each
+  against its plain version, with the launches and the profiler's
+  split; the route (K8, K2, K3); ``torch.zeros`` + ``index_add_``;
+* ``jpeg``: K1a, K1b, K2 and K3 on the 8 x 1080p batch (checked against
+  the plain route), K4 (fancy) on a 4000 x 3000 4:2:2 layout and K5 on
+  the batch's blocks, warm and L2 flushed.
+
 ``k16`` and ``k15`` need both trees to have those one-launch entries.
 
 Each run prints one ``RESULT`` JSON line; the rounds end with a table of
@@ -73,6 +90,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,17 +98,47 @@ import time
 
 H, W = 1080, 1920
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = ("k7", "k14", "k18", "entropy", "vp8", "k16", "k15")
+GROUPS = ("k7", "k14", "k18", "entropy", "vp8", "k16", "k15", "k6", "k8",
+          "jpeg")
 KERNELS = {"k7": ("assemble_rgba",), "k14": ("hevc_residuals",),
            "k18": ("vp8_wavefront",),
            "entropy": ("entropy_decode", "spec_scan", "spec_merge"),
            "vp8": ("vp8_residuals", "vp8_yuv_to_rgba"),
-           "k16": ("resize",), "k15": ("hevc_yuv_to_rgba",)}
+           "k16": ("resize",), "k15": ("hevc_yuv_to_rgba",),
+           "k6": ("unfilter_rows", "unfilter_cols", "unfilter_subup"),
+           "k8": ("scatter_plane", "scatter_planes"),
+           "jpeg": ("count_scan", "unpack", "dequant_idct", "assemble_color",
+                    "assemble_mcu", "fdct")}
 
 
 def _timed(fn, flush, warm: int = 50, cold: int = 20) -> dict:
     from ffpic_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
     return {"ms": gpu_ms(fn, warm), "ms_cold": gpu_ms_cold(fn, cold, flush)}
+
+
+def _device_ms(fn, calls: int = 20) -> dict:
+    """Device time a call of ``fn`` of each kernel and memset it runs, in
+    ms, from one ``torch.profiler`` run over ``calls`` calls (empty where
+    the profiler records no device time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        m = re.search(r"(\w+_kernel)", e.key)
+        name = m.group(1) if m else "memset" if "emset" in e.key else None
+        if us and name:
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
 
 
 def _k14_launch(hk, cuda_hevc, parts, bd, dev):
@@ -465,6 +513,232 @@ def _k15(dev, flush) -> dict:
     return out
 
 
+def _k6(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import png
+    from ffpic_tpu_torch.ops import cuda_png
+    from ffpic_tpu_torch.ops import png_kernels as pk
+    px = np.concatenate([testing.synth_rgb(H, W, 31),
+                         testing.synth_rgb(H, W, 32)[..., :1]], -1)
+    subup = np.array(png.parse(testing.encode_png(
+        px, 6, 8, filters=(1, 2))).passes[0].rows)
+    rng = np.random.default_rng(6)
+    cases = {"1080p subup": (subup, 4)}
+    for name, tag in (("1080p all none", 0), ("1080p all sub", 1),
+                      ("1080p all up", 2)):
+        rows = subup.copy()
+        rows[:, 0] = tag
+        cases[name] = (rows, 4)
+    noise = rng.integers(0, 256, (H, 4 * W + 1)).astype(np.uint8)
+    noise[:, 0] = rng.integers(0, 3, H)
+    cases["1080p random filters"] = (noise, 4)
+    # the widest row the tests hold: 20,000 px of 16-bit RGBA
+    wide = rng.integers(0, 256, (64, 160_001)).astype(np.uint8)
+    wide[:, 0] = np.arange(64) % 2 + 1
+    cases["20000px rgba16 x64 subup"] = (wide, 8)
+    out = {}
+    for name, (rows, bpp) in cases.items():
+        t = torch.from_numpy(rows).to(dev)
+
+        def fn(t=t, bpp=bpp):
+            return cuda_png.unfilter_subup(t, bpp)
+        if not torch.equal(fn(), pk.unfilter_subup(t, bpp)):
+            raise AssertionError(f"K6 on {name} differs from its plain "
+                                 "version")
+        cuda_png.reset_launches()
+        fn()
+        out[f"{name} launches"] = cuda_png.launches["unfilter_subup"]
+        r = _timed(fn, flush)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = r["ms"], r["ms_cold"]
+        if name.startswith("1080p"):
+            for k, ms in _device_ms(fn).items():
+                out[f"{name} profiler {k} ms"] = ms
+    # trees whose K6 takes its bands from cuda_png.unfilter_bands: other
+    # bands of rows x chunk bytes, each checked
+    bands = getattr(cuda_png, "unfilter_bands", None)
+    if bands is not None:
+        try:
+            for rows, chunk in ((1, 7680), (2, 7680), (3, 7680), (8, 3840),
+                                (4, 3840), (16, 1536)):
+                cuda_png.unfilter_bands = lambda h, s, r=rows, c=chunk: (r,
+                                                                         c)
+                for name in ("1080p subup", "1080p all up",
+                             "1080p random filters"):
+                    t = torch.from_numpy(cases[name][0]).to(dev)
+                    if not torch.equal(cuda_png.unfilter_subup(t, 4),
+                                       pk.unfilter_subup(t, 4)):
+                        raise AssertionError(f"K6 at {rows}x{chunk} on "
+                                             f"{name} differs")
+                    out[f"bands {rows}x{chunk} {name} ms"] = _timed(
+                        lambda t=t: cuda_png.unfilter_subup(t, 4), flush,
+                        20, 5)["ms"]
+        finally:
+            cuda_png.unfilter_bands = bands
+    return out
+
+
+def _k8(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import pipeline, testing
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.ops import cuda_jpeg
+    from ffpic_tpu_torch.ops import jpeg_kernels as jk
+    n = 8
+    jpegs = [testing.synth_jpeg_420(H, W, 85, 1),
+             testing.synth_jpeg_420(H, W, 95, 2)]
+    js = [jpg.parse_and_decode(jpegs[k % 2])[0] for k in range(n)]
+    shapes = tuple((c.nby, c.nbx) for c in js[0].comps)
+    sizes = [a * b for a, b in shapes]
+    idx, val, lens = pipeline.sparse_pairs(
+        [pipeline.member_pairs(j) for j in js],
+        [c.size for c in js[0].coeffs])
+    cut = np.cumsum([0, *lens]).tolist()
+    rng = np.random.default_rng(8)
+    routes = {}
+    # the same number of pairs a plane, a fifth of the coefficients, at
+    # random: the host's order, and shuffled
+    uni = []
+    for (a, b), nb in zip(zip(cut[:-1], cut[1:]), sizes):
+        total = n * nb * 64
+        k = np.sort(rng.choice(total, min(b - a, total), replace=False))
+        vv = rng.integers(1, 100, k.size).astype(np.int16)
+        uni.append((torch.from_numpy(k.astype(np.int32)).to(dev),
+                    torch.from_numpy(vv).to(dev)))
+    routes["uniform"] = uni
+    for name, order in (("sorted", None), ("unsorted", "shuffle")):
+        planes = []
+        for a, b in zip(cut[:-1], cut[1:]):
+            p = rng.permutation(b - a) if order else np.arange(b - a)
+            planes.append((torch.from_numpy(idx[a:b][p]).to(dev),
+                           torch.from_numpy(val[a:b][p]).to(dev)))
+        routes[name] = planes
+    yq, cq = (torch.from_numpy(np.stack([j.dqt[j.comps[c].tq] for j in js])
+                               .astype(np.int32)).to(dev) for c in (0, 1))
+    coeffs = torch.empty((n, sum(sizes), 8, 8), dtype=torch.int16,
+                         device=dev)
+    offs = np.cumsum([0, *sizes]).tolist()
+
+    def k8(planes):
+        # each tree's decode_batch_420_sparse rebuilds the planes so:
+        # one launch over the three, or a launch (and a memset) a plane
+        if hasattr(cuda_jpeg, "scatter_planes"):
+            return cuda_jpeg.scatter_planes(planes, coeffs, sizes)
+        for (it, vt), nb, off in zip(planes, sizes, offs):
+            cuda_jpeg.scatter_plane(it, vt, coeffs[:, off:off + nb])
+        return coeffs
+
+    want = torch.cat([jk.scatter_plane(it, vt, (n, nb)) for (it, vt), nb
+                      in zip(routes["sorted"], sizes)], dim=1)
+    out = {"pairs": float(sum(lens))}
+    for name, planes in routes.items():
+        if name == "uniform":
+            if not torch.equal(k8(planes), torch.cat(
+                    [jk.scatter_plane(it, vt, (n, nb))
+                     for (it, vt), nb in zip(planes, sizes)], dim=1)):
+                raise AssertionError("K8 on uniform pairs differs from its "
+                                     "plain version")
+            r = _timed(lambda p=planes: k8(p), flush)
+            out["K8 uniform ms"], out["K8 uniform ms_cold"] = r["ms"], \
+                r["ms_cold"]
+            continue
+        if not torch.equal(k8(planes), want):
+            raise AssertionError(f"K8 on the {name} planes differs from its "
+                                 "plain version")
+        cuda_jpeg.reset_launches()
+        k8(planes)
+        out[f"K8 {name} launches"] = cuda_jpeg.launches["scatter_plane"]
+        warm, cold = (50, 20) if name == "sorted" else (3, 3)
+        r = _timed(lambda p=planes: k8(p), flush, warm, cold)
+        out[f"K8 {name} ms"], out[f"K8 {name} ms_cold"] = r["ms"], r["ms_cold"]
+        if name == "sorted":
+            for k, ms in _device_ms(lambda: k8(planes)).items():
+                out[f"K8 {name} profiler {k} ms"] = ms
+    planes = routes["sorted"]
+
+    def route():
+        return jk.decode_batch_420_sparse(planes, n, shapes, yq, cq, "rgba",
+                                          "bt601", (H, W))
+    plain = jk.decode_batch_420_dense(want, yq, cq, shapes, "rgba", "bt601",
+                                      (H, W))
+    if not torch.equal(route(), plain):
+        raise AssertionError("the sparse route differs from K2 + K3 on the "
+                             "plain planes")
+    r = _timed(route, flush)
+    out["route K8+K2+K3 ms"], out["route K8+K2+K3 ms_cold"] = \
+        r["ms"], r["ms_cold"]
+    longs = [(it.to(torch.int64), vt) for it, vt in planes]
+
+    def library():
+        for (il, vt), nb in zip(longs, sizes):
+            torch.zeros(n * nb * 64, dtype=torch.int16,
+                        device=dev).index_add_(0, il, vt)
+    r = _timed(library, flush)
+    out["library zeros+index_add_ ms"] = r["ms"]
+    out["library zeros+index_add_ ms_cold"] = r["ms_cold"]
+    return out
+
+
+def _jpeg(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import jpg
+    from ffpic_tpu_torch.formats.jpg import packed_block_map
+    from ffpic_tpu_torch.ops import cuda_jpeg
+    from ffpic_tpu_torch.ops import jpeg_kernels as jk
+    n = 8
+    jpegs = [testing.synth_jpeg_420(H, W, 85, 1),
+             testing.synth_jpeg_420(H, W, 95, 2)]
+    plans = [jpg.parse_and_decode(jpegs[k % 2], packed=True)[0]
+             for k in range(n)]
+    j0 = plans[0]
+    shapes = tuple((c.nby, c.nbx) for c in j0.comps)
+    (nby, nbx), _, _ = shapes
+    nblocks = sum(a * b for a, b in shapes)
+    buf_np, g, e = jk.stack_packed_fused([j.packed for j in plans])
+    buf = torch.from_numpy(buf_np).to(dev)
+    bmap = packed_block_map(j0, dev)
+    yq, cq = (torch.from_numpy(np.stack([j.dqt[j.comps[c].tq] for j in plans])
+                               .astype(np.int32)).to(dev) for c in (0, 1))
+    starts = cuda_jpeg.count_scan(buf, n, g)
+    coeffs = cuda_jpeg.unpack(buf, starts, bmap, n, g, e, nblocks)
+    samples = cuda_jpeg.dequant_idct(coeffs, yq, cq, nby * nbx)
+    counts, ks, vals = jk.split_packed(buf, n, g, e)
+    plain = jk.decode_batch_420(jk.unpack_coeffs(counts, ks, vals, bmap,
+                                                 nblocks),
+                                yq, cq, shapes, "rgba", "bt601", (H, W))
+    if not torch.equal(cuda_jpeg.assemble_color(samples, nby, nbx, "rgba",
+                                                "bt601", (H, W)), plain):
+        raise AssertionError("K1a-K3 differ from the plain route")
+    # K4 on a 4000x3000 4:2:2 layout, K5 on 1080p's blocks (random samples)
+    rng = np.random.default_rng(4)
+    sh422, sa422 = ((375, 500), (375, 250), (375, 250)), ((1, 1), (1, 2),
+                                                          (1, 2))
+    s422 = torch.from_numpy(rng.integers(
+        0, 256, (sum(a * b for a, b in sh422), 8, 8)).astype(np.int16)).to(dev)
+    blocks = torch.from_numpy(rng.integers(
+        -128, 128, (nblocks * n, 8, 8)).astype(np.int16)).to(dev)
+    out = {}
+    for name, fn in (
+            ("K1a count_scan", lambda: cuda_jpeg.count_scan(buf, n, g)),
+            ("K1b unpack", lambda: cuda_jpeg.unpack(buf, starts, bmap, n, g,
+                                                    e, nblocks)),
+            ("K2 dequant_idct", lambda: cuda_jpeg.dequant_idct(
+                coeffs, yq, cq, nby * nbx)),
+            ("K3 assemble_color", lambda: cuda_jpeg.assemble_color(
+                samples, nby, nbx, "rgba", "bt601", (H, W))),
+            ("K4 assemble_mcu 12mp 422 fancy", lambda: cuda_jpeg.assemble_mcu(
+                s422, sh422, sa422, 3000, 4000, "rgba", "bt601", 128,
+                "fancy")),
+            ("K5 fdct 8x1080p blocks", lambda: cuda_jpeg.fdct(blocks))):
+        r = _timed(fn, flush)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = r["ms"], r["ms_cold"]
+    return out
+
+
 def run(tree: str, groups) -> dict:
     """One tree's numbers (see the module's docstring)."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -490,7 +764,8 @@ def run(tree: str, groups) -> dict:
     dev = torch.device("cuda")
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
     run_group = {"k7": _k7, "k14": _k14, "k18": _k18, "entropy": _entropy,
-                 "vp8": _vp8, "k16": _k16, "k15": _k15}
+                 "vp8": _vp8, "k16": _k16, "k15": _k15, "k6": _k6,
+                 "k8": _k8, "jpeg": _jpeg}
     return {"tree": os.path.abspath(tree), "build_s": build_s,
             "ptxas": ptxas,
             "groups": {g: run_group[g](dev, flush) for g in groups}}

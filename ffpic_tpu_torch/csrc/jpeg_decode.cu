@@ -22,8 +22,9 @@
 // The sparse route of .decode_batch_420_sparse stages dense members'
 // planes as (flat index, value) pairs instead, and
 //
-//   K8  scatter_plane   zeros + int16 scatter-add of one plane's pairs
-//                       into its slot of the (N, B, 8, 8) buffer
+//   K8  scatter_planes  int16 scatter-add of the planes' pairs, each
+//                       into its slot of the (N, B, 8, 8) buffer, every
+//                       coefficient written once (one launch)
 //
 // rebuilds the coefficients that K2 and K3 then take.
 //
@@ -562,68 +563,391 @@ void launch_assemble_color(const int16_t* s, uint8_t* out, int n, int nby,
 
 // K8. Replaces ffpic_tpu/ops/jpeg_kernels.py:_scatter_plane (:463), the
 // scatter-add of decode_batch_420_sparse's packed pairs into zeroed
-// planes. Bound: it reads 6 bytes a pair and writes each int16 of the
-// plane once (the zeroing), so it is memory-bound; the adds are nothing.
+// planes, for all of a batch's planes in one launch. Bound: it reads 6
+// bytes a pair and writes each int16 of the slots once, so it is
+// memory-bound; the adds are nothing.
 //
-// It must be right for any pairs, duplicates included, so a thread per
-// pair adds its value into the 32-bit word that holds its int16 with an
-// atomicCAS loop (CUDA has no 16-bit atomic add), keeping the other
-// half as it is; int16 sums wrap, so the order of the adds does not
-// matter. The launcher zeroes the plane's slot first with
-// cudaMemset2DAsync on the same stream (N rows of plane int16 at the
-// buffer's pitch). Indices follow the reference's scatter: one in
-// [-total, 0) is taken as idx + total, any other outside [0, total)
-// is dropped; a zero value (the padding) adds nothing and is skipped.
-// The host packs pairs in index order, so neighbouring threads hit
-// neighbouring words and the CAS loops rarely retry.
+// Each plane's pairs become keys: a value of 0 (the host's padding) or
+// an index outside [-total, total) adds nothing and keys as `total`; an
+// index in [-total, 0) is taken as idx + total (the reference's rules).
+// The host packs pairs in key order with the padding at the tail, and
+// the fast path rests on that order; any order stays exact:
+//
+//   * Each plane's coefficients are cut into units of kScatterUnit; the
+//     planes get CTAs of the cooperative grid in proportion to their
+//     pairs and coefficients, and a CTA owns an even run of its plane's
+//     units. Three warps find at once, by a 32-ary search on the keys (5
+//     dependent loads at 4 M pairs), the first pair of its first unit,
+//     of the unit after its last, and of the plane's tail of keys equal
+//     to `total`: its slice of pairs.
+//   * It walks its slice in batches of kScatterBatch pairs (4 loads of
+//     each array a thread, coalesced, the next batch's in flight while
+//     one is added up) through shared memory, adding the
+//     values of the unit at hand into int32 in shared memory (shared
+//     atomics; int32 truncated to int16 is the int16 wrap of any order
+//     of adds); when a batch passes a unit's end, it stores the unit
+//     once, zeros included, with 16-byte stores: no memset, no read of
+//     the output.
+//   * It checks that every key of its slice lies in its run and that the
+//     keys do not decrease from the pair before the slice to its end,
+//     and, for a share of the plane's tail, that every key there is
+//     `total`. The slices of a plane tile its pairs (the search is
+//     monotone in its target for any keys), so all checks pass iff the
+//     keys are sorted, and then every slice is exactly its run's.
+//   * A grid barrier; if any CTA saw a key out of order, every CTA
+//     zeroes its units, and after a second barrier the grid adds every
+//     pair where it lands, by 32-bit atomicAdd on the word that holds
+//     its int16 (the general path, decided on the device; never taken
+//     by the host's pairs).
 constexpr int kScatterThreads = 256;
+constexpr int kScatterUnit = 4096;     // coefficients a unit (a multiple of 64)
+constexpr int kScatterBatch = 1024;    // pairs read at a time, 4 a thread
+constexpr int kScatterPlanes = 3;
 
-__global__ void __launch_bounds__(kScatterThreads)
-    scatter_plane_kernel(const int32_t* __restrict__ idx,
-                         const int16_t* __restrict__ val, long long count,
-                         int16_t* out, long long plane, long long pitch,
-                         long long total) {
-  const long long e = (long long)blockIdx.x * kScatterThreads + threadIdx.x;
-  if (e >= count) return;
-  const unsigned v = (uint16_t)__ldg(val + e);
-  long long i = __ldg(idx + e);
-  if (i < 0) i += total;
-  if (v == 0 || i < 0 || i >= total) return;
-  const long long img = i / plane;
-  int16_t* p = out + img * pitch + (i - img * plane);
-  unsigned* word = (unsigned*)((uintptr_t)p & ~(uintptr_t)3);
-  const int shift = ((uintptr_t)p & 2) ? 16 : 0;
-  const unsigned keep = ~(0xFFFFu << shift);
-  unsigned old = *word, seen;
-  do {
-    seen = old;
-    const unsigned half = ((seen >> shift) + v) & 0xFFFFu;
-    old = atomicCAS(word, seen, (seen & keep) | (half << shift));
-  } while (old != seen);
+struct ScatterPlanes {
+  const int32_t* idx[kScatterPlanes];
+  const int16_t* val[kScatterPlanes];
+  long long count[kScatterPlanes];     // pairs
+  long long plane[kScatterPlanes];     // int16 an image
+  long long off[kScatterPlanes];       // the slot's first int16 in an image
+  long long total[kScatterPlanes];     // n * plane
+  long long first[kScatterPlanes + 1]; // the plane's first unit
+  long long ctas[kScatterPlanes + 1];  // the plane's first CTA
+  int planes;
+  int16_t* out;
+  long long pitch;                     // int16 an image
+  int* flags;                          // a word a CTA
+};
+
+// one plane's pairs, read out of the launch's descriptor once
+struct Pairs {
+  const int32_t* idx;
+  const int16_t* val;
+  long long count, total;
+};
+
+__device__ __forceinline__ Pairs pairs_of(const ScatterPlanes& p, int c) {
+  return Pairs{p.idx[c], p.val[c], p.count[c], p.total[c]};
+}
+
+__device__ __forceinline__ long long pair_key(const Pairs& q, long long e,
+                                              int* v_out) {
+  const int v = __ldg(q.val + e);
+  long long i = __ldg(q.idx + e);
+  *v_out = v;
+  if (i < 0) i += q.total;
+  return v == 0 || i < 0 || i >= q.total ? q.total : i;
+}
+
+// the first pair whose key is >= t (count if none), by a warp; for
+// unsorted keys a fixed function, monotone in t
+__device__ long long key_lower_bound(const Pairs& q, long long t, int lane) {
+  long long lo = 0, hi = q.count;
+  int v;
+  while (hi - lo > 32) {
+    const long long s = (hi - lo + 31) >> 5;
+    const long long at = min(lo + s * (lane + 1), hi) - 1;
+    const unsigned ge = __ballot_sync(~0u, pair_key(q, at, &v) >= t);
+    if (!ge) return hi;
+    const int j = __ffs(ge) - 1;
+    hi = min(lo + s * (j + 1), hi) - 1;  // a key >= t: the answer at most
+    lo += s * j;
+  }
+  const long long at = lo + lane;
+  const unsigned ge = __ballot_sync(~0u, at < hi && pair_key(q, at, &v) >= t);
+  return ge ? lo + __ffs(ge) - 1 : hi;
+}
+
+struct Unit {
+  int c;            // plane
+  long long q0;     // first key
+  int len;          // keys (a multiple of 64)
+};
+
+__device__ __forceinline__ Unit unit_at(const ScatterPlanes& p, long long u) {
+  int c = 0;
+  while (c + 1 < p.planes && u >= p.first[c + 1]) ++c;
+  Unit r;
+  r.c = c;
+  r.q0 = (u - p.first[c]) * kScatterUnit;
+  r.len = (int)min((long long)kScatterUnit, p.total[c] - r.q0);
+  return r;
+}
+
+__device__ __forceinline__ long long div_ll(long long a, long long b) {
+  return a <= 0xffffffffLL && b <= 0xffffffffLL
+             ? (long long)((unsigned)a / (unsigned)b)
+             : a / b;
+}
+
+// shared acc -> the unit's int16 in its slot, 8 a thread-step (16 bytes)
+__device__ __forceinline__ void store_unit(const ScatterPlanes& p, Unit un,
+                                           const int* acc) {
+  const long long P = p.plane[un.c];
+  for (int g = threadIdx.x; g < un.len / 8; g += kScatterThreads) {
+    const long long q = un.q0 + 8 * g;
+    const long long img = div_ll(q, P);
+    const int4 a = reinterpret_cast<const int4*>(acc)[2 * g];
+    const int4 b = reinterpret_cast<const int4*>(acc)[2 * g + 1];
+    auto pk = [](int lo, int hi) {
+      return (unsigned)(uint16_t)lo | ((unsigned)(uint16_t)hi << 16);
+    };
+    *reinterpret_cast<uint4*>(p.out + img * p.pitch + p.off[un.c] +
+                              (q - img * P)) =
+        make_uint4(pk(a.x, a.y), pk(a.z, a.w), pk(b.x, b.y), pk(b.z, b.w));
+  }
+}
+
+__device__ __forceinline__ void zero_unit(int* acc, int len) {
+  for (int i = threadIdx.x; i < len / 4; i += kScatterThreads)
+    reinterpret_cast<int4*>(acc)[i] = make_int4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(kScatterThreads, 4)
+    scatter_planes_kernel(const __grid_constant__ ScatterPlanes p) {
+  __shared__ __align__(16) int acc[kScatterUnit];
+  __shared__ int s_key[kScatterBatch];   // key - q_lo, or -1 out of range
+  __shared__ int s_val[kScatterBatch];
+  __shared__ long long s_edge[3];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the CTA's plane and its even share of the plane's units
+  int c = 0;
+  while (c + 1 < p.planes && blockIdx.x >= p.ctas[c + 1]) ++c;
+  const long long uc = p.first[c + 1] - p.first[c];
+  const long long gc = p.ctas[c + 1] - p.ctas[c], ic = blockIdx.x - p.ctas[c];
+  const long long ua = p.first[c] + uc * ic / gc;
+  const long long ub = p.first[c] + uc * (ic + 1) / gc;
+  const long long q_lo = (ua - p.first[c]) * kScatterUnit;
+  const long long q_hi = min((ub - p.first[c]) * kScatterUnit, p.total[c]);
+  const Pairs pc = pairs_of(p, c);
+  bool bad = false;
+
+  // the first pair of the run (A), of the unit after it (B) and of the
+  // plane's tail (T), a warp each
+  if (warp < 3) {
+    const long long e = key_lower_bound(
+        pc, warp == 0 ? q_lo : warp == 1 ? q_hi : pc.total, lane);
+    if (lane == 0) s_edge[warp] = e;
+  }
+  __syncthreads();
+  const long long A = s_edge[0], B = s_edge[1], T = s_edge[2];
+  const long long n = pc.count;
+  int v, w;
+  if (tid == 0 && A > 0 && A < n &&
+      pair_key(pc, A - 1, &v) > pair_key(pc, A, &w))
+    bad = true;
+  // walk the slice [A, B) in batches, in key order, the next batch's
+  // loads in flight while one is added up; a unit is stored once the
+  // batch passes its end
+  long long u = ua;
+  int base = 0;                                  // the unit's first key - q_lo
+  int len = (int)min((long long)kScatterUnit, q_hi - q_lo);
+  int prev = -1;
+  constexpr int kPer = kScatterBatch / kScatterThreads;
+  // a batch in registers: each pair's raw key and value
+  long long kr[kPer];
+  int vr[kPer];
+  long long e0 = A;
+  int nb = (int)min((long long)kScatterBatch, B - A);
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+    if (tid + i * kScatterThreads < nb)
+      kr[i] = pair_key(pc, e0 + tid + i * kScatterThreads, &vr[i]);
+  zero_unit(acc, len);
+  while (e0 < B) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = tid + i * kScatterThreads;
+      if (j < nb) {
+        // key - q_lo, or -1 out of the run
+        const bool in = kr[i] >= q_lo && kr[i] < q_hi;
+        bad |= !in;
+        s_key[j] = in ? (int)(kr[i] - q_lo) : -1;
+        s_val[j] = vr[i];
+      }
+    }
+    const long long e1 = e0 + nb;
+    const int nb1 = (int)min((long long)kScatterBatch, B - e1);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      if (tid + i * kScatterThreads < nb1)
+        kr[i] = pair_key(pc, e1 + tid + i * kScatterThreads, &vr[i]);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = tid + i * kScatterThreads;
+      if (j < nb && s_key[j] < (j ? s_key[j - 1] : prev)) bad = true;
+    }
+    const int last = s_key[nb - 1];
+    for (;;) {
+#pragma unroll
+      for (int i = 0; i < kScatterBatch / kScatterThreads; ++i) {
+        const int j = tid + i * kScatterThreads;
+        if (j < nb && s_key[j] >= base && s_key[j] < base + len)
+          atomicAdd(&acc[s_key[j] - base], s_val[j]);
+      }
+      if (last < base + len || u == ub - 1) break;
+      __syncthreads();
+      store_unit(p, unit_at(p, u), acc);
+      __syncthreads();
+      ++u;
+      base += kScatterUnit;
+      len = (int)min((long long)kScatterUnit, q_hi - q_lo - base);
+      zero_unit(acc, len);
+      __syncthreads();
+    }
+    prev = last;
+    __syncthreads();   // s_key read before the next batch
+    e0 = e1;
+    nb = nb1;
+  }
+  // the unit the walk ended in, then the units past the last pair
+  for (; u < ub; ++u) {
+    __syncthreads();
+    store_unit(p, unit_at(p, u), acc);
+    __syncthreads();
+    zero_unit(acc, kScatterUnit);
+  }
+  __syncthreads();
+  // the CTA's share of the plane's tail (in proportion to its units):
+  // every key there must be total
+  const long long share = (n - T + uc - 1) / uc;
+  const long long e1 = min(n, T + (ub - p.first[c]) * share);
+  for (long long e = T + (ua - p.first[c]) * share + tid; e < e1;
+       e += kScatterBatch) {
+    long long k[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      k[i] = e + i * kScatterThreads < e1
+                 ? pair_key(pc, e + i * kScatterThreads, &v)
+                 : pc.total;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) bad |= k[i] < pc.total;
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) p.flags[blockIdx.x] = bad;
+  cg::this_grid().sync();
+  bool any = false;
+  for (unsigned k = threadIdx.x; k < gridDim.x; k += kScatterThreads)
+    any |= __ldcg(p.flags + k) != 0;
+  if (!__syncthreads_or(any)) return;
+
+  // the general path: zero the CTA's units, a barrier, then every pair
+  // added where it lands by 32-bit atomicAdd on the word that holds its
+  // int16 (a carry out of a low half taken back by a second add), a
+  // pair a thread of the grid
+  for (long long u = ua; u < ub; ++u) {
+    const Unit un = unit_at(p, u);
+    zero_unit(acc, un.len);
+    __syncthreads();
+    store_unit(p, un, acc);
+    __syncthreads();
+  }
+  cg::this_grid().sync();
+  const long long step = (long long)gridDim.x * kScatterThreads;
+  for (int d = 0; d < p.planes; ++d) {
+    const Pairs pd = pairs_of(p, d);
+    for (long long e = (long long)blockIdx.x * kScatterThreads + threadIdx.x;
+         e < pd.count; e += step) {
+      int v;
+      const long long k = pair_key(pd, e, &v);
+      if (k >= pd.total) continue;
+      const long long img = div_ll(k, p.plane[d]);
+      int16_t* at = p.out + img * p.pitch + p.off[d] + (k - img * p.plane[d]);
+      unsigned* word = reinterpret_cast<unsigned*>((uintptr_t)at & ~(uintptr_t)3);
+      const unsigned h = (uint16_t)v;
+      if ((uintptr_t)at & 2) {
+        atomicAdd(word, h << 16);
+      } else if ((atomicAdd(word, h) & 0xFFFFu) + h > 0xFFFFu) {
+        atomicAdd(word, 0xFFFF0000u);
+      }
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// out: n rows of `plane` int16 at a pitch of `pitch` int16 (both even,
-// out 4-byte aligned), zeroed here, then the count pairs added
-int ffpic_scatter_plane(const void* idx, const void* val, long long count,
-                        void* out, int n, long long plane, long long pitch,
-                        void* stream) {
-  if (n <= 0 || plane <= 0 || pitch < plane || count < 0 || plane % 2 ||
-      pitch % 2 || ((uintptr_t)out & 3) ||
-      (count + kScatterThreads - 1) / kScatterThreads > 0x7FFFFFFF)
+// words: for each of `planes` (1..3) planes its pairs' idx (int32) and
+// val (int16) addresses, their count, its blocks a image and its slot's
+// first block, 5 words a plane; out: n images of `pitch` int16 (a
+// multiple of 8, out 16-byte aligned), the planes' slots one block range
+// each, inside the pitch; flags: `capacity` int32 of scratch, a word a
+// CTA (no zeroing needed). Every int16 of the slots is written once.
+int ffpic_scatter_planes(const long long* words, int planes, void* out,
+                         int n, long long pitch, void* flags, int capacity,
+                         void* stream) {
+  if (planes < 1 || planes > kScatterPlanes || n <= 0 || pitch <= 0 ||
+      pitch % 8 || ((uintptr_t)out & 15) || capacity <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemset2DAsync(out, 2 * pitch, 0, 2 * plane, n, st);
+  ScatterPlanes p = {};
+  p.planes = planes;
+  p.out = (int16_t*)out;
+  p.pitch = pitch;
+  p.flags = (int*)flags;
+  long long units = 0;
+  for (int c = 0; c < planes; ++c) {
+    const long long* w = words + 5 * c;
+    const long long nb = w[3], first = w[4];
+    if (w[2] < 0 || nb <= 0 || first < 0 || 64 * (first + nb) > pitch ||
+        (w[2] > 0 && (!w[0] || !w[1])))
+      return (int)cudaErrorInvalidValue;
+    p.idx[c] = (const int32_t*)w[0];
+    p.val[c] = (const int16_t*)w[1];
+    p.count[c] = w[2];
+    p.plane[c] = 64 * nb;
+    p.off[c] = 64 * first;
+    p.total[c] = (long long)n * p.plane[c];
+    p.first[c] = units;
+    units += (p.total[c] + kScatterUnit - 1) / kScatterUnit;
+  }
+  p.first[planes] = units;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scatter_planes_kernel, kScatterThreads, 0);
   if (err != cudaSuccess) return (int)err;
-  if (count > 0)
-    scatter_plane_kernel<<<(unsigned)((count + kScatterThreads - 1) /
-                                      kScatterThreads),
-                           kScatterThreads, 0, st>>>(
-        (const int32_t*)idx, (const int16_t*)val, count, (int16_t*)out,
-        plane, pitch, (long long)n * plane);
+  if (!coop || per_sm <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  long long grid = (long long)sms * per_sm;
+  if (grid > capacity) grid = capacity;
+  // CTAs a plane in proportion to its work (3 a pair, its 6 bytes read,
+  // to 1 a coefficient, its 2 bytes written), one at least, a unit each
+  // at most
+  long long work = 0, g[kScatterPlanes], sum = 0;
+  for (int c = 0; c < planes; ++c) work += 3 * p.count[c] + p.total[c];
+  for (int c = 0; c < planes; ++c) {
+    const long long uc = p.first[c + 1] - p.first[c];
+    g[c] = (long long)((double)grid * (3 * p.count[c] + p.total[c]) / work);
+    g[c] = g[c] < 1 ? 1 : g[c] > uc ? uc : g[c];
+    sum += g[c];
+  }
+  while (sum > grid) {            // at most one extra CTA a plane
+    int big = 0;
+    for (int c = 1; c < planes; ++c) big = g[c] > g[big] ? c : big;
+    if (g[big] <= 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    --g[big];
+    --sum;
+  }
+  p.ctas[0] = 0;
+  for (int c = 0; c < planes; ++c) {
+    p.ctas[c + 1] = p.ctas[c] + g[c];
+    // a CTA's run of keys is indexed in int32 in shared memory
+    const long long uc = p.first[c + 1] - p.first[c];
+    if ((uc + g[c] - 1) / g[c] * kScatterUnit >= 0x7fffffffLL)
+      return (int)cudaErrorInvalidValue;
+  }
+  grid = sum;
+  void* args[] = {(void*)&p};
+  err = cudaLaunchCooperativeKernel((const void*)scatter_planes_kernel,
+                                    dim3((unsigned)grid), dim3(kScatterThreads),
+                                    args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,8 @@
 //
 //   K6 unfilter_subup  rows whose filters are all None/Sub/Up -> the
 //                      reconstructed scanlines, (H, stride) uint8 at a
-//                      16-byte-aligned row pitch; two launches, a row
-//                      pass (Sub) and a column pass (Up)
+//                      16-byte-aligned row pitch; one launch, a banded
+//                      segmented scan
 //   K7 assemble_rgba   reconstructed scanlines -> (H, W, 4) uint8 RGBA:
 //                      sample unpack (1/2/4/8/16 bits), palette, tRNS,
 //                      scaling to 8 bits
@@ -21,125 +21,412 @@ namespace {
 // K6. Replaces ffpic_tpu/ops/png_kernels.py:unfilter_device_subup (:89).
 // Bound: it reads the filtered bytes once and writes the reconstructed
 // ones once (16.6 MB for a 1920x1080 RGBA image), so it is memory-bound;
-// the adds are nothing. Both passes are scans, which is what keeps it
-// far from that bound.
+// the adds are nothing. The design keeps it one pass over the image in
+// one launch: a banded segmented scan.
 //
-// Both passes read the rows as the file has them, each row's filter type
-// in its first byte, so the tags need no array of their own.
+// Reconstruction is two scans mod 256: a Sub row is a cumulative sum over
+// its bpp lanes; then each column is a cumulative sum in segments that
+// restart at every row that is not Up. Over a band of rows the column
+// scan composes: a band with a restart ends on a value that needs nothing
+// from above; one without ends on (carry + its sum).
 //
-// Row pass: a warp per row. A row that is not Sub is copied (32 bytes a
-// warp step). A Sub row is a cumulative sum mod 256 over its BPP lanes:
-// each lane takes a run of C bytes (C a multiple of BPP, 32 C >= the
-// row), sums each lane class of its run, the warp scans those sums
-// (BPP bytes packed in two words, added byte by byte with __vadd4, which
-// wraps each byte mod 256 as the reference's & 255 does), and each lane
-// then rescans its run from its carry, in uint8 arithmetic.
-//
-// Column pass: a thread per 32-bit word of the output row pitch walks
-// the rows with the running value in a register: an Up row adds the
-// row above (four bytes at once, __vadd4), any other row restarts the
-// chain with its row-pass bytes. kColRows rows (words and tags) are
-// loaded ahead so that each thread keeps that many loads in flight: the
-// walk is a chain of ceil(H / kColRows) round trips to memory. Only
-// 1,920 threads at 1080p RGBA: latency-bound, far from the byte bound; a
-// row-chunked carry pass would raise the parallelism.
-constexpr int kRowWarps = 4;
-constexpr int kColThreads = 128;
-constexpr int kColRows = 32;
+// A CTA takes a band of `rows` rows from a ticket (atomicAdd; the CTA
+// that takes the last ticket puts the counter back to 0 for the next
+// launch), and walks it in column chunks of `chunk` bytes (a multiple of
+// 768, 7,680 at most) left to right, each chunk a tile of rows x chunk
+// bytes in shared memory (at most kUnfTile):
+//   1. load: 16-byte loads of the aligned chunks around each row's bytes
+//      (a row starts after its tag byte, at any address), funnel-shifted
+//      into place;
+//   2. Sub: a warp a row, each lane a run of chunk / 32 bytes (a
+//      multiple of lcm(4, bpp)), in words: the lanes' per-class sums are
+//      scanned across the warp (bpp bytes in two words, __vadd4), then
+//      each lane rescans its run from its carry; the row's last bpp
+//      bytes carry into its next chunk;
+//   3. Up within the band: a thread a 32-bit word of the chunk walks the
+//      band's rows in shared memory (__vadd4), with zero for the carry
+//      from above;
+//   4. publish the chunk's last row under the band's status word for the
+//      chunk (the launch's epoch * 4 + state, so that no zeroing is
+//      needed between launches): INC, the final row, stored into the
+//      output, when the band has a restart or is the first band; else
+//      AGG, its column sums, stored into `agg`;
+//   5. look back, only when the band's first row is Up and it is not the
+//      first band. Bands form blocks of kBlock. Warp 0 reads the status
+//      of the bands above it in its block: the carry is the nearest INC
+//      plus the AGGs below it, or, when all are AGG, their sum plus what
+//      the blocks above give: block by block, the INC of the block's
+//      last band, or the block's sum, which the last band of a block
+//      without a restart publishes (its own AGG plus the 31 above it)
+//      under a status word of the block. Each step waits (reads again)
+//      until its rows are there, and adds them, read from L2, 4 rows x
+//      the thread's 16-byte groups a time. A band waits only on bands
+//      with earlier tickets, which are running or done. The carry is
+//      added to the rows above the band's first restart; a band without
+//      one then publishes INC;
+//   6. store the tile's rows with 16-byte stores into the 16-byte-aligned
+//      output pitch.
+// For the usual file (restarts in every band) no band waits; under a run
+// of Up rows a band adds at most kBlock - 1 AGGs and a row a block above.
+constexpr int kUnfThreads = 128;            // a warp a row in the Sub pass
+constexpr int kUnfWarps = kUnfThreads / 32;
+constexpr int kUnfChunk = 7680;             // bytes of a row a chunk, at most
+constexpr int kUnfTile = 30720;             // bytes of shared memory a tile
+constexpr int kUnfMaxRows = 64;             // rows a band, at most
+constexpr int kBlock = 32;                  // bands a block of the look-back
+constexpr int kAgg = 1, kInc = 2;           // states of a status word
 
-template <int BPP>
-__global__ void __launch_bounds__(32 * kRowWarps)
-    unfilter_rows_kernel(const uint8_t* __restrict__ src, long long src_pitch,
-                         uint8_t* __restrict__ dst, long long dst_pitch,
-                         int h, int stride) {
-  const int lane = threadIdx.x & 31;
-  const long long y = (long long)blockIdx.x * kRowWarps + (threadIdx.x >> 5);
-  if (y >= h) return;
-  const uint8_t* s = src + y * src_pitch + 1;   // past the filter tag
-  uint8_t* d = dst + y * dst_pitch;
-  if (__ldg(s - 1) != 1) {
-    for (int i = lane; i < stride; i += 32) d[i] = __ldg(s + i);
-    return;
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// the 16 bytes at a (any address; only the first nv >= 1 are used), from
+// the one or two aligned 16-byte chunks that hold them
+__device__ __forceinline__ uint4 load16_at(const uint8_t* a, int nv) {
+  const int r = (int)((uintptr_t)a & 15);
+  const uint4* c = reinterpret_cast<const uint4*>(a - r);
+  const uint4 c0 = __ldg(c);
+  if (r == 0) return c0;
+  const uint4 c1 = r + nv > 16 ? __ldg(c + 1) : make_uint4(0u, 0u, 0u, 0u);
+  const uint32_t W[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const int q = r >> 2, sh = (r & 3) * 8;
+  uint32_t V[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    V[j] = q == 0 ? W[j] : q == 1 ? W[j + 1] : q == 2 ? W[j + 2] : W[j + 3];
+  return make_uint4(__funnelshift_r(V[0], V[1], sh),
+                    __funnelshift_r(V[1], V[2], sh),
+                    __funnelshift_r(V[2], V[3], sh),
+                    __funnelshift_r(V[3], V[4], sh));
+}
+
+__device__ __forceinline__ uint4 add4(uint4 a, uint4 b) {
+  return make_uint4(__vadd4(a.x, b.x), __vadd4(a.y, b.y), __vadd4(a.z, b.z),
+                    __vadd4(a.w, b.w));
+}
+
+// s_c[q] += the 16-byte group q at x0 of each of the n rows, for every
+// group q of the chunk; the loads of 4 rows x the thread's groups go out
+// at once (read from L2: other CTAs wrote them)
+__device__ __forceinline__ void sum_rows(const uint8_t* const* rows, int n,
+                                         long long x0, int n16, uint4* s_c,
+                                         int tid) {
+  constexpr int kG = kUnfChunk / 16 / kUnfThreads + 1;   // groups a thread
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  uint4 acc[kG];
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    const int q = tid + i * kUnfThreads;
+    acc[i] = q < n16 ? s_c[q] : z;
   }
-  const int per = (stride + 31) / 32;
-  const int run = (per + BPP - 1) / BPP * BPP;
-  const int lo = min(lane * run, stride);
-  const int hi = min(lo + run, stride);
-  unsigned tot[BPP];
+  for (int k = 0; k < n; k += 4) {
+    uint4 x[4][kG];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < kG; ++i) {
+        const int q = tid + i * kUnfThreads;
+        x[r][i] = k + r < n && q < n16
+                      ? __ldcg(reinterpret_cast<const uint4*>(rows[k + r] +
+                                                              x0) + q)
+                      : z;
+      }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int i = 0; i < kG; ++i) acc[i] = add4(acc[i], x[r][i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kG; ++i) {
+    const int q = tid + i * kUnfThreads;
+    if (q < n16) s_c[q] = acc[i];
+  }
+}
+
+__device__ __forceinline__ uint32_t byte_of(const uint32_t* w, int m) {
+  return (w[m >> 2] >> (8 * (m & 3))) & 255u;
+}
+
+// one Sub row of a chunk, in place, by one warp: `run` bytes a lane (a
+// multiple of lcm(4, BPP)); carry: the row's last BPP bytes before the
+// chunk, in two words, updated to the chunk's last BPP bytes
+template <int BPP>
+__device__ __forceinline__ void sub_row(uint32_t* row, int run, int lane,
+                                        uint32_t* carry) {
+  constexpr int G = BPP == 3 || BPP == 6 ? 12 : BPP == 8 ? 8 : 4;
+  // read before the shuffles, which lane 31 passes only after every lane
+  // has read: it rewrites the carry at the end
+  const uint32_t in0 = carry[0], in1 = carry[1];
+  uint32_t* w = row + lane * (run / 4);
+  uint32_t tot[BPP];
 #pragma unroll
   for (int k = 0; k < BPP; ++k) tot[k] = 0;
-  for (int i = lo; i < hi; i += BPP) {
+  for (int i = 0; i < run / 4; i += G / 4) {
+    uint32_t g[G / 4];
 #pragma unroll
-    for (int k = 0; k < BPP; ++k)
-      if (i + k < hi) tot[k] += __ldg(s + i + k);
+    for (int t = 0; t < G / 4; ++t) g[t] = w[i + t];
+#pragma unroll
+    for (int m = 0; m < G; ++m) tot[m % BPP] += byte_of(g, m);
   }
-  unsigned w[2] = {0, 0};
+  uint32_t s[2] = {0u, 0u};
 #pragma unroll
-  for (int k = 0; k < BPP; ++k) w[k >> 2] |= (tot[k] & 255u) << (8 * (k & 3));
+  for (int k = 0; k < BPP; ++k) s[k >> 2] |= (tot[k] & 255u) << (8 * (k & 3));
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const unsigned a0 = __shfl_up_sync(0xffffffffu, w[0], o);
-    const unsigned a1 = __shfl_up_sync(0xffffffffu, w[1], o);
+    const uint32_t a0 = __shfl_up_sync(~0u, s[0], o);
+    const uint32_t a1 = __shfl_up_sync(~0u, s[1], o);
     if (lane >= o) {
-      w[0] = __vadd4(w[0], a0);
-      w[1] = __vadd4(w[1], a1);
+      s[0] = __vadd4(s[0], a0);
+      s[1] = __vadd4(s[1], a1);
     }
   }
-  // exclusive: the lanes below this one
-  unsigned c0 = __shfl_up_sync(0xffffffffu, w[0], 1);
-  unsigned c1 = __shfl_up_sync(0xffffffffu, w[1], 1);
-  if (lane == 0) c0 = c1 = 0;
-  uint8_t acc[BPP];
+  // exclusive: the lanes below, after the carry into the chunk
+  uint32_t c0 = __shfl_up_sync(~0u, s[0], 1);
+  uint32_t c1 = __shfl_up_sync(~0u, s[1], 1);
+  if (lane == 0) c0 = c1 = 0u;
+  c0 = __vadd4(c0, in0);
+  c1 = __vadd4(c1, in1);
+  uint32_t acc[BPP];
 #pragma unroll
   for (int k = 0; k < BPP; ++k)
-    acc[k] = (uint8_t)(((k < 4 ? c0 : c1) >> (8 * (k & 3))) & 255u);
-  for (int i = lo; i < hi; i += BPP) {
+    acc[k] = ((k < 4 ? c0 : c1) >> (8 * (k & 3))) & 255u;
+  for (int i = 0; i < run / 4; i += G / 4) {
+    uint32_t g[G / 4], o[G / 4];
 #pragma unroll
-    for (int k = 0; k < BPP; ++k) {
-      if (i + k < hi) {
-        acc[k] = (uint8_t)(acc[k] + __ldg(s + i + k));
-        d[i + k] = acc[k];
-      }
+    for (int t = 0; t < G / 4; ++t) {
+      g[t] = w[i + t];
+      o[t] = 0u;
     }
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      acc[m % BPP] = (acc[m % BPP] + byte_of(g, m)) & 255u;
+      o[m >> 2] |= acc[m % BPP] << (8 * (m & 3));
+    }
+#pragma unroll
+    for (int t = 0; t < G / 4; ++t) w[i + t] = o[t];
   }
-}
-
-__global__ void __launch_bounds__(kColThreads)
-    unfilter_cols_kernel(const uint8_t* __restrict__ src, long long src_pitch,
-                         uint8_t* dst, long long pitch_words, int h,
-                         int words) {
-  const int t = blockIdx.x * kColThreads + threadIdx.x;
-  if (t >= words) return;
-  unsigned* col = reinterpret_cast<unsigned*>(dst) + t;
-  unsigned v = 0;
-  for (int y0 = 0; y0 < h; y0 += kColRows) {
-    unsigned w[kColRows];
-    int f[kColRows];
+  if (lane == 31) {
+    // the run ends on a class boundary: acc holds the last BPP bytes
+    uint32_t n[2] = {0u, 0u};
 #pragma unroll
-    for (int r = 0; r < kColRows; ++r) {
-      const int y = y0 + r;
-      f[r] = y < h ? __ldg(src + (long long)y * src_pitch) : 0;
-      w[r] = y < h ? col[(long long)y * pitch_words] : 0u;
-    }
-#pragma unroll
-    for (int r = 0; r < kColRows; ++r) {
-      if (f[r] == 2) {
-        v = __vadd4(v, w[r]);
-        col[(long long)(y0 + r) * pitch_words] = v;
-      } else {
-        v = w[r];
-      }
-    }
+    for (int k = 0; k < BPP; ++k) n[k >> 2] |= acc[k] << (8 * (k & 3));
+    carry[0] = n[0];
+    carry[1] = n[1];
   }
 }
 
 template <int BPP>
-void launch_unfilter_rows(const uint8_t* src, long long src_pitch,
-                          uint8_t* dst, long long dst_pitch, int h,
-                          int stride, cudaStream_t st) {
-  unfilter_rows_kernel<BPP>
-      <<<(unsigned)((h + kRowWarps - 1) / kRowWarps), 32 * kRowWarps, 0, st>>>(
-          src, src_pitch, dst, dst_pitch, h, stride);
+__global__ void __launch_bounds__(kUnfThreads)
+    unfilter_subup_kernel(const uint8_t* __restrict__ src, long long sp,
+                          uint8_t* dst, long long dp, int h, int stride,
+                          int rows, int chunk, int* status, uint8_t* agg,
+                          int epoch) {
+  __shared__ __align__(16) uint8_t tile[kUnfTile];
+  __shared__ uint8_t s_tag[kUnfMaxRows];
+  __shared__ uint32_t s_carry[kUnfMaxRows][2];
+  __shared__ uint4 s_c[kUnfChunk / 16];     // the carry from above
+  __shared__ const uint8_t* s_rows[32];      // rows to add into it
+  __shared__ int s_band, s_first, s_n, s_done;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    const int t = atomicAdd(status, 1);
+    if (t == (int)gridDim.x - 1) atomicExch(status, 0);
+    s_band = t;
+  }
+  __syncthreads();
+  const int b = s_band;
+  const long long y0 = (long long)b * rows;
+  const int nr = (int)min((long long)rows, h - y0);
+  const int nchunks = (stride + chunk - 1) / chunk;
+  const long long bands = gridDim.x;
+  int* flags = status + 1 + (long long)b * nchunks;
+  uint32_t* t32 = reinterpret_cast<uint32_t*>(tile);
+  for (int r = tid; r < nr; r += kUnfThreads) {
+    s_tag[r] = __ldg(src + (y0 + r) * sp);
+    s_carry[r][0] = s_carry[r][1] = 0u;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int f = 0;
+    while (f < nr && s_tag[f] == 2) ++f;
+    s_first = f;
+  }
+  __syncthreads();
+  const int first = s_first;          // the band's first restart, or nr
+  const bool look = b > 0 && first > 0;
+  const bool inc_now = b == 0 || first < nr;
+  const int cw4 = chunk / 4;
+  for (int j = 0; j < nchunks; ++j) {
+    const long long x0 = (long long)j * chunk;
+    const int cw = (int)min((long long)chunk, stride - x0);
+    const int n16 = (cw + 15) / 16;
+    // 1. load
+    for (int i = tid; i < nr * n16; i += kUnfThreads) {
+      const int r = i / n16, q = i - r * n16;
+      reinterpret_cast<uint4*>(tile + r * chunk)[q] =
+          load16_at(src + (y0 + r) * sp + 1 + x0 + 16 * q,
+                    min(16, cw - 16 * q));
+    }
+    __syncthreads();
+    // 2. Sub
+    for (int r = warp; r < nr; r += kUnfWarps)
+      if (s_tag[r] == 1)
+        sub_row<BPP>(t32 + r * cw4, chunk / 32, lane, s_carry[r]);
+    __syncthreads();
+    // 3. Up within the band
+    for (int k = tid; k < 4 * n16; k += kUnfThreads) {
+      uint32_t v = 0u;
+      for (int r = 0; r < nr; ++r) {
+        const uint32_t x = t32[r * cw4 + k];
+        v = s_tag[r] == 2 ? __vadd4(v, x) : x;
+        t32[r * cw4 + k] = v;
+      }
+    }
+    __syncthreads();
+    // 4. publish the last row
+    {
+      uint8_t* to = inc_now ? dst + (y0 + nr - 1) * dp + x0
+                            : agg + (long long)b * dp + x0;
+      for (int q = tid; q < n16; q += kUnfThreads)
+        reinterpret_cast<uint4*>(to)[q] =
+            reinterpret_cast<const uint4*>(tile + (nr - 1) * chunk)[q];
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) st_release(flags + j, 4 * epoch + (inc_now ? kInc : kAgg));
+    }
+    // 5. look back
+    if (look) {
+      for (int q = tid; q < n16; q += kUnfThreads)
+        s_c[q] = make_uint4(0u, 0u, 0u, 0u);
+      // within the band's block of kBlock bands: the nearest INC above,
+      // with only AGGs below it, or all of them AGG
+      const long long blk = b / kBlock, b0 = blk * kBlock;
+      const int m = (int)(b - b0);                 // bands above in the block
+      bool done = false;
+      if (m > 0) {
+        if (warp == 0) {
+          const long long p = (long long)b - 1 - lane;
+          const int* pf = status + 1 + p * nchunks + j;
+          const unsigned valid = m >= 32 ? ~0u : (1u << m) - 1u;
+          for (;;) {
+            const int f = lane < m ? ld_acquire(pf) : 0;
+            const unsigned inc = __ballot_sync(~0u, f == 4 * epoch + kInc);
+            const unsigned ready = inc | __ballot_sync(~0u, f == 4 * epoch + kAgg);
+            const unsigned hit = inc & valid;
+            const unsigned below = hit ? (2u << (__ffs(hit) - 1)) - 1u : valid;
+            if ((ready & below) == below) {
+              const int n = __popc(below);
+              if (lane < n)
+                s_rows[lane] = lane + 1 == n && hit
+                                   ? dst + (p * rows + rows - 1) * dp
+                                   : agg + p * dp;
+              if (lane == 0) {
+                s_n = n;
+                s_done = hit != 0;
+              }
+              break;
+            }
+            __nanosleep(64);
+          }
+        }
+        __syncthreads();
+        sum_rows(s_rows, s_n, x0, n16, s_c, tid);
+        done = s_done;
+        __syncthreads();
+        if (!done && m == kBlock - 1 && !inc_now) {
+          // the last band of an all-AGG block: the block's sum, its own
+          // AGG included, for the blocks below to skip it by
+          uint8_t* to = agg + (bands + blk) * dp + x0;
+          for (int q = tid; q < n16; q += kUnfThreads)
+            reinterpret_cast<uint4*>(to)[q] = add4(
+                s_c[q],
+                reinterpret_cast<const uint4*>(tile + (nr - 1) * chunk)[q]);
+          __threadfence();
+          __syncthreads();
+          if (tid == 0)
+            st_release(status + 1 + (bands + blk) * nchunks + j,
+                       4 * epoch + kAgg);
+        }
+      }
+      // the blocks above: each one's last band INC, or the block's sum
+      for (long long top = blk; !done;) {
+        if (warp == 0) {
+          const long long B = top - 1 - lane;
+          const long long e = B * kBlock + kBlock - 1;   // its last band
+          for (;;) {
+            const int f = B >= 0 ? ld_acquire(status + 1 + e * nchunks + j) : 0;
+            const int g = B >= 0 ? ld_acquire(status + 1 +
+                                              (bands + B) * nchunks + j)
+                                 : 0;
+            const unsigned valid = top >= 32 ? ~0u : (1u << top) - 1u;
+            const unsigned inc = __ballot_sync(~0u, f == 4 * epoch + kInc) &
+                                 valid;
+            const unsigned sum = __ballot_sync(~0u, g == 4 * epoch + kAgg);
+            const unsigned below = inc ? (2u << (__ffs(inc) - 1)) - 1u : valid;
+            if (((sum | inc) & below) == below) {
+              const int n = __popc(below);
+              if (lane < n)
+                s_rows[lane] = lane + 1 == n && inc
+                                   ? dst + (e * rows + rows - 1) * dp
+                                   : agg + (bands + B) * dp;
+              if (lane == 0) {
+                s_n = n;
+                s_done = inc != 0;
+              }
+              break;
+            }
+            __nanosleep(64);
+          }
+        }
+        __syncthreads();
+        sum_rows(s_rows, s_n, x0, n16, s_c, tid);
+        done = s_done;
+        top -= s_n;
+        __syncthreads();
+      }
+      const int fix = inc_now ? first : nr;
+      for (int q = tid; q < n16; q += kUnfThreads) {
+        const uint4 c = s_c[q];
+        for (int r = 0; r < fix; ++r) {
+          uint4* t = reinterpret_cast<uint4*>(tile + r * chunk) + q;
+          *t = add4(*t, c);
+        }
+      }
+      __syncthreads();
+    }
+    // 6. store (the last row is out already when INC went out above)
+    const int out_rows = inc_now ? nr - 1 : nr;
+    for (int i = tid; i < out_rows * n16; i += kUnfThreads) {
+      const int r = i / n16, q = i - r * n16;
+      reinterpret_cast<uint4*>(dst + (y0 + r) * dp + x0)[q] =
+          reinterpret_cast<const uint4*>(tile + r * chunk)[q];
+    }
+    if (!inc_now) {
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) st_release(flags + j, 4 * epoch + kInc);
+    }
+    __syncthreads();   // the tile is read before the next chunk loads
+  }
+}
+
+template <int BPP>
+int launch_unfilter_subup(const uint8_t* src, long long sp, uint8_t* dst,
+                          long long dp, int h, int stride, int rows, int chunk,
+                          int* status, uint8_t* agg, int epoch,
+                          cudaStream_t st) {
+  const long long bands = (h + (long long)rows - 1) / rows;
+  unfilter_subup_kernel<BPP><<<(unsigned)bands, kUnfThreads, 0, st>>>(
+      src, sp, dst, dp, h, stride, rows, chunk, status, agg, epoch);
+  return (int)cudaGetLastError();
 }
 
 // K7. Replaces ffpic_tpu/ops/png_kernels.py:assemble_rgba (:40) with the
@@ -443,33 +730,37 @@ int assemble_with_tables(const uint8_t* recon, long long pitch,
 extern "C" {
 
 // src: h rows at src_pitch, each its filter type (0, 1 or 2) and then
-// stride filtered bytes; dst: h rows at dst_pitch, a multiple of 4
-// bytes, dst 4-byte aligned
+// stride filtered bytes; dst: h rows at dst_pitch, a multiple of 16
+// bytes, dst 16-byte aligned; bands of `rows` rows walked in chunks of
+// `chunk` bytes (a multiple of 768, at most kUnfChunk, rows * chunk at
+// most kUnfTile); with blocks = ceil(bands / kBlock), status: 1 +
+// (bands + blocks) * chunks int32, word 0 zero and no other word written
+// by a launch of this epoch (epoch in [1, 2**29)); agg: bands + blocks
+// rows of dst_pitch bytes of scratch
 int ffpic_unfilter_subup(const void* src, long long src_pitch, void* dst,
                          long long dst_pitch, int h, int stride, int bpp,
-                         void* stream) {
+                         int rows, int chunk, void* status, void* agg,
+                         int epoch, void* stream) {
   if (h <= 0 || stride <= 0 || src_pitch <= stride || dst_pitch < stride ||
-      dst_pitch % 4 || ((uintptr_t)dst & 3))
+      dst_pitch % 16 || ((uintptr_t)dst & 15) || rows < 1 ||
+      rows > kUnfMaxRows || chunk < 768 || chunk % 768 || chunk > kUnfChunk ||
+      (long long)rows * chunk > kUnfTile || epoch < 1 || epoch >= (1 << 29) ||
+      !status || !agg)
     return (int)cudaErrorInvalidValue;
   const uint8_t* s = (const uint8_t*)src;
   uint8_t* d = (uint8_t*)dst;
-  cudaStream_t st = (cudaStream_t)stream;
+  int* st = (int*)status;
+  uint8_t* a = (uint8_t*)agg;
+  cudaStream_t cs = (cudaStream_t)stream;
   switch (bpp) {
-    case 1: launch_unfilter_rows<1>(s, src_pitch, d, dst_pitch, h, stride, st); break;
-    case 2: launch_unfilter_rows<2>(s, src_pitch, d, dst_pitch, h, stride, st); break;
-    case 3: launch_unfilter_rows<3>(s, src_pitch, d, dst_pitch, h, stride, st); break;
-    case 4: launch_unfilter_rows<4>(s, src_pitch, d, dst_pitch, h, stride, st); break;
-    case 6: launch_unfilter_rows<6>(s, src_pitch, d, dst_pitch, h, stride, st); break;
-    case 8: launch_unfilter_rows<8>(s, src_pitch, d, dst_pitch, h, stride, st); break;
+    case 1: return launch_unfilter_subup<1>(s, src_pitch, d, dst_pitch, h, stride, rows, chunk, st, a, epoch, cs);
+    case 2: return launch_unfilter_subup<2>(s, src_pitch, d, dst_pitch, h, stride, rows, chunk, st, a, epoch, cs);
+    case 3: return launch_unfilter_subup<3>(s, src_pitch, d, dst_pitch, h, stride, rows, chunk, st, a, epoch, cs);
+    case 4: return launch_unfilter_subup<4>(s, src_pitch, d, dst_pitch, h, stride, rows, chunk, st, a, epoch, cs);
+    case 6: return launch_unfilter_subup<6>(s, src_pitch, d, dst_pitch, h, stride, rows, chunk, st, a, epoch, cs);
+    case 8: return launch_unfilter_subup<8>(s, src_pitch, d, dst_pitch, h, stride, rows, chunk, st, a, epoch, cs);
     default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int words = (int)((stride + 3) / 4);
-  unfilter_cols_kernel<<<(unsigned)((words + kColThreads - 1) / kColThreads),
-                         kColThreads, 0, st>>>(s, src_pitch, d, dst_pitch / 4,
-                                               h, words);
-  return (int)cudaGetLastError();
 }
 
 // recon: h rows at pitch; palette: 256 x 4 bytes and trns: 256 int32 on

@@ -1,6 +1,6 @@
 """ctypes wrappers of the CUDA kernels in ``csrc/jpeg_decode.cu`` (K1a
 ``count_scan``, K1b ``unpack``, K2 ``dequant_idct``, K3 ``assemble_color``,
-K8 ``scatter_plane``) and ``csrc/jpeg_codec.cu`` (K4 ``assemble_mcu``, K5
+K8 ``scatter_planes``) and ``csrc/jpeg_codec.cu`` (K4 ``assemble_mcu``, K5
 ``fdct``).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape
@@ -40,7 +40,8 @@ _SIGNATURES = {
     "ffpic_assemble_mcu": [ctypes.POINTER(_i64), _int, _int, _vp, _int, _int,
                            _int, _int, _int, _vp],
     "ffpic_fdct": [_vp, _vp, _i64, _int, _vp],
-    "ffpic_scatter_plane": [_vp, _vp, _i64, _vp, _int, _i64, _i64, _vp],
+    "ffpic_scatter_planes": [ctypes.POINTER(_i64), _int, _vp, _int, _i64, _vp,
+                             _int, _vp],
 }
 _launch = _build.launcher(_SIGNATURES, launches)
 _INT_MAX = 2 ** 31 - 1
@@ -55,6 +56,8 @@ SCAN_CLUSTER = 8
 UNPACK_TILE = 64
 IDCT_TILE = 32
 FDCT_TILE = 32
+# K8's cooperative grid: at most 2048 threads an SM, 256 a CTA
+SCATTER_CTAS_PER_SM = 8
 
 
 def count_scan_ranges(n: int, g: int) -> torch.Tensor:
@@ -271,38 +274,75 @@ def fdct(samples: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def scatter_plane(idx: torch.Tensor, val: torch.Tensor,
-                  out: torch.Tensor) -> torch.Tensor:
-    """K8: zero ``out``, an (n, nb, 8, 8) int16 CUDA tensor (contiguous,
-    or the slot of one plane in a larger (n, B, 8, 8) buffer), and add
-    each packed pair's int16 value at its flat index into the plane's
-    n * nb * 64 coefficients, as ``jpeg_kernels.scatter_plane``; returns
-    ``out``.  ``idx`` int32 and ``val`` int16 are 1-D, of one length."""
+def scatter_planes(packed, out: torch.Tensor, sizes) -> torch.Tensor:
+    """K8: rebuild 1 to 3 planes of ``out``, an (n, B, 8, 8) int16 CUDA
+    tensor (each image's blocks contiguous, 16-byte aligned, the image
+    stride a multiple of 8), in one launch: plane c takes the ``sizes[c]``
+    blocks after the planes before it, set to the sum of its packed
+    pairs ``packed[c]`` = (idx int32, val int16, 1-D of one length) at
+    their flat indices into its n * sizes[c] * 64 coefficients, as
+    ``jpeg_kernels.scatter_plane``; blocks past the planes are left as
+    they are.  Returns ``out``."""
     if out.dim() != 4 or tuple(out.shape[2:]) != (8, 8):
-        raise ValueError(f"out: expected (n, nb, 8, 8), got "
+        raise ValueError(f"out: expected (n, B, 8, 8), got "
                          f"{tuple(out.shape)}")
-    n, nb = out.shape[:2]
-    for t, name, dtype in ((idx, "idx", torch.int32), (val, "val", torch.int16),
-                           (out, "out", torch.int16)):
+    n, nbt = out.shape[:2]
+    sizes = [int(nb) for nb in sizes]
+    if not 1 <= len(packed) <= 3 or len(sizes) != len(packed) or \
+            min(sizes) <= 0 or sum(sizes) > nbt:
+        raise ValueError(f"{len(packed)} planes of {sizes} blocks: expected "
+                         f"1 to 3 planes, of a size each, within {nbt} blocks")
+    tensors = [(out, "out", torch.int16)]
+    for c, (idx, val) in enumerate(packed):
+        tensors += [(idx, f"idx[{c}]", torch.int32),
+                    (val, f"val[{c}]", torch.int16)]
+    for t, name, dtype in tensors:
         if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
             raise ValueError(f"{name}: expected a CUDA tensor, got "
                              f"{getattr(t, 'device', type(t))}")
         if t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if idx.dim() != 1 or tuple(val.shape) != tuple(idx.shape) or \
-            not (idx.is_contiguous() and val.is_contiguous()):
-        raise ValueError(f"idx {tuple(idx.shape)} / val {tuple(val.shape)}: "
-                         "expected contiguous 1-D pairs of one length")
-    if out.stride()[1:] != (64, 8, 1) or out.data_ptr() % 4 or \
-            (n > 1 and out.stride(0) < nb * 64):
-        raise ValueError("out: each image's plane must be contiguous and "
-                         "the tensor 4-byte aligned")
-    if not 0 < n <= _GRID_MAX or nb <= 0:
-        raise ValueError(f"{n}x{nb} blocks: one launch takes 1..{_GRID_MAX} "
-                         "images of nb > 0 blocks")
-    if idx.numel() == 0:
-        return out.zero_()
-    _launch("ffpic_scatter_plane", "scatter_plane", _vp(idx.data_ptr()),
-            _vp(val.data_ptr()), idx.numel(), _vp(out.data_ptr()), n,
-            nb * 64, out.stride(0) if n > 1 else nb * 64)
+        if t.device != out.device:
+            raise ValueError(f"{name}: on {t.device}, out on {out.device}")
+    for c, (idx, val) in enumerate(packed):
+        if idx.dim() != 1 or tuple(val.shape) != tuple(idx.shape) or \
+                not (idx.is_contiguous() and val.is_contiguous()):
+            raise ValueError(f"idx[{c}] {tuple(idx.shape)} / val[{c}] "
+                             f"{tuple(val.shape)}: expected contiguous 1-D "
+                             "pairs of one length")
+    pitch = out.stride(0) if n > 1 else nbt * 64
+    if out.stride()[1:] != (64, 8, 1) or out.data_ptr() % 16 or pitch % 8 \
+            or pitch < nbt * 64:
+        raise ValueError("out: each image's blocks must be contiguous, the "
+                         "tensor 16-byte aligned and its image stride a "
+                         "multiple of 8")
+    if not 0 < n <= _GRID_MAX:
+        raise ValueError(f"n={n} images: one launch takes 1..{_GRID_MAX}")
+    words, first = [], 0
+    for (idx, val), nb in zip(packed, sizes):
+        words += [idx.data_ptr(), val.data_ptr(), idx.numel(), nb, first]
+        first += nb
+    dev = out.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # a flag a CTA of the cooperative grid, at most SCATTER_CTAS_PER_SM
+    # an SM; the kernel needs them unzeroed
+    flags = torch.empty(sms * SCATTER_CTAS_PER_SM, dtype=torch.int32,
+                        device=dev)
+    _launch("ffpic_scatter_planes", "scatter_plane",
+            (_i64 * len(words))(*words), len(packed), _vp(out.data_ptr()), n,
+            pitch, _vp(flags.data_ptr()), flags.numel())
     return out
+
+
+def scatter_plane(idx: torch.Tensor, val: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """K8 on one plane: ``out``, an (n, nb, 8, 8) int16 CUDA tensor
+    (contiguous, or the slot of one plane in a larger (n, B, 8, 8)
+    buffer, 16-byte aligned), set to the sum of the packed pairs at
+    their flat indices into its n * nb * 64 coefficients, as
+    ``jpeg_kernels.scatter_plane``; returns ``out``.  ``idx`` int32 and
+    ``val`` int16 are 1-D, of one length."""
+    if out.dim() != 4:
+        raise ValueError(f"out: expected (n, nb, 8, 8), got "
+                         f"{tuple(out.shape)}")
+    return scatter_planes([(idx, val)], out, [out.shape[1]])

@@ -12,6 +12,7 @@ live in ``ops.png_kernels``; the kernels never run on the CPU.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -25,12 +26,59 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _i64 = ctypes.c_longlong
 _SIGNATURES = {
-    "ffpic_unfilter_subup": [_vp, _i64, _vp, _i64, _int, _int, _int, _vp],
+    "ffpic_unfilter_subup": [_vp, _i64, _vp, _i64, _int, _int, _int, _int,
+                             _int, _vp, _vp, _int, _vp],
     "ffpic_assemble_rgba": [_vp, _i64, _vp, _vp, _vp, _int, _int, _int, _int,
                             _vp],
 }
 _launch = _build.launcher(_SIGNATURES, launches)
 _PITCH = 16        # K6's output rows start 16-byte aligned
+# K6's bands (csrc/png_decode.cu): chunks of a multiple of UNFILTER_STEP
+# bytes, at most UNFILTER_CHUNK, and rows * chunk at most UNFILTER_TILE
+# bytes of shared memory, at most UNFILTER_ROWS rows
+UNFILTER_STEP = 768
+UNFILTER_CHUNK = 7680
+UNFILTER_TILE = 30720
+UNFILTER_ROWS = 64
+UNFILTER_BLOCK = 32         # bands a block of the look-back (kBlock)
+UNFILTER_BANDS = 256        # bands enough to spread a launch over the card
+_EPOCHS = 2 ** 29           # status words hold 4 * epoch + state
+_status: dict = {}          # (device, stream) -> [int32 tensor, epoch]
+_STREAMS = 64               # streams whose status words are kept
+_status_lock = threading.Lock()
+
+
+def unfilter_bands(h: int, stride: int) -> tuple[int, int]:
+    """(rows, chunk): the rows of a band of K6 and the bytes of a row it
+    takes at a time, for h rows of ``stride`` bytes: as many rows as its
+    tile holds, but few enough for UNFILTER_BANDS bands where h allows."""
+    step = UNFILTER_STEP
+    chunk = min(-(-stride // step) * step, UNFILTER_CHUNK)
+    rows = min(UNFILTER_ROWS, UNFILTER_TILE // chunk, h // UNFILTER_BANDS)
+    return max(1, rows), chunk
+
+
+def _status_words(dev: torch.device, words: int):
+    """K6's status words for a launch on the current stream and the
+    launch's epoch: one int32 buffer a device and stream, zeroed when it
+    is made (or grown, or its epochs run out), whose words later launches
+    tell apart by the epoch; word 0, the band ticket, is back at 0 after
+    every launch."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    with _status_lock:
+        ent = _status.get(key)
+        if ent is None or ent[0].numel() < words or ent[1] + 1 >= _EPOCHS:
+            ent = [torch.zeros(max(words, 4096), dtype=torch.int32,
+                               device=dev), 0]
+            _status.pop(key, None)
+            if len(_status) >= _STREAMS:
+                # the oldest stream's buffer: freed memory goes back to
+                # that stream's pool, so no launch on another reuses it
+                # while one of its own may still read it
+                del _status[next(iter(_status))]
+            _status[key] = ent
+        ent[1] += 1
+        return ent[0], ent[1]
 
 
 def reset_launches() -> None:
@@ -54,8 +102,10 @@ def unfilter_subup(tagged: torch.Tensor, bpp: int) -> torch.Tensor:
     """K6: (H, stride + 1) uint8 filtered rows (any row pitch), each its
     filter type in {0, 1, 2} and then its bytes -> (H, stride) uint8
     reconstructed rows, a view of an (H, pitch) buffer with pitch the
-    stride rounded up to 16 bytes; a row pass (Sub), then a column pass
-    (Up)."""
+    stride rounded up to 16 bytes; one launch over bands of rows
+    (``unfilter_bands``) that carry the column sums to each other through
+    status words (``_status_words``) and a scratch row for each band and
+    each block of bands."""
     _rows(tagged, "tagged")
     h, stride = tagged.shape[0], tagged.shape[1] - 1
     if bpp not in (1, 2, 3, 4, 6, 8):
@@ -68,9 +118,19 @@ def unfilter_subup(tagged: torch.Tensor, bpp: int) -> torch.Tensor:
     pitch = -(-stride // _PITCH) * _PITCH
     out = torch.empty((h, pitch), dtype=torch.uint8, device=tagged.device)
     if h and stride:
+        rows, chunk = unfilter_bands(h, stride)
+        bands = -(-h // rows)
+        # a status word and a scratch row for each band and each block of
+        # UNFILTER_BLOCK bands, a word a chunk
+        blocks = -(-bands // UNFILTER_BLOCK)
+        status, epoch = _status_words(
+            tagged.device, 1 + (bands + blocks) * -(-stride // chunk))
+        agg = torch.empty((bands + blocks, pitch), dtype=torch.uint8,
+                          device=tagged.device)
         _launch("ffpic_unfilter_subup", "unfilter_subup",
                 _vp(tagged.data_ptr()), tagged.stride(0),
-                _vp(out.data_ptr()), pitch, h, stride, bpp)
+                _vp(out.data_ptr()), pitch, h, stride, bpp, rows, chunk,
+                _vp(status.data_ptr()), _vp(agg.data_ptr()), epoch)
     return out[:, :stride]
 
 

@@ -170,6 +170,16 @@ def scatter_plane(idx: torch.Tensor, val: torch.Tensor,
     return _wrap(acc, 16).to(torch.int16).view(*shape, 8, 8)
 
 
+def scatter_planes(packed, n: int, sizes) -> torch.Tensor:
+    """Planes' packed pairs -> (n, sum(sizes), 8, 8) int16 (K8 over all
+    planes): plane c is ``scatter_plane(*packed[c], (n, sizes[c]))``, the
+    planes one after the other in each image's blocks, as the
+    reference's ``decode_batch_420_sparse`` stacks its three
+    ``_scatter_plane`` results."""
+    return torch.cat([scatter_plane(idx, val, (n, nb))
+                      for (idx, val), nb in zip(packed, sizes)], dim=1)
+
+
 def dequant_idct_blocks(coeffs: torch.Tensor, yquant: torch.Tensor,
                         cquant: torch.Tensor, n_luma: int) -> torch.Tensor:
     """(n, nblocks, 8, 8) int16 -> int16 samples in [0, 65535]-clamped
@@ -435,21 +445,17 @@ def decode_batch_420_sparse(packed, n: int, shapes, yquant, cquant,
     ``decode_batch_420_sparse`` (``jpeg_kernels.py:485``).  ``packed`` is
     ((yidx, yval), (uidx, uval), (vidx, vval)) from ``pack_coeffs`` on
     the device, each covering the (n, nby, nbx, 8, 8) plane of ``shapes``
-    flattened.  On a CUDA tensor K8 rebuilds each plane into its slot of
-    one (n, nblocks, 8, 8) buffer, then K2 and K3 run as on the dense
-    route; on a CPU tensor the plain versions."""
+    flattened.  On a CUDA tensor one K8 launch rebuilds the three planes
+    into their slots of one (n, nblocks, 8, 8) buffer, then K2 and K3 run
+    as on the dense route; on a CPU tensor the plain versions."""
     sizes = [a * b for a, b in shapes]
     if _on_cuda(packed[0][0]):
         from ffpic_tpu_torch.ops import cuda_jpeg
         coeffs = torch.empty((n, sum(sizes), 8, 8), dtype=torch.int16,
                              device=packed[0][0].device)
-        off = 0
-        for (idx, val), nb in zip(packed, sizes):
-            cuda_jpeg.scatter_plane(idx, val, coeffs[:, off:off + nb])
-            off += nb
+        cuda_jpeg.scatter_planes(packed, coeffs, sizes)
     else:
-        coeffs = torch.cat([scatter_plane(idx, val, (n, nb))
-                            for (idx, val), nb in zip(packed, sizes)], dim=1)
+        coeffs = scatter_planes(packed, n, sizes)
     return decode_batch_420_dense(coeffs, yquant, cquant, shapes, order, mode,
                                   hw)
 

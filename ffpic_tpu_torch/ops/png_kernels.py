@@ -130,6 +130,100 @@ def unfilter_subup(tagged: torch.Tensor, bpp: int) -> torch.Tensor:
     return out.to(torch.uint8)
 
 
+def unfilter_subup_bands(tagged: torch.Tensor, bpp: int, rows: int,
+                         chunk: int, block: int = 32) -> torch.Tensor:
+    """``unfilter_subup`` computed as K6 decomposes it: bands of ``rows``
+    rows, each walked in column chunks of ``chunk`` bytes (a multiple of
+    lcm(4, bpp)) with each Sub row's last bpp bytes carried into its next
+    chunk; within a band the column scan starts from zero, and the band
+    publishes its last row as INC (final: it has a restart, or is the
+    first band) or AGG (its column sums); a block of ``block`` bands
+    none of which has a restart also publishes the sum of its AGGs.
+    Every band publishes first; then the bands look back last to first,
+    as late as they can: a band whose first row is Up adds the nearest
+    INC among the bands above it in its block and the AGGs below that,
+    or all of their AGGs and then, block by block, each block's last
+    band's INC or the block's sum (resolving that band first when it has
+    neither yet, as the kernel waits for it); it adds that carry to its
+    rows above its first restart, and a band without one turns INC."""
+    h, stride = tagged.shape[0], tagged.shape[1] - 1
+    if h == 0 or stride == 0:
+        return tagged.new_zeros((h, stride))
+    tags = tagged[:, 0].tolist()
+    x = tagged[:, 1:].to(torch.int64)
+    out = torch.zeros((h, stride), dtype=torch.int64, device=tagged.device)
+    nb = -(-h // rows)
+    state, payload, first = [None] * nb, [None] * nb, [0] * nb
+    for b in range(nb):
+        y0, y1 = b * rows, min(h, b * rows + rows)
+        carry = torch.zeros((y1 - y0, bpp), dtype=torch.int64,
+                            device=tagged.device)
+        for x0 in range(0, stride, chunk):
+            t = x[y0:y1, x0:x0 + chunk]
+            cw = t.shape[1]
+            lanes = torch.nn.functional.pad(t, (0, (-cw) % bpp)).view(
+                y1 - y0, -1, bpp)
+            sub = (torch.cumsum(lanes, 1) + carry[:, None]) & 255
+            carry = sub[:, -1]
+            sub = sub.view(y1 - y0, -1)[:, :cw]
+            v = torch.zeros(cw, dtype=torch.int64, device=tagged.device)
+            for r in range(y1 - y0):
+                row = sub[r] if tags[y0 + r] == 1 else t[r]
+                v = (v + row) & 255 if tags[y0 + r] == 2 else row
+                out[y0 + r, x0:x0 + cw] = v
+        first[b] = next((r for r in range(y1 - y0) if tags[y0 + r] != 2),
+                        y1 - y0)
+        state[b] = "inc" if b == 0 or first[b] < y1 - y0 else "agg"
+        payload[b] = out[y1 - 1].clone()
+    # the sums of the blocks whose bands all publish AGG
+    block_sum = {k: sum(payload[k * block:k * block + block]) & 255
+                 for k in range(1, nb // block)
+                 if all(state[p] == "agg"
+                        for p in range(k * block, k * block + block))}
+
+    def carry(b):
+        """(the carry into band b, None), or (None, the band whose INC it
+        waits for)."""
+        k = b // block
+        near = [p for p in range(b - 1, k * block - 1, -1)
+                if state[p] == "inc"]
+        c = sum(payload[p] for p in range(near[0] if near else k * block, b))
+        if near:
+            return c & 255, None
+        for kk in range(k - 1, -1, -1):
+            end = kk * block + block - 1
+            if state[end] == "inc":
+                return (c + payload[end]) & 255, None
+            if kk not in block_sum:
+                return None, end
+            c = c + block_sum[kk]
+        return c & 255, None
+
+    done = set()
+
+    def resolve(b):
+        todo = [b]
+        while todo:
+            b = todo[-1]
+            if b == 0 or first[b] == 0 or b in done:
+                todo.pop()
+                continue
+            c, wait = carry(b)
+            if wait is not None:
+                todo.append(wait)
+                continue
+            y0, y1 = b * rows, min(h, b * rows + rows)
+            out[y0:y0 + first[b]] = (out[y0:y0 + first[b]] + c) & 255
+            if state[b] == "agg":
+                state[b], payload[b] = "inc", out[y1 - 1].clone()
+            done.add(b)
+            todo.pop()
+
+    for b in range(nb - 1, -1, -1):
+        resolve(b)
+    return out.to(torch.uint8)
+
+
 # --- entries the codec calls -----------------------------------------------
 
 def unfilter_device_subup(tagged: torch.Tensor, bpp: int) -> torch.Tensor:

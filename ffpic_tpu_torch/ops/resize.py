@@ -237,9 +237,15 @@ def normalize_plain(batch: torch.Tensor, size=None, mean=MEAN,
     return (x - mean) / std
 
 
-def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
+def resize_rgba(img: torch.Tensor, size,
+                method: str = "bilinear") -> torch.Tensor:
     """(..., H, W, C) uint8 -> (..., h, w, C) uint8 on the tensor's
-    device: K16 on CUDA, the plain version on the CPU."""
+    device: K16 on CUDA, the plain version on the CPU.  ``method`` is the
+    reference's ``jax.image.resize`` method; only ``"bilinear"`` is
+    ported, and any other raises ``NotImplementedError``."""
+    if method != "bilinear":
+        raise NotImplementedError(f"resize method {method!r}: only "
+                                  "'bilinear' is ported")
     if not _on_cuda(img):
         return resize_rgba_plain(img, tuple(size))
     from ffpic_tpu_torch.ops import cuda_resize

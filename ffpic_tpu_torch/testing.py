@@ -587,7 +587,9 @@ def fdct_evenodd(samples):
 
 
 def scatter_cases(seed: int = 0) -> dict[str, tuple]:
-    """Packed pairs for K8, as name -> (idx i32, val i16, (n, nb)):
+    """Packed pairs for K8, as name -> (planes, n, sizes): ``planes`` a
+    list of (idx i32, val i16) for the planes, of ``sizes`` blocks each
+    an image, laid one after the other in n images:
 
     * ``packed``: a plane's nonzeros as ``pack_coeffs`` gives them, in
       index order with (0, 0) padding, N=3;
@@ -595,24 +597,60 @@ def scatter_cases(seed: int = 0) -> dict[str, tuple]:
     * ``hostile``: indices in [-2 total, 2 total), so negatives wrap once
       and the rest of the out-of-range ones are dropped, and the int32
       extremes; N=1;
-    * ``odd``: an odd count of pairs and a plane of one block."""
-    from ffpic_tpu_torch.ops.jpeg_kernels import pack_coeffs
+    * ``odd``: an odd count of pairs and a plane of one block;
+    * ``straddle``: three planes in key order (repeated indices, indices
+      in [-total, 0) at their keys' places, zero values among them),
+      crowded at the edges of the images, of K8's units of 4,096
+      coefficients (one a CTA here) and of the planes, (0, 0) padding;
+    * ``unsorted_1080p``: three planes of the 8 x 1080p batch's sizes,
+      a fifth of the coefficients nonzero, padded as the host pads, the
+      pairs shuffled."""
+    from ffpic_tpu_torch.ops.jpeg_kernels import _bucket, pack_coeffs
     rng = np.random.default_rng(seed)
     out = {}
     plane = rng.integers(-300, 300, (3, 40, 64)).astype(np.int16)
     plane[rng.random(plane.shape) < 0.8] = 0
-    out["packed"] = (*pack_coeffs(plane), (3, 40))
+    out["packed"] = ([pack_coeffs(plane)], 3, [40])
     total = 2 * 33 * 64
     idx = np.repeat(rng.permutation(total), 5).astype(np.int32)
     val = rng.integers(-32768, 32768, idx.size).astype(np.int16)
-    out["duplicates"] = (idx, val, (2, 33))
+    out["duplicates"] = ([(idx, val)], 2, [33])
     total = 17 * 64
     idx = rng.integers(-2 * total, 2 * total, 5000).astype(np.int32)
     idx[:4] = [-2 ** 31, 2 ** 31 - 1, -total, total]
     val = rng.integers(-32768, 32768, idx.size).astype(np.int16)
-    out["hostile"] = (idx, val, (1, 17))
+    out["hostile"] = ([(idx, val)], 1, [17])
     idx = rng.integers(0, 64, 101).astype(np.int32)
-    out["odd"] = (idx, rng.integers(-99, 99, 101).astype(np.int16), (1, 1))
+    out["odd"] = ([(idx, rng.integers(-99, 99, 101).astype(np.int16))], 1,
+                  [1])
+
+    def padded(keys, total):
+        keys = np.sort(keys)
+        val = rng.integers(-32768, 32768, keys.size).astype(np.int16)
+        idx = keys.astype(np.int64)
+        neg = rng.random(keys.size) < 0.1          # the same key, wrapped
+        idx[neg] -= total
+        n = _bucket(keys.size)
+        pidx, pval = np.zeros(n, np.int32), np.zeros(n, np.int16)
+        pidx[:keys.size], pval[:keys.size] = idx, val
+        return pidx, pval
+
+    n, sizes, planes = 3, [70, 17, 17], []
+    for nb in sizes:
+        total = n * nb * 64
+        edges = np.concatenate([np.arange(0, total, 4096),
+                                np.arange(0, total + 1, nb * 64)])
+        near = (edges[:, None] + np.arange(-3, 4)).ravel()
+        keys = np.concatenate([near, near[::5], rng.integers(0, total, 300)])
+        planes.append(padded(keys[(keys >= 0) & (keys < total)], total))
+    out["straddle"] = (planes, n, sizes)
+    n, sizes, planes = 8, [32400, 8100, 8100], []
+    for nb in sizes:
+        total = n * nb * 64
+        idx, val = padded(np.flatnonzero(rng.random(total) < 0.2), total)
+        p = rng.permutation(idx.size)
+        planes.append((idx[p], val[p]))
+    out["unsorted_1080p"] = (planes, n, sizes)
     return out
 
 
@@ -620,9 +658,14 @@ def unfilter_cases(seed: int = 0) -> dict[str, tuple]:
     """Filtered rows for K6, as name -> (rows (h, stride + 1) u8 with
     the filter type in column 0, in {0, 1, 2}, bpp): every bpp PNG has
     (1, 2, 3, 4, 6, 8) over strides that are not multiples of 4 or of
-    32 or bpp's; a first row of Up; one row; a stride of one pixel; a
-    run of Up rows longer than K6's prefetch, and one over 130 of its
-    prefetch groups; and one row of each kind in turn."""
+    32 or bpp's; a first row of Up; one row; a stride of one pixel; runs
+    of Up rows of 37 and 4,129 rows; one row of each kind in turn;
+    restarts on the first and on the last row of K6's bands (Up
+    elsewhere, so that bands without one look back over those with one);
+    one Sub row above 4,000 Up rows (every band looks back across all
+    the bands above it); and 20,000 px of 16-bit RGBA (a stride of
+    160,000 bytes, 21 of K6's chunks)."""
+    from ffpic_tpu_torch.ops.cuda_png import unfilter_bands
     rng = np.random.default_rng(seed)
     out = {}
     for name, bpp, h, stride, kinds in (
@@ -645,6 +688,23 @@ def unfilter_cases(seed: int = 0) -> dict[str, tuple]:
         elif kinds == "in_turn":
             rows[:, 0] = np.arange(h) % 3
         out[name] = (rows, bpp)
+    for name, bpp, h, stride in (("band_first_row", 4, 1027, 4 * 1920),
+                                 ("band_last_row", 3, 3331, 3 * 700 + 1)):
+        band = unfilter_bands(h, stride)[0]
+        rows = rng.integers(0, 256, (h, stride + 1)).astype(np.uint8)
+        rows[:, 0] = 2
+        at = np.arange(0, h, band) + (0 if name == "band_first_row"
+                                      else band - 1)
+        at = at[(at < h) & (np.arange(at.size) % 3 != 1)]
+        rows[at, 0] = rng.integers(0, 2, at.size)
+        out[name] = (rows, bpp)
+    rows = rng.integers(0, 256, (4001, 1201)).astype(np.uint8)
+    rows[:, 0] = 2
+    rows[0, 0] = 1
+    out["sub_above_4000_up"] = (rows, 4)
+    rows = rng.integers(0, 256, (5, 160_001)).astype(np.uint8)
+    rows[:, 0] = [1, 2, 2, 1, 2]
+    out["rgba16_20000px"] = (rows, 8)
     return out
 
 

@@ -532,19 +532,133 @@ def test_decode_batch_420_dense_matches_jax():
         want)
 
 
+@functools.lru_cache(maxsize=1)
+def _scatter_cases():
+    return testing.scatter_cases()
+
+
+def _jax_planes(planes, n, sizes):
+    """The reference's ``_scatter_plane`` of each plane, stacked as its
+    ``decode_batch_420_sparse`` stacks them: (n, sum(sizes), 8, 8)."""
+    return np.concatenate([
+        np.asarray(jax_jk._scatter_plane(jnp.asarray(i), jnp.asarray(v),
+                                         (n, nb, 1))).reshape(n, nb, 8, 8)
+        for (i, v), nb in zip(planes, sizes)], axis=1)
+
+
 @pytest.mark.parametrize("name", sorted(testing.scatter_cases()))
 def test_scatter_plane_matches_jax(name):
-    """K8's plain version against the reference's ``_scatter_plane``:
+    """K8's plain version, a plane at a time and over all planes at once
+    (``scatter_planes``), against the reference's ``_scatter_plane``:
     packed pairs with their (0, 0) padding, duplicates whose sums wrap,
     negative and out-of-range indices (one in [-n, 0) lands at idx + n,
-    the rest are dropped), the int32 extremes, an odd count."""
-    idx, val, (n, nb) = testing.scatter_cases()[name]
-    got = jk.scatter_plane(torch.from_numpy(idx), torch.from_numpy(val),
-                           (n, nb))
-    want = np.asarray(jax_jk._scatter_plane(jnp.asarray(idx),
-                                            jnp.asarray(val), (n, nb, 1)))
-    assert got.dtype == torch.int16 and got.shape == (n, nb, 8, 8)
-    np.testing.assert_array_equal(got.numpy(), want.reshape(n, nb, 8, 8))
+    the rest are dropped), the int32 extremes, an odd count, three
+    planes crowded at the edges of images, units and planes, and three
+    shuffled planes of the 8 x 1080p batch's sizes."""
+    planes, n, sizes = _scatter_cases()[name]
+    want = _jax_planes(planes, n, sizes)
+    cut = np.cumsum([0, *sizes])
+    for (idx, val), nb, a, b in zip(planes, sizes, cut[:-1], cut[1:]):
+        got = jk.scatter_plane(torch.from_numpy(idx), torch.from_numpy(val),
+                               (n, nb))
+        assert got.dtype == torch.int16 and got.shape == (n, nb, 8, 8)
+        np.testing.assert_array_equal(got.numpy(), want[:, a:b])
+    got = jk.scatter_planes([(torch.from_numpy(i), torch.from_numpy(v))
+                             for i, v in planes], n, sizes)
+    assert got.shape == (n, int(cut[-1]), 8, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+SCATTER_UNIT = 4096     # K8's kScatterUnit (csrc/jpeg_decode.cu)
+
+
+def _keys(idx, val, total):
+    """K8's key of each pair: its flat index (one in [-total, 0) taken
+    as idx + total), or ``total`` for a zero value or a dropped index."""
+    i = idx.astype(np.int64)
+    i = np.where(i < 0, i + total, i)
+    return np.where((val == 0) | (i < 0) | (i >= total), total, i)
+
+
+def _k8_model(planes, n, sizes, ctas):
+    """K8 (``scatter_planes_kernel``) in numpy on a grid of ``ctas``
+    CTAs: each plane's units of SCATTER_UNIT coefficients, the plane's
+    CTAs and each one's even run of them, its slice of pairs from the warp's 32-ary search (the first
+    pair of its run, of the unit after it, of the plane's tail), and its
+    checks: every key of the slice in its run, the keys not decreasing
+    from the pair before the slice to its end, every key of its share of
+    the tail ``total``.  Returns (whether a check failed, the planes as
+    the kernel leaves them): the fast path's sums, or, when a check
+    failed, the general path's, which are the plain version's."""
+    def lower_bound(k, t):
+        lo, hi = 0, len(k)
+        while hi - lo > 32:
+            s = (hi - lo + 31) >> 5
+            at = np.minimum(lo + s * np.arange(1, 33), hi) - 1
+            ge = np.flatnonzero(k[at] >= t)
+            if not ge.size:
+                return hi
+            j = int(ge[0])
+            hi = min(lo + s * (j + 1), hi) - 1
+            lo += s * j
+        ge = [e for e in range(lo, hi) if k[e] >= t]
+        return ge[0] if ge else hi
+
+    totals = [n * nb * 64 for nb in sizes]
+    keys = [_keys(i, v, t) for (i, v), t in zip(planes, totals)]
+    first = np.cumsum([0] + [-(-t // SCATTER_UNIT) for t in totals])
+    # the launcher's CTAs a plane: in proportion to 3 a pair and 1 a
+    # coefficient, one at least, a unit each at most, the largest cut
+    # back until they fit the grid
+    work = [3 * len(i) + t for (i, _), t in zip(planes, totals)]
+    g = [max(1, min(int(first[c + 1] - first[c]),
+                    int(ctas * w / sum(work))))
+         for c, w in enumerate(work)]
+    while sum(g) > ctas:
+        g[int(np.argmax(g))] -= 1
+    accs = [np.zeros(t, np.int64) for t in totals]
+    bad = False
+    for c, (k, (idx, val), total) in enumerate(zip(keys, planes, totals)):
+        uc = int(first[c + 1] - first[c])
+        for i in range(g[c]):
+            ua = first[c] + uc * i // g[c]
+            ub = first[c] + uc * (i + 1) // g[c]
+            q_lo = (ua - first[c]) * SCATTER_UNIT
+            q_hi = min((ub - first[c]) * SCATTER_UNIT, total)
+            a, z = lower_bound(k, q_lo), lower_bound(k, q_hi)
+            t0 = lower_bound(k, total)
+            sl = k[a:z]
+            bad |= bool(((sl < q_lo) | (sl >= q_hi)).any())
+            e = np.arange(max(a - 1, 0), max(z - 1, 0))
+            bad |= bool((k[e] > k[e + 1]).any())
+            m = sl < total
+            np.add.at(accs[c], sl[m], val[a:z][m].astype(np.int64))
+            share = -(-(len(k) - t0) // uc)
+            lo = t0 + (ua - first[c]) * share
+            hi = min(len(k), t0 + (ub - first[c]) * share)
+            bad |= bool((k[lo:hi] < total).any())
+    if bad:
+        return True, _jax_planes(planes, n, sizes)
+    return False, np.concatenate([a.astype(np.int16).reshape(n, nb, 8, 8)
+                                  for a, nb in zip(accs, sizes)], axis=1)
+
+
+@pytest.mark.parametrize("name", sorted(testing.scatter_cases()))
+def test_scatter_planes_kernel_model_matches_jax(name):
+    """K8's design, modelled in numpy (``_k8_model``) on grids of 3, 7
+    and 1,056 CTAs, against the reference: its checks fail exactly when
+    a plane's keys are out of order (so the host's pairs always take the
+    fast path, and shuffled, duplicated or hostile ones the general
+    path), and the fast path's slices sum to the reference's planes."""
+    planes, n, sizes = _scatter_cases()[name]
+    unsorted = any(bool((np.diff(_keys(i, v, n * nb * 64)) < 0).any())
+                   for (i, v), nb in zip(planes, sizes))
+    assert unsorted == (name not in ("packed", "straddle"))
+    want = _jax_planes(planes, n, sizes)
+    for ctas in (3, 7, 1056):
+        bad, got = _k8_model(planes, n, sizes, ctas)
+        assert bad == unsorted
+        np.testing.assert_array_equal(got, want)
 
 
 def test_scatter_plane_index_semantics():
@@ -622,8 +736,11 @@ def test_decode_batch_420_sparse_matches_jax(mode):
     lambda t: cuda_jpeg.fdct(t),
     lambda t: cuda_jpeg.scatter_plane(torch.zeros(4, dtype=torch.int32),
                                       torch.zeros(4, dtype=torch.int16), t),
+    lambda t: cuda_jpeg.scatter_planes(
+        [(torch.zeros(4, dtype=torch.int32),
+          torch.zeros(4, dtype=torch.int16))] * 3, t, [32, 8, 8]),
 ], ids=["count_scan", "unpack", "dequant_idct", "assemble_color",
-        "assemble_mcu", "fdct", "scatter_plane"])
+        "assemble_mcu", "fdct", "scatter_plane", "scatter_planes"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     t = torch.zeros(1, 48, 8, 8, dtype=torch.int16)
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -68,9 +68,10 @@ def _same_pic(got, want):
 @pytest.mark.parametrize("name", sorted(testing.unfilter_cases()))
 def test_unfilter_subup_matches_jax(name):
     """K6's plain version against the reference's device version and the
-    Python oracle: every bpp, a first row of Up, one row, one pixel, a
-    long Up run, the filters in turn."""
-    rows, bpp = testing.unfilter_cases()[name]
+    Python oracle: every bpp, a first row of Up, one row, one pixel, long
+    Up runs, the filters in turn, restarts on K6's band edges, one Sub
+    row above 4,000 Up rows, a row of 20,000 16-bit RGBA pixels."""
+    rows, bpp = _unfilter_cases()[name]
     h, stride = rows.shape[0], rows.shape[1] - 1
     got = pk.unfilter_subup(torch.from_numpy(rows), bpp).numpy()
     want = np.asarray(jax_pk.unfilter_device_subup(
@@ -80,6 +81,51 @@ def test_unfilter_subup_matches_jax(name):
     np.testing.assert_array_equal(got, jax_png._unfilter_py(rows, h, stride,
                                                             bpp))
     np.testing.assert_array_equal(got, png._unfilter_py(rows, h, stride, bpp))
+
+
+@functools.lru_cache(maxsize=1)
+def _unfilter_cases():
+    return testing.unfilter_cases()
+
+
+@pytest.mark.parametrize("name", sorted(testing.unfilter_cases()))
+@pytest.mark.parametrize("band", ["kernel", "one_row", "three_rows"])
+def test_unfilter_subup_bands_match_jax(name, band):
+    """K6's decomposition (``unfilter_subup_bands``: bands of rows walked
+    in chunks, each band's last row published as INC or AGG, the
+    look-back within a block of bands and then block by block) against
+    the reference's
+    device version: at the kernel's band and chunk for the stride
+    (``cuda_png.unfilter_bands``), at bands of one row, and at bands of
+    three rows in chunks of 768 bytes in blocks of 4 bands."""
+    rows, bpp = _unfilter_cases()[name]
+    r, chunk = cuda_png.unfilter_bands(rows.shape[0], rows.shape[1] - 1)
+    r, chunk, block = {"kernel": (r, chunk, 32), "one_row": (1, chunk, 32),
+                       "three_rows": (3, 768, 4)}[band]
+    got = pk.unfilter_subup_bands(torch.from_numpy(rows), bpp, r, chunk,
+                                  block).numpy()
+    want = np.asarray(jax_pk.unfilter_device_subup(
+        jnp.asarray(rows[:, 1:]), jnp.asarray(rows[:, 0].astype(np.int32)),
+        bpp=bpp))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stride", [1, 7, 767, 768, 769, 7680, 7681,
+                                    160_000, 2 ** 31 - 1])
+def test_unfilter_bands_fit_the_kernel(stride):
+    """K6's bands for any stride and height: a chunk of a multiple of 768
+    bytes (so a lane's run of it is a multiple of lcm(4, bpp) for every
+    bpp), at most 7,680, covering the stride in as few chunks; rows x
+    chunk within its 30,720 bytes of shared memory, 1 to 64 rows, and
+    256 bands or more where the height allows (4 rows at 1080p)."""
+    for h in (1, 64, 1080, 4001, 2 ** 31 - 1):
+        rows, chunk = cuda_png.unfilter_bands(h, stride)
+        assert chunk % 768 == 0 and 768 <= chunk <= 7680
+        assert chunk >= stride or chunk == 7680
+        assert 1 <= rows <= 64 and rows * chunk <= 30720
+        assert (chunk // 32) % 24 == 0
+        assert rows == 1 or -(-h // rows) >= 256
+    assert cuda_png.unfilter_bands(1080, 7680) == (4, 7680)
 
 
 def test_unfilter_device_subup_dispatches_on_the_cpu():

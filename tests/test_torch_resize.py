@@ -141,6 +141,23 @@ def test_resize_rgba_matches_jax(src, dst):
     assert (diff > 0).mean() < 1e-3
 
 
+def test_resize_rgba_takes_the_references_positional_method():
+    """The reference's own pipeline calls ``resize_rgba(s, size,
+    "bilinear")`` positionally: both packages take it, within the 1 LSB
+    of ``test_resize_rgba_matches_jax``; a method the port has not
+    ported raises."""
+    rng = np.random.default_rng(10)
+    img = rng.integers(0, 256, (96, 160, 4), dtype=np.uint8)
+    want = np.asarray(jax_resize_rgba(jnp.asarray(img), (64, 64),
+                                      "bilinear")).astype(int)
+    got = resize_rgba(torch.from_numpy(img), (64, 64), "bilinear")
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (64, 64, 4)
+    assert np.abs(got.numpy().astype(int) - want).max() <= 1
+    assert torch.equal(got, resize_rgba(torch.from_numpy(img), (64, 64)))
+    with pytest.raises(NotImplementedError):
+        resize_rgba(torch.from_numpy(img), (64, 64), "nearest")
+
+
 def test_resize_rgba_batched_equals_per_image():
     rng = np.random.default_rng(9)
     imgs = torch.from_numpy(rng.integers(0, 256, (3, 96, 128, 4),
