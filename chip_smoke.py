@@ -64,16 +64,21 @@ read just after:
   lanes and K10's chunks with the plain step on the card);
 * WebP (K12 vp8_residuals, K13 vp8_yuv_to_rgba; ``testing.vp8_cases``
   and the 1080p fixture's parse state and planes against their plain
-  versions, and against the host transform and colour): ``load`` of
+  versions, and against the host transform and colour; K13's batch
+  entry on lists of ``k13_cases``, each in one launch: mixed sizes and
+  alpha, staged, MB-padded and pitched planes, outputs off 16 bytes,
+  frames that end inside tiles, 70 frames in two launches, and the
+  webp batch's 8 frames): ``load`` of
   each committed fixture of ``ffpic_tpu_torch/testdata`` (1080p lossy,
   512x512, 1080p with alpha, 333x199, VP8L, animated) under the four
   combinations of ``FFPIC_VP8_DEVICE`` (K12 once a VP8 picture) and
   ``FFPIC_VP8_DEVICE_COLOR`` (K13 once a still), each equal to the CPU
   route; ``decode_batch`` of 8 x 1080p WebPs under the colour switch
-  (K13 x 8) and of 4 JPEGs, 2 PNGs and 2 WebPs under both, each equal
-  to the CPU route.  The load medians are printed under the JAX bench's
-  names (``webp_512_mps`` for the default route, ``webp_device_mps`` for
-  ``FFPIC_VP8_DEVICE``) beside the colour route and the host spans;
+  (K13 once over the 8) and of 4 JPEGs, 2 PNGs and 2 WebPs under both
+  (K12 twice, K13 once), each equal to the CPU route.  The load medians
+  are printed under the JAX bench's names (``webp_512_mps`` for the
+  default route, ``webp_device_mps`` for ``FFPIC_VP8_DEVICE``) beside
+  the colour route and the host spans;
 * the VP8 luma wavefront (K18 vp8_wavefront, B12; ``testing.
   wavefront_cases`` and every committed lossy fixture's frames against
   the plain version, each launched twice, and against the host
@@ -545,16 +550,20 @@ def in_turn(fn, inputs):
 
 def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
                floor_ms: float, flush, at: str, library=None,
-               plain_iters: int = 3, plain_warmup: int = 2) -> dict:
-    """One kernel's timing entry: warm and L2-flushed ms, its plain
-    version's and (where one exists) one PyTorch call's ms, its bound."""
+               plain_iters: int = 3, plain_warmup: int = 2,
+               warm_iters: int = 50) -> dict:
+    """One kernel's timing entry: warm (``warm_iters`` calls behind
+    ``gpu_ms``'s spin kernel, which must outlast their enqueue) and
+    L2-flushed ms, its plain version's and (where one exists) one
+    PyTorch call's ms, its bound."""
     from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, F64_OPS_PER_S,
                                               INT32_OPS_PER_S, bound, gpu_ms,
                                               gpu_ms_cold)
     rate = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S,
             "f64": F64_OPS_PER_S}[ops_type]
     b_ms, b_by = bound(nbytes, ops, rate)
-    t = {"ms": gpu_ms(kern, 50), "ms_cold": gpu_ms_cold(kern, 20, flush),
+    t = {"ms": gpu_ms(kern, warm_iters),
+         "ms_cold": gpu_ms_cold(kern, 20, flush),
          "plain_ms": gpu_ms(plain, plain_iters, plain_warmup),
          "bound_ms": b_ms,
          "bound_by": b_by,
@@ -1456,15 +1465,88 @@ WEBP_FIXTURES = ("lossy_1080p.webp", "lossy_512.webp", "alpha_1080p.webp",
                  "animated_96x64.webp")
 
 
+def k13_bytes(h: int, w: int, alpha: bool) -> int:
+    """What K13 must move for an h x w frame: Y, U, V (and alpha) read
+    once, the RGBA written once."""
+    return (5 + alpha) * h * w + 2 * ((h + 1) // 2) * ((w + 1) // 2)
+
+
+def k13_cases(dev) -> dict:
+    """K13's lists for one launch each: name -> (frames, outputs or None).
+    ``testing.vp8_cases``'s frames (sizes 1x1 to 199x333, mixed alpha)
+    as MB-padded planes, staged by ``vp8_kernels.stage_frames`` (every
+    row 16-byte aligned), and as views at odd offsets into wider rows
+    (pitched, byte loads) written to RGBA 4 bytes off a 16-byte boundary;
+    frames that end inside tiles (1081x1919, 65x257, 1x4097, 4097x1,
+    w % 4 of 0 to 3); and 70 small frames, past one launch's
+    ``MAX_FRAMES``."""
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import vp8_kernels as vk
+    rng = np.random.default_rng(13)
+
+    def frame(h, w, alpha):
+        ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+        return (*[rng.integers(0, 256, s, dtype=np.uint8) for s in
+                  ((ph, pw), (ph // 2, pw // 2), (ph // 2, pw // 2))], h, w,
+                rng.integers(0, 256, (h, w), dtype=np.uint8) if alpha
+                else None)
+
+    def on_card(frames, at=0):
+        out = []
+        for f in frames:
+            planes = []
+            for p in (*f[:3], f[5]):
+                if p is None:
+                    planes.append(None)
+                    continue
+                t = torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                if at:
+                    wide = torch.zeros((t.shape[0], t.shape[1] + at + 5),
+                                       dtype=torch.uint8, device=dev)
+                    wide[:, at:at + t.shape[1]] = t
+                    t = wide[:, at:at + t.shape[1]]
+                planes.append(t)
+            out.append((*planes[:3], f[3], f[4], planes[3]))
+        return out
+
+    def off_16(frames):
+        # each output 4 bytes past a 16-byte boundary
+        outs = []
+        for f in frames:
+            buf = torch.empty(4 * f[3] * f[4] + 4, dtype=torch.uint8,
+                              device=dev)
+            outs.append(buf[4:].view(f[3], f[4], 4))
+        return outs
+
+    cases = list(testing.vp8_cases()["color"].values())
+    edges = [frame(*s) for s in ((1081, 1919, True), (65, 257, False),
+                                 (1, 4097, True), (4097, 1, False),
+                                 (64, 256, True), (33, 130, False))]
+    many = [frame(1 + k % 5, 1 + (7 * k) % 11, k % 3 == 0) for k in range(70)]
+    pitched = on_card(cases, 3)
+    return {"vp8_cases_staged": (vk.stage_frames(cases, dev), None),
+            "vp8_cases_padded": (on_card(cases), None),
+            "vp8_cases_pitched_off16": (pitched, off_16(pitched)),
+            "edge_tiles_staged": (vk.stage_frames(edges, dev), None),
+            "edge_tiles_pitched": (on_card(edges, 1), None),
+            "70_frames": (vk.stage_frames(many, dev), None)}
+
+
 def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
     """The WebP codec on the card: K12 and K13 against their plain
     versions (``testing.vp8_cases`` and the 1080p path shapes, K12 also
-    against the native host transform), ``load`` of every committed
-    fixture under the four combinations of ``FFPIC_VP8_DEVICE`` and
-    ``FFPIC_VP8_DEVICE_COLOR`` (each equal to the CPU route, with fresh
-    launch counts), ``decode_batch`` of 8 x 1080p WebPs under the colour
-    switch and a mixed JPEG + PNG + WebP batch under both; the timings.
-    Returns {kernel: timing entry} and the launches of each path."""
+    against the native host transform; K13's batch entry on
+    ``k13_cases``' lists and the webp batch's 8 frames), ``load`` of
+    every committed fixture under the four combinations of
+    ``FFPIC_VP8_DEVICE`` and ``FFPIC_VP8_DEVICE_COLOR`` (each equal to
+    the CPU route, with fresh launch counts), ``decode_batch`` of 8 x
+    1080p WebPs under the colour switch (K13 once) and a mixed JPEG +
+    PNG + WebP batch under both (K13 once for its 2 WebPs); the
+    timings: K13 over the webp batch's 8 frames into the batch tensor,
+    and on one 1080p frame without and with alpha.  Returns {kernel:
+    timing entry} and the launches of each path."""
     import numpy as np
     import torch
     import ffpic_tpu_torch
@@ -1472,7 +1554,8 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
     from ffpic_tpu_torch.formats import vp8, webp
     from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_vp8
     from ffpic_tpu_torch.ops import vp8_kernels as vk
-    from ffpic_tpu_torch.utils.timing import gpu_ms
+    from ffpic_tpu_torch.utils.timing import (INT32_OPS_PER_S, bound, gpu_ms,
+                                              gpu_ms_cold)
 
     def reset():
         torch.cuda.synchronize()
@@ -1501,19 +1584,18 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
         t = to(levels, dq, has_y2)
         exact("vp8_residuals", cuda_vp8.vp8_residuals(*t),
               vk.vp8_residuals_plain(*t), errs)
-    for Y, U, V, h, w, alpha in testing.vp8_cases()["color"].values():
-        ty, tu, tv, ta = to(Y, U, V, alpha)
-        exact("vp8_yuv_to_rgba",
-              cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, h, w, ta),
-              vk.vp8_yuv_to_rgba_plain(ty, tu, tv, h, w, ta), errs)
-        # rows at a pitch of their own: a view into wider planes
-        wide = [torch.zeros((p.shape[0], p.shape[1] + 24), dtype=torch.uint8,
-                            device=dev) for p in (ty, tu, tv)]
-        for dst, src in zip(wide, (ty, tu, tv)):
-            dst[:, 8:8 + src.shape[1]] = src
-        views = [d[:, 8:8 + s.shape[1]] for d, s in zip(wide, (ty, tu, tv))]
-        exact("vp8_yuv_to_rgba", cuda_vp8.vp8_yuv_to_rgba(*views, h, w, ta),
-              vk.vp8_yuv_to_rgba_plain(ty, tu, tv, h, w, ta), errs)
+    k13_lists = k13_cases(dev)
+    for name, (frames, outs) in k13_lists.items():
+        before = cuda_vp8.launches["vp8_yuv_to_rgba"]
+        got = cuda_vp8.vp8_yuv_to_rgba_batch(frames, outs)
+        torch.cuda.synchronize()
+        want = vk.vp8_yuv_to_rgba_batch_plain(frames)
+        for g, w_ in zip(got, want):
+            exact("vp8_yuv_to_rgba", g, w_, errs)
+        n = cuda_vp8.launches["vp8_yuv_to_rgba"] - before
+        if n != -(-len(frames) // cuda_vp8.MAX_FRAMES):
+            raise AssertionError(f"K13 list {name}: {n} launches for "
+                                 f"{len(frames)} frames")
     # the path shapes: the 1080p fixtures' parse state and planes
     chunks = {n: riff_chunks(files[n]) for n in
               ("lossy_1080p.webp", "alpha_1080p.webp")}
@@ -1544,10 +1626,16 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
           errs)
     exact("vp8_yuv_to_rgba", cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W, ta),
           vk.vp8_yuv_to_rgba_plain(ty, tu, tv, H, W, ta), errs)
+    # the path's shapes: the webp batch's 8 frames staged as decode_batch
+    # stages them, in one launch into the batch tensor
+    path_frames = vk.stage_frames([(Y, U, V, H, W, a) for a in (None, alpha)]
+                                  * (N // 2), dev)
+    path_out = cuda_vp8.vp8_yuv_to_rgba_batch(path_frames)
+    exact("vp8_yuv_to_rgba", path_out,
+          vk.vp8_yuv_to_rgba_batch_plain(path_frames), errs)
     log("check K12 K13", vp8_residuals="exact", vp8_yuv_to_rgba="exact",
-        cases=",".join([*testing.vp8_cases()["residuals"],
-                        *testing.vp8_cases()["color"]]) +
-        ",1080p_parse,1080p_planes,1080p_alpha,pitched_rows",
+        cases=",".join([*testing.vp8_cases()["residuals"], *k13_lists]) +
+        ",1080p_parse,1080p_planes,1080p_alpha,webp_batch_8",
         host_residuals="exact", host_color="exact",
         macroblocks=f"{dec.mbw}x{dec.mbh}",
         segments=int(dec.hdr.seg_enabled),
@@ -1600,7 +1688,7 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
         reset()
         out = ffpic_tpu_torch.decode_batch(batch, device=dev)
         launches_batch = counts()
-    if (launches_batch["vp8_yuv_to_rgba"] != N
+    if (launches_batch["vp8_yuv_to_rgba"] != 1
             or launches_batch["vp8_residuals"] != 0
             or len(launches_batch) != 2):
         raise AssertionError(f"webp decode_batch: launches {launches_batch}")
@@ -1622,7 +1710,7 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
         out = ffpic_tpu_torch.decode_batch(mixed, device=dev)
         launches_mixed = counts()
     if (launches_mixed["vp8_residuals"], launches_mixed["vp8_yuv_to_rgba"]) \
-            != (2, 2) or min(launches_mixed.get(k, 0) for k in (
+            != (2, 1) or min(launches_mixed.get(k, 0) for k in (
                 *PATH_420, "assemble_rgba")) < 1:
         raise AssertionError(f"mixed webp decode_batch: launches "
                              f"{launches_mixed}")
@@ -1648,16 +1736,33 @@ def webp_paths(dev, jpegs, pngs, floor_ms: float, errs: dict):
             lambda: vk.vp8_residuals_plain(lv_d, dq_d, hy_d),
             nmb * (1600 + 24 + 1 + 768), nmb * (24 * 192 + 80), "int32",
             floor_ms, flush, "webp load 1080p FFPIC_VP8_DEVICE"),
+        # the webp batch: 8 frames, 4 with alpha, in one launch
         "vp8_yuv_to_rgba": time_entry(
             "vp8_yuv_to_rgba",
-            lambda: cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W),
-            lambda: vk.vp8_yuv_to_rgba_plain(ty, tu, tv, H, W),
-            H * W + 2 * ((H + 1) // 2) * ((W + 1) // 2) + 4 * H * W,
-            40 * H * W, "int32", floor_ms, flush,
-            "webp load 1080p FFPIC_VP8_DEVICE_COLOR"),
+            lambda: cuda_vp8.vp8_yuv_to_rgba_batch(path_frames, path_out),
+            lambda: vk.vp8_yuv_to_rgba_batch_plain(path_frames),
+            sum(k13_bytes(f[3], f[4], f[5] is not None)
+                for f in path_frames),
+            40 * N * H * W, "int32", floor_ms, flush,
+            "webp decode_batch 8 x 1080p FFPIC_VP8_DEVICE_COLOR",
+            # the wrapper checks 8 frames and packs their descriptors,
+            # about 0.1 ms of host time a call: 20 stay inside the spin
+            plain_iters=1, plain_warmup=1, warm_iters=20),
     }
-    timed["vp8_yuv_to_rgba"]["with_alpha_ms"] = gpu_ms(
-        lambda: cuda_vp8.vp8_yuv_to_rgba(ty, tu, tv, H, W, ta), 50)
+    for key, frame in (("one_frame", (ty, tu, tv, H, W, None)),
+                       ("one_frame_alpha", (ty, tu, tv, H, W, ta))):
+        one = cuda_vp8.vp8_yuv_to_rgba(*frame)
+        timed["vp8_yuv_to_rgba"][f"{key}_ms"] = gpu_ms(
+            lambda: cuda_vp8.vp8_yuv_to_rgba_batch([frame], [one]), 50)
+        timed["vp8_yuv_to_rgba"][f"{key}_ms_cold"] = gpu_ms_cold(
+            lambda: cuda_vp8.vp8_yuv_to_rgba_batch([frame], [one]), 20,
+            flush)
+        timed["vp8_yuv_to_rgba"][f"{key}_bound_ms"] = bound(
+            k13_bytes(H, W, frame[5] is not None), 40 * H * W,
+            INT32_OPS_PER_S)[0]
+    log("time K13 one frame", **{k: f"{v:.4f}" for k, v in
+                                 timed["vp8_yuv_to_rgba"].items()
+                                 if k.startswith("one_frame")})
     del flush
     def per_load(data, n=5):
         # the JAX bench's webp_512 trial: 5 loads back to back
@@ -2924,7 +3029,8 @@ def main() -> int:
     timed["entropy_decode"]["launches_per_path"] = {
         k: v["entropy_decode"] for k, v in entropy_launches.items()}
     # K12 on the 1080p load under FFPIC_VP8_DEVICE, K13 on the 8 x 1080p
-    # WebP batch under FFPIC_VP8_DEVICE_COLOR; their other paths beside
+    # WebP batch under FFPIC_VP8_DEVICE_COLOR (one launch over the 8);
+    # their other paths beside
     launches["vp8_residuals"] = \
         webp_launches["load_vp8_device"]["vp8_residuals"]
     launches["vp8_yuv_to_rgba"] = webp_launches["batch"]["vp8_yuv_to_rgba"]

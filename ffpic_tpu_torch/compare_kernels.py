@@ -45,6 +45,18 @@ default):
   kernels]``);
 * ``vp8``: K12 on the 1080p frame's levels and K13 on 1080p planes,
   warm and L2 flushed, each against its plain version;
+* ``k13``: K13 on one 1080p frame without and with alpha, on one of
+  1081 x 1919, on one of 1080 x 1918 whose RGBA rows do not start on a
+  16-byte boundary (its planes 3 bytes into their rows), on a 4096 x
+  4096 frame, each against its plain version; and the webp batch's 8
+  frames (the 1080p lossy and alpha fixtures, 4 of each) as each tree's
+  ``decode_batch`` runs them, against the CPU route: in trees with
+  ``vp8_kernels.vp8_yuv_to_rgba_batch`` one launch into the (8, H, W,
+  4) tensor from the planes staged by ``webp.stage_planes``, in older
+  trees a launch a member from its own planes, then ``torch.stack``;
+  each warm and L2 flushed, with its bound by bytes, the batch's
+  launches, and the batch's colour stage with its staging from the
+  host's planes (host clock, median of 7);
 * ``k16``: config 5's resize of 8 slots of 1080p RGBA to 224 x 224 as
   ``decode_batch`` runs it (``ops.resize.resize_batch``, one launch),
   against ``resize_batch_plain``; K16 on one slot, on a 48 MP slot
@@ -98,12 +110,13 @@ import time
 
 H, W = 1080, 1920
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GROUPS = ("k7", "k14", "k18", "entropy", "vp8", "k16", "k15", "k6", "k8",
-          "jpeg")
+GROUPS = ("k7", "k14", "k18", "entropy", "vp8", "k13", "k16", "k15", "k6",
+          "k8", "jpeg")
 KERNELS = {"k7": ("assemble_rgba",), "k14": ("hevc_residuals",),
            "k18": ("vp8_wavefront",),
            "entropy": ("entropy_decode", "spec_scan", "spec_merge"),
            "vp8": ("vp8_residuals", "vp8_yuv_to_rgba"),
+           "k13": ("vp8_yuv_to_rgba",),
            "k16": ("resize",), "k15": ("hevc_yuv_to_rgba",),
            "k6": ("unfilter_rows", "unfilter_cols", "unfilter_subup"),
            "k8": ("scatter_plane", "scatter_planes"),
@@ -410,6 +423,110 @@ def _vp8(dev, flush) -> dict:
                          *planes, H, W))):
         t = _timed(fn, flush)
         out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+    return out
+
+
+def _k13(dev, flush) -> dict:
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats import webp
+    from ffpic_tpu_torch.ops import cuda_vp8
+    from ffpic_tpu_torch.ops import vp8_kernels as vk
+    from ffpic_tpu_torch.utils.timing import HBM_BYTES_PER_S
+    one_launch = hasattr(vk, "vp8_yuv_to_rgba_batch")
+    rng = np.random.default_rng(17)
+
+    def planes(h, w, alpha=False, at=0):
+        """MB-padded planes of random bytes on the card, each row starting
+        ``at`` bytes into a wider one (a view at a pitch of its own)."""
+        ph, pw = -(-h // 16) * 16, -(-w // 16) * 16
+        out = []
+        for r, c in ((ph, pw), (ph // 2, pw // 2), (ph // 2, pw // 2)):
+            t = torch.from_numpy(rng.integers(0, 256, (r, c + at + 8),
+                                              dtype=np.uint8)).to(dev)
+            out.append(t[:, at:at + c] if at else t[:, :c].contiguous())
+        a = torch.from_numpy(rng.integers(0, 256, (h, w), dtype=np.uint8)) \
+            .to(dev) if alpha else None
+        return (*out, h, w, a)
+
+    def nbytes(h, w, alpha):
+        return (5 + alpha) * h * w + 2 * ((h + 1) // 2) * ((w + 1) // 2)
+
+    # the webp batch: the 1080p lossy and alpha fixtures, 4 of each, as
+    # parse leaves them under FFPIC_VP8_DEVICE_COLOR
+    saved = os.environ.pop("FFPIC_VP8_DEVICE_COLOR", None)
+    os.environ["FFPIC_VP8_DEVICE_COLOR"] = "1"
+    try:
+        fs = [webp.parse(testing.webp_fixture(n), device=dev)
+              for n in ("lossy_1080p.webp", "alpha_1080p.webp")] * 4
+    finally:
+        os.environ.pop("FFPIC_VP8_DEVICE_COLOR")
+        if saved is not None:
+            os.environ["FFPIC_VP8_DEVICE_COLOR"] = saved
+    want = torch.stack([webp.to_pics(f, torch.device("cpu"))[0].pixels
+                        for f in fs[:2]] * 4)
+    if one_launch:
+        # this tree's decode_batch: one staging, one launch into the batch
+        staged = webp.stage_planes(fs, dev)
+
+        def batch():
+            return vk.vp8_yuv_to_rgba_batch(staged)
+
+        def batch_staged():
+            return vk.vp8_yuv_to_rgba_batch(webp.stage_planes(fs, dev))
+    else:
+        # an older tree's: each member's planes copied alone, a launch a
+        # member into a tensor of its own, then the stack
+        from ffpic_tpu_torch.utils.device import to_device
+        staged = [(*[to_device(p, dev) for p in f.yuva[:3]], f.height,
+                   f.width, to_device(f.yuva[3], dev)
+                   if f.yuva[3] is not None else None) for f in fs]
+
+        def batch():
+            return torch.stack([cuda_vp8.vp8_yuv_to_rgba(*f)
+                                for f in staged])
+
+        def batch_staged():
+            return torch.stack([webp.to_pics(f, dev)[0].pixels for f in fs])
+    cases = {"1080p": planes(H, W), "1080p alpha": planes(H, W, True),
+             "odd 1081x1919": planes(1081, 1919, True),
+             # RGBA rows 8 bytes off a 16-byte boundary (w % 4 == 2),
+             # planes 3 bytes into their rows
+             "unaligned 1080x1918": planes(H, 1918, False, 3),
+             "4096x4096": planes(4096, 4096)}
+    out = {}
+    for name, f in cases.items():
+        got = cuda_vp8.vp8_yuv_to_rgba(*f)
+        if not torch.equal(got, vk.vp8_yuv_to_rgba_plain(*f)):
+            raise AssertionError(f"K13 {name} differs from its plain version")
+        t = _timed(lambda f=f: cuda_vp8.vp8_yuv_to_rgba(*f), flush)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+        out[f"{name} bound_ms"] = nbytes(f[3], f[4], f[5] is not None) \
+            / HBM_BYTES_PER_S * 1e3
+    before = cuda_vp8.launches["vp8_yuv_to_rgba"]
+    got = batch()
+    torch.cuda.synchronize()
+    out["webp batch 8 launches"] = \
+        cuda_vp8.launches["vp8_yuv_to_rgba"] - before
+    if tuple(got.shape) != (8, H, W, 4) or not torch.equal(got.cpu(), want):
+        raise AssertionError("K13 on the webp batch differs from the CPU "
+                             "route")
+    if not torch.equal(batch_staged(), got):
+        raise AssertionError("the staged webp batch differs")
+    t = _timed(batch, flush, 20, 10)
+    out["webp batch 8 ms"], out["webp batch 8 ms_cold"] = t["ms"], t["ms_cold"]
+    out["webp batch 8 bound_ms"] = (4 * nbytes(H, W, False) + 4 * nbytes(
+        H, W, True)) / HBM_BYTES_PER_S * 1e3
+    batch_staged()
+    walls = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batch_staged()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    out["webp batch 8 with staging host ms"] = statistics.median(walls) * 1e3
     return out
 
 
@@ -764,8 +881,8 @@ def run(tree: str, groups) -> dict:
     dev = torch.device("cuda")
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
     run_group = {"k7": _k7, "k14": _k14, "k18": _k18, "entropy": _entropy,
-                 "vp8": _vp8, "k16": _k16, "k15": _k15, "k6": _k6,
-                 "k8": _k8, "jpeg": _jpeg}
+                 "vp8": _vp8, "k13": _k13, "k16": _k16, "k15": _k15,
+                 "k6": _k6, "k8": _k8, "jpeg": _jpeg}
     return {"tree": os.path.abspath(tree), "build_s": build_s,
             "ptxas": ptxas,
             "groups": {g: run_group[g](dev, flush) for g in groups}}

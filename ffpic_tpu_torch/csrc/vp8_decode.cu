@@ -6,10 +6,11 @@
 //                        int32 and has_y2 (mbh, mbw) -> the residuals
 //                        (mbh, mbw, 24, 4, 4) int16: dequant, Y2 inverse
 //                        WHT, DC scatter and the 4x4 inverse DCT
-//   K13 vp8_yuv_to_rgba  MB-padded Y, U, V planes (any row pitch) ->
-//                        (h, w, 4) uint8 RGBA: libwebp's fancy chroma
-//                        upsampling and fixed-point colour matrix, alpha
-//                        255 or from an (h, w) plane
+//   K13 vp8_yuv_to_rgba  a list of frames' Y, U, V planes (any row
+//                        pitch) -> each frame's (h, w, 4) uint8 RGBA, in
+//                        one launch: libwebp's fancy chroma upsampling
+//                        and fixed-point colour matrix, alpha 255 or from
+//                        an (h, w) plane
 //   K18 vp8_wavefront    residuals (mbh, mbw, 16, 4, 4) int32, ymode
 //                        (mbh, mbw) and bmodes (mbh, mbw, 16) int32 ->
 //                        the luma plane (16 mbh, 16 mbw) uint8: the whole
@@ -23,6 +24,7 @@
 // wrap.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -140,81 +142,252 @@ __global__ void __launch_bounds__(kResThreads)
 // K13. Replaces ffpic_tpu/ops/vp8_kernels.py:vp8_yuv_to_rgba (:107), and
 // the alpha plane's write that follows it (ffpic_tpu/formats/webp.py:311).
 // Bound: it reads Y once, U and V once (a quarter each) and the alpha
-// plane when there is one, and writes 4 bytes a pixel: 11.4 MB at
-// 1920x1080 without alpha. About 30 integer operations a pixel are
-// nothing beside that: bound by bytes.
+// plane where there is one, and writes 4 bytes a pixel: 11.4 MB at
+// 1920x1080 without alpha. About 40 integer operations a pixel (83 M at
+// 1080p, 0.0025 ms at the int32 rate) come close to that, so it is bound
+// by bytes with little room to spare in instructions.
 //
-// A thread per 2x2 output quad, which shares one chroma sample c and its
-// neighbourhood: the rows above and below and the columns left and right,
-// each clamped to the cropped chroma grid ((h + 1) / 2, (w + 1) / 2), so
-// that the MB padding of U and V is never read. The top pixels mix c's
-// row with the row above, the bottom ones with the row below, each
-// (9 a + 3 (b + a') + b' + 8) >> 4 with a' and b' the left (west) or
-// right (east) column; then each _mult_hi term (v * k) >> 8 is floored
-// on its own before the sums, and (sum >> 6) is clipped to 0..255.
-// Quads at the right or bottom edge of an odd size write only the
-// pixels inside. Neighbouring threads take neighbouring quads of a row,
-// so each warp row reads 64 neighbouring bytes of Y and writes 256 of
-// RGBA per pixel row.
-constexpr int kQuadX = 32, kQuadY = 8;
+// One launch over a list of frames (a batch's WebP stills), each a
+// ColorFrame passed by value (__grid_constant__: no copy before the
+// launch; a CTA reads its frame from the constant bank). kMaxFrames
+// descriptors of 88 bytes take 5.6 KB of parameters, past the 4 KB of
+// older toolkits and inside the 32 KB that CUDA 12.1+ gives sm_90; a
+// longer list takes a launch for each kMaxFrames frames. A CTA takes a
+// tile of kTileRows x kTileCols output pixels of one frame, which it finds
+// by a binary search over the frames' first tiles (a prefix the launcher
+// fills in). It stages the tile's U and V samples, kTileRows / 2 rows of
+// kTileCols / 2, with a halo of one row and one column on each side, in
+// shared memory: 16-byte loads where the plane's rows are 16-byte aligned
+// and the chunk lies inside the cropped chroma grid ((h + 1) / 2, (w + 1)
+// / 2), bytes otherwise. Every row and column is clamped to that grid as
+// it is staged, so the MB padding is never read and the frame's edges
+// come out replicated; each chroma byte comes from device memory once
+// (the halo rows again, from L2), where the quad-a-thread design fetched
+// each about 9 times through L1.
+//
+// Each thread then writes runs of kRun = 8 pixels of a row: the run's Y
+// (and alpha) in one 8-byte load where the plane's rows are 8-byte
+// aligned, else bytes; its 4 chroma samples as one 32-bit word of shared
+// memory and their two neighbours as bytes, in the samples' own row a
+// and in the row b above (even output rows) or below (odd ones). The
+// fancy upsampling (9 a + 3 (b + a') + b' + 8) >> 4 is separable: with
+// s = 3 a + b a column's vertical mix, a pixel takes (3 s + s' + 8) >> 4,
+// s' its left (even x) or right (odd x) neighbour's mix. Then each
+// _mult_hi term is floored on its own and (sum >> 6) is clipped to
+// 0..255 (yuv_pixel). A run goes out in the widest aligned stores its
+// address allows (store_run): two 16-byte stores where the RGBA rows are
+// 16-byte aligned (w % 4 == 0), 4-, 8- and 16-byte ones otherwise, and a
+// run cut by the row's end pixel by pixel, only the pixels inside the
+// frame. kMinCtas = 8 CTAs an SM (32 registers a thread, no spills) keep
+// the most loads in flight; the sweep of tiles, CTAs an SM and of
+// loading Y before the staging that set these constants is in PERF.md
+// (python3 -m ffpic_tpu_torch.tune_vp8_color).
+constexpr int kColorThreads = 256;
+constexpr int kTileRows = 32;                    // output rows a CTA
+constexpr int kTileCols = 128;                   // output pixels a row
+constexpr int kRun = 8;                          // pixels a thread's run
+constexpr int kChromaRows = kTileRows / 2 + 2;   // staged, with the halo
+constexpr int kChromaCols = kTileCols / 2;       // staged, besides it
+// a staged row: the left halo at 15, samples from 16, the right halo at
+// 16 + kChromaCols
+constexpr int kChromaPitch = kChromaCols + 32;
+constexpr int kRunsRow = kTileCols / kRun;
+constexpr int kRunsThread = kTileRows * kRunsRow / kColorThreads;
+constexpr int kMinCtas = 8;                      // CTAs an SM, at least
+constexpr int kMaxFrames = 64;
+static_assert(kTileRows % 2 == 0 && kTileCols % 32 == 0,
+              "a tile covers whole chroma rows and 16-byte chunks");
+static_assert(kRunsThread * kColorThreads == kTileRows * kRunsRow,
+              "whole runs a thread");
+
+// One frame: its planes' rows at y + row * ys (and u, v, a alike; a null
+// without alpha), its RGBA at out, h x w x 4 contiguous; tile0 and
+// tiles_x filled in by the launcher. 88 bytes: the eleven 64-bit words of
+// ops.cuda_vp8.frame_words.
+struct ColorFrame {
+  const uint8_t* y;
+  const uint8_t* u;
+  const uint8_t* v;
+  const uint8_t* a;
+  uint8_t* out;
+  long long ys, us, vs, as;
+  int h, w;
+  int tile0, tiles_x;
+};
+static_assert(sizeof(ColorFrame) == 88, "ops.cuda_vp8.FRAME_WORDS words");
+
+struct ColorFrames {
+  ColorFrame f[kMaxFrames];
+};
 
 __device__ __forceinline__ int clip8(int x) {
   x >>= 6;
   return x < 0 ? 0 : (x > 255 ? 255 : x);
 }
 
-__device__ __forceinline__ uchar4 yuv_pixel(int y, int u, int v, int a) {
+__device__ __forceinline__ uint32_t yuv_pixel(int y, int u, int v,
+                                              uint32_t a) {
   const int yv = (y * 19077) >> 8;
   const int r = yv + ((v * 26149) >> 8) - 14234;
   const int g = yv - ((u * 6419) >> 8) - ((v * 13320) >> 8) + 8708;
   const int b = yv + ((u * 33050) >> 8) - 17685;
-  return make_uchar4(clip8(r), clip8(g), clip8(b), a);
+  return (uint32_t)clip8(r) | (uint32_t)clip8(g) << 8 |
+         (uint32_t)clip8(b) << 16 | a << 24;
 }
 
-__global__ void __launch_bounds__(kQuadX * kQuadY)
-    vp8_yuv_to_rgba_kernel(const uint8_t* __restrict__ Y, long long ys,
-                           const uint8_t* __restrict__ U, long long us,
-                           const uint8_t* __restrict__ V, long long vs,
-                           const uint8_t* __restrict__ A,
-                           uchar4* __restrict__ out, int h, int w) {
-  const int ch = (h + 1) >> 1, cw = (w + 1) >> 1;
-  const int qx = blockIdx.x * kQuadX + threadIdx.x;
-  const int qy = blockIdx.y * kQuadY + threadIdx.y;
-  if (qx >= cw || qy >= ch) return;
-  const int xw = qx > 0 ? qx - 1 : 0, xe = qx + 1 < cw ? qx + 1 : cw - 1;
-  const int qn = qy > 0 ? qy - 1 : 0, qs = qy + 1 < ch ? qy + 1 : ch - 1;
-  int um[2][2], vm[2][2];     // [row: top, bottom][column: left, right]
-  {
-    const uint8_t* u0 = U + qy * us;
-    const uint8_t* v0 = V + qy * vs;
-    const int ua = __ldg(u0 + qx), uaw = __ldg(u0 + xw), uae = __ldg(u0 + xe);
-    const int va = __ldg(v0 + qx), vaw = __ldg(v0 + xw), vae = __ldg(v0 + xe);
+// The upsampled chroma of a run from its staged rows: a the samples' own
+// row, b its vertical neighbour, k0 (a multiple of 4) the run's first
+// sample.
+__device__ __forceinline__ void chroma_run(const uint8_t* a, const uint8_t* b,
+                                           int k0, int m[kRun]) {
+  const uint32_t wa = *reinterpret_cast<const uint32_t*>(a + 16 + k0);
+  const uint32_t wb = *reinterpret_cast<const uint32_t*>(b + 16 + k0);
+  int s[6];
+  s[0] = 3 * a[15 + k0] + b[15 + k0];
 #pragma unroll
-    for (int r = 0; r < 2; r++) {
-      const uint8_t* u1 = U + (long long)(r ? qs : qn) * us;
-      const uint8_t* v1 = V + (long long)(r ? qs : qn) * vs;
-      const int ub = __ldg(u1 + qx), ubw = __ldg(u1 + xw);
-      const int ube = __ldg(u1 + xe);
-      const int vb = __ldg(v1 + qx), vbw = __ldg(v1 + xw);
-      const int vbe = __ldg(v1 + xe);
-      um[r][0] = (9 * ua + 3 * (ub + uaw) + ubw + 8) >> 4;
-      um[r][1] = (9 * ua + 3 * (ub + uae) + ube + 8) >> 4;
-      vm[r][0] = (9 * va + 3 * (vb + vaw) + vbw + 8) >> 4;
-      vm[r][1] = (9 * va + 3 * (vb + vae) + vbe + 8) >> 4;
+  for (int i = 0; i < 4; ++i)
+    s[1 + i] = 3 * (int)((wa >> (8 * i)) & 255u) +
+               (int)((wb >> (8 * i)) & 255u);
+  s[5] = 3 * a[20 + k0] + b[20 + k0];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = 3 * s[1 + i] + 8;
+    m[2 * i] = (t + s[i]) >> 4;
+    m[2 * i + 1] = (t + s[2 + i]) >> 4;
+  }
+}
+
+// kRun bytes of a row from p as two words, byte k at bits 8 (k % 4) of
+// word k / 4: one 8-byte load where the run is whole and p 8-byte
+// aligned, else the first n bytes one by one (the rest zero).
+__device__ __forceinline__ void load_run(const uint8_t* p, int n, bool wide,
+                                         uint32_t w[2]) {
+  if (n == kRun && wide) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    return;
+  }
+  w[0] = w[1] = 0;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k)
+    if (k < n) w[k >> 2] |= (uint32_t)__ldg(p + k) << (8 * (k & 3));
+}
+
+// n pixels of a run at o (4-byte aligned): a whole run in the widest
+// stores that o's alignment allows, a cut one a pixel at a time.
+__device__ __forceinline__ void store_run(uint32_t* o, const uint32_t px[kRun],
+                                          int n) {
+  if (n < kRun) {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      if (k < n) o[k] = px[k];
+    return;
+  }
+  uint2* o2 = reinterpret_cast<uint2*>(o);  // at 8 bytes a step
+  uint4* o4 = reinterpret_cast<uint4*>(o);  // at 16
+  switch (((uintptr_t)o >> 2) & 3) {
+    case 0:
+      o4[0] = make_uint4(px[0], px[1], px[2], px[3]);
+      o4[1] = make_uint4(px[4], px[5], px[6], px[7]);
+      break;
+    case 1:
+      o[0] = px[0];
+      *reinterpret_cast<uint2*>(o + 1) = make_uint2(px[1], px[2]);
+      *reinterpret_cast<uint4*>(o + 3) = make_uint4(px[3], px[4], px[5],
+                                                    px[6]);
+      o[7] = px[7];
+      break;
+    case 2:
+      o2[0] = make_uint2(px[0], px[1]);
+      *reinterpret_cast<uint4*>(o + 2) = make_uint4(px[2], px[3], px[4],
+                                                    px[5]);
+      o2[3] = make_uint2(px[6], px[7]);
+      break;
+    default:
+      o[0] = px[0];
+      *reinterpret_cast<uint4*>(o + 1) = make_uint4(px[1], px[2], px[3],
+                                                    px[4]);
+      *reinterpret_cast<uint2*>(o + 5) = make_uint2(px[5], px[6]);
+      o[7] = px[7];
+  }
+}
+
+__global__ void __launch_bounds__(kColorThreads, kMinCtas)
+    vp8_yuv_to_rgba_kernel(const __grid_constant__ ColorFrames fs, int n) {
+  __shared__ __align__(16) uint8_t sc[2][kChromaRows][kChromaPitch];
+  int lo = 0, hi = n - 1;     // the last frame whose first tile <= this
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (fs.f[mid].tile0 <= (int)blockIdx.x)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const ColorFrame& f = fs.f[lo];
+  const int h = f.h, w = f.w, ch = (h + 1) >> 1, cw = (w + 1) >> 1;
+  const int t = (int)blockIdx.x - f.tile0, ty = t / f.tiles_x;
+  const int y0 = ty * kTileRows, x0 = (t - ty * f.tiles_x) * kTileCols;
+  const int cy0 = y0 >> 1, cx0 = x0 >> 1;
+
+  // the chroma tile: staged row r holds chroma row cy0 - 1 + r, staged
+  // column k column cx0 + k, each clamped to the cropped grid
+  const bool wide = (((uintptr_t)f.u | (uintptr_t)f.v | (uintptr_t)f.us |
+                      (uintptr_t)f.vs) & 15) == 0;
+  constexpr int kChunks = kChromaCols / 16;
+  for (int i = threadIdx.x; i < 2 * kChromaRows * kChunks;
+       i += kColorThreads) {
+    const int p = i / (kChromaRows * kChunks);
+    const int r = i / kChunks - p * kChromaRows, c = i % kChunks;
+    const long long row = min(max(cy0 - 1 + r, 0), ch - 1);
+    const uint8_t* src = p ? f.v + row * f.vs : f.u + row * f.us;
+    const int cc = cx0 + 16 * c;
+    uint8_t* dst = &sc[p][r][16 + 16 * c];
+    if (wide && cc + 16 <= cw) {
+      *reinterpret_cast<uint4*>(dst) =
+          __ldg(reinterpret_cast<const uint4*>(src + cc));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 16; ++k) dst[k] = __ldg(src + min(cc + k, cw - 1));
     }
   }
+  for (int i = threadIdx.x; i < 4 * kChromaRows; i += kColorThreads) {
+    const int p = i / (2 * kChromaRows), side = i & 1;
+    const int r = (i >> 1) - p * kChromaRows;
+    const long long row = min(max(cy0 - 1 + r, 0), ch - 1);
+    const uint8_t* src = p ? f.v + row * f.vs : f.u + row * f.us;
+    sc[p][r][side ? 16 + kChromaCols : 15] =
+        __ldg(src + (side ? min(cx0 + kChromaCols, cw - 1) : max(cx0 - 1, 0)));
+  }
+  __syncthreads();
+
+  // this thread's runs: run i of the tile is row i / kRunsRow, column i %
+  // kRunsRow
+  const bool y8 = (((uintptr_t)f.y | (uintptr_t)f.ys) & 7) == 0;
+  const bool a8 = (((uintptr_t)f.a | (uintptr_t)f.as) & 7) == 0;
 #pragma unroll
-  for (int r = 0; r < 2; r++) {
-    const int y = 2 * qy + r;
-    if (y >= h) break;
+  for (int j = 0; j < kRunsThread; ++j) {
+    const int i = threadIdx.x + j * kColorThreads;
+    const int r = i / kRunsRow, c = i - r * kRunsRow;
+    const int y = y0 + r, x = x0 + kRun * c;
+    const int n = y < h ? min(kRun, w - x) : 0;
+    if (n <= 0) continue;
+    uint32_t yw[2], aw[2] = {~0u, ~0u};
+    load_run(f.y + y * f.ys + x, n, y8, yw);
+    if (f.a) load_run(f.a + y * f.as + x, n, a8, aw);
+    const int ra = (r >> 1) + 1, rb = r & 1 ? ra + 1 : ra - 1;
+    int mu[kRun], mv[kRun];
+    chroma_run(sc[0][ra], sc[0][rb], 4 * c, mu);
+    chroma_run(sc[1][ra], sc[1][rb], 4 * c, mv);
+    uint32_t px[kRun];
 #pragma unroll
-    for (int c = 0; c < 2; c++) {
-      const int x = 2 * qx + c;
-      if (x >= w) break;
-      const long long p = (long long)y * w + x;
-      out[p] = yuv_pixel(__ldg(Y + y * ys + x), um[r][c], vm[r][c],
-                         A ? __ldg(A + p) : 255);
+    for (int k = 0; k < kRun; ++k) {
+      const int sh = 8 * (k & 3);
+      px[k] = yuv_pixel((int)((yw[k >> 2] >> sh) & 255u), mu[k], mv[k],
+                        (aw[k >> 2] >> sh) & 255u);
     }
+    store_run(reinterpret_cast<uint32_t*>(f.out) + (long long)y * w + x, px,
+              n);
   }
 }
 
@@ -680,22 +853,27 @@ int ffpic_vp8_residuals(const void* levels, const void* dq,
   return (int)cudaGetLastError();
 }
 
-// Y: h rows of at least w bytes at pitch ys; U, V: (h + 1) / 2 rows of at
-// least (w + 1) / 2 bytes at pitches us, vs; A: h x w bytes or null; out:
-// h x w x 4 bytes, 4-byte aligned
-int ffpic_vp8_yuv_to_rgba(const void* Y, long long ys, const void* U,
-                          long long us, const void* V, long long vs,
-                          const void* A, void* out, int h, int w,
-                          void* stream) {
-  if (h <= 0 || w <= 0 || ((uintptr_t)out & 3))
-    return (int)cudaErrorInvalidValue;
-  const int ch = (h + 1) >> 1, cw = (w + 1) >> 1;
-  const dim3 block(kQuadX, kQuadY);
-  const dim3 grid((cw + kQuadX - 1) / kQuadX, (ch + kQuadY - 1) / kQuadY);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  vp8_yuv_to_rgba_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)Y, ys, (const uint8_t*)U, us, (const uint8_t*)V, vs,
-      (const uint8_t*)A, (uchar4*)out, h, w);
+// frames: n <= kMaxFrames ColorFrame descriptors (ops.cuda_vp8.
+// frame_words) in host memory, tile0 and tiles_x left for this launcher;
+// each frame's out 4-byte aligned
+int ffpic_vp8_yuv_to_rgba(const void* frames, int n, void* stream) {
+  if (n <= 0 || n > kMaxFrames) return (int)cudaErrorInvalidValue;
+  ColorFrames p;
+  memcpy(p.f, frames, (size_t)n * sizeof(ColorFrame));
+  long long tiles = 0;
+  for (int k = 0; k < n; ++k) {
+    ColorFrame& f = p.f[k];
+    if (f.h <= 0 || f.w <= 0 || !f.y || !f.u || !f.v || !f.out ||
+        ((uintptr_t)f.out & 3))
+      return (int)cudaErrorInvalidValue;
+    f.tile0 = (int)tiles;
+    f.tiles_x = (int)(((long long)f.w + kTileCols - 1) / kTileCols);
+    tiles += (long long)f.tiles_x *
+             (((long long)f.h + kTileRows - 1) / kTileRows);
+    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  }
+  vp8_yuv_to_rgba_kernel<<<(unsigned)tiles, kColorThreads, 0,
+                           (cudaStream_t)stream>>>(p, n);
   return (int)cudaGetLastError();
 }
 

@@ -21,14 +21,18 @@ disposal.  Split as ``formats.png`` is split:
   MB-padded Y, U, V planes and the alpha plane for the device instead.
   VP8L and animation frames decode on the host as in the original;
 * ``to_pics`` is the device part: the staging copy (span ``webp.h2d``)
-  of the RGBA pixels, or of the planes followed by the
-  ``vp8_yuv_to_rgba`` kernel (span ``webp.device_color``; its plain
-  version on the CPU), which also writes the alpha plane.  Pixels land
-  on the load's device, as the port's JPEG and PNG pictures do.
+  of the RGBA pixels, or of the planes (``stage_planes``, one copy)
+  followed by the ``vp8_yuv_to_rgba`` kernel (span
+  ``webp.device_color``; its plain version on the CPU), which also
+  writes the alpha plane.  Pixels land on the load's device, as the
+  port's JPEG and PNG pictures do.
 
 ``decode_batch`` runs ``parse`` in its worker pool and ``to_pics`` on
-the caller's thread.  ``encode`` (lossless VP8L, animated VP8X + ANIM +
-ANMF for a picture with frames) is host-only, as in the original.
+the caller's thread, except for the stills that kept their planes: it
+stages all of those with one ``stage_planes`` and colours them in one
+K13 launch (``vp8_kernels.vp8_yuv_to_rgba_batch``).  ``encode``
+(lossless VP8L, animated VP8X + ANIM + ANMF for a picture with frames)
+is host-only, as in the original.
 ``_decode_alpha`` keeps the original's horizontal filter (its first
 column unfiltered) and its per-pixel Python loop for the gradient
 filter.
@@ -359,6 +363,15 @@ def _pic(f: WebpFile, pixels, delay_ms: int = 0) -> Pic:
                delay_ms=delay_ms, meta=f.meta)
 
 
+def stage_planes(fs, device) -> list:
+    """The planes that ``parse`` kept of WebP stills (``f.yuva``), staged
+    on ``device`` in one copy (``vp8_kernels.stage_frames``: each plane
+    cropped, at a 16-byte-aligned offset and pitch), as K13's frames."""
+    return vp8_kernels.stage_frames(
+        [(Y, U, V, f.height, f.width, a) for f in fs
+         for Y, U, V, a in (f.yuva,)], device)
+
+
 def to_pics(f: WebpFile, device: torch.device) -> list[Pic]:
     """The device part of a decode: the pictures with their pixels on
     ``device``, an animation's canvases one by one."""
@@ -368,14 +381,11 @@ def to_pics(f: WebpFile, device: torch.device) -> list[Pic]:
     if f.yuva is None:
         with trace.stage("webp.h2d"):
             return [_pic(f, to_device(f.rgba, device))]
-    Y, U, V, a = f.yuva
     with trace.stage("webp.h2d"):
-        planes = [to_device(p, device) for p in (Y, U, V)]
-        alpha = None if a is None else to_device(a, device)
+        frame, = stage_planes([f], device)
     with trace.stage("webp.device_color"), \
             trace.device_trace("vp8_yuv_to_rgba", device):
-        rgba = vp8_kernels.vp8_yuv_to_rgba(*planes, f.height, f.width,
-                                           alpha)
+        rgba = vp8_kernels.vp8_yuv_to_rgba(*frame)
     return [_pic(f, rgba)]
 
 

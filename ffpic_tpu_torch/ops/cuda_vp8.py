@@ -14,9 +14,11 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ffpic_tpu_torch.ops import _build
+from ffpic_tpu_torch.ops.vp8_kernels import batch_outputs
 
 launches = {"vp8_residuals": 0, "vp8_yuv_to_rgba": 0, "vp8_wavefront": 0}
 
@@ -25,11 +27,12 @@ _int = ctypes.c_int
 _i64 = ctypes.c_longlong
 _SIGNATURES = {
     "ffpic_vp8_residuals": [_vp, _vp, _vp, _vp, _i64, _vp],
-    "ffpic_vp8_yuv_to_rgba": [_vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _int,
-                              _int, _vp],
+    "ffpic_vp8_yuv_to_rgba": [_vp, _int],
     "ffpic_vp8_wavefront": [_vp, _vp, _vp, _vp, _vp, _int, _int],
 }
 _launch = _build.launcher(_SIGNATURES, launches)
+FRAME_WORDS = 11         # vp8_decode.cu's ColorFrame: 88 bytes
+MAX_FRAMES = 64          # vp8_decode.cu's kMaxFrames: frames a launch
 
 
 def reset_launches() -> None:
@@ -103,30 +106,76 @@ def vp8_residuals(levels: torch.Tensor, dq_per_mb: torch.Tensor,
     return out
 
 
-def vp8_yuv_to_rgba(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
-                    h: int, w: int,
-                    alpha: torch.Tensor | None = None) -> torch.Tensor:
-    """K13: Y (>= h, >= w), U and V (>= (h+1)//2, >= (w+1)//2) uint8
-    planes at any row pitch, alpha None or (h, w) uint8 -> (h, w, 4)
-    uint8 RGBA; a thread per 2x2 output quad."""
+def frame_words(frames, outs) -> np.ndarray:
+    """The descriptors of a K13 launch: (k, ``FRAME_WORDS``) int64, a row
+    a frame of ``frames`` ((Y, U, V, h, w, alpha) CUDA planes) and its
+    output of ``outs``: the addresses of Y, U, V, alpha (0 without) and
+    the output, the four row pitches in bytes (alpha's 0 without), h | w
+    << 32, and a word the launcher fills (the frame's first tile and its
+    tiles across); ``vp8_decode.cu``'s ``ColorFrame``."""
+    words = np.zeros((len(frames), FRAME_WORDS), np.int64)
+    for k, ((Y, U, V, h, w, alpha), out) in enumerate(zip(frames, outs)):
+        a = (alpha.data_ptr(), alpha.stride(0)) if alpha is not None \
+            else (0, 0)
+        words[k] = [Y.data_ptr(), U.data_ptr(), V.data_ptr(), a[0],
+                    out.data_ptr(), Y.stride(0), U.stride(0), V.stride(0),
+                    a[1], h | w << 32, 0]
+    return words
+
+
+def _frame(frame, k: int) -> tuple:
+    """Frame ``k`` of a K13 list, checked: (Y, U, V, h, w, alpha) with Y
+    and alpha (or None) planes of at least h x w and U, V of at least
+    (h + 1) // 2 x (w + 1) // 2, uint8 CUDA tensors whose rows are
+    contiguous, at any pitch."""
+    Y, U, V, h, w, alpha = frame
+    h, w = int(h), int(w)
+    if not 0 < h < 2 ** 31 - 256 or not 0 < w < 2 ** 31 - 256:
+        raise ValueError(f"frame {k}: {w}x{h} is empty or too large")
     ch, cw = (h + 1) // 2, (w + 1) // 2
     _plane(Y, "Y", h, w)
     _plane(U, "U", ch, cw)
     _plane(V, "V", ch, cw)
     if alpha is not None:
-        _cuda(alpha, "alpha", torch.uint8, (h, w))
+        _plane(alpha, "alpha", h, w)
     if len({t.device for t in (Y, U, V, alpha) if t is not None}) != 1:
-        raise ValueError("Y, U, V and alpha must share a device")
-    if h >= 2 ** 31 or w >= 2 ** 31 or (ch + 7) // 8 > 65535:
-        raise ValueError(f"{w}x{h}: too large for one launch")
-    out = torch.empty((h, w, 4), dtype=torch.uint8, device=Y.device)
-    if out.numel():
+        raise ValueError(f"frame {k}: Y, U, V and alpha must share a device")
+    return Y, U, V, h, w, alpha
+
+
+def vp8_yuv_to_rgba_batch(frames, outs=None):
+    """K13 over a list of frames in one launch (a launch for each
+    ``MAX_FRAMES``): ``frames`` (Y, U, V, h, w, alpha) as ``_frame``
+    takes them, of any sizes and pitches, alpha or none each ->
+    ``outs``, each frame's (h, w, 4) uint8 RGBA: a (k, h, w, 4) tensor
+    where the sizes agree, else a list (``vp8_kernels.batch_outputs``;
+    given, it is written in place and returned).  The descriptors hold
+    only addresses: ``frames`` and the outputs stay referenced here until
+    every launch is enqueued; after that stream order keeps their memory
+    from being reused early."""
+    frames = [_frame(f, k) for k, f in enumerate(frames)]
+    outs, views = batch_outputs(frames, outs)
+    for v in views:
+        _cuda(v, "out", torch.uint8)
+        if v.device != frames[0][0].device:
+            raise ValueError("the outputs must lie on the frames' device")
+        if v.data_ptr() % 4:
+            raise ValueError("out: each frame's RGBA must be 4-byte aligned")
+    for k in range(0, len(frames), MAX_FRAMES):
+        words = frame_words(frames[k:k + MAX_FRAMES],
+                            views[k:k + MAX_FRAMES])
         _launch("ffpic_vp8_yuv_to_rgba", "vp8_yuv_to_rgba",
-                _vp(Y.data_ptr()), Y.stride(0), _vp(U.data_ptr()),
-                U.stride(0), _vp(V.data_ptr()), V.stride(0),
-                _vp(None if alpha is None else alpha.data_ptr()),
-                _vp(out.data_ptr()), h, w)
-    return out
+                _vp(words.ctypes.data), len(words))
+    return outs
+
+
+def vp8_yuv_to_rgba(Y: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
+                    h: int, w: int,
+                    alpha: torch.Tensor | None = None) -> torch.Tensor:
+    """K13 on one frame: Y (>= h, >= w), U and V (>= (h+1)//2, >=
+    (w+1)//2) uint8 planes at any row pitch, alpha None or (>= h, >= w)
+    -> (h, w, 4) uint8 RGBA; ``vp8_yuv_to_rgba_batch`` with one frame."""
+    return vp8_yuv_to_rgba_batch([(Y, U, V, h, w, alpha)])[0]
 
 
 def vp8_wavefront(residual: torch.Tensor, ymode: torch.Tensor,

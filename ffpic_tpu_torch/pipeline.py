@@ -40,10 +40,16 @@ batches of JPEGs, PNGs, WebPs and HEIFs:
    defaults (``mode="reference"``, nearest upsampling, not
    ``decode_batch``'s ``mode``), 8-aligned wide, ``png.to_pic`` (K6 for
    None/Sub/Up rows, K7), or the first picture of ``webp.to_pics`` (the
-   staging copy, or K13 under ``FFPIC_VP8_DEVICE_COLOR``), or the
-   picture of ``heif.to_pics`` (the staging copy, or K15 per tile under
-   ``FFPIC_HEIF_DEVICE_COLOR``); malformed files raise ``ValueError``.
-   Its pixels stay on the device.
+   staging copy), or the picture of ``heif.to_pics`` (the staging copy,
+   or K15 per tile under ``FFPIC_HEIF_DEVICE_COLOR``); malformed files
+   raise ``ValueError``.  Its pixels stay on the device.  The WebP
+   stills that kept their planes (``FFPIC_VP8_DEVICE_COLOR``) are
+   staged together (``webp.stage_planes``: one pinned buffer, one copy,
+   span ``torch.h2d``) and coloured in one K13 launch
+   (``vp8_kernels.vp8_yuv_to_rgba_batch``, span
+   ``torch.device_decode``): one (k, H, W, 4) tensor where their sizes
+   agree, which is the batch itself when every member is such a still
+   and ``size`` is None, else a tensor each.
 3. Per 4:2:0 image size (one block geometry and one crop), ONE staged
    transfer through pinned memory and one device decode: the packed
    members through ``decode_batch_420_packed_fused`` (a single member is
@@ -85,6 +91,7 @@ from ffpic_tpu_torch.formats.jpg import packed_block_map
 from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 from ffpic_tpu_torch.ops.resize import resize_batch
+from ffpic_tpu_torch.ops.vp8_kernels import vp8_yuv_to_rgba_batch
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
@@ -378,10 +385,14 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
 
     # one bucket per 4:2:0 image size: one block geometry and one crop
     buckets: dict[tuple, list] = {}
+    stills = []         # WebP stills that kept their planes, in input order
     for i, (plan, kind, pairs) in zip(todo, plans):
         if kind == "420":
             buckets.setdefault((plan.height, plan.width), []).append(
                 (i, plan, pairs))
+            continue
+        if kind == "webp" and plan.yuva is not None:
+            stills.append((i, plan))
             continue
         with stage("torch.device_decode"), \
                 registry.corrupt_as_value_error(kind.upper()):
@@ -394,6 +405,16 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                     plan, dev).pixels
 
     outs = []
+    if stills:
+        with stage("torch.h2d"):
+            frames = webp.stage_planes([f for _i, f in stills], dev)
+        with stage("torch.device_decode"), \
+                device_trace("vp8_yuv_to_rgba", dev):
+            out = vp8_yuv_to_rgba_batch(frames)
+        if isinstance(out, torch.Tensor):
+            outs.append(out)
+        for k, (i, _f) in enumerate(stills):
+            slots[i] = out[k]
     for allmembers in buckets.values():
         j0 = allmembers[0][1]
         shapes = tuple((c.nby, c.nbx) for c in j0.comps)
@@ -426,7 +447,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
     with stage("torch.finish"), device_trace("resize_stack", dev):
         if size is None:
             if len(outs) == 1 and outs[0].shape[0] == n:
-                return outs[0]      # one decode, in input order
+                return outs[0]      # one decode or launch, in input order
             if len({tuple(s.shape) for s in slots}) != 1:
                 raise ValueError(
                     "mixed sizes: pass size=(H, W) to resize on device")

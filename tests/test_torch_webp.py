@@ -591,3 +591,68 @@ def test_decode_batch_corrupt_webp_raises_value_error():
     bad = testing.webp_fixture("lossy_512.webp")[:60]
     with pytest.raises(ValueError):
         ffpic_tpu_torch.decode_batch([bad], device="cpu")
+
+
+def _count_batch_calls(monkeypatch) -> list:
+    """Record each call of the pipeline's K13 batch entry: (frames, the
+    output it returned)."""
+    from ffpic_tpu_torch import pipeline
+    calls = []
+    entry = pipeline.vp8_yuv_to_rgba_batch
+
+    def counted(frames, out=None):
+        got = entry(frames, out)
+        calls.append((len(frames), got))
+        return got
+    monkeypatch.setattr(pipeline, "vp8_yuv_to_rgba_batch", counted)
+    return calls
+
+
+@pytest.mark.parametrize("members", ["fixtures", "alpha_recipes"])
+def test_decode_batch_webp_stills_one_launch(members, monkeypatch):
+    """Under FFPIC_VP8_DEVICE_COLOR a batch of WebP stills goes through
+    one staging and one K13 call, whose (N, H, W, 4) output is the batch
+    itself (no stack), in input order; equal to ffpic_tpu.decode_batch
+    and to the port's host route."""
+    if members == "fixtures":
+        srcs = [testing.webp_fixture("lossy_512.webp")] * 2
+    else:
+        srcs = [_recipe("alpha_odd_q20"), _recipe("alpha_odd_q92"),
+                _recipe("alpha_odd_q20")]
+    host = ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+    monkeypatch.setenv("FFPIC_VP8_DEVICE_COLOR", "1")
+    calls = _count_batch_calls(monkeypatch)
+    got = ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+    assert [n for n, _ in calls] == [len(srcs)] and got is calls[0][1]
+    assert torch.equal(got, host)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ffpic_tpu.decode_batch(srcs)))
+
+
+def test_decode_batch_mixed_webps_share_one_launch(monkeypatch):
+    """A JPEG + PNG + lossy WebP (with and without alpha) + lossless WebP
+    batch: the two lossy stills in one K13 call; every member equal to
+    ffpic_tpu.decode_batch's; with ``size`` the stills of two sizes
+    come out a tensor each and resize as the host route's do."""
+    monkeypatch.setenv("FFPIC_VP8_DEVICE_COLOR", "1")
+    ffpic_tpu.registered_codecs()
+    h, w = 37, 53
+    rng = np.random.default_rng(7)
+    rgb = testing.synth_rgb(h, w, 3)
+    rgba = np.dstack([rgb, rng.integers(0, 256, (h, w), dtype=np.uint8)])
+    srcs = [testing.encode_png(rgba, filters=(1, 2)), _lossy(rgb, q=70),
+            _lossless(rgba), _recipe("alpha_odd_q20")]
+    calls = _count_batch_calls(monkeypatch)
+    got = ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+    assert [n for n, _ in calls] == [2]
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ffpic_tpu.decode_batch(srcs)))
+    calls.clear()
+    sized = [testing.webp_fixture("odd_333x199.webp"), srcs[1],
+             testing.synth_jpeg_420(48, 64, 80, 1), srcs[3]]
+    got = ffpic_tpu_torch.decode_batch(sized, size=(32, 48), device="cpu")
+    assert len(calls) == 1 and calls[0][0] == 3
+    assert isinstance(calls[0][1], list)
+    monkeypatch.delenv("FFPIC_VP8_DEVICE_COLOR")
+    assert torch.equal(got, ffpic_tpu_torch.decode_batch(
+        sized, size=(32, 48), device="cpu"))
