@@ -6,7 +6,7 @@
 Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
 process per source) and the host library ``ffpic_tpu_torch/native/``
 ``host_jpeg.c``, ``host_png.c``, ``host_vp8.c``, ``host_vp8l.c``,
-``host_hevc.c`` (cc),
+``host_hevc.c``, ``host_lzw.c`` (cc),
 holds each kernel against its plain PyTorch version on the card
 (bit-exact) at its paths' shapes and at the edges of its tiling
 (``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
@@ -116,7 +116,20 @@ read just after:
   the 48 tiles, with the 48 launches of a launch a tile beside it),
   against its bound by bytes and the operations it runs (``hevc_ops``)
   and, under its own name, the direct product's 4 n^3 a TU; K15 a
-  load (one launch over the 48 tiles that also fills the canvas).
+  load (one launch over the 48 tiles that also fills the canvas);
+* BASELINE config 5 (``config5_paths``): a mixed 1080p batch through
+  ``decode_batch(size=(224, 224))`` (K16 once), ``normalize_for_model``
+  (K17) and ViT-B/16 (``vit_pair``: published widths, seeded weights),
+  the card's logits against the CPU forward's;
+* the host-only codecs (``host_codec_paths``): BMP (24 bpp, 8 bpp RLE),
+  GIF, TGA RLE, PNM, PSD RLE and TIFF (LZW with predictor, PackBits,
+  deflate, JPEG strips) files of 1920x1080 ``synth_rgb`` content and a
+  256x256 ICO of a PNG and a BMP entry, each ``load`` on the card equal
+  to the CPU's (TIFF's JPEG strips: K2, K4; ICO's PNG entry: K6, K7);
+  ``decode_batch`` of 8 of them at size=(224, 224) (K16 once) equal to
+  the CPU route, ``normalize_for_model`` (K17 once) and ViT-B/16 within
+  config 5's tolerance; each ``load``'s MP/s and the batch's wall time
+  with its spans.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -2359,6 +2372,39 @@ def tap_ops(n: int, size_in, size_out, ch: int) -> int:
     return ops
 
 
+_VIT: dict = {}
+
+
+def vit_pair(dev):
+    """(config, card model, CPU model): ViT-B/16 at its published widths,
+    weights from ``torch.Generator`` seed 0 (not pretrained), built once
+    a run for the paths that end in it."""
+    if not _VIT:
+        import torch
+        from ffpic_tpu_torch.models import vit
+        cfg = vit.VIT_B16
+        state = vit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        _VIT.update(cfg=cfg, card=vit.ViT(cfg, state, device=dev),
+                    cpu=vit.ViT(cfg, state, device="cpu"))
+    return _VIT["cfg"], _VIT["card"], _VIT["cpu"]
+
+
+def logits_against_cpu(name: str, got, want, n_classes: int):
+    """The card's logits of a batch of N against the CPU forward's, within
+    ``VIT_REL_TOL`` of the largest |logit|: (max abs error, max |logit|,
+    share of equal argmaxes)."""
+    if tuple(got.shape) != (N, n_classes) or not bool(got.isfinite().all()):
+        raise AssertionError(f"{name}: logits {tuple(got.shape)}, finite: "
+                             + str(bool(got.isfinite().all())))
+    err = float((got.cpu().double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    agree = float((got.cpu().argmax(1) == want.argmax(1)).double().mean())
+    if err > VIT_REL_TOL * scale:
+        raise AssertionError(f"{name}: card logits differ from the CPU "
+                             f"forward by {err} (max |logit| {scale})")
+    return err, scale, agree
+
+
 def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     """BASELINE config 5 on the card: a mixed batch of images into a
     ViT.  K16 and K17 against their plain versions (``testing.
@@ -2470,10 +2516,7 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
         f"{N}x{W}x{H} jpeg norm+resize", plain_cpu_vs_card="exact")
 
     # --- the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16 ---
-    cfg = vit.VIT_B16
-    state = vit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    model = vit.ViT(cfg, state, device=dev)
-    model_cpu = vit.ViT(cfg, state, device="cpu")
+    cfg, model, model_cpu = vit_pair(dev)
     reset()
     batch = ffpic_tpu_torch.decode_batch(members, size=size, device=dev)
     x = rs.normalize_for_model(batch)
@@ -2499,21 +2542,8 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     logits_cpu = model_cpu(x_cpu)
     cpu_forward_s = time.perf_counter() - t0
 
-    def against_cpu(name, got, want):
-        if tuple(got.shape) != (N, cfg.n_classes) or not bool(
-                got.isfinite().all()):
-            raise AssertionError(f"{name}: logits {tuple(got.shape)}, "
-                                 "finite: " + str(bool(got.isfinite().all())))
-        err = float((got.cpu().double() - want.double()).abs().max())
-        scale = float(want.abs().max())
-        agree = float((got.cpu().argmax(1) == want.argmax(1)).double()
-                      .mean())
-        if err > VIT_REL_TOL * scale:
-            raise AssertionError(f"{name}: card logits differ from the CPU "
-                                 f"forward by {err} (max |logit| {scale})")
-        return err, scale, agree
-
-    err, scale, agree = against_cpu("config 5", logits, logits_cpu)
+    err, scale, agree = logits_against_cpu("config 5", logits, logits_cpu,
+                                           cfg.n_classes)
     log("config 5", members=N, size=size, shape=tuple(logits.shape),
         launches=json.dumps(path_launches).replace(" ", ""),
         batch_cpu_route="exact", input_cpu="exact",
@@ -2531,13 +2561,12 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     x2_plain = rs.normalize_plain(jpeg_batch.cpu(), size)
     if not torch.equal(x2.cpu(), x2_plain):
         raise AssertionError("normalize(size=): the card differs from the CPU")
-    err2, scale2, agree2 = against_cpu("normalize(size=)", logits2,
-                                       model_cpu(x2_plain))
+    err2, scale2, agree2 = logits_against_cpu(
+        "normalize(size=)", logits2, model_cpu(x2_plain), cfg.n_classes)
     log("config 5 jpeg normalize(size=)", batch=f"{N}x{W}x{H} jpeg",
         launches=jpeg_launches, input_cpu="exact",
         logits_max_abs_vs_cpu=f"{err2:.6g}", logits_max_abs=f"{scale2:.6g}",
         argmax_equal_share=agree2)
-    del model_cpu
 
     # --- timing -------------------------------------------------------------
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -2664,6 +2693,201 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
             stage_ms=json.dumps(stages).replace(" ", ""))
     return {"resize_rgba": k16, "normalize_resize": k17}, path_launches
 
+
+
+HOST_BATCH = ("bmp_24", "bmp_rle8", "gif", "tga_rle_32", "pnm_p6", "psd_rle",
+              "tiff_lzw_predictor", "tiff_deflate")
+
+
+def host_codec_files(h: int, w: int) -> dict:
+    """The host codecs' files of ``testing.synth_rgb(h, w, 0)`` (alpha
+    its green channel where a format keeps alpha), written by the port's
+    encoders (GIF, PNM) and ``testing``'s writers: BMP 24 bpp bottom-up
+    and 8 bpp RLE of the 3-3-2 palette, GIF, TGA RLE 32 bpp, PNM P6, PSD
+    RLE, and TIFF as LZW with predictor 2, PackBits, deflate and JPEG
+    strips (64 rows a strip); and an ICO at 256 x 256 whose first entry
+    is a PNG of Sub and Up rows and second a 32 bpp BMP."""
+    import numpy as np
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats.pic import Pic
+    rgb = testing.synth_rgb(h, w, 0)
+    rgba = np.dstack([rgb, rgb[..., 1]])
+    opaque = Pic(pixels=np.dstack([rgb, np.full((h, w), 255, np.uint8)]),
+                 width=w, height=h)
+    idx, pal = testing.quantize_332(rgb)
+    writers = {
+        "bmp_24": lambda: testing.encode_bmp(rgb),
+        "bmp_rle8": lambda: testing.encode_bmp_palette(idx, pal, rle=True),
+        "gif": lambda: ffpic_tpu_torch.encode(opaque, "GIF", device="cpu"),
+        "tga_rle_32": lambda: testing.encode_tga(rgba),
+        "pnm_p6": lambda: ffpic_tpu_torch.encode(opaque, "PNM",
+                                                 device="cpu"),
+        "psd_rle": lambda: testing.encode_psd(rgba),
+        "tiff_lzw_predictor": lambda: testing.encode_tiff(
+            rgb, "lzw", predictor=2, rows_per_strip=64),
+        "tiff_packbits": lambda: testing.encode_tiff(rgb, "packbits",
+                                                     rows_per_strip=64),
+        "tiff_deflate": lambda: testing.encode_tiff(rgb, "deflate",
+                                                    rows_per_strip=64),
+        "tiff_jpeg": lambda: testing.encode_tiff(rgb, "jpeg",
+                                                 rows_per_strip=64),
+        "ico_png_bmp": lambda: testing.encode_ico([
+            testing.encode_png(rgba[:256, :256], 6, 8, filters=(1, 2)),
+            rgba[256:512, :256]]),
+    }
+    files, seconds = {}, {}
+    for name, write in writers.items():
+        t0 = time.perf_counter()
+        files[name] = write()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    return files, seconds
+
+
+def host_codec_paths(dev, card: str, errs: dict) -> dict:
+    """The host-only codecs (BMP, GIF, TGA, PNM, PSD, TIFF, ICO) on the
+    card, at 1920x1080 (``host_codec_files``).  Each file's ``load`` on
+    the card equals its ``load`` on the CPU byte for byte, every frame;
+    the TIFF's JPEG strips run K2 and K4 and the ICO's PNG entry K6 and
+    K7 there (each load with fresh counts), so those kernels are held
+    exact against their plain versions on the path's shapes.  Then the
+    path, with fresh counts: ``decode_batch`` of the 8 1080p members of
+    ``HOST_BATCH`` at size=(224, 224) (K16 once), equal to the CPU
+    route's, ``normalize_for_model`` (K17 once) and ViT-B/16
+    (``vit_pair``) within config 5's tolerance of the CPU forward.
+    Timings on the host clock: each file's ``load`` (median of 5, MP/s)
+    and the batch's wall time with its spans, each beside ``card``, the
+    card's name and power limit.  Returns the launches {path: {kernel:
+    n}}."""
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_resize
+    from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils import trace
+    mods = (cuda_jpeg, cuda_png, cuda_resize)
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for m in mods for k, v in m.launches.items() if v}
+
+    files, seconds = host_codec_files(H, W)
+    log("inputs host codecs", size=f"{W}x{H}", ico="256x256 png+bmp",
+        bytes=json.dumps({k: len(v) for k, v in files.items()})
+        .replace(" ", ""), write_seconds=json.dumps(seconds)
+        .replace(" ", ""))
+
+    launches = {}
+    for name, data in files.items():
+        reset()
+        got = ffpic_tpu_torch.load_all(data, device=dev)
+        launches[name] = counts()
+        want = ffpic_tpu_torch.load_all(data, device="cpu")
+        if len(got) != len(want) or not got:
+            raise AssertionError(f"{name}: {len(got)} pictures on the card, "
+                                 f"{len(want)} on the CPU")
+        # the kernels whose plain versions the CPU route ran
+        kernels = {"tiff_jpeg": ("dequant_idct", "assemble_mcu"),
+                   "ico_png_bmp": ("unfilter_subup", "assemble_rgba")}.get(
+                       name, ())
+        for g, w_ in zip(got, want):
+            if g.pixels.device.type != dev.type:
+                raise AssertionError(f"{name}: pixels on {g.pixels.device}")
+            for kernel in kernels:
+                exact(kernel, g.pixels.cpu(), w_.pixels, errs)
+            if not torch.equal(g.pixels.cpu(), w_.pixels):
+                raise AssertionError(f"{name}: the card's load differs from "
+                                     "the CPU's")
+    if min(launches["tiff_jpeg"].get(k, 0)
+           for k in ("dequant_idct", "assemble_mcu")) < 1:
+        raise AssertionError(f"TIFF JPEG strips: {launches['tiff_jpeg']}")
+    if min(launches["ico_png_bmp"].get(k, 0)
+           for k in ("unfilter_subup", "assemble_rgba")) < 1:
+        raise AssertionError(f"ICO PNG entry: {launches['ico_png_bmp']}")
+    log("host codecs load", files=len(files), cpu_route="exact",
+        launches=json.dumps({k: v for k, v in launches.items() if v})
+        .replace(" ", ""))
+    # the members whose decode launches kernels in decode_batch's pool,
+    # on the caller's stream: the ICO's PNG entry and a TIFF's JPEG strips
+    from ffpic_tpu_torch import testing
+    pooled = [files["ico_png_bmp"], testing.encode_tiff(
+        testing.synth_rgb(256, 256, 0), "jpeg", rows_per_strip=64)]
+    reset()
+    got = ffpic_tpu_torch.decode_batch(pooled, device=dev)
+    launches["pooled"] = counts()
+    if min(launches["pooled"].get(k, 0) for k in (
+            "unfilter_subup", "assemble_rgba", "dequant_idct",
+            "assemble_mcu")) < 1:
+        raise AssertionError(f"pooled members: {launches['pooled']}")
+    exact("assemble_mcu", got.cpu(), ffpic_tpu_torch.decode_batch(
+        pooled, device="cpu"), errs)
+    log("host codecs pooled", members="ico_png_bmp,tiff_jpeg 256x256",
+        launches=json.dumps(launches["pooled"]).replace(" ", ""),
+        cpu_route="exact")
+
+    # the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16
+    members = [files[k] for k in HOST_BATCH]
+    size = CONFIG5_SIZE
+    cfg, model, model_cpu = vit_pair(dev)
+    reset()
+    batch = ffpic_tpu_torch.decode_batch(members, size=size, device=dev)
+    x = rs.normalize_for_model(batch)
+    logits = model(x)
+    path = counts()
+    if (path.get("resize_rgba"), path.get("normalize_resize")) != (1, 1):
+        raise AssertionError(f"host codec batch: launches {path}")
+    batch_cpu = ffpic_tpu_torch.decode_batch(members, size=size,
+                                             device="cpu")
+    if tuple(batch.shape) != (N, *size, 4):
+        raise AssertionError(f"host codec batch: {tuple(batch.shape)}")
+    exact("resize_rgba", batch.cpu(), batch_cpu, errs)
+    x_cpu = rs.normalize_for_model(batch_cpu)
+    exact_f32("normalize_resize", x.cpu(), x_cpu, errs)
+    err, scale, agree = logits_against_cpu("host codec batch", logits,
+                                           model_cpu(x_cpu), cfg.n_classes)
+    launches["batch"] = path
+    log("host codec batch", members=",".join(HOST_BATCH), size=size,
+        launches=json.dumps(path).replace(" ", ""), batch_cpu_route="exact",
+        input_cpu="exact", logits_max_abs_vs_cpu=f"{err:.6g}",
+        logits_max_abs=f"{scale:.6g}",
+        tolerance=f"{VIT_REL_TOL:g}*max|logit|", argmax_equal_share=agree)
+
+    # timings, host clock: each load to a synchronised tensor, median of 5
+    for name, data in files.items():
+        runs = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            pics = ffpic_tpu_torch.load_all(data, device=dev)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        runs = sorted(runs[1:])
+        mp = sum(p.width * p.height for p in pics) / 1e6
+        log("time host codec load", card=card, codec=name, megapixels=mp,
+            load_ms=f"{runs[2] * 1e3:.3f}", mps=f"{mp / runs[2]:.2f}",
+            runs_ms=json.dumps([round(r * 1e3, 3) for r in runs])
+            .replace(" ", ""))
+    trace.reset()
+    trace.enable()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ffpic_tpu_torch.decode_batch(members, size=size, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    trace.enable(False)
+    stages = {k: round(v["mean"] * 1e3, 3) for k, v in trace.report().items()}
+    walls.sort()
+    mp = N * H * W / 1e6
+    log("time host codec batch", card=card, megapixels=mp, size=size,
+        end_to_end_ms=f"{walls[2] * 1e3:.3f}", mps=f"{mp / walls[2]:.2f}",
+        images_per_s=f"{N / walls[2]:.2f}",
+        runs_ms=json.dumps([round(r * 1e3, 3) for r in walls])
+        .replace(" ", ""), stage_ms=json.dumps(stages).replace(" ", ""))
+    return launches
 
 
 def main() -> int:
@@ -3001,6 +3225,7 @@ def main() -> int:
     config5_timed, config5_launches = config5_paths(dev, out, srcs, floor_ms,
                                                     errs)
     timed.update(config5_timed)
+    host_launches = host_codec_paths(dev, f'"{smi}"', errs)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6 at 4
     # bytes a pixel, K7 for 8-bit RGBA
@@ -3062,6 +3287,15 @@ def main() -> int:
     timed["dequant_idct"]["at_load_12mp"]["launches"] = \
         path_launches["load"]["dequant_idct"]
     timed.update(codec_timed)
+    # the host codecs' phase: K2 and K4 on the TIFF's JPEG strips, K6 and
+    # K7 on the ICO's PNG entry, K16 and K17 on the 8 x 1080p batch
+    for name, path in (("dequant_idct", "tiff_jpeg"),
+                       ("assemble_mcu", "tiff_jpeg"),
+                       ("unfilter_subup", "ico_png_bmp"),
+                       ("assemble_rgba", "ico_png_bmp"),
+                       ("resize_rgba", "batch"),
+                       ("normalize_resize", "batch")):
+        timed[name]["launches_host_codecs"] = host_launches[path][name]
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCES.get(name, CU),
                 "replaces": REPLACES[name], "launches": launches[name],

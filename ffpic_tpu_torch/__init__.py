@@ -3,16 +3,21 @@
 The public API mirrors ``ffpic_tpu``'s: ``probe``, ``load``,
 ``load_all``, ``info``, ``encode``, ``find_codec`` and
 ``registered_codecs`` over the port's own codec registry (JPEG, PNG,
-WebP and HEIF so far), the ``Pic`` container, and ``decode_batch``, which
-decodes a batch of JPEGs, PNGs, WebPs and HEIFs into one ``(N, H, W, 4)``
-uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
+WebP, HEIF and the host-only BMP, GIF, TGA, PNM, PSD, TIFF and ICO, in
+the reference's probe order; AVIF, BPG, JPEG 2000, SVG, EXR and raw HEVC
+are probed but not decoded yet), the ``Pic`` container, and
+``decode_batch``, which decodes a batch of them into one ``(N, H, W,
+4)`` uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
 Huffman decode on the card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take
 ``device``: None means CUDA and raises without it (a header-only
 ``load`` needs none), "cpu" runs the plain PyTorch versions of the
 kernels.  Host parsing and host Huffman decoding are the package's own
 copy of ``ffpic_tpu``'s host layer (``formats.jpg``, ``formats.png``,
-``formats.webp``, ``formats.heif`` with ``formats.hevc`` and
-``native/``'s C sources, built with cc at first use); the device stages
+``formats.webp``, ``formats.heif`` with ``formats.hevc``, the host
+codecs with ``coding.lzw``, and ``native/``'s C sources, built with cc
+at first use); the apps (``python -m ffpic_tpu_torch.apps.picinfo``,
+``transbmp``, ``transcode``, ``show``) and the display sinks
+(``display``) run over the same registry; the device stages
 are hand-written CUDA kernels (``csrc/``) built with nvcc at first use,
 each with a plain PyTorch version that CPU tensors take.  A resized
 batch goes on into a model through ``ops.resize.normalize_for_model``

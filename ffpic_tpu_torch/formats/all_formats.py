@@ -1,15 +1,23 @@
-"""Side-effect import of every codec the port has, in the probe order of
-``ffpic_tpu/formats/all_formats.py``.
+"""Side-effect import of every codec the port has.  The registry keeps
+them in the probe order of ``ffpic_tpu/formats/all_formats.py``
+(``registry.ORDER``): jpg, png, gif, webp, bmp, heif, avif, bpg, jp2,
+svg, pnm, tiff, exr, psd, ico, hevc_raw, tga (no magic; probed last).
 
-JPEG, PNG, WebP and HEIF are ported.  The JAX package's other codecs,
-in its order, wait for copies of the host-only codecs (``ROADMAP.md``
-Queue 1 item 1): gif (probed before webp in the original), bmp (probed
-before heif), avif, bpg, jp2, svg, pnm, tiff, exr, psd, ico, tga (no
-magic; probed last); and hevc_raw (raw ``.265``, probed after ico)
-for the HEVC inter slice (item 16).
+AVIF, BPG, JP2, SVG, EXR and raw HEVC are registered by their probes
+alone (``formats.unported``): their ``load`` raises
+``NotImplementedError`` until ``ROADMAP.md`` Queue 1 item 1 (and item
+16 for raw HEVC) ports them.
 """
 
 from ffpic_tpu_torch.formats import jpg  # noqa: F401
 from ffpic_tpu_torch.formats import png  # noqa: F401
+from ffpic_tpu_torch.formats import gif  # noqa: F401
 from ffpic_tpu_torch.formats import webp  # noqa: F401
+from ffpic_tpu_torch.formats import bmp  # noqa: F401
 from ffpic_tpu_torch.formats import heif  # noqa: F401
+from ffpic_tpu_torch.formats import pnm  # noqa: F401
+from ffpic_tpu_torch.formats import tiff  # noqa: F401
+from ffpic_tpu_torch.formats import psd  # noqa: F401
+from ffpic_tpu_torch.formats import ico  # noqa: F401
+from ffpic_tpu_torch.formats import tga  # noqa: F401
+from ffpic_tpu_torch.formats import unported  # noqa: F401

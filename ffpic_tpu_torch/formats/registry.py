@@ -13,11 +13,20 @@ codecs in its registry) never touches it.  Three changes:
 * they pass further keyword options to the codec (for JPEG: ``quirks``,
   ``order``, ``mode``, ``upsample``; for PNG: ``verify_crc``), which the
   original's ``load`` has no way to reach;
-* the codec list is filled under a lock (``_ensure_init``).
+* the codec list is filled under a lock (``_ensure_init``), and kept
+  in the original's probe order (``ORDER``) whatever order the modules
+  are imported in: the pipeline imports some codecs before the others;
+* a codec that decodes on the host to RGBA (BMP, GIF, TGA, PNM, PSD,
+  TIFF, ICO) registers its host ``decode`` in place of ``load``;
+  ``load_all`` stages the pixels it returns to the device
+  (``staging.to_device_pics``), and ``decode_batch`` calls ``decode``
+  in its pool and stages a batch's pixels at once.
 
 Malformed files that pass the probe keep the original's contract: they
 raise ``ValueError``, not the parser's own exception
-(``corrupt_as_value_error``, which ``decode_batch`` shares).
+(``corrupt_as_value_error``, which ``decode_batch`` shares).  That also
+covers ``StopIteration``, which a truncated PNM header raises and the
+original lets through.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from ffpic_tpu_torch.formats.pic import Pic
+from ffpic_tpu_torch.formats.staging import to_device_pics
 from ffpic_tpu_torch.utils.device import resolve_device
 
 
@@ -46,7 +56,17 @@ class Codec:
     info: Callable[[Pic], str] = None
     # encode(pic, device=..., **options) -> bytes
     encode: Optional[Callable] = None
+    # decode(data: bytes, skip_decode: bool, *, device) -> list[Pic]: a
+    # host codec's decode, pixels as host (H, W, 4) uint8 arrays (or
+    # tensors on ``device`` where a nested codec decoded them); set in
+    # place of ``load``
+    decode: Optional[Callable[..., list]] = None
 
+
+# the probe order of ffpic_tpu/formats/all_formats.py (TGA has no
+# magic and goes last)
+ORDER = ("JPG", "PNG", "GIF", "WEBP", "BMP", "HEIF", "AVIF", "BPG", "JP2",
+         "SVG", "PNM", "TIFF", "EXR", "PSD", "ICO", "HEVC", "TGA")
 
 _codecs: list[Codec] = []
 _initialized = False
@@ -54,7 +74,12 @@ _init_lock = threading.RLock()
 
 
 def register(codec: Codec) -> None:
-    _codecs.append(codec)
+    """Add a codec at its place in ``ORDER`` (one not listed goes last).
+    The list is replaced, not changed in place, so that a probe walking
+    the old one is not disturbed."""
+    global _codecs
+    _codecs = sorted([*_codecs, codec], key=lambda c: (
+        ORDER.index(c.name) if c.name in ORDER else len(ORDER)))
 
 
 def _ensure_init() -> None:
@@ -114,8 +139,8 @@ def corrupt_as_value_error(codec_name: str):
     ``OSError`` pass as they are."""
     try:
         yield
-    except (struct.error, KeyError, IndexError, EOFError, OverflowError,
-            ZeroDivisionError, zlib.error) as e:
+    except (struct.error, KeyError, IndexError, EOFError, StopIteration,
+            OverflowError, ZeroDivisionError, zlib.error) as e:
         raise ValueError(f"corrupt {codec_name} file: "
                          f"{type(e).__name__}: {e}") from e
 
@@ -131,7 +156,11 @@ def load_all(src, skip_decode: bool = False, device=None,
     data = _read_input(src)
     codec = probe(data)
     with corrupt_as_value_error(codec.name):
-        pics = codec.load(data, skip_decode, device=dev, **options)
+        if codec.decode is not None:
+            pics = to_device_pics(codec.decode(data, skip_decode, device=dev,
+                                               **options), dev)
+        else:
+            pics = codec.load(data, skip_decode, device=dev, **options)
     for p in pics:
         p.codec = codec.name
     if pics and len(pics) > 1:

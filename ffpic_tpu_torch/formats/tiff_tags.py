@@ -1,9 +1,15 @@
-"""The TIFF tag walker, without the rest of the TIFF codec.
+"""The TIFF tag walker, shared by the TIFF codec (``formats.tiff``) and
+the EXIF segment of a JPEG, which is a TIFF structure
+(``formats.jpg._parse_exif``).
 
-Copied from ``ffpic_tpu/formats/tiff.py:20-21`` (``TYPE_SIZES``) and
-``:47-90`` (``_read_ifd``, ``_first``) for the EXIF segment of a JPEG,
-which is a TIFF structure (``formats.jpg._parse_exif``).  The TIFF
-codec itself waits for ``ROADMAP.md`` Queue 1 item 1.
+Copied from ``ffpic_tpu/formats/tiff.py:22-23`` (``TYPE_SIZES``) and
+``:47-88`` (``_read_ifd``, ``_first``), with one deliberate difference:
+``_read_ifd`` raises ``ValueError`` when an entry's count of integer
+values does not fit in the bytes left after its offset, before it
+builds a ``struct`` format from that count.  The original builds
+``bo + fmt * n`` first, so a corrupt count makes a format string of
+gigabytes before ``struct`` finds the data too short.  On every file
+whose counts fit, the tags are the original's.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ def _read_ifd(data: bytes, pos: int, bo: str):
             vals = [struct.unpack_from(bo + "II", data, voff + 8 * k)
                     for k in range(n)]
         elif fmt:
+            if voff + struct.calcsize(bo + fmt) * n > len(data):
+                raise ValueError(f"TIFF: tag {tag} claims {n} values past "
+                                 "the end of the file")
             vals = list(struct.unpack_from(bo + fmt * n, data, voff))
         else:
             vals = data[voff:voff + size]

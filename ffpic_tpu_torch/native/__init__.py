@@ -3,8 +3,9 @@ JPEG entropy decoder and the sparse coefficient packer), host_png.c
 (the PNG scanline unfilter), host_vp8.c (the VP8 token, header and
 probability parsers, residual transform, intra reconstruction, loop
 filter and colour conversion), host_vp8l.c (the VP8L entropy
-decoder) and host_hevc.c (the HEVC CABAC slice syntax pass, intra
-reconstruction and YUV to RGBA colour).
+decoder), host_hevc.c (the HEVC CABAC slice syntax pass, intra
+reconstruction and YUV to RGBA colour) and host_lzw.c (the GIF and
+TIFF LZW decoders).
 
 Copied from the JPEG, PNG and WebP parts of
 ``ffpic_tpu/native/__init__.py`` (``_build``, ``_load``, ``available``,
@@ -14,9 +15,10 @@ Copied from the JPEG, PNG and WebP parts of
 ``vp8_recon_fused``, ``vp8_recon``, ``vp8_mb_headers``,
 ``vp8l_entropy``, ``vp8_color_libwebp``, ``hevc_decode_slice``,
 ``hevc_picture_state``, ``hevc_decode_segment``, ``hevc_recon``,
-``hevc_color``), with these changes:
+``hevc_color``) and its LZW part (``lzw_gif``, ``lzw_tiff``), with these
+changes:
 
-* only these five sources (this directory) are compiled, with ``cc``,
+* only these six sources (this directory) are compiled, with ``cc``,
   into one library in ``ffpic_tpu_torch/build/``, named by a hash of
   the sources and the flags; the library is written under a temporary
   name and renamed, so another process never loads a half-written
@@ -50,7 +52,7 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c",
                                            "host_vp8.c", "host_vp8l.c",
-                                           "host_hevc.c")]
+                                           "host_hevc.c", "host_lzw.c")]
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 
@@ -104,6 +106,8 @@ _SIGNATURES = {
     "ffpic_hevc_recon2": (_int, [_vp, _vp, _vp, _int, _int, _int, _int,
                                  _int, _int, _int, _vp, _long, _vp, _long,
                                  _vp, _vp]),
+    "ffpic_lzw_gif": (_long, [_vp, _long, _int, _vp, _long]),
+    "ffpic_lzw_tiff": (_long, [_vp, _long, _vp, _long]),
     "ffpic_yuv_to_rgba": (None, [_vp, _vp, _vp, _int, _int, _int, _int,
                                  _int, _int, _f32, _f32, _f32, _f32, _int,
                                  _int, _vp]),
@@ -722,3 +726,32 @@ def hevc_color(planes, bd: int, coeffs, limited: bool,
                           a_gv, a_bu, 1 if limited else 0,
                           1 if trunc else 0, _p(out))
     return out
+
+
+def lzw_gif(data: bytes, min_code_size: int, max_out: int) -> bytearray:
+    """GIF LZW (host_lzw.c ffpic_lzw_gif): at most ``max_out`` bytes.
+    A minimum code size over 12, for which the C tables are too small
+    (the original passes it on), and a code past the table raise
+    ``ValueError``."""
+    lib = _load()
+    if not 0 <= min_code_size <= 12:
+        raise ValueError(f"LZW minimum code size {min_code_size} > 12")
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(max_out, np.uint8)
+    n = lib.ffpic_lzw_gif(_p(src), len(data), min_code_size, _p(out),
+                          max_out)
+    if n < 0:
+        raise ValueError("corrupt LZW stream")
+    return bytearray(out[:n].tobytes())
+
+
+def lzw_tiff(data: bytes, max_out: int) -> bytearray:
+    """TIFF LZW (host_lzw.c ffpic_lzw_tiff): at most ``max_out`` bytes; a
+    code past the table raises ``ValueError``."""
+    lib = _load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(max_out, np.uint8)
+    n = lib.ffpic_lzw_tiff(_p(src), len(data), _p(out), max_out)
+    if n < 0:
+        raise ValueError("corrupt LZW stream")
+    return bytearray(out[:n].tobytes())

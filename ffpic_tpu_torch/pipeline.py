@@ -1,8 +1,11 @@
-"""Batched decode of JPEGs, PNGs, WebPs and HEIFs into one
+"""Batched decode of JPEGs, PNGs, WebPs, HEIFs and the host-only
+codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO) into one
 ``(N, H, W, 4)`` uint8 device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of JPEGs, PNGs, WebPs and HEIFs:
+batches of those formats (a member of a format the port registers by
+its probe alone raises ``NotImplementedError``, bytes no codec probes
+the registry's ``ValueError``):
 
 0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
    by default on CUDA; ``FFPIC_DEVICE_ENTROPY``, ``FFPIC_SPEC_ENTROPY``,
@@ -27,13 +30,17 @@ batches of JPEGs, PNGs, WebPs and HEIFs:
    planes (``formats.webp.parse``, the registry's defaults); a HEIF is
    decoded to RGBA, or under ``FFPIC_HEIF_DEVICE_COLOR`` to its tiles'
    planes (``formats.heif.parse``, the registry's defaults, its grid
-   tiles in a pool of their own).  The pool does no device work, except
-   that under ``FFPIC_VP8_DEVICE`` a WebP's and under
-   ``FFPIC_HEVC_DEVICE`` a HEIF's residual transform launches there, on
-   the caller's current stream, and its read-back synchronises (the
-   launch counts are taken under a lock): every other copy and launch
-   below runs on the caller's thread, so on the caller's current
-   stream.
+   tiles in a pool of their own); a BMP, GIF, TGA, PNM, PSD, TIFF or ICO
+   is decoded whole by its codec's ``decode``, as the reference's
+   ``registry.load``, and its first picture kept (a GIF's first
+   composited frame, a TIFF's first IFD, an ICO's first entry).  The
+   pool does no device work, except that under ``FFPIC_VP8_DEVICE`` a
+   WebP's and under ``FFPIC_HEVC_DEVICE`` a HEIF's residual transform
+   launches there, a TIFF's JPEG strips decode there (K2, K4, then a
+   read-back) and an ICO's PNG entry (K6, K7; its pixels stay on the
+   device), all on the caller's current stream (the launch counts are
+   taken under a lock): every other copy and launch below runs on the
+   caller's thread, so on the caller's current stream.
 2. Each other JPEG, each PNG and each WebP is decoded as the port's
    registry decodes it, as ``ffpic_tpu/pipeline.py:180-190, 211-212``
    does through ``registry.load``: ``jpg.to_pic`` with the registry's
@@ -49,7 +56,11 @@ batches of JPEGs, PNGs, WebPs and HEIFs:
    (``vp8_kernels.vp8_yuv_to_rgba_batch``, span
    ``torch.device_decode``): one (k, H, W, 4) tensor where their sizes
    agree, which is the batch itself when every member is such a still
-   and ``size`` is None, else a tensor each.
+   and ``size`` is None, else a tensor each.  The host codecs' pixels
+   are staged together (``staging.stage_rgba``: one pinned buffer, one
+   copy, span ``torch.h2d``), as one (k, H, W, 4) tensor where their
+   sizes agree, which is again the batch itself when every member is
+   such a file and ``size`` is None.
 3. Per 4:2:0 image size (one block geometry and one crop), ONE staged
    transfer through pinned memory and one device decode: the packed
    members through ``decode_batch_420_packed_fused`` (a single member is
@@ -69,7 +80,8 @@ batches of JPEGs, PNGs, WebPs and HEIFs:
    it is.
 
 The host layer (``formats.jpg``, ``formats.png``, ``formats.webp``,
-``formats.heif``, ``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and
+``formats.heif``, the host codecs that register a ``decode``,
+``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and
 ``_jpeg_420_plan`` are copied from ``ffpic_tpu/pipeline.py:29-70``.
 """
 
@@ -83,11 +95,9 @@ import numpy as np
 import torch
 
 from ffpic_tpu_torch import native
-from ffpic_tpu_torch.formats import jpg, png, registry, webp
-# after webp: importing a codec registers it, and the registry probes
-# in that order (ffpic_tpu/formats/all_formats.py's)
-from ffpic_tpu_torch.formats import heif
+from ffpic_tpu_torch.formats import heif, jpg, png, registry, webp
 from ffpic_tpu_torch.formats.jpg import packed_block_map
+from ffpic_tpu_torch.formats.staging import stage_rgba
 from ffpic_tpu_torch.ops import jpeg_entropy_device as jed
 from ffpic_tpu_torch.ops import jpeg_kernels as jk
 from ffpic_tpu_torch.ops.resize import resize_batch
@@ -95,8 +105,8 @@ from ffpic_tpu_torch.ops.vp8_kernels import vp8_yuv_to_rgba_batch
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = ("ROADMAP.md Queue 1 items 1 and 16 (the other codecs of the "
-                "registry)")
+_CODECS_ITEM = ("ROADMAP.md Queue 1 item 1 (AVIF, BPG, JP2, SVG, EXR) and "
+                "item 16 (raw HEVC)")
 # dense members are staged as packed pairs when those take less than
 # this share of their dense bytes (the reference's threshold)
 SPARSE_SHARE = 0.7
@@ -132,27 +142,37 @@ def _jpeg_420_plan(data: bytes):
 def _prep(data: bytes, device=None):
     """A member's host work, as (plan, kind, pairs): its 4:2:0 plan
     ("420"), the dense planes of any other JPEG's first picture ("jpg"),
-    a parsed PNG ("png"), a parsed WebP ("webp") or a parsed HEIF
-    ("heif"; ``device`` is where a WebP's ``FFPIC_VP8_DEVICE`` or a
-    HEIF's ``FFPIC_HEVC_DEVICE`` residual transform runs); ``pairs`` is
-    a dense 4:2:0 plan's ``member_pairs``, else None."""
+    a parsed PNG ("png"), a parsed WebP ("webp"), a parsed HEIF ("heif")
+    or the RGBA pixels of the first picture of a host codec's decode
+    ("rgba": a codec with a host ``decode``, which decodes the member
+    whole, as the reference's registry.load does; a host array, or a
+    tensor on ``device`` for an ICO whose entry is a PNG); ``device`` is
+    where a WebP's ``FFPIC_VP8_DEVICE`` or a HEIF's ``FFPIC_HEVC_DEVICE``
+    residual transform, a TIFF's JPEG strips and an ICO's PNG entry
+    run.
+    ``pairs`` is a dense 4:2:0 plan's ``member_pairs``, else None.
+    Bytes no codec probes raise the registry's ``ValueError``."""
     j = _jpeg_420_plan(data)
     if j is None:
-        if jpg.probe(data):
-            with registry.corrupt_as_value_error("JPG"):
+        codec = registry.probe(data)
+        name = codec.name
+        with registry.corrupt_as_value_error(name):
+            if name == "JPG":
                 return jpg.parse_and_decode(data)[0], "jpg", None
-        if png.probe(data):
-            with registry.corrupt_as_value_error("PNG"):
+            if name == "PNG":
                 return png.parse(data), "png", None
-        if webp.probe(data):
-            with registry.corrupt_as_value_error("WEBP"):
+            if name == "WEBP":
                 return webp.parse(data, device=device), "webp", None
-        if heif.probe(data):
-            with registry.corrupt_as_value_error("HEIF"):
+            if name == "HEIF":
                 return heif.parse(data, device=device), "heif", None
+            if codec.decode is not None:
+                pics = codec.decode(data, device=device)
+                if not pics:
+                    raise ValueError("decode produced no pictures")
+                return pics[0].pixels, "rgba", None
         raise NotImplementedError(
-            "decode_batch: only JPEG, PNG, WebP and HEIF members are "
-            f"ported; other formats wait for {_CODECS_ITEM}")
+            f"decode_batch: {name} members are not ported yet; they wait "
+            f"for {_CODECS_ITEM}")
     if j.packed is None:
         return j, "420", member_pairs(j)
     # the packed emission is a view of per-thread native scratch that
@@ -324,7 +344,8 @@ def _run_entropy(runs, datas, slots, mode: str, dev) -> list:
 def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                  dtype="uint8", mode: str = "bt601", mesh=None, *,
                  device=None) -> torch.Tensor:
-    """Decode a batch of JPEGs, PNGs, WebPs and HEIFs (paths or bytes) to one
+    """Decode a batch of images (paths or bytes: JPEG, PNG, WebP, HEIF,
+    BMP, GIF, TGA, PNM, PSD, TIFF, ICO) to one
     ``(N, H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
     when CUDA is absent).  The reference's signature
     (``ffpic_tpu/pipeline.py:73-74``), ``device`` keyword-only.
@@ -386,6 +407,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
     # one bucket per 4:2:0 image size: one block geometry and one crop
     buckets: dict[tuple, list] = {}
     stills = []         # WebP stills that kept their planes, in input order
+    host_rgba = []      # host codecs' pixels still on the host, in order
     for i, (plan, kind, pairs) in zip(todo, plans):
         if kind == "420":
             buckets.setdefault((plan.height, plan.width), []).append(
@@ -393,6 +415,12 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
             continue
         if kind == "webp" and plan.yuva is not None:
             stills.append((i, plan))
+            continue
+        if kind == "rgba":
+            if isinstance(plan, np.ndarray):
+                host_rgba.append((i, plan))
+            else:
+                slots[i] = plan
             continue
         with stage("torch.device_decode"), \
                 registry.corrupt_as_value_error(kind.upper()):
@@ -405,6 +433,13 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                     plan, dev).pixels
 
     outs = []
+    if host_rgba:
+        with stage("torch.h2d"):
+            batch, views = stage_rgba([a for _i, a in host_rgba], dev)
+        if batch is not None:
+            outs.append(batch)
+        for (i, _a), v in zip(host_rgba, views):
+            slots[i] = v
     if stills:
         with stage("torch.h2d"):
             frames = webp.stage_planes([f for _i, f in stills], dev)

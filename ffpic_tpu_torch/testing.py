@@ -13,6 +13,14 @@ committed WebP fixtures, and the kernel edge cases that the tests and
   step ``encode_baseline`` ends with, on the CPU;
 * ``encode_png`` is a general PNG writer: every colour type and bit
   depth, chosen filters per row, Adam7, palette, tRNS and extra chunks;
+* ``encode_tiff`` (none, PackBits, deflate, LZW with or without
+  predictor 2, JPEG strips or tiles with shared JPEGTables; strips or
+  tiles, pages, both byte orders), ``encode_bmp`` (24, 32 and 16 bpp,
+  bitfields, either row order), ``encode_bmp_palette`` (1, 4, 8 bpp,
+  RLE8, RLE4), ``encode_tga`` (RLE or raw), ``encode_psd`` (RLE or raw)
+  and ``encode_ico`` (BMP and PNG entries) write the host codecs' files
+  that the port's encoders do not, with ``packbits``,
+  ``lzw_encode_tiff`` and ``quantize_332``;
 * ``entropy_cases`` makes JPEG batches at the edges of the device
   Huffman decode (K9-K11), and ``entropy_stages`` runs one through
   the kernels or the plain versions;
@@ -1524,3 +1532,451 @@ def config5_members(h: int = 1080, w: int = 1920,
     wp = [webp_fixture(n) for n in webps]
     return [jpegs[0], wp[0], jpegs[1], pngs[0], jpegs[0], wp[1], pngs[1],
             jpegs[1]]
+
+
+# --- writers of the host codecs' files (BMP, TGA, PSD, TIFF, ICO) ----------
+# The card's machine has no PIL: these write, without it, what the port's
+# encoders do not (the port's BMP encoder writes 32 bpp top-down only, its
+# TGA encoder uncompressed 32 bpp, and there is no PSD, TIFF or ICO
+# encoder), each held against PIL or ffpic_tpu.load in the CPU tests.
+
+def packbits(row) -> bytes:
+    """PackBits of one row: runs of 3 or more equal bytes as replicate
+    runs (header 257 - k, k <= 128), the bytes between them as literal
+    runs (header k - 1, k <= 128)."""
+    row = np.frombuffer(bytes(row), np.uint8)
+    n = len(row)
+    if n == 0:
+        return b""
+    starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    out = bytearray()
+
+    def literal(a, b):
+        for k in range(a, b, 128):
+            chunk = row[k:min(k + 128, b)]
+            out.append(len(chunk) - 1)
+            out.extend(chunk.tobytes())
+
+    at = 0
+    for s, k in zip(starts[lens >= 3].tolist(), lens[lens >= 3].tolist()):
+        literal(at, s)
+        left = k
+        while left >= 2:
+            m = min(left, 128)
+            out += bytes([257 - m, row[s]])
+            left -= m
+        if left:                         # one byte left over: a literal
+            out += bytes([0, row[s]])
+        at = s + k
+    literal(at, n)
+    return bytes(out)
+
+
+def lzw_encode_tiff(data: bytes) -> bytes:
+    """TIFF LZW: 8-bit symbols, codes packed MSB first, the code size
+    grown one code early (the decoder of ``coding.lzw.lzw_decode_tiff``
+    grows it when its next entry is (1 << size) - 1; it adds each entry
+    one code after the encoder does), CLEAR when the table is full."""
+    clear, eoi = 256, 257
+    out = bytearray()
+    acc = 0
+    bits = 0
+
+    def emit(code, size):
+        nonlocal acc, bits
+        acc = (acc << size) | code
+        bits += size
+        while bits >= 8:
+            bits -= 8
+            out.append((acc >> bits) & 255)
+        acc &= (1 << bits) - 1
+
+    size = 9
+    table: dict[int, int] = {}
+    next_code = 258
+    emit(clear, size)
+    if data:
+        prev = data[0]
+        for k in data[1:]:
+            key = (prev << 8) | k
+            got = table.get(key)
+            if got is not None:
+                prev = got
+                continue
+            emit(prev, size)
+            if next_code < 4096:
+                table[key] = next_code
+                next_code += 1
+                if next_code == (1 << size) and size < 12:
+                    size += 1
+            else:
+                emit(clear, size)
+                table.clear()
+                size = 9
+                next_code = 258
+            prev = k
+        emit(prev, size)
+        # the decoder adds one more entry on reading that code
+        if next_code > 258 and next_code == (1 << size) - 1 and size < 12:
+            size += 1
+    emit(eoi, size)
+    if bits:
+        out.append((acc << (8 - bits)) & 255)
+    return bytes(out)
+
+
+def _jpeg_split(data: bytes) -> tuple[bytes, bytes]:
+    """A baseline JPEG -> (its DQT and DHT segments between SOI and EOI,
+    the JPEGTables of JPEG-in-TIFF; the file without them or APP0)."""
+    tables, rest = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    pos = 2
+    while pos < len(data):
+        m = data[pos + 1]
+        if m == 0xDA:                                 # SOS: scan to EOI
+            rest += data[pos:]
+            break
+        seg = data[pos:pos + 2 + struct.unpack_from(">H", data,
+                                                    pos + 2)[0]]
+        if m in (0xDB, 0xC4):
+            tables += seg
+        elif m != 0xE0:
+            rest += seg
+        pos += len(seg)
+    return bytes(tables + b"\xff\xd9"), bytes(rest)
+
+
+_TIFF_COMPRESSION = {"none": 1, "lzw": 5, "jpeg": 7, "deflate": 8,
+                     "packbits": 32773}
+
+
+def _tiff_page(px: np.ndarray, compression: str, predictor: int,
+               rows_per_strip: int | None, tile: tuple | None,
+               quality: int) -> tuple[list, list]:
+    """One picture's (entries, blobs): its tags as (tag, type, values)
+    and its strips' or tiles' compressed bytes."""
+    bilevel = px.dtype == bool
+    gray = px.ndim == 2
+    h, w = px.shape[:2]
+    spp = 1 if gray else px.shape[2]
+    bps = 1 if bilevel else 8
+    if bilevel:
+        samples = np.packbits(px.astype(np.uint8), axis=1)   # 1 = white
+    else:
+        samples = px.reshape(h, w * spp)
+        if predictor == 2:
+            s = px.reshape(h, w, spp).astype(np.int16)
+            s[:, 1:] -= s[:, :-1].copy()
+            samples = (s & 255).astype(np.uint8).reshape(h, w * spp)
+    jpeg_tables = None
+
+    def pack(block: np.ndarray, pixels: np.ndarray) -> bytes:
+        nonlocal jpeg_tables
+        if compression == "none":
+            return block.tobytes()
+        if compression == "packbits":
+            return b"".join(packbits(r) for r in block)
+        if compression == "deflate":
+            return zlib.compress(block.tobytes())
+        if compression == "lzw":
+            return lzw_encode_tiff(block.tobytes())
+        tables, body = _jpeg_split(encode_jpeg(
+            pixels, quality, ((1, 1),) if gray else ((2, 2), (1, 1), (1, 1))))
+        jpeg_tables = tables
+        return body
+
+    blobs = []
+    if tile is not None:
+        tw, th = tile
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                cut = np.zeros((th, tw) + px.shape[2:], px.dtype)
+                part = px[y:y + th, x:x + tw]
+                cut[:part.shape[0], :part.shape[1]] = part
+                blk = np.zeros((th, tw * spp), np.uint8)
+                sp = samples[y:y + th, x * spp:(x + tw) * spp]
+                blk[:sp.shape[0], :sp.shape[1]] = sp
+                blobs.append(pack(blk, cut))
+    else:
+        rps = rows_per_strip or h
+        for y in range(0, h, rps):
+            blobs.append(pack(samples[y:y + rps], px[y:y + rps]))
+    photometric = (6 if compression == "jpeg" and not gray else
+                   1 if gray else 2)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp),
+               (259, 3, [_TIFF_COMPRESSION[compression]]),
+               (262, 3, [photometric]), (277, 3, [spp])]
+    if tile is None:
+        entries += [(273, 4, None), (278, 4, [rows_per_strip or h]),
+                    (279, 4, [len(b) for b in blobs])]
+    else:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]),
+                    (324, 4, None), (325, 4, [len(b) for b in blobs])]
+    if predictor != 1:
+        entries.append((317, 3, [predictor]))
+    if jpeg_tables is not None:
+        entries.append((347, 7, jpeg_tables))
+        if not gray:
+            entries.append((530, 3, [2, 2]))
+    return sorted(entries, key=lambda e: e[0]), blobs
+
+
+def encode_tiff(pages, compression: str = "none", predictor: int = 1,
+                rows_per_strip: int | None = None, tile: tuple | None = None,
+                quality: int = 90, byteorder: str = "<") -> bytes:
+    """A TIFF of one picture or a list of them (one IFD each): (h, w, 3
+    or 4) uint8 RGB(A), (h, w) uint8 gray or (h, w) bool bilevel (True
+    is white, photometric BlackIsZero).  ``compression``: "none",
+    "packbits" (each row on its own), "deflate", "lzw"
+    (``lzw_encode_tiff``) or "jpeg": each strip or tile a baseline JPEG
+    of ``encode_jpeg`` (4:2:0, YCbCr photometric; gray 1x1) without its
+    tables, which go once into the JPEGTables tag.  ``predictor=2``
+    writes horizontal differences.  Strips of ``rows_per_strip`` rows,
+    or ``tile=(w, h)`` tiles."""
+    if isinstance(pages, np.ndarray):
+        pages = [pages]
+    bo = byteorder
+    out = bytearray((b"II*\x00" if bo == "<" else b"MM\x00*")
+                    + struct.pack(bo + "I", 0))
+    link = 4                                # where the next IFD's offset goes
+    sizes = {3: 2, 4: 4, 7: 1}
+    for px in pages:
+        entries, blobs = _tiff_page(px, compression, predictor,
+                                    rows_per_strip, tile, quality)
+        offsets = []
+        for b in blobs:
+            offsets.append(len(out))
+            out += b + b"\0" * (len(b) & 1)
+        packed = []
+        for tag, typ, vals in entries:
+            if vals is None:
+                vals = offsets
+            n = len(vals)
+            raw = bytes(vals) if typ == 7 else struct.pack(
+                bo + {3: "H", 4: "I"}[typ] * n, *vals)
+            if sizes[typ] * n > 4:
+                at = len(out)
+                out += raw + b"\0" * (len(raw) & 1)
+                raw = struct.pack(bo + "I", at)
+            packed.append(struct.pack(bo + "HHI", tag, typ, n)
+                          + raw.ljust(4, b"\0"))
+        ifd = len(out)
+        struct.pack_into(bo + "I", out, link, ifd)
+        out += struct.pack(bo + "H", len(packed)) + b"".join(packed)
+        link = len(out)
+        out += struct.pack(bo + "I", 0)
+    return bytes(out)
+
+
+def encode_bmp(pixels: np.ndarray, bpp: int = 24, top_down: bool = False,
+               masks: tuple | None = None) -> bytes:
+    """A BMP of (h, w, 3 or 4) uint8 RGB(A): 24 bpp (BGR), 32 bpp (BGRA,
+    or with ``masks`` = (r, g, b, a) BI_BITFIELDS masks) or 16 bpp
+    (``masks`` = (r, g, b), default 5-5-5); bottom-up unless
+    ``top_down``; a 40-byte info header, masks after it."""
+    h, w = pixels.shape[:2]
+    rgba = pixels if pixels.shape[2] == 4 else np.dstack(
+        [pixels, np.full((h, w), 255, np.uint8)])
+    comp = 0
+    extra = b""
+    if bpp == 24:
+        rows = rgba[..., [2, 1, 0]].reshape(h, w * 3)
+    elif bpp in (16, 32) and (masks is not None or bpp == 16):
+        masks = masks or (0x7C00, 0x03E0, 0x001F)
+        comp = 3
+        word = np.zeros((h, w), np.uint64)
+        for c, m in enumerate(masks):
+            if not m:
+                continue
+            shift = (m & -m).bit_length() - 1
+            width = (m >> shift).bit_length()
+            v = rgba[..., c].astype(np.uint64) * ((1 << width) - 1) // 255
+            word |= v << np.uint64(shift)
+        extra = struct.pack("<III", *masks[:3])
+        dt = "<u2" if bpp == 16 else "<u4"
+        rows = word.astype(dt).view(np.uint8).reshape(h, w * bpp // 8)
+    elif bpp == 32:
+        rows = rgba[..., [2, 1, 0, 3]].reshape(h, w * 4)
+    else:
+        raise ValueError(f"bpp {bpp}")
+    pitch = -(-rows.shape[1] // 4) * 4
+    img = np.zeros((h, pitch), np.uint8)
+    img[:, :rows.shape[1]] = rows
+    if not top_down:
+        img = img[::-1]
+    off = 14 + 40 + len(extra)
+    body = img.tobytes()
+    return (struct.pack("<2sIHHI", b"BM", off + len(body), 0, 0, off)
+            + struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1,
+                          bpp, comp, len(body), 2835, 2835, 0, 0)
+            + extra + body)
+
+
+def _bmp_rle_row(row: np.ndarray, bpp4: bool) -> bytes:
+    """One row of palette indices as RLE8/RLE4 pairs: runs of 3 or more
+    equal indices (up to 255) in encoded mode, the indices between them
+    in absolute mode (3 to 255 of them, word-padded) or as runs of 1 or
+    2; then end of line."""
+    out = bytearray()
+    n = len(row)
+    starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]]) if n else \
+        np.zeros(0, np.int64)
+    lens = np.diff(np.r_[starts, n]).astype(int)
+
+    def encoded(v, k):
+        while k:
+            m = min(k, 255)
+            out.extend((m, (v << 4) | v if bpp4 else v))
+            k -= m
+
+    def absolute(a, b):
+        for k in range(a, b, 255):
+            seg = row[k:min(k + 255, b)]
+            if len(seg) < 3:
+                for v in seg.tolist():
+                    encoded(v, 1)
+                continue
+            out.extend((0, len(seg)))
+            if bpp4:
+                s = np.r_[seg, 0] if len(seg) & 1 else seg
+                data = ((s[0::2] << 4) | s[1::2]).astype(np.uint8).tobytes()
+            else:
+                data = seg.astype(np.uint8).tobytes()
+            out.extend(data + b"\0" * (len(data) & 1))
+
+    at = 0
+    for s, k in zip(starts[lens >= 3].tolist(), lens[lens >= 3].tolist()):
+        absolute(at, s)
+        encoded(int(row[s]), k)
+        at = s + k
+    absolute(at, n)
+    out.extend((0, 0))
+    return bytes(out)
+
+
+def encode_bmp_palette(indices: np.ndarray, palette: np.ndarray,
+                       bpp: int = 8, rle: bool = False) -> bytes:
+    """A palette BMP of (h, w) indices into ``palette`` ((n, 3) uint8
+    RGB, n <= 2**bpp), bottom-up: 1, 4 or 8 bpp rows, or with ``rle``
+    RLE8 (8 bpp) or RLE4 (4 bpp) ending in end of bitmap."""
+    h, w = indices.shape
+    idx = indices.astype(np.uint8)[::-1]
+    if rle:
+        comp = {8: 1, 4: 2}[bpp]
+        body = b"".join(_bmp_rle_row(r, bpp == 4) for r in idx) + b"\0\1"
+    else:
+        comp = 0
+        bits = np.unpackbits(idx[..., None], axis=-1)[..., 8 - bpp:]
+        rows = np.packbits(bits.reshape(h, w * bpp), axis=1)
+        pitch = -(-rows.shape[1] // 4) * 4
+        img = np.zeros((h, pitch), np.uint8)
+        img[:, :rows.shape[1]] = rows
+        body = img.tobytes()
+    pal = np.zeros((len(palette), 4), np.uint8)
+    pal[:, :3] = np.asarray(palette, np.uint8)[:, [2, 1, 0]]
+    off = 14 + 40 + pal.nbytes
+    return (struct.pack("<2sIHHI", b"BM", off + len(body), 0, 0, off)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, comp, len(body),
+                          2835, 2835, len(palette), 0)
+            + pal.tobytes() + body)
+
+
+def quantize_332(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(h, w, 3) uint8 -> (indices, palette): the 256-colour 3-3-2 cube,
+    index r >> 5 << 5 | g >> 5 << 2 | b >> 6."""
+    idx = ((rgb[..., 0] >> 5) << 5) | ((rgb[..., 1] >> 5) << 2) | (
+        rgb[..., 2] >> 6)
+    k = np.arange(256)
+    palette = np.stack([(k >> 5) * 255 // 7, ((k >> 2) & 7) * 255 // 7,
+                        (k & 3) * 255 // 3], -1).astype(np.uint8)
+    return idx.astype(np.uint8), palette
+
+
+def encode_tga(pixels: np.ndarray, rle: bool = True,
+               top_origin: bool = False) -> bytes:
+    """A truecolor TGA of (h, w, 3 or 4) uint8 RGB(A): 24 or 32 bpp, RLE
+    packets (runs of 2 or more equal pixels, up to 128) or raw, bottom
+    origin unless ``top_origin``."""
+    h, w, nch = pixels.shape
+    px = pixels[..., [2, 1, 0, 3][:nch]]
+    if not top_origin:
+        px = px[::-1]
+    hdr = bytearray(18)
+    hdr[2] = 10 if rle else 2
+    struct.pack_into("<HH", hdr, 12, w, h)
+    hdr[16] = 8 * nch
+    hdr[17] = (0x20 if top_origin else 0) | (8 if nch == 4 else 0)
+    if not rle:
+        return bytes(hdr) + px.tobytes()
+    flat = px.reshape(-1, nch)
+    word = flat.astype(np.uint32) @ (256 ** np.arange(nch, dtype=np.uint32))
+    n = len(word)
+    out = bytearray(hdr)
+    starts = np.flatnonzero(np.r_[True, word[1:] != word[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    at = 0
+
+    def raw(a, b):
+        for k in range(a, b, 128):
+            m = min(128, b - k)
+            out.append(m - 1)
+            out.extend(flat[k:k + m].tobytes())
+
+    for s, k in zip(starts[lens >= 2].tolist(), lens[lens >= 2].tolist()):
+        raw(at, s)
+        for q in range(s, s + k, 128):
+            m = min(128, s + k - q)
+            out.append(0x80 | (m - 1))
+            out.extend(flat[q].tobytes())
+        at = s + k
+    raw(at, n)
+    return bytes(out)
+
+
+def encode_psd(pixels: np.ndarray, rle: bool = True) -> bytes:
+    """A PSD (version 1, 8 bits) of (h, w, 3 or 4) uint8 RGB(A), or (h, w)
+    grey: the composite image's planes raw or, with ``rle``, as
+    PackBits rows behind their table of 2-byte row counts."""
+    gray = pixels.ndim == 2
+    h, w = pixels.shape[:2]
+    planes = [pixels] if gray else [pixels[..., c]
+                                    for c in range(pixels.shape[2])]
+    hdr = struct.pack(">4sH6sHIIHH", b"8BPS", 1, b"\0" * 6, len(planes),
+                      h, w, 8, 1 if gray else 3)
+    body = struct.pack(">III", 0, 0, 0)   # colour mode, resources, layers
+    if not rle:
+        return hdr + body + struct.pack(">H", 0) + b"".join(
+            np.ascontiguousarray(p).tobytes() for p in planes)
+    rows = [packbits(p[y].tobytes()) for p in planes for y in range(h)]
+    return (hdr + body + struct.pack(">H", 1)
+            + struct.pack(f">{len(rows)}H", *map(len, rows))
+            + b"".join(rows))
+
+
+def encode_ico(entries) -> bytes:
+    """An ICO of ``entries``, each (h, w, 4) uint8 RGBA (up to 256 x 256)
+    written as a 32 bpp BMP payload with its AND mask (1 where alpha is
+    0), or the bytes of a PNG, stored as they are."""
+    dir_, blobs = [], []
+    for e in entries:
+        if isinstance(e, (bytes, bytearray)):
+            w, h = struct.unpack_from(">II", e, 16)
+            blob = bytes(e)
+        else:
+            h, w = e.shape[:2]
+            xor = e[::-1, :, [2, 1, 0, 3]].tobytes()
+            mask = np.packbits((e[::-1, :, 3] == 0).astype(np.uint8), axis=1)
+            mpitch = -(-mask.shape[1] // 4) * 4
+            mrows = np.zeros((h, mpitch), np.uint8)
+            mrows[:, :mask.shape[1]] = mask
+            blob = (struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, 32, 0,
+                                len(xor) + mrows.nbytes, 0, 0, 0, 0)
+                    + xor + mrows.tobytes())
+        dir_.append((w & 255, h & 255, len(blob)))
+        blobs.append(blob)
+    off = 6 + 16 * len(entries)
+    out = bytearray(struct.pack("<HHH", 0, 1, len(entries)))
+    for (w8, h8, size), blob in zip(dir_, blobs):
+        out += struct.pack("<BBBBHHII", w8, h8, 0, 0, 1, 32, size, off)
+        off += size
+    return bytes(out) + b"".join(blobs)

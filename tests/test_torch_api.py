@@ -218,29 +218,39 @@ def test_encode_takes_bgra():
 
 
 def test_registry_is_the_ports_own():
-    """The port's codecs are a subset of the JAX package's, in the
-    relative order of its probe table (``ffpic_tpu/formats/
-    all_formats.py``; its live list follows import order, and a test
-    that imports ``ffpic_tpu.formats.webp`` before the list fills puts
-    WEBP first), and importing ffpic_tpu registers nothing in it."""
+    """The port registers every codec of the JAX package, under its
+    names and aliases, in the order of its probe table (``ffpic_tpu/
+    formats/all_formats.py``) whatever order the modules were imported
+    in (the JAX package's live list follows its import order: a test
+    that imports ``ffpic_tpu.formats.heif`` before the list fills puts
+    HEIF first); each codec is the port's own module (the six it does
+    not decode yet, ``formats.unported``), and importing ffpic_tpu
+    registers nothing in it."""
     import re
     mine, theirs = (ffpic_tpu_torch.registered_codecs(),
                     ffpic_tpu.registered_codecs())
-    assert mine == ["JPG", "PNG", "WEBP", "HEIF"]
-    assert set(mine) <= set(theirs)
+    assert mine == list(registry.ORDER)
+    assert sorted(mine) == sorted(theirs)
     table = re.findall(r"^from ffpic_tpu\.formats import (\w+)", (
         REPO / "ffpic_tpu" / "formats" / "all_formats.py").read_text(), re.M)
-    mods = [ffpic_tpu_torch.find_codec(c).load.__module__.rsplit(".")[-1]
-            for c in mine]
-    assert mods == [m for m in table if m in mods]
+    names = [ffpic_tpu.find_codec(m.upper()).name if m != "hevc_raw"
+             else "HEVC" for m in table]
+    assert names == mine
+    for c in mine:
+        codec = ffpic_tpu_torch.find_codec(c)
+        assert codec.alias == ffpic_tpu.find_codec(c).alias
+        assert (codec.decode or codec.load).__module__.startswith(
+            "ffpic_tpu_torch.formats.")
     codec = ffpic_tpu_torch.find_codec("jpeg")
     assert codec is ffpic_tpu_torch.find_codec("JPG")
     assert codec.load.__module__ == "ffpic_tpu_torch.formats.jpg"
     assert ffpic_tpu_torch.probe(_corpus("jpeg_160_420.jpg")) is codec
+    assert ffpic_tpu_torch.find_codec("GIF").decode.__module__ == \
+        "ffpic_tpu_torch.formats.gif"
     with pytest.raises(KeyError):
-        ffpic_tpu_torch.find_codec("GIF")
+        ffpic_tpu_torch.find_codec("RAW")
     with pytest.raises(ValueError, match="unrecognized"):
-        ffpic_tpu_torch.probe(b"GIF89a" + bytes(64))
+        ffpic_tpu_torch.probe(b"not an image" + bytes(64))
 
 
 def test_registry_fills_once_under_threads(monkeypatch):

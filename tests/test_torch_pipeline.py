@@ -245,11 +245,11 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("case", ["webp", "gif", "mesh", "heif", "h265"])
 def test_outside_the_slice_raises(case):
-    """GIF members, raw ``.265`` streams and ``mesh`` wait for the
-    ROADMAP.  WebP and HEIF are ported: a member that is only a WebP
-    header raises the registry's ValueError for a corrupt file, a HEIF
-    without a meta box the parser's ValueError, not
-    NotImplementedError."""
+    """Raw ``.265`` streams and ``mesh`` wait for the ROADMAP.  WebP, HEIF
+    and GIF are ported: a member that is only a WebP header raises the
+    registry's ValueError for a corrupt file, a HEIF without a meta box
+    the parser's ValueError, a GIF with no image in it the registry's
+    "decode produced no pictures", not NotImplementedError."""
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
     if case == "webp":
@@ -265,20 +265,22 @@ def test_outside_the_slice_raises(case):
         return
     if case == "gif":
         srcs.append(b"GIF89a" + bytes(64))
-    elif case == "h265":
+        with pytest.raises(ValueError, match="no pictures"):
+            ffpic_tpu_torch.decode_batch(srcs, device="cpu")
+        return
+    if case == "h265":
         enc, nalus = testing.hevc_stream("single", 64, 64)
         from ffpic_tpu_torch.coding.hevc_enc import make_nalu
         raw = b"".join(b"\0\0\0\1" + n for n in (
             make_nalu(33, enc.sps_rbsp), make_nalu(34, enc.pps_rbsp),
             *nalus))
         assert ffpic_tpu.probe(raw).name != "HEIF"
-        with pytest.raises(NotImplementedError, match="items 1 and 16"):
+        with pytest.raises(NotImplementedError, match="item 16"):
             ffpic_tpu_torch.decode_batch(srcs + [raw], device="cpu")
-        with pytest.raises(ValueError, match="unrecognized"):
+        with pytest.raises(NotImplementedError, match="item 16"):
             ffpic_tpu_torch.load(raw, device="cpu")
         return
-    else:
-        kw["mesh"] = object()
+    kw["mesh"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ffpic_tpu_torch.decode_batch(srcs, device="cpu", **kw)
 
