@@ -129,7 +129,17 @@ read just after:
   ``decode_batch`` of 8 of them at size=(224, 224) (K16 once) equal to
   the CPU route, ``normalize_for_model`` (K17 once) and ViT-B/16 within
   config 5's tolerance; each ``load``'s MP/s and the batch's wall time
-  with its spans.
+  with its spans;
+* the model-consumer and multi-device layers (``train_paths``, last):
+  one ``vit.make_train_step`` step of ViT-B/16 on config 5's normalised
+  batch and one ``moe.make_train_step`` step of ``MOE_TINY``, each
+  against the same step on the CPU (the loss and every tensor's
+  update), the ViT step timed (CUDA events, median of 5, TFLOP/s of 3 x
+  its forward's products); on a world of one over NCCL,
+  ``parallel.sharded_decode_420`` of the batch's dense coefficients and
+  ``decode_batch(mesh=)`` of its files (K2 x 1, K3 x 1 each), both
+  bit-equal to ``decode_batch(mesh=None)``, with their MP/s; and
+  ``graft_entry.entry()`` (K2 + K3) against the plain route.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -2691,7 +2701,7 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
             span_vit_ms=f"{wall[3] * 1e3:.3f}",
             vit_event_ms=f"{vit_ms[N]:.4f}",
             stage_ms=json.dumps(stages).replace(" ", ""))
-    return {"resize_rgba": k16, "normalize_resize": k17}, path_launches
+    return {"resize_rgba": k16, "normalize_resize": k17}, path_launches, x
 
 
 
@@ -2887,6 +2897,254 @@ def host_codec_paths(dev, card: str, errs: dict) -> dict:
         images_per_s=f"{N / walls[2]:.2f}",
         runs_ms=json.dumps([round(r * 1e3, 3) for r in walls])
         .replace(" ", ""), stage_ms=json.dumps(stages).replace(" ", ""))
+    return launches
+
+
+TRAIN_REL_TOL = 2.0 ** -5    # card updates against the CPU's, of max |update|
+TRAIN_LOSS_TOL = VIT_REL_TOL  # card loss against the CPU's, of |loss|
+MOE_REL_TOL = 1e-5           # the f32 MoE, card against the CPU
+F32_STEP = 2.0 ** -22        # two f32 steps of the largest |p|, relative
+
+
+def event_ms(fn, runs: int = 5) -> tuple[float, list]:
+    """Median of ``runs`` CUDA-event timings of ``fn()``, each alone
+    (after one warm call), and the runs."""
+    import torch
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2], times
+
+
+def updates_against_cpu(name: str, old, new, new_cpu, lr: float,
+                        rel: float) -> float:
+    """Each tensor's update ``(old - new) / lr`` on the card against the
+    CPU's, within ``rel`` of the CPU update's largest element plus two
+    f32 steps of the largest |old| over ``lr`` (the rounding of ``p - lr
+    * g``).  Returns the worst error over that scale."""
+    worst = 0.0
+    for k, p in old.items():
+        p64 = p.detach().cpu().double()
+        u = (p64 - new[k].detach().cpu().double()) / lr
+        u_cpu = (p64 - new_cpu[k].double()) / lr
+        if not bool(u.isfinite().all()):
+            raise AssertionError(f"{name} {k}: update not finite")
+        err = float((u - u_cpu).abs().max())
+        scale = float(u_cpu.abs().max())
+        slack = F32_STEP * float(p64.abs().max()) / lr
+        if err > rel * scale + slack:
+            raise AssertionError(f"{name} {k}: card update differs from the "
+                                 f"CPU's by {err} (max |update| {scale})")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def train_paths(dev, card: str, x_config5, jpeg) -> dict:
+    """The model-consumer and multi-device layers on the card.
+
+    * ViT-B/16 at its published widths and depth (weights from
+      ``torch.Generator`` seed 0, as config 5's), one
+      ``vit.make_train_step`` SGD step on config 5's normalised batch of
+      8 (``x_config5``; labels 0..7): the loss and each tensor's update
+      ``(old - new) / lr`` against the same step on the CPU route
+      (``TRAIN_LOSS_TOL``, ``TRAIN_REL_TOL``), then the step timed with
+      CUDA events, median of 5, against 3 x ``vit.forward_flops``.
+    * ``moe.make_train_step`` on ``MOE_TINY`` (seed 1; x from
+      ``default_rng(2)``, 2 x 16 x 32) against the CPU (``MOE_REL_TOL``).
+    * A world of one over NCCL (``FileStore`` in a temporary directory),
+      ``parallel.make_mesh()``: ``sharded_decode_420`` of the 8 x 1080p
+      headline batch's dense coefficients (``jpeg``: the main path's
+      planes, per-image quant tables) and ``decode_batch(mesh=)`` of its
+      files, each bit-equal to ``decode_batch(mesh=None)``, with fresh
+      launch counts: K2 x 1 and K3 x 1 (one bucket), no K1a, K1b, K8 or
+      K9; their MP/s (host clock, median of 5).
+    * ``graft_entry.entry()`` on the card (K2 + K3) equal to the plain
+      route's.
+
+    Every number beside ``card``.  Returns the launches {path: {kernel:
+    n}}; the process group is taken down whatever happens."""
+    import datetime
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ffpic_tpu_torch import decode_batch, graft_entry
+    from ffpic_tpu_torch.models import moe, vit
+    from ffpic_tpu_torch.ops import cuda_entropy, cuda_jpeg
+    from ffpic_tpu_torch.parallel import make_mesh, sharded_decode_420
+    from ffpic_tpu_torch.utils.timing import BF16_OPS_PER_S, F32_OPS_PER_S
+    mods = (cuda_jpeg, cuda_entropy)
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for m in mods for k, v in m.launches.items() if v}
+
+    launches = {}
+    # --- ViT-B/16: one SGD step on the card against the CPU --------------
+    cfg = vit.VIT_B16
+    state = vit.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    n = x_config5.shape[0]
+    labels = torch.arange(n) % cfg.n_classes
+    lr = 1e-3
+    step = vit.make_train_step(cfg, lr)
+    params = {k: v.to(dev) for k, v in state.items()}
+    x_card, y_card = x_config5.to(dev), labels.to(dev)
+    new, loss = step(params, x_card, y_card)
+    t0 = time.perf_counter()
+    new_cpu, loss_cpu = step(state, x_config5.cpu(), labels)
+    cpu_s = time.perf_counter() - t0
+    loss, loss_cpu = float(loss), float(loss_cpu)
+    if not np.isfinite(loss) or abs(loss - loss_cpu) > TRAIN_LOSS_TOL * abs(
+            loss_cpu):
+        raise AssertionError(f"vit step: card loss {loss}, CPU {loss_cpu}")
+    worst = updates_against_cpu("vit step", params, new, new_cpu, lr,
+                                TRAIN_REL_TOL)
+    if any(v.device.type != "cuda" or v.dtype != torch.float32
+           for v in new.values()):
+        raise AssertionError("vit step: new parameters off the card")
+    del new, new_cpu
+    ms, runs = event_ms(lambda: step(params, x_card, y_card))
+    flops = 3 * vit.forward_flops(cfg, n)
+    log("train vit", config="ViT-B/16", batch=n, lr=lr, loss=f"{loss:.6f}",
+        loss_cpu=f"{loss_cpu:.6f}", loss_tolerance=f"{TRAIN_LOSS_TOL:g}*|loss|",
+        worst_update_err_of_max=f"{worst:.6g}",
+        update_tolerance=f"2**-5*max|update|+2 f32 steps",
+        tensors=len(params), cpu_step_seconds=f"{cpu_s:.3f}")
+    log("time train vit", config="ViT-B/16", batch=n, ms=f"{ms:.4f}",
+        runs=json.dumps([round(t, 4) for t in runs]).replace(" ", ""),
+        flops=flops, tflops=f"{flops / ms / 1e9:.2f}",
+        bf16_peak_share=f"{flops / (ms / 1e3) / BF16_OPS_PER_S:.4f}",
+        f32_peak_share=f"{flops / (ms / 1e3) / F32_OPS_PER_S:.4f}",
+        card=card, weights="seeded (torch.Generator seed 0), not pretrained")
+    del params, x_card
+
+    # --- MoE: one SGD step on the card against the CPU --------------------
+    mcfg = moe.MOE_TINY
+    mstate = moe.init_params(mcfg, torch.Generator().manual_seed(1), "cpu")
+    mx = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, mcfg.seq_len, mcfg.d_model)).astype(np.float32))
+    my = torch.arange(2) % mcfg.n_classes
+    mstep = moe.make_train_step(mcfg)
+    mparams = {k: v.to(dev) for k, v in mstate.items()}
+    mnew, mloss = mstep(mparams, mx.to(dev), my.to(dev))
+    mnew_cpu, mloss_cpu = mstep(mstate, mx, my)
+    mloss, mloss_cpu = float(mloss), float(mloss_cpu)
+    if abs(mloss - mloss_cpu) > MOE_REL_TOL * abs(mloss_cpu):
+        raise AssertionError(f"moe step: card loss {mloss}, CPU {mloss_cpu}")
+    mworst = 0.0
+    for k in mstate:
+        want = mnew_cpu[k].double()
+        err = float((mnew[k].cpu().double() - want).abs().max())
+        if err > MOE_REL_TOL * float(want.abs().max()):
+            raise AssertionError(f"moe step {k}: card differs from the CPU "
+                                 f"by {err}")
+        mworst = max(mworst, err / float(want.abs().max()))
+    mms, mruns = event_ms(lambda: mstep(mparams, mx.to(dev), my.to(dev)))
+    log("train moe", config="MOE_TINY", batch=2, loss=f"{mloss:.6f}",
+        loss_cpu=f"{mloss_cpu:.6f}", worst_param_err_of_max=f"{mworst:.3g}",
+        tolerance=f"{MOE_REL_TOL:g}*max|p|", step_ms=f"{mms:.4f}",
+        runs=json.dumps([round(t, 4) for t in mruns]).replace(" ", ""),
+        card=card)
+
+    # --- the mesh: a world of one over NCCL -------------------------------
+    want = decode_batch(jpeg["srcs"], device=dev)
+    coeffs, yq, cq = jpeg["coeffs"], jpeg["yq"], jpeg["cq"]
+    (nby, nbx), _, _ = jpeg["shapes"]
+    ny, nc = nby * nbx, nby * nbx // 4
+    planes = (coeffs[:, :ny].reshape(N, nby, nbx, 8, 8),
+              coeffs[:, ny:ny + nc].reshape(N, nby // 2, nbx // 2, 8, 8),
+              coeffs[:, ny + nc:].reshape(N, nby // 2, nbx // 2, 8, 8))
+    quant = tuple(q.reshape(N, 1, 1, 8, 8) for q in (yq, cq))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh()
+            reset()
+            sh = sharded_decode_420(mesh, *planes, *quant, order="rgba",
+                                    mode="bt601")
+            full = sh.full_tensor()
+            launches["mesh_sharded_decode"] = counts()
+            if (tuple(full.shape) != (N, 8 * nby, 8 * nbx, 4)
+                    or not torch.equal(full[:, :H, :W], want)):
+                raise AssertionError("sharded_decode_420 differs from "
+                                     "decode_batch(mesh=None)")
+            reset()
+            got = decode_batch(jpeg["srcs"], mesh=mesh)
+            got_full = got.full_tensor()
+            launches["mesh_decode_batch"] = counts()
+            if not torch.equal(got_full, want):
+                raise AssertionError("decode_batch(mesh=) differs from "
+                                     "decode_batch(mesh=None)")
+            for path, c in launches.items():
+                if not path.startswith("mesh"):
+                    continue
+                if (c.get("dequant_idct"), c.get("assemble_color")) != (1, 1) \
+                        or any(c.get(k) for k in (
+                            "count_scan", "unpack", "scatter_plane",
+                            "entropy_decode")):
+                    raise AssertionError(f"{path}: launches {c}")
+            mp = N * H * W / 1e6
+            walls = {}
+            for name, fn in (
+                    ("sharded_decode_420", lambda: sharded_decode_420(
+                        mesh, *planes, *quant, order="rgba", mode="bt601")),
+                    ("decode_batch_mesh", lambda: decode_batch(
+                        jpeg["srcs"], mesh=mesh)),
+                    ("decode_batch_no_mesh", lambda: decode_batch(
+                        jpeg["srcs"], device=dev))):
+                fn()
+                w = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    w.append(time.perf_counter() - t0)
+                walls[name] = sorted(w)[2]
+            log("mesh decode", world=1, backend="nccl",
+                mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                batch=f"{N}x{W}x{H} 4:2:0",
+                placements=[str(p) for p in got.placements],
+                sharded_decode_420="exact", decode_batch_mesh="exact",
+                launches=json.dumps({k: v for k, v in launches.items()
+                                     if k.startswith("mesh")})
+                .replace(" ", ""),
+                **{f"{k}_ms": f"{v * 1e3:.3f}" for k, v in walls.items()},
+                **{f"{k}_mps": f"{mp / v:.2f}" for k, v in walls.items()},
+                card=card)
+        finally:
+            dist.destroy_process_group()
+
+    # --- graft_entry.entry(): K2 + K3 against the plain route ------------
+    reset()
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    launches["graft_entry"] = counts()
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    if not torch.equal(got.cpu(), fn_cpu(*args_cpu)):
+        raise AssertionError("graft entry: K2 + K3 differ from the plain "
+                             "route")
+    if tuple(got.shape) != (2, 128, 128, 4) or launches["graft_entry"] != {
+            "dequant_idct": 1, "assemble_color": 1}:
+        raise AssertionError(f"graft entry: {tuple(got.shape)}, launches "
+                             f"{launches['graft_entry']}")
+    log("graft entry", shape=tuple(got.shape), plain_route="exact",
+        launches=launches["graft_entry"])
     return launches
 
 
@@ -3222,10 +3480,14 @@ def main() -> int:
     timed.update(wave_timed)
     heif_timed, heif_launches = heif_paths(dev, jpegs, floor_ms, errs)
     timed.update(heif_timed)
-    config5_timed, config5_launches = config5_paths(dev, out, srcs, floor_ms,
-                                                    errs)
+    config5_timed, config5_launches, x_config5 = config5_paths(
+        dev, out, srcs, floor_ms, errs)
     timed.update(config5_timed)
     host_launches = host_codec_paths(dev, f'"{smi}"', errs)
+    train_launches = train_paths(
+        dev, f'"{smi}"', x_config5, {"srcs": srcs, "coeffs": coeffs_p,
+                                    "yq": yq, "cq": cq, "shapes": shapes})
+    del x_config5
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6 at 4
     # bytes a pixel, K7 for 8-bit RGBA
@@ -3296,6 +3558,11 @@ def main() -> int:
                        ("resize_rgba", "batch"),
                        ("normalize_resize", "batch")):
         timed[name]["launches_host_codecs"] = host_launches[path][name]
+    # the mesh paths (a world of one over NCCL) and the graft entry: K2
+    # and K3 once each
+    for name in ("dequant_idct", "assemble_color"):
+        timed[name]["launches_mesh"] = {
+            k: v[name] for k, v in train_launches.items()}
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCES.get(name, CU),
                 "replaces": REPLACES[name], "launches": launches[name],

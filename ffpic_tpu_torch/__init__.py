@@ -21,7 +21,12 @@ at first use); the apps (``python -m ffpic_tpu_torch.apps.picinfo``,
 are hand-written CUDA kernels (``csrc/``) built with nvcc at first use,
 each with a plain PyTorch version that CPU tensors take.  A resized
 batch goes on into a model through ``ops.resize.normalize_for_model``
-and ``models.vit.ViT`` (BASELINE config 5).  This package imports
+and ``models.vit.ViT`` (BASELINE config 5); ``models.vit`` and
+``models.moe`` also train (``make_train_step``), on one device or on
+a ``torch.distributed`` DeviceMesh (``parallel``: ``make_mesh``,
+``shard_batch``, ``sharded_decode_420``; ``decode_batch(mesh=)``),
+and ``graft_entry`` is the port's copy of ``__graft_entry__.py``.
+This package imports
 neither jax nor ``ffpic_tpu``, which stays the reference it is tested
 against.
 """

@@ -1,2 +1,4 @@
-"""Models behind the batched decode: the ViT of BASELINE config 5
-(``models.vit``), the counterpart of ``ffpic_tpu/models``."""
+"""Models behind the batched decode, the counterpart of
+``ffpic_tpu/models``: the ViT of BASELINE config 5 (``models.vit``,
+serving and training) and the mixture-of-experts block
+(``models.moe``)."""

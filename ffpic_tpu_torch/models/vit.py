@@ -28,13 +28,26 @@ JAX package's tree as numpy arrays) and ``forward(images)`` is
   ``jax.nn.softmax`` computes it (``exp(x - max) / sum``).  Attention is
   the two products and that softmax.
 
-Training (``loss_fn``, ``make_train_step``), the MoE block and the mesh
-shardings are not ported (``ROADMAP.md`` Queue 1).
+The forward is one function, ``forward(cfg, params, images)`` over a
+dict of ``shapes(cfg)``'s names; ``ViT`` serves it under ``no_grad``
+with the bf16 weights rounded once.  The training half mirrors
+``vit.py:139-155``: ``loss_fn`` (an f32 ``log_softmax``, the labels'
+entries, the mean) and ``make_train_step`` (plain SGD through
+``torch.autograd``; the bf16 weights are rounded in each forward, since
+they change each step).  Each cast to bf16 and back rounds the incoming
+gradient once, as XLA's VJP of ``astype`` does, so the gradients flow
+through the same roundings as JAX's.  ``param_shardings`` gives the
+reference's Megatron split (``:72-89``) as DTensor placements on a
+``parallel.make_mesh`` DeviceMesh; the same ``forward`` and step run on
+DTensors placed so (``parallel.mesh.distribute``), DTensor inserting
+the collectives XLA inserts.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import sys
 from typing import NamedTuple
 
 import torch
@@ -156,6 +169,140 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(-1, keepdim=True)
 
 
+# the weights of the bf16 products
+BF16_WEIGHTS = ("patch_w", "qkv_w", "proj_w", "fc1_w", "fc2_w")
+
+
+def rounded_weights(params: dict) -> dict:
+    """The weights of the bf16 products, rounded to bf16 (held in f32)."""
+    return {k: _bf16(v) for k, v in params.items()
+            if k.endswith(BF16_WEIGHTS)}
+
+
+def embed(cfg: ViTConfig, params: dict, w16: dict,
+          images: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, 3) f32 -> (N, T, dim) f32 tokens: the patches'
+    bf16 product, the class token and the positions (``:101-108``)."""
+    p = params
+    n, ps, g = images.shape[0], cfg.patch, cfg.image_size // cfg.patch
+    x = images.reshape(n, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, cfg.n_patches, -1)
+    x = _bf16_mm(x, w16["patch_w"]) + p["patch_b"]                     # f32
+    cls = p["cls"].expand(n, 1, cfg.dim)
+    return torch.cat([cls, x], dim=1) + p["pos"]
+
+
+def block(cfg: ViTConfig, params: dict, w16: dict, x: torch.Tensor,
+          i: int) -> torch.Tensor:
+    """Block ``i`` on (N, T, dim) f32 tokens (``:111-131``)."""
+    p, b = params, f"blocks.{i}."
+    n, t, hd = x.shape[0], x.shape[1], cfg.dim // cfg.heads
+    h = _ln(x, p[b + "ln1_g"], p[b + "ln1_b"])
+    qkv = _bf16_mm(h, w16[b + "qkv_w"]) + p[b + "qkv_b"]                # f32
+    q, k, v = (s.reshape(n, t, cfg.heads, hd).transpose(1, 2)
+               for s in qkv.split(cfg.dim, dim=-1))
+    att = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5)
+    att = _bf16(_softmax(att))
+    out = torch.matmul(att, v).transpose(1, 2).reshape(n, t, cfg.dim)
+    x = x + _bf16_mm(out, w16[b + "proj_w"]) + p[b + "proj_b"]
+    h = _ln(x, p[b + "ln2_g"], p[b + "ln2_b"])
+    h = _gelu_tanh(_bf16_mm(h, w16[b + "fc1_w"]) + p[b + "fc1_b"])
+    h = torch.matmul(h, w16[b + "fc2_w"]) + p[b + "fc2_b"]
+    return x + h
+
+
+def head(cfg: ViTConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The class token's layer norm and the f32 head (``:133-134``)."""
+    x = _ln(x[:, 0], params["ln_f_g"], params["ln_f_b"])
+    return torch.matmul(x, params["head_w"]) + params["head_b"]
+
+
+def forward(cfg: ViTConfig, params: dict, images: torch.Tensor,
+            w16: dict | None = None) -> torch.Tensor:
+    """``vit.forward`` (``:99-136``): images (N, H, W, 3) float32,
+    normalised (``ops.resize.normalize_for_model``), -> (N, n_classes)
+    f32 logits.  ``params``: a dict of ``shapes(cfg)``'s names, tensors
+    or DTensors.  ``w16``: ``rounded_weights(params)``, when the caller
+    keeps them; None rounds them here."""
+    if w16 is None:
+        w16 = rounded_weights(params)
+    x = embed(cfg, params, w16, images)
+    for i in range(cfg.depth):
+        x = block(cfg, params, w16, x, i)
+    return head(cfg, params, x)
+
+
+def loss_fn(cfg: ViTConfig, params: dict, images: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """``vit.loss_fn`` (``:139-142``): the mean negative log-likelihood
+    of ``labels`` (N,) integers under the f32 ``log_softmax`` of the
+    logits."""
+    logp = torch.log_softmax(forward(cfg, params, images).to(F32), dim=-1)
+    return -torch.gather(logp, -1, labels.long()[:, None]).mean()
+
+
+def make_train_step(cfg: ViTConfig, lr: float = 1e-3):
+    """``vit.make_train_step`` (``:145-155``): ``step(params, images,
+    labels) -> (new_params, loss)``, one plain SGD step ``p - lr * g``
+    on new tensors through ``torch.autograd``.  With DTensor parameters
+    each gradient is redistributed to its parameter's placements before
+    the update, so ``new_params`` keeps ``param_shardings``' placements
+    (the reference's ``out_shardings``), and the loss comes back
+    replicated."""
+    return sgd_step(functools.partial(loss_fn, cfg), lr)
+
+
+def sgd_step(loss, lr: float):
+    """``step(params, *inputs) -> (new_params, loss)``: the value and
+    gradient of ``loss(params, *inputs)`` by ``torch.autograd``, then
+    ``p - lr * g`` for each parameter (``jax.value_and_grad`` and a
+    ``tree.map``).  Shared by the ViT's and the MoE's steps."""
+
+    def step(params: dict, *inputs):
+        names = list(params)
+        leaves = [params[k].detach().requires_grad_(True) for k in names]
+        with torch.enable_grad():
+            value = loss(dict(zip(names, leaves)), *inputs)
+            grads = torch.autograd.grad(value, leaves)
+        new = {}
+        for k, p, g in zip(names, leaves, grads):
+            p = p.detach()
+            if is_dtensor(p):
+                from ffpic_tpu_torch.parallel.mesh import redistribute
+                g = redistribute(g, p.device_mesh, p.placements)
+            new[k] = p - lr * g
+        value = value.detach()
+        if is_dtensor(value):
+            from ffpic_tpu_torch.parallel.mesh import replicate
+            value = replicate(value)
+        return new, value
+
+    return step
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (without importing DTensor, which a
+    process that made none has no need of)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def param_shardings(cfg: ViTConfig, mesh) -> dict:
+    """``vit.param_shardings`` (``:72-89``) as DTensor placements (one a
+    mesh dimension) for each of ``shapes(cfg)``'s names, on a ``(data,
+    model)`` mesh (``parallel.make_mesh``): ``qkv_w`` and ``fc1_w``
+    split by columns over ``model`` and their biases with them,
+    ``proj_w`` and ``fc2_w`` by rows, everything else replicated.  The
+    fused ``(dim, 3 dim)`` ``qkv_w`` is split as one matrix, as the
+    reference's ``P(None, "model")`` splits it."""
+    from ffpic_tpu_torch.parallel.mesh import placements
+    specs = {"qkv_w": (None, "model"), "qkv_b": ("model",),
+             "proj_w": ("model", None), "fc1_w": (None, "model"),
+             "fc1_b": ("model",), "fc2_w": ("model", None)}
+    return {name: placements(mesh, specs.get(name.rsplit(".", 1)[-1], ()))
+            for name in shapes(cfg)}
+
+
 class ViT(nn.Module):
     """ViT-B/16 (or any ``ViTConfig``) for inference on ``device`` (None:
     CUDA, which must be available; "cpu" runs on the host).  ``state`` is
@@ -186,60 +333,34 @@ class ViT(nn.Module):
                 t.to(device=dev, dtype=F32), requires_grad=False)
         # the weights of the bf16 products, rounded once here and not
         # in every forward
-        for name in want:
-            if name.endswith(("patch_w", "qkv_w", "proj_w", "fc1_w",
-                              "fc2_w")):
-                self.register_buffer(name.replace(".", "_") + "_bf16",
-                                     _bf16(self._p(name)), persistent=False)
+        for name, w in rounded_weights(self.state()).items():
+            self.register_buffer(name.replace(".", "_") + "_bf16", w,
+                                 persistent=False)
 
-    def _p(self, name: str) -> torch.Tensor:
-        return self.params[name.replace(".", "_")]
+    def state(self) -> dict:
+        """The parameters under ``shapes(cfg)``'s names."""
+        return {name: self.params[name.replace(".", "_")]
+                for name in shapes(self.cfg)}
 
-    def _w16(self, name: str) -> torch.Tensor:
-        return getattr(self, name.replace(".", "_") + "_bf16")
+    def _w16(self) -> dict:
+        return {name: getattr(self, name.replace(".", "_") + "_bf16")
+                for name in shapes(self.cfg) if name.endswith(BF16_WEIGHTS)}
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) f32 -> (N, T, dim) f32 tokens: the patches'
-        bf16 product, the class token and the positions (``:101-108``)."""
-        cfg, p = self.cfg, self._p
-        n, ps, g = images.shape[0], cfg.patch, cfg.image_size // cfg.patch
-        x = images.reshape(n, g, ps, g, ps, 3).permute(0, 1, 3, 2, 4, 5) \
-            .reshape(n, cfg.n_patches, -1)
-        x = _bf16_mm(x, self._w16("patch_w")) + p("patch_b")            # f32
-        cls = p("cls").expand(n, 1, cfg.dim)
-        return torch.cat([cls, x], dim=1) + p("pos")
+        return embed(self.cfg, self.state(), self._w16(), images)
 
     def block(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        """Block ``i`` on (N, T, dim) f32 tokens (``:111-131``)."""
-        cfg, p, b = self.cfg, self._p, f"blocks.{i}."
-        n, t, hd = x.shape[0], x.shape[1], cfg.dim // cfg.heads
-        h = _ln(x, p(b + "ln1_g"), p(b + "ln1_b"))
-        qkv = _bf16_mm(h, self._w16(b + "qkv_w")) + p(b + "qkv_b")      # f32
-        q, k, v = (s.reshape(n, t, cfg.heads, hd).transpose(1, 2)
-                   for s in qkv.split(cfg.dim, dim=-1))
-        att = torch.matmul(q, k.transpose(-1, -2)) * (hd ** -0.5)
-        att = _bf16(_softmax(att))
-        out = torch.matmul(att, v).transpose(1, 2).reshape(n, t, cfg.dim)
-        x = x + _bf16_mm(out, self._w16(b + "proj_w")) + p(b + "proj_b")
-        h = _ln(x, p(b + "ln2_g"), p(b + "ln2_b"))
-        h = _gelu_tanh(_bf16_mm(h, self._w16(b + "fc1_w")) + p(b + "fc1_b"))
-        h = torch.matmul(h, self._w16(b + "fc2_w")) + p(b + "fc2_b")
-        return x + h
+        return block(self.cfg, self.state(), self._w16(), x, i)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        """The class token's layer norm and the f32 head (``:133-134``)."""
-        x = _ln(x[:, 0], self._p("ln_f_g"), self._p("ln_f_b"))
-        return torch.matmul(x, self._p("head_w")) + self._p("head_b")
+        return head(self.cfg, self.state(), x)
 
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """images: (N, H, W, 3) float32, normalised
         (``ops.resize.normalize_for_model``).  Returns (N, n_classes)
         f32 logits."""
-        x = self.embed(images)
-        for i in range(self.cfg.depth):
-            x = self.block(x, i)
-        return self.head(x)
+        return forward(self.cfg, self.state(), images, self._w16())
 
 
 def forward_flops(cfg: ViTConfig, n: int) -> int:

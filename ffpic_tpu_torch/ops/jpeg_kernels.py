@@ -421,6 +421,31 @@ def decode_batch_420_dense(coeffs, yquant, cquant, shapes,
     return cuda_jpeg.assemble_color(samples, nby, nbx, order, mode, hw)
 
 
+def decode_batch_420_planes(ycoef, ucoef, vcoef, yquant, cquant,
+                            order: str = "rgba", mode: str = "reference"):
+    """The reference's ``decode_batch_420`` (``ffpic_tpu/ops/
+    jpeg_kernels.py:239``) on its layouts: (n, nby, nbx, 8, 8) int16
+    luma and (n, nby/2, nbx/2, 8, 8) chroma tensors, quant tables (8, 8)
+    shared or (n, 1, 1, 8, 8) per image -> (n, 8 nby, 8 nbx, 4) uint8:
+    the planes concatenated an image at a time, then
+    ``decode_batch_420_dense`` (K2 + K3 on CUDA)."""
+    n, nby, nbx = ycoef.shape[:3]
+    if (tuple(ucoef.shape) != (n, nby // 2, nbx // 2, 8, 8)
+            or tuple(vcoef.shape) != tuple(ucoef.shape)):
+        raise ValueError(f"chroma {tuple(ucoef.shape)}/{tuple(vcoef.shape)}"
+                         f" is not the 4:2:0 half of luma "
+                         f"{tuple(ycoef.shape)}")
+    coeffs = torch.cat([c.reshape(n, -1, 8, 8)
+                        for c in (ycoef, ucoef, vcoef)], 1)
+
+    def tables(q):
+        return q.to(torch.int32).reshape(-1, 64).expand(n, 64).contiguous()
+
+    half = (nby // 2, nbx // 2)
+    return decode_batch_420_dense(coeffs, tables(yquant), tables(cquant),
+                                  ((nby, nbx), half, half), order, mode)
+
+
 def decode_batch_420_packed_fused(buf, block_map, yquant, cquant, n: int,
                                   g: int, e: int, shapes, order: str = "rgba",
                                   mode: str = "reference", hw=None):

@@ -79,6 +79,14 @@ the registry's ``ValueError``):
    ``size`` a batch that one decode covers in input order is returned as
    it is.
 
+With ``mesh`` (a ``parallel.make_mesh`` DeviceMesh; the reference's
+branch, ``ffpic_tpu/pipeline.py:94,175,272-281,313-315``) there is no
+device-entropy route, 4:2:0 members keep dense planes with no sparse
+rule, each block geometry is one ``parallel.sharded_decode_420`` over
+the mesh's data axis (gathered, as the reference's host assembles the
+batch), and the batch comes back as a DTensor split over ``data``
+(``shard_batch`` then its first N rows), on the mesh's device.
+
 The host layer (``formats.jpg``, ``formats.png``, ``formats.webp``,
 ``formats.heif``, the host codecs that register a ``decode``,
 ``native``) is the port's own copy of ``ffpic_tpu``'s; ``_read`` and
@@ -119,11 +127,14 @@ def _read(src) -> bytes:
         return f.read()
 
 
-def _jpeg_420_plan(data: bytes):
+def _jpeg_420_plan(data: bytes, use_packed: bool = True):
     """The coefficient plan of a baseline or progressive 3-component
     4:2:0 JPEG, else None: the packed emission (``j.packed``) for a
-    single-scan baseline file, dense raster-order planes otherwise."""
+    single-scan baseline file when ``use_packed``, dense raster-order
+    planes otherwise."""
     try:
+        if not use_packed:
+            raise jpg.PackedIneligible
         j, _ = jpg.parse_and_decode(data, packed=True)
     except jpg.PackedIneligible:
         try:
@@ -139,7 +150,7 @@ def _jpeg_420_plan(data: bytes):
     return j
 
 
-def _prep(data: bytes, device=None):
+def _prep(data: bytes, device=None, mesh: bool = False):
     """A member's host work, as (plan, kind, pairs): its 4:2:0 plan
     ("420"), the dense planes of any other JPEG's first picture ("jpg"),
     a parsed PNG ("png"), a parsed WebP ("webp"), a parsed HEIF ("heif")
@@ -151,8 +162,10 @@ def _prep(data: bytes, device=None):
     residual transform, a TIFF's JPEG strips and an ICO's PNG entry
     run.
     ``pairs`` is a dense 4:2:0 plan's ``member_pairs``, else None.
+    With ``mesh`` a 4:2:0 plan is always dense, with no pairs (the
+    reference's mesh branch, ``ffpic_tpu/pipeline.py:175``).
     Bytes no codec probes raise the registry's ``ValueError``."""
-    j = _jpeg_420_plan(data)
+    j = _jpeg_420_plan(data, use_packed=not mesh)
     if j is None:
         codec = registry.probe(data)
         name = codec.name
@@ -174,7 +187,7 @@ def _prep(data: bytes, device=None):
             f"decode_batch: {name} members are not ported yet; they wait "
             f"for {_CODECS_ITEM}")
     if j.packed is None:
-        return j, "420", member_pairs(j)
+        return j, "420", None if mesh else member_pairs(j)
     # the packed emission is a view of per-thread native scratch that
     # the next parse on this thread overwrites
     c, k, v, nnz = j.packed
@@ -358,20 +371,32 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
 
     ``FFPIC_DEVICE_ENTROPY``: the device-entropy route
     (``_entropy_runs``) is on by default on CUDA, forced by "1" (the
-    plain versions on the CPU) and off with "0"."""
+    plain versions on the CPU) and off with "0".
+
+    ``mesh``: a ``parallel.make_mesh`` DeviceMesh; every rank calls with
+    the same ``srcs`` and gets the DTensor of the batch split over
+    ``data`` (the module's docstring).  ``device`` then defaults to the
+    mesh's, and one of another type raises ``ValueError``."""
     if dtype not in ("uint8", torch.uint8):
         raise ValueError(f"decode_batch: dtype {dtype!r}; only uint8")
     if mesh is not None:
-        raise NotImplementedError(
-            "decode_batch(mesh=) waits for ROADMAP.md Queue 1 item 11")
-    dev = resolve_device(device, "decode_batch")
+        from ffpic_tpu_torch.parallel import mesh as pm
+        if not isinstance(mesh, pm.DeviceMesh):
+            raise TypeError(f"decode_batch: mesh must be a DeviceMesh "
+                            f"(parallel.make_mesh), not {type(mesh).__name__}")
+        dev = pm.mesh_device(mesh)
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"decode_batch: device {device!r} is not the "
+                             f"mesh's {mesh.device_type!r}")
+    else:
+        dev = resolve_device(device, "decode_batch")
     n = len(srcs)
     slots: list = [None] * n
 
     with stage("torch.read"):
         datas = [_read(s) for s in srcs]
     env_de = os.environ.get("FFPIC_DEVICE_ENTROPY")
-    runs = (_entropy_runs(datas) if env_de != "0"
+    runs = (_entropy_runs(datas) if mesh is None and env_de != "0"
             and (env_de == "1" or dev.type == "cuda") else [])
     routed = {i for _route, members in runs for i, _ in members}
     todo = [i for i in range(n) if i not in routed]
@@ -385,7 +410,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
 
     def prep(d):
         with torch.cuda.stream(stream):
-            return _prep(d, dev)
+            return _prep(d, dev, mesh is not None)
     if nw > 1:
         # the pool parses the host members while this thread stages the
         # device route and enqueues its launches
@@ -397,21 +422,23 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
     else:
         declined = _run_entropy(runs, datas, slots, mode, dev)
         with stage("torch.host_parse"):
-            plans = [_prep(datas[i], dev) for i in todo]
+            plans = [_prep(datas[i], dev, mesh is not None) for i in todo]
     if declined:
         with stage("torch.host_parse"):
             plans += [_prep(datas[i], dev) for i in declined]
         todo, plans = zip(*sorted(zip(todo + declined, plans),
                                   key=lambda t: t[0]))
 
-    # one bucket per 4:2:0 image size: one block geometry and one crop
+    # one bucket per 4:2:0 image size: one block geometry and one crop;
+    # with a mesh, per block geometry, as the reference buckets them
     buckets: dict[tuple, list] = {}
     stills = []         # WebP stills that kept their planes, in input order
     host_rgba = []      # host codecs' pixels still on the host, in order
     for i, (plan, kind, pairs) in zip(todo, plans):
         if kind == "420":
-            buckets.setdefault((plan.height, plan.width), []).append(
-                (i, plan, pairs))
+            key = ((plan.comps[0].nby, plan.comps[0].nbx) if mesh is not None
+                   else (plan.height, plan.width))
+            buckets.setdefault(key, []).append((i, plan, pairs))
             continue
         if kind == "webp" and plan.yuva is not None:
             stills.append((i, plan))
@@ -451,6 +478,11 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
         for k, (i, _f) in enumerate(stills):
             slots[i] = out[k]
     for allmembers in buckets.values():
+        if mesh is not None:
+            out = decode_sharded(mesh, [j for _i, j, _p in allmembers], mode)
+            for k, (i, j, _p) in enumerate(allmembers):
+                slots[i] = out[k, :j.height, :j.width]
+            continue
         j0 = allmembers[0][1]
         shapes = tuple((c.nby, c.nbx) for c in j0.comps)
         hw = (j0.height, j0.width)
@@ -480,11 +512,45 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                 slots[i] = out[k]
 
     with stage("torch.finish"), device_trace("resize_stack", dev):
-        if size is None:
-            if len(outs) == 1 and outs[0].shape[0] == n:
-                return outs[0]      # one decode or launch, in input order
-            if len({tuple(s.shape) for s in slots}) != 1:
-                raise ValueError(
-                    "mixed sizes: pass size=(H, W) to resize on device")
-            return torch.stack(slots)
-        return resize_batch(slots, tuple(size))
+        batch = _finish(slots, size, outs, n)
+        if mesh is None:
+            return batch
+        # every rank decoded the batch whole; each keeps its rows
+        return pm.first_rows(pm.shard_batch(mesh, batch), n)
+
+
+def _finish(slots, size, outs, n: int) -> torch.Tensor:
+    """The batch from its slots: stacked, or resized to ``size``; a
+    decode or launch that gave the whole batch in input order is taken
+    as it is."""
+    if size is None:
+        if len(outs) == 1 and outs[0].shape[0] == n:
+            return outs[0]          # one decode or launch, in input order
+        if len({tuple(s.shape) for s in slots}) != 1:
+            raise ValueError(
+                "mixed sizes: pass size=(H, W) to resize on device")
+        return torch.stack(slots)
+    return resize_batch(slots, tuple(size))
+
+
+def decode_sharded(mesh, js, mode: str) -> torch.Tensor:
+    """The mesh branch's decode of one 4:2:0 block geometry
+    (``ffpic_tpu/pipeline.py:272-281``): the members' dense planes and
+    per-image quant tables stacked, one ``sharded_decode_420`` over the
+    mesh's data axis, then gathered, since every rank assembles the
+    whole batch as the reference's host does: (n, 8 nby, 8 nbx, 4)."""
+    from ffpic_tpu_torch.parallel.mesh import mesh_device, sharded_decode_420
+    j0 = js[0]
+    nby, nbx = j0.comps[0].nby, j0.comps[0].nbx
+    with stage("torch.stack"):
+        planes = [np.stack([j.coeffs[c].reshape(g[0], g[1], 8, 8)
+                            for j in js])
+                  for c, g in enumerate(((nby, nbx),
+                                         (nby // 2, nbx // 2),
+                                         (nby // 2, nbx // 2)))]
+        yq, cq = (np.stack([j.dqt[j.comps[c].tq].reshape(8, 8)
+                            for j in js])[:, None, None] for c in (0, 1))
+    with stage("torch.device_decode"), device_trace("decode_420",
+                                                      mesh_device(mesh)):
+        return sharded_decode_420(mesh, *planes, yq, cq, order="rgba",
+                                  mode=mode).full_tensor()

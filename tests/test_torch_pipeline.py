@@ -245,11 +245,13 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("case", ["webp", "gif", "mesh", "heif", "h265"])
 def test_outside_the_slice_raises(case):
-    """Raw ``.265`` streams and ``mesh`` wait for the ROADMAP.  WebP, HEIF
-    and GIF are ported: a member that is only a WebP header raises the
-    registry's ValueError for a corrupt file, a HEIF without a meta box
-    the parser's ValueError, a GIF with no image in it the registry's
-    "decode produced no pictures", not NotImplementedError."""
+    """Raw ``.265`` streams wait for the ROADMAP.  WebP, HEIF and GIF are
+    ported: a member that is only a WebP header raises the registry's
+    ValueError for a corrupt file, a HEIF without a meta box the parser's
+    ValueError, a GIF with no image in it the registry's "decode produced
+    no pictures", not NotImplementedError.  ``mesh`` is ported
+    (``tests/test_torch_mesh.py``): anything but a DeviceMesh raises
+    TypeError."""
     kw = {}
     srcs = [_jpeg(120, 200, 80, 4)]
     if case == "webp":
@@ -281,7 +283,7 @@ def test_outside_the_slice_raises(case):
             ffpic_tpu_torch.load(raw, device="cpu")
         return
     kw["mesh"] = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         ffpic_tpu_torch.decode_batch(srcs, device="cpu", **kw)
 
 
