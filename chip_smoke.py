@@ -130,6 +130,16 @@ read just after:
   the CPU route, ``normalize_for_model`` (K17 once) and ViT-B/16 within
   config 5's tolerance; each ``load``'s MP/s and the batch's wall time
   with its spans;
+* the HEVC inter slice (``hevc_inter_paths``), under
+  ``FFPIC_HEVC_DEVICE=1`` and ``FFPIC_HEIF_DEVICE_COLOR=1``:
+  ``load_all`` of ``testdata/inter_1080p.265`` (5 pictures of 1920x1080,
+  I/P/B) and of ``testdata/sequence_1080p.heic`` (a still primary and a
+  3-frame I/P/B image sequence), then one ``decode_batch`` of both, each
+  decoded once; every picture's Y/U/V planes against libde265's digests
+  (``testdata/hevc_fixtures.json``), every K14 launch (once a picture)
+  and K15 launch (once a frame) against its plain version on the same
+  inputs; each run's host clock, frames/s and spans, and K14 timed on
+  the largest P/B picture's TUs, K15 on a 1080p frame;
 * the model-consumer and multi-device layers (``train_paths``, last):
   one ``vit.make_train_step`` step of ViT-B/16 on config 5's normalised
   batch and one ``moe.make_train_step`` step of ``MOE_TINY``, each
@@ -159,6 +169,7 @@ raises and exits non-zero; without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import itertools
 import json
 import os
@@ -2900,6 +2911,212 @@ def host_codec_paths(dev, card: str, errs: dict) -> dict:
     return launches
 
 
+def hevc_inter_paths(dev, card: str, floor_ms: float, errs: dict):
+    """The HEVC inter slice on the card, under ``FFPIC_HEVC_DEVICE=1`` and
+    ``FFPIC_HEIF_DEVICE_COLOR=1``: ``load_all`` of the committed 1920x1080
+    raw stream (5 pictures, I/P/B) and of the 1080p HEIF image sequence
+    (a still primary, then 3 frames of an I/P/B stream), then one
+    ``decode_batch`` of both, each decoded once, with fresh launch counts.
+    Every decoded picture's Y, U and V planes are held against libde265's
+    digests (``testdata/hevc_fixtures.json``, ``make_hevc_fixtures``);
+    every K14 launch against ``hevc_residuals_plain`` on the card on the
+    same TUs and every K15 launch against ``hevc_tiles_to_rgba_plain`` on
+    the same staged planes, bit for bit; K14 runs once a picture and K15
+    once a frame.  Logged: the launches, each run's host clock, frames/s
+    and spans (``hevc.syntax``, ``hevc.recon``, ``heif.color``) beside
+    ``card``.  K14 is timed on the largest P/B picture's TUs and K15 on a
+    1080p frame.  Returns {kernel: timing entry} and the launches {run:
+    {kernel: n}}."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import make_hevc_fixtures as mf
+    from ffpic_tpu_torch.formats import heif, hevc
+    from ffpic_tpu_torch.ops import cuda_hevc
+    from ffpic_tpu_torch.ops import hevc_kernels as hk
+    from ffpic_tpu_torch.utils import trace
+
+    d = os.path.join(os.path.dirname(mf.__file__), "testdata")
+    with open(os.path.join(d, mf.DIGESTS)) as f:
+        digests = json.load(f)
+    blobs = {}
+    for name in (mf.STREAM, mf.SEQUENCE):
+        with open(os.path.join(d, name), "rb") as f:
+            blobs[name] = f.read()
+        if hashlib.sha256(blobs[name]).hexdigest() != digests[name]["sha256"]:
+            raise AssertionError(f"{name}: not the file of {mf.DIGESTS}")
+    log("inputs hevc inter", card=card, **{k.split(".")[1]: len(v)
+                                           for k, v in blobs.items()},
+        pictures=json.dumps({k.split(".")[1]: len(v["pictures"])
+                             for k, v in digests.items()}).replace(" ", ""))
+
+    # what each run decodes and launches: the pictures of each sequence
+    # decoder (in decode order) and each primary item, every K14 call's
+    # TUs and result, every K15 call's staged planes and result
+    seen = {"seqs": {}, "items": [], "k14": [], "k15": []}
+    real = (hevc.SequenceDecoder._decode_au, heif._decode_item_yuv,
+            hk.residuals_packed, hk.hevc_tiles_to_rgba)
+
+    def decode_au(self):
+        pic = real[0](self)
+        seen["seqs"].setdefault(id(self), []).append(pic)
+        return pic
+
+    def item_yuv(*a, **kw):
+        out = real[1](*a, **kw)
+        seen["items"].append(out[0])
+        return out
+
+    def residuals(tu_meta, levels, bit_depth, device=None):
+        out = real[2](tu_meta, levels, bit_depth, device)
+        need = int((tu_meta[:, 2].astype(np.int64) ** 2).sum())
+        seen["k14"].append((tu_meta.copy(), levels[:need].copy(), bit_depth,
+                            out.copy()))
+        return out
+
+    def colour(st, mode="bt601"):
+        out = real[3](st, mode)
+        seen["k15"].append((st, mode, out))
+        return out
+
+    def check_planes(what, pics, want):
+        got = [mf.picture_digests(p.planes, [w["shape"] for w in ws])
+               for p, ws in zip(pics, want)]
+        if len(pics) != len(want) or got != want:
+            bad = [k for k, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"hevc inter {what}: {len(pics)} pictures "
+                                 f"for {len(want)}, differing from libde265 "
+                                 f"at {bad}")
+
+    def run(name, fn, frames):
+        for v in seen.values():
+            v.clear()
+        torch.cuda.synchronize()
+        cuda_hevc.reset_launches()
+        trace.reset()
+        trace.enable()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trace.enable(False)
+        n = dict(cuda_hevc.launches)
+        stages = {k: round(v["total"] * 1e3, 3)
+                  for k, v in trace.report().items()}
+        seqs = list(map(hevc.display_order, seen["seqs"].values()))
+        n_pics = sum(map(len, seqs)) + len(seen["items"])
+        if (n["hevc_residuals"], n["hevc_yuv_to_rgba"]) != (
+                n_pics, frames) or len(seen["k14"]) != n_pics \
+                or len(seen["k15"]) != frames:
+            raise AssertionError(f"hevc inter {name}: launches {n}, "
+                                 f"{n_pics} pictures, {frames} frames")
+        for meta, lv, bd, res in seen["k14"]:
+            exact("hevc_residuals", torch.from_numpy(res).to(dev),
+                  hk.hevc_residuals_plain(torch.from_numpy(meta).to(dev),
+                                          torch.from_numpy(lv).to(dev), bd),
+                  errs)
+        for st, mode, res in seen["k15"]:
+            exact("hevc_yuv_to_rgba", res,
+                  hk.hevc_tiles_to_rgba_plain(st, mode), errs)
+        log("hevc inter path", run=name, card=card,
+            launches=json.dumps(n).replace(" ", ""), pictures=n_pics,
+            coloured_frames=frames, k14_k15_plain="exact",
+            libde265="exact", host_s=f"{wall:.3f}",
+            **{k: stages.get(k, 0.0) for k in (
+                "hevc.syntax", "hevc.recon", "hevc.loop_filter",
+                "heif.color")},
+            stage_ms_total=json.dumps(stages).replace(" ", ""))
+        return out, seqs, n, wall, stages
+
+    env = {"FFPIC_HEVC_DEVICE": "1", "FFPIC_HEIF_DEVICE_COLOR": "1",
+           "FFPIC_NO_NATIVE_RECON": None}
+    launches, timed_runs, inputs = {}, {}, {}
+    (hevc.SequenceDecoder._decode_au, heif._decode_item_yuv,
+     hk.residuals_packed, hk.hevc_tiles_to_rgba) = (decode_au, item_yuv,
+                                                    residuals, colour)
+    try:
+        with environ(**env):
+            # the raw stream: K14 and K15 once a picture
+            pics, seqs, launches["load_265"], wall, stages = run(
+                "load inter_1080p.265",
+                lambda: ffpic_tpu_torch.load_all(blobs[mf.STREAM],
+                                                 device=dev), 5)
+            check_planes("load .265", seqs[0],
+                         digests[mf.STREAM]["pictures"])
+            # the largest P/B picture's TUs (the first is the I picture)
+            inputs["k14"] = max(seen["k14"][1:], key=lambda k: k[1].size)
+            inputs["k15"] = seen["k15"][-1][0]
+            first = pics[0].pixels
+            if len(pics) != 5 or any(
+                    tuple(p.pixels.shape) != (H, W, 4) or p.delay_ms != 40
+                    or p.pixels.device.type != dev.type for p in pics):
+                raise AssertionError("load .265: pictures")
+            timed_runs["load_265"] = (wall, 5, stages)
+            # the HEIF sequence: K14 once a picture (primary and 3
+            # frames), K15 once a frame
+            pics, seqs, launches["load_heic"], wall, stages = run(
+                "load sequence_1080p.heic",
+                lambda: ffpic_tpu_torch.load_all(blobs[mf.SEQUENCE],
+                                                 device=dev), 4)
+            check_planes("heic primary", seen["items"],
+                         digests[mf.SEQUENCE]["primary"])
+            check_planes("heic sequence", seqs[0],
+                         digests[mf.SEQUENCE]["pictures"])
+            if len(pics) != 4 or any(tuple(p.pixels.shape) != (H, W, 4)
+                                     for p in pics):
+                raise AssertionError("load heic: pictures")
+            primary = pics[0].pixels
+            timed_runs["load_heic"] = (wall, 4, stages)
+            # decode_batch of both: the stream whole (its first picture
+            # kept) and the HEIC's primary
+            out, seqs, launches["decode_batch"], wall, stages = run(
+                "decode_batch [.265, .heic]", lambda: ffpic_tpu_torch
+                .decode_batch([blobs[mf.STREAM], blobs[mf.SEQUENCE]],
+                              device=dev), 6)
+            check_planes("decode_batch .265", seqs[0],
+                         digests[mf.STREAM]["pictures"])
+            check_planes("decode_batch heic", seen["items"],
+                         digests[mf.SEQUENCE]["primary"])
+            if tuple(out.shape) != (2, H, W, 4) or not (
+                    torch.equal(out[0], first) and torch.equal(out[1],
+                                                               primary)):
+                raise AssertionError("decode_batch differs from load")
+            timed_runs["decode_batch"] = (wall, 2, stages)
+    finally:
+        (hevc.SequenceDecoder._decode_au, heif._decode_item_yuv,
+         hk.residuals_packed, hk.hevc_tiles_to_rgba) = real
+    del first, primary, out, pics
+
+    # K14 on the largest P/B picture's TUs in one launch, K15 on a 1080p
+    # frame; bytes and ops counted as heif_paths counts them
+    flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
+    meta, lv, bd, _res = inputs["k14"]
+    lv_d, plan, _ = hk.stage_residuals([(meta, lv)], dev)
+    meta_d = torch.from_numpy(meta).to(dev)
+    timed = {"hevc_residuals": time_entry(
+        "hevc_residuals", lambda: cuda_hevc.hevc_residuals(lv_d, bd, *plan),
+        lambda: hk.hevc_residuals_plain(meta_d, lv_d, bd),
+        4 * lv.size + 8 * len(meta) + 16 * len(plan[1]), hevc_ops([meta]),
+        "int32", floor_ms, flush,
+        f"hevc inter path, a 1080p P/B picture's {len(meta)} TUs")}
+    st = inputs["k15"]
+    timed["hevc_yuv_to_rgba"] = time_entry(
+        "hevc_yuv_to_rgba", lambda: hk.hevc_tiles_to_rgba(st, "bt601"),
+        lambda: hk.hevc_tiles_to_rgba_plain(st, "bt601"),
+        7 * H * W + 4 * (st.desc.numel() + H + W + st.cell_map.numel()),
+        13 * H * W, "f32", floor_ms, flush,
+        "hevc inter path, a 1080p frame as its one tile")
+    # frames/s: the pictures each run returns (decode_batch: 2 images)
+    for name, (wall, frames, stages) in timed_runs.items():
+        log("time hevc inter", run=name, card=card, host_s=f"{wall:.3f}",
+            outputs=frames, frames_per_s=f"{frames / wall:.4f}",
+            k14_ms=f"{timed['hevc_residuals']['ms']:.4f}",
+            k15_ms=f"{timed['hevc_yuv_to_rgba']['ms']:.4f}",
+            stage_ms_total=json.dumps(stages).replace(" ", ""))
+    del flush, lv_d, meta_d, st, inputs
+    return timed, launches
+
+
 TRAIN_REL_TOL = 2.0 ** -5    # card updates against the CPU's, of max |update|
 TRAIN_LOSS_TOL = VIT_REL_TOL  # card loss against the CPU's, of |loss|
 MOE_REL_TOL = 1e-5           # the f32 MoE, card against the CPU
@@ -3484,6 +3701,8 @@ def main() -> int:
         dev, out, srcs, floor_ms, errs)
     timed.update(config5_timed)
     host_launches = host_codec_paths(dev, f'"{smi}"', errs)
+    inter_timed, inter_launches = hevc_inter_paths(dev, f'"{smi}"', floor_ms,
+                                                   errs)
     train_launches = train_paths(
         dev, f'"{smi}"', x_config5, {"srcs": srcs, "coeffs": coeffs_p,
                                     "yq": yq, "cq": cq, "shapes": shapes})
@@ -3534,6 +3753,10 @@ def main() -> int:
     for name in ("hevc_residuals", "hevc_yuv_to_rgba"):
         timed[name]["launches_per_path"] = {
             k: v[name] for k, v in heif_launches.items()}
+        # the inter slice's runs: K14 once a picture, K15 once a frame
+        timed[name]["launches_inter"] = {
+            k: v[name] for k, v in inter_launches.items()}
+        timed[name]["at_inter_1080p"] = inter_timed[name]
     # K16 and K17 on config 5's path: decode_batch(size=) (one launch over
     # the slots), then normalize_for_model
     # K18 on make_wavefront of the 1080p frame, and in the K12 -> K18 chain

@@ -3,9 +3,9 @@
 The public API mirrors ``ffpic_tpu``'s: ``probe``, ``load``,
 ``load_all``, ``info``, ``encode``, ``find_codec`` and
 ``registered_codecs`` over the port's own codec registry (JPEG, PNG,
-WebP, HEIF and the host-only BMP, GIF, TGA, PNM, PSD, TIFF and ICO, in
-the reference's probe order; AVIF, BPG, JPEG 2000, SVG, EXR and raw HEVC
-are probed but not decoded yet), the ``Pic`` container, and
+WebP, HEIF and the host-only BMP, GIF, TGA, PNM, PSD, TIFF, ICO and raw
+HEVC streams, in the reference's probe order; AVIF, BPG, JPEG 2000, SVG
+and EXR are probed but not decoded yet), the ``Pic`` container, and
 ``decode_batch``, which decodes a batch of them into one ``(N, H, W,
 4)`` uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
 Huffman decode on the card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take

@@ -20,11 +20,10 @@ hevc.c:6934-7047, quadtree hevc.c:6852, CU hevc.c:6467, transform tree
 hevc.c:6177, residual coding hevc.c:5636, scans hevc.c:2580-2658.
 
 Copied from ``ffpic_tpu/coding/hevc_slice.py`` for the PyTorch port,
-with its imports rewritten to the port's modules.  The full inter
-decode is not ported: a ``SliceDecoder`` given inter state, and motion
-derivation, raise ``NotImplementedError`` naming ``INTER_SLICE``'s
-ROADMAP item.  P/B slices without inter state still run the original's
-parse-and-skip and raise ``InterSliceUnsupported``.
+with its imports rewritten to the port's modules.  A ``SliceDecoder``
+given inter state derives each PU's motion inline
+(``coding.hevc_inter.MotionDeriver``); P/B slices without it run the
+original's parse-and-skip and raise ``InterSliceUnsupported``.
 """
 
 from __future__ import annotations
@@ -68,12 +67,6 @@ _CTX_SET_INTER = (
     ("mvp_flag", 1), ("abs_mvd_greater0_flag", 1),
     ("abs_mvd_greater1_flag", 1), ("rqt_root_cbf", 1),
 )
-
-
-# what the port's inter branches raise: the full P/B decode (motion
-# derivation, motion compensation, the sequence layer) is not ported yet
-INTER_SLICE = ("HEVC inter (P/B) decode waits for ROADMAP.md Queue 1 "
-               "item 16 (the HEVC inter slice)")
 
 
 class InterSliceUnsupported(NotImplementedError):
@@ -556,7 +549,8 @@ class SliceDecoder:
                            and inter_ctx is not None)
         self.deriver = None
         if self.full_inter:
-            raise NotImplementedError(INTER_SLICE)
+            from ffpic_tpu_torch.coding.hevc_inter import MotionDeriver
+            self.deriver = MotionDeriver(self, inter_ctx)
         self.parse_only = (header.slice_type != 2
                            and inter_ctx is None)
         self.stats = {"cus": 0, "skip_cus": 0, "inter_cus": 0,
@@ -1099,9 +1093,30 @@ class SliceDecoder:
 
     def _derive_pu_motion(self, xCb, yCb, nCbS, px, py, pw, ph,
                           part_idx, part_mode, pu):
-        """Motion derivation for one parsed PU (8.5.3.1); the port raises
-        (``INTER_SLICE``)."""
-        raise NotImplementedError(INTER_SLICE)
+        """Motion derivation for one parsed PU (8.5.3.1)."""
+        from ffpic_tpu_torch.coding.hevc_inter import NO_REF, PuMotion
+        if pu["merged"]:
+            return self.deriver.merge(xCb, yCb, nCbS, px, py, pw, ph,
+                                      part_idx, part_mode,
+                                      pu["merge_idx"])
+        ctx = self.inter_ctx
+        m = PuMotion()
+        for lx in range(2):
+            if not pu["pred"][lx]:
+                continue
+            ri = pu["ref_idx"][lx]
+            mvp = self.deriver.amvp(xCb, yCb, nCbS, px, py, pw, ph,
+                                    part_idx, lx, ri,
+                                    pu["mvp_flag"][lx])
+            dx, dy = pu["mvd"][lx]
+            # 16-bit wrap (7.4.9.9 / 8.5.3.1)
+            mx = ((mvp[0] + dx + 0x8000) & 0xFFFF) - 0x8000
+            my = ((mvp[1] + dy + 0x8000) & 0xFFFF) - 0x8000
+            m.pred[lx] = True
+            m.mv[lx] = (mx, my)
+            m.ref_idx[lx] = ri
+            m.poc[lx] = ctx.ref_list[lx][ri][0]
+        return m
 
     def _emit_inter_pu(self, px, py, pw, ph, m):
         """Stamp the motion field and emit the MC op (+ PU deblock

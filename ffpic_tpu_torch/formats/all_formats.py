@@ -3,10 +3,9 @@ them in the probe order of ``ffpic_tpu/formats/all_formats.py``
 (``registry.ORDER``): jpg, png, gif, webp, bmp, heif, avif, bpg, jp2,
 svg, pnm, tiff, exr, psd, ico, hevc_raw, tga (no magic; probed last).
 
-AVIF, BPG, JP2, SVG, EXR and raw HEVC are registered by their probes
-alone (``formats.unported``): their ``load`` raises
-``NotImplementedError`` until ``ROADMAP.md`` Queue 1 item 1 (and item
-16 for raw HEVC) ports them.
+AVIF, BPG, JP2, SVG and EXR are registered by their probes alone
+(``formats.unported``): their ``load`` raises ``NotImplementedError``
+until ``ROADMAP.md`` Queue 1 item 1 ports them.
 """
 
 from ffpic_tpu_torch.formats import jpg  # noqa: F401
@@ -19,5 +18,6 @@ from ffpic_tpu_torch.formats import pnm  # noqa: F401
 from ffpic_tpu_torch.formats import tiff  # noqa: F401
 from ffpic_tpu_torch.formats import psd  # noqa: F401
 from ffpic_tpu_torch.formats import ico  # noqa: F401
+from ffpic_tpu_torch.formats import hevc_raw  # noqa: F401
 from ffpic_tpu_torch.formats import tga  # noqa: F401
 from ffpic_tpu_torch.formats import unported  # noqa: F401

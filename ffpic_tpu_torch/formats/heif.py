@@ -4,7 +4,8 @@ Container parity with the reference's format/heif.c: ftyp brand probe
 (heif.c:22-63), meta box family (iloc/iinf/ipco/ipma/iref/pitm/idat),
 hvcC parameter-set extraction (heif.c:78-125), item pre-read including
 idat and multi-extent items (heif.c:212-242), grid tiling
-(heif.c:273-312), auxiliary alpha items and Exif items.
+(heif.c:273-312), auxiliary alpha items, Exif items, and moov/trak
+image sequences.
 
 Pixel decode is FULL: hvc1 items run through the HEVC Main/Main-Still
 slice decoder (native C syntax + recon, coding/hevc_slice.py oracle) —
@@ -17,7 +18,8 @@ Copied from ``ffpic_tpu/formats/heif.py`` (``probe``, ``_parse_hvcc``,
 ``_item_properties``, ``parse_structure``, ``read_item``,
 ``_grid_layout``, ``load``, ``_decode_item_yuv``, ``_yuv_pic_to_rgba``,
 ``_decode_item_rgba``, ``_grid_workers``, ``_decode_grid``,
-``_find_alpha_item``, ``_decode_alpha``, ``info``, ``encode``), with
+``_find_alpha_item``, ``_decode_alpha``, ``info``, ``encode``,
+``_decode_sequence``), with
 its imports rewritten to the port's modules (EXIF through
 ``formats.jpg._parse_exif``).  Split as ``formats.webp`` is split:
 
@@ -32,9 +34,12 @@ its imports rewritten to the port's modules (EXIF through
   read-back on the calling thread, then every tile's recon in the
   pool), then the host colour (span ``heif.color``:
   ``native.hevc_color``), the paste into the canvas, the alpha item
-  (span ``heif.alpha``) and ``irot``, as the original does them.  With
-  ``FFPIC_HEIF_DEVICE_COLOR`` set (and a mode other than nclx) it stops
-  at each tile's planes, cast to int16 as the original stages them;
+  (span ``heif.alpha``) and ``irot``, and the frames of an image
+  sequence (``_decode_sequence``: ``hevc.SequenceDecoder`` over the
+  track's samples, P/B pictures motion-compensated on the host), as the
+  original does them.  With ``FFPIC_HEIF_DEVICE_COLOR`` set (and a mode
+  other than nclx) it stops at each tile's and each frame's planes,
+  cast to int16 as the original stages them;
 * ``to_pics`` is the device part: the staging copy (span ``heif.h2d``)
   of the RGBA pixels, or of every tile's planes, descriptors and the
   canvas's cells in one copy, then one launch of the
@@ -43,14 +48,14 @@ its imports rewritten to the port's modules (EXIF through
   which writes each canvas pixel once, the tiles' colour and the
   uncovered (0, 0, 0, 255), where the original reads each tile back and
   pastes it on the host; the alpha plane and ``irot`` are then applied
-  on the device (span ``heif.alpha``).  Pixels land on the load's
-  device, as the port's other codecs' do.
+  on the device (span ``heif.alpha``); then each sequence frame, its
+  host RGBA copied or its planes coloured in one launch of its own
+  (``frame_pixels``).  Pixels land on the load's device, as the port's
+  other codecs' do.
 
-``decode_batch`` runs ``parse`` in its worker pool and ``to_pics`` on
-the caller's thread.  A file with an image sequence (moov/trak) raises
-``NotImplementedError`` when its pixels are asked for: the sequence
-decode (``_decode_sequence``) waits with the HEVC inter slice for
-``ROADMAP.md`` Queue 1 item 16.  ``FFPIC_NO_NATIVE`` is not honoured
+``decode_batch`` runs ``parse`` in its worker pool, without the
+sequence (it returns the primary picture, as the original's does), and
+``to_pics`` on the caller's thread.  ``FFPIC_NO_NATIVE`` is not honoured
 (the numpy colour of the original is left out): the port's native
 build raises on failure.  Under ``FFPIC_HEIF_DEVICE_COLOR`` a 10-bit
 item is coloured as if its samples were 8-bit, as in the original
@@ -78,10 +83,6 @@ from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.vlog import get_logger
 
 log = get_logger("heif")
-
-# what a file with an image sequence raises
-SEQUENCE = ("HEIF image sequences (moov/trak) wait for ROADMAP.md Queue 1 "
-            "item 16 (the HEVC inter slice)")
 
 BRANDS = {b"heic", b"heix", b"hevc", b"hevx", b"mif1", b"msf1", b"heim",
           b"heis", b"hevm", b"hevs"}
@@ -237,7 +238,9 @@ class HeifFile:
     its pixels as host RGBA (``rgba``, alpha and ``irot`` applied), or,
     under ``FFPIC_HEIF_DEVICE_COLOR``, one ``_Tile`` per item to colour
     on the device (``grid`` the canvas's (H, W) for a grid, None for a
-    single item) with the alpha plane and the rotation still to apply."""
+    single item) with the alpha plane and the rotation still to apply;
+    ``frames`` the image sequence's frames in presentation order, each
+    its host RGBA or, under ``FFPIC_HEIF_DEVICE_COLOR``, a ``_Tile``."""
     pic: Pic
     rgba: np.ndarray | None = None
     tiles: list = field(default_factory=list)
@@ -245,6 +248,7 @@ class HeifFile:
     mode: str = "bt601"
     alpha: np.ndarray | None = None
     rotation: int = 0
+    frames: list = field(default_factory=list)
 
 
 @dataclass
@@ -267,9 +271,10 @@ def _device_color(mode) -> bool:
 
 
 def parse(data: bytes, skip_decode: bool = False, mode="bt601",
-          device=None) -> HeifFile:
-    """The host part of a decode (``heif.py:180-300``).  ``device`` is
-    where ``FFPIC_HEVC_DEVICE``'s residual transform runs (None: CUDA)."""
+          device=None, sequence: bool = True) -> HeifFile:
+    """The host part of a decode (``heif.py:180-302``).  ``device`` is
+    where ``FFPIC_HEVC_DEVICE``'s residual transform runs (None: CUDA).
+    ``sequence=False`` leaves an image sequence's frames undecoded."""
     with trace.stage("heif.parse"):
         s = parse_structure(data)
     primary_id = s["primary"]
@@ -347,8 +352,6 @@ def parse(data: bytes, skip_decode: bool = False, mode="bt601",
     f = HeifFile(pic=pic, mode=mode)
     if skip_decode:
         return f
-    if s["sequence"]:
-        raise NotImplementedError(SEQUENCE)
     if os.environ.get("FFPIC_HEVC_DEVICE"):
         device = resolve_device(device, "heif")
     on_device = _device_color(mode)
@@ -411,17 +414,34 @@ def parse(data: bytes, skip_decode: bool = False, mode="bt601",
             rgba = np.ascontiguousarray(np.rot90(rgba, rot // 90))
     if not on_device:
         f.rgba = rgba
+    if s["sequence"] and sequence:
+        boxes = bm.parse_boxes(data, 0, len(data))
+        f.frames = _decode_sequence(data, boxes, mode, device, on_device)
     return f
 
 
 def to_pics(f: HeifFile, device: torch.device) -> list[Pic]:
     """The device part of a decode: the picture with its pixels on
-    ``device``."""
+    ``device``, then the image sequence's frames."""
     pic = f.pic
     if f.rgba is not None:
         with trace.stage("heif.h2d"):
             pic.pixels = _to_device(f.rgba, device)
-        return [pic]
+    else:
+        pic.pixels = _tiles_to_rgba(f, device)
+    pics = [pic]
+    for fr in f.frames:
+        px = frame_pixels(fr, f.mode, device)
+        fh, fw = px.shape[:2]
+        pics.append(Pic(width=fw, height=fh, depth=32, pitch=fw * 4,
+                        codec="HEIF", pixels=px,
+                        meta=dict(width=fw, height=fh)))
+    return pics
+
+
+def _tiles_to_rgba(f: HeifFile, device: torch.device) -> torch.Tensor:
+    """The primary picture's tiles coloured on ``device`` in one launch,
+    with its alpha plane and rotation."""
     with trace.stage("heif.h2d"):
         staged = _stage_tiles(f, device)
     with trace.stage("heif.color"), \
@@ -433,8 +453,35 @@ def to_pics(f: HeifFile, device: torch.device) -> list[Pic]:
         if f.rotation:
             rgba = torch.rot90(rgba, f.rotation // 90, dims=(0, 1)) \
                 .contiguous()
-    pic.pixels = rgba
-    return [pic]
+    return rgba
+
+
+def frame(pic, mode, on_device: bool):
+    """A decoded sequence picture (an image sequence's frame, a raw
+    stream's picture) as ``frame_pixels`` takes it: its host RGBA
+    (``_yuv_pic_to_rgba``, span ``heif.color``), or with ``on_device``
+    its planes (``_tile_planes``) for the device colour."""
+    if on_device:
+        return _tile_planes(pic, pic.sps, {})
+    with trace.stage("heif.color"):
+        return _yuv_pic_to_rgba(pic, pic.sps, None, None, mode)
+
+
+def frame_pixels(fr, mode, device: torch.device) -> torch.Tensor:
+    """A ``frame`` on ``device``: its host RGBA copied, or its planes
+    staged and coloured by one launch of the ``hevc_yuv_to_rgba`` kernel
+    over the frame as its one tile (the original's ``color_convert`` on
+    the frame, ``heif.py:356-371``; its plain version on the CPU)."""
+    if isinstance(fr, np.ndarray):
+        with trace.stage("heif.h2d"):
+            return _to_device(fr, device)
+    with trace.stage("heif.h2d"):
+        st = hevc_kernels.stage_tiles([fr.planes], [(0, 0, fr.out_h,
+                                                     fr.out_w)],
+                                      fr.out_h, fr.out_w, device)
+    with trace.stage("heif.color"), \
+            trace.device_trace("hevc_yuv_to_rgba", device):
+        return hevc_kernels.hevc_tiles_to_rgba(st, mode)
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -740,3 +787,104 @@ def encode(pic: Pic, *, device: torch.device, **options) -> bytes:
 
 register(Codec(name="HEIF", alias="HEIC", probe=probe, load=load,
                info=info, encode=encode))
+
+
+# ---------------------------------------------------------------------------
+# image sequences (moov/trak, heif.c:431-462)
+# ---------------------------------------------------------------------------
+
+def _decode_sequence(data: bytes, boxes, mode, device=None,
+                     on_device: bool = False) -> list:
+    """Decode hvc1 track samples to frames in presentation order, each
+    a ``frame`` (its host RGBA, or with ``on_device`` its planes).
+    ``device`` is where ``FFPIC_HEVC_DEVICE``'s residuals run.  A
+    sample whose decode raises ``ValueError`` or
+    ``NotImplementedError`` is skipped, as in the original."""
+    moov = bm.find_box(boxes, "moov")
+    if moov is None:
+        return []
+    frames = []
+    for trak in [b for b in moov.children if b.type == "trak"]:
+        stbl = bm.find_box(trak.children, "mdia/minf/stbl")
+        if stbl is None:
+            continue
+        stsd = bm.find_box(stbl.children, "stsd")
+        stsz = bm.find_box(stbl.children, "stsz")
+        stco = bm.find_box(stbl.children, "stco")
+        stsc = bm.find_box(stbl.children, "stsc")
+        if not (stsd and stsz and stco and stsc):
+            continue
+        # stsd -> first hvc1 visual sample entry -> hvcC child box
+        p = stsd.start + 8
+        entry_size, entry_type = struct.unpack_from(">I4s", data, p)
+        if entry_type != b"hvc1":
+            continue
+        hvcc_pos = p + 86
+        hb = bm.parse_boxes(data, hvcc_pos, p + entry_size)
+        hvcc_box = bm.find_box(hb, "hvcC")
+        if hvcc_box is None:
+            continue
+        hvcc = _parse_hvcc(data, hvcc_box)
+        sps_l = hvcc["nalus"].get("sps", [])
+        pps_l = hvcc["nalus"].get("pps", [])
+        if not sps_l or not pps_l:
+            continue
+        sps = hevc.parse_sps(sps_l[0])
+        pps = hevc.parse_pps(pps_l[0])
+        # sample sizes
+        v = struct.unpack_from(">I", data, stsz.start)[0] & 0xFFFFFF
+        uniform = struct.unpack_from(">I", data, stsz.start + 4)[0]
+        n_samples = struct.unpack_from(">I", data, stsz.start + 8)[0]
+        if uniform:
+            sizes = [uniform] * n_samples
+        else:
+            sizes = list(struct.unpack_from(f">{n_samples}I", data,
+                                            stsz.start + 12))
+        n_chunks = struct.unpack_from(">I", data, stco.start + 4)[0]
+        chunk_off = struct.unpack_from(f">{n_chunks}I", data,
+                                       stco.start + 8)
+        n_stsc = struct.unpack_from(">I", data, stsc.start + 4)[0]
+        stsc_e = [struct.unpack_from(">III", data, stsc.start + 8
+                                     + 12 * k) for k in range(n_stsc)]
+        # expand samples-per-chunk runs
+        spc = []
+        for k in range(n_chunks):
+            cur = 1
+            for first, per, _desc in stsc_e:
+                if first <= k + 1:
+                    cur = per
+            spc.append(cur)
+        # full sequence decode (I/P/B) through the DPB-backed
+        # SequenceDecoder — P/B samples motion-compensate for real
+        # (beyond the reference, which has no inter pixel path)
+        seq = hevc.SequenceDecoder(device)
+        seq.sps[sps.sps_id] = sps
+        seq.pps[pps.pps_id] = pps
+        decoded = []                   # (poc, Picture) decode order
+        si = 0
+        for ci in range(n_chunks):
+            off = chunk_off[ci]
+            for _ in range(spc[ci]):
+                if si >= n_samples:
+                    break
+                blob = data[off:off + sizes[si]]
+                off += sizes[si]
+                si += 1
+                try:
+                    for nalu in hevc.split_nalus_length_prefixed(
+                            blob, hvcc["length_size"]):
+                        pic = seq.push(nalu)
+                        if pic is not None:
+                            decoded.append(pic)
+                except (ValueError, NotImplementedError) as e:
+                    log.warning("sequence sample %d skipped: %s",
+                                si, e)
+        try:
+            pic = seq.flush()
+            if pic is not None:
+                decoded.append(pic)
+        except (ValueError, NotImplementedError) as e:
+            log.warning("sequence flush failed: %s", e)
+        frames += [frame(pic, mode, on_device)
+                   for pic in hevc.display_order(decoded)]
+    return frames

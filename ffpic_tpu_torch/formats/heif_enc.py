@@ -10,10 +10,8 @@ inputs to chew on.
 
 Copied from ``ffpic_tpu/formats/heif_enc.py`` for the PyTorch port,
 with its imports rewritten to the port's modules.  What differs:
-``encode_heif`` copies a picture's pixels to the host first (they may
-lie on the card), and ``encode_heif_sequence`` (a HEIC with an image
-sequence) waits with the sequence decode for ``ROADMAP.md`` Queue 1
-item 16.
+``encode_heif`` and ``encode_heif_sequence`` copy a picture's pixels
+to the host first (they may lie on the card).
 """
 
 from __future__ import annotations
@@ -75,9 +73,14 @@ def _full(tag: str, version: int, flags: int, payload: bytes) -> bytes:
 def _hvcc(sps_rbsp: bytes, pps_rbsp: bytes, ptl_bytes: bytes = None,
           chroma_format: int = 1) -> bytes:
     """HEVCDecoderConfigurationRecord (ISO 14496-15 §8.3.3.1)."""
-    vps = make_nalu(32, write_vps())
-    sps = make_nalu(33, sps_rbsp)
-    pps = make_nalu(34, pps_rbsp)
+    return hvcc_record(make_nalu(32, write_vps()), make_nalu(33, sps_rbsp),
+                       make_nalu(34, pps_rbsp), chroma_format)
+
+
+def hvcc_record(vps: bytes, sps: bytes, pps: bytes,
+                chroma_format: int = 1) -> bytes:
+    """An HEVCDecoderConfigurationRecord over these VPS, SPS and PPS NAL
+    units (4-byte NAL lengths); ``_hvcc`` with the encoder's own."""
     rec = bytearray()
     rec.append(1)                              # configurationVersion
     rec.append(0x01)                           # space/tier/profile: Main
@@ -125,6 +128,17 @@ def _encode_tile(planes, qp, policy, ctb_log2=5) -> tuple:
     return enc.encode(), enc.sps_rbsp, enc.pps_rbsp
 
 
+def _host_rgba(pic) -> np.ndarray:
+    """A picture's (H, W, C) pixels as a host array."""
+    if pic.pixels is None:
+        raise ValueError("pic has no decoded pixels to encode")
+    rgba = pic.np_pixels() if hasattr(pic, "np_pixels") \
+        else np.asarray(pic.pixels)
+    if rgba.ndim != 3:
+        raise ValueError("pic has no decoded pixels to encode")
+    return rgba
+
+
 def encode_heif(pic, quality: int = 75, tile: int | None = None,
                 qp: int | None = None) -> bytes:
     """Encode a Pic (RGBA pixels) to HEIC bytes.
@@ -132,12 +146,7 @@ def encode_heif(pic, quality: int = 75, tile: int | None = None,
     quality 0-100 maps to QP (or pass qp directly); tile=N writes an
     iPhone-style grid of NxN tiles when the image exceeds one tile.
     """
-    if pic.pixels is None:
-        raise ValueError("pic has no decoded pixels to encode")
-    rgba = pic.np_pixels() if hasattr(pic, "np_pixels") \
-        else np.asarray(pic.pixels)
-    if rgba.ndim != 3:
-        raise ValueError("pic has no decoded pixels to encode")
+    rgba = _host_rgba(pic)
     H, W = rgba.shape[:2]
     if qp is None:
         qp = int(np.clip(51 - quality // 2, 0, 51))
@@ -272,3 +281,66 @@ def _assemble(items, refs, primary_id,
     assert len(meta) == len(probe_meta)
     mdat = _box("mdat", mdat_payload)
     return ftyp + meta + mdat
+
+
+def encode_heif_sequence(pics, qp: int = 27) -> bytes:
+    """Write a HEIC with a still primary item (first frame) plus a
+    moov/trak hvc1 image sequence carrying every frame — the container
+    shape heif.c:431-462 reads.  Minimal sample tables (stsd/stsc/
+    stsz/stco), one chunk."""
+    first = pics[0]
+    base = encode_heif(first, qp=qp)
+
+    policy = EncPolicy(seed=0, split_prob=0.35, tt_split_prob=0.25,
+                       nxn_prob=0.15,
+                       mode_candidates=tuple(range(0, 35, 2)) + (1,))
+    samples = []
+    sps_r = pps_r = None
+    for p in pics:
+        rgba = _host_rgba(p)
+        y, u, v = rgb_to_yuv420(rgba)
+        y, u, v, _, _ = _pad_planes(y, u, v)
+        idr, sps_r, pps_r = _encode_tile((y, u, v), qp, policy)
+        samples.append(struct.pack(">I", len(idr)) + idr)
+
+    return sequence_heic(base, samples, rgba.shape[1], rgba.shape[0],
+                         _hvcc(sps_r, pps_r))
+
+
+def sequence_heic(base: bytes, samples: list, width: int, height: int,
+                  hvcc: bytes) -> bytes:
+    """``base`` (a HEIC with its still items) followed by a moov/trak
+    hvc1 image sequence of ``samples`` (each an access unit's
+    length-prefixed NAL units) with the sample entry's ``hvcc`` record.
+    Minimal sample tables (stsd/stsc/stsz/stco), one chunk."""
+    sample_entry = (struct.pack(">I4s", 0, b"hvc1") + bytes(6)
+                    + struct.pack(">H", 1) + bytes(16)
+                    + struct.pack(">HH", width, height)
+                    + struct.pack(">II", 0x480000, 0x480000)
+                    + bytes(4) + struct.pack(">H", 1) + bytes(32)
+                    + struct.pack(">Hh", 24, -1)
+                    + _box("hvcC", hvcc))
+    sample_entry = (struct.pack(">I", len(sample_entry))
+                    + sample_entry[4:])
+    stsd = _full("stsd", 0, 0, struct.pack(">I", 1) + sample_entry)
+    stsc = _full("stsc", 0, 0,
+                 struct.pack(">IIII", 1, 1, len(samples), 1))
+    stsz = _full("stsz", 0, 0,
+                 struct.pack(">II", 0, len(samples))
+                 + b"".join(struct.pack(">I", len(s)) for s in samples))
+    # stco offset resolved after sizing
+    payload = b"".join(samples)
+
+    def build_moov(chunk_off):
+        stco = _full("stco", 0, 0, struct.pack(">II", 1, chunk_off))
+        stbl = _box("stbl", stsd + stsc + stsz + stco)
+        minf = _box("minf", stbl)
+        mdia = _box("mdia", minf)
+        trak = _box("trak", mdia)
+        return _box("moov", trak)
+
+    probe_moov = build_moov(0)
+    chunk_off = len(base) + len(probe_moov) + 8   # + mdat header
+    moov = build_moov(chunk_off)
+    assert len(moov) == len(probe_moov)
+    return base + moov + _box("mdat", payload)

@@ -13,26 +13,31 @@ with its imports rewritten to the port's modules.  What differs:
 
 * ``decode_picture`` and ``decode_idr_slice`` take ``device``, where
   ``FFPIC_HEVC_DEVICE``'s residual transform runs (None means CUDA):
-  on the native single-slice route through
-  ``ops.hevc_kernels.residuals_packed`` (one launch of the
-  ``hevc_residuals`` CUDA kernel over the picture's TUs, its plain
-  version on the CPU; span ``hevc.residuals_device``), on the Python
-  route through ``hevc_recon.execute_ops``.  With
-  ``defer_residuals=True`` the native single-slice route stops before
-  the transform and returns a ``PendingPicture``, so that a HEIF grid
-  runs every tile's TUs in one launch (``formats.heif``);
+  on the native routes through ``ops.hevc_kernels.residuals_packed``
+  (one launch of the ``hevc_residuals`` CUDA kernel over the picture's
+  TUs, its plain version on the CPU; span ``hevc.residuals_device``),
+  on the Python route through ``hevc_recon.execute_ops``.  The
+  original's native multi-segment route (tiles, WPP, several slices)
+  runs every transform on the host whatever the switch says; the
+  port's launches there too, so that each picture takes one launch.
+  The native routes leave out streams with scaling lists, so no byte
+  changes.  With ``defer_residuals=True`` the native single-slice route
+  stops before the transform and returns a ``PendingPicture``, so that
+  a HEIF grid runs every tile's TUs in one launch (``formats.heif``);
+* a slice's entry points are cut out of its de-escaped data with the
+  emulation prevention bytes taken off (``rbsp_entry_points``), where
+  the original cuts at the raw offsets (``ROADMAP.md`` Queue 3);
 * the native routes are taken whatever ``FFPIC_NO_NATIVE`` says: the
   port's native build raises on failure (``ROADMAP.md`` Queue 1
-  item 5);
-* the full inter decode is not ported (``_ref_lists``,
-  ``_build_inter_ctx``, ``_decode_picture_inter``, ``SequenceDecoder``,
-  ``split_annexb``): ``decode_picture`` given ``inter_env`` for a P/B
-  picture raises ``NotImplementedError`` naming the ROADMAP item of
-  ``coding.hevc_slice.INTER_SLICE``; without it, P/B pictures still
-  parse-and-skip and raise ``InterSliceUnsupported`` as in the
-  original;
+  item 3);
+* the full inter decode (``_decode_picture_inter``, reached from
+  ``SequenceDecoder``) takes ``device`` too: under
+  ``FFPIC_HEVC_DEVICE`` a P/B picture's TUs go to it in one launch
+  (``hevc_recon.execute_ops``), as an intra picture's do; the motion
+  compensation and the decoded picture buffer stay on the host, as in
+  the original;
 * the syntax and recon passes are timed as the spans ``hevc.syntax``
-  and ``hevc.recon``.
+  and ``hevc.recon``, the deblocking and SAO as ``hevc.loop_filter``.
 """
 
 from __future__ import annotations
@@ -429,6 +434,29 @@ def decode_idr_slice(sps: SPS, pps: PPS, nalu: bytes, device=None):
     return decode_picture(sps, pps, [nalu], device=device)
 
 
+def rbsp_entry_points(nalu: bytes, hdr) -> tuple:
+    """The slice's substream sizes in its de-escaped data.  Each
+    entry_point_offset_minus1 + 1 counts the slice data's bytes as the
+    NAL unit carries them, emulation prevention bytes included
+    (7.4.7.1), while the decode reads the data with them removed, so an
+    offset shrinks by the emulation prevention bytes in its substream.
+    The original splits the de-escaped data at the offsets as they are
+    (``ROADMAP.md`` Queue 3)."""
+    if not hdr.entry_points or b"\x00\x00\x03" not in nalu:
+        return hdr.entry_points
+    b = np.frombuffer(nalu, np.uint8)
+    esc = np.flatnonzero((b[2:] == 3) & (b[1:-1] == 0) & (b[:-2] == 0)) + 2
+    # escaped position of the first slice-data byte: its de-escaped
+    # position plus the emulation prevention bytes of the header
+    start = hdr.data_bit_offset // 8
+    k = 0
+    while k < len(esc) and esc[k] <= start + k:
+        k += 1
+    ends = start + k + np.cumsum(hdr.entry_points)
+    ends = ends - np.searchsorted(esc, ends)
+    return tuple(int(v) for v in np.diff(ends, prepend=start))
+
+
 def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
                    inter_env: dict | None = None, device=None,
                    defer_residuals: bool = False):
@@ -441,10 +469,11 @@ def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
     cabac.c:708-733).  Single-segment intra pictures take the native
     C fast path.
 
-    P/B pictures parse-and-skip with a typed raise (reference parity,
-    hevc.c:6285-6397); with `inter_env` (the original's sequence state
-    for a full inter decode) they raise ``NotImplementedError``: the
-    port has no inter decode yet.  ``device`` is where
+    P/B pictures decode fully (merge/AMVP motion derivation + MC +
+    bS-aware deblock) when `inter_env` supplies the sequence state:
+    {"poc": int, "refpics": {poc: Picture}} from a SequenceDecoder.
+    Without it they parse-and-skip with a typed raise (reference
+    parity, hevc.c:6285-6397).  ``device`` is where
     ``FFPIC_HEVC_DEVICE``'s residuals run (None: CUDA).  With
     ``defer_residuals`` a picture whose residuals would go to the device
     in one launch of its own (the native single-slice route under
@@ -467,6 +496,7 @@ def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
         nut = (rbsp[0] >> 1) & 0x3F
         r.skip_bits(16)
         hdr = parse_slice_header(r, nut, sps, pps, prev=prev_hdr)
+        hdr.entry_points = rbsp_entry_points(nalu, hdr)
         if not hdr.dependent:
             prev_hdr = hdr
         parsed.append((hdr, rbsp[hdr.data_bit_offset // 8:]))
@@ -475,8 +505,8 @@ def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
     _attach_lf_barriers(pic, sps, pps, parsed)
     if any(h.slice_type != 2 for h, _ in parsed):
         if inter_env is not None:
-            from ffpic_tpu_torch.coding.hevc_slice import INTER_SLICE
-            raise NotImplementedError(INTER_SLICE)
+            return _decode_picture_inter(sps, pps, parsed, pic,
+                                         inter_env, device)
         # P/B picture without sequence state: full parse-and-skip
         # through the Python slice decoder (CABAC stays bit-synced
         # through every CU/PU/MVD and residual; reference parity with
@@ -527,7 +557,7 @@ def decode_picture(sps: SPS, pps: PPS, slice_nalus: list,
             with trace.stage("hevc.recon"):
                 hevc_recon.execute_ops(pic, ops, device)
         else:
-            _decode_picture_native(sps, pps, parsed, pic)
+            _decode_picture_native(sps, pps, parsed, pic, device)
         return _finish_picture(pic, hdr0, pps)
 
     shared = SharedPictureState(sps, pps, pic)
@@ -604,12 +634,14 @@ def _attach_lf_barriers(pic, sps, pps, parsed) -> None:
 
 def _finish_picture(pic, hdr, pps):
     from ffpic_tpu_torch.formats import hevc_recon
-    if not hdr.deblocking_disabled:
-        hevc_recon.deblock(pic, hdr.beta_offset_div2, hdr.tc_offset_div2,
-                           cb_qp_off=pps.cb_qp_offset,
-                           cr_qp_off=pps.cr_qp_offset)
-    if hdr.sao_luma or hdr.sao_chroma:
-        hevc_recon.apply_sao(pic)
+    with trace.stage("hevc.loop_filter"):
+        if not hdr.deblocking_disabled:
+            hevc_recon.deblock(pic, hdr.beta_offset_div2,
+                               hdr.tc_offset_div2,
+                               cb_qp_off=pps.cb_qp_offset,
+                               cr_qp_off=pps.cr_qp_offset)
+        if hdr.sao_luma or hdr.sao_chroma:
+            hevc_recon.apply_sao(pic)
     return pic
 
 
@@ -665,7 +697,7 @@ def _fresh_sm(qp: int):
     return np.array(sm, np.uint8)
 
 
-def _decode_picture_native(sps, pps, parsed, pic) -> None:
+def _decode_picture_native(sps, pps, parsed, pic, device=None) -> None:
     """Native multi-segment decode (tiles / WPP / multi-slice /
     dependent segments): per-segment C syntax with shared picture
     state, then per-availability-zone C recon (fresh masks per zone
@@ -741,12 +773,19 @@ def _decode_picture_native(sps, pps, parsed, pic) -> None:
     opz = zone_map[oy, ox]
     cut = np.flatnonzero(np.diff(opz)) + 1
     starts = np.concatenate([[0], cut, [len(ops)]])
+    resid = None
+    if device_residuals():
+        # every TU of the picture, all segments, in one launch
+        from ffpic_tpu_torch.ops.hevc_kernels import residuals_packed
+        with trace.stage("hevc.residuals_device"):
+            resid = residuals_packed(tu, levels, sps.bit_depth_luma, device)
     with trace.stage("hevc.recon"):
         for k in range(len(starts) - 1):
             native.hevc_recon(pic.planes, sps.bit_depth_luma,
                               getattr(sps, "strong_intra_smoothing",
                                       False),
-                              ops[starts[k]:starts[k + 1]], tu, levels)
+                              ops[starts[k]:starts[k + 1]], tu, levels,
+                              residuals=resid)
     for p in range(len(pic.planes)):
         pic.masks[p][:] = True
 
@@ -898,3 +937,261 @@ def _decode_slice_native(sps, pps, hdr, data: bytes, pic, device=None):
         ops.append(PredOp(int(plane), int(x), int(y), int(n), int(mode),
                           tus[tu] if tu >= 0 else None))
     return ops
+
+
+# ---------------------------------------------------------------------------
+# full inter decode (8.3 + 8.5; beyond the reference's parse-and-skip)
+# ---------------------------------------------------------------------------
+
+def _ref_lists(sps, pps, hdr, poc: int, refpics: dict):
+    """RefPicList0/1 construction (8.3.4) from the slice's RPS."""
+    if hdr.has_lt:
+        raise NotImplementedError("long-term reference pictures")
+    before = [poc + d for d, u in hdr.rps[0] if u]
+    after = [poc + d for d, u in hdr.rps[1] if u]
+    nptc = len(before) + len(after)
+    if nptc == 0:
+        raise ValueError("P/B slice with an empty reference "
+                         "picture set")
+    for p in before + after:
+        if p not in refpics:
+            raise ValueError(f"missing reference picture POC {p}")
+    lists = []
+    for lx in range(2):
+        order = (before + after) if lx == 0 else (after + before)
+        nref = hdr.num_ref_l0 if lx == 0 else hdr.num_ref_l1
+        tmp = []
+        while len(tmp) < max(nref, nptc):
+            tmp.extend(order)
+        mod = hdr.list_mod[lx]
+        if mod is not None:
+            sel = [tmp[i] for i in mod[:nref]]
+        else:
+            sel = tmp[:nref]
+        lists.append([(p, refpics[p], False) for p in sel])
+    return lists
+
+
+def _build_inter_ctx(sps, pps, hdr, poc, refpics, fld):
+    from ffpic_tpu_torch.coding.hevc_inter import InterSliceCtx
+    ref_list = _ref_lists(sps, pps, hdr, poc, refpics)
+    ctx = InterSliceCtx(poc=poc, ref_list=ref_list, field_=fld)
+    ctx.slice_type = hdr.slice_type
+    ctx.max_merge = hdr.max_merge
+    ctx.par_mrg_level = getattr(pps, "par_mrg_level", 2)
+    ctx.mvd_l1_zero = hdr.mvd_l1_zero
+    ctx.ctb_log2 = sps.ctb_log2
+    ctx.pic_w, ctx.pic_h = sps.width, sps.height
+    if hdr.temporal_mvp:
+        col_list = ref_list[0] if hdr.col_from_l0 else ref_list[1]
+        if hdr.col_ref_idx < len(col_list):
+            col_poc, col_pic, _lt = col_list[hdr.col_ref_idx]
+            if getattr(col_pic, "motion", None) is not None:
+                ctx.temporal_mvp = True
+                ctx.col_field = col_pic.motion
+                ctx.col_poc = col_poc
+                ctx.col_from_l0 = hdr.col_from_l0
+    if (pps.weighted_pred and hdr.slice_type == 1) or \
+            (pps.weighted_bipred and hdr.slice_type == 0):
+        if hdr.wp is None:
+            raise ValueError("weighted prediction enabled but no "
+                             "pred_weight_table in the slice header")
+        ctx.wp = hdr.wp
+    return ctx
+
+
+def _decode_picture_inter(sps, pps, parsed, pic, inter_env, device=None):
+    """Full P/B picture decode: per-slice reference lists, inline
+    motion derivation during the CABAC pass, MC + residual execution
+    (``FFPIC_HEVC_DEVICE``'s residuals on ``device``), bS-aware
+    deblock + SAO."""
+    from ffpic_tpu_torch.coding.hevc_inter import MotionField
+    from ffpic_tpu_torch.coding.hevc_slice import (SharedPictureState,
+                                             SliceDecoder)
+    from ffpic_tpu_torch.formats import hevc_recon
+
+    if pps.constrained_intra_pred:
+        raise NotImplementedError("constrained_intra_pred")
+    poc = inter_env["poc"]
+    refpics = inter_env["refpics"]
+    fld = MotionField(sps.width, sps.height)
+    shared = SharedPictureState(sps, pps, pic)
+    pic.ref_pics = refpics
+    all_ops = []
+    slice_idx = -1
+    hdr0 = parsed[0][0]
+    with trace.stage("hevc.syntax"):
+        for hdr, data in parsed:
+            if not hdr.dependent:
+                slice_idx += 1
+            ictx = None
+            if hdr.slice_type != 2:
+                ictx = _build_inter_ctx(sps, pps, hdr, poc, refpics, fld)
+            sd = SliceDecoder(sps, pps, hdr, data, pic, shared=shared,
+                              slice_idx=slice_idx, inter_ctx=ictx)
+            all_ops.extend(sd.decode_slice_data())
+    pic.sao_params = shared.sao_out
+    with trace.stage("hevc.recon"):
+        hevc_recon.execute_ops(pic, all_ops, device)
+        hevc_recon.compute_bs(pic, fld, shared.intra_map,
+                              shared.nonzero_map)
+    pic.motion = fld
+    return _finish_picture(pic, hdr0, pps)
+
+
+class SequenceDecoder:
+    """Stateful HEVC NALU-stream decoder with a decoded picture
+    buffer: POC derivation (8.3.1), reference picture set
+    application (8.3.2) and per-picture dispatch into
+    decode_picture.  Feed NAL units in decode order via push();
+    completed pictures come back in decode order (reorder by .poc
+    for output order).  ``device`` is where ``FFPIC_HEVC_DEVICE``'s
+    residuals run (None: CUDA); the DPB's planes stay on the host,
+    where the motion compensation reads them.
+
+    Like the original it treats every CRA/BLA as a random-access point
+    (NoRaslOutputFlag 1: the POC MSB resets and RASL pictures are
+    decoded), and takes every picture as prevTid0Pic (``ROADMAP.md``
+    Queue 3)."""
+
+    def __init__(self, device=None):
+        self.device = device
+        self.sps: dict = {}
+        self.pps: dict = {}
+        self.dpb: dict = {}          # poc -> Picture (with .motion)
+        self.prev_tid0_poc = 0
+        self._au: list = []
+
+    def push(self, nalu: bytes):
+        """Feed one NAL unit; returns a decoded Picture when this
+        NALU completes the *previous* access unit, else None."""
+        if len(nalu) < 3:
+            return None            # corrupt/truncated NAL: skip
+        t = nal_type(nalu)
+        out = None
+        if t >= 32 or (t < 32 and ((nalu[2] >> 7) & 1)):
+            # parameter set / non-slice, or a first-slice segment:
+            # both close any pending AU
+            if self._au:
+                out = self._decode_au()
+        if t == NAL_SPS:
+            s = parse_sps(nalu)
+            self.sps[s.sps_id] = s
+        elif t == NAL_PPS:
+            p = parse_pps(nalu)
+            self.pps[p.pps_id] = p
+        elif t < 32:
+            self._au.append(nalu)
+        return out
+
+    def flush(self):
+        """Decode any pending access unit."""
+        if self._au:
+            return self._decode_au()
+        return None
+
+    def decode_annexb(self, stream: bytes):
+        """Decode a whole Annex-B stream; returns the pictures in
+        decode order."""
+        out = []
+        for nalu in split_annexb(stream):
+            pic = self.push(nalu)
+            if pic is not None:
+                out.append(pic)
+        pic = self.flush()
+        if pic is not None:
+            out.append(pic)
+        return out
+
+    def _decode_au(self):
+        from ffpic_tpu_torch.coding.hevc_slice import parse_slice_header
+        from ffpic_tpu_torch.coding.hevc_inter import MotionField
+
+        nalus, self._au = self._au, []
+        rbsp = unescape(nalus[0])
+        nut = (rbsp[0] >> 1) & 0x3F
+        r = BitReader(rbsp)
+        r.skip_bits(16)
+        # probe pps_id cheaply (first_slice flag is set on AU starts)
+        r.read_bit()
+        if 16 <= nut <= 23:
+            r.read_bit()
+        try:
+            pps = self.pps[read_ue(r)]
+            sps = self.sps[pps.sps_id]
+        except KeyError as e:
+            raise ValueError(f"slice references unknown parameter "
+                             f"set {e}") from None
+        r2 = BitReader(rbsp)
+        r2.skip_bits(16)
+        hdr0 = parse_slice_header(r2, nut, sps, pps)
+
+        # POC (8.3.1)
+        if nut in (NAL_IDR_W_RADL, NAL_IDR_N_LP):
+            poc = 0
+            self.dpb = {}
+        else:
+            max_lsb = 1 << sps.log2_max_pic_order_cnt
+            if 16 <= nut <= 23:
+                # IRAP with NoRaslOutputFlag: MSB resets (treating
+                # every CRA/BLA as a random-access point)
+                poc = hdr0.poc_lsb
+            else:
+                prev = self.prev_tid0_poc
+                prev_lsb = prev & (max_lsb - 1)
+                prev_msb = prev - prev_lsb
+                lsb = hdr0.poc_lsb
+                if lsb < prev_lsb and prev_lsb - lsb >= max_lsb // 2:
+                    msb = prev_msb + max_lsb
+                elif lsb > prev_lsb and lsb - prev_lsb > max_lsb // 2:
+                    msb = prev_msb - max_lsb
+                else:
+                    msb = prev_msb
+                poc = msb + lsb
+            # RPS application (8.3.2): drop DPB entries the current
+            # RPS no longer references
+            keep = {poc + d for d, _u in hdr0.rps[0]} \
+                | {poc + d for d, _u in hdr0.rps[1]}
+            self.dpb = {p: v for p, v in self.dpb.items()
+                        if p in keep}
+        self.prev_tid0_poc = poc
+
+        env = {"poc": poc, "refpics": self.dpb}
+        pic = decode_picture(sps, pps, nalus, inter_env=env,
+                             device=self.device)
+        pic.poc = poc
+        if pic.motion is None:
+            pic.motion = MotionField(sps.width, sps.height)
+        self.dpb[poc] = pic
+        return pic
+
+
+def display_order(pics) -> list:
+    """Decoded pictures (decode order) in presentation order: by POC
+    within each group that a POC 0 (an IDR) starts, as the original's
+    ``hevc_raw.load`` and ``heif._decode_sequence`` order them."""
+    groups: list = []
+    for p in pics:
+        if p.poc == 0 or not groups:
+            groups.append([])
+        groups[-1].append(p)
+    return [p for g in groups for p in sorted(g, key=lambda q: q.poc)]
+
+
+def split_annexb(data: bytes):
+    """Split an Annex-B byte stream into NAL units (start codes
+    00 00 01 / 00 00 00 01)."""
+    out = []
+    i = data.find(b"\x00\x00\x01")
+    while i >= 0:
+        j = data.find(b"\x00\x00\x01", i + 3)
+        end = len(data) if j < 0 else (j - (1 if j > 0
+                                            and data[j - 1] == 0
+                                            else 0))
+        nal = data[i + 3:end]
+        if nal:
+            out.append(nal)
+        if j < 0:
+            break
+        i = j
+    return out

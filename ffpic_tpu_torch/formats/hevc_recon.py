@@ -15,17 +15,14 @@ Reference parity anchors: predict.c:651-792 (planar/DC/angular),
 hevc.c:4277-4428 (reference samples), hevc.c:7050-7172 (SAO parse).
 
 Copied from ``ffpic_tpu/formats/hevc_recon.py`` for the PyTorch port,
-with its imports rewritten to the port's modules.  What differs:
-
-* ``execute_ops`` takes ``device``, where ``FFPIC_HEVC_DEVICE``'s
-  residuals run (``ops.hevc_kernels.residuals_for_ops``: the
-  ``hevc_residuals`` CUDA kernel, or its plain version on the CPU;
-  None means CUDA);
-* the inter parts raise ``NotImplementedError`` naming the ROADMAP item
-  of ``coding.hevc_slice.INTER_SLICE``: an ``InterOp`` in
-  ``execute_ops``, and ``compute_bs`` (the inter boundary strengths,
-  motion comparison ``_mv_mismatch`` and edge reductions
-  ``_seg_any_rows``/``_seg_any_cols`` are left out).
+with its imports rewritten to the port's modules.
+``execute_ops`` takes ``device``, where ``FFPIC_HEVC_DEVICE``'s
+residuals run (``ops.hevc_kernels.residuals_for_ops``: the
+``hevc_residuals`` CUDA kernel, or its plain version on the CPU; None
+means CUDA).  As in the original, that launch covers every TU of the
+op list, the inter TUs too, while an inter residual add (``mode == -1``)
+recomputes its TU on the host (``compute_residual``), with the scaling
+lists the kernel leaves out (``ROADMAP.md`` Queue 3).
 """
 
 from __future__ import annotations
@@ -354,11 +351,119 @@ def compute_residual(tu, bd: int) -> np.ndarray:
 # deblocking filter (8.7.2) — real implementation (reference stubs it)
 # ---------------------------------------------------------------------------
 
+def _seg_any_rows(edges: np.ndarray) -> np.ndarray:
+    """Reduce (h, c) edge marks to 4-row segments -> (ceil(h/4), c)."""
+    n = edges.shape[0]
+    pad = (-n) % 4
+    if pad:
+        edges = np.concatenate(
+            [edges, np.zeros((pad, edges.shape[1]), bool)])
+    return edges.reshape(-1, 4, edges.shape[1]).any(1)
+
+
+def _seg_any_cols(edges: np.ndarray) -> np.ndarray:
+    """Reduce (r, w) edge marks to 4-col segments -> (r, ceil(w/4))."""
+    n = edges.shape[1]
+    pad = (-n) % 4
+    if pad:
+        edges = np.concatenate(
+            [edges, np.zeros((edges.shape[0], pad), bool)], axis=1)
+    return edges.reshape(edges.shape[0], -1, 4).any(2)
+
+
+def _mv_mismatch(rp_p, mv_p, rp_q, mv_q, no_ref):
+    """Vectorized 8.7.2.4 motion comparison: True where bS = 1 by
+    reference/MV difference.  rp_X: (2, ...) ref POCs, mv_X:
+    (2, ..., 2) quarter-pel MVs."""
+    pv = rp_p != no_ref                   # (2, ...) pred flags
+    qv = rp_q != no_ref
+    cnt_p = pv[0].astype(np.int32) + pv[1]
+    cnt_q = qv[0].astype(np.int32) + qv[1]
+    out = cnt_p != cnt_q
+
+    def big(a, b):
+        return (np.abs(a[..., 0] - b[..., 0]) >= 4) | \
+               (np.abs(a[..., 1] - b[..., 1]) >= 4)
+
+    # uni/uni: compare the single used (poc, mv) of each side
+    p_poc1 = np.where(pv[0], rp_p[0], rp_p[1])
+    q_poc1 = np.where(qv[0], rp_q[0], rp_q[1])
+    p_mv1 = np.where(pv[0][..., None], mv_p[0], mv_p[1])
+    q_mv1 = np.where(qv[0][..., None], mv_q[0], mv_q[1])
+    uni = (cnt_p == 1) & (cnt_q == 1)
+    out |= uni & ((p_poc1 != q_poc1) | big(p_mv1, q_mv1))
+
+    # bi/bi
+    bi = (cnt_p == 2) & (cnt_q == 2)
+    pair_straight = (rp_p[0] == rp_q[0]) & (rp_p[1] == rp_q[1])
+    pair_cross = (rp_p[0] == rp_q[1]) & (rp_p[1] == rp_q[0])
+    diff_pair = ~(pair_straight | pair_cross)
+    straight_big = big(mv_p[0], mv_q[0]) | big(mv_p[1], mv_q[1])
+    cross_big = big(mv_p[0], mv_q[1]) | big(mv_p[1], mv_q[0])
+    same_ref_both = rp_p[0] == rp_p[1]    # same picture in both lists
+    bi_mis = np.where(
+        diff_pair, True,
+        np.where(same_ref_both, straight_big & cross_big,
+                 np.where(pair_straight, straight_big, cross_big)))
+    out |= bi & bi_mis
+    return out
+
+
 def compute_bs(pic: Picture, fld, intra_map, nonzero_map) -> None:
-    """Boundary strengths of an inter picture (8.7.2.4); the port
-    raises (``INTER_SLICE``)."""
-    from ffpic_tpu_torch.coding.hevc_slice import INTER_SLICE
-    raise NotImplementedError(INTER_SLICE)
+    """Boundary-strength arrays for an inter picture (8.7.2.4), at
+    4-sample segment granularity: pic.bs_v[(y//4, x//8)] for the
+    vertical edge at x, pic.bs_h[(y//8, x//4)] for the horizontal
+    edge at y.  fld is the picture's MotionField."""
+    from ffpic_tpu_torch.coding.hevc_inter import NO_REF
+    mh, mw = intra_map.shape
+    im = intra_map.astype(bool)
+    nz = nonzero_map.astype(bool)
+
+    # vertical edges
+    tu_v = _seg_any_rows(pic.v_edges)        # (h4, W8)
+    pu_v = _seg_any_rows(pic.pu_v_edges)
+    h4, w8 = tu_v.shape
+    cc = np.arange(w8)
+    xq = np.clip(2 * cc, 0, mw - 1)
+    xp = np.clip(2 * cc - 1, 0, mw - 1)
+    rows = np.arange(min(h4, mh))
+    edge = (tu_v | pu_v)[:len(rows)]
+    edge[:, 0] = False
+    i2 = im[np.ix_(rows, xp)] | im[np.ix_(rows, xq)]
+    coeff = tu_v[:len(rows)] & (nz[np.ix_(rows, xp)]
+                                | nz[np.ix_(rows, xq)])
+    rp_p = fld.refpoc[:, rows][:, :, xp]
+    rp_q = fld.refpoc[:, rows][:, :, xq]
+    mv_p = fld.mv[:, rows][:, :, xp].astype(np.int32)
+    mv_q = fld.mv[:, rows][:, :, xq].astype(np.int32)
+    mis = _mv_mismatch(rp_p, mv_p, rp_q, mv_q, NO_REF)
+    bs = np.zeros((h4, w8), np.int8)
+    bs[:len(rows)][edge & i2] = 2
+    bs[:len(rows)][edge & ~i2 & (coeff | mis)] = 1
+    pic.bs_v = bs
+
+    # horizontal edges
+    tu_h = _seg_any_cols(pic.h_edges)        # (H8, w4)
+    pu_h = _seg_any_cols(pic.pu_h_edges)
+    h8, w4 = tu_h.shape
+    rr = np.arange(h8)
+    yq = np.clip(2 * rr, 0, mh - 1)
+    yp = np.clip(2 * rr - 1, 0, mh - 1)
+    cols = np.arange(min(w4, mw))
+    edge = (tu_h | pu_h)[:, :len(cols)]
+    edge[0, :] = False
+    i2 = im[np.ix_(yp, cols)] | im[np.ix_(yq, cols)]
+    coeff = tu_h[:, :len(cols)] & (nz[np.ix_(yp, cols)]
+                                   | nz[np.ix_(yq, cols)])
+    rp_p = fld.refpoc[:, yp][:, :, cols]
+    rp_q = fld.refpoc[:, yq][:, :, cols]
+    mv_p = fld.mv[:, yp][:, :, cols].astype(np.int32)
+    mv_q = fld.mv[:, yq][:, :, cols].astype(np.int32)
+    mis = _mv_mismatch(rp_p, mv_p, rp_q, mv_q, NO_REF)
+    bs = np.zeros((h8, w4), np.int8)
+    bs[:, :len(cols)][edge & i2] = 2
+    bs[:, :len(cols)][edge & ~i2 & (coeff | mis)] = 1
+    pic.bs_h = bs
 
 
 def _deblock_luma_edge(pl, qp_map, edges, beta_off, tc_off, vertical,
@@ -783,8 +888,9 @@ def execute_ops(pic: Picture, ops, device=None) -> None:
                 m[:] = False
             cur_zone = z
         if hasattr(op, "mv0"):             # InterOp: MC from refs
-            from ffpic_tpu_torch.coding.hevc_slice import INTER_SLICE
-            raise NotImplementedError(INTER_SLICE)
+            from ffpic_tpu_torch.formats.hevc_mc import predict_inter
+            predict_inter(pic, op, pic.ref_pics)
+            continue
         if not hasattr(op, "mode"):        # PcmOp: raw samples
             pic.planes[op.plane][op.y:op.y + op.n,
                                  op.x:op.x + op.n] = op.samples

@@ -2,15 +2,13 @@
 registered by their probes alone.
 
 TGA has no magic and is probed last: without these probes, an AVIF,
-BPG, JPEG 2000, SVG, EXR or raw HEVC file that TGA's loose header check
-takes would decode as TGA garbage.  Each probe is a copy of its
-original (``ffpic_tpu/formats/avif.py:30``, ``bpg.py:13``,
-``jp2.py:21``, ``svg.py:16``, ``exr.py:41``, ``hevc_raw.py:21``), and
-the registry keeps each codec at the original's place in the probe
-order under the original's name.  Their ``load`` raises
-``NotImplementedError``: the decoders wait for ``ROADMAP.md`` Queue 1
-item 1 (AVIF, BPG, JP2, SVG, EXR) and item 16 (raw HEVC, with the HEVC
-inter slice).
+BPG, JPEG 2000, SVG or EXR file that TGA's loose header check takes
+would decode as TGA garbage.  Each probe is a copy of its original
+(``ffpic_tpu/formats/avif.py:30``, ``bpg.py:13``, ``jp2.py:21``,
+``svg.py:16``, ``exr.py:41``), and the registry keeps each codec at the
+original's place in the probe order under the original's name.  Their
+``load`` raises ``NotImplementedError``: the decoders wait for
+``ROADMAP.md`` Queue 1 item 1.
 """
 
 from __future__ import annotations
@@ -45,22 +43,6 @@ def probe_exr(data: bytes) -> bool:
     return data[:4] == EXR_MAGIC
 
 
-def probe_hevc_raw(data: bytes) -> bool:
-    """Annex-B start code followed by a VPS/SPS/IRAP NAL header
-    (forbidden_zero_bit 0, nuh_layer_id 0)."""
-    for sc in (b"\x00\x00\x00\x01", b"\x00\x00\x01"):
-        if data.startswith(sc):
-            off = len(sc)
-            if len(data) < off + 2:
-                return False
-            b0, b1 = data[off], data[off + 1]
-            if b0 & 0x81 or (b1 >> 3) != 0 or (b1 & 7) == 0:
-                return False
-            t = (b0 >> 1) & 0x3F
-            return t in (32, 33) or 16 <= t <= 23
-    return False
-
-
 def _unported(name: str, item: str):
     def load(data: bytes, skip_decode: bool = False, *, device=None,
              **options):
@@ -75,7 +57,6 @@ for _name, _alias, _probe, _item in (
         ("BPG", "", probe_bpg, "item 1"),
         ("JP2", "JPEG2000", probe_jp2, "item 1"),
         ("SVG", "", probe_svg, "item 1"),
-        ("EXR", "OPENEXR", probe_exr, "item 1"),
-        ("HEVC", "H265", probe_hevc_raw, "item 16")):
+        ("EXR", "OPENEXR", probe_exr, "item 1")):
     register(Codec(name=_name, alias=_alias, probe=_probe,
                    load=_unported(_name, _item)))

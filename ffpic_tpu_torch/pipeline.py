@@ -1,5 +1,5 @@
 """Batched decode of JPEGs, PNGs, WebPs, HEIFs and the host-only
-codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO) into one
+codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO, raw HEVC) into one
 ``(N, H, W, 4)`` uint8 device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
@@ -30,15 +30,20 @@ the registry's ``ValueError``):
    planes (``formats.webp.parse``, the registry's defaults); a HEIF is
    decoded to RGBA, or under ``FFPIC_HEIF_DEVICE_COLOR`` to its tiles'
    planes (``formats.heif.parse``, the registry's defaults, its grid
-   tiles in a pool of their own); a BMP, GIF, TGA, PNM, PSD, TIFF or ICO
-   is decoded whole by its codec's ``decode``, as the reference's
-   ``registry.load``, and its first picture kept (a GIF's first
-   composited frame, a TIFF's first IFD, an ICO's first entry).  The
+   tiles in a pool of their own; the frames of an image sequence are
+   not decoded, since only the primary picture is kept); a BMP, GIF,
+   TGA, PNM, PSD, TIFF, ICO or raw HEVC stream is decoded whole by its
+   codec's ``decode``, as the reference's ``registry.load``, and its
+   first picture kept (a GIF's first composited frame, a TIFF's first
+   IFD, an ICO's first entry, a stream's first picture in presentation
+   order).  The
    pool does no device work, except that under ``FFPIC_VP8_DEVICE`` a
-   WebP's and under ``FFPIC_HEVC_DEVICE`` a HEIF's residual transform
-   launches there, a TIFF's JPEG strips decode there (K2, K4, then a
-   read-back) and an ICO's PNG entry (K6, K7; its pixels stay on the
-   device), all on the caller's current stream (the launch counts are
+   WebP's and under ``FFPIC_HEVC_DEVICE`` a HEIF's or a raw HEVC
+   stream's residual transform launches there, under
+   ``FFPIC_HEIF_DEVICE_COLOR`` a raw HEVC stream's colour (K15 a
+   picture; its pixels stay on the device), a TIFF's JPEG strips decode
+   there (K2, K4, then a read-back) and an ICO's PNG entry (K6, K7; its
+   pixels stay on the device), all on the caller's current stream (the launch counts are
    taken under a lock): every other copy and launch below runs on the
    caller's thread, so on the caller's current stream.
 2. Each other JPEG, each PNG and each WebP is decoded as the port's
@@ -113,8 +118,7 @@ from ffpic_tpu_torch.ops.vp8_kernels import vp8_yuv_to_rgba_batch
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = ("ROADMAP.md Queue 1 item 1 (AVIF, BPG, JP2, SVG, EXR) and "
-                "item 16 (raw HEVC)")
+_CODECS_ITEM = "ROADMAP.md Queue 1 item 1 (AVIF, BPG, JP2, SVG, EXR)"
 # dense members are staged as packed pairs when those take less than
 # this share of their dense bytes (the reference's threshold)
 SPARSE_SHARE = 0.7
@@ -177,7 +181,8 @@ def _prep(data: bytes, device=None, mesh: bool = False):
             if name == "WEBP":
                 return webp.parse(data, device=device), "webp", None
             if name == "HEIF":
-                return heif.parse(data, device=device), "heif", None
+                return heif.parse(data, device=device,
+                                  sequence=False), "heif", None
             if codec.decode is not None:
                 pics = codec.decode(data, device=device)
                 if not pics:
@@ -358,7 +363,7 @@ def decode_batch(srcs: Sequence, size: tuple[int, int] | None = None,
                  dtype="uint8", mode: str = "bt601", mesh=None, *,
                  device=None) -> torch.Tensor:
     """Decode a batch of images (paths or bytes: JPEG, PNG, WebP, HEIF,
-    BMP, GIF, TGA, PNM, PSD, TIFF, ICO) to one
+    BMP, GIF, TGA, PNM, PSD, TIFF, ICO, raw HEVC) to one
     ``(N, H, W, 4)`` uint8 RGBA tensor on ``device`` (default CUDA; it raises
     when CUDA is absent).  The reference's signature
     (``ffpic_tpu/pipeline.py:73-74``), ``device`` keyword-only.

@@ -164,18 +164,26 @@ def _device_colour(data, **kw):
         del os.environ["FFPIC_HEIF_DEVICE_COLOR"]
 
 
-def test_image_sequence_raises_naming_the_roadmap_item():
-    """The reference decodes moov/trak sequences through its inter
-    decoder; the port raises instead of returning the primary alone."""
-    frames = [_pic(48, 32, seed=10 + k)[1] for k in range(3)]
-    data = jax_heif_enc.encode_heif_sequence(frames, qp=22)
-    assert len(ffpic_tpu.load(data).frames) == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        ft.load(data, device="cpu")
+def test_image_sequence_matches_jax():
+    """An image sequence (moov/trak): the encoder's bytes, then the
+    primary and every frame through the sequence decoder, the
+    header-only parse, and ``decode_batch`` (the primary), as the
+    reference gives them."""
+    pics = [_pic(48, 32, seed=10 + k) for k in range(3)]
+    data = jax_heif_enc.encode_heif_sequence([j for _p, j in pics], qp=22)
+    assert heif_enc.encode_heif_sequence([p for p, _j in pics], qp=22) == data
+    got, want = _load_both(data)
+    _same(got, want)
+    assert len(got.frames) == len(want.frames) == 3
+    for g, w in zip(got.frames, want.frames):
+        assert (g.width, g.height) == (w.width, w.height)
+        np.testing.assert_array_equal(g.np_pixels(), w.np_pixels())
     head = ft.load(data, skip_decode=True)
     assert head.meta["sequence"] is True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        ft.decode_batch([data], device="cpu")
+    assert repr(head.meta) == repr(ffpic_tpu.load(data, skip_decode=True).meta)
+    np.testing.assert_array_equal(
+        ft.decode_batch([data], device="cpu").numpy(),
+        np.asarray(ffpic_tpu.decode_batch([data])))
 
 
 def test_colr_nclx_written_parsed_and_applied():

@@ -14,7 +14,6 @@ streams are 64x64, a tenth of a second each to write.
 """
 
 import dataclasses
-import os
 import random
 
 import numpy as np
@@ -348,23 +347,32 @@ def test_scaling_lists_under_the_device_route_mirror_jax(monkeypatch):
                                                    host.planes)) > 100
 
 
-def test_inter_decode_raises_not_implemented():
-    """A P/B picture with sequence state asks for the inter decode, which
-    the port does not have: NotImplementedError naming the ROADMAP item;
-    without it, the parse-and-skip raise of the original."""
-    enc, nalus = testing.hevc_stream("single", 64, 64)
-    hdr = hevc_slice.SliceHeader(slice_type=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        hevc_slice.SliceDecoder(enc.sps, enc.pps, hdr, b"",
-                                hevc_recon.Picture(enc.sps),
-                                inter_ctx=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        hevc_recon.compute_bs(None, None, None, None)
-    assert issubclass(hevc_slice.InterSliceUnsupported, NotImplementedError)
-    for name in ("SequenceDecoder", "split_annexb", "_decode_picture_inter"):
-        assert hasattr(jax_hevc, name) and not hasattr(hevc, name)
-    assert not os.path.exists(os.path.join(
-        os.path.dirname(hevc.__file__), "hevc_raw.py"))
+def test_inter_pictures_match_jax():
+    """P/B pictures of an x265 stream: with a sequence decoder's state,
+    decoded as JAX decodes them; a P picture without it parsed and
+    skipped with the same raise and parse statistics in both packages;
+    ``split_annexb`` on the stream."""
+    from ffpic_tpu_torch import make_hevc_fixtures as fx
+    stream = fx.x265_encode(fx.frames(3, 64, 64), gop=8, bframes=0, qp=32,
+                            extra=fx.BASE)
+    assert hevc.split_annexb(stream) == jax_hevc.split_annexb(stream)
+    got = hevc.SequenceDecoder("cpu").decode_annexb(stream)
+    want = jax_hevc.SequenceDecoder().decode_annexb(stream)
+    assert [p.poc for p in got] == [p.poc for p in want] == [0, 1, 2]
+    for g, w in zip(got, want):
+        for a, b in zip(g.planes, w.planes):
+            np.testing.assert_array_equal(a, b)
+    params, aus = fx.access_units(stream)
+    raised = []
+    for mod in (hevc, jax_hevc):
+        sps, pps = mod.parse_sps(params[33]), mod.parse_pps(params[34])
+        with pytest.raises(NotImplementedError) as e:
+            mod.decode_picture(sps, pps, aus[1])
+        raised.append((type(e.value).__name__, str(e.value),
+                       e.value.parse_stats))
+    assert raised[0] == raised[1]
+    assert raised[0][0] == "InterSliceUnsupported"
+    assert raised[0][2]["inter_cus"] > 0
 
 
 def test_native_hevc_wrappers_refuse_bad_arguments():

@@ -245,11 +245,13 @@ def test_device_none_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("case", ["webp", "gif", "mesh", "heif", "h265"])
 def test_outside_the_slice_raises(case):
-    """Raw ``.265`` streams wait for the ROADMAP.  WebP, HEIF and GIF are
-    ported: a member that is only a WebP header raises the registry's
-    ValueError for a corrupt file, a HEIF without a meta box the parser's
-    ValueError, a GIF with no image in it the registry's "decode produced
-    no pictures", not NotImplementedError.  ``mesh`` is ported
+    """WebP, HEIF, GIF and raw ``.265`` streams are ported: a member that
+    is only a WebP header raises the registry's ValueError for a corrupt
+    file, a HEIF without a meta box the parser's ValueError, a GIF with
+    no image in it the registry's "decode produced no pictures", a raw
+    stream of parameter sets alone the reference's "no decodable HEVC
+    access units" (``tests/test_torch_hevc_inter.py`` decodes real
+    ones), not NotImplementedError.  ``mesh`` is ported
     (``tests/test_torch_mesh.py``): anything but a DeviceMesh raises
     TypeError."""
     kw = {}
@@ -271,15 +273,16 @@ def test_outside_the_slice_raises(case):
             ffpic_tpu_torch.decode_batch(srcs, device="cpu")
         return
     if case == "h265":
-        enc, nalus = testing.hevc_stream("single", 64, 64)
+        enc, _nalus = testing.hevc_stream("single", 64, 64)
         from ffpic_tpu_torch.coding.hevc_enc import make_nalu
         raw = b"".join(b"\0\0\0\1" + n for n in (
-            make_nalu(33, enc.sps_rbsp), make_nalu(34, enc.pps_rbsp),
-            *nalus))
-        assert ffpic_tpu.probe(raw).name != "HEIF"
-        with pytest.raises(NotImplementedError, match="item 16"):
+            make_nalu(33, enc.sps_rbsp), make_nalu(34, enc.pps_rbsp)))
+        assert ffpic_tpu.probe(raw).name == "HEVC"
+        with pytest.raises(ValueError, match="no decodable HEVC"):
+            ffpic_tpu.load(raw)
+        with pytest.raises(ValueError, match="no decodable HEVC"):
             ffpic_tpu_torch.decode_batch(srcs + [raw], device="cpu")
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(ValueError, match="no decodable HEVC"):
             ffpic_tpu_torch.load(raw, device="cpu")
         return
     kw["mesh"] = object()
