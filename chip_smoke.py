@@ -6,7 +6,7 @@
 Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
 process per source) and the host library ``ffpic_tpu_torch/native/``
 ``host_jpeg.c``, ``host_png.c``, ``host_vp8.c``, ``host_vp8l.c``,
-``host_hevc.c``, ``host_lzw.c`` (cc),
+``host_hevc.c``, ``host_lzw.c``, ``host_jp2.c`` (cc),
 holds each kernel against its plain PyTorch version on the card
 (bit-exact) at its paths' shapes and at the edges of its tiling
 (``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
@@ -140,7 +140,7 @@ read just after:
   and K15 launch (once a frame) against its plain version on the same
   inputs; each run's host clock, frames/s and spans, and K14 timed on
   the largest P/B picture's TUs, K15 on a 1080p frame;
-* the model-consumer and multi-device layers (``train_paths``, last):
+* the model-consumer and multi-device layers (``train_paths``):
   one ``vit.make_train_step`` step of ViT-B/16 on config 5's normalised
   batch and one ``moe.make_train_step`` step of ``MOE_TINY``, each
   against the same step on the CPU (the loss and every tensor's
@@ -149,7 +149,21 @@ read just after:
   ``parallel.sharded_decode_420`` of the batch's dense coefficients and
   ``decode_batch(mesh=)`` of its files (K2 x 1, K3 x 1 each), both
   bit-equal to ``decode_batch(mesh=None)``, with their MP/s; and
-  ``graft_entry.entry()`` (K2 + K3) against the plain route.
+  ``graft_entry.entry()`` (K2 + K3) against the plain route;
+* the still codecs (``still_codec_paths``, last): JPEG 2000 (5/3 with
+  the RCT; 9/7 with the ICT, 512 x 512 tiles and 3 layers), OpenEXR
+  (none, ZIP, PXR24, B44, PIZ, DWAA, DWAB) and SVG files at 1920x1080
+  and a BPG header, all decoded on the host as in the reference: each
+  ``load`` on the card equal to the CPU's (pixels, meta and
+  ``exr_planes``) with no launch, the BPG's header equal and its pixel
+  decode ``NotImplementedError``; ``decode_batch`` of 8 of them at
+  size=(224, 224) (K16 once) against the plain resize of the CPU loads'
+  pixels, ``normalize_for_model`` (K17 once) and ViT-B/16 within config
+  5's tolerance; each load's MP/s with its decoder spans
+  (``jp2.tier2``, ``jp2.tier1``, ``jp2.synthesis``, ``exr.decompress``,
+  ``exr.piz_huffman``, ``svg.raster``) and the batch's wall time with
+  its spans; ``start_profiler``/``stop_profiler`` trace K17 with CUDA
+  activity.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -176,6 +190,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2911,6 +2926,209 @@ def host_codec_paths(dev, card: str, errs: dict) -> dict:
     return launches
 
 
+STILL_BATCH = ("jp2_53", "jp2_97", "exr_piz", "exr_zip", "exr_b44",
+               "exr_dwab", "svg_0", "svg_1")
+SLOW_LOAD_S = 5.0     # a load this slow is timed once, not 3 times
+
+
+def still_codec_files(h: int, w: int) -> tuple:
+    """The still codecs' files at ``w`` x ``h``: the committed JPEG 2000
+    (5/3 + RCT; 9/7 + ICT, 512 x 512 tiles, 3 layers) and OpenEXR
+    (PIZ, DWAA, DWAB) fixtures of ``testing.still_fixture``; EXR none,
+    ZIP, PXR24 and B44 written here by the port's ``encode`` from the
+    fixtures' content (``make_still_fixtures.still_rgb`` with
+    ``still_alpha``); two SVGs of ``testing.svg_still``; and a BPG
+    header.  Returns ({name: bytes}, {name: seconds to make})."""
+    import numpy as np
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.formats.pic import Pic
+    from ffpic_tpu_torch.make_still_fixtures import still_alpha, still_rgb
+    rgba = np.dstack([still_rgb(h, w, 0), still_alpha(h, w)])
+    pic = Pic(pixels=rgba, width=w, height=h)
+    fixtures = {"jp2_53": "jp2_1080p_53.jp2", "jp2_97": "jp2_1080p_97.jp2",
+                "exr_piz": "exr_1080p_piz.exr",
+                "exr_dwaa": "exr_1080p_dwaa.exr",
+                "exr_dwab": "exr_1080p_dwab.exr"}
+    writers = {name: (lambda f=f: testing.still_fixture(f))
+               for name, f in fixtures.items()}
+    for comp in ("none", "zip", "pxr24", "b44"):
+        writers[f"exr_{comp}"] = (lambda c=comp: ffpic_tpu_torch.encode(
+            pic, "EXR", compression=c, device="cpu"))
+    writers["svg_0"] = lambda: testing.svg_still(w, h, 0)
+    writers["svg_1"] = lambda: testing.svg_still(w, h, 1)
+    writers["bpg"] = lambda: testing.bpg_header(w, h)
+    files, seconds = {}, {}
+    for name, write in writers.items():
+        t0 = time.perf_counter()
+        files[name] = write()
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    return files, seconds
+
+
+def same_meta(name: str, got: dict, want: dict) -> None:
+    """Two pictures' meta equal, arrays (``exr_planes``) bit for bit."""
+    import numpy as np
+    if got.keys() != want.keys():
+        raise AssertionError(f"{name}: meta keys {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k, v in got.items():
+        if isinstance(v, dict) and k == "exr_planes":
+            if v.keys() != want[k].keys() or any(
+                    a.dtype != want[k][c].dtype
+                    or a.tobytes() != want[k][c].tobytes()
+                    for c, a in v.items()):
+                raise AssertionError(f"{name}: exr_planes differ")
+        elif isinstance(v, np.ndarray) or v != want[k]:
+            raise AssertionError(f"{name}: meta[{k!r}] differs")
+
+
+def still_codec_paths(dev, card: str, errs: dict) -> dict:
+    """The still codecs (JPEG 2000, OpenEXR, SVG, BPG) on the card, at
+    1920x1080 (``still_codec_files``).  They decode on the host, as in
+    the reference, and no kernel runs in their ``load``: each file's
+    ``load`` on the card equals its ``load`` on the CPU byte for byte
+    (pixels, meta and EXR's ``exr_planes``), with no launch; a BPG gives
+    the CPU's header and raises ``NotImplementedError`` for pixels.  Then
+    the path, with fresh counts: ``decode_batch`` of the 8 members of
+    ``STILL_BATCH`` at size=(224, 224) (K16 once), equal to the plain
+    resize of the CPU loads' pixels (the CPU route), then
+    ``normalize_for_model`` (K17 once) against its plain version and
+    ViT-B/16 (``vit_pair``) within config 5's tolerance of the CPU
+    forward.  ``start_profiler``/``stop_profiler`` trace K17 on the
+    batch, and the trace must hold its kernel.  Timings on the host
+    clock, beside ``card``: each load (median of 3; one run where a
+    load takes over ``SLOW_LOAD_S``) in MP/s with its decoder spans,
+    and the batch's wall time with its spans.  Returns the launches
+    {path: {kernel: n}}."""
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_resize
+    from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils import trace
+    mods = (cuda_jpeg, cuda_png, cuda_resize)
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for m in mods for k, v in m.launches.items() if v}
+
+    t_phase = time.perf_counter()
+    files, seconds = still_codec_files(H, W)
+    log("inputs still codecs", size=f"{W}x{H}",
+        bytes=json.dumps({k: len(v) for k, v in files.items()})
+        .replace(" ", ""), write_seconds=json.dumps(seconds)
+        .replace(" ", ""))
+
+    bpg = files.pop("bpg")
+    head = ffpic_tpu_torch.load(bpg, skip_decode=True)
+    same_meta("bpg", head.meta, ffpic_tpu_torch.load(
+        bpg, skip_decode=True, device="cpu").meta)
+    try:
+        ffpic_tpu_torch.load(bpg, device=dev)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("bpg: a pixel decode did not raise")
+
+    cpu, launches = {}, {}
+    for name, data in files.items():
+        runs = []
+        trace.reset()
+        trace.enable()
+        while len(runs) < 3:
+            reset()
+            t0 = time.perf_counter()
+            got = ffpic_tpu_torch.load_all(data, device=dev)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            launches[name] = counts()
+            if runs[0] > SLOW_LOAD_S:
+                break
+        trace.enable(False)
+        spans = {k: round(v["total"] / len(runs) * 1e3, 3)
+                 for k, v in trace.report().items()}
+        if launches[name]:
+            raise AssertionError(f"{name}: launches {launches[name]}")
+        want = ffpic_tpu_torch.load_all(data, device="cpu")
+        if len(got) != len(want) or not got:
+            raise AssertionError(f"{name}: {len(got)} pictures on the card, "
+                                 f"{len(want)} on the CPU")
+        for g, w_ in zip(got, want):
+            if g.pixels.device.type != dev.type:
+                raise AssertionError(f"{name}: pixels on {g.pixels.device}")
+            if not torch.equal(g.pixels.cpu(), w_.pixels):
+                raise AssertionError(f"{name}: the card's load differs from "
+                                     "the CPU's")
+            same_meta(name, g.meta, w_.meta)
+        cpu[name] = want[0].pixels
+        mp = sum(p.width * p.height for p in got) / 1e6
+        med = sorted(runs)[len(runs) // 2]
+        log("time still codec load", card=card, codec=name, megapixels=mp,
+            load_ms=f"{med * 1e3:.3f}", mps=f"{mp / med:.3f}",
+            runs_ms=json.dumps([round(r * 1e3, 3) for r in runs])
+            .replace(" ", ""), span_ms=json.dumps(spans).replace(" ", ""))
+    log("still codecs load", files=len(files), cpu_route="exact",
+        exr_planes="exact", launches="none", bpg_header="exact",
+        bpg_pixels="NotImplementedError")
+
+    # the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16
+    members = [files[k] for k in STILL_BATCH]
+    size = CONFIG5_SIZE
+    cfg, model, model_cpu = vit_pair(dev)
+    reset()
+    trace.reset()
+    trace.enable()
+    t0 = time.perf_counter()
+    batch = ffpic_tpu_torch.decode_batch(members, size=size, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace.enable(False)
+    stages = {k: round(v["total"] * 1e3, 3) for k, v in trace.report().items()}
+    x = rs.normalize_for_model(batch)
+    logits = model(x)
+    path = counts()
+    if (path.get("resize_rgba"), path.get("normalize_resize")) != (1, 1):
+        raise AssertionError(f"still codec batch: launches {path}")
+    if tuple(batch.shape) != (N, *size, 4):
+        raise AssertionError(f"still codec batch: {tuple(batch.shape)}")
+    batch_cpu = rs.resize_batch([cpu[k] for k in STILL_BATCH], size)
+    exact("resize_rgba", batch.cpu(), batch_cpu, errs)
+    x_cpu = rs.normalize_for_model(batch_cpu)
+    exact_f32("normalize_resize", x.cpu(), x_cpu, errs)
+    err, scale, agree = logits_against_cpu("still codec batch", logits,
+                                           model_cpu(x_cpu), cfg.n_classes)
+    launches["batch"] = path
+    log("still codec batch", members=",".join(STILL_BATCH), size=size,
+        launches=json.dumps(path).replace(" ", ""), batch_cpu_route="exact",
+        input_cpu="exact", logits_max_abs_vs_cpu=f"{err:.6g}",
+        logits_max_abs=f"{scale:.6g}",
+        tolerance=f"{VIT_REL_TOL:g}*max|logit|", argmax_equal_share=agree)
+    # the profiler hooks with CUDA activity: K17 on the batch, traced
+    with tempfile.TemporaryDirectory() as logdir:
+        ffpic_tpu_torch.start_profiler(logdir)
+        rs.normalize_for_model(batch)
+        torch.cuda.synchronize()
+        with open(ffpic_tpu_torch.stop_profiler()) as f:
+            events = json.load(f)["traceEvents"]
+    traced = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    if not any("resize" in k for k in traced):
+        raise AssertionError(f"profiler: no K17 in the trace: {traced}")
+    log("still codec profiler", events=len(events),
+        kernels=json.dumps(traced).replace(" ", ""))
+    mp = N * H * W / 1e6
+    log("time still codec batch", card=card, megapixels=mp, size=size,
+        end_to_end_ms=f"{wall * 1e3:.3f}", mps=f"{mp / wall:.3f}",
+        images_per_s=f"{N / wall:.3f}", runs=1,
+        stage_total_ms=json.dumps(stages).replace(" ", ""),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def hevc_inter_paths(dev, card: str, floor_ms: float, errs: dict):
     """The HEVC inter slice on the card, under ``FFPIC_HEVC_DEVICE=1`` and
     ``FFPIC_HEIF_DEVICE_COLOR=1``: ``load_all`` of the committed 1920x1080
@@ -3707,6 +3925,7 @@ def main() -> int:
         dev, f'"{smi}"', x_config5, {"srcs": srcs, "coeffs": coeffs_p,
                                     "yq": yq, "cq": cq, "shapes": shapes})
     del x_config5
+    still_launches = still_codec_paths(dev, f'"{smi}"', errs)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6 at 4
     # bytes a pixel, K7 for 8-bit RGBA
@@ -3781,6 +4000,10 @@ def main() -> int:
                        ("resize_rgba", "batch"),
                        ("normalize_resize", "batch")):
         timed[name]["launches_host_codecs"] = host_launches[path][name]
+    # the still codecs' phase: K16 and K17 on the 8 x 1080p batch
+    for name in ("resize_rgba", "normalize_resize"):
+        timed[name]["launches_still_codecs"] = \
+            still_launches["batch"][name]
     # the mesh paths (a world of one over NCCL) and the graft entry: K2
     # and K3 once each
     for name in ("dequant_idct", "assemble_color"):

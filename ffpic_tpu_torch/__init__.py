@@ -3,9 +3,10 @@
 The public API mirrors ``ffpic_tpu``'s: ``probe``, ``load``,
 ``load_all``, ``info``, ``encode``, ``find_codec`` and
 ``registered_codecs`` over the port's own codec registry (JPEG, PNG,
-WebP, HEIF and the host-only BMP, GIF, TGA, PNM, PSD, TIFF, ICO and raw
-HEVC streams, in the reference's probe order; AVIF, BPG, JPEG 2000, SVG
-and EXR are probed but not decoded yet), the ``Pic`` container, and
+WebP, HEIF and the host-only BMP, GIF, TGA, PNM, PSD, TIFF, ICO, JPEG
+2000, SVG, OpenEXR and raw HEVC streams, in the reference's probe
+order; BPG gives its header alone, as in the reference, and AVIF is
+probed but not decoded yet), the ``Pic`` container, and
 ``decode_batch``, which decodes a batch of them into one ``(N, H, W,
 4)`` uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
 Huffman decode on the card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take
@@ -26,6 +27,8 @@ and ``models.vit.ViT`` (BASELINE config 5); ``models.vit`` and
 a ``torch.distributed`` DeviceMesh (``parallel``: ``make_mesh``,
 ``shard_batch``, ``sharded_decode_420``; ``decode_batch(mesh=)``),
 and ``graft_entry`` is the port's copy of ``__graft_entry__.py``.
+``start_profiler`` and ``stop_profiler`` write a ``torch.profiler``
+Chrome trace.
 This package imports
 neither jax nor ``ffpic_tpu``, which stays the reference it is tested
 against.
@@ -42,6 +45,7 @@ from ffpic_tpu_torch.formats.registry import (
     registered_codecs,
 )
 from ffpic_tpu_torch.pipeline import decode_batch
+from ffpic_tpu_torch.utils.trace import start_profiler, stop_profiler
 
 __version__ = "0.1.0"
 
@@ -55,5 +59,7 @@ __all__ = [
     "find_codec",
     "registered_codecs",
     "decode_batch",
+    "start_profiler",
+    "stop_profiler",
     "__version__",
 ]

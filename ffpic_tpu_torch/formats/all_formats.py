@@ -3,9 +3,9 @@ them in the probe order of ``ffpic_tpu/formats/all_formats.py``
 (``registry.ORDER``): jpg, png, gif, webp, bmp, heif, avif, bpg, jp2,
 svg, pnm, tiff, exr, psd, ico, hevc_raw, tga (no magic; probed last).
 
-AVIF, BPG, JP2, SVG and EXR are registered by their probes alone
-(``formats.unported``): their ``load`` raises ``NotImplementedError``
-until ``ROADMAP.md`` Queue 1 item 1 ports them.
+AVIF alone is registered by its probe (``formats.unported``): its
+``load`` raises ``NotImplementedError`` until ``ROADMAP.md`` Queue 1
+item 1's third group ports it.
 """
 
 from ffpic_tpu_torch.formats import jpg  # noqa: F401
@@ -14,8 +14,12 @@ from ffpic_tpu_torch.formats import gif  # noqa: F401
 from ffpic_tpu_torch.formats import webp  # noqa: F401
 from ffpic_tpu_torch.formats import bmp  # noqa: F401
 from ffpic_tpu_torch.formats import heif  # noqa: F401
+from ffpic_tpu_torch.formats import bpg  # noqa: F401
+from ffpic_tpu_torch.formats import jp2  # noqa: F401
+from ffpic_tpu_torch.formats import svg  # noqa: F401
 from ffpic_tpu_torch.formats import pnm  # noqa: F401
 from ffpic_tpu_torch.formats import tiff  # noqa: F401
+from ffpic_tpu_torch.formats import exr  # noqa: F401
 from ffpic_tpu_torch.formats import psd  # noqa: F401
 from ffpic_tpu_torch.formats import ico  # noqa: F401
 from ffpic_tpu_torch.formats import hevc_raw  # noqa: F401

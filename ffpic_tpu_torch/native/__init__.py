@@ -4,8 +4,9 @@ JPEG entropy decoder and the sparse coefficient packer), host_png.c
 probability parsers, residual transform, intra reconstruction, loop
 filter and colour conversion), host_vp8l.c (the VP8L entropy
 decoder), host_hevc.c (the HEVC CABAC slice syntax pass, intra
-reconstruction and YUV to RGBA colour) and host_lzw.c (the GIF and
-TIFF LZW decoders).
+reconstruction and YUV to RGBA colour), host_lzw.c (the GIF and
+TIFF LZW decoders) and host_jp2.c (the JPEG 2000 EBCOT tier-1
+code-block decoder).
 
 Copied from the JPEG, PNG and WebP parts of
 ``ffpic_tpu/native/__init__.py`` (``_build``, ``_load``, ``available``,
@@ -15,10 +16,10 @@ Copied from the JPEG, PNG and WebP parts of
 ``vp8_recon_fused``, ``vp8_recon``, ``vp8_mb_headers``,
 ``vp8l_entropy``, ``vp8_color_libwebp``, ``hevc_decode_slice``,
 ``hevc_picture_state``, ``hevc_decode_segment``, ``hevc_recon``,
-``hevc_color``) and its LZW part (``lzw_gif``, ``lzw_tiff``), with these
-changes:
+``hevc_color``), its LZW part (``lzw_gif``, ``lzw_tiff``) and its JPEG
+2000 part (``jp2_block``, ``:665-680``), with these changes:
 
-* only these six sources (this directory) are compiled, with ``cc``,
+* only these seven sources (this directory) are compiled, with ``cc``,
   into one library in ``ffpic_tpu_torch/build/``, named by a hash of
   the sources and the flags; the library is written under a temporary
   name and renamed, so another process never loads a half-written
@@ -52,7 +53,8 @@ import numpy as np
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c",
                                            "host_vp8.c", "host_vp8l.c",
-                                           "host_hevc.c", "host_lzw.c")]
+                                           "host_hevc.c", "host_lzw.c",
+                                           "host_jp2.c")]
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 
@@ -108,6 +110,8 @@ _SIGNATURES = {
                                  _vp, _vp]),
     "ffpic_lzw_gif": (_long, [_vp, _long, _int, _vp, _long]),
     "ffpic_lzw_tiff": (_long, [_vp, _long, _vp, _long]),
+    "ffpic_jp2_block": (_int, [_vp, _long, _int, _int, _int, _int, _int,
+                               _int, _vp]),
     "ffpic_yuv_to_rgba": (None, [_vp, _vp, _vp, _int, _int, _int, _int,
                                  _int, _int, _f32, _f32, _f32, _f32, _int,
                                  _int, _vp]),
@@ -755,3 +759,17 @@ def lzw_tiff(data: bytes, max_out: int) -> bytearray:
     if n < 0:
         raise ValueError("corrupt LZW stream")
     return bytearray(out[:n].tobytes())
+
+
+def jp2_block(data: bytes, n_passes: int, mb: int, zbp: int,
+              w: int, h: int, orient: int) -> np.ndarray:
+    """EBCOT tier-1 code-block decode (host_jp2.c ffpic_jp2_block):
+    returns (h, w) int32 signed coefficients."""
+    lib = _load()
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty((h, w), np.int32)
+    rc = lib.ffpic_jp2_block(_p(src), len(data), n_passes, mb, zbp, w, h,
+                             orient, _p(out))
+    if rc != 0:
+        raise ValueError(f"jp2 native block decode failed ({rc})")
+    return out

@@ -7,12 +7,12 @@ It holds
   over a batch of slots of any sizes: each slot resized alone, stacked)
   and ``normalize_plain`` (K17's), the plain PyTorch versions.  They run
   on any device and are the reference the CUDA kernels are held against;
-* the entries named as the reference's, ``resize_rgba`` and
-  ``normalize_for_model``, and ``resize_batch``, ``decode_batch``'s
-  resize of its slots.  They dispatch on the tensor's device: a CPU
-  tensor takes the plain version, a CUDA tensor the kernel of
-  ``ops.cuda_resize`` (which raises rather than falls back; one launch
-  over all the images).
+* the entries named as the reference's, ``resize_rgba``,
+  ``resize_batch_rgba`` and ``normalize_for_model``, and
+  ``resize_batch``, ``decode_batch``'s resize of its slots.  They
+  dispatch on the tensor's device: a CPU tensor takes the plain
+  version, a CUDA tensor the kernel of ``ops.cuda_resize`` (which
+  raises rather than falls back; one launch over all the images).
 
 The resize is ``jax.image.resize(x, ..., "bilinear")``: per axis a
 triangle kernel widened by 1/scale when shrinking (JAX antialiases by
@@ -40,9 +40,11 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from ffpic_tpu_torch.ops.jpeg_kernels import _on_cuda
+from ffpic_tpu_torch.utils.device import resolve_device, to_device
 
 F32, F64 = torch.float32, torch.float64
 MEAN = STD = (0.5, 0.5, 0.5)          # the reference's defaults
@@ -262,6 +264,28 @@ def resize_batch(slots, size) -> torch.Tensor:
         return resize_batch_plain(slots, tuple(size))
     from ffpic_tpu_torch.ops import cuda_resize
     return cuda_resize.resize_batch(slots, tuple(size))
+
+
+def resize_batch_rgba(imgs, size, method: str = "bilinear", *,
+                      device=None) -> torch.Tensor:
+    """List of (H_i, W_i, 4) uint8 images -> (N, h, w, 4) uint8, the
+    reference's entry (``ffpic_tpu/ops/resize.py:20``) over
+    ``resize_batch``: K16 in one launch on CUDA, the plain version on
+    the CPU.  Tensors stay on their device; numpy images go to
+    ``device`` (None means CUDA, and raises without it).  Only
+    ``"bilinear"`` is ported: any other ``method`` raises
+    ``NotImplementedError``."""
+    if method != "bilinear":
+        raise NotImplementedError(
+            f"resize method {method!r}: only 'bilinear' is ported; the "
+            f"others wait for ROADMAP.md Queue 1 item 18")
+    slots = list(imgs)
+    if any(not isinstance(im, torch.Tensor) for im in slots):
+        dev = resolve_device(device, "resize_batch_rgba")
+        slots = [im if isinstance(im, torch.Tensor)
+                 else to_device(np.ascontiguousarray(im), dev)
+                 for im in slots]
+    return resize_batch(slots, size)
 
 
 def normalize_for_model(batch: torch.Tensor, size=None, mean=MEAN,

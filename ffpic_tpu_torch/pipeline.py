@@ -1,11 +1,12 @@
 """Batched decode of JPEGs, PNGs, WebPs, HEIFs and the host-only
-codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO, raw HEVC) into one
-``(N, H, W, 4)`` uint8 device tensor.
+codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO, JPEG 2000, SVG,
+OpenEXR, raw HEVC) into one ``(N, H, W, 4)`` uint8 device tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of those formats (a member of a format the port registers by
-its probe alone raises ``NotImplementedError``, bytes no codec probes
-the registry's ``ValueError``):
+batches of those formats (an AVIF member, which the port registers by
+its probe alone, and a BPG member, whose pixels neither package
+decodes, raise ``NotImplementedError``; bytes no codec probes the
+registry's ``ValueError``):
 
 0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
    by default on CUDA; ``FFPIC_DEVICE_ENTROPY``, ``FFPIC_SPEC_ENTROPY``,
@@ -32,11 +33,12 @@ the registry's ``ValueError``):
    planes (``formats.heif.parse``, the registry's defaults, its grid
    tiles in a pool of their own; the frames of an image sequence are
    not decoded, since only the primary picture is kept); a BMP, GIF,
-   TGA, PNM, PSD, TIFF, ICO or raw HEVC stream is decoded whole by its
-   codec's ``decode``, as the reference's ``registry.load``, and its
-   first picture kept (a GIF's first composited frame, a TIFF's first
-   IFD, an ICO's first entry, a stream's first picture in presentation
-   order).  The
+   TGA, PNM, PSD, TIFF, ICO, JPEG 2000, SVG, OpenEXR or raw HEVC
+   stream is decoded whole by its codec's ``decode``, as the
+   reference's ``registry.load``, and its first picture kept (a GIF's
+   first composited frame, a TIFF's first IFD, an ICO's first entry, an
+   EXR's first part, a stream's first picture in presentation order).
+   The
    pool does no device work, except that under ``FFPIC_VP8_DEVICE`` a
    WebP's and under ``FFPIC_HEVC_DEVICE`` a HEIF's or a raw HEVC
    stream's residual transform launches there, under
@@ -118,7 +120,7 @@ from ffpic_tpu_torch.ops.vp8_kernels import vp8_yuv_to_rgba_batch
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = "ROADMAP.md Queue 1 item 1 (AVIF, BPG, JP2, SVG, EXR)"
+_CODECS_ITEM = "ROADMAP.md Queue 1 item 1, third group (AVIF)"
 # dense members are staged as packed pairs when those take less than
 # this share of their dense bytes (the reference's threshold)
 SPARSE_SHARE = 0.7

@@ -28,6 +28,10 @@ committed WebP fixtures, and the kernel edge cases that the tests and
   (``make_webp_fixtures`` wrote them with PIL); ``vp8_cases`` makes the
   inputs at the edges of the ``vp8_residuals`` and ``vp8_yuv_to_rgba``
   kernels (K12, K13), with ``vp8_dq`` a segment's dequant factors;
+* ``still_fixture`` reads the committed JPEG 2000 and OpenEXR files
+  (``make_still_fixtures``); ``svg_still`` writes an SVG with paths,
+  curves, gradients and opacity at any size, ``bpg_header`` a BPG
+  file's header;
 * ``heif_fixture`` reads the committed 12 MP grid HEIC
   (``make_heif_fixtures``); ``hevc_stream`` writes an HEVC intra
   picture of any of ``HEVC_STREAMS`` with the port's encoder,
@@ -940,6 +944,93 @@ def heif_fixture(name: str = "heic_12mp_grid.heic") -> bytes:
     testdata`` (``make_heif_fixtures`` wrote it with the port's
     encoder)."""
     return _testdata(name)
+
+
+def still_fixture(name: str) -> bytes:
+    """The bytes of a committed JPEG 2000 or OpenEXR fixture of
+    ``ffpic_tpu_torch/testdata`` (``make_still_fixtures`` lists them),
+    e.g. ``"jp2_1080p_53.jp2"``; machines without PIL or OpenEXR read
+    these."""
+    return _testdata(name)
+
+
+def svg_still(w: int, h: int, variant: int = 0) -> bytes:
+    """An SVG document of ``w`` x ``h`` pixels: a linear-gradient sky, a
+    radial-gradient sun, a hill of cubic and quadratic curves, a
+    half-transparent group of rotated rectangles, an even-odd ring, a
+    stroked polyline with round joins and an elliptical arc.  ``variant``
+    1 uses a viewBox of another scale and moves and recolours the
+    shapes."""
+    s = 1.0 if variant == 0 else 0.5
+    vw, vh = w * s, h * s
+    hue = ("#1e5aa8", "#f2b134", "#2f8f4e", "#c0392b") if variant == 0 \
+        else ("#402060", "#f0e68c", "#556b2f", "#008b8b")
+
+    def f(v):
+        return f"{v:.2f}"
+    body = (
+        f'<defs><linearGradient id="sky" x1="0" y1="0" x2="0" y2="1">'
+        f'<stop offset="0" stop-color="{hue[0]}"/>'
+        f'<stop offset="1" stop-color="white"/></linearGradient>'
+        f'<radialGradient id="sun"><stop offset="0" stop-color="white"/>'
+        f'<stop offset="1" stop-color="{hue[1]}"/></radialGradient>'
+        f'</defs>'
+        f'<rect width="{f(vw)}" height="{f(vh)}" fill="url(#sky)"/>'
+        f'<circle cx="{f(vw * (0.75 - 0.4 * variant))}" '
+        f'cy="{f(vh * 0.25)}" r="{f(vh * 0.12)}" fill="url(#sun)"/>'
+        f'<path d="M0 {f(vh * 0.7)} C {f(vw * 0.25)} {f(vh * 0.45)} '
+        f'{f(vw * 0.5)} {f(vh * 0.95)} {f(vw * 0.75)} {f(vh * 0.6)} '
+        f'Q {f(vw * 0.9)} {f(vh * 0.5)} {f(vw)} {f(vh * 0.65)} '
+        f'L {f(vw)} {f(vh)} L 0 {f(vh)} Z" fill="{hue[2]}"/>'
+        f'<g opacity="0.6" transform="rotate({15 + 20 * variant} '
+        f'{f(vw / 2)} {f(vh / 2)})">'
+        f'<rect x="{f(vw * 0.3)}" y="{f(vh * 0.3)}" width="{f(vw * 0.2)}" '
+        f'height="{f(vh * 0.15)}" fill="{hue[3]}"/>'
+        f'<rect x="{f(vw * 0.4)}" y="{f(vh * 0.4)}" width="{f(vw * 0.15)}" '
+        f'height="{f(vh * 0.2)}" rx="{f(vh * 0.03)}" fill="{hue[0]}"/></g>'
+        f'<path fill-rule="evenodd" fill="{hue[1]}" fill-opacity="0.8" '
+        f'd="M {f(vw * 0.1)} {f(vh * 0.2)} a {f(vh * 0.1)} {f(vh * 0.1)} '
+        f'0 1 0 {f(vh * 0.2)} 0 a {f(vh * 0.1)} {f(vh * 0.1)} 0 1 0 '
+        f'{f(-vh * 0.2)} 0 Z M {f(vw * 0.1 + vh * 0.05)} {f(vh * 0.2)} '
+        f'a {f(vh * 0.05)} {f(vh * 0.05)} 0 1 0 {f(vh * 0.1)} 0 '
+        f'a {f(vh * 0.05)} {f(vh * 0.05)} 0 1 0 {f(-vh * 0.1)} 0 Z"/>'
+        f'<polyline points="{f(vw * 0.05)},{f(vh * 0.9)} '
+        f'{f(vw * 0.2)},{f(vh * 0.75)} {f(vw * 0.35)},{f(vh * 0.88)} '
+        f'{f(vw * 0.5)},{f(vh * 0.72)}" fill="none" stroke="white" '
+        f'stroke-width="{f(vh * 0.015)}" stroke-linejoin="round" '
+        f'stroke-linecap="round" stroke-opacity="0.9"/>'
+        f'<ellipse cx="{f(vw * 0.6)}" cy="{f(vh * 0.85)}" '
+        f'rx="{f(vw * 0.08)}" ry="{f(vh * 0.04)}" fill="{hue[3]}" '
+        f'stroke="black" stroke-width="{f(vh * 0.004)}"/>')
+    return (f'<?xml version="1.0" encoding="UTF-8"?>\n'
+            f'<svg xmlns="http://www.w3.org/2000/svg" width="{w}" '
+            f'height="{h}" viewBox="0 0 {f(vw)} {f(vh)}">{body}</svg>'
+            ).encode()
+
+
+def _ue7(v: int) -> bytes:
+    out = [v & 0x7F]
+    v >>= 7
+    while v:
+        out.append(0x80 | (v & 0x7F))
+        v >>= 7
+    return bytes(reversed(out))
+
+
+def bpg_header(w: int, h: int, pixel_format: int = 1, alpha: bool = False,
+               depth: int = 8, ext=()) -> bytes:
+    """A BPG file's header (``ffpic_tpu/formats/bpg.py`` reads it): the
+    magic, pixel format, alpha, bit depth, colour space 1, limited
+    range, the ue7 width, height and a picture length, the extension
+    tags (tag, payload) of ``ext``, then 16 zero bytes in place of the
+    picture."""
+    b4 = (pixel_format << 5) | (int(alpha) << 4) | (depth - 8)
+    b5 = (1 << 4) | (int(bool(ext)) << 3) | (int(alpha) << 2) | 2
+    out = b"BPG\xfb" + bytes([b4, b5]) + _ue7(w) + _ue7(h) + _ue7(16)
+    if ext:
+        tags = b"".join(_ue7(t) + _ue7(len(p)) + p for t, p in ext)
+        out += _ue7(len(tags)) + tags
+    return out + bytes(16)
 
 
 def _testdata(name: str) -> bytes:

@@ -219,7 +219,10 @@ def test_new_modules_need_neither_jax_nor_ffpic_tpu(tmp_path):
         "        'ffpic_tpu_torch.apps.transcode',\n"
         "        'ffpic_tpu_torch.formats.unported'} | {\n"
         "    'ffpic_tpu_torch.formats.' + c for c in\n"
-        "    ('bmp', 'gif', 'tga', 'pnm', 'psd', 'tiff', 'ico')}\n"
+        "    ('bmp', 'gif', 'tga', 'pnm', 'psd', 'tiff', 'ico', 'jp2',\n"
+        "     'exr', 'svg', 'svg_raster', 'bpg')} | {\n"
+        "    'ffpic_tpu_torch.coding.' + c for c in\n"
+        "    ('huffman', 'deflate', 'jpeg2000', 'exr_codec')}\n"
         "assert need <= set(names), need - set(names)\n"
         f"paths = {[p for k, p in sorted(paths.items())
                     if k != 'junk.bin']!r}\n"

@@ -9,8 +9,9 @@ package's; the JPEG strips of a TIFF go through the port's ``jpg.load``
 (K2 and K4's plain versions here), their colour up to XLA's choice of
 contracting its products into FMAs.  Also: the four encoders' bytes
 (BMP, TGA, PNM, GIF), the writers of ``testing`` against PIL, the probe
-order over a file of every format the reference knows (the six the port
-does not decode raise ``NotImplementedError``), the TIFF and PSD counts
+order over a file of every format the reference knows (AVIF, which
+the port does not decode, raises ``NotImplementedError``; BPG, JPEG
+2000, SVG and EXR give the reference's pixels or its kind of error), the TIFF and PSD counts
 past the end of a file and the pixel budget (``ValueError`` before
 anything is allocated), and a seeded corruption loop over every codec.
 """
@@ -523,7 +524,7 @@ def _every_format() -> dict:
     }
 
 
-UNPORTED = {"AVIF", "BPG", "JP2", "SVG", "EXR"}
+UNPORTED = {"AVIF"}
 
 
 def test_registered_in_the_reference_order():
@@ -554,6 +555,22 @@ def test_probe_order_matches_jax(kind):
             ffpic_tpu_torch.load(data, device="cpu")
         with pytest.raises(NotImplementedError, match="item"):
             ffpic_tpu_torch.decode_batch([data], device="cpu")
+    elif got in ("BPG", "JP2", "SVG", "EXR"):
+        # ported: the reference's pixels, or its kind of error
+        for mine, ref in ((lambda: ffpic_tpu_torch.load(
+                               data, device="cpu").pixels.numpy(),
+                           lambda: ffpic_tpu.load(data).np_pixels()),
+                          (lambda: ffpic_tpu_torch.decode_batch(
+                               [data], device="cpu").numpy(),
+                           lambda: np.asarray(ffpic_tpu.decode_batch(
+                               [data])))):
+            try:
+                want = ref()
+            except (ValueError, NotImplementedError) as e:
+                with pytest.raises(type(e)):
+                    mine()
+            else:
+                np.testing.assert_array_equal(mine(), want)
     elif got == "HEVC":
         # a VPS and no picture: ported, it raises the reference's error
         for load in (ffpic_tpu.load,
