@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``ffpic_tpu_torch/csrc`` (nvcc, one
 process per source) and the host library ``ffpic_tpu_torch/native/``
 ``host_jpeg.c``, ``host_png.c``, ``host_vp8.c``, ``host_vp8l.c``,
-``host_hevc.c``, ``host_lzw.c``, ``host_jp2.c`` (cc),
+``host_hevc.c``, ``host_lzw.c``, ``host_jp2.c``, ``host_av1.c``,
+``host_av1_itx.c`` (cc, one process a source),
 holds each kernel against its plain PyTorch version on the card
 (bit-exact) at its paths' shapes and at the edges of its tiling
 (``testing.scan_cases``, ``unpack_cases``, ``idct_cases``,
@@ -150,7 +151,7 @@ read just after:
   ``decode_batch(mesh=)`` of its files (K2 x 1, K3 x 1 each), both
   bit-equal to ``decode_batch(mesh=None)``, with their MP/s; and
   ``graft_entry.entry()`` (K2 + K3) against the plain route;
-* the still codecs (``still_codec_paths``, last): JPEG 2000 (5/3 with
+* the still codecs (``still_codec_paths``): JPEG 2000 (5/3 with
   the RCT; 9/7 with the ICT, 512 x 512 tiles and 3 layers), OpenEXR
   (none, ZIP, PXR24, B44, PIZ, DWAA, DWAB) and SVG files at 1920x1080
   and a BPG header, all decoded on the host as in the reference: each
@@ -163,7 +164,21 @@ read just after:
   (``jp2.tier2``, ``jp2.tier1``, ``jp2.synthesis``, ``exr.decompress``,
   ``exr.piz_huffman``, ``svg.raster``) and the batch's wall time with
   its spans; ``start_profiler``/``stop_profiler`` trace K17 with CUDA
-  activity.
+  activity;
+* AVIF stills (``avif_paths``, last): the committed 1920x1080 fixtures
+  of ``testdata/`` (4:2:0; 4:4:4 with an alpha item; a 2x2 grid of
+  960x540 tiles; 128x128 superblocks with loop restoration), decoded on
+  the host by the AV1 intra decoder and its native C, as in the
+  reference: each ``load`` on the card equal to the CPU's (pixels and
+  meta) with no launch, and its pixels' sha256 the one recorded with
+  the JAX package (``testdata/avif_fixtures.json``); an animated AVIF
+  raises ``NotImplementedError``; ``decode_batch`` of 8 of them at
+  size=(224, 224) (K16 once) against the plain resize of the CPU loads'
+  pixels, ``normalize_for_model`` (K17 once) and ViT-B/16 within config
+  5's tolerance; each load's MP/s with its spans (``av1.headers``,
+  ``av1.parse``, ``av1.recon``, ``av1.deblock``, ``av1.cdef``,
+  ``av1.lr``, ``av1.superres``, ``avif.color``) and the batch's wall
+  time with its spans.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -3129,6 +3144,145 @@ def still_codec_paths(dev, card: str, errs: dict) -> dict:
     return launches
 
 
+AVIF_FILES = {"avif_420": "avif_1080p_420.avif",
+              "avif_444_alpha": "avif_1080p_444_alpha.avif",
+              "avif_grid": "avif_1080p_grid.avif",
+              "avif_sb128": "avif_1080p_sb128.avif"}
+AVIF_BATCH = ("avif_420", "avif_444_alpha", "avif_grid", "avif_sb128") * 2
+
+
+def avif_paths(dev, card: str, errs: dict) -> dict:
+    """AVIF stills on the card (``AVIF_FILES``, the committed 1080p
+    fixtures).  They decode on the host, as in the reference, and no
+    kernel runs in their ``load``: each file's ``load`` on the card
+    equals its ``load`` on the CPU byte for byte (pixels and meta),
+    with no launch, and the pixels' sha256 is the one recorded with the
+    JAX package's ``load`` (``testing.avif_manifest``).  The animated
+    fixture (an ``av01`` track) raises ``NotImplementedError`` in
+    ``load`` and ``decode_batch``.  Then the path, with fresh counts:
+    ``decode_batch`` of ``AVIF_BATCH`` at size=(224, 224) (K16 once),
+    equal to the plain resize of the CPU loads' pixels, then
+    ``normalize_for_model`` (K17 once) against its plain version and
+    ViT-B/16 (``vit_pair``) within config 5's tolerance of the CPU
+    forward.  Timings on the host clock, beside ``card``: each load
+    (median of 3) in MP/s with its spans, and the batch's wall time
+    with its spans.  Returns the launches {path: {kernel: n}}."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_resize
+    from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils import trace
+    mods = (cuda_jpeg, cuda_png, cuda_resize)
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in mods:
+            m.reset_launches()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: v for m in mods for k, v in m.launches.items() if v}
+
+    t_phase = time.perf_counter()
+    manifest = testing.avif_manifest()
+    files = {k: testing.avif_fixture(f) for k, f in AVIF_FILES.items()}
+    log("inputs avif", bytes=json.dumps({k: len(v) for k, v in
+                                          files.items()}).replace(" ", ""))
+    track = testing.avif_fixture("avis_track_64x48.avif")
+    for call in (lambda: ffpic_tpu_torch.load(track, device=dev),
+                 lambda: ffpic_tpu_torch.decode_batch([track], device=dev)):
+        try:
+            call()
+        except NotImplementedError as e:
+            if "ROADMAP.md Queue 1 item 19" not in str(e):
+                raise AssertionError(f"avis: {e}") from e
+        else:
+            raise AssertionError("avis: a file with an av01 track decoded")
+
+    cpu, launches = {}, {}
+    for name, data in files.items():
+        runs = []
+        trace.reset()
+        trace.enable()
+        for _ in range(3):
+            reset()
+            t0 = time.perf_counter()
+            got = ffpic_tpu_torch.load(data, device=dev)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            launches[name] = counts()
+        trace.enable(False)
+        spans = {k: round(v["total"] / len(runs) * 1e3, 3)
+                 for k, v in trace.report().items()}
+        if launches[name]:
+            raise AssertionError(f"{name}: launches {launches[name]}")
+        want = ffpic_tpu_torch.load(data, device="cpu")
+        if got.pixels.device.type != dev.type:
+            raise AssertionError(f"{name}: pixels on {got.pixels.device}")
+        if not torch.equal(got.pixels.cpu(), want.pixels):
+            raise AssertionError(f"{name}: the card's load differs from the "
+                                 "CPU's")
+        same_meta(name, got.meta, want.meta)
+        ent = manifest[AVIF_FILES[name]]
+        px = np.ascontiguousarray(got.pixels.cpu().numpy())
+        if list(px.shape) != ent["shape"] or hashlib.sha256(
+                px).hexdigest() != ent["pixels_sha256"]:
+            raise AssertionError(f"{name}: pixels differ from the JAX "
+                                 "package's recorded hash")
+        cpu[name] = want.pixels
+        mp = got.width * got.height / 1e6
+        med = sorted(runs)[1]
+        log("time avif load", card=card, file=name, megapixels=mp,
+            load_ms=f"{med * 1e3:.3f}", mps=f"{mp / med:.3f}",
+            runs_ms=json.dumps([round(r * 1e3, 3) for r in runs])
+            .replace(" ", ""), span_ms=json.dumps(spans).replace(" ", ""))
+    log("avif load", files=len(files), cpu_route="exact",
+        jax_sha256="equal", launches="none", avis="NotImplementedError")
+
+    # the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16
+    members = [files[k] for k in AVIF_BATCH]
+    size = CONFIG5_SIZE
+    cfg, model, model_cpu = vit_pair(dev)
+    reset()
+    trace.reset()
+    trace.enable()
+    t0 = time.perf_counter()
+    batch = ffpic_tpu_torch.decode_batch(members, size=size, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace.enable(False)
+    stages = {k: round(v["total"] * 1e3, 3) for k, v in trace.report().items()}
+    x = rs.normalize_for_model(batch)
+    logits = model(x)
+    path = counts()
+    if (path.get("resize_rgba"), path.get("normalize_resize")) != (1, 1) \
+            or len(path) != 2:
+        raise AssertionError(f"avif batch: launches {path}")
+    if tuple(batch.shape) != (len(members), *size, 4):
+        raise AssertionError(f"avif batch: {tuple(batch.shape)}")
+    batch_cpu = rs.resize_batch([cpu[k] for k in AVIF_BATCH], size)
+    exact("resize_rgba", batch.cpu(), batch_cpu, errs)
+    x_cpu = rs.normalize_for_model(batch_cpu)
+    exact_f32("normalize_resize", x.cpu(), x_cpu, errs)
+    err, scale, agree = logits_against_cpu("avif batch", logits,
+                                           model_cpu(x_cpu), cfg.n_classes)
+    launches["batch"] = path
+    log("avif batch", members=",".join(AVIF_BATCH), size=size,
+        launches=json.dumps(path).replace(" ", ""), batch_cpu_route="exact",
+        input_cpu="exact", logits_max_abs_vs_cpu=f"{err:.6g}",
+        logits_max_abs=f"{scale:.6g}",
+        tolerance=f"{VIT_REL_TOL:g}*max|logit|", argmax_equal_share=agree)
+    mp = len(members) * H * W / 1e6
+    log("time avif batch", card=card, megapixels=mp, size=size,
+        end_to_end_ms=f"{wall * 1e3:.3f}", mps=f"{mp / wall:.3f}",
+        images_per_s=f"{len(members) / wall:.3f}", runs=1,
+        stage_total_ms=json.dumps(stages).replace(" ", ""),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def hevc_inter_paths(dev, card: str, floor_ms: float, errs: dict):
     """The HEVC inter slice on the card, under ``FFPIC_HEVC_DEVICE=1`` and
     ``FFPIC_HEIF_DEVICE_COLOR=1``: ``load_all`` of the committed 1920x1080
@@ -3926,6 +4080,7 @@ def main() -> int:
                                     "yq": yq, "cq": cq, "shapes": shapes})
     del x_config5
     still_launches = still_codec_paths(dev, f'"{smi}"', errs)
+    avif_launches = avif_paths(dev, f'"{smi}"', errs)
 
     # the instances the paths run: bt601, rgba (and fancy for K4), K6 at 4
     # bytes a pixel, K7 for 8-bit RGBA
@@ -4004,6 +4159,9 @@ def main() -> int:
     for name in ("resize_rgba", "normalize_resize"):
         timed[name]["launches_still_codecs"] = \
             still_launches["batch"][name]
+    # the AVIF phase: K16 and K17 on the 8 x 1080p batch
+    for name in ("resize_rgba", "normalize_resize"):
+        timed[name]["launches_avif"] = avif_launches["batch"][name]
     # the mesh paths (a world of one over NCCL) and the graft entry: K2
     # and K3 once each
     for name in ("dequant_idct", "assemble_color"):

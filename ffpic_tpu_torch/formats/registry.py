@@ -17,7 +17,7 @@ codecs in its registry) never touches it.  Three changes:
   in the original's probe order (``ORDER``) whatever order the modules
   are imported in: the pipeline imports some codecs before the others;
 * a codec that decodes on the host to RGBA (BMP, GIF, TGA, PNM, PSD,
-  TIFF, ICO, JP2, SVG, EXR; BPG, whose ``decode`` gives the header
+  TIFF, ICO, JP2, SVG, EXR, AVIF; BPG, whose ``decode`` gives the header
   alone) registers its host ``decode`` in place of ``load``;
   ``load_all`` stages the pixels it returns to the device
   (``staging.to_device_pics``), and ``decode_batch`` calls ``decode``

@@ -5,8 +5,10 @@ probability parsers, residual transform, intra reconstruction, loop
 filter and colour conversion), host_vp8l.c (the VP8L entropy
 decoder), host_hevc.c (the HEVC CABAC slice syntax pass, intra
 reconstruction and YUV to RGBA colour), host_lzw.c (the GIF and
-TIFF LZW decoders) and host_jp2.c (the JPEG 2000 EBCOT tier-1
-code-block decoder).
+TIFF LZW decoders), host_jp2.c (the JPEG 2000 EBCOT tier-1
+code-block decoder), host_av1.c (the AV1 symbol parse of a superblock
+or a block, intra reconstruction, deblocking and CICP colour) and
+host_av1_itx.c (the AV1 inverse transforms).
 
 Copied from the JPEG, PNG and WebP parts of
 ``ffpic_tpu/native/__init__.py`` (``_build``, ``_load``, ``available``,
@@ -16,16 +18,22 @@ Copied from the JPEG, PNG and WebP parts of
 ``vp8_recon_fused``, ``vp8_recon``, ``vp8_mb_headers``,
 ``vp8l_entropy``, ``vp8_color_libwebp``, ``hevc_decode_slice``,
 ``hevc_picture_state``, ``hevc_decode_segment``, ``hevc_recon``,
-``hevc_color``), its LZW part (``lzw_gif``, ``lzw_tiff``) and its JPEG
-2000 part (``jp2_block``, ``:665-680``), with these changes:
+``hevc_color``), its LZW part (``lzw_gif``, ``lzw_tiff``), its JPEG
+2000 part (``jp2_block``, ``:665-680``) and its AV1 part
+(``av1_recon``, ``av1_block_parse``, ``av1_block_mode``,
+``av1_color_cicp``, ``av1_sb_parse``, ``av1_deblock_pass``,
+``av1_itx_batch``, ``av1_wht_batch``, ``:772-989``), with these
+changes:
 
-* only these seven sources (this directory) are compiled, with ``cc``,
-  into one library in ``ffpic_tpu_torch/build/``, named by a hash of
-  the sources and the flags; the library is written under a temporary
-  name and renamed, so another process never loads a half-written
-  file;
+* only these nine sources (this directory) are compiled, with ``cc``,
+  one process a source, all started together, and linked into one
+  library in ``ffpic_tpu_torch/build/``, named by a hash of the sources
+  and the flags; the library is written under a temporary name and
+  renamed, so another process never loads a half-written file;
 * the loader holds a lock, so threads that ask for the library while
-  the first one builds it wait for it instead of seeing none;
+  the first one builds it wait for it instead of seeing none, and the
+  build holds a file lock in ``build/``, so processes that ask at once
+  (pytest's workers) wait for one build instead of each compiling;
 * a failed build raises: there is no Python Huffman decoder to fall
   back to;
 * ``png_unfilter`` refuses a buffer shorter than its rows instead of
@@ -37,16 +45,28 @@ Copied from the JPEG, PNG and WebP parts of
 * the HEVC wrappers raise ``ValueError`` on planes that are not
   C-contiguous int32, on a ``tu_meta`` that is not (m, 8), on levels or
   residuals shorter than the TUs' n² sums and on picture state of the
-  wrong size (the original asserts, or passes them on).
+  wrong size (the original asserts, or passes them on);
+* the AV1 wrappers raise ``ValueError`` on an array the C code reads or
+  writes that is not C-contiguous of the type it takes, or not of the
+  shape or length its layout fixes: the symbol parses' msac state,
+  records and output buffers (the superblock parse's sized by its
+  superblock), the op list and planes of ``av1_recon``, the deblock
+  pass's plane and mode grids, the transforms' coefficients and the
+  colour's planes (the original asserts on two of them and passes the
+  others on).  Like every ctypes call here, the C runs with the GIL
+  released, so a grid's tiles and ``decode_batch``'s pool decode side
+  by side.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -54,7 +74,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_DIR, f) for f in ("host_jpeg.c", "host_png.c",
                                            "host_vp8.c", "host_vp8l.c",
                                            "host_hevc.c", "host_lzw.c",
-                                           "host_jp2.c")]
+                                           "host_jp2.c", "host_av1.c",
+                                           "host_av1_itx.c")]
 BUILD = os.path.join(os.path.dirname(_DIR), "build")
 FLAGS = ["-O3", "-march=native", "-fPIC", "-shared", "-fvisibility=hidden"]
 
@@ -66,6 +87,9 @@ _int = ctypes.c_int
 _long = ctypes.c_long
 _u32 = ctypes.c_uint32
 _f32 = ctypes.c_float
+_f64 = ctypes.c_double
+_ll = ctypes.c_longlong
+_char = ctypes.c_char_p
 _SIGNATURES = {
     "ffpic_jpeg_decode_scan": (_int, [_vp, _long, _vp, _vp, _vp, _int, _vp,
                                       _vp, _int, _int, _vp, _vp, _vp, _vp,
@@ -115,22 +139,22 @@ _SIGNATURES = {
     "ffpic_yuv_to_rgba": (None, [_vp, _vp, _vp, _int, _int, _int, _int,
                                  _int, _int, _f32, _f32, _f32, _f32, _int,
                                  _int, _vp]),
+    "av1_recon": (None, [_vp, _ll] + [_vp] * 10 + [_int]),
+    "av1_block_parse": (None, [_char, _ll, _vp, _vp, _vp, _vp, _int, _vp,
+                               _vp, _vp, _ll, _vp]),
+    "av1_block_mode": (None, [_char, _ll, _vp, _vp, _vp, _vp, _vp]),
+    "av1_color_cicp": (_int, [_vp, _long, _vp, _long, _vp, _long, _int,
+                              _int, _int, _int, _int, _int, _int, _int,
+                              _int, _int, _f64, _f64, _vp]),
+    "av1_sb_parse": (None, [_char, _ll] + [_vp] * 10),
+    "av1_deblock_pass": (None, [_vp] + [_int] * 4 + [_vp] * 8),
+    "av1_itx_batch": (_int, [_vp, _long] + [_int] * 8
+                      + [ctypes.c_int32] * 4 + [_vp, _vp]),
+    "av1_wht_batch": (None, [_vp, _long, _vp]),
 }
 
 
-def _build() -> str:
-    """Path of the built library, compiling it first if needed."""
-    cc = os.environ.get("CC", "cc")
-    h = hashlib.sha256(" ".join([cc, *FLAGS]).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    so = os.path.join(BUILD, f"libffpic_torch_host_{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [cc, *FLAGS, "-o", tmp, *SOURCES]
+def _cc(cmd: list[str]) -> None:
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
     except (subprocess.CalledProcessError, FileNotFoundError,
@@ -138,7 +162,39 @@ def _build() -> str:
         err = getattr(e, "stderr", b"") or b""
         raise RuntimeError(f"native build failed: {' '.join(cmd)}\n"
                            f"{err.decode(errors='replace')}") from e
-    os.replace(tmp, so)
+
+
+def _build() -> str:
+    """Path of the built library, compiling it first if needed: one
+    ``cc -c`` a source side by side, then one link, under a file lock
+    that one process at a time holds."""
+    cc = os.environ.get("CC", "cc")
+    h = hashlib.sha256(" ".join([cc, *FLAGS]).encode())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    tag = h.hexdigest()[:16]
+    so = os.path.join(BUILD, f"libffpic_torch_host_{tag}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD, exist_ok=True)
+    with open(os.path.join(BUILD, "host.lock"), "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):          # another process built it
+            return so
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in SOURCES]
+        compile_flags = [f for f in FLAGS if f != "-shared"]
+        try:
+            with ThreadPoolExecutor(len(SOURCES)) as ex:
+                list(ex.map(_cc, ([cc, *compile_flags, "-c", "-o", o, src]
+                                  for src, o in zip(SOURCES, objs))))
+            _cc([cc, *FLAGS, "-o", tmp, *objs])
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
+        os.replace(tmp, so)
     return so
 
 
@@ -772,4 +828,215 @@ def jp2_block(data: bytes, n_passes: int, mb: int, zbp: int,
                              orient, _p(out))
     if rc != 0:
         raise ValueError(f"jp2 native block decode failed ({rc})")
+    return out
+
+
+# --- AV1 (host_av1.c, host_av1_itx.c) --------------------------------------
+
+_OP_NF = 21          # av1_recon op record width (formats/av1_recon.py)
+
+
+def _arr(a, dtype, name: str, shape=None, min_len: int = 0) -> int:
+    """Pointer to ``a``, which the C code reads or writes in place: a
+    C-contiguous ``dtype`` array of ``shape`` (None for any; -1 for any
+    extent on that axis) and at least ``min_len`` elements."""
+    if not isinstance(a, np.ndarray) or a.dtype != dtype \
+            or not a.flags["C_CONTIGUOUS"]:
+        raise ValueError(f"{name} must be a C-contiguous "
+                         f"{np.dtype(dtype).name} array")
+    if shape is not None and (a.ndim != len(shape) or any(
+            want not in (-1, got) for want, got in zip(shape, a.shape))):
+        raise ValueError(f"{name} {a.shape}: expected {shape}")
+    if a.size < min_len:
+        raise ValueError(f"{name}: {a.size} elements, needs {min_len}")
+    return _p(a)
+
+
+def _msac_state(st) -> int:
+    return _arr(st, np.int64, "msac state", (5,))
+
+
+def av1_recon(op_arr, planes, pw, ph, res_buf, dr, smw, taps,
+              pal_buf, bd: int):
+    """Native AV1 intra reconstruction (host_av1.c:av1_recon): replay
+    the precomputed op list sequentially over the int32 plane
+    buffers (mutated in place)."""
+    lib = _load()
+    if not 1 <= len(planes) <= 3:
+        raise ValueError(f"{len(planes)} planes: expected 1 to 3")
+    for i, pl in enumerate(planes):
+        _i32_plane(pl, f"plane {i}")
+    _arr(pw, np.int32, "pw", (3,))
+    _arr(ph, np.int32, "ph", (3,))
+    if any((int(ph[i]), int(pw[i])) != pl.shape
+           for i, pl in enumerate(planes)):
+        raise ValueError("pw/ph do not match the planes' shapes")
+    p = [_p(pl) for pl in planes] + [None] * (3 - len(planes))
+    lib.av1_recon(_arr(op_arr, np.int32, "op_arr", (-1, _OP_NF)),
+                  op_arr.shape[0], p[0], p[1], p[2], _p(pw), _p(ph),
+                  _arr(res_buf, np.int32, "res_buf"),
+                  _arr(dr, np.int32, "dr", (91,)),
+                  _arr(smw, np.int32, "smw", (124,)),
+                  _arr(taps, np.int32, "taps", min_len=5 * 8 * 7),
+                  _arr(pal_buf, np.int32, "pal_buf"), bd)
+
+
+def av1_block_parse(data: bytes, st, ptrs, blk, pp, nplanes: int,
+                    ops, coef, tbmeta, clip: int, inout):
+    """Whole-block AV1 residual parse (host_av1.c:av1_block_parse):
+    C iterates the residual() TB geometry, decodes coefficients and
+    emits recon ops, maintaining BlockDecoded bitmaps / a,l contexts
+    / chroma tx grids / MaxLuma in place."""
+    lib = _load()
+    if not isinstance(data, bytes):
+        raise ValueError("data must be bytes")
+    pp_p = _arr(pp, np.int32, "pp", (-1, 22))
+    if not 1 <= nplanes <= min(3, pp.shape[0]):
+        raise ValueError(f"nplanes {nplanes} for {pp.shape[0]} plane rows")
+    ops_p = _arr(ops, np.int32, "ops", (-1, _OP_NF))
+    lib.av1_block_parse(
+        data, len(data), _msac_state(st), _arr(ptrs, np.int64, "ptrs"),
+        _arr(blk, np.int32, "blk", (18,)), pp_p, nplanes, ops_p,
+        _arr(coef, np.int32, "coef"),
+        _arr(tbmeta, np.int32, "tbmeta", (ops.shape[0], 9)), clip,
+        _arr(inout, np.int32, "inout", (5,)))
+
+
+def av1_block_mode(data: bytes, st, mode_ptrs, blk, out, pal):
+    """Per-block AV1 mode-info symbol decode (host_av1.c:
+    av1_block_mode): seg/skip/cdef/deltas/modes/CfL/filter-intra/
+    tx-depth against the shared mode CDF arenas; mutates the context
+    grids and msac state in place."""
+    lib = _load()
+    if not isinstance(data, bytes):
+        raise ValueError("data must be bytes")
+    lib.av1_block_mode(
+        data, len(data), _msac_state(st),
+        _arr(mode_ptrs, np.int64, "mode_ptrs"),
+        _arr(blk, np.int32, "blk", (33,)),
+        _arr(out, np.int32, "out", (23,)),
+        _arr(pal, np.int32, "pal", min_len=36 + 2 * 64 * 64))
+
+
+def av1_sb_parse(data: bytes, st, ptrs, mode_ptrs, x_ptrs, sbp,
+                 ops, coef, tbmeta, pal, io):
+    """Whole-superblock AV1 parse (host_av1.c av1_sb_parse): the
+    partition walk, per-block mode-info, grid record writes and the
+    residual TB walk fused into one C call per superblock.  Mutates
+    the CDF arenas, context grids and msac state in place; returns
+    via the io record (counts, qindex/delta-lf state, error code).
+    The output buffers hold a superblock of ``sbp[2]`` (16 or 32)
+    4x4 units a side, as ``TileDecoder._decode_sb_native`` sizes them."""
+    lib = _load()
+    if not isinstance(data, bytes):
+        raise ValueError("data must be bytes")
+    sbp_p = _arr(sbp, np.int32, "sbp", (36,))
+    sb4 = int(sbp[2])
+    if sb4 not in (16, 32):
+        raise ValueError(f"superblock of {sb4} units: expected 16 or 32")
+    nmax = 3 * sb4 * sb4 + 64
+    px = (sb4 * 4) ** 2
+    lib.av1_sb_parse(
+        data, len(data), _msac_state(st), _arr(ptrs, np.int64, "ptrs"),
+        _arr(mode_ptrs, np.int64, "mode_ptrs"),
+        _arr(x_ptrs, np.int64, "x_ptrs", (11,)), sbp_p,
+        _arr(ops, np.int32, "ops", (-1, _OP_NF), nmax * _OP_NF),
+        _arr(coef, np.int32, "coef", min_len=3 * px + 4096),
+        _arr(tbmeta, np.int32, "tbmeta", (-1, 9), nmax * 9),
+        _arr(pal, np.int32, "pal", min_len=2 * px + 16384),
+        _arr(io, np.int32, "io", (13,)))
+
+
+def av1_color_cicp(planes, h: int, w: int, sx: int, sy: int, bd: int,
+                   limited: bool, mode: int,
+                   kr: float = 0.0, kb: float = 0.0) -> np.ndarray:
+    """CICP YUV -> RGBA uint8 (host_av1.c av1_color_cicp), bit-exact
+    vs the numpy float32 oracle in formats/avif.py (_yuv_to_rgba_np):
+    integer 3/4-1/4 chroma upsample then float32 matrix with
+    floor(x+0.5).  mode: 0=matrix(kr,kb), 1=identity GBR, 2=mono."""
+    lib = _load()
+
+    def prep(p):
+        if not isinstance(p, np.ndarray) or p.ndim != 2:
+            raise ValueError("planes must be 2-D arrays")
+        if p.dtype == np.uint8 and p.strides[1] == 1:
+            return p, 1
+        if p.dtype == np.uint16 and p.strides[1] == 2:
+            return p, 2
+        return np.ascontiguousarray(p, np.uint16), 2
+
+    Y, ey = prep(planes[0])
+    if len(planes) > 1:
+        U, eu = prep(planes[1])
+        V, ev = prep(planes[2])
+        if not (ey == eu == ev):            # mixed dtypes: widen all
+            Y = np.ascontiguousarray(Y, np.uint16); ey = 2
+            U = np.ascontiguousarray(U, np.uint16)
+            V = np.ascontiguousarray(V, np.uint16)
+    else:
+        U = V = Y
+    ch, cw = U.shape
+    if Y.shape[0] < h or Y.shape[1] < w or V.shape != U.shape \
+            or ch < (h + sy) >> sy or cw < (w + sx) >> sx:
+        raise ValueError(f"planes {Y.shape}, {U.shape}, {V.shape} do not "
+                         f"cover {h}x{w} at subsampling ({sx}, {sy})")
+    out = np.empty((h, w, 4), np.uint8)
+    rc = lib.av1_color_cicp(
+        Y.ctypes.data, Y.strides[0] // ey, U.ctypes.data,
+        U.strides[0] // ey, V.ctypes.data, V.strides[0] // ey, ey,
+        h, w, ch, cw, sx, sy, bd, 1 if limited else 0, mode,
+        float(kr), float(kb), _p(out))
+    if rc != 0:
+        raise MemoryError("av1_color_cicp allocation failed")
+    return out
+
+
+def av1_deblock_pass(arr, h: int, w: int, plane: int, pass_: int,
+                     prm, txw, txh, bc0, br0, skip, seg, dlf):
+    """One AV1 deblock pass (host_av1.c av1_deblock_pass) over an
+    int32 plane in place; 1:1 with the numpy/scalar oracles in
+    formats/av1_loopfilter.py."""
+    lib = _load()
+    _i32_plane(arr, "arr")
+    if arr.shape != (h, w):
+        raise ValueError(f"arr {arr.shape}: expected ({h}, {w})")
+    _arr(prm, np.int32, "prm", (81,))
+    mi = (int(prm[0]), int(prm[1]))
+    lib.av1_deblock_pass(
+        _p(arr), h, w, plane, pass_, _p(prm),
+        _arr(txw, np.uint8, "txw", mi), _arr(txh, np.uint8, "txh", mi),
+        _arr(bc0, np.uint16, "bc0", mi), _arr(br0, np.uint16, "br0", mi),
+        _arr(skip, np.uint8, "skip", mi), _arr(seg, np.uint8, "seg", mi),
+        _arr(dlf, np.int8, "dlf", (*mi, 4)))
+
+
+def av1_itx_batch(coeffs, aw: int, ah: int, w: int, h: int,
+                  hk: int, vk: int, rect2: bool, row_shift: int,
+                  rlo: int, rhi: int, clo: int, chi: int, cos_tab):
+    """Lane-major batched AV1 inverse transforms
+    (host_av1_itx.c av1_itx_batch): one call per
+    (tx_size, tx_type) group, bit-exact with the numpy int32 lane
+    path in coding/av1_itx.py (wrap semantics included).  coeffs is
+    (B, ah, aw) int32; returns (B, h, w) int32."""
+    lib = _load()
+    src = _arr(coeffs, np.int32, "coeffs", (-1, ah, aw))
+    B = coeffs.shape[0]
+    out = np.empty((B, h, w), np.int32)
+    rc = lib.av1_itx_batch(src, B, aw, ah, w, h, hk, vk, int(rect2),
+                           row_shift, rlo, rhi, clo, chi,
+                           _arr(cos_tab, np.int32, "cos_tab", (65,)),
+                           _p(out))
+    if rc:
+        raise MemoryError("av1_itx_batch allocation failed")
+    return out
+
+
+def av1_wht_batch(coeffs):
+    """Lossless 4x4 inverse Walsh-Hadamard batch
+    (host_av1_itx.c av1_wht_batch): (B, 4, 4) int32 -> same."""
+    lib = _load()
+    src = _arr(coeffs, np.int32, "coeffs", (-1, 4, 4))
+    B = coeffs.shape[0]
+    out = np.empty((B, 4, 4), np.int32)
+    lib.av1_wht_batch(src, B, _p(out))
     return out

@@ -1,11 +1,12 @@
 """Batched decode of JPEGs, PNGs, WebPs, HEIFs and the host-only
 codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO, JPEG 2000, SVG,
-OpenEXR, raw HEVC) into one ``(N, H, W, 4)`` uint8 device tensor.
+OpenEXR, AVIF stills, raw HEVC) into one ``(N, H, W, 4)`` uint8 device
+tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
-batches of those formats (an AVIF member, which the port registers by
-its probe alone, and a BPG member, whose pixels neither package
-decodes, raise ``NotImplementedError``; bytes no codec probes the
+batches of those formats (a BPG member, whose pixels neither package
+decodes, and an animated AVIF, whose track the port does not decode
+yet, raise ``NotImplementedError``; bytes no codec probes the
 registry's ``ValueError``):
 
 0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
@@ -120,7 +121,6 @@ from ffpic_tpu_torch.ops.vp8_kernels import vp8_yuv_to_rgba_batch
 from ffpic_tpu_torch.utils.device import resolve_device, to_device
 from ffpic_tpu_torch.utils.trace import device_trace, stage
 
-_CODECS_ITEM = "ROADMAP.md Queue 1 item 1, third group (AVIF)"
 # dense members are staged as packed pairs when those take less than
 # this share of their dense bytes (the reference's threshold)
 SPARSE_SHARE = 0.7
@@ -185,14 +185,11 @@ def _prep(data: bytes, device=None, mesh: bool = False):
             if name == "HEIF":
                 return heif.parse(data, device=device,
                                   sequence=False), "heif", None
-            if codec.decode is not None:
-                pics = codec.decode(data, device=device)
-                if not pics:
-                    raise ValueError("decode produced no pictures")
-                return pics[0].pixels, "rgba", None
-        raise NotImplementedError(
-            f"decode_batch: {name} members are not ported yet; they wait "
-            f"for {_CODECS_ITEM}")
+            # every other codec decodes on the host
+            pics = codec.decode(data, device=device)
+            if not pics:
+                raise ValueError("decode produced no pictures")
+            return pics[0].pixels, "rgba", None
     if j.packed is None:
         return j, "420", None if mesh else member_pairs(j)
     # the packed emission is a view of per-thread native scratch that

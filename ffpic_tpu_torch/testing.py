@@ -28,6 +28,8 @@ committed WebP fixtures, and the kernel edge cases that the tests and
   (``make_webp_fixtures`` wrote them with PIL); ``vp8_cases`` makes the
   inputs at the edges of the ``vp8_residuals`` and ``vp8_yuv_to_rgba``
   kernels (K12, K13), with ``vp8_dq`` a segment's dequant factors;
+* ``avif_fixture`` and ``avif_manifest`` read the committed AVIF files
+  and their hashes (``make_avif_fixtures``);
 * ``still_fixture`` reads the committed JPEG 2000 and OpenEXR files
   (``make_still_fixtures``); ``svg_still`` writes an SVG with paths,
   curves, gradients and opacity at any size, ``bpg_header`` a BPG
@@ -59,6 +61,7 @@ committed WebP fixtures, and the kernel edge cases that the tests and
 from __future__ import annotations
 
 import contextlib
+import json
 import struct
 import zlib
 
@@ -952,6 +955,19 @@ def still_fixture(name: str) -> bytes:
     e.g. ``"jp2_1080p_53.jp2"``; machines without PIL or OpenEXR read
     these."""
     return _testdata(name)
+
+
+def avif_fixture(name: str) -> bytes:
+    """The bytes of a committed AVIF fixture of ``ffpic_tpu_torch/
+    testdata`` (``make_avif_fixtures`` lists them), e.g.
+    ``"avif_1080p_420.avif"``; machines without PIL read these."""
+    return _testdata(name)
+
+
+def avif_manifest() -> dict:
+    """``testdata/avif_fixtures.json``: each AVIF fixture's sha256 and,
+    for the stills, the shape and sha256 of their ``load`` pixels."""
+    return json.loads(_testdata("avif_fixtures.json"))
 
 
 def svg_still(w: int, h: int, variant: int = 0) -> bytes:

@@ -223,9 +223,8 @@ def test_registry_is_the_ports_own():
     formats/all_formats.py``) whatever order the modules were imported
     in (the JAX package's live list follows its import order: a test
     that imports ``ffpic_tpu.formats.heif`` before the list fills puts
-    HEIF first); each codec is the port's own module (AVIF, which it does
-    not decode yet, ``formats.unported``), and importing ffpic_tpu
-    registers nothing in it."""
+    HEIF first); each codec is the port's own module (AVIF's
+    ``formats.avif``), and importing ffpic_tpu registers nothing in it."""
     import re
     mine, theirs = (ffpic_tpu_torch.registered_codecs(),
                     ffpic_tpu.registered_codecs())

@@ -9,8 +9,7 @@ package's; the JPEG strips of a TIFF go through the port's ``jpg.load``
 (K2 and K4's plain versions here), their colour up to XLA's choice of
 contracting its products into FMAs.  Also: the four encoders' bytes
 (BMP, TGA, PNM, GIF), the writers of ``testing`` against PIL, the probe
-order over a file of every format the reference knows (AVIF, which
-the port does not decode, raises ``NotImplementedError``; BPG, JPEG
+order over a file of every format the reference knows (AVIF, BPG, JPEG
 2000, SVG and EXR give the reference's pixels or its kind of error), the TIFF and PSD counts
 past the end of a file and the pixel budget (``ValueError`` before
 anything is allocated), and a seeded corruption loop over every codec.
@@ -507,7 +506,7 @@ def _every_format() -> dict:
         "WEBP": testing.webp_fixture("lossless_160x120.webp"),
         "BMP": testing.encode_bmp(rgb),
         "HEIF": (24).to_bytes(4, "big") + b"ftypheic" + bytes(12),
-        "AVIF": (24).to_bytes(4, "big") + b"ftypavif" + bytes(12),
+        "AVIF": _pil(Image.fromarray(rgb), "AVIF"),
         "BPG": b"BPG\xfb" + bytes(32),
         "JP2": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32),
         "J2K": b"\xff\x4f\xff\x51" + bytes(32),
@@ -524,7 +523,7 @@ def _every_format() -> dict:
     }
 
 
-UNPORTED = {"AVIF"}
+UNPORTED: set = set()
 
 
 def test_registered_in_the_reference_order():
@@ -555,7 +554,7 @@ def test_probe_order_matches_jax(kind):
             ffpic_tpu_torch.load(data, device="cpu")
         with pytest.raises(NotImplementedError, match="item"):
             ffpic_tpu_torch.decode_batch([data], device="cpu")
-    elif got in ("BPG", "JP2", "SVG", "EXR"):
+    elif got in ("AVIF", "BPG", "JP2", "SVG", "EXR"):
         # ported: the reference's pixels, or its kind of error
         for mine, ref in ((lambda: ffpic_tpu_torch.load(
                                data, device="cpu").pixels.numpy(),
