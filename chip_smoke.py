@@ -121,7 +121,11 @@ read just after:
 * BASELINE config 5 (``config5_paths``): a mixed 1080p batch through
   ``decode_batch(size=(224, 224))`` (K16 once), ``normalize_for_model``
   (K17) and ViT-B/16 (``vit_pair``: published widths, seeded weights),
-  the card's logits against the CPU forward's;
+  the card's logits against the CPU forward's; K16 once by each of
+  ``jax.image.resize``'s methods (``RESIZE_METHODS``) over the batch's 8
+  slots, each against its plain version and timed beside its bound and,
+  where one exists, ``F.interpolate`` (``nearest-exact``, ``bicubic``
+  with antialiasing);
 * the host-only codecs (``host_codec_paths``): BMP (24 bpp, 8 bpp RLE),
   GIF, TGA RLE, PNM, PSD RLE and TIFF (LZW with predictor, PackBits,
   deflate, JPEG strips) files of 1920x1080 ``synth_rgb`` content and a
@@ -165,20 +169,27 @@ read just after:
   ``exr.piz_huffman``, ``svg.raster``) and the batch's wall time with
   its spans; ``start_profiler``/``stop_profiler`` trace K17 with CUDA
   activity;
-* AVIF stills (``avif_paths``, last): the committed 1920x1080 fixtures
-  of ``testdata/`` (4:2:0; 4:4:4 with an alpha item; a 2x2 grid of
-  960x540 tiles; 128x128 superblocks with loop restoration), decoded on
-  the host by the AV1 intra decoder and its native C, as in the
-  reference: each ``load`` on the card equal to the CPU's (pixels and
-  meta) with no launch, and its pixels' sha256 the one recorded with
-  the JAX package (``testdata/avif_fixtures.json``); an animated AVIF
-  raises ``NotImplementedError``; ``decode_batch`` of 8 of them at
-  size=(224, 224) (K16 once) against the plain resize of the CPU loads'
-  pixels, ``normalize_for_model`` (K17 once) and ViT-B/16 within config
-  5's tolerance; each load's MP/s with its spans (``av1.headers``,
-  ``av1.parse``, ``av1.recon``, ``av1.deblock``, ``av1.cdef``,
-  ``av1.lr``, ``av1.superres``, ``avif.color``) and the batch's wall
-  time with its spans.
+* AVIF (``avif_paths``, last): the committed 1920x1080 fixtures of
+  ``testdata/`` (4:2:0; 4:4:4 with an alpha item; a 2x2 grid of 960x540
+  tiles; 128x128 superblocks with loop restoration; an animation of 3
+  frames with film grain, ``avis_1080p_grain.avif``) and the 64x48
+  animation, decoded on the host by the AV1 decoder (intra: its native
+  C; inter frames, motion compensation and film grain: Python and
+  numpy), as in the reference: each ``load`` (``load_all`` for an
+  animation) on the card equal to the CPU's (pixels, meta,
+  ``delay_ms``) with no launch, and its pixels' sha256 the one recorded
+  with the JAX package (``testdata/avif_fixtures.json``); the 1080p
+  animation's loads and the encoder run in four worker processes
+  (``avif_worker``) beside the rest; ``decode_batch`` of 8 of them,
+  the animation in place of one still, at size=(224, 224) (K16 once)
+  against the plain resize of the CPU loads' pixels,
+  ``normalize_for_model`` (K17 once) and ViT-B/16 within config 5's
+  tolerance; ``encode(pic, "AVIF")`` of the 1080p 4:2:0 still's pixels
+  at quality 75 and of a 320x240 crop at 100, bytes and decodes equal
+  to the CPU's; each load's MP/s with its spans (``av1.headers``,
+  ``av1.parse``, ``av1.recon``, ``av1.mc``, ``av1.deblock``,
+  ``av1.cdef``, ``av1.lr``, ``av1.superres``, ``av1.grain``,
+  ``avif.color``), the batch's and each encode's wall time.
 
 It times each kernel, warm and with L2 flushed, beside its bound, its
 plain version, one PyTorch call of the same function where there is
@@ -2375,6 +2386,8 @@ def heif_paths(dev, jpegs, floor_ms: float, errs: dict):
 
 
 CONFIG5_SIZE = (224, 224)
+# jax.image.resize's methods (one name each), which K16 takes
+RESIZE_METHODS = ("nearest", "bilinear", "bicubic", "lanczos3", "lanczos5")
 VIT_REL_TOL = 1e-2      # card logits against the CPU forward, of max |logit|
 
 
@@ -2410,16 +2423,45 @@ def exact_f32(name: str, got, want, errs: dict) -> None:
                              f"by up to {err}")
 
 
-def tap_ops(n: int, size_in, size_out, ch: int) -> int:
-    """f64 operations of the banded resize, a multiply and an add a tap:
-    the H pass over every input column, then the W pass."""
+def taps_read(n_in: int, n_out: int, method: str = "bilinear") -> int:
+    """The input indices of one axis that some tap of ``method`` reads
+    (all of them but for ``nearest``, which reads one an output)."""
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch.ops.resize import taps
+    if n_in == n_out:
+        return n_in
+    start, count, _ = taps(n_in, n_out, torch.device("cpu"), method)
+    hit = np.zeros(n_in, bool)
+    for s, c in zip(start.tolist(), count.tolist()):
+        hit[s:s + c] = True
+    return int(hit.sum())
+
+
+def resize_bytes(n: int, size_in, size_out, ch: int,
+                 method: str = "bilinear") -> int:
+    """Bytes the resize by ``method`` must move: each input pixel that
+    taps of both axes read, once, and the output, once."""
+    (hi, wi), (h, w) = size_in, size_out
+    return n * ch * (taps_read(hi, h, method) * taps_read(wi, w, method)
+                     + h * w)
+
+
+def tap_ops(n: int, size_in, size_out, ch: int,
+            method: str = "bilinear") -> int:
+    """f64 operations of the banded resize by ``method``, a multiply and
+    an add a tap: the H pass over every input column a W tap reads, then
+    the W pass."""
+    import torch
     from ffpic_tpu_torch.ops.resize import taps
     (hi, wi), (h, w) = size_in, size_out
+    cpu = torch.device("cpu")
     ops = 0
     if hi != h:
-        ops += 2 * n * wi * ch * int(taps(hi, h)[1].sum())
+        ops += (2 * n * taps_read(wi, w, method) * ch
+                * int(taps(hi, h, cpu, method)[1].sum()))
     if wi != w:
-        ops += 2 * n * h * ch * int(taps(wi, w)[1].sum())
+        ops += 2 * n * h * ch * int(taps(wi, w, cpu, method)[1].sum())
     return ops
 
 
@@ -2454,6 +2496,74 @@ def logits_against_cpu(name: str, got, want, n_classes: int):
         raise AssertionError(f"{name}: card logits differ from the CPU "
                              f"forward by {err} (max |logit| {scale})")
     return err, scale, agree
+
+
+def resize_methods(dev, slots, full, floor_ms: float, flush, errs: dict,
+                   reset, counts) -> dict:
+    """K16 by each of ``RESIZE_METHODS`` on ``testing.resize_cases`` and
+    once over config 5's 8 slots (1920x1080 RGBA to 224 x 224), with
+    fresh counts: one launch each, bit-equal to its plain version.  Then
+    each timed (``time_entry``: warm and L2-flushed, the plain version,
+    the bound from this run's taps, ``resize_bytes`` and ``tap_ops``:
+    ``nearest`` needs only the pixels it keeps, though K16's pass 1
+    reads every column of each kept row) beside one PyTorch call where
+    there is one:
+    ``F.interpolate`` ``nearest-exact`` (its index rule is not XLA's
+    folded one, and it reads only the pixels it keeps) and ``bicubic``
+    with ``antialias=True`` (its own weights and order of sums), each
+    with its max |delta| from the plain version.
+    Returns {method: timing entry with its launches}."""
+    import torch
+    import torch.nn.functional as F
+    from ffpic_tpu_torch.ops import resize as rs
+    size = CONFIG5_SIZE
+    nchw = full.permute(0, 3, 1, 2).contiguous()
+    library = {
+        "nearest": lambda: F.interpolate(nchw, size=size,
+                                         mode="nearest-exact"),
+        "bilinear": lambda: F.interpolate(nchw.float(), size=size,
+                                          mode="bilinear", antialias=True,
+                                          align_corners=False),
+        "bicubic": lambda: F.interpolate(nchw.float(), size=size,
+                                         mode="bicubic", antialias=True,
+                                         align_corners=False)}
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import cuda_resize
+    # the edges of K16's tiling by every method
+    for method in RESIZE_METHODS:
+        for img, sz in testing.resize_cases().values():
+            x = torch.from_numpy(img).to(dev)
+            exact("resize_rgba", cuda_resize.resize_rgba(x, sz, method),
+                  rs.resize_rgba_plain(x, sz, method), errs)
+    out = {}
+    for method in RESIZE_METHODS:
+        reset()
+        got = rs.resize_batch(slots, size, method)
+        launched = counts()
+        if launched != {"resize_rgba": 1}:
+            raise AssertionError(f"K16 {method}: launches {launched}")
+        plain = rs.resize_batch_plain(slots, size, method)
+        exact("resize_rgba", got, plain, errs)
+        lib = library.get(method)
+        e = time_entry(
+            "resize_rgba", lambda m=method: rs.resize_batch(slots, size, m),
+            lambda m=method: rs.resize_batch_plain(slots, size, m),
+            resize_bytes(N, (H, W), size, 4, method),
+            tap_ops(N, (H, W), size, 4, method), "f64", floor_ms, flush,
+            f"config 5: {N} x {W}x{H} RGBA to 224 x 224, {method}",
+            library=lib)
+        e["launches"] = launched["resize_rgba"]
+        e["taps_a_row_element"] = int(rs.taps(H, size[0], torch.device("cpu"),
+                                              method)[2].shape[1])
+        if lib is not None:
+            e["library_max_abs_vs_plain"] = max_abs_err(
+                lib().float().round().clamp(0, 255).to(torch.uint8)
+                .permute(0, 2, 3, 1), plain)
+        out[method] = e
+    log("check K16 methods", methods=",".join(RESIZE_METHODS),
+        at=f"{N}x{W}x{H}->224 and testing.resize_cases", launches="1 each",
+        plain="exact")
+    return out
 
 
 def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
@@ -2535,10 +2645,14 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     wide = torch.randint(0, 256, (6048, 8064, 4), dtype=torch.uint8,
                          device=dev, generator=g)
     strip = big[:, :1200].repeat(1, 10, 1)
-    for slots_ in (list(full), mixed_slots, sized_slots, [full[0], wide],
-                   [strip]):
-        exact("resize_rgba", rs.resize_batch(slots_, size),
-              rs.resize_batch_plain(slots_, size), errs)
+    # every method through each of K16's instances: two rows a CTA, and
+    # one row a CTA for the 8064 and 12000 wide slots
+    for method in RESIZE_METHODS:
+        for slots_ in (mixed_slots, sized_slots, [full[0], wide], [strip]):
+            exact("resize_rgba", rs.resize_batch(slots_, size, method),
+                  rs.resize_batch_plain(slots_, size, method), errs)
+    exact("resize_rgba", rs.resize_batch(list(full), size),
+          rs.resize_batch_plain(list(full), size), errs)
     for img in (wide, strip):
         exact_f32("normalize_resize", cuda_resize.normalize_resize(
             img, size), rs.normalize_plain(img, size), errs)
@@ -2562,7 +2676,8 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
         path_shapes=f"{N}x{W}x{H}->224 batch,crop,slot,unaligned; "
         f"one launch over the {N} slots, over 1080p,720x1280,crop,"
         "unaligned,crop of 720x1280, over 30 slots of distinct sizes, "
-        "over 1080p,8064x6048 and over 12000x1000 (K17 too); "
+        "over 1080p,8064x6048 and over 12000x1000 (K17 too), these four "
+        f"by {','.join(RESIZE_METHODS)}; "
         f"{N}x224 norm; "
         f"{N}x{W}x{H} jpeg norm+resize", plain_cpu_vs_card="exact")
 
@@ -2659,6 +2774,8 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
         **{k: (f"{v:.4f}" if isinstance(v, float) else v)
            for k, v in k16.items() if k.startswith(
                ("one_slot", "byte_loads", "library_max", "dense_f64"))})
+    k16["methods"] = resize_methods(dev, slots, full, floor_ms, flush, errs,
+                                    reset, counts)
     nb = batch.numel()
     k17 = time_entry(
         "normalize_resize", lambda: cuda_resize.normalize_resize(batch),
@@ -3151,28 +3268,124 @@ AVIF_FILES = {"avif_420": "avif_1080p_420.avif",
 AVIF_BATCH = ("avif_420", "avif_444_alpha", "avif_grid", "avif_sb128") * 2
 
 
-def avif_paths(dev, card: str, errs: dict) -> dict:
-    """AVIF stills on the card (``AVIF_FILES``, the committed 1080p
-    fixtures).  They decode on the host, as in the reference, and no
-    kernel runs in their ``load``: each file's ``load`` on the card
-    equals its ``load`` on the CPU byte for byte (pixels and meta),
-    with no launch, and the pixels' sha256 is the one recorded with the
-    JAX package's ``load`` (``testing.avif_manifest``).  The animated
-    fixture (an ``av01`` track) raises ``NotImplementedError`` in
-    ``load`` and ``decode_batch``.  Then the path, with fresh counts:
-    ``decode_batch`` of ``AVIF_BATCH`` at size=(224, 224) (K16 once),
-    equal to the plain resize of the CPU loads' pixels, then
-    ``normalize_for_model`` (K17 once) against its plain version and
-    ViT-B/16 (``vit_pair``) within config 5's tolerance of the CPU
-    forward.  Timings on the host clock, beside ``card``: each load
-    (median of 3) in MP/s with its spans, and the batch's wall time
-    with its spans.  Returns the launches {path: {kernel: n}}."""
-    import numpy as np
+AVIS_1080P = "avis_1080p_grain.avif"
+AVIF_ENCODE_SOURCE = "avif_1080p_420.avif"      # the encoder's 1080p picture
+# the AVIF batch with the animation in place of its first still
+AVIS_BATCH = ("avis_grain",) + AVIF_BATCH[1:]
+AVIF_SPANS = ("av1.headers", "av1.parse", "av1.recon", "av1.mc",
+              "av1.deblock", "av1.cdef", "av1.lr", "av1.superres",
+              "av1.grain", "avif.color")
+
+
+def avif_pic(pixels):
+    """A ``Pic`` of (h, w, 4) RGBA pixels (a tensor on any device)."""
+    from ffpic_tpu_torch.formats.pic import Pic
+    h, w = pixels.shape[:2]
+    return Pic(width=w, height=h, depth=32, pitch=w * 4, pixels=pixels)
+
+
+def avif_encode_cases(pixels) -> tuple:
+    """(name, pixels, quality) of the encoder checks on a 1920x1080
+    picture (``AVIF_ENCODE_SOURCE``'s): the whole at quality 75 and its
+    top-left 320x240 crop at 100 (lossless)."""
+    return (("q75_1920x1080", pixels, 75),
+            ("q100_320x240", pixels[:240, :320], 100))
+
+
+def avif_frame(pic) -> tuple:
+    """(device type, host pixels, meta, delay_ms) of a decoded picture."""
+    return (pic.pixels.device.type, pic.np_pixels(), pic.meta, pic.delay_ms)
+
+
+def avif_worker(task: str, device: str) -> dict:
+    """One of ``avif_paths``' worker processes, which run beside its own
+    card work, since each Python decode or encode holds its process's
+    GIL: ``task`` "load_all" of ``AVIS_1080P``, or "encode" of
+    ``avif_encode_cases`` on ``AVIF_ENCODE_SOURCE``'s pixels, each
+    encoded picture loaded back; on ``device``, "cuda" for the card's
+    side and "cpu" for the CPU's.  The launch counts are set to 0 just
+    before the task and read just after (the work is the host's and
+    launches nothing); one run on the host clock to a synchronised
+    device, with the spans.  Two torch threads, so that the workers
+    leave the host's other cores to each other."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
     import ffpic_tpu_torch
     from ffpic_tpu_torch import testing
     from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_resize
-    from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils import trace
+    torch.set_num_threads(2)
+    dev = torch.device(device)
+    mods = (cuda_jpeg, cuda_png, cuda_resize)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    torch.zeros(1, device=dev)
+    sync()
+    for m in mods:
+        m.reset_launches()
+    trace.reset()
+    trace.enable()
+    t0 = time.perf_counter()
+    out = {}
+    if task == "load_all":
+        pics = ffpic_tpu_torch.load_all(testing.avif_fixture(AVIS_1080P),
+                                        device=dev)
+        sync()
+        out["frames"] = [avif_frame(p) for p in pics]
+    else:
+        src = ffpic_tpu_torch.load(testing.avif_fixture(AVIF_ENCODE_SOURCE),
+                                   device=dev)
+        out["encoded"] = {}
+        for name, px, q in avif_encode_cases(src.pixels):
+            t1 = time.perf_counter()
+            blob = ffpic_tpu_torch.encode(avif_pic(px), "AVIF", quality=q,
+                                          device=dev)
+            enc_s = time.perf_counter() - t1
+            back = ffpic_tpu_torch.load(blob, device=dev)
+            sync()
+            out["encoded"][name] = (blob, avif_frame(back), enc_s)
+    out["seconds"] = time.perf_counter() - t0
+    trace.enable(False)
+    sync()
+    out["launches"] = {k: v for m in mods for k, v in m.launches.items()
+                       if v}
+    out["spans"] = {k: round(v["total"] * 1e3, 3)
+                    for k, v in trace.report().items()}
+    return out
+
+
+def avif_paths(dev, card: str, errs: dict) -> dict:
+    """AVIF on the card (``AVIF_FILES``, the committed 1080p stills, and
+    ``AVIS_1080P``, three 1920x1080 frames with film grain).  They decode
+    on the host, as in the reference, and no kernel runs in their
+    ``load``: each still's ``load`` on the card equals its ``load`` on
+    the CPU byte for byte (pixels and meta), with no launch, and the
+    pixels' sha256 is the one recorded with the JAX package's ``load``
+    (``testing.avif_manifest``); the 64x48 animation's ``load_all`` and
+    ``decode_batch`` on the card equal the CPU's.  Four worker processes
+    (``avif_worker``) run beside that, one run each on the host clock
+    with its spans: the 1080p animation's ``load_all`` on the card and on
+    the CPU, each frame equal to the CPU's (pixels, meta, ``delay_ms``)
+    and to the recorded hashes, and ``encode(pic, "AVIF")`` of
+    ``avif_encode_cases`` on the card and on the CPU, bytes equal and
+    their ``load`` equal; no launch in any of them.  Then the path, with
+    fresh counts: ``decode_batch`` of ``AVIS_BATCH`` at size=(224, 224)
+    (K16 once), equal to the plain resize of the CPU loads' pixels (the
+    animation's first frame), then ``normalize_for_model`` (K17 once)
+    against its plain version and ViT-B/16 (``vit_pair``) within config
+    5's tolerance of the CPU forward.  Timings on the host clock, beside
+    ``card``: each still's load (median of 3) in MP/s with its spans,
+    the animation's load, the batch's wall time with its spans, each
+    encode.  Returns the launches {path: {kernel: n}}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import cuda_jpeg, cuda_png, cuda_resize
     from ffpic_tpu_torch.utils import trace
     mods = (cuda_jpeg, cuda_png, cuda_resize)
 
@@ -3185,21 +3398,78 @@ def avif_paths(dev, card: str, errs: dict) -> dict:
         torch.cuda.synchronize()
         return {k: v for m in mods for k, v in m.launches.items() if v}
 
+    def span_ms(runs=1):
+        return json.dumps({k: round(v["total"] / runs * 1e3, 3)
+                           for k, v in trace.report().items()}) \
+            .replace(" ", "")
+
+    def same_frame(name, got, want, ent):
+        """``got`` (the card's) and ``want`` (the CPU's) frames, each
+        (device type, pixels, meta, delay_ms), equal, and the pixels'
+        hash the recorded ``ent``."""
+        if got[0] != dev.type or want[0] != "cpu":
+            raise AssertionError(f"{name}: pixels on {got[0]}, {want[0]}")
+        px = np.ascontiguousarray(got[1])
+        if not np.array_equal(px, want[1]) or got[3] != want[3]:
+            raise AssertionError(f"{name}: the card's frame differs from the "
+                                 "CPU's")
+        same_meta(name, got[2], want[2])
+        if list(px.shape) != ent["shape"] or hashlib.sha256(
+                px).hexdigest() != ent["pixels_sha256"]:
+            raise AssertionError(f"{name}: pixels differ from the JAX "
+                                 "package's recorded hash")
+
     t_phase = time.perf_counter()
     manifest = testing.avif_manifest()
     files = {k: testing.avif_fixture(f) for k, f in AVIF_FILES.items()}
-    log("inputs avif", bytes=json.dumps({k: len(v) for k, v in
-                                          files.items()}).replace(" ", ""))
+    avis = testing.avif_fixture(AVIS_1080P)
+    log("inputs avif", bytes=json.dumps({**{k: len(v) for k, v in
+                                            files.items()},
+                                         "avis_grain": len(avis)})
+        .replace(" ", ""))
+    pool = ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
+        "spawn"))
+    try:
+        workers = {(task, where): pool.submit(avif_worker, task, where)
+                   for task in ("load_all", "encode")
+                   for where in (dev.type, "cpu")}
+        launches = avif_card_side(dev, card, errs, files, avis, manifest,
+                                  workers, reset, counts, span_ms,
+                                  same_frame)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    log("time avif phase", card=card,
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def avif_card_side(dev, card, errs, files, avis, manifest, workers, reset,
+                   counts, span_ms, same_frame) -> dict:
+    """``avif_paths``' own card work while its ``workers`` ({(task,
+    device type): future of ``avif_worker``}) run."""
+    import numpy as np
+    import torch
+    import ffpic_tpu_torch
+    from ffpic_tpu_torch import testing
+    from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils import trace
+
+    # the 64x48 animation: load_all and decode_batch on the card
     track = testing.avif_fixture("avis_track_64x48.avif")
-    for call in (lambda: ffpic_tpu_torch.load(track, device=dev),
-                 lambda: ffpic_tpu_torch.decode_batch([track], device=dev)):
-        try:
-            call()
-        except NotImplementedError as e:
-            if "ROADMAP.md Queue 1 item 19" not in str(e):
-                raise AssertionError(f"avis: {e}") from e
-        else:
-            raise AssertionError("avis: a file with an av01 track decoded")
+    reset()
+    got = ffpic_tpu_torch.load_all(track, device=dev)
+    first = ffpic_tpu_torch.decode_batch([track], device=dev)
+    small = counts()
+    want = ffpic_tpu_torch.load_all(track, device="cpu")
+    if small or not len(got) == len(want) == 3:
+        raise AssertionError(f"avis 64x48: launches {small}, "
+                             f"{len(got)} frames")
+    for k, (g, w) in enumerate(zip(got, want)):
+        same_frame(f"avis 64x48 frame {k}", avif_frame(g), avif_frame(w),
+                   manifest["avis_track_64x48.avif"]["frames"][k])
+    if not torch.equal(first[0].cpu(), want[0].pixels):
+        raise AssertionError("avis 64x48: decode_batch differs from its "
+                             "first frame")
 
     cpu, launches = {}, {}
     for name, data in files.items():
@@ -3214,35 +3484,22 @@ def avif_paths(dev, card: str, errs: dict) -> dict:
             runs.append(time.perf_counter() - t0)
             launches[name] = counts()
         trace.enable(False)
-        spans = {k: round(v["total"] / len(runs) * 1e3, 3)
-                 for k, v in trace.report().items()}
+        spans = span_ms(len(runs))
         if launches[name]:
             raise AssertionError(f"{name}: launches {launches[name]}")
         want = ffpic_tpu_torch.load(data, device="cpu")
-        if got.pixels.device.type != dev.type:
-            raise AssertionError(f"{name}: pixels on {got.pixels.device}")
-        if not torch.equal(got.pixels.cpu(), want.pixels):
-            raise AssertionError(f"{name}: the card's load differs from the "
-                                 "CPU's")
-        same_meta(name, got.meta, want.meta)
-        ent = manifest[AVIF_FILES[name]]
-        px = np.ascontiguousarray(got.pixels.cpu().numpy())
-        if list(px.shape) != ent["shape"] or hashlib.sha256(
-                px).hexdigest() != ent["pixels_sha256"]:
-            raise AssertionError(f"{name}: pixels differ from the JAX "
-                                 "package's recorded hash")
+        same_frame(name, avif_frame(got), avif_frame(want),
+                   manifest[AVIF_FILES[name]])
         cpu[name] = want.pixels
         mp = got.width * got.height / 1e6
         med = sorted(runs)[1]
         log("time avif load", card=card, file=name, megapixels=mp,
             load_ms=f"{med * 1e3:.3f}", mps=f"{mp / med:.3f}",
             runs_ms=json.dumps([round(r * 1e3, 3) for r in runs])
-            .replace(" ", ""), span_ms=json.dumps(spans).replace(" ", ""))
-    log("avif load", files=len(files), cpu_route="exact",
-        jax_sha256="equal", launches="none", avis="NotImplementedError")
+            .replace(" ", ""), span_ms=spans)
 
     # the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16
-    members = [files[k] for k in AVIF_BATCH]
+    members = [avis] + [files[k] for k in AVIS_BATCH[1:]]
     size = CONFIG5_SIZE
     cfg, model, model_cpu = vit_pair(dev)
     reset()
@@ -3253,7 +3510,7 @@ def avif_paths(dev, card: str, errs: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     trace.enable(False)
-    stages = {k: round(v["total"] * 1e3, 3) for k, v in trace.report().items()}
+    stages = span_ms()
     x = rs.normalize_for_model(batch)
     logits = model(x)
     path = counts()
@@ -3262,14 +3519,47 @@ def avif_paths(dev, card: str, errs: dict) -> dict:
         raise AssertionError(f"avif batch: launches {path}")
     if tuple(batch.shape) != (len(members), *size, 4):
         raise AssertionError(f"avif batch: {tuple(batch.shape)}")
-    batch_cpu = rs.resize_batch([cpu[k] for k in AVIF_BATCH], size)
+
+    # the workers' results: the animation's load_all, then the encoder
+    t0 = time.perf_counter()
+    done = {k: f.result() for k, f in workers.items()}
+    waited = time.perf_counter() - t0
+    for (task, where), r in done.items():
+        if r["launches"]:
+            raise AssertionError(f"avif {task} on {where}: launches "
+                                 f"{r['launches']}")
+    on_card, on_cpu = done["load_all", dev.type], done["load_all", "cpu"]
+    frames, ent = on_card["frames"], manifest[AVIS_1080P]["frames"]
+    if not len(frames) == len(on_cpu["frames"]) == len(ent) == 3:
+        raise AssertionError(f"avis 1080p: {len(frames)} frames on the card, "
+                             f"{len(on_cpu['frames'])} on the CPU")
+    for k, (g, w) in enumerate(zip(frames, on_cpu["frames"])):
+        same_frame(f"avis 1080p frame {k}", g, w, ent[k])
+    log("avif load", files=len(files) + 1, cpu_route="exact",
+        jax_sha256="equal", launches="none",
+        avis=f"{len(frames)} frames, film grain, delay_ms "
+        f"{[f[3] for f in frames]}".replace(" ", ""),
+        avis_64x48="3 frames exact")
+    mp = sum(f[1].shape[0] * f[1].shape[1] for f in frames) / 1e6
+    log("time avis load", card=card, file=AVIS_1080P, frames=len(frames),
+        megapixels=mp, load_s=f"{on_card['seconds']:.3f}",
+        mps=f"{mp / on_card['seconds']:.4f}",
+        frames_per_s=f"{len(frames) / on_card['seconds']:.4f}",
+        span_ms=json.dumps(on_card["spans"]).replace(" ", ""),
+        spans=",".join(AVIF_SPANS), runs=1,
+        cpu_load_s=f"{on_cpu['seconds']:.3f}",
+        beside="the batch and three other workers")
+
+    batch_cpu = rs.resize_batch(
+        [torch.from_numpy(on_cpu["frames"][0][1])] +
+        [cpu[k] for k in AVIS_BATCH[1:]], size)
     exact("resize_rgba", batch.cpu(), batch_cpu, errs)
     x_cpu = rs.normalize_for_model(batch_cpu)
     exact_f32("normalize_resize", x.cpu(), x_cpu, errs)
     err, scale, agree = logits_against_cpu("avif batch", logits,
                                            model_cpu(x_cpu), cfg.n_classes)
     launches["batch"] = path
-    log("avif batch", members=",".join(AVIF_BATCH), size=size,
+    log("avif batch", members=",".join(AVIS_BATCH), size=size,
         launches=json.dumps(path).replace(" ", ""), batch_cpu_route="exact",
         input_cpu="exact", logits_max_abs_vs_cpu=f"{err:.6g}",
         logits_max_abs=f"{scale:.6g}",
@@ -3278,8 +3568,26 @@ def avif_paths(dev, card: str, errs: dict) -> dict:
     log("time avif batch", card=card, megapixels=mp, size=size,
         end_to_end_ms=f"{wall * 1e3:.3f}", mps=f"{mp / wall:.3f}",
         images_per_s=f"{len(members) / wall:.3f}", runs=1,
-        stage_total_ms=json.dumps(stages).replace(" ", ""),
-        phase_seconds=f"{time.perf_counter() - t_phase:.1f}")
+        stage_total_ms=stages)
+
+    enc_card, enc_cpu = done["encode", dev.type], done["encode", "cpu"]
+    for name, (blob, back, enc_s) in enc_card["encoded"].items():
+        want_blob, want_back, cpu_s = enc_cpu["encoded"][name]
+        if blob != want_blob:
+            raise AssertionError(f"avif encode {name}: the card's bytes "
+                                 "differ from the CPU's")
+        if back[0] != dev.type or not np.array_equal(back[1], want_back[1]):
+            raise AssertionError(f"avif encode {name}: the card's decode "
+                                 "differs from the CPU's")
+        mp = back[1].shape[0] * back[1].shape[1] / 1e6
+        log("time avif encode", card=card, case=name,
+            source=AVIF_ENCODE_SOURCE, bytes=len(blob), megapixels=mp,
+            encode_s=f"{enc_s:.3f}", mps=f"{mp / enc_s:.4f}",
+            cpu_encode_s=f"{cpu_s:.3f}", bytes_vs_cpu="equal",
+            decode_vs_cpu="exact")
+    log("avif workers", card=card, waited_s=f"{waited:.3f}",
+        seconds=json.dumps({f"{k[0]}_{k[1]}": round(r["seconds"], 3)
+                            for k, r in done.items()}).replace(" ", ""))
     return launches
 
 

@@ -4,10 +4,10 @@ The public API mirrors ``ffpic_tpu``'s: ``probe``, ``load``,
 ``load_all``, ``info``, ``encode``, ``find_codec`` and
 ``registered_codecs`` over the port's own codec registry (JPEG, PNG,
 WebP, HEIF and the host-only BMP, GIF, TGA, PNM, PSD, TIFF, ICO, JPEG
-2000, SVG, OpenEXR, AVIF stills and raw HEVC streams, in the
-reference's probe order; BPG gives its header alone, as in the
-reference, and an animated AVIF raises until its track is ported), the
-``Pic`` container, and
+2000, SVG, OpenEXR, AVIF (stills, grids and animations, and its
+encoder) and raw HEVC streams, in the reference's probe order; BPG
+gives its header alone, as in the reference), the ``Pic`` container,
+and
 ``decode_batch``, which decodes a batch of them into one ``(N, H, W,
 4)`` uint8 tensor on an NVIDIA GPU, restart-interval JPEGs with their
 Huffman decode on the card.  ``load``, ``load_all``, ``encode`` and ``decode_batch`` take

@@ -15,7 +15,7 @@ Copied from ``ffpic_tpu/coding/av1_headers.py`` for the PyTorch port
 with its imports rewritten to the port's modules: ``BitReader`` is the
 port's ``utils/bitstream.py``, ``parse_frame_header`` imports the
 port's ``av1_refs`` for every frame, and the film grain parameters
-come from the port's ``av1_grain`` (their parse alone).
+come from the port's ``av1_grain``.
 """
 
 from __future__ import annotations

@@ -12,10 +12,10 @@ The C reference (junka/ffpic) stubs AV1 at the frame level
 (avif.c:382-405); dav1d is the conformance oracle (tests/test_av1.py).
 
 Copied from ``ffpic_tpu/coding/av1_tile.py`` for the PyTorch port
-(``FrameState``, ``TileDecoder`` with its intra mode info, palette,
-intra block copy and residuals on the Python symbol path and both C
-routes), with its imports rewritten to the port's modules and these
-changes:
+whole (``FrameState``, ``TileDecoder`` with its intra and inter mode
+info, palette, intra block copy and residuals on the Python symbol path
+and both C routes), with its imports rewritten to the port's modules
+and this change:
 
 * the C routes (``native.av1_sb_parse``, or ``av1_block_mode`` and
   ``av1_block_parse`` a block) always run where the reference would
@@ -24,10 +24,7 @@ changes:
   symbol path runs for a ``FrameState`` with ``force_python`` set (and,
   as in the reference, for inter frames and frames decoded with a
   loaded CDF template); ``FFPIC_AV1_BLOCK_NATIVE`` pins the per-block C
-  route as in the reference;
-* ``_decode_block_interframe``, the inter frames' mode info, raises
-  ``NotImplementedError``: ``coding/av1_inter.py`` waits for
-  ``ROADMAP.md`` Queue 1 item 19 (``INTER_ITEM``).
+  route as in the reference.
 """
 
 from __future__ import annotations
@@ -39,11 +36,6 @@ import numpy as np
 from ffpic_tpu_torch.coding.av1_msac import Msac, CdfContext, fresh_cdf
 from ffpic_tpu_torch.coding import av1_consts as C
 from ffpic_tpu_torch.coding import av1_headers as H
-
-# what the still slice leaves out: AV1 inter frames, animated AVIF
-# and the AVIF encoder
-INTER_ITEM = ("ROADMAP.md Queue 1 item 19 (AV1 inter frames, animated "
-              "AVIF and the AVIF encoder)")
 
 MAX_ANGLE_DELTA = 3
 # square-tx enum -> square BLOCK enum (aom txsize_to_bsize, for the
@@ -948,11 +940,40 @@ class TileDecoder:
 
     def _decode_block_interframe(self, r, c, bsize, b, re, ce):
         """Spec 5.11.15 inter_frame_mode_info + tx/residual for one
-        block of an INTER/INTRA_ONLY/SWITCH frame (Python path).
-        The port has no ``av1_inter`` yet: such a frame raises."""
-        raise NotImplementedError(
-            f"AV1 inter frames are not ported yet; they wait for "
-            f"{INTER_ITEM}")
+        block of an INTER/INTRA_ONLY/SWITCH frame (Python path)."""
+        from ffpic_tpu_torch.coding import av1_inter as I
+        fs, fh = self.fs, self.fh
+        b.seg_id = 0
+        if fh.segmentation_enabled and fh.seg_id_pre_skip:
+            I.read_segment_id_inter(self, b, r, c, re, ce, True)
+        b.skip_mode = bool(I.read_skip_mode(self, b, r, c))
+        if b.skip_mode:
+            b.skip = 1
+        else:
+            ctx = 0
+            if b.avail_u and fs.skip[r - 1, c]:
+                ctx += 1
+            if b.avail_l and fs.skip[r, c - 1]:
+                ctx += 1
+            b.skip = self.sym(self.cdf["skip"][ctx])
+        if fh.segmentation_enabled and not fh.seg_id_pre_skip:
+            I.read_segment_id_inter(self, b, r, c, re, ce, False)
+        self._read_cdef(r, c, bsize, b.skip)
+        self._read_deltas(r, c, bsize, b.skip)
+        b.qindex = self.current_qindex
+        fs.delta_lf[r:re, c:ce] = np.array(self.cur_delta_lf,
+                                           np.int8)
+        b.is_inter = bool(I.read_is_inter(self, b, r, c))
+        if b.is_inter:
+            I.inter_block_mode_info(self, b, r, c)
+            self._record_block(r, c, re, ce, bsize, b)
+            self._read_block_tx_size_inter(r, c, re, ce, b)
+        else:
+            b.refs = [C.INTRA_FRAME, C.NONE_FRAME]
+            self._intra_mode_info(r, c, bsize, b, kf=False)
+            self._record_block(r, c, re, ce, bsize, b)
+            self._read_tx_size(r, c, re, ce, b)
+        self._residual(r, c, b)
 
     def _record_block(self, r, c, re, ce, bsize, b):
         fs, seq = self.fs, self.seq

@@ -3,8 +3,10 @@
 //
 //   K16 resize_rgba       N slots, each (H_n, W_n, C) uint8 of its own size
 //                         and pitch -> (N, h, w, C) uint8 in one launch:
-//                         bilinear with antialiasing, rounded half to even
-//                         and clipped
+//                         any of jax.image.resize's methods (bilinear,
+//                         cubic, lanczos3, lanczos5, nearest; the host's
+//                         tap tables tell them apart), antialiased when
+//                         shrinking, rounded half to even and clipped
 //   K17 normalize_resize  N images (H_n, W_n, Cin >= 3) uint8 RGBA -> (N, h,
 //                         w, 3) f32: rgb * f32(1/255), the same resize in
 //                         f32 with no uint8 rounding, then (x - mean) / std;
@@ -20,7 +22,9 @@
 // two dense products over (in, out) weight matrices. Here each output
 // index reads only its taps: a run of inputs from `start`, `count` long,
 // with its f32 weights (host tables from ops.resize.taps, the nonzero run
-// of each column of JAX's weight matrix). One launch covers a batch:
+// of each column of JAX's weight matrix for the method: about 10 taps a
+// row element for bilinear at 1080 -> 224, 20 for cubic, 29 for lanczos3,
+// 49 for lanczos5, one of weight 1 for nearest). One launch covers a batch:
 // each slot has a descriptor (Slot: its pixels, row pitch and the taps of
 // each axis), so slots of other sizes and pitches share the launch and
 // the output is written in place of a stack of per-slot results (64
@@ -51,7 +55,10 @@
 // and 18 a column element, 0.32 G f64 ops, 0.010 ms at the card's 33.45 T
 // f64 op/s (an FMA counted as 2). So it is bound by bytes. What sets the
 // time instead is pass 1's instructions a tap and channel and the round
-// trips each thread waits on (PERF.md, section 6).
+// trips each thread waits on (PERF.md, section 6). The wider kernels
+// scale the f64 work with their taps (lanczos5 about 5x), which makes
+// lanczos3 and lanczos5 bound by operations (PERF.md has each method's
+// bound).
 //
 // Design. One CTA per kRows output rows of a slot. Pass 1 computes the rows
 // over all W input columns from their vertical taps (or takes the input rows
@@ -72,8 +79,9 @@
 // once an element. Pass 2 computes the rows' w pixels from their horizontal
 // taps there, a thread a pixel's group of channels in every row: its weights
 // kBatch2 at a time into registers ahead of the FMAs (no load waits inside the
-// chain of taps), each weight used for every row, each f32 widened by integer
-// operations (no conversion, which issues at a quarter of the f64 rate). An
+// chain of taps), each weight used for every row, each f32 widened to a double
+// (line_f64: K17's by integer operations, K16's, which may be negative, by a
+// conversion). An
 // RGBA pixel is one 32-bit load where the slot is 4-byte aligned (byte loads
 // otherwise). The channel count is a compile-time constant for K16 on RGBA and
 // for K17, and a CTA keeps to 85 registers so that 3 fit an SM (PERF.md holds
@@ -128,13 +136,23 @@ struct Norm {
 // A value the sums take, 0 or a positive normal f32, as a double by
 // integer operations: the exponent rebased by 1023 - 127 = 896 and the
 // mantissa moved up 29 bits, no conversion. The values here are K17's
-// inputs (bytes times f32(1/255)) and pass-1 results: sums of products of
-// bytes or those (at least 2^-8 when not 0) and f32 weights that are 0 or
-// at least 2^-108, so never negative, subnormal, infinite or NaN.
+// inputs (bytes times f32(1/255)) and its pass-1 results, whose weights
+// are bilinear: sums of products of those (at least 2^-8 when not 0) and
+// f32 weights that are 0 or at least 2^-108, so never negative,
+// subnormal, infinite or NaN.
 __device__ __forceinline__ double f32_as_f64(float f) {
   const unsigned b = __float_as_uint(f);
   return __hiloint2double(b ? (int)((b >> 3) + 0x38000000u) : 0,
                           (int)(b << 29));
+}
+
+// A pass-1 result as a double for pass 2. K16's vertical weights may have
+// negative lobes (cubic, Lanczos), so its results may be negative or, in
+// principle, subnormal: the conversion (exact, no flush to zero in this
+// build) takes them whole. K17's are never negative: f32_as_f64.
+template <bool NORM>
+__device__ __forceinline__ double line_f64(float f) {
+  return NORM ? f32_as_f64(f) : (double)f;
 }
 
 // Byte c of the word v as the f32 value the sums take: K16 the byte, K17
@@ -327,10 +345,10 @@ __device__ __forceinline__ void resize_rows(const Slot& s, int cin,
             q.z = nc > 2 ? ln[2] : 0.0f;
             q.w = nc > 3 ? ln[3] : 0.0f;
           }
-          acc[r][0] = __fma_rn(wt[u], f32_as_f64(q.x), acc[r][0]);
-          acc[r][1] = __fma_rn(wt[u], f32_as_f64(q.y), acc[r][1]);
-          acc[r][2] = __fma_rn(wt[u], f32_as_f64(q.z), acc[r][2]);
-          acc[r][3] = __fma_rn(wt[u], f32_as_f64(q.w), acc[r][3]);
+          acc[r][0] = __fma_rn(wt[u], line_f64<NORM>(q.x), acc[r][0]);
+          acc[r][1] = __fma_rn(wt[u], line_f64<NORM>(q.y), acc[r][1]);
+          acc[r][2] = __fma_rn(wt[u], line_f64<NORM>(q.z), acc[r][2]);
+          acc[r][3] = __fma_rn(wt[u], line_f64<NORM>(q.w), acc[r][3]);
         }
       }
     }
@@ -455,7 +473,10 @@ int launch_rows(const Slots& p, int n, int cin, void* out, int h, int w,
 // the runs of kRows output rows of a slot span (at least those of one).
 // kRows output rows a CTA where their lines fit shared memory, else one,
 // so a slot as wide as one row's line allows (about 14,400 RGBA pixels)
-// still takes a launch.
+// still takes a launch. The weights take ROWS x vk doubles beside the
+// lines: 1,024 bytes at lanczos5's widest band from 1080 to 224 (53 input
+// rows, 64 once rounded to kBatch), against 61,440 bytes of lines at 1920
+// RGBA.
 template <bool NORM>
 int launch(const void* slots, int n, int cin, void* out, int h, int w,
            int ch, int line_w, int vk, Norm nm, cudaStream_t st) {

@@ -11,11 +11,12 @@ BlockDecoded bitmaps), residual add, clip.  The C reference
 conformance oracle is dav1d (tests/test_av1.py), staged per in-loop
 filter via its inloop_filters mask.
 
-Copied from ``ffpic_tpu/formats/av1_recon.py:1-526`` for the PyTorch
-port (``decode_frame``, ``_decode_tile_group``, ``_SbDecoded``,
+Copied from ``ffpic_tpu/formats/av1_recon.py`` for the PyTorch port
+whole (``decode_frame``, ``_decode_tile_group``, ``_SbDecoded``,
 ``_precompute_residuals``, ``_reconstruct_native``, ``_reconstruct``,
-``_recon_block``, ``_ibc_predict``), with its imports rewritten to the
-port's modules and these changes:
+``_recon_block``, ``_recon_inter_block``, ``_ibc_predict`` and
+``Av1Decoder``), with its imports rewritten to the port's modules and
+these changes:
 
 * ``_reconstruct`` always takes the native ``av1_recon`` for an intra
   frame parsed on a C route (the reference also needs its library
@@ -23,15 +24,13 @@ port's modules and these changes:
   ``force_python`` set, or ``FFPIC_AV1_BLOCK_NATIVE`` on a frame with
   intra block copy, takes the Python ``_recon_block`` as in the
   reference;
-* ``_recon_inter_block`` and ``Av1Decoder`` (animated AVIF, inter
-  frames, film grain) are not copied: an inter block raises
-  ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 19
-  (``av1_tile.INTER_ITEM``), and ``TileDecoder`` raises the same on an
-  inter frame before any block of it is parsed;
-* host spans (``utils/trace.stage``): ``av1.headers`` (the OBUs, the
-  sequence and frame headers), ``av1.parse`` (a tile group's symbols),
-  ``av1.recon`` (prediction, transforms and the residual add), and
-  the in-loop filters' in ``av1_loopfilter``.
+* host spans (``utils/trace.stage``), in ``decode_frame`` and
+  ``Av1Decoder`` alike: ``av1.headers`` (the OBUs, the sequence and
+  frame headers), ``av1.parse`` (a tile group's symbols), ``av1.recon``
+  (prediction, transforms and the residual add), ``av1.mc`` (an inter
+  block's motion-compensated prediction, ``av1_mc``; inside
+  ``av1.recon``), ``av1.grain`` (film grain synthesis and blend of a
+  shown frame) and the in-loop filters' in ``av1_loopfilter``.
 """
 
 from __future__ import annotations
@@ -42,8 +41,8 @@ import numpy as np
 
 from ffpic_tpu_torch.coding import av1_headers as H
 from ffpic_tpu_torch.coding import av1_consts as C
-from ffpic_tpu_torch.coding.av1_tile import (INTER_ITEM, FrameState,
-                                             TileDecoder, iter_tx_geometry)
+from ffpic_tpu_torch.coding.av1_tile import (FrameState, TileDecoder,
+                                             iter_tx_geometry)
 from ffpic_tpu_torch.coding.av1_itx import inverse_transform
 from ffpic_tpu_torch.formats import av1_intra as intra
 from ffpic_tpu_torch.utils.trace import stage
@@ -394,16 +393,49 @@ def _reconstruct(fs: FrameState):
                 dec.reset(sb_r, sb_c, b.tile)
                 cur_sb = (sb_r, sb_c)
             if b.is_inter:
-                raise NotImplementedError(
-                    f"AV1 inter blocks are not ported yet; they wait "
-                    f"for {INTER_ITEM}")
-            _recon_block(fs, planes, dec, sb_r, sb_c, b,
-                         max_luma, pix_max)
+                _recon_inter_block(fs, planes, dec, sb_r, sb_c, b,
+                                   max_luma, pix_max)
+            else:
+                _recon_block(fs, planes, dec, sb_r, sb_c, b,
+                             max_luma, pix_max)
     out = [planes[0][:h, :w]]
     if seq.num_planes > 1:
         out += [p[:h >> seq.subsampling_y, :w >> seq.subsampling_x]
                 for p in planes[1:]]
     return [p.astype(dt) for p in out]
+
+
+def _recon_inter_block(fs, planes, dec, sb_r, sb_c, b, max_luma,
+                       pix_max):
+    """Inter block recon: whole-block motion-compensated prediction
+    (av1_mc), then per-TB residual add in decode order."""
+    from ffpic_tpu_torch.formats.av1_mc import predict_inter_block
+    seq = fs.seq
+    bd = seq.bit_depth
+    lossless = fs.fh.lossless_segs[b.seg_id]
+    with stage("av1.mc"):
+        predict_inter_block(fs, planes, b)
+    for plane, x, y, tx, plane_bsize in iter_tx_geometry(seq, fs, b):
+        sx = seq.subsampling_x if plane else 0
+        sy = seq.subsampling_y if plane else 0
+        w, h = C.TX_W[tx], C.TX_H[tx]
+        arr = planes[plane]
+        tb = b.coeff_map.get((plane, x, y)) if b.coeff_map else None
+        if tb is not None:
+            res = tb.residual if tb.residual is not None else \
+                inverse_transform(tb.coeffs, tx, tb.tx_type, bd,
+                                  lossless)
+            we = min(w, arr.shape[1] - x)
+            he = min(h, arr.shape[0] - y)
+            blk = arr[y:y + he, x:x + we] + res[:he, :we]
+            np.clip(blk, 0, pix_max, out=blk)
+            arr[y:y + he, x:x + we] = blk
+        rel_x4 = (x >> 2) - ((sb_c >> sx) if sx else sb_c)
+        rel_y4 = (y >> 2) - ((sb_r >> sy) if sy else sb_r)
+        dec.mark(plane, rel_y4, rel_x4, h >> 2, w >> 2)
+        if plane == 0:
+            max_luma[0] = x + w
+            max_luma[1] = y + h
 
 
 def _ibc_predict(arr, x, y, w, h, mv, sx, sy, bd):
@@ -519,3 +551,164 @@ def _recon_block(fs, planes, dec, sb_r, sb_c, b, max_luma, pix_max):
         if plane == 0:
             max_luma[0] = x + w
             max_luma[1] = y + h
+
+
+# ----------------------------------------------------------- video decoder
+class Av1Decoder:
+    """Stateful multi-frame AV1 decoder (animated AVIF / raw OBU
+    sequences): 8-slot reference management (7.20), primary-ref CDF
+    carryover with frame-end snapshots, motion-field projection
+    (7.9), show_existing_frame (7.21).
+
+    The C reference has no AV1 layer at all; dav1d is the bit-exact
+    per-frame oracle (tests/test_av1_inter.py)."""
+
+    def __init__(self):
+        from ffpic_tpu_torch.coding import av1_refs as R
+        self.R = R
+        self.seq = None
+        self.refs = [None] * 8
+
+    def decode_obus(self, data: bytes, apply_filters: bool = True):
+        """Decode a temporal-unit byte stream; returns the list of
+        SHOWN frames as (planes, meta)."""
+        out = []
+        fh = None
+        fs = None
+        tiles_done = 0
+        with stage("av1.headers"):
+            obus = H.parse_obus(data)
+        for obu in obus:
+            ot = obu["type"]
+            if ot == H.OBU_SEQUENCE_HEADER:
+                with stage("av1.headers"):
+                    self.seq = H.parse_sequence_header(obu["payload"])
+            elif ot in (H.OBU_FRAME, H.OBU_FRAME_HEADER):
+                if self.seq is None:
+                    raise ValueError("frame before sequence header")
+                payload = obu["payload"]
+                with stage("av1.headers"):
+                    fh, bitpos = H.parse_frame_header(
+                        payload, self.seq, self.refs)
+                if fh.show_existing_frame:
+                    frame = self._show_existing(fh)
+                    if frame is not None:
+                        out.append(frame)
+                    fh = None
+                    continue
+                fs = self._new_frame_state(fh)
+                tiles_done = 0
+                if ot == H.OBU_FRAME:
+                    tile_data = payload[(bitpos + 7) >> 3:]
+                    with stage("av1.parse"):
+                        _decode_tile_group(fs, tile_data)
+                    frame = self._finish_frame(fs, apply_filters)
+                    if frame is not None:
+                        out.append(frame)
+                    fh = None
+                    fs = None
+            elif ot == H.OBU_TILE_GROUP:
+                if fs is None:
+                    raise ValueError("tile group without header")
+                ntiles = fs.fh.tile_cols * fs.fh.tile_rows
+                with stage("av1.parse"):
+                    tiles_done = _decode_tile_group(fs, obu["payload"])
+                if tiles_done >= ntiles:
+                    frame = self._finish_frame(fs, apply_filters)
+                    if frame is not None:
+                        out.append(frame)
+                    fh = None
+                    fs = None
+        return out
+
+    def _new_frame_state(self, fh) -> FrameState:
+        fs = FrameState(self.seq, fh)
+        fs.refs = self.refs
+        fs.force_python = True
+        if fh.primary_ref_frame != 7:      # PRIMARY_REF_NONE
+            prev = self.refs[fh.ref_frame_idx[fh.primary_ref_frame]]
+            if prev is None or prev.cdfs is None:
+                raise ValueError("primary ref slot empty")
+            fs.cdf_template = prev.cdfs
+        if not fh.frame_is_intra:
+            fs.motion_field = self.R.MotionField(self.seq, fh,
+                                                 self.refs)
+        return fs
+
+    def _finish_frame(self, fs, apply_filters):
+        seq, fh = self.seq, fs.fh
+        with stage("av1.recon"):
+            planes = _reconstruct(fs)
+        if apply_filters:
+            from ffpic_tpu_torch.formats.av1_loopfilter import \
+                apply_loop_filters
+            planes = apply_loop_filters(fs, planes, 7)
+        w, h = fh.upscaled_width, fh.height
+        cropped = [planes[0][:h, :w]]
+        if len(planes) > 1:
+            cw = (w + seq.subsampling_x) >> seq.subsampling_x
+            ch = (h + seq.subsampling_y) >> seq.subsampling_y
+            cropped += [p[:ch, :cw] for p in planes[1:]]
+        # frame-end CDF selection (counters zeroed per spec)
+        if not fh.disable_frame_end_update_cdf and \
+                fs.saved_cdf is not None:
+            cdfs = fs.saved_cdf._clone()
+        elif fs.cdf_template is not None:
+            cdfs = fs.cdf_template._clone()
+        else:
+            from ffpic_tpu_torch.coding.av1_msac import fresh_cdf
+            from ffpic_tpu_torch.coding.av1_tile import qctx_for_base_q
+            cdfs = fresh_cdf(qctx_for_base_q(fh.base_q_idx))
+        cdfs.reset_counters()
+        rf = self.R.save_frame_state(seq, fh, fs, cropped, cdfs)
+        self.R.update_ref_slots(self.refs, fh, rf)
+        if not fh.show_frame:
+            return None
+        shown = cropped
+        grain = getattr(fh, "grain", None)
+        if grain is not None and grain.apply_grain:
+            from ffpic_tpu_torch.coding.av1_grain import apply_grain
+            with stage("av1.grain"):
+                shown = apply_grain(shown, grain, seq.bit_depth,
+                                    seq.subsampling_x,
+                                    seq.subsampling_y)
+        return shown, self._meta(fh)
+
+    def _show_existing(self, fh):
+        rf = self.refs[fh.frame_to_show]
+        if rf is None:
+            raise ValueError("show_existing_frame: empty slot")
+        if rf.frame_type == 0:             # KEY: reference loading
+            for i in range(8):
+                self.refs[i] = rf
+        w, h = rf.upscaled_width, rf.height
+        planes = [rf.planes[0][:h, :w]]
+        if len(rf.planes) > 1:
+            sx, sy = rf.subsampling
+            planes += [p[:(h + sy) >> sy, :(w + sx) >> sx]
+                       for p in rf.planes[1:]]
+        grain = getattr(rf, "grain", None)
+        if grain is not None and grain.apply_grain:
+            from ffpic_tpu_torch.coding.av1_grain import apply_grain
+            sx, sy = rf.subsampling
+            with stage("av1.grain"):
+                planes = apply_grain(planes, grain, rf.bit_depth,
+                                     sx, sy)
+        meta = self._meta(None, rf)
+        return planes, meta
+
+    def _meta(self, fh, rf=None):
+        seq = self.seq
+        if rf is not None:
+            w, h = rf.upscaled_width, rf.height
+        else:
+            w, h = fh.width, fh.height
+        return dict(width=w, height=h, bit_depth=seq.bit_depth,
+                    mono=seq.mono_chrome,
+                    subsampling=(seq.subsampling_x,
+                                 seq.subsampling_y),
+                    color_primaries=seq.color_primaries,
+                    transfer_characteristics=
+                    seq.transfer_characteristics,
+                    matrix_coefficients=seq.matrix_coefficients,
+                    color_range=seq.color_range)

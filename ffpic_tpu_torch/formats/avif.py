@@ -11,28 +11,26 @@ the auxiliary alpha item, and irot/imir transforms.
 Reuses the ISOBMFF layer from formats/heif.py (same meta/iloc/iref
 structure; only the coded payload differs).
 
-Copied from ``ffpic_tpu/formats/avif.py`` for the PyTorch port
+Copied from ``ffpic_tpu/formats/avif.py`` for the PyTorch port whole
 (``probe``, the CICP colour, ``_decode_item_yuv``/``_rgba``,
 ``_decode_grid``, ``_decode_alpha``, ``_alpha_plane``, the still
-``load`` with irot/imir and the ``sequence_header`` meta,
-``_track_setup``, ``info``), on the port's ``heif.parse_structure``,
-``read_item``, ``_grid_layout``, ``_grid_workers``, ``_find_alpha_item``
-and ``basemedia``, with these changes:
+``load`` with irot/imir and the ``sequence_header`` meta, the ``av01``
+track of an animated AVIF (``_track_setup``, ``_track_decode`` through
+``av1_recon.Av1Decoder``, the cover replaced by the track's frames with
+their ``delay_ms`` and ``meta["frames"]``, the reference's two exception
+scopes), ``info`` and ``encode``), on the port's ``heif.parse_structure``,
+``read_item``, ``_grid_layout``, ``_grid_workers``, ``_find_alpha_item``,
+``basemedia`` and ``heif_enc._assemble``, with these changes:
 
 * the host decode is ``decode``; the registry's ``load`` stages its
   pixels to the device, and ``decode_batch``'s pool calls it for an
-  AVIF member, as for the port's other host codecs;
+  AVIF member (and takes its first picture), as for the port's other
+  host codecs;
 * the colour always takes the native ``av1_color_cicp``: the port does
   not honour ``FFPIC_HOST_COLOR`` (``_yuv_to_rgba_np`` stays the oracle
   the tests hold the C against);
-* a file with an ``av01`` track (animated AVIF) raises
-  ``NotImplementedError`` naming ``ROADMAP.md`` Queue 1 item 19
-  (``av1_tile.INTER_ITEM``), before the cover is decoded: the reference
-  returns the track's frames in place of the cover, or the cover with
-  ``meta["degraded"]`` when the track fails (``:356-397``), and the
-  port decodes no track yet.  A track box the walk cannot read leaves
-  the cover, as in the reference.  ``encode`` raises the same error
-  (the reference's encoder, ``coding/av1_enc.py``, waits for the item);
+* ``encode`` reads the picture's pixels from wherever they lie
+  (``heif_enc._host_rgba``) and runs on the host whatever ``device`` is;
 * host span (``utils/trace.stage``) ``avif.color``, beside the AV1
   decoder's ``av1.*`` spans.
 """
@@ -44,7 +42,6 @@ import struct
 import numpy as np
 
 from ffpic_tpu_torch import native
-from ffpic_tpu_torch.coding.av1_tile import INTER_ITEM
 from ffpic_tpu_torch.formats.pic import Pic
 from ffpic_tpu_torch.formats.registry import Codec, register
 from ffpic_tpu_torch.formats import heif as heif_mod
@@ -335,19 +332,6 @@ def decode(data: bytes, skip_decode: bool = False, *,
     nclx = props.get("nclx")
     if nclx is None and tile_ids:
         nclx = items[tile_ids[0]]["properties"].get("nclx")
-    # animated AVIF (avis): the reference decodes the av01 track in
-    # place of the cover; the port has no inter decoder yet.  As in
-    # the reference, a moov the walk cannot read leaves the cover
-    try:
-        setup = _track_setup(data, nclx)
-    except (ValueError, NotImplementedError, struct.error,
-            IndexError, KeyError) as e:
-        log.warning("avis moov walk failed: %s", e)
-        setup = None
-    if setup is not None:
-        raise NotImplementedError(
-            f"animated AVIF (an av01 track) is not ported yet; it waits "
-            f"for {INTER_ITEM}")
 
     if primary.get("type") == "grid":
         rgba = _decode_grid(data, s, tile_ids, meta["grid"], nclx)
@@ -383,7 +367,58 @@ def decode(data: bytes, skip_decode: bool = False, *,
     meta.update(width=pic.width, height=pic.height)
 
     pic.pixels = rgba
-    return [pic]
+    pics = [pic]
+    # animated AVIF (avis): decode the av01 track samples through the
+    # stateful multi-frame decoder (Av1Decoder — inter prediction,
+    # reference slots, show_existing_frame).  The C reference parses
+    # no AV1 pixels at all; frame oracle is dav1d
+    # (tests/test_av1_inter.py::test_avis_end_to_end).  The still
+    # cover item duplicates the first track frame, so on a successful
+    # track decode the cover Pic is REPLACED by the track frames —
+    # each animation frame appears exactly once, matching this repo's
+    # GIF/WebP convention.  ONLY the untrusted container walk
+    # (basemedia.track_samples struct.unpack walks) gets the broad
+    # except — a malformed moov must not sink the already-decoded
+    # cover image.  Decoder errors from the already-validated OBU
+    # stream propagate as typed codec errors; anything else
+    # (IndexError/KeyError from a decoder regression) raises.
+    try:
+        setup = _track_setup(data, nclx)
+    except (ValueError, NotImplementedError, struct.error,
+            IndexError, KeyError) as e:
+        log.warning("avis moov walk failed: %s", e)
+        setup = None
+    if setup is not None:
+        try:
+            track = []
+            for rgba_f, dur in _track_decode(data, setup):
+                # apply the cover item's irot/imir so all frames
+                # agree in orientation with frame 0
+                if rot:
+                    rgba_f = np.ascontiguousarray(
+                        np.rot90(rgba_f, rot // 90))
+                if mir is not None:
+                    rgba_f = np.ascontiguousarray(
+                        np.fliplr(rgba_f) if mir == 0 else
+                        np.flipud(rgba_f))
+                track.append((rgba_f, dur))
+        except (ValueError, NotImplementedError) as e:
+            log.warning("avis track decode failed: %s", e)
+            meta["degraded"] = f"track decode failed: {e}"
+            track = []
+        if track:
+            pics = []
+            for fi, (rgba_f, dur) in enumerate(track):
+                fh_, fw_ = rgba_f.shape[:2]
+                fmeta = meta if fi == 0 else dict(width=fw_,
+                                                  height=fh_)
+                pics.append(Pic(width=fw_, height=fh_, depth=32,
+                                pitch=fw_ * 4, codec="AVIF",
+                                pixels=rgba_f, delay_ms=dur,
+                                meta=fmeta))
+            meta["frames"] = len(pics)
+            meta.update(width=pics[0].width, height=pics[0].height)
+    return pics
 
 
 def _track_setup(data: bytes, item_nclx):
@@ -412,6 +447,21 @@ def _track_setup(data: bytes, item_nclx):
     return dict(tr=tr, cfg=cfg, nclx=nclx)
 
 
+def _track_decode(data: bytes, setup):
+    """Decode av01 track samples (animated AVIF) to RGBA frames.
+    Yields (rgba, duration_ms) per SHOWN frame.  The first track frame
+    usually duplicates the still cover item — both are returned; the
+    caller's Pic list mirrors the GIF/WebP frame convention."""
+    tr, cfg, nclx = setup["tr"], setup["cfg"], setup["nclx"]
+    from ffpic_tpu_torch.formats.av1_recon import Av1Decoder
+    dec = Av1Decoder()
+    if cfg:
+        dec.decode_obus(cfg)
+    for (off, size), dur in zip(tr["samples"], tr["durations"]):
+        for planes, fmeta in dec.decode_obus(data[off:off + size]):
+            yield _yuv_to_rgba(planes, fmeta, nclx), dur
+
+
 def info(pic: Pic) -> str:
     m = pic.meta
     lines = ["AVIF file format",
@@ -431,11 +481,58 @@ def info(pic: Pic) -> str:
     return "\n".join(lines)
 
 
-def encode(pic, **_options) -> bytes:
-    """The reference encodes with its AV1 still encoder
-    (``coding/av1_enc.py``), which the port does not have yet."""
-    raise NotImplementedError(
-        f"the AVIF encoder is not ported yet; it waits for {INTER_ITEM}")
+def encode(pic, quality: int = 75, *, device=None, **_options) -> bytes:
+    """Encode a Pic to AVIF using the in-repo AV1 still-picture
+    encoder (coding/av1_enc.py) + the shared ISOBMFF assembler, on the
+    host whatever ``device`` is.
+
+    quality 100 = mathematically lossless (CICP identity color, the
+    RGB channels ride the 4:4:4 planes as G,B,R, qindex 0 / WHT);
+    otherwise BT.601 full-range 4:2:0 at a quality-mapped qindex.
+    The reference (format/avif.c) can neither decode nor encode AVIF.
+    """
+    import struct as _st
+    from ffpic_tpu_torch.coding.av1_enc import encode_av1
+    from ffpic_tpu_torch.formats.heif_enc import (_assemble, _box, _full,
+                                                  _host_rgba)
+    rgba = _host_rgba(pic)
+    Hh, Ww = rgba.shape[:2]
+    rgb = rgba[..., :3].astype(np.float64)
+    if quality >= 100:
+        g, b, r = rgb[..., 1], rgb[..., 2], rgb[..., 0]
+        planes = [g.astype(np.uint8), b.astype(np.uint8),
+                  r.astype(np.uint8)]
+        obus = encode_av1(planes, 8, (0, 0), 0)
+        profile, sx, sy, matrix = 1, 0, 0, 0
+    else:
+        qindex = int(np.clip(round((100 - quality) * 2.2 + 8),
+                             1, 255))
+        r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        cb = 128.0 + (b - y) * (0.5 / (1.0 - 0.114))
+        cr = 128.0 + (r - y) * (0.5 / (1.0 - 0.299))
+        # 2x2 box-average chroma subsample (pad to even first)
+        def sub(p):
+            ph = p[:, :, None] if False else p
+            pe = np.pad(p, ((0, Hh & 1), (0, Ww & 1)), mode="edge")
+            return ((pe[0::2, 0::2] + pe[0::2, 1::2]
+                     + pe[1::2, 0::2] + pe[1::2, 1::2]) / 4.0)
+        yq = np.clip(np.round(y), 0, 255).astype(np.uint8)
+        uq = np.clip(np.round(sub(cb)), 0, 255).astype(np.uint8)
+        vq = np.clip(np.round(sub(cr)), 0, 255).astype(np.uint8)
+        obus = encode_av1([yq, uq, vq], 8, (1, 1), qindex)
+        profile, sx, sy, matrix = 0, 1, 1, 6
+    flags = (0 << 6) | (0 << 5) | (0 << 4) | (sx << 3) | (sy << 2)
+    av1c = _box("av1C", bytes([0x81, profile << 5, flags, 0]))
+    ispe = _full("ispe", 0, 0, _st.pack(">II", Ww, Hh))
+    pixi = _full("pixi", 0, 0, bytes([3, 8, 8, 8]))
+    colr = _box("colr", b"nclx" + _st.pack(">HHH", 1, 13, matrix)
+                + bytes([0x80]))
+    items = [(1, b"av01", obus,
+              [(ispe, False), (av1c, True), (pixi, False),
+               (colr, False)])]
+    return _assemble(items, [], 1, brand=b"avif",
+                     compat=b"avifmif1miaf")
 
 
 register(Codec(name="AVIF", probe=probe, decode=decode, info=info,

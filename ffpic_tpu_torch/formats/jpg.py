@@ -4,13 +4,14 @@ the device pipeline on the card, and the geometry of the packed emission.
 Copied from ``ffpic_tpu/formats/jpg.py`` (``JpegFile``,
 ``PackedIneligible``, ``probe``, ``_find_scan_end``, ``parse_and_decode``
 at ``:43-262``; ``to_pic``, ``_parse_exif``, ``_meta``, ``load``,
-``info``, ``encode`` and the registration at ``:278-432``) and
-``ffpic_tpu/formats/jpg_host.py`` (``FrameComp``, ``ScanComp``).  Every
-scan goes through the native decoder (``ffpic_tpu_torch.native``), so
-coefficient planes are always in natural raster order; the original's
-pure-Python Huffman decoder (``jpg_host.JpegEntropyDecoder``, taken
-under ``FFPIC_NO_NATIVE``) is not ported yet (``ROADMAP.md`` Queue 1
-item 3).  EXIF is read with the port's copy of the TIFF tag walker
+``info``, ``encode`` and the registration at ``:278-432``), over the
+port's ``formats.jpg_host`` (``FrameComp``, ``ScanComp``).  Every scan
+goes through the native decoder (``ffpic_tpu_torch.native``), so
+coefficient planes are always in natural raster order: the original
+takes its pure-Python Huffman decoder (``jpg_host.JpegEntropyDecoder``)
+under ``FFPIC_NO_NATIVE`` or without its library, and the port keeps
+that decoder only as the oracle the tests hold the native one against.
+EXIF is read with the port's copy of the TIFF tag walker
 (``formats.tiff_tags``).
 
 ``to_pic`` stages the dense planes of all components in one pinned
@@ -34,6 +35,7 @@ import torch
 
 from ffpic_tpu_torch import native
 from ffpic_tpu_torch.formats.jpg_encode import encode_baseline
+from ffpic_tpu_torch.formats.jpg_host import FrameComp, ScanComp
 from ffpic_tpu_torch.formats.pic import Pic, PixelFormat
 from ffpic_tpu_torch.formats.registry import Codec, register
 from ffpic_tpu_torch.formats.tiff_tags import _first, _read_ifd
@@ -51,26 +53,6 @@ APP1 = 0xE1
 
 def _align8(x: int) -> int:
     return (x + 7) & ~7
-
-
-@dataclass
-class ScanComp:
-    comp_idx: int      # index into frame components
-    dc_tbl: int
-    ac_tbl: int
-
-
-@dataclass
-class FrameComp:
-    cid: int
-    h: int
-    v: int
-    tq: int            # quant table id
-    # derived block-grid geometry
-    nbx: int = 0       # MCU-padded blocks across
-    nby: int = 0
-    nbx_actual: int = 0  # non-interleaved (ceil) blocks across
-    nby_actual: int = 0
 
 
 @dataclass

@@ -24,13 +24,38 @@ idle and compress to about 18 KB).
   superblocks (PIL's libavif codes them at speed 6 too) with loop
   restoration, which libaom turns on at the slower speeds;
 * ``avis_track_64x48.avif``: three 64x48 frames that PIL writes as an
-  ``av01`` track behind a still cover, for the check that the port
-  refuses what it cannot decode yet;
-* ``avif_fixtures.json``: each file's sha256 and, for the stills, the
-  shape and sha256 of the port's ``load`` pixels on the CPU.  The
-  tier-1 test ``tests/test_torch_avif.py::test_fixture_hashes``
-  recomputes both with each package: the JAX package's pixels must
-  give the same hash.
+  ``av01`` track behind a still cover;
+* ``avis_1080p_grain.avif``: an animated AVIF at full width, three
+  1920x1080 4:2:0 frames of ``avif_content`` panning by 5 pixels a frame,
+  quality 60, speed 6, with libaom's ``film-grain-test`` 1, so that
+  every frame carries film grain; libaom turns CDEF on in animations
+  and picks OBMC and local warp where they pay.  Only ``chip_smoke.py``
+  decodes it (more than a minute on one CPU core);
+* small animated AVIFs for the CPU tests (``SMALL_TRACKS``), each a few
+  KB: ``avis_96x64_grain.avif`` (``film-grain-test`` 1),
+  ``avis_176x128.avif`` (four frames, no grain), ``avis_128x96_444.avif``
+  (4:4:4) and ``avis_176x128_grain.avif`` (``film-grain-test`` 2,
+  quality 50);
+* raw AV1 streams (temporal units of OBUs) that libaom's encoder writes
+  through ``tools/aom_oracle.encode_frames`` at its default lag, so
+  that they hold hidden frames, ``show_existing_frame`` and compound
+  blocks: ``av1_10bit_64x48.obu`` (10-bit 4:2:0, six frames) and
+  ``av1_gop_96x64.obu`` (8-bit 4:2:0, six frames);
+* ``avif_fixtures.json``: each file's sha256; for the stills the shape
+  and sha256 of the port's ``load`` pixels on the CPU; for the animated
+  files each frame's shape, pixels' sha256 and ``delay_ms`` from the
+  port's ``load_all`` on the CPU; for the raw streams each shown
+  frame's planes' sha256 from the port's ``Av1Decoder``.  The tier-1
+  tests ``tests/test_torch_avif.py::test_fixture_hashes`` and
+  ``tests/test_torch_av1_inter.py`` recompute them with each package
+  for every file but the 1080p animation, whose
+  hashes ``chip_smoke.py`` checks (they were checked once against the
+  JAX package's ``load_all`` when the file was made): the JAX package's
+  pixels must give the same hashes.
+
+PIL stamps an animated file with the time it was written, so a remake
+gives other file hashes for those (their pixels do not change);
+``--manifest-only`` rewrites the manifest of the files in ``--out``.
 """
 
 from __future__ import annotations
@@ -50,6 +75,11 @@ OUT = os.path.join(HERE, "testdata")
 STILLS = ("avif_1080p_420.avif", "avif_1080p_444_alpha.avif",
           "avif_1080p_grid.avif", "avif_1080p_sb128.avif")
 TRACK = "avis_track_64x48.avif"
+GRAIN_1080P = "avis_1080p_grain.avif"
+SMALL_TRACKS = ("avis_96x64_grain.avif", "avis_176x128.avif",
+                "avis_128x96_444.avif", "avis_176x128_grain.avif")
+TRACKS = (TRACK, GRAIN_1080P) + SMALL_TRACKS
+STREAMS = ("av1_10bit_64x48.obu", "av1_gop_96x64.obu")
 MANIFEST = "avif_fixtures.json"
 
 
@@ -121,6 +151,59 @@ def track_avif(seed: int) -> bytes:
     return b.getvalue()
 
 
+def pan_frames(h: int, w: int, n: int, seed: int, step: int = 5) -> list:
+    """``n`` (h, w, 3) uint8 windows of one ``avif_content`` canvas, each
+    ``step`` pixels right of and one below the one before."""
+    big = avif_content(h + n, w + step * n, seed)
+    return [np.ascontiguousarray(big[i:i + h, step * i:step * i + w])
+            for i in range(n)]
+
+
+def animated_avif(frames, **kw) -> bytes:
+    """The frames as PIL's animated AVIF (an ``av01`` track behind a
+    still cover), 100 ms each."""
+    from PIL import Image
+    ims = [Image.fromarray(f) for f in frames]
+    b = io.BytesIO()
+    ims[0].save(b, "AVIF", save_all=True, append_images=ims[1:],
+                duration=100, **kw)
+    return b.getvalue()
+
+
+def grain(test_vector: int) -> dict:
+    """libaom's film grain test vector ``test_vector`` as PIL's option."""
+    return {"advanced": (("film-grain-test", str(test_vector)),)}
+
+
+def planes_stream(n: int, h: int, w: int, bd: int, seed: int,
+                  step: int = 3) -> list:
+    """``n`` frames of [Y, U, V] 4:2:0 planes at ``bd`` bits: a panning
+    wave with noise in luma, waves in chroma."""
+    rng = np.random.default_rng(seed)
+    mx = (1 << bd) - 1
+    y, x = np.mgrid[0:h, 0:w + step * n].astype(np.float64)
+    luma = np.clip(mx / 2 + mx / 3 * np.sin(x / 9.0 + y / 13.0)
+                   + rng.integers(-(mx // 16), mx // 16, y.shape),
+                   0, mx).astype(np.uint16)
+    chroma = np.clip(mx / 2 + mx / 4 * np.cos(x / 7.0 - y / 11.0),
+                     0, mx).astype(np.uint16)
+    out = []
+    for i in range(n):
+        c = np.ascontiguousarray(chroma[::2, step * i:step * i + w:2])
+        out.append([np.ascontiguousarray(luma[:, step * i:step * i + w]),
+                    c, np.ascontiguousarray(c[:, ::-1])])
+    return out
+
+
+def aom_stream(frames, bd: int) -> bytes:
+    """The frames through libaom's encoder at its default lag (ctypes,
+    ``tools/aom_oracle.encode_frames``): a raw OBU stream."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), "tools"))
+    import aom_oracle
+    return aom_oracle.encode_frames(frames, bit_depth=bd, speed=6)
+
+
 def make(seed: int) -> dict:
     """{file name: bytes} of every fixture."""
     img = avif_content(1080, 1920, seed)
@@ -139,21 +222,61 @@ def make(seed: int) -> dict:
                                                         seed + 3),
                                            quality=60, speed=0),
         TRACK: track_avif(seed + 4),
+        GRAIN_1080P: animated_avif(pan_frames(1080, 1920, 3, seed + 5),
+                                   quality=60, speed=6, **grain(1)),
+        "avis_96x64_grain.avif": animated_avif(
+            pan_frames(64, 96, 3, seed + 10), quality=60, speed=6,
+            **grain(1)),
+        "avis_176x128.avif": animated_avif(
+            pan_frames(128, 176, 4, seed + 11), quality=60, speed=6),
+        "avis_128x96_444.avif": animated_avif(
+            pan_frames(96, 128, 3, seed + 12), quality=60, speed=6,
+            subsampling="4:4:4"),
+        "avis_176x128_grain.avif": animated_avif(
+            pan_frames(128, 176, 3, seed + 13), quality=50, speed=6,
+            **grain(2)),
+        "av1_10bit_64x48.obu": aom_stream(
+            planes_stream(6, 48, 64, 10, seed + 3), 10),
+        "av1_gop_96x64.obu": aom_stream(
+            planes_stream(6, 64, 96, 8, seed + 14), 8),
     }
 
 
+def pixels_entry(px: np.ndarray) -> dict:
+    """The shape and sha256 of (H, W, 4) pixels."""
+    return dict(shape=list(px.shape), pixels_sha256=hashlib.sha256(
+        np.ascontiguousarray(px)).hexdigest())
+
+
+def planes_sha256(planes) -> str:
+    """The sha256 of a frame's planes, each as contiguous bytes in
+    order."""
+    h = hashlib.sha256()
+    for p in planes:
+        h.update(np.ascontiguousarray(p).tobytes())
+    return h.hexdigest()
+
+
 def manifest(files: dict) -> dict:
-    """Each file's sha256, and for the stills the shape and sha256 of
-    the port's ``load`` pixels on the CPU."""
+    """Each file's sha256; for the stills the shape and sha256 of the
+    port's ``load`` pixels on the CPU, for the animations each frame's
+    with its ``delay_ms`` from ``load_all``, for the raw streams each
+    shown frame's ``planes_sha256`` from ``Av1Decoder``."""
     import ffpic_tpu_torch
+    from ffpic_tpu_torch.formats.av1_recon import Av1Decoder
     out = {}
     for name, blob in files.items():
         ent = {"sha256": hashlib.sha256(blob).hexdigest()}
         if name in STILLS:
-            px = ffpic_tpu_torch.load(blob, device="cpu").np_pixels()
-            ent.update(shape=list(px.shape),
-                       pixels_sha256=hashlib.sha256(
-                           np.ascontiguousarray(px)).hexdigest())
+            ent.update(pixels_entry(
+                ffpic_tpu_torch.load(blob, device="cpu").np_pixels()))
+        elif name in TRACKS:
+            ent["frames"] = [
+                dict(pixels_entry(p.np_pixels()), delay_ms=p.delay_ms)
+                for p in ffpic_tpu_torch.load_all(blob, device="cpu")]
+        elif name in STREAMS:
+            ent["frames"] = [{"planes_sha256": planes_sha256(planes)}
+                             for planes, _ in Av1Decoder().decode_obus(blob)]
         out[name] = ent
     return out
 
@@ -162,12 +285,21 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=OUT)
+    ap.add_argument("--manifest-only", action="store_true",
+                    help="rewrite the manifest of the files in --out")
     a = ap.parse_args(argv)
     os.makedirs(a.out, exist_ok=True)
-    files = make(a.seed)
+    if a.manifest_only:
+        files = {}
+        for name in STILLS + TRACKS + STREAMS:
+            with open(os.path.join(a.out, name), "rb") as f:
+                files[name] = f.read()
+    else:
+        files = make(a.seed)
     for name, blob in files.items():
-        with open(os.path.join(a.out, name), "wb") as f:
-            f.write(blob)
+        if not a.manifest_only:
+            with open(os.path.join(a.out, name), "wb") as f:
+                f.write(blob)
         print(f"{name}: {len(blob)} bytes")
     with open(os.path.join(a.out, MANIFEST), "w") as f:
         json.dump(manifest(files), f, indent=1, sort_keys=True)

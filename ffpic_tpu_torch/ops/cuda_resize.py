@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ffpic_tpu_torch.ops import _build
-from ffpic_tpu_torch.ops.resize import MEAN, STD, taps
+from ffpic_tpu_torch.ops.resize import MEAN, STD, kernel_of, taps
 
 launches = {"resize_rgba": 0, "normalize_resize": 0}
 
@@ -83,23 +83,24 @@ def _views(imgs, name: str, min_c: int) -> list:
     return out
 
 
-def _axis_words(in_size: int, out_size: int, device) -> tuple:
+def _axis_words(in_size: int, out_size: int, device,
+                method: str = "bilinear") -> tuple:
     """One axis's four words of a descriptor: the addresses of its taps'
     ``start``, ``count`` and weights (0 when the axis keeps its size,
     which the kernel skips), then K | in_size << 32; and the tap tensors
     at those addresses (none when skipped)."""
     if in_size == out_size:
         return [0, 0, 0, in_size << 32], ()
-    start, count, wts = taps(in_size, out_size, device)
+    start, count, wts = taps(in_size, out_size, device, method)
     return [start.data_ptr(), count.data_ptr(), wts.data_ptr(),
             wts.shape[1] | in_size << 32], (start, count, wts)
 
 
 @functools.lru_cache(maxsize=64)
-def band_rows(in_size: int, out_size: int) -> int:
+def band_rows(in_size: int, out_size: int, method: str = "bilinear") -> int:
     """The most input rows that the runs of ``ROWS`` neighbouring output
     rows span (a CTA's band, whose weights it stages)."""
-    start, count, _ = taps(in_size, out_size)
+    start, count, _ = taps(in_size, out_size, torch.device("cpu"), method)
     start, count = start.numpy(), count.numpy()
     pad = -len(start) % ROWS
     lo = np.where(count > 0, start, np.iinfo(np.int32).max)
@@ -110,29 +111,29 @@ def band_rows(in_size: int, out_size: int) -> int:
     return int(np.maximum(hi - np.minimum(lo, hi), 0).max())
 
 
-def slot_words(views: list, size, device) -> tuple:
+def slot_words(views: list, size, device, method: str = "bilinear") -> tuple:
     """The descriptors of a launch over ``views`` ((H, W, C) tensors, as
-    ``_views`` returns them) to ``size``: (N, 10) int64, a row a slot
-    (its first pixel's address, its row pitch in bytes, the vertical
-    axis's words, the horizontal axis's), the widest W of a slot whose W
-    changes (its row's width in shared memory, 0 if none), the most
-    input rows a CTA's band of a slot spans (``band_rows``), and the tap
-    tensors whose addresses the descriptors hold, which the caller keeps
-    until the launch is enqueued."""
+    ``_views`` returns them) to ``size`` by ``method``: (N, 10) int64, a
+    row a slot (its first pixel's address, its row pitch in bytes, the
+    vertical axis's words, the horizontal axis's), the widest W of a
+    slot whose W changes (its row's width in shared memory, 0 if none),
+    the most input rows a CTA's band of a slot spans (``band_rows``),
+    and the tap tensors whose addresses the descriptors hold, which the
+    caller keeps until the launch is enqueued."""
     h, w = size
     words = np.empty((len(views), SLOT_WORDS), np.int64)
     line_w = vk = 0
     held = []
     for k, v in enumerate(views):
         hi, wi = v.shape[:2]
-        vert, vt = _axis_words(hi, h, device)
-        horiz, ht = _axis_words(wi, w, device)
+        vert, vt = _axis_words(hi, h, device, method)
+        horiz, ht = _axis_words(wi, w, device, method)
         words[k] = [v.data_ptr(), v.stride(0), *vert, *horiz]
         held += [*vt, *ht]
         if wi != w:
             line_w = max(line_w, wi)
         if hi != h:
-            vk = max(vk, band_rows(hi, h))
+            vk = max(vk, band_rows(hi, h, method))
     return words, line_w, vk, held
 
 
@@ -144,37 +145,40 @@ def _checked(size):
 
 
 def _run(fn: str, counter: str, views: list, size, out: torch.Tensor,
-         *tail) -> None:
+         method: str, *tail) -> None:
     """``out`` (N, h, w, ...) from ``views``: a launch for each
     ``MAX_SLOTS`` images."""
     for k in range(0, len(views), MAX_SLOTS):
         part = views[k:k + MAX_SLOTS]
         # ``held`` keeps every tap table the words point at alive through
         # the launch; once it is enqueued, stream order makes reuse safe
-        words, line_w, vk, held = slot_words(part, size, out.device)
+        words, line_w, vk, held = slot_words(part, size, out.device, method)
         _launch(fn, counter, _vp(words.ctypes.data), len(part),
                 views[0].shape[-1], _vp(out[k].data_ptr()), *size, line_w,
                 vk, *tail)
 
 
-def resize_batch(slots, size) -> torch.Tensor:
+def resize_batch(slots, size, method: str = "bilinear") -> torch.Tensor:
     """K16 over a batch in one launch: the (H_n, W_n, C) uint8 slots, of
-    any sizes and pitches, -> (N, h, w, C) uint8, bilinear with
-    antialiasing (``ops.resize.resize_batch_plain``)."""
+    any sizes and pitches, -> (N, h, w, C) uint8 by ``method``
+    (``ops.resize.resize_batch_plain``)."""
+    kernel_of(method)
     views = _views(slots, "resize_rgba", 1)
     h, w = _checked(size)
     if not views:
         raise ValueError("resize_rgba: no slots")
     out = torch.empty((len(views), h, w, views[0].shape[-1]),
                       dtype=torch.uint8, device=views[0].device)
-    _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out)
+    _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out, method)
     return out
 
 
-def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
-    """K16: (..., H, W, C) uint8 -> (..., h, w, C) uint8, bilinear with
-    antialiasing (``ops.resize.resize_rgba_plain``); every image of the
-    leading dimensions in one launch."""
+def resize_rgba(img: torch.Tensor, size,
+                method: str = "bilinear") -> torch.Tensor:
+    """K16: (..., H, W, C) uint8 -> (..., h, w, C) uint8 by ``method``
+    (``ops.resize.resize_rgba_plain``); every image of the leading
+    dimensions in one launch."""
+    kernel_of(method)
     if not isinstance(img, torch.Tensor) or img.dim() < 3:
         raise ValueError("resize_rgba: expected a CUDA tensor (..., H, W, "
                          f"C), got {getattr(img, 'device', type(img))}")
@@ -184,7 +188,8 @@ def resize_rgba(img: torch.Tensor, size) -> torch.Tensor:
     out = torch.empty((len(views), h, w, c), dtype=torch.uint8,
                       device=img.device)
     if views and img.numel():
-        _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out)
+        _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out,
+             method)
     return out.view(*lead, h, w, c)
 
 
@@ -207,5 +212,5 @@ def normalize_resize(batch: torch.Tensor, size=None, mean=MEAN,
                       device=batch.device)
     if views and batch.numel():
         _run("ffpic_normalize_resize", "normalize_resize", views, (h, w),
-             out, _vp(m.ctypes.data), _vp(s.ctypes.data))
+             out, "bilinear", _vp(m.ctypes.data), _vp(s.ctypes.data))
     return out.view(*lead, h, w, 3)

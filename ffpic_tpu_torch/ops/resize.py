@@ -14,14 +14,22 @@ It holds
   version, a CUDA tensor the kernel of ``ops.cuda_resize`` (which
   raises rather than falls back; one launch over all the images).
 
-The resize is ``jax.image.resize(x, ..., "bilinear")``: per axis a
-triangle kernel widened by 1/scale when shrinking (JAX antialiases by
-default; ``F.interpolate`` does not), H first and then W, the result
-rounded to float32 after each axis, as JAX rounds its f32 products.  An
-axis whose size does not change is skipped, as JAX skips it.  Each
-output index reads a run of inputs (its taps: the first input index and
-the run's nonzero f32 weights, ``taps``), the weights as XLA's CPU
-backend computes them inside the jitted original (``_weight_mat``).
+The resize is ``jax.image.resize(x, ..., method)``, for every method
+JAX takes (``METHODS``): ``"bilinear"`` (also ``"linear"``,
+``"trilinear"``, ``"triangle"``), ``"cubic"`` (``"bicubic"``,
+``"tricubic"``; Keys' cubic), ``"lanczos3"``, ``"lanczos5"`` and
+``"nearest"``.  Per axis, H first and then W, the result rounded to
+float32 after each axis, as JAX rounds its f32 products; an axis whose
+size does not change is skipped, as JAX skips it.  The kernels other
+than nearest are widened by 1/scale when shrinking (JAX antialiases by
+default; ``F.interpolate`` does not).  Each output index reads a run of
+inputs (its taps: the first input index and the run's nonzero f32
+weights, ``taps``).  The bilinear weights are the ones XLA's CPU backend
+computes inside the jitted original (``_weight_mat``); the cubic and
+Lanczos weights follow ``jax._src.image.scale.compute_weight_mat`` in
+float32 (``_kernel_weight_mat``), without XLA's FMA choices; nearest
+is one tap of weight 1 at ``floor((j + 0.5) * in / out)`` as XLA's CPU
+backend computes JAX's ``_resize_nearest`` (``_nearest_mat``).
 Both the plain versions and the kernels sum a run in float64, in
 ascending input order, so they agree bit for bit: the plain versions
 round a product and then a sum to float64, the kernels take one fused
@@ -32,8 +40,11 @@ in float64.  The sums run in another order and width than XLA's f32
 dot, so a value can land on the other side of .5 before
 ``resize_rgba`` rounds it: outputs agree with the JAX package to 1 LSB,
 and ``normalize_for_model``'s to a few float32 ulps (bit for bit
-without a resize).  Nothing here reads or changes a global matmul
-precision setting.
+without a resize).  The cubic and Lanczos outputs agree with the JAX
+package's to 1 LSB too (their weights differ from XLA's by an ulp or so,
+its ``sin`` from PyTorch's among them), nearest's exactly.
+``normalize_for_model`` is bilinear, as in the reference.  Nothing here
+reads or changes a global matmul precision setting.
 """
 
 from __future__ import annotations
@@ -48,6 +59,21 @@ from ffpic_tpu_torch.utils.device import resolve_device, to_device
 
 F32, F64 = torch.float32, torch.float64
 MEAN = STD = (0.5, 0.5, 0.5)          # the reference's defaults
+
+# jax.image.ResizeMethod.from_string's names -> the kernel each takes
+METHODS = {"nearest": "nearest", "linear": "linear", "bilinear": "linear",
+           "trilinear": "linear", "triangle": "linear", "cubic": "cubic",
+           "bicubic": "cubic", "tricubic": "cubic", "lanczos3": "lanczos3",
+           "lanczos5": "lanczos5"}
+
+
+def kernel_of(method: str) -> str:
+    """The kernel of a ``jax.image.resize`` method name (``METHODS``);
+    ``ValueError`` on any other name, as JAX raises."""
+    try:
+        return METHODS[method]
+    except (KeyError, TypeError):
+        raise ValueError(f'Unknown resize method "{method}"') from None
 
 
 def _fma32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -144,15 +170,93 @@ def _weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
     return torch.where(inside[None, :], weights, 0.0).to(device)
 
 
+def _cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic (``scale.py``'s ``_fill_keys_cubic_kernel``) in f32."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros((), dtype=F32), out)
+
+
+def _lanczos(radius: float, x: torch.Tensor) -> torch.Tensor:
+    """Lanczos (``scale.py``'s ``_fill_lanczos_kernel``) in f32, with
+    pi as the f32 constant JAX's weak-typed product takes."""
+    pi = torch.tensor(np.pi, dtype=F32)
+    pi2 = torch.tensor(np.pi ** 2, dtype=F32)
+    y = radius * torch.sin(pi * x) * torch.sin(pi * x / radius)
+    out = torch.where(x > 1e-3,
+                      y / torch.where(x != 0, pi2 * x ** 2, 1.0), 1.0)
+    return torch.where(x > radius, torch.zeros((), dtype=F32), out)
+
+
+_KERNELS = {"cubic": _cubic, "lanczos3": functools.partial(_lanczos, 3.0),
+            "lanczos5": functools.partial(_lanczos, 5.0)}
+
+
 @functools.lru_cache(maxsize=64)
-def taps(in_size: int, out_size: int, device=torch.device("cpu")):
-    """The banded form of ``_weight_mat``: for each output index its
+def _kernel_weight_mat(in_size: int, out_size: int,
+                       kernel: str) -> torch.Tensor:
+    """(in_size, out_size) float32 weights of
+    ``jax._src.image.scale.compute_weight_mat`` for the cubic and
+    Lanczos kernels (antialias on, no translation), step by step in f32
+    as JAX writes it: the sample positions, ``|s - i| / kernel_scale``,
+    the kernel, the column total (summed as XLA's CPU backend sums it,
+    ``_xla_column_sum``), the division where ``|total| > 1000 eps``, and
+    the mask of samples outside.  XLA fuses some of these into FMAs and
+    computes its own ``sin``, so a weight can differ from the jitted
+    one's by an ulp or so."""
+    inv_scale = 1.0 / (out_size / in_size)
+    inv32 = torch.tensor(inv_scale, dtype=F32)
+    kernel_scale = torch.maximum(inv32, torch.tensor(1.0, dtype=F32))
+    sample_f = (torch.arange(out_size, dtype=F32) + 0.5) * inv32 - 0.5
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=F32)[:, None]) \
+        .abs() / kernel_scale
+    weights = _KERNELS[kernel](x)
+    total = _xla_column_sum(weights)[None]
+    eps = torch.finfo(F32).eps
+    weights = torch.where(total.abs() > 1000.0 * eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0)
+
+
+def _nearest_mat(in_size: int, out_size: int) -> torch.Tensor:
+    """(in_size, out_size) float32 one-hot columns of JAX's
+    ``_resize_nearest``: output j reads input ``floor((j + 0.5) * in /
+    out)`` as XLA's CPU backend folds it, ``(j + 0.5) * c`` in f32 with
+    ``c = f32(in) * f32(1 / out)`` rounded to f32."""
+    c = torch.tensor(float(in_size), dtype=F32) * \
+        torch.reciprocal(torch.tensor(float(out_size), dtype=F32))
+    pos = (torch.arange(out_size, dtype=F32) + 0.5) * c
+    src = torch.floor(pos).long().clamp(0, in_size - 1)
+    wm = torch.zeros((in_size, out_size), dtype=F32)
+    wm[src, torch.arange(out_size)] = 1.0
+    return wm
+
+
+def weight_mat(in_size: int, out_size: int,
+               method: str = "bilinear") -> torch.Tensor:
+    """(in_size, out_size) float32 weights of one axis's resize by
+    ``method`` on the CPU: ``_weight_mat`` for bilinear,
+    ``_kernel_weight_mat`` for cubic and Lanczos, ``_nearest_mat`` for
+    nearest."""
+    kernel = kernel_of(method)
+    if kernel == "linear":
+        return _weight_mat(in_size, out_size, torch.device("cpu"))
+    if kernel == "nearest":
+        return _nearest_mat(in_size, out_size)
+    return _kernel_weight_mat(in_size, out_size, kernel)
+
+
+@functools.lru_cache(maxsize=64)
+def taps(in_size: int, out_size: int, device=torch.device("cpu"),
+         method: str = "bilinear"):
+    """The banded form of ``weight_mat``: for each output index its
     first input index ``start`` (out,) int32, the length ``count``
     (out,) int32 of its run of weights from the first nonzero to the
     last (0 where all are zero), and the run's f32 weights (out, K),
     zero past ``count``, K the longest run, held as float64 (exactly),
     the width the sums take them in."""
-    wm = _weight_mat(in_size, out_size, torch.device("cpu")).T
+    wm = weight_mat(in_size, out_size, method).T
     nz = wm != 0
     count = torch.zeros(out_size, dtype=torch.int32)
     start = torch.zeros(out_size, dtype=torch.int32)
@@ -169,12 +273,13 @@ def taps(in_size: int, out_size: int, device=torch.device("cpu")):
     return start.to(device), count.to(device), wts.to(device, F64)
 
 
-def _resize_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
+def _resize_axis(x: torch.Tensor, dim: int, out_size: int,
+                 method: str = "bilinear") -> torch.Tensor:
     """One axis of the resize: ``x`` (any dtype) along ``dim`` to
     ``out_size``, each run summed in float64 in ascending input order,
     then rounded to float32."""
     in_size = x.shape[dim]
-    start, _count, wts = taps(in_size, out_size, x.device)
+    start, _count, wts = taps(in_size, out_size, x.device, method)
     k = wts.shape[1]
     pos = (start[:, None].long() + torch.arange(k, device=x.device)) \
         .clamp(max=in_size - 1)
@@ -188,28 +293,32 @@ def _resize_axis(x: torch.Tensor, dim: int, out_size: int) -> torch.Tensor:
     return acc.to(F32)
 
 
-def _resize_f32(x: torch.Tensor, size) -> torch.Tensor:
+def _resize_f32(x: torch.Tensor, size,
+                method: str = "bilinear") -> torch.Tensor:
     """``(..., H, W, C)`` -> ``(..., h, w, C)`` float32, H first."""
     h, w = size
     if x.shape[-3] != h:
-        x = _resize_axis(x, -3, h)
+        x = _resize_axis(x, -3, h, method)
     if x.shape[-2] != w:
-        x = _resize_axis(x, -2, w)
+        x = _resize_axis(x, -2, w, method)
     return x.to(F32)
 
 
-def resize_rgba_plain(img: torch.Tensor, size) -> torch.Tensor:
+def resize_rgba_plain(img: torch.Tensor, size,
+                      method: str = "bilinear") -> torch.Tensor:
     """K16's function: ``(..., H, W, C)`` uint8 -> ``(..., h, w, C)``
-    uint8, bilinear with antialiasing, rounded half to even and clipped
-    (``ffpic_tpu/ops/resize.py:13``)."""
-    return torch.round(_resize_f32(img, size)).clamp(0, 255).to(torch.uint8)
+    uint8 by ``method`` (antialiased when shrinking), rounded half to
+    even and clipped (``ffpic_tpu/ops/resize.py:13``)."""
+    return torch.round(_resize_f32(img, size, method)).clamp(0, 255) \
+        .to(torch.uint8)
 
 
-def resize_batch_plain(slots, size) -> torch.Tensor:
+def resize_batch_plain(slots, size, method: str = "bilinear") -> torch.Tensor:
     """K16's function over a batch: the (H_n, W_n, C) uint8 slots, each
     of its own size, each resized alone by ``resize_rgba_plain``, then
     stacked: (N, h, w, C) uint8."""
-    return torch.stack([resize_rgba_plain(s, tuple(size)) for s in slots])
+    return torch.stack([resize_rgba_plain(s, tuple(size), method)
+                        for s in slots])
 
 
 def _consts(values, device) -> torch.Tensor:
@@ -243,27 +352,26 @@ def resize_rgba(img: torch.Tensor, size,
                 method: str = "bilinear") -> torch.Tensor:
     """(..., H, W, C) uint8 -> (..., h, w, C) uint8 on the tensor's
     device: K16 on CUDA, the plain version on the CPU.  ``method`` is the
-    reference's ``jax.image.resize`` method; only ``"bilinear"`` is
-    ported, and any other raises ``NotImplementedError``."""
-    if method != "bilinear":
-        raise NotImplementedError(f"resize method {method!r}: only "
-                                  "'bilinear' is ported")
+    reference's ``jax.image.resize`` method, any of ``METHODS``; another
+    name raises ``ValueError``, as JAX does."""
+    kernel_of(method)
     if not _on_cuda(img):
-        return resize_rgba_plain(img, tuple(size))
+        return resize_rgba_plain(img, tuple(size), method)
     from ffpic_tpu_torch.ops import cuda_resize
-    return cuda_resize.resize_rgba(img, tuple(size))
+    return cuda_resize.resize_rgba(img, tuple(size), method)
 
 
-def resize_batch(slots, size) -> torch.Tensor:
+def resize_batch(slots, size, method: str = "bilinear") -> torch.Tensor:
     """``decode_batch``'s resize of its slots ((H_n, W_n, C) uint8 on one
     device, of any sizes and pitches) -> (N, h, w, C) uint8: K16 in one
     launch on CUDA, the plain version on the CPU."""
+    kernel_of(method)
     if not slots:
         raise ValueError("resize_batch: no slots")
     if not _on_cuda(slots[0]):
-        return resize_batch_plain(slots, tuple(size))
+        return resize_batch_plain(slots, tuple(size), method)
     from ffpic_tpu_torch.ops import cuda_resize
-    return cuda_resize.resize_batch(slots, tuple(size))
+    return cuda_resize.resize_batch(slots, tuple(size), method)
 
 
 def resize_batch_rgba(imgs, size, method: str = "bilinear", *,
@@ -272,20 +380,16 @@ def resize_batch_rgba(imgs, size, method: str = "bilinear", *,
     reference's entry (``ffpic_tpu/ops/resize.py:20``) over
     ``resize_batch``: K16 in one launch on CUDA, the plain version on
     the CPU.  Tensors stay on their device; numpy images go to
-    ``device`` (None means CUDA, and raises without it).  Only
-    ``"bilinear"`` is ported: any other ``method`` raises
-    ``NotImplementedError``."""
-    if method != "bilinear":
-        raise NotImplementedError(
-            f"resize method {method!r}: only 'bilinear' is ported; the "
-            f"others wait for ROADMAP.md Queue 1 item 18")
+    ``device`` (None means CUDA, and raises without it).  ``method`` as
+    in ``resize_rgba``."""
+    kernel_of(method)
     slots = list(imgs)
     if any(not isinstance(im, torch.Tensor) for im in slots):
         dev = resolve_device(device, "resize_batch_rgba")
         slots = [im if isinstance(im, torch.Tensor)
                  else to_device(np.ascontiguousarray(im), dev)
                  for im in slots]
-    return resize_batch(slots, size)
+    return resize_batch(slots, size, method)
 
 
 def normalize_for_model(batch: torch.Tensor, size=None, mean=MEAN,

@@ -1,12 +1,11 @@
 """Batched decode of JPEGs, PNGs, WebPs, HEIFs and the host-only
 codecs' files (BMP, GIF, TGA, PNM, PSD, TIFF, ICO, JPEG 2000, SVG,
-OpenEXR, AVIF stills, raw HEVC) into one ``(N, H, W, 4)`` uint8 device
+OpenEXR, AVIF, raw HEVC) into one ``(N, H, W, 4)`` uint8 device
 tensor.
 
 The PyTorch counterpart of ``ffpic_tpu.pipeline.decode_batch`` for
 batches of those formats (a BPG member, whose pixels neither package
-decodes, and an animated AVIF, whose track the port does not decode
-yet, raise ``NotImplementedError``; bytes no codec probes the
+decodes, raises ``NotImplementedError``; bytes no codec probes the
 registry's ``ValueError``):
 
 0. The device-entropy route (``_entropy_runs``, ``_run_entropy``; on
@@ -34,11 +33,12 @@ registry's ``ValueError``):
    planes (``formats.heif.parse``, the registry's defaults, its grid
    tiles in a pool of their own; the frames of an image sequence are
    not decoded, since only the primary picture is kept); a BMP, GIF,
-   TGA, PNM, PSD, TIFF, ICO, JPEG 2000, SVG, OpenEXR or raw HEVC
-   stream is decoded whole by its codec's ``decode``, as the
+   TGA, PNM, PSD, TIFF, ICO, JPEG 2000, SVG, OpenEXR, AVIF or raw
+   HEVC stream is decoded whole by its codec's ``decode``, as the
    reference's ``registry.load``, and its first picture kept (a GIF's
    first composited frame, a TIFF's first IFD, an ICO's first entry, an
-   EXR's first part, a stream's first picture in presentation order).
+   EXR's first part, an animated AVIF's first track frame, a stream's
+   first picture in presentation order).
    The
    pool does no device work, except that under ``FFPIC_VP8_DEVICE`` a
    WebP's and under ``FFPIC_HEVC_DEVICE`` a HEIF's or a raw HEVC

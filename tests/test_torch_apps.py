@@ -222,11 +222,12 @@ def test_new_modules_need_neither_jax_nor_ffpic_tpu(tmp_path):
         "    ('bmp', 'gif', 'tga', 'pnm', 'psd', 'tiff', 'ico', 'jp2',\n"
         "     'exr', 'svg', 'svg_raster', 'bpg', 'avif', 'av1_recon',\n"
         "     'av1_intra', 'av1_loopfilter', 'av1_cdef', 'av1_lr',\n"
-        "     'av1_superres')} | {\n"
+        "     'av1_superres', 'av1_mc', 'jpg_host')} | {\n"
         "    'ffpic_tpu_torch.coding.' + c for c in\n"
         "    ('huffman', 'deflate', 'jpeg2000', 'exr_codec', 'av1_tile',\n"
         "     'av1_msac', 'av1_headers', 'av1_itx', 'av1_mv', 'av1_refs',\n"
-        "     'av1_grain')}\n"
+        "     'av1_grain', 'av1_grain_tables', 'av1_inter', 'av1_enc',\n"
+        "     'av1_msac_enc')}\n"
         "assert need <= set(names), need - set(names)\n"
         f"paths = {[p for k, p in sorted(paths.items())
                     if k != 'junk.bin']!r}\n"

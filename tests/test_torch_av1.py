@@ -16,7 +16,8 @@ parse against the per-block C parse and the Python symbol path
 (``FrameState.force_python``), the native deblock against the numpy
 vector pass and the scalar pass, the native transforms against the
 numpy lanes.  The wrappers refuse malformed arrays, and an inter frame
-or block raises ``NotImplementedError`` naming the ROADMAP item.
+and its inter blocks decode to the reference's planes
+(``tests/test_torch_av1_inter.py`` holds the inter slice whole).
 """
 
 import functools
@@ -43,9 +44,6 @@ from ffpic_tpu_torch.coding.av1_consts import (TX_H, TX_W,  # noqa: E402
 from ffpic_tpu_torch.formats import av1_loopfilter as lf  # noqa: E402
 from ffpic_tpu_torch.formats import av1_recon, heif  # noqa: E402
 import reference_native  # noqa: E402,F401  (readies ffpic_tpu first)
-
-ITEM = "ROADMAP.md Queue 1 item 19"
-
 
 @pytest.fixture(autouse=True)
 def _native_first():
@@ -520,19 +518,36 @@ def test_wrappers_refuse_malformed_arrays():
                          np.zeros(1, np.int32), 8)
 
 
-def test_inter_frames_and_blocks_raise():
+def test_inter_frames_and_blocks_raise(monkeypatch):
     """An inter frame reaches ``_decode_block_interframe`` and an inter
-    block ``_reconstruct``: both raise naming the ROADMAP item."""
-    obus = stream("420_q60_64")
-    seq, fh, obu, bitpos = _headers(obus)
-    fh.frame_is_intra = False
-    fs = av1_tile.FrameState(seq, fh)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        av1_recon._decode_tile_group(fs, obu["payload"][(bitpos + 7) >> 3:])
-    fs = _parsed(obus, force_python=True)
-    fs.blocks[0].is_inter = True
-    with pytest.raises(NotImplementedError, match=ITEM):
-        av1_recon._reconstruct(fs)
+    block ``_reconstruct``'s ``_recon_inter_block``: both now decode, and
+    the frames of a libaom stream equal the reference's planes."""
+    from ffpic_tpu_torch import testing
+    calls = {"mode": 0, "recon": 0}
+    real_mode = av1_tile.TileDecoder._decode_block_interframe
+    real_recon = av1_recon._recon_inter_block
+
+    def mode(self, *a):
+        calls["mode"] += 1
+        return real_mode(self, *a)
+
+    def recon(*a):
+        calls["recon"] += 1
+        return real_recon(*a)
+
+    monkeypatch.setattr(av1_tile.TileDecoder, "_decode_block_interframe",
+                        mode)
+    monkeypatch.setattr(av1_recon, "_recon_inter_block", recon)
+    obus = testing.avif_fixture("av1_gop_96x64.obu")
+    got = av1_recon.Av1Decoder().decode_obus(obus)
+    want = jax_recon.Av1Decoder().decode_obus(obus)
+    assert len(got) == len(want) == 6
+    for (gp, gm), (wp, wm) in zip(got, want):
+        assert gm == wm
+        for a, b in zip(gp, wp):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert calls["mode"] > 0 and calls["recon"] > 0
 
 
 def test_frame_header_tables_match_jax():

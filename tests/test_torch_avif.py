@@ -12,10 +12,12 @@ For each: ``load``'s pixels, size and meta, ``info()``, the header-only
 parse and ``picinfo`` equal the JAX package's, and ``decode_batch`` of
 them equals ``ffpic_tpu.decode_batch``.  The native colour is held
 against the numpy oracle ``_yuv_to_rgba_np``; cut and garbage files give
-the reference's pixels or its kind of error; an animated AVIF and
-``encode(..., "AVIF")`` raise ``NotImplementedError`` naming the
-ROADMAP item; the committed 1080p fixtures hash as recorded with both
-packages.
+the reference's pixels or its kind of error; an animated AVIF decodes
+to the reference's frames (pixels, ``delay_ms``, meta, orientation) in
+``load``, ``load_all`` and ``decode_batch``; ``encode(..., "AVIF")``
+gives the reference's bytes; the committed fixtures hash as recorded
+with both packages (the 1080p animation's file alone: ``chip_smoke.py``
+decodes it).
 """
 
 import functools
@@ -45,9 +47,6 @@ from ffpic_tpu_torch.formats import avif, heif  # noqa: E402
 from ffpic_tpu_torch.formats import heif_enc as he  # noqa: E402
 from ffpic_tpu_torch.formats.pic import Pic  # noqa: E402
 import reference_native  # noqa: E402,F401  (readies ffpic_tpu first)
-
-ITEM = "ROADMAP.md Queue 1 item 19"
-
 
 @pytest.fixture(autouse=True)
 def _native_first():
@@ -344,33 +343,41 @@ def test_corrupt_tile_data_gives_the_references_result():
 
 
 def test_animated_avif_raises_naming_the_item():
-    """An ``av01`` track: the reference decodes its frames in place of
-    the cover; the port refuses the file in ``load``, ``load_all`` and
-    ``decode_batch`` and returns no cover.  Its header-only parse is the
+    """An ``av01`` track: the port decodes its frames in place of the
+    cover, as the reference does, in ``load`` (the first frame, the
+    others on ``frames``), ``load_all`` and ``decode_batch`` (the first
+    frame), equal to the reference's; its header-only parse is the
     reference's."""
     data = testing.avif_fixture("avis_track_64x48.avif")
-    for fn in (lambda: ffpic_tpu_torch.load(data, device="cpu"),
-               lambda: ffpic_tpu_torch.load_all(data, device="cpu"),
-               lambda: ffpic_tpu_torch.decode_batch([data], device="cpu"),
-               lambda: ffpic_tpu_torch.decode_batch([data], size=(8, 8),
-                                                    device="cpu")):
-        with pytest.raises(NotImplementedError, match=ITEM):
-            fn()
+    want = ffpic_tpu.load_all(data)
+    got = ffpic_tpu_torch.load_all(data, device="cpu")
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.pixels.numpy(), w.np_pixels())
+        assert (g.delay_ms, g.meta) == (w.delay_ms, w.meta)
+    one = ffpic_tpu_torch.load(data, device="cpu")
+    assert len(one.frames) == 2 and one.meta["frames"] == 3
+    for size in (None, (8, 8)):
+        np.testing.assert_array_equal(
+            ffpic_tpu_torch.decode_batch([data], size=size,
+                                         device="cpu").numpy(),
+            np.asarray(ffpic_tpu.decode_batch([data], size=size)))
     assert ffpic_tpu_torch.load(data, skip_decode=True).meta == \
         ffpic_tpu.load(data, skip_decode=True).meta
-    assert len(ffpic_tpu.load_all(data)) == 3
 
 
 def test_encode_raises_naming_the_item():
+    """``encode(pic, "AVIF")`` (the registry's entry and ``avif.encode``)
+    gives the reference's bytes, lossless (q100) and lossy (q75)."""
     pic = ffpic_tpu_torch.load(avif_file("420"), device="cpu")
-    with pytest.raises(NotImplementedError, match=ITEM):
-        ffpic_tpu_torch.encode(pic, "AVIF", device="cpu")
-    with pytest.raises(NotImplementedError, match=ITEM):
-        avif.encode(Pic(pixels=np.zeros((8, 8, 4), np.uint8), width=8,
-                        height=8), quality=100)
-    assert ffpic_tpu.encode(JaxPic(pixels=np.zeros((8, 8, 4), np.uint8),
-                                   width=8, height=8), "AVIF")[4:12] == \
-        b"ftypavif"
+    want = ffpic_tpu.encode(ffpic_tpu.load(avif_file("420")), "AVIF")
+    assert ffpic_tpu_torch.encode(pic, "AVIF", device="cpu") == want
+    zeros = np.zeros((8, 8, 4), np.uint8)
+    assert avif.encode(Pic(pixels=zeros, width=8, height=8),
+                       quality=100) == \
+        ffpic_tpu.encode(JaxPic(pixels=zeros, width=8, height=8), "AVIF",
+                         quality=100)
+    assert want[4:12] == b"ftypavif"
 
 
 def test_grid_tiles_decode_side_by_side(monkeypatch):
@@ -387,14 +394,27 @@ def test_grid_tiles_decode_side_by_side(monkeypatch):
                                   if n.endswith(".avif")])
 def test_fixture_hashes(name):
     """The committed fixtures (``make_avif_fixtures``): the file's
-    sha256, and for the stills the pixels' sha256 from both packages'
-    ``load``, as recorded."""
+    sha256, and the pixels' sha256 from both packages, as recorded: for
+    the stills from ``load``, for the animations each frame's from
+    ``load_all`` with its ``delay_ms``.  The 1080p animation is not
+    decoded here (about a minute a package): ``chip_smoke.py`` holds the
+    port's frames to its hashes; here its header-only parse."""
     ent = testing.avif_manifest()[name]
     data = testing.avif_fixture(name)
     assert hashlib.sha256(data).hexdigest() == ent["sha256"]
-    if "pixels_sha256" not in ent:
-        with pytest.raises(NotImplementedError, match=ITEM):
-            ffpic_tpu_torch.load(data, device="cpu")
+    if "frames" in ent:
+        if name == "avis_1080p_grain.avif":
+            assert [f["shape"] for f in ent["frames"]] == [[1080, 1920, 4]] * 3
+            assert ffpic_tpu_torch.load(data, skip_decode=True).meta == \
+                ffpic_tpu.load(data, skip_decode=True).meta
+            return
+        for pics in (ffpic_tpu_torch.load_all(data, device="cpu"),
+                     ffpic_tpu.load_all(data)):
+            got = [dict(shape=list(p.np_pixels().shape),
+                        pixels_sha256=hashlib.sha256(np.ascontiguousarray(
+                            p.np_pixels())).hexdigest(),
+                        delay_ms=p.delay_ms) for p in pics]
+            assert got == ent["frames"]
         return
     for px in (ffpic_tpu_torch.load(data, device="cpu").pixels.numpy(),
                ffpic_tpu.load(data).np_pixels()):

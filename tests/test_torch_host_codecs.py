@@ -507,6 +507,7 @@ def _every_format() -> dict:
         "BMP": testing.encode_bmp(rgb),
         "HEIF": (24).to_bytes(4, "big") + b"ftypheic" + bytes(12),
         "AVIF": _pil(Image.fromarray(rgb), "AVIF"),
+        "AVIF_ANIMATED": testing.avif_fixture("avis_96x64_grain.avif"),
         "BPG": b"BPG\xfb" + bytes(32),
         "JP2": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(32),
         "J2K": b"\xff\x4f\xff\x51" + bytes(32),
@@ -521,9 +522,6 @@ def _every_format() -> dict:
         "HEVC_SHORT_START": b"\x00\x00\x01" + vps + bytes(16),
         "TGA": testing.encode_tga(_rgba(16, 16, 2)),
     }
-
-
-UNPORTED: set = set()
 
 
 def test_registered_in_the_reference_order():
@@ -548,13 +546,7 @@ def test_probe_order_matches_jax(kind):
     got = ffpic_tpu_torch.probe(data).name
     assert got == ffpic_tpu.probe(data).name == kind.split("_")[0].replace(
         "J2K", "JP2")
-    if got in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                           "item 1"):
-            ffpic_tpu_torch.load(data, device="cpu")
-        with pytest.raises(NotImplementedError, match="item"):
-            ffpic_tpu_torch.decode_batch([data], device="cpu")
-    elif got in ("AVIF", "BPG", "JP2", "SVG", "EXR"):
+    if got in ("AVIF", "BPG", "JP2", "SVG", "EXR"):
         # ported: the reference's pixels, or its kind of error
         for mine, ref in ((lambda: ffpic_tpu_torch.load(
                                data, device="cpu").pixels.numpy(),
@@ -860,3 +852,71 @@ def test_mirrored_gif_disposal_2_clears_to_transparent():
     np.testing.assert_array_equal(second[:2, :2], [[[250, 250, 250, 255]] * 2]
                                   * 2)
     assert (second[2:] == 0).all() and (second[:, 2:] == 0).all()
+
+
+# --- the Python JPEG entropy decoder and the checksums' references ----------
+
+def _jpeg_oracle_files() -> dict:
+    rgb = _rgb(72, 88, 21)
+    return {
+        "baseline_420": _pil(Image.fromarray(rgb), "JPEG", quality=85),
+        "dri": testing.encode_jpeg(rgb, 80, restart_interval=3),
+        "baseline_422": _pil(Image.fromarray(rgb), "JPEG", quality=90,
+                             subsampling="4:2:2"),
+        "progressive_444": _pil(Image.fromarray(rgb), "JPEG", quality=85,
+                                progressive=True, subsampling="4:4:4"),
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_jpeg_oracle_files()))
+def test_jpg_host_oracle_matches_native(kind, monkeypatch):
+    """``formats/jpg_host.py`` (the Python ``JpegEntropyDecoder`` over
+    ``HuffLUT`` tables and ``ScanBitReader``) decodes each scan that the
+    port's ``jpg.parse_and_decode`` hands the native Huffman decoder to
+    the same coefficients: zigzag planes, restored by
+    ``dezigzag_planes``, equal to the native raster planes."""
+    from ffpic_tpu_torch import native
+    from ffpic_tpu_torch.formats import jpg, jpg_host
+    scans = []
+    real = native.jpeg_decode_scan
+
+    def spy(data, dht_raw, comps, scan_comps, ss, se, ah, al, ri, *rest):
+        scans.append((data, dict(dht_raw), scan_comps, ss, se, ah, al, ri))
+        return real(data, dht_raw, comps, scan_comps, ss, se, ah, al, ri,
+                    *rest)
+
+    monkeypatch.setattr(native, "jpeg_decode_scan", spy)
+    j, _ = jpg.parse_and_decode(_jpeg_oracle_files()[kind])
+    assert scans and (len(scans) > 1) == (kind == "progressive_444")
+    zz = [np.zeros_like(c) for c in j.coeffs]
+    dec = jpg_host.JpegEntropyDecoder(j.comps, zz)
+    for data, dht_raw, scan_comps, ss, se, ah, al, ri in scans:
+        dec.restart_interval = ri
+        luts = {key: jpg_host.HuffLUT(*v) for key, v in dht_raw.items()}
+        dec.decode_scan(data, scan_comps,
+                        {t: lut for (c, t), lut in luts.items() if c == 0},
+                        {t: lut for (c, t), lut in luts.items() if c == 1},
+                        ss, se, ah, al)
+    for native_c, oracle in zip(j.coeffs, zz):
+        np.testing.assert_array_equal(
+            native_c.reshape(*native_c.shape[:2], 8, 8),
+            jpg_host.dezigzag_planes(oracle))
+    assert any(c.any() for c in zz)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 5553, 70000])
+def test_checksum_references_match_zlib(n):
+    """``crc32_py`` and ``adler32_py`` equal zlib's, from a start value
+    too (Adler's sums wrap past 65521 at the larger sizes)."""
+    import zlib
+    from ffpic_tpu.utils import checksum as jax_checksum
+    from ffpic_tpu_torch.utils import checksum
+    data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
+    for start_crc, start_adler in ((0, 1), (0x1234ABCD, 0xFFF0FFF0)):
+        want_crc = zlib.crc32(data, start_crc)
+        want_adler = zlib.adler32(data, start_adler)
+        assert checksum.crc32_py(data, start_crc) == want_crc == \
+            checksum.crc32(data, start_crc)
+        assert checksum.adler32_py(data, start_adler) == want_adler == \
+            checksum.adler32(data, start_adler)
+        assert jax_checksum.crc32_py(data, start_crc) == want_crc

@@ -144,8 +144,9 @@ def test_resize_rgba_matches_jax(src, dst):
 def test_resize_rgba_takes_the_references_positional_method():
     """The reference's own pipeline calls ``resize_rgba(s, size,
     "bilinear")`` positionally: both packages take it, within the 1 LSB
-    of ``test_resize_rgba_matches_jax``; a method the port has not
-    ported raises."""
+    of ``test_resize_rgba_matches_jax``; another method, positional too,
+    gives JAX's result (nearest exactly; the others in
+    ``tests/test_torch_resize_methods.py``)."""
     rng = np.random.default_rng(10)
     img = rng.integers(0, 256, (96, 160, 4), dtype=np.uint8)
     want = np.asarray(jax_resize_rgba(jnp.asarray(img), (64, 64),
@@ -154,8 +155,9 @@ def test_resize_rgba_takes_the_references_positional_method():
     assert got.dtype == torch.uint8 and tuple(got.shape) == (64, 64, 4)
     assert np.abs(got.numpy().astype(int) - want).max() <= 1
     assert torch.equal(got, resize_rgba(torch.from_numpy(img), (64, 64)))
-    with pytest.raises(NotImplementedError):
-        resize_rgba(torch.from_numpy(img), (64, 64), "nearest")
+    near = resize_rgba(torch.from_numpy(img), (64, 64), "nearest")
+    assert np.array_equal(near.numpy(), np.asarray(jax_resize_rgba(
+        jnp.asarray(img), (64, 64), "nearest")))
 
 
 def test_resize_rgba_batched_equals_per_image():
