@@ -288,8 +288,9 @@ def ptxas_report(text: str) -> dict:
     ``assemble_mcu<1,0,1>`` (mode, order, fancy), ``unfilter_subup<4>``
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
     depth), ``hevc_yuv_to_rgba<1>`` (mode), ``resize<0,2>`` (K16) and
-    ``resize<1,2>`` (K17) at two output rows a CTA (``<.,1>`` at one);
-    K9-K14 have no template arguments."""
+    ``resize<1,2>`` (K17) at two output rows a CTA (``<.,1>`` at one),
+    ``resize_gather<1>`` (K16 by nearest, 32-bit loads); K9-K14 have no
+    template arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -299,7 +300,8 @@ def ptxas_report(text: str) -> dict:
                           r"unfilter_subup|assemble_rgba|entropy_decode|"
                           r"spec_scan|spec_merge|vp8_residuals|"
                           r"vp8_yuv_to_rgba|hevc_residuals|"
-                          r"hevc_yuv_to_rgba|resize|vp8_wavefront)_kernel"
+                          r"hevc_yuv_to_rgba|resize_gather|"
+                          r"resize|vp8_wavefront)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
             args = re.findall(r"L[ib](\d+)E", k.group(2))
@@ -2502,31 +2504,44 @@ def resize_methods(dev, slots, full, floor_ms: float, flush, errs: dict,
                    reset, counts) -> dict:
     """K16 by each of ``RESIZE_METHODS`` on ``testing.resize_cases`` and
     once over config 5's 8 slots (1920x1080 RGBA to 224 x 224), with
-    fresh counts: one launch each, bit-equal to its plain version.  Then
-    each timed (``time_entry``: warm and L2-flushed, the plain version,
-    the bound from this run's taps, ``resize_bytes`` and ``tap_ops``:
-    ``nearest`` needs only the pixels it keeps, though K16's pass 1
-    reads every column of each kept row) beside one PyTorch call where
-    there is one:
-    ``F.interpolate`` ``nearest-exact`` (its index rule is not XLA's
-    folded one, and it reads only the pixels it keeps) and ``bicubic``
-    with ``antialias=True`` (its own weights and order of sums), each
-    with its max |delta| from the plain version.
-    Returns {method: timing entry with its launches}."""
+    fresh counts: one launch each (nearest's gather, the banded kernel
+    by every other method; the instance its launcher took,
+    ``cuda_resize.instance``), bit-equal to its plain version (nearest
+    too: the float64 tap sum, not the gather's model).  Then each timed
+    (``time_entry``: warm and L2-flushed, the plain version, the bound
+    from this run's taps, ``resize_bytes`` and ``tap_ops``, the same
+    work whatever kernel runs it: ``nearest`` needs only the pixels it
+    keeps) beside one PyTorch call where there is one: for ``nearest``
+    the same function, ``full[:, rv[:, None], rh[None, :]]`` by the
+    ``start`` tables (one advanced-indexing call, max |delta| 0), with
+    ``F.interpolate`` ``nearest-exact`` beside it (its index rule is
+    not XLA's folded one); ``bicubic`` with ``antialias=True`` (its own
+    weights and order of sums), each with its max |delta| from the
+    plain version.  Returns {method: timing entry with its launches}."""
     import torch
     import torch.nn.functional as F
     from ffpic_tpu_torch.ops import resize as rs
+    from ffpic_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
     size = CONFIG5_SIZE
     nchw = full.permute(0, 3, 1, 2).contiguous()
+    rv, rh = (rs.taps(n, k, dev, "nearest")[0].long()
+              for n, k in ((H, size[0]), (W, size[1])))
+
+    def interp(mode, **kw):
+        return lambda: F.interpolate(nchw.float() if kw else nchw, size=size,
+                                     mode=mode, **kw)
+
+    def nhwc(fn):
+        return lambda: fn().float().round().clamp(0, 255).to(
+            torch.uint8).permute(0, 2, 3, 1)
+    def index():
+        return full[:, rv[:, None], rh[None, :]]
     library = {
-        "nearest": lambda: F.interpolate(nchw, size=size,
-                                         mode="nearest-exact"),
-        "bilinear": lambda: F.interpolate(nchw.float(), size=size,
-                                          mode="bilinear", antialias=True,
-                                          align_corners=False),
-        "bicubic": lambda: F.interpolate(nchw.float(), size=size,
-                                         mode="bicubic", antialias=True,
-                                         align_corners=False)}
+        "nearest": (index, index),
+        "bilinear": (interp("bilinear", antialias=True, align_corners=False),
+                     None),
+        "bicubic": (interp("bicubic", antialias=True, align_corners=False),
+                    None)}
     from ffpic_tpu_torch import testing
     from ffpic_tpu_torch.ops import cuda_resize
     # the edges of K16's tiling by every method
@@ -2540,11 +2555,12 @@ def resize_methods(dev, slots, full, floor_ms: float, flush, errs: dict,
         reset()
         got = rs.resize_batch(slots, size, method)
         launched = counts()
+        kernel = cuda_resize.instance["resize_rgba"]
         if launched != {"resize_rgba": 1}:
             raise AssertionError(f"K16 {method}: launches {launched}")
         plain = rs.resize_batch_plain(slots, size, method)
         exact("resize_rgba", got, plain, errs)
-        lib = library.get(method)
+        lib, lib_out = library.get(method, (None, None))
         e = time_entry(
             "resize_rgba", lambda m=method: rs.resize_batch(slots, size, m),
             lambda m=method: rs.resize_batch_plain(slots, size, m),
@@ -2553,15 +2569,25 @@ def resize_methods(dev, slots, full, floor_ms: float, flush, errs: dict,
             f"config 5: {N} x {W}x{H} RGBA to 224 x 224, {method}",
             library=lib)
         e["launches"] = launched["resize_rgba"]
+        e["kernel"] = kernel
         e["taps_a_row_element"] = int(rs.taps(H, size[0], torch.device("cpu"),
                                               method)[2].shape[1])
         if lib is not None:
             e["library_max_abs_vs_plain"] = max_abs_err(
-                lib().float().round().clamp(0, 255).to(torch.uint8)
-                .permute(0, 2, 3, 1), plain)
+                (lib_out or nhwc(lib))(), plain)
+        if method == "nearest":
+            near = interp("nearest-exact")
+            e.update(interpolate_ms=gpu_ms(near, 50),
+                     interpolate_ms_cold=gpu_ms_cold(near, 20, flush),
+                     interpolate_max_abs_vs_plain=max_abs_err(
+                         nhwc(near)(), plain))
+            log("time resize_rgba nearest interpolate", **{
+                k: (f"{v:.4f}" if isinstance(v, float) else v)
+                for k, v in e.items() if k.startswith("interpolate")})
         out[method] = e
     log("check K16 methods", methods=",".join(RESIZE_METHODS),
         at=f"{N}x{W}x{H}->224 and testing.resize_cases", launches="1 each",
+        kernels=",".join(out[m]["kernel"] for m in RESIZE_METHODS),
         plain="exact")
     return out
 
@@ -4475,6 +4501,9 @@ def main() -> int:
     for name in ("dequant_idct", "assemble_color"):
         timed[name]["launches_mesh"] = {
             k: v[name] for k, v in train_launches.items()}
+    # the instance each K16 method's launcher took at config 5
+    for info in timed["resize_rgba"]["methods"].values():
+        info["ptxas"] = ptxas[info["kernel"]]
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCES.get(name, CU),
                 "replaces": REPLACES[name], "launches": launches[name],

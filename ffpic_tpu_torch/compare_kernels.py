@@ -65,7 +65,10 @@ default):
   vertical taps) and 1080x1920 -> 1080x224 (pass 2, the horizontal
   taps, over each input row copied); K17 with its resize on the 8
   slots (the JPEG chain's call) and without one on the 8 x 224 x 224
-  batch (config 5's call); each warm and L2 flushed;
+  batch (config 5's call); the 8 slots by every other method of
+  ``RESIZE_METHODS`` (``resize_batch(..., method)``, one launch each,
+  against its plain version), and lanczos5's passes alone; each warm
+  and L2 flushed;
 * ``k15``: ``heif.color`` of the 12 MP fixture under
   ``FFPIC_HEIF_DEVICE_COLOR`` on its staged tiles as ``heif.to_pics``
   runs it (``hevc_kernels.hevc_tiles_to_rgba``, one launch that also
@@ -117,11 +120,16 @@ KERNELS = {"k7": ("assemble_rgba",), "k14": ("hevc_residuals",),
            "entropy": ("entropy_decode", "spec_scan", "spec_merge"),
            "vp8": ("vp8_residuals", "vp8_yuv_to_rgba"),
            "k13": ("vp8_yuv_to_rgba",),
-           "k16": ("resize",), "k15": ("hevc_yuv_to_rgba",),
+           "k16": ("resize", "resize_gather"),
+           "k15": ("hevc_yuv_to_rgba",),
            "k6": ("unfilter_rows", "unfilter_cols", "unfilter_subup"),
            "k8": ("scatter_plane", "scatter_planes"),
            "jpeg": ("count_scan", "unpack", "dequant_idct", "assemble_color",
                     "assemble_mcu", "fdct")}
+
+
+# jax.image.resize's methods (one name each), which K16 takes
+RESIZE_METHODS = ("nearest", "bilinear", "bicubic", "lanczos3", "lanczos5")
 
 
 def _timed(fn, flush, warm: int = 50, cold: int = 20) -> dict:
@@ -584,6 +592,23 @@ def _k16(dev, flush) -> dict:
             ("K17 with resize 8 slots", lambda: cuda_resize.normalize_resize(
                 batch, size)),
             ("K17 8 x 224", lambda: cuda_resize.normalize_resize(sized))):
+        t = _timed(fn, flush, 20, 10)
+        out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+    # the other methods over the 8 slots, and lanczos5's passes alone
+    for method, sz, x in [*((m, size, None) for m in RESIZE_METHODS
+                            if m != "bilinear"),
+                          ("lanczos5", (224, W), batch[:1]),
+                          ("lanczos5", (H, 224), batch[:1])]:
+        def fn(m=method, sz=sz, x=x):
+            return rs.resize_batch(slots, sz, m) if x is None else \
+                cuda_resize.resize_rgba(x, sz, m)
+        want = rs.resize_batch_plain(slots, sz, method) if x is None else \
+            rs.resize_rgba_plain(x, sz, method)
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"K16 by {method} to {sz} differs from its "
+                                 "plain version")
+        name = f"{method} 8 slots" if x is None else \
+            f"{method} pass {1 if sz[0] != H else 2} one slot"
         t = _timed(fn, flush, 20, 10)
         out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
     return out

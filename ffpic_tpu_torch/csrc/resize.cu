@@ -86,7 +86,16 @@
 // otherwise). The channel count is a compile-time constant for K16 on RGBA and
 // for K17, and a CTA keeps to 85 registers so that 3 fit an SM (PERF.md holds
 // the sweep of rows a CTA, loads in flight and registers these constants come
-// from).
+// from). Cubic and Lanczos take the same kernel with their wider tap tables.
+//
+// Nearest (resize_gather_kernel): every changed axis has one tap of weight 1
+// at start[j], so output (y, x) of a slot is its input pixel (start_v[y],
+// start_h[x]) byte for byte (the f64 sum of one product by 1 is the byte, and
+// rounding keeps it). A thread writes 16 bytes of the (N, h, w, C) output
+// with one store: four 32-bit pixel loads where every slot is 4-byte aligned
+// with four channels, else a byte load a channel. It reads only the kept
+// pixels (1.6 MB at config 5, in about 13 MB of 32-byte sectors, since kept
+// pixels sit about 34 bytes apart); no shared memory, no f64.
 
 #include <climits>
 #include <cstdint>
@@ -445,6 +454,87 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+// K16 by nearest: a thread writes the 16 output bytes from byte 16 x its
+// index of the (N, h, w, ch) output, each the byte of its slot's input pixel
+// (start_v[y], start_h[x]) (y or x itself where the axis keeps its size).
+// WORD: every slot has four channels and 4-byte aligned pixels, so the 16
+// bytes are four whole pixels, each one 32-bit load; else a byte load a
+// channel. The output is 16-byte aligned (launch), so the bytes are one store
+// but at the end of the output.
+__device__ __forceinline__ const uint8_t* kept_pixel(const Slots& slots,
+                                                     int k, int y, int x,
+                                                     int ch) {
+  const Slot& s = slots.s[k];
+  const int sy = s.v.start ? __ldg(s.v.start + y) : y;
+  const int sx = s.h.start ? __ldg(s.h.start + x) : x;
+  return s.src + (long long)sy * s.row + (long long)sx * ch;
+}
+
+template <bool WORD>
+__global__ void __launch_bounds__(kThreads)
+    resize_gather_kernel(const __grid_constant__ Slots slots, int n, int ch,
+                         uint8_t* __restrict__ out, int h, int w) {
+  const long long hw = (long long)h * w, total = hw * n * ch;
+  const long long o = ((long long)blockIdx.x * kThreads + threadIdx.x) * 16;
+  if (o >= total) return;
+  const int nb = (int)min(16LL, total - o);
+  int c, k, y, x;                                // the first byte's place
+  if (total <= 0xFFFFFFFFLL) {                   // 32-bit divisions
+    const unsigned o32 = (unsigned)o, p = o32 / ch, hw32 = (unsigned)hw;
+    c = (int)(o32 - p * ch);
+    k = (int)(p / hw32);
+    const unsigned rem = p - k * hw32;
+    y = (int)(rem / w);
+    x = (int)(rem - y * w);
+  } else {
+    const long long p = o / ch;
+    c = (int)(o - p * ch);
+    k = (int)(p / hw);
+    const long long rem = p - k * hw;
+    y = (int)(rem / w);
+    x = (int)(rem - (long long)y * w);
+  }
+  unsigned word[4] = {0u, 0u, 0u, 0u};
+  if (WORD) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (4 * i < nb)
+        word[i] = __ldg(reinterpret_cast<const unsigned*>(
+            kept_pixel(slots, k, y, x, 4)));
+      if (++x == w) {
+        x = 0;
+        if (++y == h) {
+          y = 0;
+          ++k;
+        }
+      }
+    }
+  } else {
+    const uint8_t* px = kept_pixel(slots, k, y, x, ch);
+    for (int i = 0; i < nb; ++i) {
+      word[i >> 2] |= (unsigned)__ldg(px + c) << (8 * (i & 3));
+      if (++c == ch) {
+        c = 0;
+        if (++x == w) {
+          x = 0;
+          if (++y == h) {
+            y = 0;
+            ++k;
+          }
+        }
+        if (i + 1 < nb) px = kept_pixel(slots, k, y, x, ch);
+      }
+    }
+  }
+  if (nb == 16) {
+    *reinterpret_cast<uint4*>(out + o) =
+        make_uint4(word[0], word[1], word[2], word[3]);
+  } else {
+    for (int i = 0; i < nb; ++i)
+      out[o + i] = (uint8_t)(word[i >> 2] >> (8 * (i & 3)));
+  }
+}
+
 constexpr size_t kMaxSmem = 232448;   // a CTA's most on sm_90, all dynamic
 
 // A CTA's dynamic shared memory at `rows` output rows: their weights over
@@ -476,10 +566,11 @@ int launch_rows(const Slots& p, int n, int cin, void* out, int h, int w,
 // still takes a launch. The weights take ROWS x vk doubles beside the
 // lines: 1,024 bytes at lanczos5's widest band from 1080 to 224 (53 input
 // rows, 64 once rounded to kBatch), against 61,440 bytes of lines at 1920
-// RGBA.
+// RGBA. *picked (where given): the rows a CTA that the launch took.
 template <bool NORM>
 int launch(const void* slots, int n, int cin, void* out, int h, int w,
-           int ch, int line_w, int vk, Norm nm, cudaStream_t st) {
+           int ch, int line_w, int vk, Norm nm, int* picked,
+           cudaStream_t st) {
   if (n <= 0 || n > kMaxSlots || h <= 0 || w <= 0 || ch <= 0 || ch > cin ||
       line_w < 0 || vk < 0)
     return (int)cudaErrorInvalidValue;
@@ -487,7 +578,9 @@ int launch(const void* slots, int n, int cin, void* out, int h, int w,
   Slots p;
   memcpy(p.s, slots, (size_t)n * sizeof(Slot));
   size_t smem = smem_bytes(kRows, vk, line_w, ch);
-  if (smem + 1024 <= kMaxSmem)
+  const bool two = smem + 1024 <= kMaxSmem;
+  if (picked) *picked = two ? kRows : 1;
+  if (two)
     return launch_rows<NORM, kRows>(p, n, cin, out, h, w, ch, vk, smem, nm,
                                     st);
   smem = smem_bytes(1, vk, line_w, ch);
@@ -495,16 +588,55 @@ int launch(const void* slots, int n, int cin, void* out, int h, int w,
   return launch_rows<NORM, 1>(p, n, cin, out, h, w, ch, vk, smem, nm, st);
 }
 
+// Four channels and every slot's pixels 4-byte aligned: 32-bit loads.
+bool word_slots(const Slots& p, int n, int cin) {
+  bool word = cin == 4;
+  for (int k = 0; word && k < n; ++k)
+    word = ((uintptr_t)p.s[k].src & 3) == 0 && (p.s[k].row & 3) == 0;
+  return word;
+}
+
+// *picked (where given): 1 where the launch took 32-bit loads, else 0.
+int launch_gather(const void* slots, int n, int ch, void* out, int h, int w,
+                  int* picked, cudaStream_t st) {
+  if (n <= 0 || n > kMaxSlots || h <= 0 || w <= 0 || ch <= 0 ||
+      ((uintptr_t)out & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  Slots p;
+  memcpy(p.s, slots, (size_t)n * sizeof(Slot));
+  const long long total = (long long)n * h * w * ch;
+  const long long blocks = (total + 16LL * kThreads - 1) / (16LL * kThreads);
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const bool word = word_slots(p, n, ch);
+  if (picked) *picked = word;
+  if (word)
+    resize_gather_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(
+        p, n, ch, static_cast<uint8_t*>(out), h, w);
+  else
+    resize_gather_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
+        p, n, ch, static_cast<uint8_t*>(out), h, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // slots: n <= 64 Slot descriptors (ops.cuda_resize) in host memory,
-// pixels of c uint8 channels; out: contiguous (n, h, w, c) uint8.
+// pixels of c uint8 channels; out: contiguous (n, h, w, c) uint8; rows:
+// set to the output rows a CTA that the launch took (resize<0,rows>).
 int ffpic_resize_rgba(const void* slots, int n, int c, void* out, int h,
-                      int w, int line_w, int vk, void* stream) {
-  return launch<false>(slots, n, c, out, h, w, c, line_w, vk, Norm{},
+                      int w, int line_w, int vk, int* rows, void* stream) {
+  return launch<false>(slots, n, c, out, h, w, c, line_w, vk, Norm{}, rows,
                        (cudaStream_t)stream);
+}
+
+// K16 by nearest: slots as above (their weights unread), pixels of c
+// uint8 channels; out: contiguous (n, h, w, c) uint8, 16-byte aligned;
+// word: set to 1 where the launch took 32-bit loads (resize_gather<word>).
+int ffpic_resize_nearest(const void* slots, int n, int c, void* out, int h,
+                         int w, int* word, void* stream) {
+  return launch_gather(slots, n, c, out, h, w, word, (cudaStream_t)stream);
 }
 
 // slots as above, pixels of cin >= 3 uint8 channels; out: contiguous
@@ -518,7 +650,7 @@ int ffpic_normalize_resize(const void* slots, int n, int cin, void* out,
     nm.mean[c] = mean[c];
     nm.std[c] = std[c];
   }
-  return launch<true>(slots, n, cin, out, h, w, 3, line_w, vk, nm,
+  return launch<true>(slots, n, cin, out, h, w, 3, line_w, vk, nm, nullptr,
                       (cudaStream_t)stream);
 }
 

@@ -18,6 +18,12 @@ of ``resize.cu``'s ``Slot``), passed by value as a kernel parameter, so
 images of other sizes and pitches share the launch and the output is
 written as one ``(N, h, w, C)`` tensor; a larger batch takes a launch
 for each ``MAX_SLOTS`` of its images.
+
+K16 by ``nearest`` (``ops.resize.kernel_of``) launches a gather of the
+kept pixels by the ``start`` tables (``ffpic_resize_nearest``), every
+other method the banded kernel it shares with K17 (``ffpic_resize_rgba``);
+both count as ``resize_rgba``, and ``instance`` names the kernel
+instance that K16's last launch took, as ptxas names it.
 """
 
 from __future__ import annotations
@@ -32,11 +38,14 @@ from ffpic_tpu_torch.ops import _build
 from ffpic_tpu_torch.ops.resize import MEAN, STD, kernel_of, taps
 
 launches = {"resize_rgba": 0, "normalize_resize": 0}
+instance = {"resize_rgba": None}
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
 _SIGNATURES = {
-    "ffpic_resize_rgba": [_vp, _int, _int, _vp, _int, _int, _int, _int],
+    "ffpic_resize_rgba": [_vp, _int, _int, _vp, _int, _int, _int, _int,
+                          _vp],
+    "ffpic_resize_nearest": [_vp, _int, _int, _vp, _int, _int, _vp],
     "ffpic_normalize_resize": [_vp, _int, _int, _vp, _int, _int, _int, _int,
                                _vp, _vp],
 }
@@ -145,17 +154,34 @@ def _checked(size):
 
 
 def _run(fn: str, counter: str, views: list, size, out: torch.Tensor,
-         method: str, *tail) -> None:
-    """``out`` (N, h, w, ...) from ``views``: a launch for each
-    ``MAX_SLOTS`` images."""
+         method: str, tail) -> None:
+    """``out`` (N, h, w, ...) from ``views``: a launch of ``fn`` for each
+    ``MAX_SLOTS`` images, its last arguments ``tail(line_w, vk)`` (the
+    part's extents, ``slot_words``)."""
     for k in range(0, len(views), MAX_SLOTS):
         part = views[k:k + MAX_SLOTS]
         # ``held`` keeps every tap table the words point at alive through
         # the launch; once it is enqueued, stream order makes reuse safe
         words, line_w, vk, held = slot_words(part, size, out.device, method)
         _launch(fn, counter, _vp(words.ctypes.data), len(part),
-                views[0].shape[-1], _vp(out[k].data_ptr()), *size, line_w,
-                vk, *tail)
+                views[0].shape[-1], _vp(out[k].data_ptr()), *size,
+                *tail(line_w, vk))
+
+
+def _resize(views: list, size, out: torch.Tensor, method: str) -> None:
+    """K16 over ``views`` into ``out``: the gather by ``nearest``, the
+    banded kernel by every other method (``instance`` names the one the
+    last launch took)."""
+    picked = ctypes.c_int()
+    at = _vp(ctypes.addressof(picked))
+    if kernel_of(method) == "nearest":
+        _run("ffpic_resize_nearest", "resize_rgba", views, size, out, method,
+             lambda line_w, vk: (at,))
+        instance["resize_rgba"] = f"resize_gather<{picked.value}>"
+    else:
+        _run("ffpic_resize_rgba", "resize_rgba", views, size, out, method,
+             lambda line_w, vk: (line_w, vk, at))
+        instance["resize_rgba"] = f"resize<0,{picked.value}>"
 
 
 def resize_batch(slots, size, method: str = "bilinear") -> torch.Tensor:
@@ -169,7 +195,7 @@ def resize_batch(slots, size, method: str = "bilinear") -> torch.Tensor:
         raise ValueError("resize_rgba: no slots")
     out = torch.empty((len(views), h, w, views[0].shape[-1]),
                       dtype=torch.uint8, device=views[0].device)
-    _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out, method)
+    _resize(views, (h, w), out, method)
     return out
 
 
@@ -188,8 +214,7 @@ def resize_rgba(img: torch.Tensor, size,
     out = torch.empty((len(views), h, w, c), dtype=torch.uint8,
                       device=img.device)
     if views and img.numel():
-        _run("ffpic_resize_rgba", "resize_rgba", views, (h, w), out,
-             method)
+        _resize(views, (h, w), out, method)
     return out.view(*lead, h, w, c)
 
 
@@ -212,5 +237,6 @@ def normalize_resize(batch: torch.Tensor, size=None, mean=MEAN,
                       device=batch.device)
     if views and batch.numel():
         _run("ffpic_normalize_resize", "normalize_resize", views, (h, w),
-             out, "bilinear", _vp(m.ctypes.data), _vp(s.ctypes.data))
+             out, "bilinear", lambda line_w, vk: (
+                 line_w, vk, _vp(m.ctypes.data), _vp(s.ctypes.data)))
     return out.view(*lead, h, w, 3)

@@ -304,6 +304,22 @@ def _resize_f32(x: torch.Tensor, size,
     return x.to(F32)
 
 
+def gather_nearest(img: torch.Tensor, size) -> torch.Tensor:
+    """The resize by ``nearest`` as a gather: every changed axis of
+    ``img`` (..., H, W, C) indexed by its taps' ``start`` table (one tap
+    of weight 1 an output), an axis that keeps its size left as it is.
+    The float64 sum of one product by 1 is the byte and rounding keeps
+    it, so this is the tap sum's result exactly, with no arithmetic: the
+    plain version of K16's gather kernel, which the entries run on the
+    CPU for ``nearest``."""
+    h, w = size
+    for dim, n_out in ((-3, h), (-2, w)):
+        if img.shape[dim] != n_out:
+            start = taps(img.shape[dim], n_out, img.device, "nearest")[0]
+            img = img.index_select(dim, start.long())
+    return img
+
+
 def resize_rgba_plain(img: torch.Tensor, size,
                       method: str = "bilinear") -> torch.Tensor:
     """K16's function: ``(..., H, W, C)`` uint8 -> ``(..., h, w, C)``
@@ -348,15 +364,22 @@ def normalize_plain(batch: torch.Tensor, size=None, mean=MEAN,
     return (x - mean) / std
 
 
+def _resize_cpu(img: torch.Tensor, size, method: str) -> torch.Tensor:
+    """K16 on the CPU: the plain version of the kernel ``method`` takes
+    on CUDA (``gather_nearest`` for ``nearest``, else the tap sum)."""
+    if kernel_of(method) == "nearest":
+        return gather_nearest(img, size)
+    return resize_rgba_plain(img, size, method)
+
+
 def resize_rgba(img: torch.Tensor, size,
                 method: str = "bilinear") -> torch.Tensor:
     """(..., H, W, C) uint8 -> (..., h, w, C) uint8 on the tensor's
     device: K16 on CUDA, the plain version on the CPU.  ``method`` is the
     reference's ``jax.image.resize`` method, any of ``METHODS``; another
     name raises ``ValueError``, as JAX does."""
-    kernel_of(method)
     if not _on_cuda(img):
-        return resize_rgba_plain(img, tuple(size), method)
+        return _resize_cpu(img, tuple(size), method)
     from ffpic_tpu_torch.ops import cuda_resize
     return cuda_resize.resize_rgba(img, tuple(size), method)
 
@@ -369,7 +392,8 @@ def resize_batch(slots, size, method: str = "bilinear") -> torch.Tensor:
     if not slots:
         raise ValueError("resize_batch: no slots")
     if not _on_cuda(slots[0]):
-        return resize_batch_plain(slots, tuple(size), method)
+        return torch.stack([_resize_cpu(s, tuple(size), method)
+                            for s in slots])
     from ffpic_tpu_torch.ops import cuda_resize
     return cuda_resize.resize_batch(slots, tuple(size), method)
 

@@ -22,6 +22,13 @@ config 5's widest slot.  Cubic and Lanczos weights have negative lobes,
 so K16 takes its pass-1 results into pass 2 by a conversion, exact for
 any f32; bilinear and nearest weights are never negative, which K17's
 integer widening of its (bilinear) pass-1 results relies on.
+
+K16 launches one of two kernels by method (``cuda_resize._resize``):
+nearest's gather, whose plain model ``ops.resize.gather_nearest`` (an
+``index_select`` by the ``start`` tables, which the entries run on the
+CPU for nearest) equals the tap sum and JAX on every
+``testing.resize_cases`` entry, and the banded kernel by every other
+method.
 """
 
 import os
@@ -35,6 +42,7 @@ import torch
 
 from ffpic_tpu.ops.resize import resize_batch_rgba as jax_resize_batch
 from ffpic_tpu.ops.resize import resize_rgba as jax_resize_rgba
+from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.ops import cuda_resize
 from ffpic_tpu_torch.ops import resize as rs
 from test_torch_resize import _read_slots
@@ -189,6 +197,80 @@ def test_shared_memory_holds_config5_bands(method):
             "lanczos5": 49}[method]
     assert abs(rs.taps(1080, 224, torch.device("cpu"), method)[2].shape[1]
                - taps) <= 1
+
+
+@pytest.mark.parametrize("n_in,n_out", [(1080, 224), (1920, 224), (33, 97),
+                                        (7, 11), (37, 1), (1, 5), (224, 1080),
+                                        (5, 5), (1, 1), (97, 61), (61, 97),
+                                        (3, 1000), (1000, 3)])
+def test_nearest_is_one_tap_of_weight_one(n_in, n_out):
+    """Every output of ``nearest`` has one tap (``count == 1``) of weight
+    1.0 at ``start``, shrinking, growing and at one pixel, so K16's
+    gather by ``start`` is the tap sum."""
+    start, count, wts = rs.taps(n_in, n_out, torch.device("cpu"), "nearest")
+    assert (count == 1).all() and wts.shape[1] == 1 and (wts == 1).all()
+    assert (start >= 0).all() and (start < n_in).all()
+
+
+@pytest.mark.parametrize("name", list(testing.resize_cases()))
+def test_gather_is_the_tap_sum_and_jax(name):
+    """``gather_nearest`` (the plain model of K16's gather, which the
+    entries run on the CPU for nearest) equals the float64 tap sum
+    (``resize_rgba_plain``) and the JAX package's ``resize_rgba(...,
+    "nearest")`` on every ``testing.resize_cases`` entry, 3 and 4
+    channels."""
+    img, size = testing.resize_cases()[name]
+    x = torch.from_numpy(img)
+    got = rs.gather_nearest(x, size)
+    assert torch.equal(got, rs.resize_rgba_plain(x, size, "nearest"))
+    assert torch.equal(rs.resize_rgba(x, size, "nearest"), got)
+    flat = img.reshape(-1, *img.shape[-3:])
+    want = np.stack([np.asarray(jax_resize_rgba(jnp.asarray(im), size,
+                                                "nearest")) for im in flat])
+    assert np.array_equal(got.numpy().reshape(want.shape), want)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_launch_takes_the_methods_kernel(method, monkeypatch):
+    """``cuda_resize._resize`` launches nearest's gather and the banded
+    kernel by every other method, once with ``slot_words``' descriptors,
+    counted as ``resize_rgba``, the instance's out-argument last; K17
+    stays on the banded kernel."""
+    import ctypes
+    calls = []
+
+    def launch(fn, counter, *a):
+        words = np.ctypeslib.as_array((ctypes.c_int64 * (a[1] * 10))
+                                      .from_address(a[0].value)).copy()
+        calls.append((fn, counter, a, words.reshape(a[1], 10)))
+    monkeypatch.setattr(cuda_resize, "_launch", launch)
+    rng = np.random.default_rng(3)
+    slots = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
+             for s in ((50, 70, 4), (31, 44, 4))]
+    size = (20, 24)
+    out = torch.empty((2, *size, 4), dtype=torch.uint8)
+    cuda_resize._resize(slots, size, out, method)
+    cuda_resize._run("ffpic_normalize_resize", "normalize_resize", slots,
+                     size, out, "bilinear",
+                     lambda line_w, vk: (line_w, vk, None, None))
+    (fn, counter, a, words), (fn17, counter17, a17, words17) = calls
+    assert counter == "resize_rgba" and counter17 == "normalize_resize"
+    assert fn17 == "ffpic_normalize_resize" and len(a17) == 10
+    cpu = torch.device("cpu")
+    plain_words, line_w, vk, _ = cuda_resize.slot_words(slots, size, cpu,
+                                                        method)
+    assert np.array_equal(words17, cuda_resize.slot_words(
+        slots, size, cpu, "bilinear")[0])
+    if rs.kernel_of(method) == "nearest":
+        assert fn == "ffpic_resize_nearest" and len(a) == 7
+        assert cuda_resize.instance["resize_rgba"] == "resize_gather<0>"
+    else:
+        assert fn == "ffpic_resize_rgba" and a[6:8] == (line_w, vk)
+        assert len(a) == 9
+        assert cuda_resize.instance["resize_rgba"] == "resize<0,0>"
+    assert np.array_equal(words, plain_words)
+    assert a[1:3] == (2, 4) and a[4:6] == size
+    assert isinstance(a[-1], ctypes.c_void_p)
 
 
 @pytest.mark.parametrize("method", ["bicubic", "lanczos3", "lanczos5"])
