@@ -289,8 +289,9 @@ def ptxas_report(text: str) -> dict:
     (bytes a pixel) or ``assemble_rgba<6,8>`` (colour type, bit
     depth), ``hevc_yuv_to_rgba<1>`` (mode), ``resize<0,2>`` (K16) and
     ``resize<1,2>`` (K17) at two output rows a CTA (``<.,1>`` at one),
-    ``resize_gather<1>`` (K16 by nearest, 32-bit loads); K9-K14 have no
-    template arguments."""
+    ``resize_gather<1>`` (K16 by nearest, 32-bit loads); K9-K15 and
+    ``resize_band`` (K16 by cubic and Lanczos) have no template
+    arguments."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -300,7 +301,7 @@ def ptxas_report(text: str) -> dict:
                           r"unfilter_subup|assemble_rgba|entropy_decode|"
                           r"spec_scan|spec_merge|vp8_residuals|"
                           r"vp8_yuv_to_rgba|hevc_residuals|"
-                          r"hevc_yuv_to_rgba|resize_gather|"
+                          r"hevc_yuv_to_rgba|resize_gather|resize_band|"
                           r"resize|vp8_wavefront)_kernel"
                           r"((?:L[ib]\d+E)*)",
                           m.group(1).replace("_kernelI", "_kernel"))
@@ -634,10 +635,11 @@ def time_entry(name: str, kern, plain, nbytes: int, ops: int, ops_type: str,
     L2-flushed ms, its plain version's and (where one exists) one
     PyTorch call's ms, its bound."""
     from ffpic_tpu_torch.utils.timing import (F32_OPS_PER_S, F64_OPS_PER_S,
+                                              F64_TC_OPS_PER_S,
                                               INT32_OPS_PER_S, bound, gpu_ms,
                                               gpu_ms_cold)
     rate = {"int32": INT32_OPS_PER_S, "f32": F32_OPS_PER_S,
-            "f64": F64_OPS_PER_S}[ops_type]
+            "f64": F64_OPS_PER_S, "f64_tc": F64_TC_OPS_PER_S}[ops_type]
     b_ms, b_by = bound(nbytes, ops, rate)
     t = {"ms": gpu_ms(kern, warm_iters),
          "ms_cold": gpu_ms_cold(kern, 20, flush),
@@ -2504,24 +2506,29 @@ def resize_methods(dev, slots, full, floor_ms: float, flush, errs: dict,
                    reset, counts) -> dict:
     """K16 by each of ``RESIZE_METHODS`` on ``testing.resize_cases`` and
     once over config 5's 8 slots (1920x1080 RGBA to 224 x 224), with
-    fresh counts: one launch each (nearest's gather, the banded kernel
-    by every other method; the instance its launcher took,
-    ``cuda_resize.instance``), bit-equal to its plain version (nearest
+    fresh counts: one launch each (nearest's gather, the band kernel by
+    cubic and Lanczos, the banded kernel by bilinear; the instance its
+    launcher took and its rows a CTA, ``cuda_resize.instance``),
+    bit-equal to its plain version (nearest
     too: the float64 tap sum, not the gather's model).  Then each timed
     (``time_entry``: warm and L2-flushed, the plain version, the bound
     from this run's taps, ``resize_bytes`` and ``tap_ops``, the same
     work whatever kernel runs it: ``nearest`` needs only the pixels it
-    keeps) beside one PyTorch call where there is one: for ``nearest``
-    the same function, ``full[:, rv[:, None], rh[None, :]]`` by the
-    ``start`` tables (one advanced-indexing call, max |delta| 0), with
-    ``F.interpolate`` ``nearest-exact`` beside it (its index rule is
-    not XLA's folded one); ``bicubic`` with ``antialias=True`` (its own
+    keeps; its operations at the rate of the unit that runs them, the
+    f64 tensor cores for ``resize_band``, with the FP64 pipe's share
+    beside it as ``share_f64_pipe``, else the FP64 pipe) beside one
+    PyTorch call where there is one: for ``nearest`` the same function,
+    ``full[:, rv[:, None], rh[None, :]]`` by the ``start`` tables (one
+    advanced-indexing call, max |delta| 0), with ``F.interpolate``
+    ``nearest-exact`` beside it (its index rule is not XLA's folded
+    one); ``bicubic`` with ``antialias=True`` (its own
     weights and order of sums), each with its max |delta| from the
     plain version.  Returns {method: timing entry with its launches}."""
     import torch
     import torch.nn.functional as F
     from ffpic_tpu_torch.ops import resize as rs
-    from ffpic_tpu_torch.utils.timing import gpu_ms, gpu_ms_cold
+    from ffpic_tpu_torch.utils.timing import (F64_OPS_PER_S, bound, gpu_ms,
+                                              gpu_ms_cold)
     size = CONFIG5_SIZE
     nchw = full.permute(0, 3, 1, 2).contiguous()
     rv, rh = (rs.taps(n, k, dev, "nearest")[0].long()
@@ -2561,15 +2568,25 @@ def resize_methods(dev, slots, full, floor_ms: float, flush, errs: dict,
         plain = rs.resize_batch_plain(slots, size, method)
         exact("resize_rgba", got, plain, errs)
         lib, lib_out = library.get(method, (None, None))
+        # resize_band's products run on the f64 tensor cores, the banded
+        # and gather kernels' on the FP64 pipe
+        ops_type = "f64_tc" if kernel == "resize_band" else "f64"
+        nbytes = resize_bytes(N, (H, W), size, 4, method)
+        ops = tap_ops(N, (H, W), size, 4, method)
         e = time_entry(
             "resize_rgba", lambda m=method: rs.resize_batch(slots, size, m),
             lambda m=method: rs.resize_batch_plain(slots, size, m),
-            resize_bytes(N, (H, W), size, 4, method),
-            tap_ops(N, (H, W), size, 4, method), "f64", floor_ms, flush,
+            nbytes, ops, ops_type, floor_ms, flush,
             f"config 5: {N} x {W}x{H} RGBA to 224 x 224, {method}",
             library=lib)
+        if ops_type == "f64_tc":
+            # the same work's share of the FP64 pipe's bound, for the
+            # comparison with the kernels that run there
+            e["share_f64_pipe"] = (bound(nbytes, ops, F64_OPS_PER_S)[0]
+                                   / e["ms"])
         e["launches"] = launched["resize_rgba"]
         e["kernel"] = kernel
+        e["rows_a_cta"] = cuda_resize.instance["rows"]
         e["taps_a_row_element"] = int(rs.taps(H, size[0], torch.device("cpu"),
                                               method)[2].shape[1])
         if lib is not None:
@@ -2671,12 +2688,37 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
     wide = torch.randint(0, 256, (6048, 8064, 4), dtype=torch.uint8,
                          device=dev, generator=g)
     strip = big[:, :1200].repeat(1, 10, 1)
-    # every method through each of K16's instances: two rows a CTA, and
-    # one row a CTA for the 8064 and 12000 wide slots
+    # 1 and 3 channels, and a 5000-row band to 2 rows (a CTA's band the
+    # whole image) at both
+    gray = [torch.randint(0, 256, (1080, 1920, 1), dtype=torch.uint8,
+                          device=dev, generator=g), big[:333, :517, :1]
+            .contiguous()]
+    rgb = [full[0, :, :, :3].contiguous(), big[3:202, 5:338, :3]]
+    tall = [torch.randint(0, 256, (5000, 300, c), dtype=torch.uint8,
+                          device=dev, generator=g) for c in (1, 3)]
+    launches = {"mixed": (mixed_slots, size), "sized30": (sized_slots, size),
+                "wide8064": ([full[0], wide], size),
+                "strip12000": ([strip], size), "c1": (gray, size),
+                "c3": (rgb, (97, 61)), "tall5000_c1": (tall[:1], (2, 40)),
+                "tall5000_c3": (tall[1:], (2, 40))}
+    # every method through each of K16's instances: bilinear's two rows a
+    # CTA, cubic and Lanczos's band rows a CTA, and one row a CTA for the
+    # 8064 and 12000 wide slots; the instance each launch took, as its
+    # launcher reported it
+    took = {}
     for method in RESIZE_METHODS:
-        for slots_ in (mixed_slots, sized_slots, [full[0], wide], [strip]):
-            exact("resize_rgba", rs.resize_batch(slots_, size, method),
-                  rs.resize_batch_plain(slots_, size, method), errs)
+        for name, (slots_, sz) in launches.items():
+            exact("resize_rgba", rs.resize_batch(slots_, sz, method),
+                  rs.resize_batch_plain(slots_, sz, method), errs)
+            inst = cuda_resize.instance
+            took[f"{method}:{name}"] = (f"{inst['resize_rgba']}x"
+                                        f"{inst['rows']}")
+            if rs.kernel_of(method) in cuda_resize.BAND_KERNELS:
+                want = "resize<0,1>" if name in ("wide8064", "strip12000") \
+                    else "resize_band"
+                if inst["resize_rgba"] != want:
+                    raise AssertionError(f"K16 {method} {name}: took "
+                                         f"{inst['resize_rgba']}, not {want}")
     exact("resize_rgba", rs.resize_batch(list(full), size),
           rs.resize_batch_plain(list(full), size), errs)
     for img in (wide, strip):
@@ -2702,10 +2744,12 @@ def config5_paths(dev, jpeg_batch, srcs, floor_ms: float, errs: dict):
         path_shapes=f"{N}x{W}x{H}->224 batch,crop,slot,unaligned; "
         f"one launch over the {N} slots, over 1080p,720x1280,crop,"
         "unaligned,crop of 720x1280, over 30 slots of distinct sizes, "
-        "over 1080p,8064x6048 and over 12000x1000 (K17 too), these four "
+        "over 1080p,8064x6048 and over 12000x1000 (K17 too), 1 and 3 "
+        "channels, a 5000-row band to 2 rows at 1 and 3 channels, these "
         f"by {','.join(RESIZE_METHODS)}; "
         f"{N}x224 norm; "
-        f"{N}x{W}x{H} jpeg norm+resize", plain_cpu_vs_card="exact")
+        f"{N}x{W}x{H} jpeg norm+resize", plain_cpu_vs_card="exact",
+        instances=",".join(f"{k}={v}" for k, v in took.items()))
 
     # --- the path: decode_batch(size=) -> normalize_for_model -> ViT-B/16 ---
     cfg, model, model_cpu = vit_pair(dev)
@@ -4078,7 +4122,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
-    from ffpic_tpu_torch import decode_batch, native, testing
+    from ffpic_tpu_torch import compare_kernels, decode_batch, native, testing
     from ffpic_tpu_torch.formats.jpg import packed_block_map
     from ffpic_tpu_torch.ops import _build, cuda_jpeg
     from ffpic_tpu_torch.ops import jpeg_kernels as jk
@@ -4098,19 +4142,31 @@ def main() -> int:
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
 
-    # nvcc (the CUDA kernels) and cc (the host decoder) side by side
+    # nvcc (the CUDA kernels, and the FP64 probe), and cc (the host
+    # decoder) side by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         host = ex.submit(native.available)
+        probe = ex.submit(compare_kernels.fp64_probe)
         so = _build.library_path()
         _build.load()
         host.result()
+        probe_lib, _ = probe.result()
     log("build", seconds=f"{time.perf_counter() - t0:.3f}",
         lib=os.path.basename(so), host_lib=os.path.basename(native._build()))
     with open(so[:-3] + ".log") as f:
         ptxas = ptxas_report(f.read())
     for name, info in ptxas.items():
         log("ptxas", kernel=name, **info)
+    # resize_band (K16 by cubic and Lanczos) is bit-exact only while
+    # mma.m16n8k16 .f64 rounds as the forward chain of FMAs over k, which
+    # the PTX manual does not promise: hold this card and driver to it
+    shares = compare_kernels.mma16_forward_shares(probe_lib, dev)
+    log("check fp64 mma chain", form="m16n8k16", tiles=1024,
+        **{k: f"{v:.6f}" for k, v in shares.items()})
+    if any(v != 1.0 for v in shares.values()):
+        raise AssertionError("mma.m16n8k16 .f64 does not round as the "
+                             f"forward chain of FMAs: {shares}")
 
     t0 = time.perf_counter()
     jpegs = [testing.synth_jpeg_420(H, W, 85, 1),

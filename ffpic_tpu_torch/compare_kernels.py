@@ -67,8 +67,10 @@ default):
   slots (the JPEG chain's call) and without one on the 8 x 224 x 224
   batch (config 5's call); the 8 slots by every other method of
   ``RESIZE_METHODS`` (``resize_batch(..., method)``, one launch each,
-  against its plain version), and lanczos5's passes alone; each warm
-  and L2 flushed;
+  against its plain version: cubic and Lanczos on the band kernel in
+  trees that have it), one slot to 224 x 224 by cubic and Lanczos
+  (``resize_rgba`` of one image), and lanczos5's passes alone; each
+  warm and L2 flushed;
 * ``k15``: ``heif.color`` of the 12 MP fixture under
   ``FFPIC_HEIF_DEVICE_COLOR`` on its staged tiles as ``heif.to_pics``
   runs it (``hevc_kernels.hevc_tiles_to_rgba``, one launch that also
@@ -93,6 +95,15 @@ default):
   the plain route), K4 (fancy) on a 4000 x 3000 4:2:2 layout and K5 on
   the batch's blocks, warm and L2 flushed.
 
+* ``fp64``: the probes of ``probes/fp64_rates.cu`` (this file's tree,
+  built alone; the same whatever ``--tree``): instructions a clock an SM
+  of DFMA (normal and subnormal operands) and of f32 <-> f64
+  conversions, FMAs a clock an SM of mma.m16n8k16 with f64, and the
+  share of its results equal to the forward and reverse chain of
+  ``__fma_rn`` over k and to the exactly rounded sum, on integer,
+  random, tie-breaking, byte-times-weight and subnormal tiles
+  (``chip_smoke.py`` holds the forward shares at 1.0).
+
 ``k16`` and ``k15`` need both trees to have those one-launch entries.
 
 Each run prints one ``RESULT`` JSON line; the rounds end with a table of
@@ -114,18 +125,19 @@ import time
 H, W = 1080, 1920
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = ("k7", "k14", "k18", "entropy", "vp8", "k13", "k16", "k15", "k6",
-          "k8", "jpeg")
+          "k8", "jpeg", "fp64")
 KERNELS = {"k7": ("assemble_rgba",), "k14": ("hevc_residuals",),
            "k18": ("vp8_wavefront",),
            "entropy": ("entropy_decode", "spec_scan", "spec_merge"),
            "vp8": ("vp8_residuals", "vp8_yuv_to_rgba"),
            "k13": ("vp8_yuv_to_rgba",),
-           "k16": ("resize", "resize_gather"),
+           "k16": ("resize", "resize_gather", "resize_band"),
            "k15": ("hevc_yuv_to_rgba",),
            "k6": ("unfilter_rows", "unfilter_cols", "unfilter_subup"),
            "k8": ("scatter_plane", "scatter_planes"),
            "jpeg": ("count_scan", "unpack", "dequant_idct", "assemble_color",
-                    "assemble_mcu", "fdct")}
+                    "assemble_mcu", "fdct"),
+           "fp64": ()}
 
 
 # jax.image.resize's methods (one name each), which K16 takes
@@ -594,23 +606,204 @@ def _k16(dev, flush) -> dict:
             ("K17 8 x 224", lambda: cuda_resize.normalize_resize(sized))):
         t = _timed(fn, flush, 20, 10)
         out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
-    # the other methods over the 8 slots, and lanczos5's passes alone
-    for method, sz, x in [*((m, size, None) for m in RESIZE_METHODS
-                            if m != "bilinear"),
-                          ("lanczos5", (224, W), batch[:1]),
-                          ("lanczos5", (H, 224), batch[:1])]:
+    # the other methods over the 8 slots, cubic and Lanczos on one slot
+    # (resize_rgba's single image), and lanczos5's passes alone
+    cases = [*((f"{m} 8 slots", m, size, None) for m in RESIZE_METHODS
+               if m != "bilinear"),
+             *((f"{m} one slot", m, size, slots[0])
+               for m in ("bicubic", "lanczos3", "lanczos5")),
+             ("lanczos5 pass 1 one slot", "lanczos5", (224, W), batch[:1]),
+             ("lanczos5 pass 2 one slot", "lanczos5", (H, 224), batch[:1])]
+    for name, method, sz, x in cases:
         def fn(m=method, sz=sz, x=x):
             return rs.resize_batch(slots, sz, m) if x is None else \
                 cuda_resize.resize_rgba(x, sz, m)
         want = rs.resize_batch_plain(slots, sz, method) if x is None else \
             rs.resize_rgba_plain(x, sz, method)
         if not torch.equal(fn(), want):
-            raise AssertionError(f"K16 by {method} to {sz} differs from its "
-                                 "plain version")
-        name = f"{method} 8 slots" if x is None else \
-            f"{method} pass {1 if sz[0] != H else 2} one slot"
+            raise AssertionError(f"K16 {name} differs from its plain "
+                                 "version")
         t = _timed(fn, flush, 20, 10)
         out[f"{name} ms"], out[f"{name} ms_cold"] = t["ms"], t["ms_cold"]
+    return out
+
+
+# probes/fp64_rates.cu's rate modes: (mode, name, instructions an
+# iteration, b)
+FP64_MODES = ((0, "dfma", 8, 0.9999999),
+              (1, "dfma subnormal", 8, 0.3 * 2.0 ** 946),
+              (2, "cvt f32 to f64", 8, 0.0),
+              (3, "cvt f64 to f32", 8, 0.9999999))
+# the tiles on which mma.m16n8k16 .f64 is held against the chain of FMAs
+MMA_KINDS = ("ints", "random", "ties", "bytes", "subnormal")
+
+
+def _mma16_tiles(rng, tiles: int, kind: str):
+    """A (16 x 16), B (16 x 8, a column after another) and C (16 x 8) of
+    ``tiles`` m16n8k16 products: ``ints`` small integers (exact in every
+    order: checks the fragment layout), ``random`` full significands
+    over 2^-30..2^30 with random signs (cancellation), ``ties`` C = 1 +
+    m 2^-52 with a product of 2^-53 (half an ulp of C), one of +-2^-85
+    and one of +-2^-100, so one rounding of the exact sum and a chain of
+    FMAs round apart, ``bytes``: bytes times f32 weights of either sign
+    added to f32 values, and ``subnormal``: the same as K16's pass 1
+    takes them, the bytes as subnormals v x 2^-1074, the weights times
+    2^946, the sums times 2^-128."""
+    import numpy as np
+    if kind == "ints":
+        return (rng.integers(-8, 9, (tiles, 256)).astype(np.float64),
+                rng.integers(-8, 9, (tiles, 128)).astype(np.float64),
+                rng.integers(-64, 65, (tiles, 128)).astype(np.float64))
+    if kind == "random":
+        def rand(shape):
+            return (rng.uniform(1, 2, shape) * rng.choice([-1.0, 1.0], shape)
+                    * 2.0 ** rng.integers(-30, 31, shape))
+        return rand((tiles, 256)), rand((tiles, 128)), rand((tiles, 128))
+    if kind in ("bytes", "subnormal"):
+        a = rng.integers(0, 256, (tiles, 256)).astype(np.float64)
+        b = (rng.standard_normal((tiles, 128)) * 0.1).astype(np.float32) \
+            .astype(np.float64)
+        c = (rng.standard_normal((tiles, 128)) * 100).astype(np.float32) \
+            .astype(np.float64)
+        if kind == "subnormal":             # K16's pass 1: bytes as
+            a, b, c = a * 2.0 ** -1074, b * 2.0 ** 946, c * 2.0 ** -128
+        return a, b, c
+    a = np.zeros((tiles, 16, 16))
+    b = np.zeros((tiles, 8, 16))
+    a[:, :, 0], b[:, :, 0] = 2.0 ** -27, 2.0 ** -26
+    a[:, :, 1] = rng.choice([-1.0, 1.0], (tiles, 16)) * 2.0 ** -40
+    b[:, :, 1] = 2.0 ** -45
+    a[:, :, 9] = rng.choice([-1.0, 1.0], (tiles, 16)) * 2.0 ** -60
+    b[:, :, 9] = 2.0 ** -40
+    c = 1.0 + rng.integers(0, 4, (tiles, 128)) * 2.0 ** -52
+    return a.reshape(tiles, 256), b.reshape(tiles, 128), c
+
+
+def fp64_probe():
+    """``probes/fp64_rates.cu`` of this file's tree, built alone into
+    ``build/probes`` and loaded: (the library, the compiler's output)."""
+    import ctypes
+    from ffpic_tpu_torch.ops import _build
+    cu = os.path.join(HERE, "ffpic_tpu_torch", "probes", "fp64_rates.cu")
+    where = os.path.join(_build.BUILD, "probes")
+    os.makedirs(where, exist_ok=True)
+    so = os.path.join(where, "fp64_rates.so")
+    log = _build.compile_library([cu], so)
+    lib = ctypes.CDLL(so)
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib.ffpic_probe_rates.argtypes = [i, i, i, i, d, d, ctypes.c_float, vp,
+                                      vp, vp]
+    lib.ffpic_probe_mma_rate.argtypes = [i, i, vp, vp, vp]
+    lib.ffpic_probe_mma16.argtypes = [vp] * 6 + [i, vp]
+    return lib, log
+
+
+def mma16_run(lib, dev, kind: str, rng, tiles: int = 1024) -> tuple:
+    """``tiles`` of ``_mma16_tiles``' ``kind`` through the probe's
+    mma.m16n8k16 .f64 on the card: (A, B, C as numpy, and the mma's
+    results, the forward and the reverse chain of ``__fma_rn`` over k,
+    each (tiles, 16, 8))."""
+    import torch
+    a, b, c = _mma16_tiles(rng, tiles, kind)
+    ta, tb, tc = (torch.from_numpy(x).to(dev) for x in (a, b, c))
+    got = [torch.empty(tiles * 128, dtype=torch.float64, device=dev)
+           for _ in range(3)]
+    rc = lib.ffpic_probe_mma16(
+        ta.data_ptr(), tb.data_ptr(), tc.data_ptr(),
+        *(g.data_ptr() for g in got), tiles,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    if rc:
+        raise RuntimeError(f"mma probe: error {rc}")
+    return (a, b, c, *(g.cpu().numpy().reshape(tiles, 16, 8) for g in got))
+
+
+def mma16_forward_shares(lib, dev, seed: int = 25) -> dict:
+    """{kind: share of mma.m16n8k16 .f64 results equal to the forward
+    chain of FMAs} over every ``MMA_KINDS`` (K16's ``resize_band`` is
+    bit-exact only where each is 1.0)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {}
+    for kind in MMA_KINDS:
+        *_, mma, fwd, _rev = mma16_run(lib, dev, kind, rng)
+        out[kind] = float((mma == fwd).mean())
+    return out
+
+
+def _fp64(dev, flush) -> dict:
+    """``fp64_probe``: each rate mode's instructions a clock an SM (one
+    CTA of 1,024 threads an SM, clock64 cycles of the slowest CTA, the
+    best of 3), mma.m16n8k16 .f64's FMAs a clock an SM, and the share of
+    its results equal to the forward and the reverse chain of FMAs and
+    to the exactly rounded sum (from fractions on the host), on
+    ``_mma16_tiles`` of each of ``MMA_KINDS``."""
+    from fractions import Fraction
+    import numpy as np
+    import torch
+    lib, log = fp64_probe()
+    for ln in log.splitlines():
+        if "registers" in ln or "Compiling" in ln or "spill" in ln:
+            print(f"[fp64 ptxas] {ln.strip()}", file=sys.stderr)
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    threads, iters = 1024, 2048
+    cycles = torch.zeros(sms, dtype=torch.int64, device=dev)
+    sink = torch.empty(sms * threads, dtype=torch.float64, device=dev)
+    out = {}
+    for mode, name, n_ops, b in FP64_MODES:
+        best = None
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = lib.ffpic_probe_rates(mode, iters, sms, threads, 1e-3, b,
+                                       0.9999999, cycles.data_ptr(),
+                                       sink.data_ptr(), stream)
+            end.record()
+            torch.cuda.synchronize()
+            if rc:
+                raise RuntimeError(f"fp64 probe mode {mode}: error {rc}")
+            c = int(cycles.max())
+            if best is None or c < best[0]:
+                best = (c, start.elapsed_time(end))
+        out[f"{name} a clock an SM"] = threads * iters * n_ops / best[0]
+        # the SM clock over the launch (an upper bound on the time, so a
+        # lower bound on the clock)
+        out[f"{name} clock GHz"] = best[0] / best[1] / 1e6
+    mma_sink = torch.empty(sms * 256, dtype=torch.float64, device=dev)
+    best = None
+    for _ in range(3):
+        rc = lib.ffpic_probe_mma_rate(iters // 2, sms, cycles.data_ptr(),
+                                      mma_sink.data_ptr(), stream)
+        torch.cuda.synchronize()
+        if rc:
+            raise RuntimeError(f"mma rate probe: error {rc}")
+        c = int(cycles.max())
+        best = c if best is None else min(best, c)
+    # 8 warps a CTA, each iters // 2 steps of 8 products of 2048 FMA
+    out["mma m16n8k16 fma a clock an SM"] = 8 * (iters // 2) * 8 * 2048 / \
+        best
+    rng = np.random.default_rng(25)
+    for kind in MMA_KINDS:
+        a, b, c, mma, fwd, rev = mma16_run(lib, dev, kind, rng)
+        out[f"mma16 {kind} equal forward chain share"] = float(
+            (mma == fwd).mean())
+        out[f"mma16 {kind} equal reverse chain share"] = float(
+            (mma == rev).mean())
+        tiles = len(a)
+        a3, b3 = a.reshape(tiles, 16, 16), b.reshape(tiles, 8, 16)
+        c3 = c.reshape(tiles, 16, 8)
+        hits = total = 0
+        for t in range(0, tiles, 32):
+            for r in range(16):
+                for j in range(8):
+                    exact = Fraction(float(c3[t, r, j])) + sum(
+                        Fraction(float(a3[t, r, k])) *
+                        Fraction(float(b3[t, j, k])) for k in range(16))
+                    hits += float(exact) == float(mma[t, r, j])
+                    total += 1
+        out[f"mma16 {kind} equal exact rounding share"] = hits / total
     return out
 
 
@@ -907,7 +1100,7 @@ def run(tree: str, groups) -> dict:
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
     run_group = {"k7": _k7, "k14": _k14, "k18": _k18, "entropy": _entropy,
                  "vp8": _vp8, "k13": _k13, "k16": _k16, "k15": _k15,
-                 "k6": _k6, "k8": _k8, "jpeg": _jpeg}
+                 "k6": _k6, "k8": _k8, "jpeg": _jpeg, "fp64": _fp64}
     return {"tree": os.path.abspath(tree), "build_s": build_s,
             "ptxas": ptxas,
             "groups": {g: run_group[g](dev, flush) for g in groups}}

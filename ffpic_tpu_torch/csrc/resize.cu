@@ -86,7 +86,45 @@
 // otherwise). The channel count is a compile-time constant for K16 on RGBA and
 // for K17, and a CTA keeps to 85 registers so that 3 fit an SM (PERF.md holds
 // the sweep of rows a CTA, loads in flight and registers these constants come
-// from). Cubic and Lanczos take the same kernel with their wider tap tables.
+// from). Bilinear K16 and K17 take this kernel; cubic and Lanczos take it only
+// where two rows' lines of the band kernel below do not fit.
+//
+// Cubic and Lanczos (resize_band_kernel). Their taps are 2 to 5 times
+// bilinear's (20, 29 and 49 a row element at 1080 -> 224, 35, 52 and 86 a
+// column element): 0.64, 0.96 and 1.58 G f64 operations at config 5, 0.019,
+// 0.029 and 0.047 ms on the FP64 pipe (33.45 T op/s), 0.010, 0.014 and 0.024
+// ms on the FP64 tensor cores this kernel runs them on (66.9 T), beside 0.020
+// ms of bytes: bytes bound cubic and lanczos3 there, operations lanczos5.
+// The banded kernel spent about twice the instructions the sums need on
+// them (a band rounded to 16 rows widened and FMA'd whole into both rows, a
+// conversion a tap and pixel in pass 2). This kernel runs both passes on the
+// FP64 tensor cores: mma.m16n8k16 does 128 FMAs a clock an SM, twice the FP64
+// pipe, with no instruction a multiply-add (python3 -m
+// ffpic_tpu_torch.compare_kernels --kernels fp64). On Hopper each element of
+// a product is the chain of FMAs over k in ascending order, one rounding a
+// step: the probe holds it bit for bit against __fma_rn chains on integer,
+// random, tie-breaking, byte-times-weight and subnormal tiles, and
+// chip_smoke.py fails on a card or driver where it does not. So, with the
+// weights 0 outside each output's run (those FMAs cost tensor-core time, not
+// instructions), each sum is the plain version's.
+// - Pass 1: a CTA takes up to kBandRows output rows (a product's 8 columns; 7
+//   fit shared memory at 1920 RGBA), its band in steps of kStep = 16 input
+//   rows (a product's k), a warp 64 bytes of a row (A's rows, every channel
+//   alike). Each input byte is loaded once a CTA and widened once, to a
+//   subnormal by its bits (byte_subnormal: no f64 instruction).
+// - Each row's line holds the full width in shared memory as f32 (no column
+//   is computed twice): 215 KB for 7 rows at 1920 RGBA, one CTA an SM, 256
+//   CTAs at config 5 (1.94 waves of 132). Fewer rows a CTA where the launch
+//   is small, so that its CTAs spread over the SMs, and where the lines are
+//   wider; where two rows do not fit (RGBA about 7,200 pixels wide or wider)
+//   the launch takes resize<0,1> (launch_band).
+// - Pass 2: a warp a group of kGroup output columns (a product's 8 columns)
+//   for all the CTA's (row, channel) pairs (A's rows), the group's window in
+//   steps of 16 (k): each line value loaded and converted to double once a
+//   group, each f32 weight (a per-group table in the products' order,
+//   cuda_resize.group_taps) loaded and converted once a warp.
+// PERF.md, section 6, has the sweep of rows and threads a CTA
+// (python3 -m ffpic_tpu_torch.tune_resize) and what bounds each pass.
 //
 // Nearest (resize_gather_kernel): every changed axis has one tap of weight 1
 // at start[j], so output (y, x) of a slot is its input pixel (start_v[y],
@@ -454,6 +492,336 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+// K16 by cubic and Lanczos (resize_band_kernel; the header says why).
+// (python3 -m ffpic_tpu_torch.tune_resize sweeps these constants)
+constexpr int kBandThreads = 512;     // 16 warps, 128 registers
+constexpr int kBandRows = 7;          // the most output rows a CTA
+constexpr int kBandSpans = 16;        // entries of the host's band table
+constexpr int kStep = 16;             // pass 1: input rows a product (its k)
+constexpr int kPrefetch = 2;          // pass 1: steps ahead into L2
+constexpr int kGroup = 8;             // pass 2: output columns a product
+static_assert(kBandRows <= 8, "a CTA's rows are a product's 8 columns");
+
+// d += a b on a warp's fragments of mma.m16n8k16 with f64 (lane l, g = l /
+// 4, q = l % 4): a_v = A(g + 8 (v % 2), q + 4 (v / 2)) of A (16 x 16), b_v =
+// B(q + 4 v, g) of B (16 x 8), d_v = D(g + 8 (v / 2), 2 q + v % 2) of D (16 x
+// 8). On Hopper each element of D is the chain of FMAs d + a_0 b_0 + ... +
+// a_15 b_15 over k ascending, each step rounded: compare_kernels' fp64 probe
+// holds it against __fma_rn chains on integer, random, tie-breaking and
+// byte-times-weight tiles.
+__device__ __forceinline__ void mma16(double (&d)[4], const double (&a)[8],
+                                      const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// Byte c of the word v as the subnormal double v x 2^-1074, from its bits:
+// no f64 instruction. Pass 1's weights are staged times kWideScale = 2^946,
+// so each product is the byte's product by its weight times 2^-128, exactly
+// (8 + 24 bits), and every partial sum is the plain version's times 2^-128:
+// a nonzero one is a multiple of 2^-149 (an f32 weight's least bit) before
+// scaling, so it stays far above the subnormal range, where rounding commutes
+// with a power of two; the sum times kUnscale is the plain version's sum.
+// The products take subnormal operands whole (compare_kernels' fp64 probe,
+// the subnormal tiles).
+constexpr double kWideScale = 0x1p946;
+constexpr double kUnscale = 0x1p128;
+
+__device__ __forceinline__ double byte_subnormal(unsigned v, int c) {
+  return __hiloint2double(0, (int)__byte_perm(v, 0, 0x4440 + c));
+}
+
+// The 8 bytes from byte b of an input row p of nb bytes: one 8-byte load
+// where the slot's rows start 8-byte aligned and nb is a multiple of 8
+// (WIDE), else a byte load a byte; bytes past nb read 0.
+template <bool WIDE>
+__device__ __forceinline__ uint2 load8(const uint8_t* p, int b, int nb) {
+  if (WIDE)
+    return b < nb ? __ldg(reinterpret_cast<const uint2*>(p + b))
+                  : make_uint2(0u, 0u);
+  unsigned v[2] = {0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (b + i < nb) v[i >> 2] |= (unsigned)__ldg(p + b + i) << (8 * (i & 3));
+  return make_uint2(v[0], v[1]);
+}
+
+// Pass 1 of a band CTA whose slot changes its height, on the tensor cores:
+// its output rows over the nb = W x C bytes of an input row (every channel
+// alike), a warp 64 bytes at a time, as kTiles = 4 products of 16 bytes (A's
+// rows) by 16 input rows (k) by 8 output rows (B's columns). Lane (g, q)
+// loads its 8 bytes at 8 g of input rows q + 4 i of each step of kStep band
+// rows once (a step ahead of the products, kPrefetch steps ahead into L2),
+// widens each byte once (byte_subnormal), and takes output row g's staged
+// weights (times kWideScale) of those input rows (0 outside the row's run,
+// and for rows past the CTA's). Each output's sum runs over its band's
+// inputs in ascending order from 0, one rounding a step, as the plain
+// version's does (the zero weights add nothing), and is rounded to f32 once.
+// Byte 8 g + 2 t + h of a warp's 64 is row g + 8 h of product t. Rows go to
+// the line (pitch floats a row, byte i of the input row at float i) where W
+// changes, else to the output as bytes.
+template <bool WIDE>
+__device__ __forceinline__ void band_pass1(const Slot& s, uint8_t* out,
+                                           long long out_row,
+                                           long long out_pitch, int rows,
+                                           int nb, const double* wt, int lo,
+                                           int span, float* line, int pitch) {
+  constexpr int kTiles = 4, kBytes = 16 * kTiles;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const int last = s.v.n - 1, steps = span / kStep;
+  const bool horiz = s.h.start != nullptr;
+  for (int tile = threadIdx.x >> 5; tile < (nb + kBytes - 1) / kBytes;
+       tile += kBandThreads / 32) {
+    const int b = tile * kBytes + g * 2 * kTiles;
+    double d[kTiles][4] = {};
+    uint2 nxt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      nxt[i] = load8<WIDE>(
+          s.src + (long long)min(lo + q + 4 * i, last) * s.row, b, nb);
+    for (int st = 0; st < steps; ++st) {
+      // rows kPrefetch steps ahead into L2 (a 64-byte piece each, a lane a
+      // row), so that the loads a step ahead find them there
+      if (lane < kStep && st + kPrefetch < steps)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(
+            s.src + (long long)min(lo + (st + kPrefetch) * kStep + lane,
+                                   last) * s.row + tile * kBytes));
+      uint2 cur[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cur[i] = nxt[i];
+      if (st + 1 < steps) {
+        const int i0 = lo + (st + 1) * kStep + q;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          nxt[i] = load8<WIDE>(
+              s.src + (long long)min(i0 + 4 * i, last) * s.row, b, nb);
+      }
+      // the step's weights are staged so that lane q's four, of input rows
+      // q + 4 i, are contiguous
+      double bw[4] = {0.0, 0.0, 0.0, 0.0};
+      if (g < rows) {
+        const double2* wp = reinterpret_cast<const double2*>(
+            wt + g * span + st * kStep + q * 4);
+        const double2 x = wp[0], y = wp[1];
+        bw[0] = x.x;
+        bw[1] = x.y;
+        bw[2] = y.x;
+        bw[3] = y.y;
+      }
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        double av[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) {
+          const int byte = 2 * t + (v & 1);
+          av[v] = byte_subnormal(byte < 4 ? cur[v >> 1].x : cur[v >> 1].y,
+                                 byte & 3);
+        }
+        mma16(d[t], av, bw);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * q + e;
+      if (r >= rows) continue;
+      float f[2 * kTiles];
+#pragma unroll
+      for (int j = 0; j < 2 * kTiles; ++j)
+        f[j] = __double2float_rn(
+            __dmul_rn(d[j >> 1][2 * (j & 1) + e], kUnscale));
+      if (horiz && b + 2 * kTiles <= nb) {
+        float4* lp = reinterpret_cast<float4*>(line + r * pitch + b);
+        lp[0] = make_float4(f[0], f[1], f[2], f[3]);
+        lp[1] = make_float4(f[4], f[5], f[6], f[7]);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * kTiles; ++j) {
+        if (b + j >= nb) break;
+        if (horiz)
+          line[r * pitch + b + j] = f[j];
+        else
+          store<false>(out, out_row + r * out_pitch + b + j, 0, f[j], Norm{});
+      }
+    }
+  }
+}
+
+// Pass 1 of a band CTA whose slot keeps its height: its rows' bytes, to the
+// line as floats where W changes, else to the output as they are.
+__device__ __forceinline__ void band_copy(const Slot& s, uint8_t* out,
+                                          long long out_row,
+                                          long long out_pitch, int y0,
+                                          int rows, int nb, float* line,
+                                          int pitch) {
+  for (int i = threadIdx.x; i < rows * nb; i += kBandThreads) {
+    const int r = i / nb, b = i - r * nb;
+    const uint8_t v = __ldg(s.src + (long long)(y0 + r) * s.row + b);
+    if (s.h.start)
+      line[r * pitch + b] = (float)v;
+    else
+      out[out_row + r * out_pitch + b] = v;
+  }
+}
+
+// Pass 2's table for one slot: output columns in groups of kGroup (a
+// product's n), group g reading 16 steps input columns from start[g] (the
+// union of its columns' runs, moved left where it would pass the image's
+// last column, read clamped to it where the image is narrower than that),
+// its f32 weights in the order a product's B takes them: w[((g * steps + s)
+// * 32 + l) * 4 + v] is the weight of column g * kGroup + l / 4 for input
+// start[g] + 16 s + l % 4 + 4 v, 0 outside that column's run. 24 bytes, as
+// ops.cuda_resize lays it out.
+struct Group {
+  const int* start;
+  const float* w;
+  long long steps;
+};
+
+struct Groups {
+  Group g[kMaxSlots];
+};
+
+// Pass 2 of a band CTA, on the tensor cores: a warp a group of kGroup output
+// columns for every (row, channel) pair of the CTA, as products of 16 pairs
+// (A's rows, two products an item) by 16 steps of the group's window (k) by
+// the group's columns (B's). Lane (g, q) loads line values of its pairs g +
+// 8 h at window steps q + 4 i and converts each to double once, and its four
+// f32 weights of each step (B, one step ahead) once; each output's sum runs
+// over the window in ascending order from 0, one rounding a step (the zero
+// weights add nothing), then to f32, rounded half to even and clipped.
+__device__ __forceinline__ void band_pass2(const Group& g, uint8_t* out,
+                                           long long out_row, int w, int rows,
+                                           int ch, int W, const float* line,
+                                           int pitch) {
+  const int lane = threadIdx.x & 31, gl = lane >> 2, q = lane & 3;
+  const int steps = (int)g.steps, pairs = rows * ch;
+  const int halves = (pairs + 31) / 32;          // items a group
+  const long long out_pitch = (long long)w * ch;
+  const int items = (w + kGroup - 1) / kGroup * halves;
+  for (int item = threadIdx.x >> 5; item < items; item += kBandThreads / 32) {
+    const int gi = item / halves, m0 = (item - gi * halves) * 32;
+    const int first = __ldg(g.start + gi);
+    const bool two = m0 + 16 < pairs;            // the item's second product
+    int off[2][2];                               // line offsets of A's rows
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = min(m0 + 16 * t + gl + 8 * h, pairs - 1);
+        const int r = m / ch;
+        off[t][h] = r * pitch + m - r * ch;
+      }
+    const float4* wp = reinterpret_cast<const float4*>(g.w) +
+                       (long long)gi * steps * 32 + lane;
+    double d[2][4] = {};
+    float4 nxt = __ldg(wp);
+    for (int s = 0; s < steps; ++s) {
+      const float4 bf = nxt;
+      if (s + 1 < steps) nxt = __ldg(wp + (s + 1) * 32);
+      const double b[4] = {(double)bf.x, (double)bf.y, (double)bf.z,
+                           (double)bf.w};
+      int at[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        at[i] = min(first + s * kStep + q + 4 * i, W - 1) * ch;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        if (t && !two) break;
+        double a[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v)
+          a[v] = (double)line[off[t][v & 1] + at[v >> 1]];
+        mma16(d[t], a, b);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int m = m0 + 16 * t + gl + 8 * (v >> 1);
+        const int j = gi * kGroup + 2 * q + (v & 1);
+        if (m >= pairs || j >= w) continue;
+        const int r = m / ch;
+        store<false>(out, out_row + r * out_pitch + (long long)j * ch + m -
+                              r * ch,
+                     0, __double2float_rn(d[t][v]), Norm{});
+      }
+  }
+}
+
+// Grid (ceil(h / rows_cta), N): output rows rows_cta * blockIdx.x on of slot
+// blockIdx.y, rows_cta <= kBandRows (launch_band). Dynamic shared memory:
+// rows_cta x vk doubles (vk, a multiple of kStep, the most input rows the
+// runs of rows_cta output rows of a slot span, rounded up) for the rows'
+// weights, then rows_cta lines of pitch floats (a multiple of 4 past the
+// widest changing W x ch, so rows start 16 bytes apart round the banks).
+__global__ void __launch_bounds__(kBandThreads, 1)
+    resize_band_kernel(const __grid_constant__ Slots slots,
+                       const __grid_constant__ Groups groups,
+                       uint8_t* __restrict__ out, int h, int w, int ch,
+                       int rows_cta, int vk, int pitch) {
+  extern __shared__ float4 smem4[];              // 16-byte aligned
+  double* wt = reinterpret_cast<double*>(smem4);
+  float* line = reinterpret_cast<float*>(wt + rows_cta * vk);
+  const Slot& s = slots.s[blockIdx.y];
+  const int y0 = blockIdx.x * rows_cta, rows = min(rows_cta, h - y0);
+  const int nb = s.h.n * ch;
+  const long long out_pitch = (long long)w * ch;
+  const long long out_row = ((long long)blockIdx.y * h + y0) * out_pitch;
+  if (s.v.start) {
+    // the rows' runs, the input rows they span, and each row's weight for
+    // each of them (0 outside its run), input row lo + 16 j + i % 4 * 4 + i
+    // / 4 at place 16 j + i, so that band_pass1's lane q reads its four of a
+    // step together
+    int st[kBandRows], ct[kBandRows], hi = 0, lo = INT_MAX;
+#pragma unroll
+    for (int r = 0; r < kBandRows; ++r) {
+      st[r] = r < rows ? __ldg(s.v.start + y0 + r) : 0;
+      ct[r] = r < rows ? __ldg(s.v.count + y0 + r) : 0;
+      if (ct[r]) {
+        lo = min(lo, st[r]);
+        hi = max(hi, st[r] + ct[r]);
+      }
+    }
+    lo = min(lo, hi);
+    const int span = (hi - lo + kStep - 1) / kStep * kStep;
+    for (int i = threadIdx.x; i < rows * span; i += kBandThreads) {
+      const int r = i / span, j = i - r * span;
+      int sr = 0, cr = 0;
+#pragma unroll
+      for (int q = 0; q < kBandRows; ++q)
+        if (r == q) {
+          sr = st[q];
+          cr = ct[q];
+        }
+      const int at = lo + (j & ~15) + (j & 3) * 4 + ((j >> 2) & 3) - sr;
+      wt[i] = (unsigned)at < (unsigned)cr
+                  ? __dmul_rn(__ldg(s.v.w + (long long)(y0 + r) * s.v.k + at),
+                              kWideScale)
+                  : 0.0;
+    }
+    __syncthreads();
+    if (((uintptr_t)s.src & 7) == 0 && (s.row & 7) == 0 && (nb & 7) == 0)
+      band_pass1<true>(s, out, out_row, out_pitch, rows, nb, wt, lo, span,
+                       line, pitch);
+    else
+      band_pass1<false>(s, out, out_row, out_pitch, rows, nb, wt, lo, span,
+                        line, pitch);
+  } else {
+    band_copy(s, out, out_row, out_pitch, y0, rows, nb, line, pitch);
+  }
+  if (!s.h.start) return;
+  __syncthreads();
+  band_pass2(groups.g[blockIdx.y], out, out_row, w, rows, ch, s.h.n, line,
+             pitch);
+}
+
 // K16 by nearest: a thread writes the 16 output bytes from byte 16 x its
 // index of the (N, h, w, ch) output, each the byte of its slot's input pixel
 // (start_v[y], start_h[x]) (y or x itself where the axis keeps its size).
@@ -588,6 +956,75 @@ int launch(const void* slots, int n, int cin, void* out, int h, int w,
   return launch_rows<NORM, 1>(p, n, cin, out, h, w, ch, vk, smem, nm, st);
 }
 
+// A band CTA's dynamic shared memory at `rows` output rows: their weights
+// over vk input rows, then their lines of pitch floats.
+size_t band_smem(int rows, int vk, int pitch) {
+  return (size_t)rows * vk * sizeof(double) +
+         (size_t)rows * pitch * sizeof(float);
+}
+
+int launch_band_rows(const Slots& p, const Groups& g, int n, void* out,
+                     int h, int w, int ch, int rows, int vk, int pitch,
+                     cudaStream_t st) {
+  const size_t smem = band_smem(rows, vk, pitch);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        resize_band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  resize_band_kernel<<<dim3((unsigned)((h + rows - 1) / rows), (unsigned)n),
+                       kBandThreads, smem, st>>>(
+      p, g, static_cast<uint8_t*>(out), h, w, ch, rows, vk, pitch);
+  return (int)cudaGetLastError();
+}
+
+// spans[r - 1]: the most input rows the runs of r output rows of a slot span
+// (r = 1 .. kBandSpans; a CTA's rows start at multiples of r). The rows a CTA
+// are the most, up to kBandRows, whose weights and lines fit shared memory,
+// cut to about h x n over the SMs where the launch is small, so that its CTAs
+// spread over the card, and never under 2. Where 2 rows do not fit (RGBA
+// about 7,200 pixels wide or wider), the launch takes the banded kernel's
+// resize<0,1> instead, as every method did before. *rows: the rows a CTA of
+// resize_band, or 0 where the launch took resize<0,1>.
+int launch_band(const void* slots, const void* groups, int n, int cin,
+                void* out, int h, int w, int ch, int line_w,
+                const int* spans, int* rows, cudaStream_t st) {
+  if (n <= 0 || n > kMaxSlots || h <= 0 || w <= 0 || ch <= 0 || ch != cin ||
+      line_w < 0 || !spans)
+    return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < kBandRows; ++r)
+    if (spans[r] < 0) return (int)cudaErrorInvalidValue;
+  Slots p;
+  memcpy(p.s, slots, (size_t)n * sizeof(Slot));
+  const int pitch = line_w ? (line_w * ch + 3) / 4 * 4 + 4 : 0;
+  auto vk_of = [&](int r) { return (spans[r - 1] + kStep - 1) / kStep *
+                                   kStep; };
+  int fit = 0;
+  while (fit < kBandRows &&
+         band_smem(fit + 1, vk_of(fit + 1), pitch) + 1024 <= kMaxSmem)
+    ++fit;
+  if (fit < 2) {
+    if (rows) *rows = 0;
+    const int vk = (spans[0] + kBatch - 1) / kBatch * kBatch;
+    const size_t smem = smem_bytes(1, vk, line_w, ch);
+    if (smem + 1024 > kMaxSmem) return (int)cudaErrorInvalidValue;
+    return launch_rows<false, 1>(p, n, cin, out, h, w, ch, vk, smem, Norm{},
+                                 st);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const long long spread = ((long long)h * n + sms - 1) / sms;
+  const int r = spread >= fit ? fit : spread <= 2 ? 2 : (int)spread;
+  if (rows) *rows = r;
+  Groups g;
+  memcpy(g.g, groups, (size_t)n * sizeof(Group));
+  return launch_band_rows(p, g, n, out, h, w, ch, r, vk_of(r), pitch, st);
+}
+
 // Four channels and every slot's pixels 4-byte aligned: 32-bit loads.
 bool word_slots(const Slots& p, int n, int cin) {
   bool word = cin == 4;
@@ -629,6 +1066,18 @@ int ffpic_resize_rgba(const void* slots, int n, int c, void* out, int h,
                       int w, int line_w, int vk, int* rows, void* stream) {
   return launch<false>(slots, n, c, out, h, w, c, line_w, vk, Norm{}, rows,
                        (cudaStream_t)stream);
+}
+
+// K16 by cubic and Lanczos: slots as above; groups: n Group entries (pass 2's
+// tables of the slots, of kGroup columns a group, null where W does not
+// change) in host memory; spans: kBandSpans ints (launch_band); rows: set to
+// the output rows a CTA of resize_band, or 0 where the launch took
+// resize<0,1>.
+int ffpic_resize_band(const void* slots, const void* groups, int n, int c,
+                      void* out, int h, int w, int line_w, const int* spans,
+                      int* rows, void* stream) {
+  return launch_band(slots, groups, n, c, out, h, w, c, line_w, spans, rows,
+                     (cudaStream_t)stream);
 }
 
 // K16 by nearest: slots as above (their weights unread), pixels of c

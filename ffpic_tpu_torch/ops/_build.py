@@ -15,9 +15,11 @@ all the files.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -75,6 +77,46 @@ def compile_library(cus: list[str], out: str, extra=()) -> str:
             if os.path.exists(o):
                 os.remove(o)
     return "".join(logs)
+
+
+def build_variants(source: str, constants: tuple, variants, out: str) -> dict:
+    """{variant: (library, compiler output)}: ``csrc/<source>`` built once
+    per variant, a tuple of values for the ``constexpr int`` named by
+    ``constants``, each a copy of the source with those values in
+    ``out``, all nvcc runs started together (the tune scripts)."""
+    with open(os.path.join(CSRC, source)) as f:
+        src = f.read()
+    stem = os.path.splitext(source)[0]
+    sos = {}
+    for v in variants:
+        text = src
+        for name, value in zip(constants, v):
+            text, n = re.subn(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {value};", text)
+            if n != 1:
+                raise RuntimeError(f"{source} defines {name} {n} times")
+        cu = os.path.join(out, f"{stem}_{'_'.join(map(str, v))}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        sos[v] = (cu, cu[:-3] + ".so")
+    with ThreadPoolExecutor(len(sos)) as ex:
+        logs = list(ex.map(lambda v: compile_library([sos[v][0]], sos[v][1]),
+                           sos))
+    return {v: (ctypes.CDLL(sos[v][1]), log) for v, log in zip(sos, logs)}
+
+
+@contextlib.contextmanager
+def launching_from(module, lib):
+    """``module``'s wrappers (its ``_launch`` over its ``_SIGNATURES``)
+    launch from the library ``lib`` meanwhile, counted apart from
+    ``module.launches``."""
+    saved = module._launch
+    module._launch = launcher(module._SIGNATURES, dict(module.launches),
+                              library=lambda: lib)
+    try:
+        yield
+    finally:
+        module._launch = saved
 
 
 def library_path() -> str:

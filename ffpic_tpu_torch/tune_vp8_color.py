@@ -22,12 +22,8 @@ Needs CUDA and nvcc.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import os
-import re
 import subprocess
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,45 +42,15 @@ CONSTANTS = ("kTileRows", "kTileCols", "kMinCtas")
 
 def _build_variants(out: str) -> dict:
     """{variant: the library built from the source with its constants}."""
-    with open(os.path.join(_build.CSRC, "vp8_decode.cu")) as f:
-        src = f.read()
-    cus = {}
-    for v in VARIANTS:
-        text = src
-        for name, value in zip(CONSTANTS, v):
-            text, n = re.subn(rf"constexpr int {name} = \d+;",
-                              f"constexpr int {name} = {value};", text)
-            if n != 1:
-                raise RuntimeError(f"vp8_decode.cu defines {name} {n} times")
-        cus[v] = os.path.join(out, "vp8_color_%d_%d_%d.cu" % v)
-        with open(cus[v], "w") as f:
-            f.write(text)
-    sos = {v: cus[v][:-3] + ".so" for v in VARIANTS}
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        logs = list(ex.map(lambda v: _build.compile_library([cus[v]],
-                                                            sos[v]),
-                           VARIANTS))
-    for v, log in zip(VARIANTS, logs):
+    built = _build.build_variants("vp8_decode.cu", CONSTANTS, VARIANTS, out)
+    for v, (_, log) in built.items():
         # ptxas's lines for K13: the entry, its stack and spills, registers
         lines = log.splitlines()
         at = next(k for k, ln in enumerate(lines)
                   if "vp8_yuv_to_rgba_kernel" in ln)
         print(f"[k13 ptxas] variant={v} " + " | ".join(
             ln.split(":", 1)[-1].strip() for ln in lines[at + 2:at + 4]))
-    return {v: ctypes.CDLL(sos[v]) for v in VARIANTS}
-
-
-@contextlib.contextmanager
-def _library(lib):
-    """``cuda_vp8``'s wrappers launch from ``lib`` meanwhile."""
-    counts = dict(cuda_vp8.launches)
-    saved = cuda_vp8._launch
-    cuda_vp8._launch = _build.launcher(cuda_vp8._SIGNATURES, counts,
-                                       library=lambda: lib)
-    try:
-        yield
-    finally:
-        cuda_vp8._launch = saved
+    return {v: lib for v, (lib, _) in built.items()}
 
 
 def _frame(rng, h: int, w: int, dev) -> tuple:
@@ -126,7 +92,7 @@ def main() -> int:
     wants = {k: vk.vp8_yuv_to_rgba_batch_plain(f) for k, f in cases.items()}
     outs = {k: vk.batch_outputs(f)[0] for k, f in cases.items()}
     for v in VARIANTS:
-        with _library(libs[v]):
+        with _build.launching_from(cuda_vp8, libs[v]):
             for k, frames in cases.items():
                 got = cuda_vp8.vp8_yuv_to_rgba_batch(frames, outs[k])
                 torch.cuda.synchronize()
@@ -136,7 +102,7 @@ def main() -> int:
     flush = torch.empty(100 * 2 ** 20, dtype=torch.uint8, device=dev)
     times = {v: {k: [] for k in cases} for v in VARIANTS}
     for v in list(VARIANTS) + list(VARIANTS)[::-1]:
-        with _library(libs[v]):
+        with _build.launching_from(cuda_vp8, libs[v]):
             for k, frames in cases.items():
                 def run(frames=frames, o=outs[k]):
                     return cuda_vp8.vp8_yuv_to_rgba_batch(frames, o)

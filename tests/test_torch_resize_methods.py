@@ -23,12 +23,13 @@ so K16 takes its pass-1 results into pass 2 by a conversion, exact for
 any f32; bilinear and nearest weights are never negative, which K17's
 integer widening of its (bilinear) pass-1 results relies on.
 
-K16 launches one of two kernels by method (``cuda_resize._resize``):
+K16 launches one of three kernels by method (``cuda_resize._resize``):
 nearest's gather, whose plain model ``ops.resize.gather_nearest`` (an
 ``index_select`` by the ``start`` tables, which the entries run on the
 CPU for nearest) equals the tap sum and JAX on every
-``testing.resize_cases`` entry, and the banded kernel by every other
-method.
+``testing.resize_cases`` entry, the band kernel by cubic and Lanczos
+(``resize<0,1>`` where two of its rows do not fit; its numpy model is
+``tests/test_torch_resize_band.py``), and the banded kernel by bilinear.
 """
 
 import os
@@ -46,6 +47,7 @@ from ffpic_tpu_torch import testing
 from ffpic_tpu_torch.ops import cuda_resize
 from ffpic_tpu_torch.ops import resize as rs
 from test_torch_resize import _read_slots
+from test_torch_resize_band import band_launch
 import reference_native  # noqa: F401  (readies ffpic_tpu first)
 
 METHODS = ("nearest", "bilinear", "bicubic", "lanczos3", "lanczos5")
@@ -182,9 +184,13 @@ def test_slot_words_model_every_method(method):
 @pytest.mark.parametrize("method", METHODS)
 def test_shared_memory_holds_config5_bands(method):
     """A CTA of two output rows over config 5's widest slot (1080 x 1920
-    RGBA to 224 x 224) fits the kernel's shared memory at every method:
-    its band's weights (``band_rows``, rounded up to ``kBatch``) and its
-    lines, read from ``resize.cu``."""
+    RGBA to 224 x 224) fits the banded kernel's shared memory at every
+    method: its band's weights (``band_rows``, rounded up to ``kBatch``)
+    and its lines, read from ``resize.cu``.  By cubic and Lanczos the
+    band kernel takes ``kBandRows`` rows a CTA there, its scaled weights
+    and padded lines in the most shared memory a CTA has; at 8064 RGBA
+    pixels wide two of its rows do not fit, and the launch takes
+    ``resize<0,1>``, whose one row does."""
     src = open(os.path.join(os.path.dirname(cuda_resize.__file__), "..",
                             "csrc", "resize.cu")).read()
     max_smem = int(re.search(r"kMaxSmem = (\d+)", src).group(1))
@@ -197,6 +203,15 @@ def test_shared_memory_holds_config5_bands(method):
             "lanczos5": 49}[method]
     assert abs(rs.taps(1080, 224, torch.device("cpu"), method)[2].shape[1]
                - taps) <= 1
+    if rs.kernel_of(method) not in cuda_resize.BAND_KERNELS:
+        return
+    band_rows = int(re.search(r"kBandRows = (\d+)", src).group(1))
+    img = [torch.zeros((1080, 3, 4), dtype=torch.uint8)]
+    spans = cuda_resize.band_spans(img, 224, method)
+    got, smem = band_launch(1920, 4, spans, 224, 8)
+    assert got == band_rows and smem + 1024 <= max_smem
+    got, smem = band_launch(8064, 4, spans, 224, 2)
+    assert got == 0 and smem + 1024 <= max_smem
 
 
 @pytest.mark.parametrize("n_in,n_out", [(1080, 224), (1920, 224), (33, 97),
@@ -232,17 +247,31 @@ def test_gather_is_the_tap_sum_and_jax(name):
 
 @pytest.mark.parametrize("method", METHODS)
 def test_launch_takes_the_methods_kernel(method, monkeypatch):
-    """``cuda_resize._resize`` launches nearest's gather and the banded
-    kernel by every other method, once with ``slot_words``' descriptors,
-    counted as ``resize_rgba``, the instance's out-argument last; K17
-    stays on the banded kernel."""
+    """``cuda_resize._resize`` launches nearest's gather, the band kernel
+    by cubic and Lanczos and the banded kernel by bilinear, once with
+    ``slot_words``' descriptors, counted as ``resize_rgba``, the
+    instance's out-argument last; the band kernel's launch also passes
+    its pass-2 tables (``group_words``) and ``band_spans``, and its
+    instance and rows are what the launcher reports (``resize_band`` at
+    the rows of ``launch_band``'s rule, modelled here; ``resize<0,1>``
+    for an 8064-wide slot); K17 stays on the banded kernel."""
     import ctypes
     calls = []
 
     def launch(fn, counter, *a):
-        words = np.ctypeslib.as_array((ctypes.c_int64 * (a[1] * 10))
+        n = a[2] if fn == "ffpic_resize_band" else a[1]
+        words = np.ctypeslib.as_array((ctypes.c_int64 * (n * 10))
                                       .from_address(a[0].value)).copy()
-        calls.append((fn, counter, a, words.reshape(a[1], 10)))
+        extra = None
+        if fn == "ffpic_resize_band":
+            groups = np.ctypeslib.as_array((ctypes.c_int64 * (n * 3))
+                                           .from_address(a[1].value)).copy()
+            spans = np.ctypeslib.as_array((ctypes.c_int32 * 16)
+                                          .from_address(a[8].value)).copy()
+            extra = (groups.reshape(n, 3), spans)
+            rows = band_launch(a[7], a[3], spans, a[5], n)[0]
+            ctypes.c_int.from_address(a[9].value).value = rows
+        calls.append((fn, counter, a, words.reshape(n, 10), extra))
     monkeypatch.setattr(cuda_resize, "_launch", launch)
     rng = np.random.default_rng(3)
     slots = [torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8))
@@ -253,7 +282,8 @@ def test_launch_takes_the_methods_kernel(method, monkeypatch):
     cuda_resize._run("ffpic_normalize_resize", "normalize_resize", slots,
                      size, out, "bilinear",
                      lambda line_w, vk: (line_w, vk, None, None))
-    (fn, counter, a, words), (fn17, counter17, a17, words17) = calls
+    (fn, counter, a, words, extra), (fn17, counter17, a17, words17, _) = \
+        calls
     assert counter == "resize_rgba" and counter17 == "normalize_resize"
     assert fn17 == "ffpic_normalize_resize" and len(a17) == 10
     cpu = torch.device("cpu")
@@ -261,16 +291,35 @@ def test_launch_takes_the_methods_kernel(method, monkeypatch):
                                                         method)
     assert np.array_equal(words17, cuda_resize.slot_words(
         slots, size, cpu, "bilinear")[0])
-    if rs.kernel_of(method) == "nearest":
+    assert np.array_equal(words, plain_words)
+    assert isinstance(a[-1], ctypes.c_void_p)
+    kernel = rs.kernel_of(method)
+    if kernel == "nearest":
         assert fn == "ffpic_resize_nearest" and len(a) == 7
         assert cuda_resize.instance["resize_rgba"] == "resize_gather<0>"
+    elif kernel in cuda_resize.BAND_KERNELS:
+        assert fn == "ffpic_resize_band" and len(a) == 10
+        assert a[2:4] == (2, 4) and a[5:8] == (*size, line_w)
+        assert np.array_equal(extra[0], cuda_resize.group_words(
+            slots, size, cpu, method)[0])
+        assert np.array_equal(extra[1],
+                              cuda_resize.band_spans(slots, size[0], method))
+        assert cuda_resize.instance == {"resize_rgba": "resize_band",
+                                        "rows": 2}
+        calls.clear()
+        wide = torch.zeros((3, 8064, 4), dtype=torch.uint8)
+        cuda_resize._resize([wide], (2, 5),
+                            torch.empty((1, 2, 5, 4), dtype=torch.uint8),
+                            method)
+        assert calls[0][0] == "ffpic_resize_band"
+        assert cuda_resize.instance == {"resize_rgba": "resize<0,1>",
+                                        "rows": 1}
+        return
     else:
         assert fn == "ffpic_resize_rgba" and a[6:8] == (line_w, vk)
         assert len(a) == 9
         assert cuda_resize.instance["resize_rgba"] == "resize<0,0>"
-    assert np.array_equal(words, plain_words)
     assert a[1:3] == (2, 4) and a[4:6] == size
-    assert isinstance(a[-1], ctypes.c_void_p)
 
 
 @pytest.mark.parametrize("method", ["bicubic", "lanczos3", "lanczos5"])
